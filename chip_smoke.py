@@ -1,0 +1,236 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernel from this checkout, holds it against its
+plain PyTorch version, then drives ``conicip_tpu_torch.conic_ip`` through
+both default KKT backends at the problem sizes the repository benchmarks,
+and checks the answers. Every phase prints one line; any failed check
+raises, so the script exits non-zero. It imports nothing of JAX.
+
+The second-to-last line is a JSON object describing each kernel of the
+path; the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SIZES = (1, 31, 128, 500, 1024, 1280, 2048, 4096)
+TIMED = (1024, 2048, 4096)
+TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def line(phase, **kv):
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
+          flush=True)
+
+
+def cuda_ms(fn, reps):
+    """Mean device time of ``fn()`` over ``reps`` runs, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def phase_environment():
+    from conicip_tpu_torch.ops.build import find_nvcc
+
+    nvcc = subprocess.run([find_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    line("env", torch=torch.__version__, cuda=torch.version.cuda,
+         device=repr(torch.cuda.get_device_name(0)),
+         nvcc=repr(next((s for s in nvcc if "release" in s), nvcc[-1])))
+    print(smi.splitlines()[0], flush=True)
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmul must be off (the reference ran products at HIGHEST)")
+
+
+def phase_build():
+    from conicip_tpu_torch.ops.build import load_library
+
+    t = time.perf_counter()
+    load_library("cholesky")
+    line("build", kernel="csrc/cholesky.cu",
+         seconds=f"{time.perf_counter() - t:.2f}")
+
+
+def spd(n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B = torch.randn(n, n, generator=g, device="cuda", dtype=torch.float64)
+    return B @ B.T / n + torch.eye(n, device="cuda", dtype=torch.float64)
+
+
+def phase_kernel():
+    """The kernel against its plain version; returns its JSON record."""
+    from conicip_tpu_torch.ops.cholesky_kernel import (cholesky_factor,
+                                                       cholesky_plain)
+
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+    for n in SIZES:
+        M64 = spd(n, seed=n)
+        for dt in (torch.float64, torch.float32):
+            M = M64.to(dt)
+            L = cholesky_factor(M)
+            Lp = cholesky_plain(M)
+            torch.cuda.synchronize()
+            err = (L - Lp).abs().max().item()
+            rel = err / Lp.abs().max().item()
+            rec = ((L @ L.T - M).abs().max() / M.abs().max()).item()
+            check(rel <= TOL[dt], f"n={n} {dt}: |L-L_plain| rel {rel:.3e}")
+            check(rec <= TOL[dt], f"n={n} {dt}: |LL'-M| rel {rec:.3e}")
+            check(bool(torch.equal(L.triu(1), torch.zeros_like(L))),
+                  f"n={n} {dt}: strict upper triangle not zero")
+            bad = M.clone()
+            bad[n // 2, n // 2] = -1.0
+            check(not bool(torch.isfinite(cholesky_factor(bad)).all()),
+                  f"n={n} {dt}: indefinite input gave a finite factor")
+            worst[dt] = max(worst[dt], err)
+            line("kernel", n=n, dtype=str(dt).split(".")[-1],
+                 max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
+                 recon_rel=f"{rec:.3e}", indefinite="non-finite")
+    times = {}
+    for n in TIMED:
+        M64 = spd(n, seed=n)
+        reps = max(3, 40960 // n)
+        for dt in (torch.float64, torch.float32):
+            M = M64.to(dt).contiguous()
+            ms = cuda_ms(lambda: cholesky_factor(M), reps)
+            plain = cuda_ms(lambda: cholesky_plain(M), reps)
+            times[(n, dt)] = (ms, plain)
+            line("kernel_time", n=n, dtype=str(dt).split(".")[-1],
+                 kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}", reps=reps)
+    ms, plain = times[(1024, torch.float64)]
+    return {"name": "cholesky", "route": "cuda",
+            "source": "conicip_tpu_torch/csrc/cholesky.cu",
+            "replaces": "conicip_tpu/ops/pallas_cholesky.py:41",
+            "max_abs_err": worst[torch.float64], "ms": ms, "plain_ms": plain}
+
+
+def solve_timed(args, **kw):
+    from conicip_tpu_torch import conic_ip
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sol = conic_ip(*args, **kw)
+    torch.cuda.synchronize()
+    return sol, (time.perf_counter() - t) * 1e3
+
+
+def launches():
+    from conicip_tpu_torch.ops import cholesky_kernel
+
+    return cholesky_kernel.cholesky_launches
+
+
+def phase_schur():
+    from conicip_tpu_torch import conic_ip
+    from conicip_tpu_torch.models import box_qp_dense
+
+    for n in (1024, 4096):
+        args = box_qp_dense(n=n, seed=42).args()
+        before = launches()
+        sol, ms = solve_timed(args, device="cuda")
+        used = launches() - before
+        resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
+        check(sol.status == "Optimal", f"n={n}: status {sol.status}")
+        check(resid < 1e-6, f"n={n}: residual {resid:.3e}")
+        check(all(t.device.type == "cuda" for t in (sol.y, sol.w, sol.v)),
+              f"n={n}: result tensors are not on cuda")
+        # one factor for the cold-start solve and one per step taken: the
+        # loop stops at the iteration that reaches Optimal, so an Optimal
+        # solve that ends on its best iterate takes Iter - 1 steps
+        check(used >= sol.Iter,
+              f"n={n}: {used} kernel launches for Iter {sol.Iter}")
+        _, ms2 = solve_timed(args, device="cuda")
+        extra = {}
+        if n == 1024:
+            ref = conic_ip(*args, device="cpu")
+            dp = abs(sol.pobj - ref.pobj)
+            dy = (sol.y.cpu() - ref.y).abs().max().item()
+            check(ref.status == sol.status and ref.Iter == sol.Iter,
+                  f"n={n}: cpu {ref.status}/{ref.Iter} vs gpu "
+                  f"{sol.status}/{sol.Iter}")
+            check(dp <= 1e-8 * (1 + abs(ref.pobj)), f"n={n}: pobj diff {dp:.3e}")
+            check(dy <= 1e-6, f"n={n}: y diff {dy:.3e}")
+            extra = dict(cpu_iter=ref.Iter, pobj_diff=f"{dp:.3e}",
+                         y_diff=f"{dy:.3e}")
+        line("schur", n=n, status=sol.status, Iter=sol.Iter,
+             resid=f"{resid:.3e}", launches=used,
+             ms_per_solve=f"{ms2:.2f}", ms_per_iter=f"{ms2 / sol.Iter:.3f}",
+             first_solve_ms=f"{ms:.2f}", **extra)
+
+
+def phase_diag():
+    n = 1000
+    H = 0.5 * np.eye(n)
+    c = np.arange(1.0, n + 1)
+    A = np.vstack([np.eye(n), -np.eye(n)])
+    b = -np.ones(2 * n)
+    for eq in (False, True):
+        G, d = (np.ones((1, n)), np.array([1.0])) if eq else (None, None)
+        args = (H, H @ c, A, b, [("R", 2 * n)], G, d)
+        before = launches()
+        sol, ms = solve_timed(args, device="cuda")
+        used = launches() - before
+        _, ms2 = solve_timed(args, device="cuda")
+        check(sol.status == "Optimal", f"diag eq={eq}: status {sol.status}")
+        if eq:
+            check(used > 0, "diag woodbury: the kernel was never launched")
+        line("diag", n=n, equality=eq, status=sol.status, Iter=sol.Iter,
+             resid=f"{max(sol.prFeas, sol.duFeas, sol.muFeas):.3e}",
+             launches=used, ms_per_solve=f"{ms2:.2f}",
+             ms_per_iter=f"{ms2 / sol.Iter:.3f}", first_solve_ms=f"{ms:.2f}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs one GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    phase_environment()
+    phase_build()
+    record = phase_kernel()
+
+    from conicip_tpu_torch.ops import cholesky_kernel
+
+    cholesky_kernel.cholesky_launches = 0  # count the main path only
+    phase_schur()
+    phase_diag()
+    record["launches"] = cholesky_kernel.cholesky_launches
+    check(record["launches"] > 0, "main path never launched the kernel")
+
+    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

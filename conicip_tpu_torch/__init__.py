@@ -1,0 +1,49 @@
+"""conicip_tpu_torch — the PyTorch/CUDA port of conicip_tpu.
+
+Solves, like ``conicip_tpu`` (note the MINUS sign on cᵀy):
+
+    minimize    ½ yᵀQy − cᵀy
+    subject to  Ay ≥_K b,   K a product of nonnegative orthants (R cones)
+                Gy = d
+
+with the same Mehrotra predictor-corrector method, statuses, certificates,
+best-iterate rule, warm starts and 3-level KKT-callback contract. The dense
+Cholesky of every iteration runs a hand-written CUDA kernel on CUDA
+tensors (``csrc/cholesky.cu``) and a plain PyTorch version on the CPU.
+
+This package imports torch and numpy only; it never imports JAX or
+``conicip_tpu``. It computes nothing at import and never changes torch's
+default dtype.
+"""
+
+from .cones import (ConeSpec, cone_div, cone_prod, maxstep, maxstep_to_cone,
+                    nt_identity, nt_inv_adjoint, nt_scaling)
+from .interop import (problem_from_numpy, solution_to_numpy, warm_from_numpy,
+                      warm_to_numpy)
+from .kkt import kktsolver_2x2, kktsolver_diag, kktsolver_schur, pivot, separable
+from .solver import IPMOptions, Solution, conic_ip
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ConeSpec",
+    "cone_prod",
+    "cone_div",
+    "maxstep",
+    "maxstep_to_cone",
+    "nt_scaling",
+    "nt_identity",
+    "nt_inv_adjoint",
+    "conic_ip",
+    "Solution",
+    "IPMOptions",
+    "pivot",
+    "kktsolver_2x2",
+    "kktsolver_schur",
+    "kktsolver_diag",
+    "separable",
+    "problem_from_numpy",
+    "solution_to_numpy",
+    "warm_from_numpy",
+    "warm_to_numpy",
+]

@@ -1,0 +1,30 @@
+"""Pluggable KKT solvers, with the 3-level callback contract of
+``conicip_tpu.kkt``::
+
+    solve3x3gen = kktsolver(Q, A, G, spec)          # one-time setup
+    solve3x3    = solve3x3gen(F, FinvT)             # per-iteration refactor
+    (a, b, c)   = solve3x3(x, y, z)                 # per-RHS solve
+
+solving::
+
+    ┌             ┐ ┌   ┐   ┌   ┐
+    │ Q   Gᵀ  -Aᵀ │ │ a │ = │ x │
+    │ G           │ │ b │   │ y │
+    │ A       FᵀF │ │ c │   │ z │
+    └             ┘ └   ┘   └   ┘
+
+Every level works on tensors; ``F``/``FinvT`` are structured
+:class:`~conicip_tpu_torch.cones.scaling.NTScaling` records.
+"""
+
+from .diag import kktsolver_diag, separable
+from .pivot import pivot
+from .schur import kktsolver_2x2, kktsolver_schur
+
+__all__ = [
+    "kktsolver_diag",
+    "separable",
+    "pivot",
+    "kktsolver_2x2",
+    "kktsolver_schur",
+]

@@ -1,0 +1,160 @@
+"""Structure-exploiting KKT solver for separable (bound-style) constraints.
+
+Counterpart of ``conicip_tpu/kkt/diag.py``. When every cone is ``R``, every
+row of A has at most one nonzero and Q is diagonal, the Schur matrix
+``M = Q + Aᵀ(FᵀF)⁻¹A`` is diagonal: ``diag(M) = diag(Q) + P @ (d ⊙ a²)``
+with the 0/1 incidence matrix ``P[k, i] = 1`` iff row i of A touches
+column k.
+
+Equalities use the exact augmented-saddle recovery of the dense path
+(``M̃ = M + γGᵀG``), with ``M̃⁻¹`` applied exactly in one of two modes:
+
+- ``"disjoint"``: every row of G has at most one nonzero, so ``GᵀG`` is
+  diagonal and so is ``M̃``.
+- ``"woodbury"``: general G, ``M̃⁻¹ = D⁻¹ − D⁻¹Gᵀ(γ⁻¹I + GD⁻¹Gᵀ)⁻¹GD⁻¹``:
+  a (p, p) Cholesky plus thin products. Needs a strictly positive diag(Q).
+
+Both (p, p) factors go through ``ops/cholesky.py``, so on CUDA they run the
+hand-written kernel. Applicability is checked on host arrays by
+:func:`separable` and :func:`equality_mode`, not inside the solver.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..cones.spec import ConeSpec
+from ..ops.cholesky import cholesky, tri_inv
+from .pivot import pivot
+
+__all__ = ["kktsolver_diag", "kktsolver_2x2_diag", "separable",
+           "equality_mode"]
+
+
+def _host(X):
+    if isinstance(X, torch.Tensor):
+        return X.detach().cpu().numpy()
+    return np.asarray(X.toarray() if hasattr(X, "toarray") else X)
+
+
+def equality_mode(Q, G):
+    """Host-side choice of the exact equality mode, or ``None`` when no
+    mode is exact and stable (the dense Schur backend must be used):
+
+    - no equalities → ``"none"``
+    - every row of G has at most one nonzero → ``"disjoint"``
+    - diag(Q) strictly positive → ``"woodbury"``
+    """
+    if G is None:
+        return "none"
+    Gh = _host(G)
+    if Gh.size == 0 or Gh.shape[-2] == 0:
+        return "none"
+    if np.all(np.count_nonzero(Gh, axis=-1) <= 1):
+        return "disjoint"
+    qd = np.diagonal(_host(Q), axis1=-2, axis2=-1)
+    if qd.size and np.min(qd) > 1e-10 * max(1.0, float(np.max(qd))):
+        return "woodbury"
+    return None
+
+
+def separable(Q, A, G, spec: ConeSpec) -> bool:
+    """Host-side applicability check on concrete problem data."""
+    if spec.soc_groups or spec.sdp_groups:
+        return False
+    Qh = _host(Q)
+    if Qh.ndim != 2 or np.count_nonzero(Qh - np.diag(np.diagonal(Qh))):
+        return False
+    Ah = _host(A)
+    if not np.all(np.count_nonzero(Ah, axis=1) <= 1):
+        return False
+    return equality_mode(Q, G) is not None
+
+
+def kktsolver_2x2_diag(Q, A, G, spec: ConeSpec, *, eq_mode="woodbury"):
+    """2x2 solver with a diagonal Schur matrix (module docstring)."""
+    n = Q.shape[0]
+    p = G.shape[0]
+    dt = Q.dtype
+    dev = Q.device
+    finfo = torch.finfo(dt)
+    if p and eq_mode not in ("disjoint", "woodbury"):
+        raise ValueError(f"unknown eq_mode {eq_mode!r}")
+
+    # column index + coefficient of each row's single nonzero
+    cols = torch.argmax(torch.abs(A), dim=1)
+    coef = torch.gather(A, 1, cols[:, None])[:, 0]
+    P = (torch.nn.functional.one_hot(cols, n).to(dt).T
+         * (coef != 0).to(dt)[None, :])  # (n, m) incidence
+    asq = coef * coef
+    qdiag = torch.diagonal(Q)
+    GT = G.T
+    ridge = 30 * finfo.eps
+
+    def _spd_inv_factor(S, k):
+        eye = torch.eye(k, dtype=dt, device=dev)
+        return tri_inv(cholesky(S + (ridge * torch.trace(S) / k) * eye))
+
+    def solve2x2gen(F, FinvT):
+        # (FᵀF)⁻¹ is diagonal for R cones: F = diag(r_d) ⇒ rinv = r_d⁻²
+        rinv = 1.0 / (F.r_d * F.r_d)
+        mdiag = qdiag + P @ (rinv * asq)
+        if p:
+            gamma = (torch.sum(mdiag) / n) / (torch.sum(G * G) / p + finfo.tiny)
+            gamma = torch.where(torch.isfinite(gamma) & (gamma > 0), gamma,
+                                torch.ones_like(gamma))
+            if eq_mode == "disjoint":
+                minv_d = 1.0 / (mdiag + gamma * torch.sum(G * G, dim=0))
+
+                def minv(x):
+                    return minv_d * x
+
+                ET = minv_d[:, None] * GT  # M̃⁻¹Gᵀ  (n, p)
+            else:
+                # M̃⁻¹ = D⁻¹ − D⁻¹Gᵀ K⁻¹ G D⁻¹,  K = γ⁻¹I + G D⁻¹ Gᵀ
+                dinv = 1.0 / torch.clamp(mdiag, min=finfo.tiny)
+                GD = G * dinv[None, :]  # G D⁻¹  (p, n)
+                GDGt = GD @ GT  # (p, p)
+                K = GDGt + torch.eye(p, dtype=dt, device=dev) / gamma
+                Lkinv = _spd_inv_factor(K, p)
+                Kinv = Lkinv.T @ Lkinv
+                GDT = GD.T
+
+                def minv(x):
+                    t = dinv * x
+                    return t - GDT @ (Kinv @ (G @ t))
+
+                ET = GDT - GDT @ (Kinv @ GDGt)  # M̃⁻¹Gᵀ  (n, p)
+            S = G @ ET  # G M̃⁻¹ Gᵀ  (p, p)
+            Lsinv = _spd_inv_factor(0.5 * (S + S.T), p)
+        else:
+            minv_d = 1.0 / mdiag
+
+        def solve2x2(by, bw):
+            if p:
+                t = minv(by + gamma * (GT @ bw))
+                b2 = Lsinv.T @ (Lsinv @ (G @ t - bw))
+                return t - ET @ b2, b2
+            return minv_d * by, by[:0]
+
+        return solve2x2
+
+    return solve2x2gen
+
+
+def kktsolver_diag(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
+                   eq_mode="woodbury"):
+    """3x3 KKT solver exploiting separable structure. Check applicability
+    with :func:`separable` and pick ``eq_mode`` with :func:`equality_mode`
+    on the host data first."""
+    if spec.soc_groups or spec.sdp_groups:
+        raise ValueError("kktsolver_diag supports R cones only")
+    if factor_dtype is not None:
+        raise NotImplementedError(
+            "the PyTorch port factors in the working dtype only "
+            "(see ROADMAP.md, queue 1)")
+    inner = functools.partial(kktsolver_2x2_diag, eq_mode=eq_mode)
+    return pivot(inner)(Q, A, G, spec)

@@ -1,0 +1,424 @@
+"""Mehrotra predictor-corrector interior-point core.
+
+Counterpart of ``conicip_tpu/solver/ipm.py`` on its full-precision path
+(no mixed residuals, single-variant KKT generator). The JAX package runs
+the whole solve as one ``lax.while_loop``; here the iteration is a Python
+loop over device tensors that reads the status back once per iteration,
+and the refinement loop reads its stopping test once per step. Everything
+else (status, best iterate, certificates, step guards, the Gondzio
+acceptance) stays mask-based on the device, as in the reference:
+
+- same initial point, residual normalizations and CVXOPT+ECOS
+  infeasibility certificates,
+- best-iterate tracking (``Iter`` is the best iterate's ``k``; ``pobj`` and
+  ``dobj`` always follow the latest iterate),
+- iterative refinement with its stall cutoff, fraction-to-boundary step,
+  non-finite scrubbing and optional Gondzio centrality correctors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from ..cones import algebra as ca
+from ..cones import scaling as sc
+from ..cones.spec import ConeSpec
+from .state import SolState, Status, Vec4
+
+__all__ = ["IPMOptions", "ipm_solve"]
+
+
+@dataclass(frozen=True)
+class IPMOptions:
+    """Solver options (kwarg-compatible with ``conicip_tpu.IPMOptions`` on
+    the fields this path reads)."""
+
+    optTol: float = 1e-6
+    DTB: float = 0.01  # fraction-to-boundary
+    verbose: bool = False
+    maxRefinementSteps: int = 3
+    maxIters: int = 100
+    cache_nestodd: bool = False  # accepted and unused, as in the reference
+    infeasTol: Optional[float] = None
+    refinementThreshold: Optional[float] = None
+    # near-tolerance factor of the stall cutoff
+    residualSwitch: float = 50.0
+    # Gondzio centrality correctors per iteration; 0 disables
+    centralityCorrectors: int = 0
+    # end Abandoned after this many consecutive non-improving iterations
+    # once the best residual is within residualSwitch x optTol; None
+    # disables
+    stallCutoff: Optional[int] = None
+
+    @property
+    def infeas_tol(self) -> float:
+        return self.optTol if self.infeasTol is None else self.infeasTol
+
+    @property
+    def refinement_threshold(self) -> float:
+        return (
+            self.optTol / 1e7
+            if self.refinementThreshold is None
+            else self.refinementThreshold
+        )
+
+
+def _normsafe(x):
+    return torch.linalg.norm(x) if x.shape[0] else x.new_zeros(())
+
+
+class _Products(NamedTuple):
+    """The three stacked mat-vecs everything per-iteration derives from."""
+
+    Qy: torch.Tensor  # Q @ y                       (n,)
+    GAy: torch.Tensor  # [G; A] @ y                 (p+m,)
+    GAtwv: torch.Tensor  # [Gᵀ, -Aᵀ] @ [w; v]       (n,)
+
+
+class _Resid(NamedTuple):
+    rleft: Vec4
+    r0: Vec4
+    mu: torch.Tensor
+    mubar: torch.Tensor
+    cty: torch.Tensor
+    rDu: torch.Tensor
+    rPr: torch.Tensor
+    rCp: torch.Tensor
+    rmax: torch.Tensor
+    pobj: torch.Tensor
+    dobj: torch.Tensor
+    p_infeas: torch.Tensor
+    d_infeas: torch.Tensor
+
+
+def _all_finite(*xs) -> torch.Tensor:
+    ok = torch.isfinite(xs[0]).all()
+    for x in xs[1:]:
+        ok = ok & torch.isfinite(x).all()
+    return ok
+
+
+def ipm_solve(
+    Q: torch.Tensor,
+    c: torch.Tensor,
+    A: torch.Tensor,
+    b: torch.Tensor,
+    G: torch.Tensor,
+    d: torch.Tensor,
+    spec: ConeSpec,
+    kktsolver: Callable,
+    opts: IPMOptions,
+    warm: Optional[Vec4] = None,
+) -> SolState:
+    n = c.shape[0]
+    m = A.shape[0]
+    p = G.shape[0]
+    dtype, dev = c.dtype, c.device
+
+    if Q.shape != (n, n):
+        raise ValueError("Q is not square / inconsistent with objective")
+    if b.shape != (m,):
+        raise ValueError("Inconsistency in inequalities")
+    if A.shape != (m, n):
+        raise ValueError("Inconsistency in inequalities/objective")
+    if d.shape != (p,):
+        raise ValueError("Inconsistency in equalities")
+    if G.shape != (p, n):
+        raise ValueError("Inconsistency in equalities/objective")
+    if spec.m != m:
+        raise ValueError("cone dimensions do not sum to size(A, 1)")
+
+    def scalar(x):
+        return torch.full((), x, dtype=dtype, device=dev)
+
+    nan, inf = scalar(float("nan")), scalar(float("inf"))
+    e = torch.tensor(spec.identity, dtype=dtype, device=dev)
+    conedim = spec.conedim
+    normc = torch.linalg.norm(c)
+    normb = _normsafe(b)
+    normd = -inf if p == 0 else torch.linalg.norm(d)
+
+    # Stacked residual operators: GA = [G; A], GAt = [Gᵀ, -Aᵀ], so that
+    # rleft.y = Qy + GAt@[w;v], rleft.w = GAy[:p], rleft.v = GAy[p:] - s.
+    GA = torch.cat([G, A], dim=0)
+    GAt = torch.cat([G.T, -A.T], dim=1)
+
+    def products(y, w, v):
+        return _Products(Q @ y, GA @ y, GAt @ torch.cat([w, v]))
+
+    def residual_block(P: _Products, z: Vec4, lam) -> _Resid:
+        rleft = Vec4(P.Qy + P.GAtwv, P.GAy[:p], P.GAy[p:] - z.s,
+                     ca.cone_prod(spec, lam, lam))
+        r0 = Vec4(rleft.y - c, rleft.w - d, rleft.v - b, rleft.s)
+
+        mubar = torch.dot(z.v, z.s)
+        mu = mubar / conedim
+        cty = torch.dot(c, z.y)
+        rDu = torch.linalg.norm(r0.y) / (1.0 + normc)
+        rPr = _normsafe(r0.v) / (1.0 + normb)
+        rCp = _normsafe(r0.s) / (1.0 + torch.abs(cty))
+        rmax = torch.maximum(rDu, torch.maximum(rPr, rCp))
+        pobj = 0.5 * torch.dot(z.y, P.Qy) - cty
+        dobj = pobj + torch.dot(z.w, r0.w) + torch.dot(z.v, r0.v) - mubar
+
+        p_infeas = nan
+        d_infeas = nan
+        if not (p == 0 and m == 0):
+            # primal infeasibility (Farkas certificate, CVXOPT+ECOS scalings)
+            dw_bv = torch.dot(d, z.w) - torch.dot(b, z.v)
+            p_unscaled = torch.linalg.norm(P.GAtwv)  # ‖Gᵀw − Aᵀv‖
+            p_cvx = torch.where(
+                dw_bv < 0, p_unscaled / (_normsafe(z.y) + _normsafe(z.v)), nan)
+            p_ecos = torch.where(
+                dw_bv < 0,
+                p_unscaled / (torch.clamp(normc, min=1.0) * torch.abs(dw_bv)),
+                nan)
+            p_infeas = torch.maximum(p_cvx, p_ecos)
+
+            # dual infeasibility / unboundedness
+            d1 = torch.linalg.norm(rleft.v) if m else -inf  # ‖Ay − s‖
+            d2 = torch.linalg.norm(rleft.w) if p else -inf  # ‖Gy‖
+            d3 = torch.where(torch.isfinite(z.y).all(),
+                             torch.linalg.norm(P.Qy), nan)
+            d_cvx = torch.where(
+                cty > 0,
+                torch.maximum(
+                    d1 / torch.clamp(normb, min=1.0),
+                    torch.maximum(d2 / torch.clamp(normd, min=1.0),
+                                  d3 / torch.clamp(normc, min=1.0)))
+                / torch.abs(cty),
+                nan)
+            d_ecos = torch.where(
+                cty > 0,
+                torch.maximum(d1, torch.maximum(d2, d3))
+                / torch.linalg.norm(z.y),
+                nan)
+            d_infeas = torch.abs(torch.maximum(d_cvx, d_ecos))
+
+        return _Resid(rleft, r0, mu, mubar, cty, rDu, rPr, rCp, rmax, pobj,
+                      dobj, p_infeas, d_infeas)
+
+    # LEVEL-1 plugin callback: one-time setup
+    solve3x3gen = kktsolver(Q, A, G, spec)
+
+    def make_solve4(lam, F, solve3x3):
+        """4x4 → 3x3 reduction."""
+
+        def solve4(r: Vec4) -> Vec4:
+            t1 = sc.apply_adjoint(spec, F, ca.cone_div(spec, r.s, lam))
+            dy, dw, dv = solve3x3(r.y, r.w, r.v + t1)
+            ds = t1 - sc.apply_adjoint(spec, F, sc.apply(spec, F, dv))
+            return Vec4(dy, dw, dv, ds)
+
+        return solve4
+
+    # Initial point: one KKT solve at F = I, or the caller's warm start;
+    # then shift v, s strictly inside the cone.
+    if warm is None:
+        Fi = sc.nt_identity(spec, dtype, dev)
+        z0 = make_solve4(e, Fi, solve3x3gen(Fi, Fi))(
+            Vec4(c, d, b, torch.zeros(m, dtype=dtype, device=dev)))
+    else:
+        z0 = warm.map(lambda x: x.to(dtype=dtype, device=dev))
+    a_v = ca.maxstep_to_cone(spec, z0.v)
+    a_s = ca.maxstep_to_cone(spec, z0.s)
+    z = Vec4(z0.y, z0.w, z0.v - a_v * e, z0.s - a_s * e)
+
+    int32 = dict(dtype=torch.int32, device=dev)
+    sol = SolState(
+        y=z.y, w=z.w, v=z.v,
+        status=torch.full((), Status.RUNNING, **int32),
+        Iter=torch.zeros((), **int32),
+        Mu=scalar(0.0), prFeas=inf, duFeas=inf, muFeas=inf,
+        pobj=inf, dobj=-inf,
+    )
+
+    def fts(x1, a1, y1, x2, a2, y2):
+        # (x1 - a1*y1)ᵀ(x2 - a2*y2) without forming the differences
+        return (torch.dot(x1, x2) - a2 * torch.dot(x1, y2)
+                - a1 * torch.dot(y1, x2) + a1 * a2 * torch.dot(y1, y2))
+
+    def take_step(z, F, FinvT, lam, R: _Resid):
+        r0, rleft, mu, mubar = R.r0, R.rleft, R.mu, R.mubar
+
+        def steps(dv, ds):
+            return torch.minimum(
+                torch.clamp(ca.maxstep(spec, z.v, dv), max=1.0),
+                torch.clamp(ca.maxstep(spec, z.s, ds), max=1.0))
+
+        # LEVEL-2 plugin callback: per-iteration numeric refactorization
+        solve4 = make_solve4(lam, F, solve3x3gen(F, FinvT))
+
+        # predictor
+        d_aff = solve4(r0)
+        FiTds = sc.apply(spec, FinvT, d_aff.s)
+        Fdv = sc.apply(spec, F, d_aff.v)
+        a_aff = steps(d_aff.v, d_aff.s)
+        rho = fts(z.v, a_aff, d_aff.v, z.s, a_aff, d_aff.s) / mubar
+        sigma = torch.clamp(rho, 0.0, 1.0) ** 3
+
+        # corrector
+        lc = -ca.cone_prod(spec, FiTds, Fdv) + sigma * mu * e
+        r = Vec4(r0.y, r0.w, r0.v, rleft.s - lc)
+
+        def K4(dz):
+            Pd = products(dz.y, dz.w, dz.v)
+            return Vec4(
+                Pd.Qy + Pd.GAtwv,
+                Pd.GAy[:p],
+                Pd.GAy[p:] - dz.s,
+                ca.cone_prod(spec, lam, sc.apply(spec, F, dz.v))
+                + ca.cone_prod(spec, lam, sc.apply(spec, FinvT, dz.s)),
+            )
+
+        def resid(dz):
+            rIr = r - K4(dz)
+            return rIr, rIr.norm() / (n + 2 * m)
+
+        # Newton step + iterative refinement, stopped when a step fails to
+        # halve the residual
+        dz = solve4(r)
+        rIr, rnorm = resid(dz)
+        rn_prev, rstep = inf, 0
+        while rstep < opts.maxRefinementSteps and bool(
+                (rnorm >= opts.refinement_threshold) & (rnorm < 0.5 * rn_prev)):
+            dz = dz + solve4(rIr)
+            rn_prev = rnorm
+            rIr, rnorm = resid(dz)
+            rstep += 1
+
+        # step with fraction-to-boundary; a non-finite direction freezes
+        # the iterate instead of corrupting it
+        inv_dtb = 1.0 / (1.0 - opts.DTB)
+        alpha = steps(dz.v * inv_dtb, dz.s * inv_dtb)
+        dz_ok = _all_finite(dz.y, dz.v, dz.s, *((dz.w,) if p else ()))
+        alpha = torch.where(dz_ok & torch.isfinite(alpha), alpha, 0.0)
+        dz = dz.map(lambda u: torch.where(dz_ok, u, torch.zeros_like(u)))
+
+        # Gondzio centrality correctors, each accepted by mask; `active`
+        # turns off after the first rejection
+        active = dz_ok
+        smu = sigma * mu
+        for _ in range(opts.centralityCorrectors):
+            atil = torch.clamp(1.08 * alpha + 0.08, max=1.0)
+            Fdv = sc.apply(spec, F, dz.v)
+            FiTds_c = sc.apply(spec, FinvT, dz.s)
+            w_trial = ca.cone_prod(spec, lam - atil * Fdv, lam - atil * FiTds_c)
+            q = ca.centrality_correction(spec, w_trial, 0.1 * smu, 10.0 * smu)
+            zero = torch.zeros_like
+            ddz = solve4(Vec4(zero(dz.y), zero(dz.w), zero(dz.v), -q))
+            dz_c = dz + ddz
+            a_c = steps(dz_c.v * inv_dtb, dz_c.s * inv_dtb)
+            fin = _all_finite(ddz.y, ddz.v, ddz.s, a_c)
+            accept = active & fin & (a_c >= alpha + 0.1 * (atil - alpha))
+            dz = Vec4(*(torch.where(accept, new, old)
+                        for new, old in zip(
+                            (dz_c.y, dz_c.w, dz_c.v, dz_c.s),
+                            (dz.y, dz.w, dz.v, dz.s))))
+            alpha = torch.where(accept, a_c, alpha)
+            active = accept
+
+        return z - dz.scale(alpha), rnorm, rstep + 1
+
+    if opts.verbose:
+        _print_banner()
+
+    sw = opts.residualSwitch
+    optBest = inf
+    stall = torch.zeros((), **int32)
+    rnorm_prev, rstep_prev = 0.0, 0
+    k = 1
+    while k <= opts.maxIters:
+        F = sc.nt_scaling(spec, z.v, z.s)
+        FinvT = sc.nt_inv_adjoint(spec, F)
+        lam = sc.apply(spec, F, z.v)  # scaled point: = F⁻ᵀ z.s too
+
+        R = residual_block(products(z.y, z.w, z.v), z, lam)
+
+        # best-iterate tracking
+        improved = R.rmax < optBest
+        optBest = torch.where(improved, R.rmax, optBest)
+        stall = torch.where(improved, 0, stall + 1).to(torch.int32)
+
+        def upd(new, old):
+            return torch.where(improved, new, old)
+
+        sol = SolState(
+            y=upd(z.y, sol.y), w=upd(z.w, sol.w), v=upd(z.v, sol.v),
+            status=sol.status,
+            Iter=torch.where(improved, k, sol.Iter).to(torch.int32),
+            Mu=upd(R.mu, sol.Mu),
+            prFeas=upd(R.rPr, sol.prFeas),
+            duFeas=upd(R.rDu, sol.duFeas),
+            muFeas=upd(R.rCp, sol.muFeas),
+            pobj=R.pobj,  # always updated (reference quirk)
+            dobj=R.dobj,
+        )
+
+        # convergence and certificates
+        status = torch.where(R.rmax < opts.optTol, Status.OPTIMAL,
+                             Status.RUNNING)
+        if not (p == 0 and m == 0):
+            infeas = R.p_infeas < opts.infeas_tol
+            unbnd = R.d_infeas < opts.infeas_tol
+            status = torch.where(infeas, Status.INFEASIBLE, status)
+            status = torch.where(unbnd, Status.UNBOUNDED, status)
+            # certificate normalizations overwrite the solution fields
+            dw_bv = torch.dot(d, z.w) - torch.dot(b, z.v)
+            sol = replace(
+                sol,
+                y=torch.where(infeas, nan,
+                              torch.where(unbnd, z.y / torch.abs(R.cty), sol.y)),
+                w=torch.where(infeas, z.w / -dw_bv,
+                              torch.where(unbnd, nan, sol.w)),
+                v=torch.where(infeas, z.v / -dw_bv,
+                              torch.where(unbnd, nan, sol.v)),
+            )
+
+        # divergence of unknown cause
+        bad = ~_all_finite(R.mu, R.rDu, R.rPr, R.rCp)
+        status = torch.where((status == Status.RUNNING) & bad, Status.ERROR,
+                             status)
+        if opts.stallCutoff is not None:
+            plateau = (optBest < sw * opts.optTol) & (stall >= opts.stallCutoff)
+            status = torch.where((status == Status.RUNNING) & plateau,
+                                 Status.ABANDONED, status)
+        status = status.to(torch.int32)
+        sol = replace(sol, status=status)
+
+        if opts.verbose:
+            _print_row(k, R, rstep_prev, rnorm_prev)
+
+        # the one read-back of the iteration
+        if int(status) != Status.RUNNING:
+            break
+        z, rnorm_prev, rstep_prev = take_step(z, F, FinvT, lam, R)
+        k += 1
+
+    # loop exhausted without a status → Abandoned
+    return replace(sol, status=torch.where(
+        sol.status == Status.RUNNING, Status.ABANDONED, sol.status
+    ).to(torch.int32))
+
+
+def _print_banner():
+    print("\n > CONICIP-TPU-TORCH INTERIOR POINT SOLVER v0.1\n")
+    print("            Optimality                      Objective              "
+          "Infeasibility       ")
+    print()
+    print("\x1b[1m   Iter   │  prFeas    duFeas    muFeas   │  pobj      dobj      "
+          "│  icertp    icertd   │  refine \x1b[0m")
+
+
+def _print_row(k, R: _Resid, rstep, rnorm):
+    hot = float(rnorm) > 0.001
+    pre = "\x1b[1m\x1b[31m" if hot else ""
+    post = "\x1b[0m" if hot else ""
+    print(
+        f"{pre} {int(k):6d}  │  {float(R.rPr):<8.1e}  {float(R.rDu):<8.1e}  "
+        f"{float(R.rCp):<8.1e} │  {float(R.pobj):< 8.1e}  {float(R.dobj):< 8.1e}  │  "
+        f"{float(R.p_infeas):<8.1e}  {float(R.d_infeas):<8.1e} │  {int(rstep)}{post}"
+    )

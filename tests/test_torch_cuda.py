@@ -1,0 +1,74 @@
+"""Tests of the port that need an NVIDIA GPU (marker ``cuda``).
+
+The CUDA kernel has no CPU mode, so each test skips where
+``torch.cuda.is_available()`` is false. This file imports no JAX, so on a
+machine with a card and without JAX it runs on its own:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from conicip_tpu_torch import conic_ip
+from conicip_tpu_torch.models import box_qp_dense
+from conicip_tpu_torch.ops import cholesky_kernel
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def spd(n, seed=0):
+    rng = np.random.default_rng(seed)
+    B = rng.standard_normal((n, n))
+    return B @ B.T / n + np.eye(n)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernel_matches_plain(cuda, dtype):
+    # relative bounds: f64 rounding of two summation orders at n <= 1024,
+    # f32 likewise (the TPU kernel's own type)
+    dt = getattr(torch, dtype)
+    tol = 1e-10 if dt == torch.float64 else 1e-4
+    for n in (1, 31, 128, 500, 1024):
+        M = torch.from_numpy(spd(n, seed=n)).to(cuda, dt)
+        before = cholesky_kernel.cholesky_launches
+        L = cholesky_kernel.cholesky_factor(M)
+        assert cholesky_kernel.cholesky_launches == before + 1
+        Lp = cholesky_kernel.cholesky_plain(M)
+        assert ((L - Lp).abs().max() / Lp.abs().max()).item() <= tol
+        assert torch.equal(L.triu(1), torch.zeros_like(L))
+        bad = M.clone()
+        bad[n // 2, n // 2] = -1.0
+        assert not bool(torch.isfinite(cholesky_kernel.cholesky_factor(bad)).all())
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    M = torch.eye(8, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        cholesky_kernel.cholesky_factor(M.half())
+    with pytest.raises(ValueError):
+        cholesky_kernel.cholesky_factor(M[:, :4])
+    with pytest.raises(ValueError):
+        cholesky_kernel.cholesky_factor(M.T[::2, ::2])
+
+
+def test_conic_ip_on_card_matches_cpu(cuda):
+    args = box_qp_dense(n=64, seed=42).args()
+    before = cholesky_kernel.cholesky_launches
+    sol = conic_ip(*args, device=cuda)
+    used = cholesky_kernel.cholesky_launches - before
+    ref = conic_ip(*args, device="cpu")
+    assert sol.status == ref.status == "Optimal"
+    assert sol.Iter == ref.Iter
+    # the cold-start factor plus one per step; no step at the last k
+    assert used >= sol.Iter
+    assert sol.y.device.type == "cuda"
+    assert (sol.y.cpu() - ref.y).abs().max().item() <= 1e-6

@@ -1,0 +1,192 @@
+"""The port's KKT solvers (conicip_tpu_torch.kkt) against conicip_tpu.kkt.
+
+One ``solve3x3gen(F, FinvT)`` solve through the dense Schur backend (with
+and without equalities) and through the diagonal backend in its three
+equality modes, from the same numpy data on the CPU in f64, must agree
+with the JAX package at 1e-9 and solve the 3x3 KKT system.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import conicip_tpu.cones as jc
+import conicip_tpu.kkt as jk
+from conicip_tpu.kkt.diag import equality_mode as jax_equality_mode
+from conicip_tpu_torch.cones import scaling as tsc
+from conicip_tpu_torch.cones.spec import ConeSpec
+from conicip_tpu_torch.kkt import (kktsolver_diag, kktsolver_schur, pivot,
+                                   separable)
+from conicip_tpu_torch.kkt.diag import equality_mode
+from conicip_tpu_torch.ops.control import retry_while
+
+torch.set_num_threads(1)
+
+N = 8
+
+
+def t(x):
+    return torch.from_numpy(np.asarray(x, dtype=np.float64).copy())
+
+
+def dense_problem(rng, p):
+    B = rng.standard_normal((N, N))
+    Q = B @ B.T / N
+    A = rng.standard_normal((12, N))
+    G = rng.standard_normal((p, N))
+    return Q, A, G
+
+
+def bound_problem(rng, G):
+    Q = np.diag(rng.uniform(0.5, 2.0, N))
+    A = np.vstack([np.diag(rng.uniform(0.5, 2.0, N)), -np.eye(N)])
+    return Q, A, G
+
+
+def g_for(mode, rng):
+    if mode == "none":
+        return np.zeros((0, N))
+    if mode == "disjoint":
+        G = np.zeros((2, N))
+        G[0, 1], G[1, 5] = 2.0, -1.0
+        return G
+    return rng.standard_normal((2, N))
+
+
+def solve_both(Q, A, G, jax_solver, torch_solver, rng):
+    m, p = A.shape[0], G.shape[0]
+    z, s = rng.uniform(0.5, 2.0, m), rng.uniform(0.5, 2.0, m)
+    ry, rw, rv = (rng.standard_normal(N), rng.standard_normal(p),
+                  rng.standard_normal(m))
+    cones = [("R", m)]
+
+    js = jc.ConeSpec(cones)
+    Fj = jc.nt_scaling(js, jnp.asarray(z), jnp.asarray(s))
+    solve_j = jax_solver(jnp.asarray(Q), jnp.asarray(A), jnp.asarray(G), js)(
+        Fj, jc.nt_inv_adjoint(js, Fj))
+    ref = [np.asarray(u) for u in solve_j(jnp.asarray(ry), jnp.asarray(rw),
+                                          jnp.asarray(rv))]
+
+    ts = ConeSpec(cones)
+    F = tsc.nt_scaling(ts, t(z), t(s))
+    solve_t = torch_solver(t(Q), t(A), t(G), ts)(F, tsc.nt_inv_adjoint(ts, F))
+    out = [u.numpy() for u in solve_t(t(ry), t(rw), t(rv))]
+
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-9)
+    # the 3x3 system itself: [Q Gᵀ -Aᵀ; G 0 0; A 0 FᵀF] [a b c] = [y w v]
+    a, b, c = out
+    W = np.diag(F.r_d.numpy() ** 2)
+    np.testing.assert_allclose(Q @ a + G.T @ b - A.T @ c, ry, atol=1e-9)
+    np.testing.assert_allclose(G @ a, rw, atol=1e-9)
+    np.testing.assert_allclose(A @ a + W @ c, rv, atol=1e-9)
+
+
+@pytest.mark.parametrize("p", [0, 3])
+def test_schur_matches_jax(p, rng):
+    Q, A, G = dense_problem(rng, p)
+    solve_both(Q, A, G, jk.kktsolver_schur, kktsolver_schur, rng)
+
+
+@pytest.mark.parametrize("mode", ["none", "disjoint", "woodbury"])
+def test_diag_matches_jax(mode, rng):
+    Q, A, G = bound_problem(rng, g_for(mode, rng))
+    spec = ConeSpec([("R", A.shape[0])])
+    assert separable(Q, A, G, spec)
+    assert equality_mode(Q, G) == mode
+    solve_both(Q, A, G,
+               functools.partial(jk.kktsolver_diag, eq_mode=mode),
+               functools.partial(kktsolver_diag, eq_mode=mode), rng)
+
+
+def test_custom_pivot_matches_schur(rng):
+    # a user 2x2 solver through pivot: dense solve of [[M, Gᵀ], [G, 0]]
+    Q, A, G = dense_problem(rng, 2)
+
+    def kkt2x2_dense(Q_, A_, G_, spec):
+        def gen(F, FinvT):
+            Atil = tsc.apply_mat(spec, FinvT, A_)
+            M = Q_ + Atil.T @ Atil
+            p = G_.shape[0]
+            K = torch.cat([torch.cat([M, G_.T], 1),
+                           torch.cat([G_, torch.zeros(p, p, dtype=M.dtype)], 1)])
+
+            def solve(by, bw):
+                x = torch.linalg.solve(K, torch.cat([by, bw]))
+                return x[:N], x[N:]
+
+            return solve
+
+        return gen
+
+    solve_both(Q, A, G, jk.kktsolver_schur, pivot(kkt2x2_dense), rng)
+
+
+def test_structure_checks_match_jax(rng):
+    cases = [
+        bound_problem(rng, np.zeros((0, N))),
+        bound_problem(rng, g_for("disjoint", rng)),
+        bound_problem(rng, g_for("woodbury", rng)),
+        dense_problem(rng, 0),
+        (np.zeros((N, N)), np.eye(N), rng.standard_normal((1, N))),
+    ]
+    for Q, A, G in cases:
+        spec = ConeSpec([("R", A.shape[0])])
+        assert equality_mode(Q, G) == jax_equality_mode(Q, G)
+        assert separable(Q, A, G, spec) == jk.separable(
+            Q, A, G, jc.ConeSpec([("R", A.shape[0])]))
+        assert separable(t(Q), t(A), t(G), spec) == separable(Q, A, G, spec)
+    assert not separable(np.eye(2), np.eye(2), None,
+                         ConeSpec([("Q", 2)]))
+    with pytest.raises(ValueError):
+        kktsolver_diag(t(np.eye(3)), t(np.eye(3)), t(np.zeros((0, 3))),
+                       ConeSpec([("Q", 3)]))
+
+
+def test_lower_precision_factors_not_ported():
+    Q, A, G = (t(np.eye(3)), t(np.eye(3)), t(np.zeros((0, 3))))
+    spec = ConeSpec([("R", 3)])
+    with pytest.raises(NotImplementedError):
+        kktsolver_schur(Q, A, G, spec, factor_dtype=torch.float32)
+    with pytest.raises(NotImplementedError):
+        kktsolver_diag(Q, A, G, spec, factor_dtype=torch.float32)
+
+
+def test_retry_while_escalates_until_good_or_cap():
+    seen = []
+
+    def step(scale):
+        seen.append(scale)
+        return scale
+
+    # healthy first attempt: no retry
+    assert retry_while(lambda s: False, step, "first", 1e3, 1e3, 1e7) == "first"
+    assert seen == []
+    # always bad: tries 1e3 and 1e6, stops at the cap
+    assert retry_while(lambda s: True, step, "first", 1e3, 1e3, 1e7) == 1e6
+    assert seen == [1e3, 1e6]
+    # the predicate may be a device boolean
+    assert retry_while(lambda s: torch.tensor(s == "first"), step, "first",
+                       1e3, 1e3, 1e7) == 1e3
+
+
+def test_schur_ridge_retry_recovers_from_failed_factor(rng, monkeypatch):
+    # A first factor that fails (non-finite) must be retried with a larger
+    # ridge, and the solve must still be exact to rounding.
+    from conicip_tpu_torch.kkt import schur
+
+    calls = []
+    real = schur.cholesky
+
+    def flaky(M):
+        calls.append(1)
+        L = real(M)
+        return torch.full_like(L, float("nan")) if len(calls) == 1 else L
+
+    monkeypatch.setattr(schur, "cholesky", flaky)
+    Q, A, G = dense_problem(rng, 0)
+    solve_both(Q, A, G, jk.kktsolver_schur, kktsolver_schur, rng)
+    assert len(calls) == 2
