@@ -24,9 +24,12 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SIZES = (1, 31, 128, 500, 1024, 1280, 2048, 4096)
-TIMED = (1024, 2048, 4096)
+SIZES = (1, 31, 127, 128, 129, 257, 500, 1000, 1024, 1280, 2048, 4096)
+TIMED = (128, 1024, 2048, 4096)
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+# ill-conditioned SPD per dtype: condition number, and the bound on
+# |LL' - M| / |M| (rounding of a backward-stable factor at n = 500)
+ILL = {torch.float64: (1e12, 1e-13), torch.float32: (1e5, 1e-5)}
 
 
 def check(ok, what):
@@ -85,9 +88,34 @@ def spd(n, seed):
     return B @ B.T / n + torch.eye(n, device="cuda", dtype=torch.float64)
 
 
+def ill_conditioned(n, kappa, seed):
+    """SPD with condition number ~kappa and unit diagonal (equilibrated)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Q, _ = torch.linalg.qr(torch.randn(n, n, generator=g, device="cuda",
+                                       dtype=torch.float64))
+    lam = torch.logspace(0, -np.log10(kappa), n, device="cuda",
+                         dtype=torch.float64)
+    M = (Q * lam) @ Q.T
+    d = torch.rsqrt(torch.diagonal(M))
+    M = M * d[:, None] * d[None, :]
+    return (M + M.T) / 2
+
+
+def cuda_launches(fn):
+    """Kernels run on the card by one call of fn, from a profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def phase_kernel():
     """The kernel against its plain version; returns its JSON record."""
-    from conicip_tpu_torch.ops.cholesky_kernel import (cholesky_factor,
+    from conicip_tpu_torch.ops.cholesky_kernel import (PANEL, cholesky_factor,
                                                        cholesky_plain)
 
     worst = {torch.float64: 0.0, torch.float32: 0.0}
@@ -105,25 +133,41 @@ def phase_kernel():
             check(rec <= TOL[dt], f"n={n} {dt}: |LL'-M| rel {rec:.3e}")
             check(bool(torch.equal(L.triu(1), torch.zeros_like(L))),
                   f"n={n} {dt}: strict upper triangle not zero")
-            bad = M.clone()
-            bad[n // 2, n // 2] = -1.0
-            check(not bool(torch.isfinite(cholesky_factor(bad)).all()),
-                  f"n={n} {dt}: indefinite input gave a finite factor")
+            for pos in {n // 2, n - 1}:  # a middle and the last panel
+                bad = M.clone()
+                bad[pos, pos] = -1.0
+                check(not bool(torch.isfinite(cholesky_factor(bad)).all()),
+                      f"n={n} {dt}: indefinite at {pos} gave a finite factor")
             worst[dt] = max(worst[dt], err)
             line("kernel", n=n, dtype=str(dt).split(".")[-1],
                  max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
                  recon_rel=f"{rec:.3e}", indefinite="non-finite")
+    for dt, (kappa, bound) in ILL.items():
+        M = ill_conditioned(500, kappa, seed=5).to(dt)
+        L = cholesky_factor(M)
+        rec = ((L @ L.T - M).abs().max() / M.abs().max()).item()
+        check(rec <= bound, f"ill-conditioned {dt}: |LL'-M| rel {rec:.3e}")
+        line("kernel_ill", n=500, dtype=str(dt).split(".")[-1],
+             kappa=f"{kappa:.0e}", recon_rel=f"{rec:.3e}")
     times = {}
     for n in TIMED:
         M64 = spd(n, seed=n)
         reps = max(3, 40960 // n)
+        # the launch budget: 3 per panel and one more, one when n <= PANEL
+        budget = 1 if n <= PANEL else 3 * -(-n // PANEL) + 1
         for dt in (torch.float64, torch.float32):
             M = M64.to(dt).contiguous()
             ms = cuda_ms(lambda: cholesky_factor(M), reps)
             plain = cuda_ms(lambda: cholesky_plain(M), reps)
+            per_factor = cuda_launches(lambda: cholesky_factor(M))
+            check(per_factor <= budget,
+                  f"n={n} {dt}: {per_factor} CUDA launches per factor, "
+                  f"budget {budget}")
             times[(n, dt)] = (ms, plain)
             line("kernel_time", n=n, dtype=str(dt).split(".")[-1],
-                 kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}", reps=reps)
+                 kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                 ratio=f"{ms / plain:.3f}", launches_per_factor=per_factor,
+                 launch_budget=budget, reps=reps)
     ms, plain = times[(1024, torch.float64)]
     return {"name": "cholesky", "route": "cuda",
             "source": "conicip_tpu_torch/csrc/cholesky.cu",

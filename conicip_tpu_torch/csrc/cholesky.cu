@@ -6,53 +6,116 @@
 // zeroed. Unlike it, it takes any n >= 1: the 128-alignment, the 1280 cap
 // and the identity padding of the TPU version were artifacts of VMEM.
 //
-// What bounds it. At n = 1024 in double the factor is n^3/3 = 0.36 GFLOP
-// over an 8 MB matrix: about 10 us of the card's FP64 rate and under 3 us
-// of its memory bandwidth. The time is set instead by the serial chain of
-// n/NB panels, each a dependent sequence of small launches, and by the
-// latency of the column sweep inside each diagonal tile.
+// What bounds it on an H100. A factor is n^3/3 multiply-adds: 22.9 GFLOP at
+// n = 4096, 0.35 ms at the FP64 tensor-core rate (~67 TFLOP/s on the data
+// sheet; mma.sync.m16n8k4.f64 reached 65.6 TFLOP/s on an H100 80GB HBM3,
+// m8n8k4 half that). A right-looking factor with NB-wide panels streams the
+// lower trailing matrix through device memory once per panel: about
+// sum(rest^2 / 2) * 8 B * 3, 8.6 GB with NB = 32 (2.6 ms at 3.35 TB/s) and
+// 2.2 GB with NB = 128 (0.65 ms). Under those bounds, and at any n <= 2048,
+// where the matrix sits in the 50 MB L2, the time is the serial chain: n
+// pivots, each a square root that the threads using it must see. On that
+// card one barrier-separated step (barrier, shared-memory round trip, f64
+// rsqrt) took ~700 cycles, so one column per step would cost ~0.36 ms at
+// n = 1024 on its own. PERF.md has the measured times.
 //
-// What the design does about it. A host loop walks NB-wide panels; each
-// panel issues three kernels on the caller's stream and never synchronises:
-//   1. factor_diag:     one warp factors the NB x NB diagonal tile in
-//                       registers by a column sweep on warp shuffles;
-//   2. panel_solve:     one thread per row below the tile solves
-//                       x L_kk^T = a_row in registers, all rows in parallel;
-//   3. trailing_update: a 2-D grid of TS x TS lower tiles applies
-//                       A22 -= L21 L21^T (SYRK-like, 4x4 per thread).
-// The working set of each tile stays in shared memory, the matrix itself in
-// L2 (8 MB of 50 MB at n = 1024). Folding the triangular inverse and the
-// ridge retry into the kernel, and a batched form, are later work.
+// What the design does about it.
+//   - 128-wide panels, three kernels each on the caller's stream, never
+//     synchronising. n <= 128 is one launch of factor_diag alone; a larger
+//     factor is at most 3 ceil(n / 128) - 1 launches: the copy of the lower
+//     triangle, the first diagonal block, then three per panel.
+//   - factor_diag: one block factors the 128 x 128 diagonal block in shared
+//     memory as four 32 x 32 leaves. A leaf is factored and inverted
+//     together in registers, four columns per barrier (every thread factors
+//     the group's 4 x 4 diagonal block for itself), 8 barriers a leaf and
+//     not 32. The rows below a leaf are a product with the leaf's inverse,
+//     and the rest of the block is updated, on warp-level mma tiles; then
+//     inv(L_kk) is built from the leaf inverses by recursion on halves and
+//     written to the scratch buffer `work`.
+//   - panel_product: X <- X inv(L_kk)^T for the rows below the block, a
+//     product instead of a row-by-row substitution.
+//   - trailing_update: A22 -= X X^T on the lower 64 x 64 tiles only, a
+//     persistent grid of one block per SM on all SMs but one. Its first
+//     tiles make up the next diagonal block. The next factor_diag is
+//     launched beside it (programmatic dependent launch) on the free SM,
+//     waits on a counter for those tiles only, and for the whole grid
+//     before it ends: the chain of diagonal blocks overlaps the updates.
+//   The products stage 32-deep chunks of both operands in shared memory with
+//   cp.async (16 bytes a copy where rows are aligned), the tile of A22
+//   preloaded into the sums. In double they run on the FP64 tensor cores
+//   (mma.sync.m16n8k4.f64); in float on FFMA, since the tensor cores take
+//   float only as TF32, which the reference's full-precision products rule
+//   out.
+//
+// Shared memory of factor_diag in double: the block (128 x 132) is 132 KB,
+// so L_kk and a second 128 x 128 buffer for its inverse (128 KB) do not fit
+// in the 227 KB a block may use. The block is therefore written back as
+// L_kk first and inverted in place: the four leaf inverses sit in a 36 KB
+// side buffer, the off-diagonal blocks of the inverse overwrite those of
+// L_kk through a 34 KB buffer of partial products, and the result is copied
+// to `work`. In all 206 KB.
 //
 // Failure semantics. The ridge retry of the Schur KKT solver retries while
-// L is not all finite. A non-positive (or NaN) pivot therefore writes NaN,
-// as sqrt does in the TPU kernel, and the NaN spreads through the column
-// below and the trailing matrix; the kernel never writes a finite value in
-// its place. No cuBLAS or cuSOLVER call is made.
+// L is not all finite. A non-positive (or NaN) pivot is replaced by NaN, as
+// sqrt does in the TPU kernel, and every entry on and below the diagonal
+// from that column on becomes NaN: in the leaf and the rest of the diagonal
+// block, in every row of inv(L_kk) from that column on and through it in
+// every row below the block, and through the trailing updates in the whole
+// remaining matrix; the columns before it stay finite. No finite value is
+// written in its place. No cuBLAS or cuSOLVER call is made.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int NB = 32;   // panel width
-constexpr int PR = 128;  // rows (threads) per block in the panel solve
-constexpr int TS = 64;   // trailing-update tile
-constexpr int TT = 16;   // threads per tile side; each thread owns TS/TT^2
-constexpr int RT = TS / TT;
+constexpr int NB = 128;             // outer panel width
+constexpr int LEAF = 32;            // inner strip width
+// Row strides in shared memory, 8 banks apart from row to row (in double),
+// so that the fragments of mma.sync come without bank conflicts.
+constexpr int LD = NB + 4;          // the diagonal block
+constexpr int VL = LEAF + 4;        // the leaf inverses
+constexpr int PL = 64 + 4;          // the partial products of the inverse
+constexpr int GROUP = 4;            // leaf columns per barrier
+constexpr int CL = GROUP * LEAF;    // a group's published columns
+static_assert(96 * VL <= 64 * PL, "the leaf's panel fits the product buffer");
+constexpr int DIAG_THREADS = 512;
+constexpr int KC = 32;              // depth of one staged operand chunk
+constexpr int GEMM_THREADS = 256;
+constexpr int PANEL_ROWS = 32;      // rows of the panel product per block
+constexpr int PANEL_STAGES = 4;     // chunks in flight in the panel product
+constexpr int TS = 64;              // trailing-update tile
+constexpr int TRAIL_STAGES = 2;     // chunks in flight in the trailing update
 
-template <typename T> __device__ __forceinline__ T pivot_root(T a);
-template <> __device__ __forceinline__ double pivot_root(double a) {
-  return a > 0.0 ? sqrt(a) : CUDART_NAN;
-}
-template <> __device__ __forceinline__ float pivot_root(float a) {
-  return a > 0.0f ? sqrtf(a) : CUDART_NAN_F;
+// Row stride of a staged chunk: rows stay 16-byte aligned for cp.async, and
+// 8 banks apart in double for the mma fragments.
+constexpr int CHUNK_LD = KC + 4;
+
+template <typename T>
+constexpr size_t diag_smem() {
+  return (size_t)(NB * LD + 4 * LEAF * VL + 64 * PL + 4 * CL) * sizeof(T);
 }
 
-// out = tril(in)
+template <typename T>
+constexpr size_t gemm_smem(int bm, int bn, int stages) {
+  return (size_t)stages * (bm + bn) * CHUNK_LD * sizeof(T);
+}
+
+// A positive pivot, or NaN.
+__device__ __forceinline__ double pivot(double d) {
+  return d > 0.0 ? d : CUDART_NAN;
+}
+__device__ __forceinline__ float pivot(float d) {
+  return d > 0.0f ? d : CUDART_NAN_F;
+}
+__device__ __forceinline__ double rsq(double d) { return rsqrt(d); }
+__device__ __forceinline__ float rsq(float d) { return rsqrtf(d); }
+
+// out = tril(in); also clears the counter of finished diagonal tiles.
 template <typename T>
 __global__ void copy_lower(const T* __restrict__ in, T* __restrict__ out,
-                           int n) {
+                           int n, unsigned* __restrict__ ready) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) *ready = 0;
   const size_t total = (size_t)n * n;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
@@ -61,136 +124,668 @@ __global__ void copy_lower(const T* __restrict__ in, T* __restrict__ out,
   }
 }
 
-// Factor the kb x kb diagonal tile at (k, k) in place with one warp: lane r
-// holds row r of the tile in registers and the column sweep runs on warp
-// shuffles, with no barrier. Rows and columns past kb are padded with the
-// identity, whose factor is the identity, and are not written back.
-template <typename T>
-__global__ void factor_diag(T* __restrict__ a, int n, int k, int kb) {
-  const int r = threadIdx.x;
-  T x[NB];
+// Tile (bi, bj), bj <= bi, of a triangular enumeration x = bi (bi+1)/2 + bj.
+__device__ __forceinline__ void tri_tile(int x, int& bi, int& bj) {
+  bi = (int)((sqrt(8.0 * x + 1.0) - 1.0) * 0.5);
+  while ((bi + 1) * (bi + 2) / 2 <= x) ++bi;
+  while (bi * (bi + 1) / 2 > x) --bi;
+  bj = x - bi * (bi + 1) / 2;
+}
+
+// One warp's 16 x 16 tile: acc += A B (NN: B row-major, K x 16) or A B^T
+// (NT: B given as 16 rows of K), A being 16 rows of K; all in shared
+// memory. acc[j][e] is C(g + 8 (e / 2), 8 j + 2 q + e % 2) for lane
+// (g, q) = (lane / 4, lane % 4), the accumulator layout of
+// mma.sync.m16n8k4 (two of them per step of 4, one for each 8 columns).
+template <bool BT>
+__device__ __forceinline__ void warp_mm(double (&acc)[2][4], const double* A,
+                                        int lda, const double* B, int ldb,
+                                        int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll 4
+  for (int kk = 0; kk < K; kk += 4) {
+    const double a0 = A[g * lda + kk + q], a1 = A[(g + 8) * lda + kk + q];
 #pragma unroll
-  for (int c = 0; c < NB; ++c)
-    x[c] = (r < kb && c < kb) ? (c <= r ? a[(size_t)(k + r) * n + k + c] : T(0))
-                              : T(c == r);
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    const T ljj = pivot_root(__shfl_sync(0xffffffffu, x[j], j));
-    x[j] = r == j ? ljj : (r > j ? x[j] / ljj : x[j]);
-#pragma unroll
-    for (int c = j + 1; c < NB; ++c) {
-      const T lcj = __shfl_sync(0xffffffffu, x[j], c);
-      if (r >= c) x[c] -= x[j] * lcj;
+    for (int j = 0; j < 2; ++j) {
+      const double b =
+          BT ? B[(8 * j + g) * ldb + kk + q] : B[(kk + q) * ldb + 8 * j + g];
+      asm volatile(
+          "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+          "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+          : "+d"(acc[j][0]), "+d"(acc[j][1]), "+d"(acc[j][2]), "+d"(acc[j][3])
+          : "d"(a0), "d"(a1), "d"(b));
     }
   }
-  if (r < kb) {
+}
+template <bool BT>
+__device__ __forceinline__ void warp_mm(float (&acc)[2][4], const float* A,
+                                        int lda, const float* B, int ldb,
+                                        int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll 4
+  for (int kk = 0; kk < K; ++kk) {
+    const float a[2] = {A[g * lda + kk], A[(g + 8) * lda + kk]};
 #pragma unroll
-    for (int c = 0; c < NB; ++c)
-      if (c <= r) a[(size_t)(k + r) * n + k + c] = x[c];
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * q + e % 2;
+        acc[j][e] = fmaf(a[e / 2], BT ? B[c * ldb + kk] : B[kk * ldb + c],
+                         acc[j][e]);
+      }
   }
 }
 
-// Rows k+NB .. n-1 of the panel columns k .. k+NB-1: X <- X L_kk^-T.
-// One thread per row, PR rows per block: the tile is staged through shared
-// memory for coalesced loads and stores, and each thread then runs its
-// row's forward substitution in registers against L_kk in shared memory.
+// Store a warp's 16 x 16 tile at C: C = sign * acc, or C -= acc when sub.
 template <typename T>
-__global__ void panel_solve(T* __restrict__ a, int n, int k, int rest) {
-  __shared__ T sl[NB][NB + 1];
-  __shared__ T sx[PR][NB + 1];
-  const int t = threadIdx.x;
-  const int row0 = k + NB + blockIdx.x * PR;
-  for (int e = t; e < NB * NB; e += PR) {
-    const int r = e / NB, c = e % NB;
-    sl[r][c] = c <= r ? a[(size_t)(k + r) * n + k + c] : T(0);
+__device__ __forceinline__ void warp_store(const T (&acc)[2][4], T* C, int ldc,
+                                           T sign, bool sub) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      T& c = C[(g + 8 * (e / 2)) * ldc + 8 * j + 2 * q + e % 2];
+      c = sub ? c - acc[j][e] : sign * acc[j][e];
+    }
+}
+
+// Wait for the grid this one was launched beside (programmatic dependent
+// launch) to finish, so that the next kernel in the stream sees its writes;
+// returns at once when there is none.
+__device__ __forceinline__ void wait_prerequisite() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Factor the kb x kb diagonal block at (k, k) of src into dst (which may be
+// src), with the strict upper triangle written as zeros. When `inv` is not
+// null (then kb == NB), also write inv(L_kk), 128 x 128 row-major, to it.
+// With `ready`, it runs beside the previous panel's trailing update and
+// first waits until that has finished `target` tiles in all, which include
+// this block's (a bounded wait: it traps rather than hang).
+// Rows and columns from kb on are padded with the identity, whose factor is
+// the identity, and are not written back.
+template <typename T>
+__global__ void __launch_bounds__(DIAG_THREADS)
+factor_diag(const T* src, T* dst, T* __restrict__ inv, int n, int k, int kb,
+            const unsigned* ready, unsigned target) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* S = reinterpret_cast<T*>(smem_raw);  // the block, L_kk, then inverse
+  T* V = S + NB * LD;                     // 4 leaf inverses, LEAF x VL
+  T* P = V + 4 * LEAF * VL;               // products: 96 x VL or 64 x PL
+  T* col = P + 64 * PL;                   // 2 x CL: a group's columns
+  T* yrow = col + 2 * CL;                 // 2 x CL: its rows of the inverse
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  constexpr int WARPS = DIAG_THREADS / 32, RQ = NB / WARPS, CQ = NB / 32;
+  constexpr int LR = LEAF / WARPS;  // leaf rows per thread
+  const int kr = (kb + LEAF - 1) / LEAF * LEAF;
+
+  if (ready != nullptr) {
+    if (t == 0) {
+      long long spins = 0;
+      while (*(volatile const unsigned*)ready < target) {
+        __nanosleep(64);
+        if (++spins > (1ll << 26)) __trap();  // seconds: the tiles never came
+      }
+      __threadfence();
+    }
+    __syncthreads();
   }
-  for (int e = t; e < PR * NB; e += PR) {
-    const int r = e / NB, c = e % NB;
-    sx[r][c] = row0 + r < n ? a[(size_t)(row0 + r) * n + k + c] : T(0);
+  // warp w takes rows w + WARPS q, half of them at a time, all in flight
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    T v[RQ / 2][CQ];
+#pragma unroll
+    for (int q = 0; q < RQ / 2; ++q)
+#pragma unroll
+      for (int cc = 0; cc < CQ; ++cc) {
+        const int r = w + WARPS * (q + half * RQ / 2), c = lane + 32 * cc;
+        v[q][cc] = r < kb && c <= r
+                       ? __ldcg(src + (size_t)(k + r) * n + k + c)
+                       : T(r == c);
+      }
+#pragma unroll
+    for (int q = 0; q < RQ / 2; ++q)
+#pragma unroll
+      for (int cc = 0; cc < CQ; ++cc)
+        S[(w + WARPS * (q + half * RQ / 2)) * LD + lane + 32 * cc] = v[q][cc];
   }
   __syncthreads();
-  T x[NB];
+
+  for (int s = 0; s < kr; s += LEAF) {
+    // Leaf: L and Y = inv(L) together, right-looking, GROUP columns j ..
+    // j+G-1 per barrier, one element of each per (row, column) in
+    // registers: warp w owns rows w + WARPS h, lane c column c. A step
+    // reads the group's columns of A and rows of Y from shared memory as
+    // they were before the step, and every thread factors the group's
+    // G x G diagonal block for itself, then its row's and its column's
+    // entries of the group:
+    //   l_iq = (a_iq - sum_{m<q} l_im l_qm) / l_qq,  l_qq = d / sqrt(d),
+    //   x_q = (y_q - sum_{m<q} l_qm x_m) / l_qq,
+    //   a_ic -= sum_q l_iq l_cq,  y_i -= sum_q l_iq x_q    (i past the group);
+    // the owners of the next group's columns and rows then publish them.
+    T* Vs = V + (s / LEAF) * LEAF * VL;
+    T a[LR], y[LR];
 #pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    T acc = sx[t][j];
+    for (int h = 0; h < LR; ++h) {
+      const int i = w + WARPS * h;
+      a[h] = S[(s + i) * LD + s + lane];
+      y[h] = T(i == lane);
+      if (lane < GROUP) col[lane * LEAF + i] = a[h];
+      if (i < GROUP) yrow[i * LEAF + lane] = y[h];
+    }
+    for (int j = 0; j < LEAF; j += GROUP) {
+      __syncthreads();
+      if (w + WARPS * (LR - 1) < j) continue;  // this warp's rows are done
+      const T* cj = col + ((j / GROUP) & 1) * CL;
+      const T* yj = yrow + ((j / GROUP) & 1) * CL;
+      T* cn = col + ((j / GROUP + 1) & 1) * CL;
+      T* yn = yrow + ((j / GROUP + 1) & 1) * CL;
+      // the group's diagonal block, its inverse roots, and this lane's
+      // column entries l_cq and inverse entries x_qc
+      T Lg[GROUP][GROUP], rq[GROUP], lc[GROUP], xq[GROUP];
 #pragma unroll
-    for (int l = 0; l < j; ++l) acc -= x[l] * sl[j][l];
-    x[j] = acc / sl[j][j];
+      for (int q = 0; q < GROUP; ++q) {
+        T d = cj[q * LEAF + j + q];
+#pragma unroll
+        for (int m = 0; m < q; ++m) d -= Lg[q][m] * Lg[q][m];
+        d = pivot(d);
+        rq[q] = rsq(d);
+        Lg[q][q] = d * rq[q];
+#pragma unroll
+        for (int p = q + 1; p < GROUP; ++p) {
+          T v = cj[q * LEAF + j + p];
+#pragma unroll
+          for (int m = 0; m < q; ++m) v -= Lg[p][m] * Lg[q][m];
+          Lg[p][q] = v * rq[q];
+        }
+        T vc = cj[q * LEAF + lane], vx = yj[q * LEAF + lane];
+#pragma unroll
+        for (int m = 0; m < q; ++m) {
+          vc -= lc[m] * Lg[q][m];
+          vx -= Lg[q][m] * xq[m];
+        }
+        lc[q] = vc * rq[q];
+        xq[q] = vx * rq[q];
+      }
+#pragma unroll
+      for (int h = 0; h < LR; ++h) {
+        const int i = w + WARPS * h;
+        if (i >= j + GROUP) {
+          T li[GROUP];
+          T na = a[h], ny = y[h];
+#pragma unroll
+          for (int q = 0; q < GROUP; ++q) {
+            T v = cj[q * LEAF + i];
+#pragma unroll
+            for (int m = 0; m < q; ++m) v -= li[m] * Lg[q][m];
+            li[q] = v * rq[q];
+            na -= li[q] * lc[q];
+            ny -= li[q] * xq[q];
+            if (lane == j + q) a[h] = li[q];
+          }
+          if (lane >= j + GROUP && i >= lane) a[h] = na;
+          y[h] = ny;
+          if (lane >= j + GROUP && lane < j + 2 * GROUP)
+            cn[(lane - j - GROUP) * LEAF + i] = a[h];
+          if (i < j + 2 * GROUP) yn[(i - j - GROUP) * LEAF + lane] = y[h];
+        } else if (i >= j) {
+#pragma unroll
+          for (int q = 0; q < GROUP; ++q) {
+            if (i == j + q) {
+              y[h] = xq[q];
+#pragma unroll
+              for (int m = 0; m <= q; ++m)
+                if (lane == j + m) a[h] = Lg[q][m];
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < LR; ++h) {
+      const int i = w + WARPS * h;
+      S[(s + i) * LD + s + lane] = a[h];
+      Vs[i * VL + lane] = y[h];
+    }
+    __syncthreads();
+    // Rows below the leaf: X = A[e:, s:e] inv(L_ss)^T into P, then the rest
+    // of the block, A[e:, e:] -= X X^T, on its lower 16 x 16 tiles, while X
+    // is copied back over A[e:, s:e].
+    const int e0 = s + LEAF, mt = (kr - e0) / 16;
+    for (int x = w; x < mt * 2; x += WARPS) {
+      const int ti = x / 2, tj = x % 2;
+      T acc[2][4] = {};
+      warp_mm<true>(acc, S + (e0 + 16 * ti) * LD + s, LD, Vs + 16 * tj * VL,
+                    VL, LEAF);
+      warp_store(acc, P + 16 * ti * VL + 16 * tj, VL, T(1), false);
+    }
+    __syncthreads();
+    for (int x = w; x < mt * (mt + 1) / 2; x += WARPS) {
+      int ti, tj;
+      tri_tile(x, ti, tj);
+      T acc[2][4] = {};
+      warp_mm<true>(acc, P + 16 * ti * VL, VL, P + 16 * tj * VL, VL, LEAF);
+      warp_store(acc, S + (e0 + 16 * ti) * LD + e0 + 16 * tj, LD, T(1), true);
+    }
+    for (int e = t; e < (kr - e0) * LEAF; e += DIAG_THREADS)
+      S[(e0 + e / LEAF) * LD + s + e % LEAF] = P[(e / LEAF) * VL + e % LEAF];
+    __syncthreads();
   }
 #pragma unroll
-  for (int j = 0; j < NB; ++j) sx[t][j] = x[j];
+  for (int q = 0; q < RQ; ++q)
+#pragma unroll
+    for (int cc = 0; cc < CQ; ++cc) {
+      const int r = w + WARPS * q, c = lane + 32 * cc;
+      if (r < kb && c < kb)
+        dst[(size_t)(k + r) * n + k + c] = c <= r ? S[r * LD + c] : T(0);
+    }
+  if (inv == nullptr) {
+    wait_prerequisite();
+    return;
+  }
+
+  // inv(L_kk), kb == NB, by recursion on halves from the leaf inverses:
+  //   inv([A 0; B C]) = [inv(A) 0; -inv(C) (B inv(A)) inv(C)].
+  __syncthreads();  // L_kk is written back before it is overwritten
+  {
+    // 64 x 64 halves h = 0, 1, with A, B, C their 32 x 32 blocks:
+    // P_h = B inv(A), then -inv(C) P_h over B, in 16 x 16 tiles (h, ti, tj).
+    for (int x = w; x < 8; x += WARPS) {
+      const int h = x / 4, o = 64 * h, ti = (x % 4) / 2, tj = x % 2;
+      T acc[2][4] = {};
+      warp_mm<false>(acc, S + (o + 32 + 16 * ti) * LD + o, LD,
+                     V + (2 * h) * LEAF * VL + 16 * tj, VL, LEAF);
+      warp_store(acc, P + 16 * ti * PL + 32 * h + 16 * tj, PL, T(1), false);
+    }
+    __syncthreads();
+    for (int x = w; x < 8; x += WARPS) {
+      const int h = x / 4, o = 64 * h, ti = (x % 4) / 2, tj = x % 2;
+      T acc[2][4] = {};
+      warp_mm<false>(acc, V + (2 * h + 1) * LEAF * VL + 16 * ti * VL, VL,
+                     P + 32 * h + 16 * tj, PL, LEAF);
+      warp_store(acc, S + (o + 32 + 16 * ti) * LD + o + 16 * tj, LD, T(-1),
+                 false);
+    }
+  }
   __syncthreads();
-  for (int e = t; e < PR * NB; e += PR) {
-    const int r = e / NB, c = e % NB;
-    if (row0 + r < n) a[(size_t)(row0 + r) * n + k + c] = sx[r][c];
+  {
+    // The whole block in 16 x 16 tiles: P = B inv(A) with B = L[64:, :64]
+    // and inv(A) = [V0 0; X10 V1], then X[64:, :64] = -inv(C) P with
+    // inv(C) = [V2 0; X32 V3].
+    for (int x = w; x < 16; x += WARPS) {
+      const int ti = x / 4, tj = x % 4;
+      const T* Brow = S + (64 + 16 * ti) * LD;
+      T acc[2][4] = {};
+      if (tj < 2) {
+        warp_mm<false>(acc, Brow, LD, V + 16 * tj, VL, LEAF);
+        warp_mm<false>(acc, Brow + 32, LD, S + 32 * LD + 16 * tj, LD, LEAF);
+      } else {
+        warp_mm<false>(acc, Brow + 32, LD, V + LEAF * VL + 16 * (tj - 2), VL,
+                       LEAF);
+      }
+      warp_store(acc, P + 16 * ti * PL + 16 * tj, PL, T(1), false);
+    }
+    __syncthreads();
+    for (int x = w; x < 16; x += WARPS) {
+      const int ti = x / 4, tj = x % 4;
+      T acc[2][4] = {};
+      if (ti < 2) {
+        warp_mm<false>(acc, V + 2 * LEAF * VL + 16 * ti * VL, VL, P + 16 * tj,
+                       PL, LEAF);
+      } else {
+        warp_mm<false>(acc, S + (96 + 16 * (ti - 2)) * LD + 64, LD,
+                       P + 16 * tj, PL, LEAF);
+        warp_mm<false>(acc, V + 3 * LEAF * VL + 16 * (ti - 2) * VL, VL,
+                       P + 32 * PL + 16 * tj, PL, LEAF);
+      }
+      warp_store(acc, S + (64 + 16 * ti) * LD + 16 * tj, LD, T(-1), false);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < RQ; ++q)
+#pragma unroll
+    for (int cc = 0; cc < CQ; ++cc) {
+      const int r = w + WARPS * q, c = lane + 32 * cc;
+      const int br = r / LEAF, bc = c / LEAF;
+      inv[r * NB + c] = br == bc ? V[br * LEAF * VL + (r % LEAF) * VL + lane]
+                                 : (br > bc ? S[r * LD + c] : T(0));
+    }
+  wait_prerequisite();
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int bytes = valid ? (int)sizeof(T) : 0;  // 0: fill with zeros
+  if constexpr (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage columns kc .. kc+KC-1 of `rows` rows of g (row stride ld) into s;
+// rows past `rows` up to ROWS are zero. With `vec`, rows of g are 16-byte
+// aligned and each copy moves 16 bytes.
+template <typename T, int ROWS>
+__device__ __forceinline__ void load_chunk(T* s, const T* g, size_t ld,
+                                           int rows, int kc, bool vec) {
+  constexpr int SL = CHUNK_LD, VEC = 16 / sizeof(T);
+  if (vec) {
+    for (int e = threadIdx.x; e < ROWS * KC / VEC; e += GEMM_THREADS) {
+      const int r = e / (KC / VEC), c = e % (KC / VEC) * VEC;
+      const bool ok = r < rows;
+      cp_async16(s + r * SL + c, ok ? g + (size_t)r * ld + kc + c : g, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * KC; e += GEMM_THREADS) {
+      const int r = e / KC, c = e % KC;
+      const bool ok = r < rows;
+      cp_async(s + r * SL + c, ok ? g + (size_t)r * ld + kc + c : g, ok);
+    }
   }
 }
 
-// A22 -= L21 L21^T on the lower tiles of the trailing matrix, which starts
-// at row/col k+NB and has `rest` rows. Grid (tiles, tiles), block (TT, TT).
-template <typename T>
-__global__ void trailing_update(T* __restrict__ a, int n, int k, int rest) {
-  const int bj = blockIdx.x, bi = blockIdx.y;
-  if (bj > bi) return;  // strict upper tiles are never read
-  __shared__ T si[TS][NB + 1];
-  __shared__ T sj[TS][NB + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TT + tx;
-  const int off = k + NB;
-  for (int e = tid; e < TS * NB; e += TT * TT) {
-    const int r = e / NB, l = e % NB;
-    const int ri = bi * TS + r, rj = bj * TS + r;
-    si[r][l] = ri < rest ? a[(size_t)(off + ri) * n + k + l] : T(0);
-    sj[r][l] = rj < rest ? a[(size_t)(off + rj) * n + k + l] : T(0);
+// A BM x BN tile of A B^T held in registers, built chunk by chunk.
+template <typename T, int BM, int BN> struct Tile;
+
+// double: eight warps in a WM x WN grid, each a (BM/WM) x (BN/WN) tile of
+// mma.sync.m16n8k4 f64 (the FP64 tensor cores; m8n8k4 runs at half their
+// rate on an H100). Fragments: A (16x4) lane -> rows (lane/4, lane/4 + 8),
+// column lane%4; B (4x8) lane -> (lane%4, lane/4); C (16x8) lane -> rows
+// (lane/4, lane/4 + 8), columns 2*(lane%4) + {0,1}.
+template <int BM, int BN> struct Tile<double, BM, BN> {
+  static constexpr int WM = BM >= 64 ? 2 : 1, WN = GEMM_THREADS / 32 / WM;
+  static constexpr int MI = BM / WM / 16, NI = BN / WN / 8;
+  static_assert(MI * 16 * WM == BM && NI * 8 * WN == BN, "warp grid");
+  double acc[MI][NI][4];
+
+  __device__ __forceinline__ int m0() const {
+    return (threadIdx.x / 32 / WN) * (MI * 16);
   }
-  __syncthreads();
-  T acc[RT][RT];
+  __device__ __forceinline__ int n0() const {
+    return (threadIdx.x / 32 % WN) * (NI * 8);
+  }
+  template <class F>
+  __device__ __forceinline__ void each(F f) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
 #pragma unroll
-  for (int p = 0; p < RT; ++p)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int q = 0; q < RT; ++q) acc[p][q] = T(0);
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          f(m0() + 16 * i + g + 8 * (e / 2), n0() + 8 * j + 2 * q + e % 2,
+            acc[i][j][e]);
+  }
+  template <class F>
+  __device__ __forceinline__ void init(F f) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] =
+              f(m0() + 16 * i + g + 8 * (e / 2), n0() + 8 * j + 2 * q + e % 2);
+  }
+  template <bool NEG>
+  __device__ __forceinline__ void step(const double* sa, const double* sb) {
+    constexpr int SL = CHUNK_LD;
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    const double* pa = sa + (m0() + g) * SL + q;
+    const double* pb = sb + (n0() + g) * SL + q;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 4) {
+      double a[MI][2], b[NI];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const double v = pa[(16 * i + 8 * h) * SL + kk];
+          a[i][h] = NEG ? -v : v;
+        }
+#pragma unroll
+      for (int j = 0; j < NI; ++j) b[j] = pb[8 * j * SL + kk];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+          asm volatile(
+              "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+              "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+              : "+d"(acc[i][j][0]), "+d"(acc[i][j][1]), "+d"(acc[i][j][2]),
+                "+d"(acc[i][j][3])
+              : "d"(a[i][0]), "d"(a[i][1]), "d"(b[j]));
+    }
+  }
+};
+
+// float: FFMA on the CUDA cores, threads in a 16 x 16 grid, each an
+// (BM/16) x (BN/16) register tile with rows strided by 16 and columns by 16.
+// No TF32.
+template <int BM, int BN> struct Tile<float, BM, BN> {
+  static constexpr int RM = BM / 16, RN = BN / 16;
+  static_assert(GEMM_THREADS == 256, "16 x 16 threads");
+  float acc[RM][RN];
+
+  template <class F>
+  __device__ __forceinline__ void init(F f) {
+    const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+#pragma unroll
+    for (int p = 0; p < RM; ++p)
+#pragma unroll
+      for (int q = 0; q < RN; ++q) acc[p][q] = f(tr + 16 * p, tc + 16 * q);
+  }
+  template <bool NEG>
+  __device__ __forceinline__ void step(const float* sa, const float* sb) {
+    constexpr int SL = CHUNK_LD;
+    const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
 #pragma unroll 8
-  for (int l = 0; l < NB; ++l) {
-    T x[RT], y[RT];
+    for (int kk = 0; kk < KC; ++kk) {
+      float x[RM], y[RN];
 #pragma unroll
-    for (int p = 0; p < RT; ++p) x[p] = si[ty + TT * p][l];
+      for (int p = 0; p < RM; ++p)
+        x[p] = NEG ? -sa[(tr + 16 * p) * SL + kk] : sa[(tr + 16 * p) * SL + kk];
 #pragma unroll
-    for (int q = 0; q < RT; ++q) y[q] = sj[tx + TT * q][l];
+      for (int q = 0; q < RN; ++q) y[q] = sb[(tc + 16 * q) * SL + kk];
 #pragma unroll
-    for (int p = 0; p < RT; ++p)
+      for (int p = 0; p < RM; ++p)
 #pragma unroll
-      for (int q = 0; q < RT; ++q) acc[p][q] += x[p] * y[q];
+        for (int q = 0; q < RN; ++q) acc[p][q] = fmaf(x[p], y[q], acc[p][q]);
+    }
   }
+  template <class F>
+  __device__ __forceinline__ void each(F f) const {
+    const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
 #pragma unroll
-  for (int p = 0; p < RT; ++p) {
-    const int r = bi * TS + ty + TT * p;
+    for (int p = 0; p < RM; ++p)
 #pragma unroll
-    for (int q = 0; q < RT; ++q) {
-      const int c = bj * TS + tx + TT * q;
-      if (r < rest && c <= r) a[(size_t)(off + r) * n + off + c] -= acc[p][q];
+      for (int q = 0; q < RN; ++q) f(tr + 16 * p, tc + 16 * q, acc[p][q]);
+  }
+};
+
+// tile = init + A B^T (or init - A B^T with NEG) over the NB columns of A
+// and B (row strides lda, ldb; rows past arows / brows read as zero), with
+// STAGES chunks of KC columns in flight through shared memory. The initial
+// value comes from init(r, c), read while the first chunks are in flight.
+template <bool NEG, int STAGES, typename T, int BM, int BN, class F>
+__device__ __forceinline__ void product_nt(Tile<T, BM, BN>& tile, T* smem,
+                                           const T* A, size_t lda, int arows,
+                                           const T* B, size_t ldb, int brows,
+                                           bool vec, F init) {
+  constexpr int SL = CHUNK_LD, STAGE = (BM + BN) * SL, NCH = NB / KC;
+  static_assert(STAGES >= 2 && STAGES <= NCH, "stages");
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    load_chunk<T, BM>(smem + c * STAGE, A, lda, arows, c * KC, vec);
+    load_chunk<T, BN>(smem + c * STAGE + BM * SL, B, ldb, brows, c * KC, vec);
+    cp_commit();
+  }
+  tile.init(init);
+#pragma unroll 1
+  for (int c = 0; c < NCH; ++c) {
+    const int next = c + STAGES - 1;
+    if (next < NCH) {
+      T* buf = smem + (next % STAGES) * STAGE;
+      load_chunk<T, BM>(buf, A, lda, arows, next * KC, vec);
+      load_chunk<T, BN>(buf + BM * SL, B, ldb, brows, next * KC, vec);
+    }
+    cp_commit();  // possibly empty: one group per iteration
+    cp_wait<STAGES - 1>();
+    __syncthreads();
+    const T* cur = smem + (c % STAGES) * STAGE;
+    tile.template step<NEG>(cur, cur + BM * SL);
+    __syncthreads();
+  }
+}
+
+// X <- X inv(L_kk)^T for the `rest` rows below the diagonal block at k, in
+// place: each block owns PANEL_ROWS whole rows of the panel and has read
+// all of them before it writes.
+template <typename T>
+__global__ void __launch_bounds__(GEMM_THREADS)
+panel_product(T* __restrict__ a, const T* __restrict__ inv, int n, int k,
+              int rest) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int r0 = blockIdx.x * PANEL_ROWS;
+  const int rows = rest - r0 < PANEL_ROWS ? rest - r0 : PANEL_ROWS;
+  T* X = a + (size_t)(k + NB + r0) * n + k;
+  Tile<T, PANEL_ROWS, NB> tile;
+  product_nt<false, PANEL_STAGES>(tile, smem, X, (size_t)n, rows, inv,
+                                  (size_t)NB, NB, n % (16 / sizeof(T)) == 0,
+                                  [](int, int) { return T(0); });
+  tile.each([&](int r, int c, T v) {
+    if (r < rows) X[(size_t)r * n + c] = v;
+  });
+}
+
+// A22 -= X X^T on the lower TS x TS tiles of the trailing matrix (rows and
+// columns k+NB .. n-1), tiles x = bi (bi + 1) / 2 + bj, bj <= bi.
+// Persistent: block b takes tiles b, b + gridDim.x, ... The first
+// `diag_tiles` make up the next diagonal block; each adds one to *ready when
+// done, for the factor_diag launched beside this kernel.
+template <typename T>
+__global__ void __launch_bounds__(GEMM_THREADS)
+trailing_update(T* __restrict__ a, int n, int k, int rest, int diag_tiles,
+                unsigned* __restrict__ ready) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int off = k + NB, tiles = (rest + TS - 1) / TS;
+  const T* P = a + (size_t)off * n + k;
+  for (int x = blockIdx.x; x < tiles * (tiles + 1) / 2; x += gridDim.x) {
+    int bi, bj;
+    tri_tile(x, bi, bj);
+    const int rmax = rest - bi * TS, cmax = rest - bj * TS;
+    T* C = a + (size_t)(off + bi * TS) * n + off + bj * TS;
+    const int diag = (bi - bj) * TS;  // c <= r + diag: on or below the diagonal
+    auto kept = [&](int r, int c) {
+      return r < rmax && c < cmax && c <= r + diag;
+    };
+    Tile<T, TS, TS> tile;
+    product_nt<true, TRAIL_STAGES>(
+        tile, smem, P + (size_t)bi * TS * n, (size_t)n, rmax < TS ? rmax : TS,
+        P + (size_t)bj * TS * n, (size_t)n, cmax < TS ? cmax : TS,
+        n % (16 / sizeof(T)) == 0,
+        [&](int r, int c) { return kept(r, c) ? C[(size_t)r * n + c] : T(0); });
+    tile.each([&](int r, int c, T v) {
+      if (kept(r, c)) C[(size_t)r * n + c] = v;
+    });
+    if (x < diag_tiles) {
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) atomicAdd(ready, 1u);
     }
   }
 }
 
 template <typename T>
-cudaError_t cholesky(const T* in, T* out, int n, cudaStream_t stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
+cudaError_t cholesky(const T* in, T* out, T* work, int n, cudaStream_t st) {
+  if (n <= 0 || (n > NB && work == nullptr)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      factor_diag<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)diag_smem<T>());
+  if (err != cudaSuccess) return err;
+  if (n <= NB) {
+    factor_diag<T><<<1, DIAG_THREADS, diag_smem<T>(), st>>>(
+        in, out, nullptr, n, 0, n, nullptr, 0u);
+    return cudaGetLastError();
+  }
+  constexpr size_t panel_smem = gemm_smem<T>(PANEL_ROWS, NB, PANEL_STAGES);
+  constexpr size_t tile_smem = gemm_smem<T>(TS, TS, TRAIL_STAGES);
+  static_assert(NB % TS == 0, "the diagonal block is whole tiles");
+  unsigned* ready = reinterpret_cast<unsigned*>(work + NB * NB);
+  err = cudaFuncSetAttribute(panel_product<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)panel_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(trailing_update<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)tile_smem);
+  // One block of the trailing update per SM, on all SMs but one: that one is
+  // left to the factor_diag beside it.
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int resident = sms > 1 ? sms - 1 : 1;
+
   const size_t total = (size_t)n * n;
-  const int copy_blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  copy_lower<T><<<copy_blocks, 256, 0, stream>>>(in, out, n);
-  cudaError_t err = cudaGetLastError();
-  for (int k = 0; k < n && err == cudaSuccess; k += NB) {
-    const int kb = n - k < NB ? n - k : NB;
-    factor_diag<T><<<1, NB, 0, stream>>>(out, n, k, kb);
-    const int rest = n - k - kb;  // > 0 only when kb == NB
-    if (rest > 0) {
-      panel_solve<T><<<(rest + PR - 1) / PR, PR, 0, stream>>>(
-          out, n, k, rest);
-      const int tiles = (rest + TS - 1) / TS;
-      trailing_update<T><<<dim3(tiles, tiles), dim3(TT, TT), 0, stream>>>(
-          out, n, k, rest);
-    }
-    err = cudaGetLastError();
+  const int copy_blocks =
+      (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+  copy_lower<T><<<copy_blocks, 256, 0, st>>>(in, out, n, ready);
+  factor_diag<T><<<1, DIAG_THREADS, diag_smem<T>(), st>>>(
+      out, out, work, n, 0, NB, nullptr, 0u);
+  err = cudaGetLastError();
+  // Panel k: its rows below are solved; then the trailing update, whose
+  // first tiles are the next diagonal block, and beside it (programmatic
+  // dependent launch) the factor of that block, which waits for those
+  // tiles, and for the whole trailing update before it ends.
+  unsigned target = 0;
+  for (int k = 0; k + NB < n && err == cudaSuccess; k += NB) {
+    const int rest = n - k - NB;
+    const int kb = rest < NB ? rest : NB;  // the next panel's width
+    panel_product<T><<<(rest + PANEL_ROWS - 1) / PANEL_ROWS, GEMM_THREADS,
+                       panel_smem, st>>>(out, work, n, k, rest);
+    const int tiles = (rest + TS - 1) / TS, tk = (kb + TS - 1) / TS;
+    const int count = tiles * (tiles + 1) / 2, diag_tiles = tk * (tk + 1) / 2;
+    trailing_update<T><<<count < resident ? count : resident, GEMM_THREADS,
+                         tile_smem, st>>>(out, n, k, rest, diag_tiles, ready);
+    target += (unsigned)diag_tiles;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1);
+    cfg.blockDim = dim3(DIAG_THREADS);
+    cfg.dynamicSmemBytes = diag_smem<T>();
+    cfg.stream = st;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, factor_diag<T>, (const T*)out, out,
+                             rest > NB ? work : (T*)nullptr, n, k + NB, kb,
+                             (const unsigned*)ready, target);
+    if (err == cudaSuccess) err = cudaGetLastError();
   }
   return err;
 }
@@ -198,18 +793,23 @@ cudaError_t cholesky(const T* in, T* out, int n, cudaStream_t stream) {
 }  // namespace
 
 // Plain C entry points, bound with ctypes. `in` and `out` are distinct
-// row-major contiguous n x n device buffers; nothing is allocated and the
-// stream is not synchronised. Returns cudaGetLastError() after the launches.
-extern "C" int conicip_cholesky_f64(const void* in, void* out, int n,
-                                    void* stream) {
+// row-major contiguous n x n device buffers; `work` is a scratch buffer of
+// the same type of 128 x 128 + 1 elements, needed only when n > 128 (may be
+// null below).
+// Nothing is allocated and the stream is not synchronised. Returns
+// cudaGetLastError() after the launches.
+extern "C" int conicip_cholesky_f64(const void* in, void* out, void* work,
+                                    int n, void* stream) {
   return (int)cholesky<double>(static_cast<const double*>(in),
-                               static_cast<double*>(out), n,
+                               static_cast<double*>(out),
+                               static_cast<double*>(work), n,
                                static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int conicip_cholesky_f32(const void* in, void* out, int n,
-                                    void* stream) {
+extern "C" int conicip_cholesky_f32(const void* in, void* out, void* work,
+                                    int n, void* stream) {
   return (int)cholesky<float>(static_cast<const float*>(in),
-                              static_cast<float*>(out), n,
+                              static_cast<float*>(out),
+                              static_cast<float*>(work), n,
                               static_cast<cudaStream_t>(stream));
 }

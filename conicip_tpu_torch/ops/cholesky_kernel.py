@@ -27,6 +27,10 @@ cholesky_launches = 0
 _ENTRY = {torch.float64: "conicip_cholesky_f64",
           torch.float32: "conicip_cholesky_f32"}
 
+# Panel width of the kernel: above it, the kernel needs a scratch buffer for
+# the inverse of each diagonal block (PANEL x PANEL) and one counter.
+PANEL = 128
+
 
 def cholesky_plain(M: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: NaN-filled where the factorization fails."""
@@ -36,8 +40,8 @@ def cholesky_plain(M: torch.Tensor) -> torch.Tensor:
 
 def _entry(dtype):
     fn = getattr(load_library("cholesky"), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -60,10 +64,13 @@ def cholesky_factor(M: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(M)
     if n == 0:
         return out
+    work = (torch.empty(PANEL * PANEL + 1, dtype=M.dtype, device=M.device)
+            if n > PANEL else None)
     fn = _entry(M.dtype)
     with torch.cuda.device(M.device):
         stream = torch.cuda.current_stream(M.device).cuda_stream
-        err = fn(M.data_ptr(), out.data_ptr(), n, stream)
+        err = fn(M.data_ptr(), out.data_ptr(),
+                 None if work is None else work.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError(f"cholesky kernel launch failed: CUDA error {err}")
     cholesky_launches += 1

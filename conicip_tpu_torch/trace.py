@@ -1,0 +1,101 @@
+"""Where one solve's device time goes: a profiler trace of ``conic_ip``.
+
+    python -m conicip_tpu_torch.trace [--n 4096] [--seed 42]
+
+Solves ``box_qp_dense(n)`` (Schur backend, a Cholesky every iteration) from
+inputs already on the card, once to warm up and once under
+``torch.profiler``, and prints one line each for: the solve (wall time,
+device busy time as the union of kernel and copy intervals, iterations),
+the Cholesky kernel split into its diagonal-block, panel and trailing
+kernels, and the other device operations by total time. It needs a CUDA
+device and fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+from collections import defaultdict
+
+import torch
+
+from . import conic_ip
+from .models import box_qp_dense
+
+# the Cholesky kernel's parts, by kernel name (csrc/cholesky.cu)
+CHOLESKY_PARTS = ("copy_lower", "factor_diag", "panel_product",
+                  "trailing_update")
+
+
+def _busy_us(events):
+    """Length of the union of the events' [ts, ts + dur) intervals."""
+    total, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e["ts"]):
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total
+
+
+def _kernel_name(name):
+    for part in CHOLESKY_PARTS:
+        if f"{part}<" in name:
+            return part
+    return name.split("(")[0][:60]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=4096)
+    ap.add_argument("--seed", type=int, default=42)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("trace: no CUDA device", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    Q, c, A, b, cones, G, d = box_qp_dense(n=args.n, seed=args.seed).args()
+    dev = torch.device("cuda")
+    Q, c, A, b = (torch.as_tensor(x, dtype=torch.float64, device=dev)
+                  for x in (Q, c, A, b))
+    conic_ip(Q, c, A, b, cones, G, d, device=dev)  # warm-up: builds the kernel
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        sol = conic_ip(Q, c, A, b, cones, G, d, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in device:
+        key = _kernel_name(e["name"]) if e["cat"] == "kernel" else e["name"]
+        by_name[key][0] += e["dur"]
+        by_name[key][1] += 1
+    chol = [e for e in device if _kernel_name(e["name"]) in CHOLESKY_PARTS]
+    print(f"[solve] n={args.n} status={sol.status} Iter={sol.Iter} "
+          f"wall_ms={wall_ms:.2f} device_busy_ms={_busy_us(device) / 1e3:.2f} "
+          f"device={torch.cuda.get_device_name(0)!r}")
+    print(f"[cholesky] busy_ms={_busy_us(chol) / 1e3:.2f} " + " ".join(
+        f"{p}_ms={by_name[p][0] / 1e3:.2f}/{by_name[p][1]}"
+        for p in CHOLESKY_PARTS))
+    others = sorted(((v[0], k, v[1]) for k, v in by_name.items()
+                     if k not in CHOLESKY_PARTS), reverse=True)
+    for us, name, count in others[:10]:
+        print(f"[op] ms={us / 1e3:.2f} calls={count} name={name!r}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

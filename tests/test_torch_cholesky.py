@@ -4,10 +4,12 @@ On the CPU the wrapper runs the plain PyTorch version; it is held against
 the Pallas TPU kernel itself (run in interpret mode), against
 ``conicip_tpu.ops.cholesky.cholesky`` in f64, and on the failure semantics the ridge
 retry depends on. The CUDA kernel itself is checked on the card by
-tests/test_torch_cuda.py and chip_smoke.py.
+tests/test_torch_cuda.py and chip_smoke.py; its algorithm is checked here
+through :func:`cholesky_blocked_model`, which follows it step for step.
 """
 
 import functools
+import math
 
 import jax
 import jax.experimental.pallas as pl
@@ -35,6 +37,153 @@ def spd(n, seed=0):
 
 def rel_err(a, b):
     return np.max(np.abs(a - b)) / np.max(np.abs(b))
+
+
+# --- the CUDA kernel's algorithm (csrc/cholesky.cu) in plain torch --------
+
+def _pivot(d):
+    """A positive pivot, or NaN."""
+    return torch.where(d > 0, d, torch.full_like(d, math.nan))
+
+
+def _factor_leaf(A, group=4):
+    """L and inv(L) of a leaf together, right-looking, `group` columns a
+    step, as the kernel's sweep (the leaf padded with the identity to a
+    whole number of groups): the group's diagonal block G = L_g L_g^T, then
+    l_iq = (a_iq - sum_{m<q} l_im l_qm) / l_qq and x_q = (y_q - sum_{m<q}
+    l_qm x_m) / l_qq, a_ic -= sum_q l_iq l_cq, y_i -= sum_q l_iq x_q past the
+    group; each l_qq = d / sqrt(d)."""
+    m = A.shape[0]
+    mp = -(-m // group) * group
+    P = torch.eye(mp, dtype=A.dtype)
+    P[:m, :m] = A
+    A = P
+    Y = torch.eye(mp, dtype=A.dtype)
+    for j in range(0, mp, group):
+        e = j + group
+        Lg = torch.zeros(group, group, dtype=A.dtype)
+        r = torch.zeros(group, dtype=A.dtype)
+        Lb = torch.zeros(mp - e, group, dtype=A.dtype)  # rows past the group
+        X = torch.zeros(group, mp, dtype=A.dtype)
+        for q in range(group):
+            d = _pivot(A[j + q, j + q] - Lg[q, :q] @ Lg[q, :q])
+            r[q] = 1 / torch.sqrt(d)
+            Lg[q, q] = d * r[q]
+            Lg[q + 1:, q] = (A[j + q + 1:e, j + q]
+                             - Lg[q + 1:, :q] @ Lg[q, :q]) * r[q]
+            Lb[:, q] = (A[e:, j + q] - Lb[:, :q] @ Lg[q, :q]) * r[q]
+            X[q] = (Y[j + q] - Lg[q, :q] @ X[:q]) * r[q]
+        A[e:, e:] -= Lb @ Lb.T
+        Y[e:] -= Lb @ X
+        A[j:e, j:e] = Lg
+        A[e:, j:e] = Lb
+        Y[j:e] = X
+    return A[:m, :m].tril(), Y[:m, :m]
+
+
+def _factor_block(D, leaf):
+    """factor_diag: L_kk by leaves, each leaf's rows below solved as a
+    product with the leaf's inverse; returns L_kk and the leaf inverses."""
+    kb = D.shape[0]
+    inverses = []
+    for s in range(0, kb, leaf):
+        e = min(s + leaf, kb)
+        L, Y = _factor_leaf(D[s:e, s:e])
+        D[s:e, s:e] = L
+        inverses.append(Y)
+        X = D[e:, s:e] @ Y.T
+        D[e:, s:e] = X
+        D[e:, e:] -= X @ X.T
+    return D.tril(), inverses
+
+
+def _tri_inverse(L, inverses):
+    """inv(L) by recursion on halves from the leaf inverses:
+    inv([A 0; B C]) = [inv(A) 0; -inv(C) (B inv(A)) inv(C)]."""
+    if len(inverses) == 1:
+        return inverses[0]
+    h, q = L.shape[0] // 2, len(inverses) // 2
+    XA = _tri_inverse(L[:h, :h], inverses[:q])
+    XC = _tri_inverse(L[h:, h:], inverses[q:])
+    X = torch.zeros_like(L)
+    X[:h, :h], X[h:, h:] = XA, XC
+    X[h:, :h] = -(XC @ (L[h:, :h] @ XA))
+    return X
+
+
+def cholesky_blocked_model(M, nb=128, leaf=32):
+    """The kernel's blocked factor: nb-wide panels, each a diagonal-block
+    factor with its explicit inverse, the panel solved as X inv(L_kk)^T,
+    and a lower-triangle trailing update; the last panel may be ragged."""
+    A = M.clone().tril()
+    n = A.shape[0]
+    for k in range(0, n, nb):
+        kb = min(nb, n - k)
+        L, inverses = _factor_block(A[k:k + kb, k:k + kb].clone(), leaf)
+        A[k:k + kb, k:k + kb] = L
+        if k + kb < n:
+            X = A[k + kb:, k:k + kb] @ _tri_inverse(L, inverses).T
+            A[k + kb:, k:k + kb] = X
+            A[k + kb:, k + kb:] -= (X @ X.T).tril()
+    return A
+
+
+def ill_conditioned(n, kappa=1e12, seed=0):
+    """SPD with condition number ~kappa and unit diagonal (equilibrated)."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    M = (Q * np.logspace(0, -np.log10(kappa), n)) @ Q.T
+    d = 1 / np.sqrt(np.diag(M))
+    M = M * d[:, None] * d[None, :]
+    return (M + M.T) / 2
+
+
+@pytest.mark.parametrize("n", [1, 31, 127, 128, 129, 300, 500])
+def test_blocked_model_matches_jax_f64(n):
+    M = spd(n, seed=n)
+    L_ref = np.asarray(jax_cholesky(jnp.asarray(M)))
+    L = cholesky_blocked_model(torch.from_numpy(M)).numpy()
+    assert rel_err(L, L_ref) <= 1e-12
+    np.testing.assert_array_equal(np.triu(L, 1), 0.0)
+
+
+@pytest.mark.parametrize("n", [200, 300])
+def test_blocked_model_ill_conditioned(n):
+    # the explicit inverse of each diagonal block rounds unlike a
+    # substitution; backward error stays at rounding level for kappa ~ 1e12
+    M = ill_conditioned(n, seed=n)
+    assert np.linalg.cond(M) > 1e11
+    L = cholesky_blocked_model(torch.from_numpy(M)).numpy()
+    assert np.max(np.abs(L @ L.T - M)) / np.max(np.abs(M)) <= 1e-13
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_blocked_model_matches_pallas_kernel(n):
+    # f32, as test_plain_matches_pallas_kernel
+    M = spd(n).astype(np.float32)
+    call = pl.pallas_call(
+        functools.partial(_kernel, n=n, n_blocks=n // 128, unroll=1),
+        out_shape=jax.ShapeDtypeStruct((n, n), jnp.float32),
+        interpret=True,
+    )
+    L_tpu = np.asarray(call(jnp.asarray(M)))
+    L = cholesky_blocked_model(torch.from_numpy(M)).numpy()
+    assert L.dtype == np.float32
+    assert rel_err(L, L_tpu) <= 1e-5
+
+
+@pytest.mark.parametrize("p", [10, 200, 299])  # first, middle, last panel
+def test_blocked_model_nan_from_failing_pivot(p):
+    # a failing pivot at column p makes every entry on and below the
+    # diagonal from column p on NaN, through the leaf, the diagonal block's
+    # inverse, the panel product and the trailing updates; the columns
+    # before p stay finite
+    n = 300
+    M = spd(n, seed=7)
+    M[p, p] = -1.0
+    L = cholesky_blocked_model(torch.from_numpy(M)).numpy()
+    i, c = np.indices((n, n))
+    np.testing.assert_array_equal(np.isnan(L), (c >= p) & (i >= c))
 
 
 @pytest.mark.parametrize("n", [128, 256])

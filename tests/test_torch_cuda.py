@@ -33,11 +33,12 @@ def spd(n, seed=0):
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_kernel_matches_plain(cuda, dtype):
-    # relative bounds: f64 rounding of two summation orders at n <= 1024,
-    # f32 likewise (the TPU kernel's own type)
+    # relative bounds: f64 rounding of two summation orders at n <= 1280,
+    # f32 likewise (the TPU kernel's own type); sizes cover the one-launch
+    # path (n <= 128) and ragged last panels
     dt = getattr(torch, dtype)
     tol = 1e-10 if dt == torch.float64 else 1e-4
-    for n in (1, 31, 128, 500, 1024):
+    for n in (1, 31, 127, 128, 129, 255, 257, 500, 1000, 1024, 1280):
         M = torch.from_numpy(spd(n, seed=n)).to(cuda, dt)
         before = cholesky_kernel.cholesky_launches
         L = cholesky_kernel.cholesky_factor(M)
@@ -47,7 +48,39 @@ def test_kernel_matches_plain(cuda, dtype):
         assert torch.equal(L.triu(1), torch.zeros_like(L))
         bad = M.clone()
         bad[n // 2, n // 2] = -1.0
-        assert not bool(torch.isfinite(cholesky_kernel.cholesky_factor(bad)).all())
+        L_bad = cholesky_kernel.cholesky_factor(bad)
+        assert not bool(torch.isfinite(L_bad).all())
+
+
+@pytest.mark.parametrize("dtype, kappa, bound",
+                         [("float64", 1e12, 1e-13), ("float32", 1e5, 1e-5)])
+def test_kernel_ill_conditioned(cuda, dtype, kappa, bound):
+    # equilibrated SPD with condition number ~kappa: the explicit inverses
+    # of the diagonal blocks keep the backward error at rounding level
+    n = 500
+    rng = np.random.default_rng(5)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    M = (Q * np.logspace(0, -np.log10(kappa), n)) @ Q.T
+    d = 1 / np.sqrt(np.diag(M))
+    M = M * d[:, None] * d[None, :]
+    M = torch.from_numpy((M + M.T) / 2).to(cuda, getattr(torch, dtype))
+    L = cholesky_kernel.cholesky_factor(M)
+    assert ((L @ L.T - M).abs().max() / M.abs().max()).item() <= bound
+
+
+@pytest.mark.parametrize("p", [10, 200, 299])  # first, middle, last panel
+def test_kernel_nan_from_failing_pivot(cuda, p):
+    # a failing pivot at column p makes every entry on and below the
+    # diagonal from column p on NaN, and nothing before it: the ridge retry
+    # of the Schur solver reads isfinite(L).all()
+    n = 300
+    M = spd(n, seed=7)
+    M[p, p] = -1.0
+    for dt in (torch.float64, torch.float32):
+        L = cholesky_kernel.cholesky_factor(torch.from_numpy(M).to(cuda, dt))
+        i, c = np.indices((n, n))
+        np.testing.assert_array_equal(torch.isnan(L).cpu().numpy(),
+                                      (c >= p) & (i >= c))
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

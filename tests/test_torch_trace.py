@@ -1,0 +1,40 @@
+"""The port's solve profiler (conicip_tpu_torch.trace), on the CPU.
+
+Its measurements need a card; what runs here is how it reduces a trace:
+device busy time as the union of event intervals, and kernel names grouped
+by the Cholesky kernel's parts.
+"""
+
+import pytest
+import torch
+
+from conicip_tpu_torch import trace
+
+
+@pytest.mark.parametrize("events, busy", [
+    ([], 0.0),
+    ([{"ts": 0, "dur": 5}], 5.0),
+    # overlapping and nested intervals count once, gaps not at all
+    ([{"ts": 3, "dur": 4}, {"ts": 0, "dur": 5}, {"ts": 10, "dur": 1}], 8.0),
+    ([{"ts": 0, "dur": 10}, {"ts": 2, "dur": 3}], 10.0),
+])
+def test_busy_is_the_union_of_intervals(events, busy):
+    assert trace._busy_us(events) == busy
+
+
+def test_kernel_names_group_by_cholesky_part():
+    assert trace._kernel_name(
+        "void (anonymous namespace)::factor_diag<double>(double const*, "
+        "double*, double*, int, int, int, unsigned int const*, unsigned int)"
+    ) == "factor_diag"
+    assert trace._kernel_name(
+        "void (anonymous namespace)::trailing_update<float>(float*, int)"
+    ) == "trailing_update"
+    other = "void at::native::vectorized_elementwise_kernel<4>(int, float)"
+    assert trace._kernel_name(other) == other.split("(")[0]
+
+
+def test_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the profile would run")
+    assert trace.main(["--n", "8"]) == 2
