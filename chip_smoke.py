@@ -4,9 +4,10 @@
 
 Builds the port's CUDA kernel from this checkout, holds it against its
 plain PyTorch version, then drives ``conicip_tpu_torch.conic_ip`` through
-both default KKT backends at the problem sizes the repository benchmarks,
-and checks the answers. Every phase prints one line; any failed check
-raises, so the script exits non-zero. It imports nothing of JAX.
+every default KKT backend (dense Schur, diagonal, spectral) on R, Q and S
+cone problems at the sizes the repository benchmarks, and checks the
+answers. Every phase prints one line per case; any failed check raises, so
+the script exits non-zero. It imports nothing of JAX.
 
 The second-to-last line is a JSON object describing each kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -14,6 +15,7 @@ path; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -24,7 +26,10 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# orders held against the plain version besides those the main path factors
+# (factor_sizes): one panel, its edges, partial last panels, the timed sizes
 SIZES = (1, 31, 127, 128, 129, 257, 500, 1000, 1024, 1280, 2048, 4096)
+SCHUR_N = (1024, 4096)  # box_qp_dense orders of the [schur] phase
 TIMED = (128, 1024, 2048, 4096)
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # ill-conditioned SPD per dtype: condition number, and the bound on
@@ -119,7 +124,8 @@ def phase_kernel():
                                                        cholesky_plain)
 
     worst = {torch.float64: 0.0, torch.float32: 0.0}
-    for n in SIZES:
+    on_path = factor_sizes()
+    for n in sorted(set(SIZES) | on_path):
         M64 = spd(n, seed=n)
         for dt in (torch.float64, torch.float32):
             M = M64.to(dt)
@@ -141,7 +147,8 @@ def phase_kernel():
             worst[dt] = max(worst[dt], err)
             line("kernel", n=n, dtype=str(dt).split(".")[-1],
                  max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
-                 recon_rel=f"{rec:.3e}", indefinite="non-finite")
+                 recon_rel=f"{rec:.3e}", indefinite="non-finite",
+                 main_path=n in on_path)
     for dt, (kappa, bound) in ILL.items():
         M = ill_conditioned(500, kappa, seed=5).to(dt)
         L = cholesky_factor(M)
@@ -195,7 +202,7 @@ def phase_schur():
     from conicip_tpu_torch import conic_ip
     from conicip_tpu_torch.models import box_qp_dense
 
-    for n in (1024, 4096):
+    for n in SCHUR_N:
         args = box_qp_dense(n=n, seed=42).args()
         before = launches()
         sol, ms = solve_timed(args, device="cuda")
@@ -229,15 +236,19 @@ def phase_schur():
              first_solve_ms=f"{ms:.2f}", **extra)
 
 
+def diag_args(eq, n=1000):
+    """The README box QP (diag backend), with one equality if ``eq``."""
+    H = 0.5 * np.eye(n)
+    A = np.vstack([np.eye(n), -np.eye(n)])
+    G, d = (np.ones((1, n)), np.array([1.0])) if eq else (None, None)
+    return (H, H @ np.arange(1.0, n + 1), A, -np.ones(2 * n), [("R", 2 * n)],
+            G, d)
+
+
 def phase_diag():
     n = 1000
-    H = 0.5 * np.eye(n)
-    c = np.arange(1.0, n + 1)
-    A = np.vstack([np.eye(n), -np.eye(n)])
-    b = -np.ones(2 * n)
     for eq in (False, True):
-        G, d = (np.ones((1, n)), np.array([1.0])) if eq else (None, None)
-        args = (H, H @ c, A, b, [("R", 2 * n)], G, d)
+        args = diag_args(eq, n)
         before = launches()
         sol, ms = solve_timed(args, device="cuda")
         used = launches() - before
@@ -249,6 +260,82 @@ def phase_diag():
              resid=f"{max(sol.prFeas, sol.duFeas, sol.muFeas):.3e}",
              launches=used, ms_per_solve=f"{ms2:.2f}",
              ms_per_iter=f"{ms2 / sol.Iter:.3f}", first_solve_ms=f"{ms:.2f}")
+
+
+@functools.lru_cache(maxsize=None)
+def conic_cases():
+    """(label, problem, backend, launch rule) of the [conic] phase. The
+    rule: "iter" launches >= Iter (one factor per KKT build), "2iter"
+    >= 2 Iter (the n and the p factor of an equality solve), "none" no
+    launch at all (the spectral backend factors nothing); ``cpu`` says
+    whether Iter is held against the port's own CPU solve."""
+    from conicip_tpu_torch import models
+    from conicip_tpu_torch.kkt import kktsolver_schur
+
+    return (
+        ("single_soc(n=500)", models.single_soc(n=500), None, "iter", True),
+        ("single_soc(n=4096)", models.single_soc(n=4096), None, "iter", False),
+        ("many_small_socs(k=250,n=500)", models.many_small_socs(), None,
+         "iter", True),
+        ("mixed_rq_eq(n=200,p=10)", models.mixed_rq_eq(), None, "2iter", True),
+        ("larger_sdp(k=30)", models.larger_sdp(), None, "none", True),
+        ("larger_sdp(k=30)", models.larger_sdp(), kktsolver_schur, "iter",
+         True),
+        ("mixed_rqs(n=86)", models.mixed_rqs(), None, "none", True),
+        ("mixed_rqs(n=86)", models.mixed_rqs(), kktsolver_schur, "iter", True),
+    )
+
+
+def factor_sizes():
+    """Orders of the matrices the main path hands the kernel: n of every
+    Schur solve and p of every equality block (the Schur path's second
+    factor, the diag path's Woodbury factor)."""
+    sizes = set(SCHUR_N)
+    for eq in (False, True):
+        G = diag_args(eq)[5]
+        if G is not None:
+            sizes.add(G.shape[0])
+    for _, P, _, rule, _ in conic_cases():
+        if rule != "none":
+            sizes.add(P.Q.shape[0])
+            if P.G is not None and P.G.shape[0]:
+                sizes.add(P.G.shape[0])
+    return sizes
+
+
+def phase_conic():
+    from conicip_tpu_torch import conic_ip
+
+    for label, P, kkt, rule, cpu in conic_cases():
+        backend = "auto" if kkt is None else "schur"
+        kw = {} if kkt is None else dict(kktsolver=kkt)
+        solve_timed(P.args(), device="cuda", **kw)  # warm-up
+        before = launches()
+        sol, ms = solve_timed(P.args(), device="cuda", **kw)
+        used = launches() - before
+        resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
+        what = f"{label} {backend}"
+        check(sol.status == "Optimal", f"{what}: status {sol.status}")
+        check(resid < 1e-6, f"{what}: residual {resid:.3e}")
+        check(all(t.device.type == "cuda" for t in (sol.y, sol.w, sol.v)),
+              f"{what}: result tensors are not on cuda")
+        need = {"iter": sol.Iter, "2iter": 2 * sol.Iter, "none": 0}[rule]
+        check(used == 0 if rule == "none" else used >= need,
+              f"{what}: {used} kernel launches for Iter {sol.Iter} "
+              f"(rule {rule})")
+        extra = {}
+        if cpu:
+            ref = conic_ip(*P.args(), device="cpu", **kw)
+            dy = (sol.y.cpu() - ref.y).abs().max().item()
+            check(ref.status == sol.status and ref.Iter == sol.Iter,
+                  f"{what}: cpu {ref.status}/{ref.Iter} vs gpu "
+                  f"{sol.status}/{sol.Iter}")
+            check(dy <= 1e-6, f"{what}: y diff {dy:.3e}")
+            extra = dict(cpu_iter=ref.Iter, y_diff=f"{dy:.3e}")
+        line("conic", instance=label, backend=backend, status=sol.status,
+             Iter=sol.Iter, resid=f"{resid:.3e}", launches=used,
+             ms_per_solve=f"{ms:.2f}", ms_per_iter=f"{ms / sol.Iter:.3f}",
+             **extra)
 
 
 def main():
@@ -263,11 +350,15 @@ def main():
 
     from conicip_tpu_torch.ops import cholesky_kernel
 
-    cholesky_kernel.cholesky_launches = 0  # count the main path only
-    phase_schur()
-    phase_diag()
-    record["launches"] = cholesky_kernel.cholesky_launches
-    check(record["launches"] > 0, "main path never launched the kernel")
+    # each path of the main run is driven with the count at 0 and read
+    # just after; the comparison launches of phase_kernel do not count
+    record["launches"] = 0
+    for phase in (phase_schur, phase_diag, phase_conic):
+        cholesky_kernel.cholesky_launches = 0
+        phase()
+        used = cholesky_kernel.cholesky_launches
+        check(used > 0, f"{phase.__name__} never launched the kernel")
+        record["launches"] += used
 
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {

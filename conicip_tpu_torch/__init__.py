@@ -3,21 +3,23 @@
 Solves, like ``conicip_tpu`` (note the MINUS sign on cᵀy):
 
     minimize    ½ yᵀQy − cᵀy
-    subject to  Ay ≥_K b,   K a product of nonnegative orthants (R cones)
+    subject to  Ay ≥_K b,   K a product of R, Q and S cones
                 Gy = d
 
-with the same Mehrotra predictor-corrector method, statuses, certificates,
-best-iterate rule, warm starts and 3-level KKT-callback contract. The dense
-Cholesky of every iteration runs a hand-written CUDA kernel on CUDA
-tensors (``csrc/cholesky.cu``) and a plain PyTorch version on the CPU.
+with the same Mehrotra predictor-corrector method, Nesterov-Todd scaling,
+statuses, certificates, best-iterate rule, warm starts, default backend
+choice and 3-level KKT-callback contract. The dense Cholesky of every
+Schur-path iteration runs a hand-written CUDA kernel on CUDA tensors
+(``csrc/cholesky.cu``) and a plain PyTorch version on the CPU.
 
 This package imports torch and numpy only; it never imports JAX or
 ``conicip_tpu``. It computes nothing at import and never changes torch's
 default dtype.
 """
 
-from .cones import (ConeSpec, cone_div, cone_prod, maxstep, maxstep_to_cone,
-                    nt_identity, nt_inv_adjoint, nt_scaling)
+from .cones import (ConeSpec, cone_div, cone_prod, mat, maxstep,
+                    maxstep_to_cone, nt_identity, nt_inv_adjoint, nt_scaling,
+                    vecm)
 from .interop import (problem_from_numpy, solution_to_numpy, warm_from_numpy,
                       warm_to_numpy)
 from .kkt import kktsolver_2x2, kktsolver_diag, kktsolver_schur, pivot, separable
@@ -27,6 +29,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "ConeSpec",
+    "mat",
+    "vecm",
     "cone_prod",
     "cone_div",
     "maxstep",

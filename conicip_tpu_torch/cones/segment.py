@@ -1,10 +1,13 @@
-"""Slice access to the R coordinates of a cone product.
+"""Slice access to the coordinates of a cone product.
 
-Counterpart of ``conicip_tpu/cones/segment.py`` for R cones. The R
-coordinates form a few consecutive runs (``ConeSpec.r_runs``), so every
-access is a ``narrow`` view per run: no index tensor and no gather. The
-``put_*`` helpers write into ``o`` in place and return it; callers pass a
-freshly allocated output.
+Counterpart of ``conicip_tpu/cones/segment.py``. The R coordinates, and the
+coordinates of each cone group, form a few consecutive runs
+(``ConeSpec.r_runs``, ``SocGroup.runs``, ``SdpGroup.runs``), so every
+access is a ``narrow`` view per run: no index tensor and no gather. A
+group's runs hold its cones in order, so the taken coordinates reshape to
+``(count, dim)``; this covers contiguous groups and interleaved cone orders
+alike. The ``put_*`` helpers write into ``o`` in place and return it;
+callers pass a freshly allocated output.
 
 The vector helpers treat the last axis as the cone axis; the ``rows``
 variants treat the leading axis of an (m, n) matrix as the cone axis.
@@ -16,15 +19,8 @@ import torch
 
 from .spec import ConeSpec
 
-__all__ = ["take_r", "put_r", "take_rows_r", "put_rows_r", "check_r_only"]
-
-
-def check_r_only(spec: ConeSpec) -> None:
-    """Raise for Q and S cones, which the port does not compute on yet."""
-    if spec.soc_groups or spec.sdp_groups:
-        raise NotImplementedError(
-            "the PyTorch port handles R cones only; Q and S cones are still "
-            "to be ported (see ROADMAP.md, queue 1)")
+__all__ = ["take_r", "put_r", "take_group", "put_group", "take_rows_r",
+           "put_rows_r", "take_rows_group", "put_rows_group"]
 
 
 def _take(x: torch.Tensor, runs, dim: int) -> torch.Tensor:
@@ -52,6 +48,17 @@ def put_r(spec: ConeSpec, o: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     return _put(o, spec.r_runs, val, o.dim() - 1)
 
 
+def take_group(g, x: torch.Tensor) -> torch.Tensor:
+    """x restricted to one cone group, shape (..., count, dim)."""
+    k, t = g.idx.shape
+    return _take(x, g.runs, x.dim() - 1).reshape(x.shape[:-1] + (k, t))
+
+
+def put_group(g, o: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """o with one group's coordinates replaced by val (..., count, dim)."""
+    return _put(o, g.runs, val.reshape(val.shape[:-2] + (-1,)), o.dim() - 1)
+
+
 def take_rows_r(spec: ConeSpec, X: torch.Tensor) -> torch.Tensor:
     """Rows of an (m, n) matrix at the R coordinates, shape (nr, n)."""
     return _take(X, spec.r_runs, 0)
@@ -59,3 +66,13 @@ def take_rows_r(spec: ConeSpec, X: torch.Tensor) -> torch.Tensor:
 
 def put_rows_r(spec: ConeSpec, O: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     return _put(O, spec.r_runs, val, 0)
+
+
+def take_rows_group(g, X: torch.Tensor) -> torch.Tensor:
+    """Rows of an (m, n) matrix at one group, shape (count, dim, n)."""
+    return _take(X, g.runs, 0).reshape(g.idx.shape + X.shape[1:])
+
+
+def put_rows_group(g, O: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """O with one group's rows replaced by val (count, dim, n)."""
+    return _put(O, g.runs, val.reshape((-1,) + O.shape[1:]), 0)

@@ -10,8 +10,9 @@ precomputes, once in Python:
 - semidefinite cones (``S``) grouped by matrix order ``d`` as
   ``(k, d(d+1)/2)`` index maps.
 
-All three cone types are parsed; the PyTorch port computes on ``R`` cones
-only so far, and :func:`conicip_tpu_torch.conic_ip` rejects the others.
+Each R set and each group also keeps its coordinates as consecutive runs
+``(start, stop)``, so that the segment helpers take and put them with
+``narrow`` views.
 """
 
 from __future__ import annotations
@@ -54,17 +55,6 @@ def tri_indices(d: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return rows_a, cols_a, scale
 
 
-def _contig_start(idx: np.ndarray):
-    """Start offset if ``idx.ravel()`` is one consecutive run, else None."""
-    flat = idx.ravel()
-    if flat.size == 0:
-        return 0
-    start = int(flat[0])
-    if np.array_equal(flat, np.arange(start, start + flat.size, dtype=flat.dtype)):
-        return start
-    return None
-
-
 def _runs(idx: np.ndarray) -> Tuple[Tuple[int, int], ...]:
     """Maximal consecutive runs of a sorted index vector as (start, stop)."""
     if idx.size == 0:
@@ -89,7 +79,7 @@ class SocGroup:
 
     dim: int
     idx: np.ndarray = field(compare=False)  # (k, dim) coordinates into m
-    contig: "int | None" = field(default=None, compare=False)
+    runs: Tuple[Tuple[int, int], ...] = field(default=(), compare=False)
 
     @property
     def count(self) -> int:
@@ -102,7 +92,7 @@ class SdpGroup:
 
     order: int
     idx: np.ndarray = field(compare=False)  # (k, order*(order+1)/2)
-    contig: "int | None" = field(default=None, compare=False)
+    runs: Tuple[Tuple[int, int], ...] = field(default=(), compare=False)
 
     @property
     def count(self) -> int:
@@ -155,12 +145,12 @@ class ConeSpec:
         self.r_runs = _runs(self.r_idx)
         self.soc_groups = tuple(
             SocGroup(dim=d, idx=_freeze(np.stack(v)),
-                     contig=_contig_start(np.stack(v)))
+                     runs=_runs(np.concatenate(v)))
             for d, v in sorted(soc.items())
         )
         self.sdp_groups = tuple(
             SdpGroup(order=d, idx=_freeze(np.stack(v)),
-                     contig=_contig_start(np.stack(v)))
+                     runs=_runs(np.concatenate(v)))
             for d, v in sorted(sdp.items())
         )
 

@@ -1,8 +1,8 @@
 """Benchmark problem-family generators (numpy).
 
-Counterpart of ``conicip_tpu/models/generators.py`` for the R-cone
-families: same seeds, shapes and data, so both packages solve the same
-instances.
+Counterpart of ``conicip_tpu/models/generators.py`` for its eight
+single-instance families: same seeds, RNG calls, shapes and data, so both
+packages solve the same instances.
 """
 
 from __future__ import annotations
@@ -12,7 +12,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["Problem", "box_qp_dense", "box_qp_sparse"]
+from ..cones.spec import tri_dim
+
+__all__ = ["Problem", "box_qp_dense", "box_qp_sparse", "single_soc",
+           "many_small_socs", "small_sdp", "larger_sdp", "mixed_rq_eq",
+           "mixed_rqs"]
 
 
 @dataclass
@@ -49,3 +53,87 @@ def box_qp_sparse(n: int = 1000, seed: int = 42) -> Problem:
     A = np.vstack([np.eye(n), -np.eye(n)])
     b = -np.ones(2 * n)
     return Problem(f"box_qp_sparse(n={n})", Q, c, A, b, [("R", 2 * n)])
+
+
+def _vecm_identity(k: int) -> np.ndarray:
+    x = np.zeros(tri_dim(k))
+    pos = 0
+    for i in range(k):
+        x[pos] = 1.0
+        pos += k - i
+    return x
+
+
+def single_soc(n: int = 500, seed: int = 42) -> Problem:
+    """Projection onto the unit ball: one Q cone of dim n + 1."""
+    rng = np.random.default_rng(seed)
+    Q = np.eye(n)
+    c = rng.standard_normal(n)
+    A = np.vstack([np.zeros((1, n)), np.eye(n)])
+    b = np.concatenate([[-1.0], np.zeros(n)])
+    return Problem(f"single_soc(n={n})", Q, c, A, b, [("Q", n + 1)])
+
+
+def many_small_socs(n: int = 500, k: int = 250, seed: int = 42) -> Problem:
+    """k Q cones of dim 3 over a sparse random A."""
+    rng = np.random.default_rng(seed)
+    m = 3 * k
+    Q = np.eye(n)
+    c = rng.standard_normal(n)
+    A = (rng.random((m, n)) < 0.1) * rng.standard_normal((m, n))
+    b = np.zeros(m)
+    b[0::3] = -1.0
+    return Problem(
+        f"many_small_socs(k={k},n={n})", Q, c, A, b, [("Q", 3)] * k
+    )
+
+
+def small_sdp(k: int = 10, seed: int = 42) -> Problem:
+    """PSD projection of the k x k identity under the trace metric: one S
+    cone, A = I, Q = I (the spectral backend's family)."""
+    n = tri_dim(k)
+    Q = np.eye(n)
+    c = _vecm_identity(k)
+    A = np.eye(n)
+    b = np.zeros(n)
+    return Problem(f"small_sdp(k={k})", Q, c, A, b, [("S", n)])
+
+
+def larger_sdp(k: int = 30, seed: int = 42) -> Problem:
+    return small_sdp(k=k, seed=seed)
+
+
+def mixed_rq_eq(n: int = 200, seed: int = 42) -> Problem:
+    """R block plus one Q cone of dim 51 over a sparse A, with 10 dense
+    equalities: the Schur backend with its equality factor."""
+    rng = np.random.default_rng(seed)
+    n_q = 51
+    Q = np.eye(n)
+    c = rng.standard_normal(n)
+    A_r = np.eye(n)
+    A_q = (rng.random((n_q, n)) < 0.2) * rng.standard_normal((n_q, n))
+    A_q[0, :] = 0.0
+    A = np.vstack([A_r, A_q])
+    b = np.concatenate([np.zeros(n), [-1.0], np.zeros(n_q - 1)])
+    p = 10
+    G = rng.standard_normal((p, n))
+    d = G @ np.ones(n)
+    return Problem(
+        f"mixed_rq_eq(n={n},p={p})", Q, c, A, b, [("R", n), ("Q", n_q)], G, d
+    )
+
+
+def mixed_rqs(seed: int = 42) -> Problem:
+    """R(50) x Q(21) x S(5 x 5), A = I, Q = I: n = 86."""
+    n_r, n_q, k_s = 50, 21, 5
+    n_s = tri_dim(k_s)
+    n = n_r + n_q + n_s  # 86
+    rng = np.random.default_rng(seed)
+    Q = np.eye(n)
+    c = rng.standard_normal(n)
+    A = np.eye(n)
+    b = np.concatenate([np.zeros(n_r), [-1.0], np.zeros(n_q - 1), np.zeros(n_s)])
+    return Problem(
+        f"mixed_rqs(n={n})", Q, c, A, b,
+        [("R", n_r), ("Q", n_q), ("S", n_s)],
+    )

@@ -33,9 +33,11 @@ PANEL = 128
 
 
 def cholesky_plain(M: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: NaN-filled where the factorization fails."""
+    """Plain PyTorch version, batched over leading dims: each factor is
+    NaN-filled (lower triangle) where its factorization fails. It never
+    reads ``info`` back to the host."""
     L, info = torch.linalg.cholesky_ex(M)
-    return torch.where(info == 0, L, torch.nan).tril()
+    return torch.where(info[..., None, None] == 0, L, torch.nan).tril()
 
 
 def _entry(dtype):

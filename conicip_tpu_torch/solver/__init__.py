@@ -16,6 +16,7 @@ import torch
 from ..cones.spec import ConeSpec
 from ..kkt.diag import equality_mode, kktsolver_diag, separable
 from ..kkt.schur import kktsolver_schur
+from ..kkt.spectral import spectral_applicable, spectral_kktsolver
 from .ipm import IPMOptions, ipm_solve
 from .state import SolState, Solution, Status, Vec4
 
@@ -39,14 +40,17 @@ def _densify(X, dtype, device):
 
 
 def _auto_kktsolver(Q, A, G, spec):
-    """Default backend: a separable problem (diagonal Q, bound-style A,
-    R cones, and an exact equality mode) takes the diagonal Schur solver,
-    everything else the dense Schur solver. Checked on the caller's host
-    data."""
+    """Default backend, as the reference chooses it on its host data: a
+    separable problem (diagonal Q, bound-style A, R cones, and an exact
+    equality mode) takes the diagonal Schur solver; a PSD-projection
+    structure (``A = I``, ``Q = q·I``, no equalities, any cone mix) the
+    closed-form spectral solver; everything else the dense Schur solver."""
     if separable(Q, A, G, spec):
         mode = equality_mode(Q, G)
         return functools.partial(
             kktsolver_diag, eq_mode="woodbury" if mode == "none" else mode)
+    if spectral_applicable(Q, A, G, spec):
+        return spectral_kktsolver()
     return kktsolver_schur
 
 
@@ -81,26 +85,25 @@ def conic_ip(
     .. code-block:: text
 
         minimize    ½ yᵀQy − cᵀy        (note the MINUS sign on cᵀy)
-        subject to  Ay ≥_K b,  K a product of R cones, e.g. [("R", 2)]
+        subject to  Ay ≥_K b,  K given by cone_dims, e.g. [("R",2),("Q",4)]
                     Gy = d
 
-    Signature- and semantics-compatible with ``conicip_tpu.conic_ip`` on R
-    cones. Inputs may be numpy arrays, scipy.sparse matrices or tensors;
+    over any product of R, Q and S cones (``("S", d(d+1)/2)`` for a d x d
+    block, packed by :func:`~conicip_tpu_torch.cones.symm.vecm`).
+    Signature- and semantics-compatible with ``conicip_tpu.conic_ip`` on its
+    full-precision path, and it picks the same default backend. Inputs may be numpy arrays, scipy.sparse matrices or tensors;
     they are moved to ``device`` in ``dtype``, and the returned
     :class:`Solution` holds ``y``, ``w``, ``v`` as tensors there.
     ``kktsolver`` is the 3-level plugin callback (:mod:`conicip_tpu_torch.kkt`).
-    ``centralityCorrectors=None`` means 1 on the dense Schur backend and 0
-    on the diagonal backend and for user callbacks. ``warm_start`` takes a
-    previous ``Solution`` or a ``(y, w, v)`` tuple.
+    ``centralityCorrectors=None`` means 1 on the dense Schur and spectral
+    backends and 0 on the diagonal backend and for user callbacks.
+    ``warm_start`` takes a previous ``Solution`` or a ``(y, w, v)`` tuple.
 
-    Q and S cones, ``factor_dtype`` other than ``None``/``"auto"``,
+    ``factor_dtype`` other than ``None``/``"auto"``,
     ``mixedResiduals=True`` and ``eliminateEqualities=True`` are not ported
     yet and raise ``NotImplementedError``.
     """
     spec = ConeSpec(cone_dims)
-    if spec.soc_groups or spec.sdp_groups:
-        raise NotImplementedError(
-            f"Q and S cones are not ported yet ({_ROADMAP})")
     if not (factor_dtype is None or factor_dtype == "auto"):
         raise NotImplementedError(
             f"factor_dtype={factor_dtype!r} is not ported yet; the port "

@@ -1,19 +1,23 @@
 """Mehrotra predictor-corrector interior-point core.
 
 Counterpart of ``conicip_tpu/solver/ipm.py`` on its full-precision path
-(no mixed residuals, single-variant KKT generator). The JAX package runs
-the whole solve as one ``lax.while_loop``; here the iteration is a Python
-loop over device tensors that reads the status back once per iteration,
-and the refinement loop reads its stopping test once per step. Everything
-else (status, best iterate, certificates, step guards, the Gondzio
-acceptance) stays mask-based on the device, as in the reference:
+(no mixed residuals, single-variant KKT generator, no f32 or refined
+eigendecompositions), over any product of R, Q and S cones. The JAX
+package runs the whole solve as one ``lax.while_loop``; here the iteration
+is a Python loop over device tensors that reads the status back once per
+iteration, and the refinement loop reads its stopping test once per step.
+(On S cones each ``torch.linalg`` decomposition on CUDA also reads its
+``info`` back inside the call.) Everything else (status, best iterate,
+certificates, step guards, the Gondzio acceptance) stays mask-based on the
+device, as in the reference:
 
 - same initial point, residual normalizations and CVXOPT+ECOS
   infeasibility certificates,
 - best-iterate tracking (``Iter`` is the best iterate's ``k``; ``pobj`` and
   ``dobj`` always follow the latest iterate),
 - iterative refinement with its stall cutoff, fraction-to-boundary step,
-  non-finite scrubbing and optional Gondzio centrality correctors.
+  non-finite scrubbing and optional Gondzio centrality correctors,
+- the λ-frame max-steps and Lyapunov divisions when S cones are present.
 """
 
 from __future__ import annotations
@@ -204,22 +208,35 @@ def ipm_solve(
     # LEVEL-1 plugin callback: one-time setup
     solve3x3gen = kktsolver(Q, A, G, spec)
 
-    def make_solve4(lam, F, solve3x3):
-        """4x4 → 3x3 reduction."""
+    def make_solve4(lam, F, solve3x3, lam_eigs=None):
+        """4x4 → 3x3 reduction. ``lam_eigs`` gives the spectral data of
+        mat(λ) per S group for every Lyapunov division (ca.sdp_eighs)."""
 
         def solve4(r: Vec4) -> Vec4:
-            t1 = sc.apply_adjoint(spec, F, ca.cone_div(spec, r.s, lam))
+            t1 = sc.apply_adjoint(spec, F,
+                                  ca.cone_div(spec, r.s, lam, y_eigs=lam_eigs))
             dy, dw, dv = solve3x3(r.y, r.w, r.v + t1)
             ds = t1 - sc.apply_adjoint(spec, F, sc.apply(spec, F, dv))
             return Vec4(dy, dw, dv, ds)
 
         return solve4
 
+    # λ-frame for S-cone specs: by congruence invariance maxstep(z.v, d) =
+    # maxstep(λ, F d) and maxstep(z.s, d) = maxstep(λ, F⁻ᵀ d), and mat(λ)
+    # = diag(F.sdp[i].lam) is a byproduct of the scaling, so every
+    # Lyapunov division is elementwise and the two max-steps of a call site
+    # share one stacked eigenvalue call. R- and Q-only specs keep the
+    # direct frame.
+    lam_frame = bool(spec.sdp_groups)
+
+    def lam_eigs(F):
+        return tuple((sd.lam, None) for sd in F.sdp) if lam_frame else None
+
     # Initial point: one KKT solve at F = I, or the caller's warm start;
     # then shift v, s strictly inside the cone.
     if warm is None:
         Fi = sc.nt_identity(spec, dtype, dev)
-        z0 = make_solve4(e, Fi, solve3x3gen(Fi, Fi))(
+        z0 = make_solve4(e, Fi, solve3x3gen(Fi, Fi), lam_eigs(Fi))(
             Vec4(c, d, b, torch.zeros(m, dtype=dtype, device=dev)))
     else:
         z0 = warm.map(lambda x: x.to(dtype=dtype, device=dev))
@@ -244,19 +261,29 @@ def ipm_solve(
     def take_step(z, F, FinvT, lam, R: _Resid):
         r0, rleft, mu, mubar = R.r0, R.rleft, R.mu, R.mubar
 
+        eigs = lam_eigs(F)
+
         def steps(dv, ds):
+            # direct frame: the max-steps of z.v along dv and z.s along ds
             return torch.minimum(
                 torch.clamp(ca.maxstep(spec, z.v, dv), max=1.0),
                 torch.clamp(ca.maxstep(spec, z.s, ds), max=1.0))
 
+        def steps2(Fdv, FiTds):
+            # λ-frame: the same steps from the scaled directions F dv, F⁻ᵀ ds
+            av, as_ = ca.maxstep_multi(spec, lam, (Fdv, FiTds), eigs)
+            return torch.minimum(torch.clamp(av, max=1.0),
+                                 torch.clamp(as_, max=1.0))
+
         # LEVEL-2 plugin callback: per-iteration numeric refactorization
-        solve4 = make_solve4(lam, F, solve3x3gen(F, FinvT))
+        solve4 = make_solve4(lam, F, solve3x3gen(F, FinvT), eigs)
 
         # predictor
         d_aff = solve4(r0)
         FiTds = sc.apply(spec, FinvT, d_aff.s)
         Fdv = sc.apply(spec, F, d_aff.v)
-        a_aff = steps(d_aff.v, d_aff.s)
+        a_aff = (steps2(Fdv, FiTds) if lam_frame
+                 else steps(d_aff.v, d_aff.s))
         rho = fts(z.v, a_aff, d_aff.v, z.s, a_aff, d_aff.s) / mubar
         sigma = torch.clamp(rho, 0.0, 1.0) ** 3
 
@@ -293,7 +320,11 @@ def ipm_solve(
         # step with fraction-to-boundary; a non-finite direction freezes
         # the iterate instead of corrupting it
         inv_dtb = 1.0 / (1.0 - opts.DTB)
-        alpha = steps(dz.v * inv_dtb, dz.s * inv_dtb)
+        if lam_frame:
+            alpha = steps2(sc.apply(spec, F, dz.v) * inv_dtb,
+                           sc.apply(spec, FinvT, dz.s) * inv_dtb)
+        else:
+            alpha = steps(dz.v * inv_dtb, dz.s * inv_dtb)
         dz_ok = _all_finite(dz.y, dz.v, dz.s, *((dz.w,) if p else ()))
         alpha = torch.where(dz_ok & torch.isfinite(alpha), alpha, 0.0)
         dz = dz.map(lambda u: torch.where(dz_ok, u, torch.zeros_like(u)))
@@ -311,7 +342,11 @@ def ipm_solve(
             zero = torch.zeros_like
             ddz = solve4(Vec4(zero(dz.y), zero(dz.w), zero(dz.v), -q))
             dz_c = dz + ddz
-            a_c = steps(dz_c.v * inv_dtb, dz_c.s * inv_dtb)
+            if lam_frame:
+                a_c = steps2((Fdv + sc.apply(spec, F, ddz.v)) * inv_dtb,
+                             (FiTds_c + sc.apply(spec, FinvT, ddz.s)) * inv_dtb)
+            else:
+                a_c = steps(dz_c.v * inv_dtb, dz_c.s * inv_dtb)
             fin = _all_finite(ddz.y, ddz.v, ddz.s, a_c)
             accept = active & fin & (a_c >= alpha + 0.1 * (atil - alpha))
             dz = Vec4(*(torch.where(accept, new, old)

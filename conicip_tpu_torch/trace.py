@@ -1,11 +1,14 @@
 """Where one solve's device time goes: a profiler trace of ``conic_ip``.
 
-    python -m conicip_tpu_torch.trace [--n 4096] [--seed 42]
+    python -m conicip_tpu_torch.trace [--family box_qp_dense] [--n 4096]
+                                      [--seed 42]
 
-Solves ``box_qp_dense(n)`` (Schur backend, a Cholesky every iteration) from
-inputs already on the card, once to warm up and once under
-``torch.profiler``, and prints one line each for: the solve (wall time,
-device busy time as the union of kernel and copy intervals, iterations),
+Solves one instance of a problem family (``--n`` sizes ``box_qp_dense`` and
+``single_soc``; the other families take their default sizes) from inputs
+already on the card, once to warm up and once under ``torch.profiler``, and
+prints one line each for: the solve (wall time, device busy time as the
+union of kernel and copy intervals, iterations, kernel launches and
+elementwise launches per iteration, device-to-host copies per iteration),
 the Cholesky kernel split into its diagonal-block, panel and trailing
 kernels, and the other device operations by total time. It needs a CUDA
 device and fails without one.
@@ -24,7 +27,16 @@ from collections import defaultdict
 import torch
 
 from . import conic_ip
-from .models import box_qp_dense
+from . import models
+
+# problem families, made at size n where they take one
+FAMILIES = {
+    "box_qp_dense": lambda n, seed: models.box_qp_dense(n=n, seed=seed),
+    "single_soc": lambda n, seed: models.single_soc(n=n, seed=seed),
+    "many_small_socs": lambda n, seed: models.many_small_socs(seed=seed),
+    "larger_sdp": lambda n, seed: models.larger_sdp(seed=seed),
+    "mixed_rqs": lambda n, seed: models.mixed_rqs(seed=seed),
+}
 
 # the Cholesky kernel's parts, by kernel name (csrc/cholesky.cu)
 CHOLESKY_PARTS = ("copy_lower", "factor_diag", "panel_product",
@@ -51,6 +63,7 @@ def _kernel_name(name):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--family", choices=sorted(FAMILIES), default="box_qp_dense")
     ap.add_argument("--n", type=int, default=4096)
     ap.add_argument("--seed", type=int, default=42)
     args = ap.parse_args(argv)
@@ -59,16 +72,17 @@ def main(argv=None):
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    Q, c, A, b, cones, G, d = box_qp_dense(n=args.n, seed=args.seed).args()
+    P = FAMILIES[args.family](args.n, args.seed)
     dev = torch.device("cuda")
-    Q, c, A, b = (torch.as_tensor(x, dtype=torch.float64, device=dev)
-                  for x in (Q, c, A, b))
-    conic_ip(Q, c, A, b, cones, G, d, device=dev)  # warm-up: builds the kernel
+    Q, c, A, b, G, d = (None if x is None else
+                        torch.as_tensor(x, dtype=torch.float64, device=dev)
+                        for x in (P.Q, P.c, P.A, P.b, P.G, P.d))
+    conic_ip(Q, c, A, b, P.cone_dims, G, d, device=dev)  # warm-up, builds
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        sol = conic_ip(Q, c, A, b, cones, G, d, device=dev)
+        sol = conic_ip(Q, c, A, b, P.cone_dims, G, d, device=dev)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     with tempfile.TemporaryDirectory() as tmp:
@@ -83,10 +97,17 @@ def main(argv=None):
         key = _kernel_name(e["name"]) if e["cat"] == "kernel" else e["name"]
         by_name[key][0] += e["dur"]
         by_name[key][1] += 1
-    chol = [e for e in device if _kernel_name(e["name"]) in CHOLESKY_PARTS]
-    print(f"[solve] n={args.n} status={sol.status} Iter={sol.Iter} "
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    elementwise = sum(1 for e in kernels if "elementwise" in e["name"])
+    dtoh = sum(1 for e in device if "DtoH" in e["name"])
+    it = max(sol.Iter, 1)
+    print(f"[solve] family={P.name} status={sol.status} Iter={sol.Iter} "
           f"wall_ms={wall_ms:.2f} device_busy_ms={_busy_us(device) / 1e3:.2f} "
+          f"kernels_per_iter={len(kernels) / it:.1f} "
+          f"elementwise_per_iter={elementwise / it:.1f} "
+          f"dtoh_per_iter={dtoh / it:.1f} "
           f"device={torch.cuda.get_device_name(0)!r}")
+    chol = [e for e in device if _kernel_name(e["name"]) in CHOLESKY_PARTS]
     print(f"[cholesky] busy_ms={_busy_us(chol) / 1e3:.2f} " + " ".join(
         f"{p}_ms={by_name[p][0] / 1e3:.2f}/{by_name[p][1]}"
         for p in CHOLESKY_PARTS))

@@ -1,8 +1,13 @@
 """The port's cone layer (conicip_tpu_torch.cones) against conicip_tpu.cones.
 
 Inputs are made with numpy from a seed and fed to both packages on the CPU
-in f64. Each R-cone operation must agree elementwise at 1e-12 and satisfy
-the identities that tests/test_cones.py checks for the JAX package.
+in f64. Each operation must agree elementwise at 1e-12 and satisfy the
+identities that tests/test_cones.py checks for the JAX package, on R specs,
+on the interleaved MIXED spec and on pure Q and pure S specs. Where an S
+cone goes through an eigen- or singular-value decomposition the two
+packages call different LAPACK builds, which round differently: those
+results agree at 1e-10 relative, and the f32 eigenvalues of the λ-frame
+max-step at 1e-5.
 """
 
 import jax.numpy as jnp
@@ -14,9 +19,11 @@ import conicip_tpu.cones as jc
 from conicip_tpu.cones import algebra as jalg
 from conicip_tpu.cones import scaling as jsc
 from conicip_tpu.cones import segment as jseg
+from conicip_tpu.cones import symm as jsymm
 from conicip_tpu_torch.cones import algebra as talg
 from conicip_tpu_torch.cones import scaling as tsc
 from conicip_tpu_torch.cones import segment as tseg
+from conicip_tpu_torch.cones import symm as tsymm
 from conicip_tpu_torch.cones.spec import ConeSpec, tri_dim, tri_indices, tri_order
 
 torch.set_num_threads(1)
@@ -26,7 +33,7 @@ SPECS = [
     [("R", 3), ("R", 4)],
     [("R", 0)],
 ]
-# parsed only: the port computes on R cones
+# interleaved orders: every group is several runs
 MIXED = [("R", 4), ("Q", 3), ("Q", 5), ("Q", 3), ("S", tri_dim(3)), ("R", 2)]
 TOL = dict(rtol=1e-12, atol=1e-12)
 
@@ -51,9 +58,13 @@ def test_spec_matches_jax(dims):
     np.testing.assert_array_equal(ts.r_idx, js.r_idx)
     assert ts.r_runs == js.r_runs
     np.testing.assert_array_equal(ts.identity, js.identity)
-    assert [(g.dim, g.contig) for g in ts.soc_groups] == [
+    # the reference's ``contig`` (start of a single run, else None) from runs
+    def contig(g):
+        return g.runs[0][0] if len(g.runs) == 1 else None
+
+    assert [(g.dim, contig(g)) for g in ts.soc_groups] == [
         (g.dim, g.contig) for g in js.soc_groups]
-    assert [(g.order, g.contig) for g in ts.sdp_groups] == [
+    assert [(g.order, contig(g)) for g in ts.sdp_groups] == [
         (g.order, g.contig) for g in js.sdp_groups]
     for a, b in zip(ts.soc_groups + ts.sdp_groups,
                     js.soc_groups + js.sdp_groups):
@@ -189,12 +200,257 @@ def test_maxstep_boundary_consistency(rng):
     assert float(talg.maxstep_to_cone(ts, t(xa))) < 0.0
 
 
-def test_q_and_s_cones_are_rejected():
-    spec = ConeSpec(MIXED)
-    x = torch.ones(spec.m, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        tsc.nt_scaling(spec, x, x)
-    with pytest.raises(NotImplementedError):
-        talg.cone_prod(spec, x, x)
-    with pytest.raises(NotImplementedError):
-        talg.maxstep(spec, x, x)
+
+
+CONIC = [MIXED, [("Q", 4), ("Q", 2), ("Q", 4)],
+         [("S", tri_dim(2)), ("S", tri_dim(4)), ("S", tri_dim(2))]]
+DECOMP = dict(rtol=1e-10, atol=1e-12)
+
+
+def cone_interior(rng, spec):
+    """A strictly interior point of every cone block."""
+    x = np.zeros(spec.m)
+    x[spec.r_idx] = rng.uniform(0.5, 2.0, spec.nr)
+    for g in spec.soc_groups:
+        tail = 0.3 * rng.standard_normal((g.count, g.dim - 1))
+        head = np.linalg.norm(tail, axis=1) + rng.uniform(0.5, 1.5, g.count)
+        x[g.idx] = np.concatenate([head[:, None], tail], axis=1)
+    for g in spec.sdp_groups:
+        d = g.order
+        B = rng.standard_normal((g.count, d, d))
+        rows, cols, scale = tri_indices(d)
+        x[g.idx] = (B @ B.transpose(0, 2, 1) / d + np.eye(d))[:, rows, cols] * scale
+    return x
+
+
+def sym(rng, *shape):
+    B = rng.standard_normal(shape)
+    return B + np.swapaxes(B, -1, -2)
+
+
+@pytest.mark.parametrize("d", [1, 3, 5])
+def test_symm_matches_jax(d, rng):
+    X, Y = sym(rng, 2, 3, d, d), sym(rng, 2, 3, d, d)
+    vx = tsymm.vecm(t(X))
+    np.testing.assert_allclose(vx.numpy(), np.asarray(jsymm.vecm(j(X))), **TOL)
+    np.testing.assert_allclose(tsymm.mat(vx).numpy(), X, **TOL)
+    x = rng.standard_normal((4, tri_dim(d)))
+    np.testing.assert_allclose(tsymm.mat(t(x)).numpy(),
+                               np.asarray(jsymm.mat(j(x))), **TOL)
+    # vecm(X)·vecm(Y) = tr(XY)
+    np.testing.assert_allclose(
+        torch.sum(vx * tsymm.vecm(t(Y)), dim=-1).numpy(),
+        np.trace(X @ Y, axis1=-2, axis2=-1), rtol=1e-12)
+
+
+@pytest.mark.parametrize("dims", CONIC)
+def test_group_segments_match_jax(dims, rng):
+    ts, js = ConeSpec(dims), jc.ConeSpec(dims)
+    x = rng.standard_normal(ts.m)
+    X = rng.standard_normal((ts.m, 3))
+    for g, gj in zip(ts.soc_groups + ts.sdp_groups,
+                     js.soc_groups + js.sdp_groups):
+        np.testing.assert_array_equal(tseg.take_group(g, t(x)).numpy(),
+                                      np.asarray(jseg.take_group(gj, j(x))))
+        np.testing.assert_array_equal(
+            tseg.take_rows_group(g, t(X)).numpy(),
+            np.asarray(jseg.take_rows_group(gj, j(X))))
+        val = rng.standard_normal(gj.idx.shape)
+        VAL = rng.standard_normal(gj.idx.shape + (3,))
+        np.testing.assert_array_equal(
+            tseg.put_group(g, t(x), t(val)).numpy(),
+            np.asarray(jseg.put_group(gj, j(x), j(val))))
+        np.testing.assert_array_equal(
+            tseg.put_rows_group(g, t(X), t(VAL)).numpy(),
+            np.asarray(jseg.put_rows_group(gj, j(X), j(VAL))))
+
+
+@pytest.mark.parametrize("dims", CONIC)
+def test_conic_algebra_matches_jax(dims, rng):
+    ts, js = ConeSpec(dims), jc.ConeSpec(dims)
+    x, y = cone_interior(rng, ts), cone_interior(rng, ts)
+    d = rng.standard_normal(ts.m)
+    p = talg.cone_prod(ts, t(x), t(y))
+    np.testing.assert_allclose(p.numpy(), np.asarray(jalg.cone_prod(js, j(x), j(y))),
+                               **TOL)
+    np.testing.assert_allclose(talg.cone_div(ts, t(x), t(y)).numpy(),
+                               np.asarray(jalg.cone_div(js, j(x), j(y))), **DECOMP)
+    # round trip y ∘ (p ÷ y) = p ÷ y ∘ y = x, and the identity element
+    np.testing.assert_allclose(talg.cone_div(ts, p, t(y)).numpy(), x, atol=1e-10)
+    # e ∘ x = x on R and Q; the S product XY + YX gives 2x there
+    e = torch.from_numpy(ts.identity.copy())
+    ex = x.copy()
+    for g in ts.sdp_groups:
+        ex[g.idx] *= 2.0
+    np.testing.assert_allclose(talg.cone_prod(ts, e, t(x)).numpy(), ex, **TOL)
+    for v in (x, d):
+        assert float(talg.maxstep(ts, t(x), t(v))) == pytest.approx(
+            float(jalg.maxstep(js, j(x), j(v))), rel=1e-10)
+        assert float(talg.maxstep_to_cone(ts, t(v))) == pytest.approx(
+            float(jalg.maxstep_to_cone(js, j(v))), rel=1e-10)
+    assert float(talg.maxstep_to_cone(ts, t(x))) == 0.0
+    w = talg.cone_prod(ts, t(x), t(d))
+    np.testing.assert_allclose(
+        talg.centrality_correction(ts, w, 0.5, 1.5).numpy(),
+        np.asarray(jalg.centrality_correction(js, j(w.numpy()), 0.5, 1.5)),
+        **DECOMP)
+
+
+def test_maxstep_lands_on_the_boundary(rng):
+    ts = ConeSpec(MIXED)
+    x = cone_interior(rng, ts)
+    d = rng.standard_normal(ts.m)
+    a = float(talg.maxstep(ts, t(x), t(d)))
+    assert 0 < a < np.inf
+    assert float(talg.maxstep_to_cone(ts, t(x - a * (1 - 1e-9) * d))) == 0.0
+    assert float(talg.maxstep_to_cone(ts, t(x - a * (1 + 1e-6) * d))) < 0.0
+
+
+def test_lyap_solve_matches_jax(rng):
+    k, d = 3, 4
+    B = rng.standard_normal((k, d, d))
+    Y = B @ B.transpose(0, 2, 1) + np.eye(d)
+    X = sym(rng, k, d, d)
+    O = talg.lyap_solve(t(Y), t(X)).numpy()
+    np.testing.assert_allclose(O, np.asarray(jalg.lyap_solve(j(Y), j(X))),
+                               **DECOMP)
+    np.testing.assert_allclose(Y @ O + O @ Y, X, atol=1e-12)
+    # the diagonal case (U = None) of the λ-frame, and given factors
+    w = rng.uniform(0.5, 2.0, (k, d))
+    Od = talg.lyap_solve(None, t(X), (t(w), None)).numpy()
+    np.testing.assert_allclose(
+        Od, np.asarray(jalg.lyap_solve(None, j(X), y_eig=(j(w), None))), **TOL)
+    D = np.apply_along_axis(np.diag, -1, w)
+    np.testing.assert_allclose(D @ Od + Od @ D, X, atol=1e-12)
+    wY, UY = np.linalg.eigh(Y)
+    np.testing.assert_allclose(talg.lyap_solve(None, t(X), (t(wY), t(UY))).numpy(),
+                               O, atol=1e-10)
+
+
+@pytest.mark.parametrize("dims", CONIC)
+def test_conic_scaling_matches_jax(dims, rng):
+    ts, js = ConeSpec(dims), jc.ConeSpec(dims)
+    z, s = cone_interior(rng, ts), cone_interior(rng, ts)
+    F, Fj = tsc.nt_scaling(ts, t(z), t(s)), jsc.nt_scaling(js, j(z), j(s))
+    FiT, FiTj = tsc.nt_inv_adjoint(ts, F), jsc.nt_inv_adjoint(js, Fj)
+    np.testing.assert_allclose(F.r_d.numpy(), np.asarray(Fj.r_d), **TOL)
+    for G, Gj in ((F, Fj), (FiT, FiTj)):
+        for a, b in zip(G.soc, Gj.soc):
+            for f in ("d", "u", "alpha"):
+                np.testing.assert_allclose(getattr(a, f).numpy(),
+                                           np.asarray(getattr(b, f)), **TOL)
+        for a, b in zip(G.sdp, Gj.sdp):
+            # S is fixed up to the signs of the singular vectors; the scaled
+            # point's spectrum and P = S Sᵀ are not
+            np.testing.assert_allclose(a.lam.numpy(), np.asarray(b.lam), **DECOMP)
+            P, Pj = a.S @ a.S.mT, np.asarray(b.S @ jnp.swapaxes(b.S, -1, -2))
+            np.testing.assert_allclose(P.numpy(), Pj, **DECOMP)
+            np.testing.assert_allclose((a.S @ a.Sinv).numpy(),
+                                       np.broadcast_to(np.eye(a.S.shape[-1]),
+                                                       a.S.shape), atol=1e-12)
+    np.testing.assert_allclose(tsc.dense_gram(ts, F).numpy(),
+                               np.asarray(jsc.dense_gram(js, Fj)), **DECOMP)
+    F32 = tsc.cast(F, torch.float32)
+    assert all(f.dtype == torch.float32 for blk in F32.soc + F32.sdp
+               for f in vars(blk).values())
+
+
+@pytest.mark.parametrize("dims", CONIC)
+def test_nt_property_and_applies(dims, rng):
+    ts = ConeSpec(dims)
+    z, s = cone_interior(rng, ts), cone_interior(rng, ts)
+    x, y = rng.standard_normal(ts.m), rng.standard_normal(ts.m)
+    F = tsc.nt_scaling(ts, t(z), t(s))
+    FiT = tsc.nt_inv_adjoint(ts, F)
+    # F z = F⁻ᵀ s = λ, λ interior, and mat(λ) = diag(lam) on S blocks
+    lam = tsc.apply(ts, F, t(z))
+    np.testing.assert_allclose(lam.numpy(), tsc.apply(ts, FiT, t(s)).numpy(),
+                               atol=1e-12)
+    assert float(talg.maxstep_to_cone(ts, lam)) == 0.0
+    for g, sd in zip(ts.sdp_groups, F.sdp):
+        np.testing.assert_allclose(
+            tsymm.mat(tseg.take_group(g, lam)).numpy(),
+            torch.diag_embed(sd.lam).numpy(), atol=1e-12)
+    # the adjoint, and F⁻ᵀ as the inverse transpose
+    Fx = tsc.apply(ts, F, t(x))
+    np.testing.assert_allclose(float(Fx @ t(y)),
+                               float(t(x) @ tsc.apply_adjoint(ts, F, t(y))),
+                               rtol=1e-12)
+    np.testing.assert_allclose(tsc.apply_adjoint(ts, FiT, Fx).numpy(), x,
+                               atol=1e-12)
+    # apply_mat is the columnwise apply; FᵀF column by column is dense_gram
+    X = rng.standard_normal((ts.m, 5))
+    for mat_fn, vec_fn in ((tsc.apply_mat, tsc.apply),
+                           (tsc.apply_adjoint_mat, tsc.apply_adjoint)):
+        cols = torch.stack([vec_fn(ts, F, t(X[:, i])) for i in range(5)], 1)
+        np.testing.assert_allclose(mat_fn(ts, F, t(X)).numpy(), cols.numpy(),
+                                   atol=1e-12)
+    I = torch.eye(ts.m, dtype=torch.float64)
+    FtF = tsc.apply_adjoint_mat(ts, F, tsc.apply_mat(ts, F, I))
+    np.testing.assert_allclose(tsc.dense_gram(ts, F).numpy(), FtF.numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dims", CONIC)
+def test_maxstep_multi_matches_jax_and_the_direct_frame(dims, rng):
+    ts, js = ConeSpec(dims), jc.ConeSpec(dims)
+    z, s = cone_interior(rng, ts), cone_interior(rng, ts)
+    dv, ds = rng.standard_normal(ts.m), rng.standard_normal(ts.m)
+    F = tsc.nt_scaling(ts, t(z), t(s))
+    FiT = tsc.nt_inv_adjoint(ts, F)
+    lam = tsc.apply(ts, F, t(z))
+    Fdv, FiTds = tsc.apply(ts, F, t(dv)), tsc.apply(ts, FiT, t(ds))
+    eigs = tuple((sd.lam, None) for sd in F.sdp)
+    got = talg.maxstep_multi(ts, lam, (Fdv, FiTds), eigs)
+    # congruence invariance: maxstep(z, dv) = maxstep(λ, F dv), and
+    # maxstep(s, ds) = maxstep(λ, F⁻ᵀ ds)
+    direct = (talg.maxstep(ts, t(z), t(dv)), talg.maxstep(ts, t(s), t(ds)))
+    ref = jalg.maxstep_multi(
+        js, j(lam.numpy()), (j(Fdv.numpy()), j(FiTds.numpy())),
+        x_eigs=tuple((j(sd.lam.numpy()), None) for sd in F.sdp))
+    ref_full = jalg.maxstep_multi(js, j(z), (j(dv),))
+    for a, b, c in zip(got, direct, ref):
+        assert float(a) == pytest.approx(float(b), rel=1e-5)
+        assert float(a) == pytest.approx(float(c), rel=1e-5)
+    assert float(talg.maxstep_multi(ts, t(z), (t(dv),))[0]) == pytest.approx(
+        float(ref_full[0]), rel=1e-5)
+    if not ts.sdp_groups:  # no f32 eigenvalues: exact
+        assert [float(a) for a in got] == pytest.approx(
+            [float(b) for b in direct], rel=1e-12)
+    eig_t = talg.sdp_eighs(ts, t(z))
+    eig_j = jalg.sdp_eighs(js, j(z))
+    for (w, _), (wj, _) in zip(eig_t, eig_j):
+        np.testing.assert_allclose(w.numpy(), np.asarray(wj), **DECOMP)
+
+
+def test_bad_points_give_nan_not_exceptions(rng):
+    # an indefinite mat(z): NaN factors for that cone, finite elsewhere
+    ts = ConeSpec([("S", tri_dim(3)), ("S", tri_dim(3)), ("Q", 3)])
+    z, s = cone_interior(rng, ts), cone_interior(rng, ts)
+    z[0] = -5.0  # first S cone: a negative diagonal entry
+    F = tsc.nt_scaling(ts, t(z), t(s))
+    sd = F.sdp[0]
+    for f in (sd.S, sd.Sinv, sd.lam):
+        assert torch.isnan(f[0]).all() and torch.isfinite(f[1]).all()
+    assert torch.isfinite(F.soc[0].u).all()
+    # non-finite input reaches every decomposition without raising
+    x = t(z)
+    x[1] = float("nan")  # first S cone
+    x[13] = float("inf")  # the Q cone
+    assert torch.isnan(talg.maxstep_to_cone(ts, x))
+    assert torch.isnan(talg.cone_div(ts, t(s), x)[:6]).all()
+    assert torch.isnan(talg.centrality_correction(ts, x, 0.1, 1.0)[:6]).all()
+    w, U = talg.sdp_eighs(ts, x)[0]
+    assert torch.isnan(w[0]).all() and torch.isfinite(w[1]).all()
+    # as in the reference, a cone whose mat(x) is not PD (NaN included)
+    # allows any step, and a non-finite Q cone makes the step NaN
+    js = jc.ConeSpec(ts.cone_dims)
+    x_s_only = t(z)
+    x_s_only[1] = float("nan")
+    for xx in (x, x_s_only):
+        for a, b in ((talg.maxstep(ts, xx, t(s)),
+                      jalg.maxstep(js, j(xx), j(s))),
+                     (talg.maxstep_multi(ts, xx, (t(s),))[0],
+                      jalg.maxstep_multi(js, j(xx), (j(s),))[0])):
+            assert float(a) == pytest.approx(float(b), rel=1e-12, nan_ok=True)
+    assert np.isfinite(float(talg.maxstep(ts, x_s_only, t(s))))

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from conicip_tpu_torch import conic_ip
-from conicip_tpu_torch.models import box_qp_dense
+from conicip_tpu_torch.models import box_qp_dense, single_soc, small_sdp
 from conicip_tpu_torch.ops import cholesky_kernel
 
 pytestmark = pytest.mark.cuda
@@ -104,4 +104,19 @@ def test_conic_ip_on_card_matches_cpu(cuda):
     # the cold-start factor plus one per step; no step at the last k
     assert used >= sol.Iter
     assert sol.y.device.type == "cuda"
+    assert (sol.y.cpu() - ref.y).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("family", ["single_soc", "small_sdp"])
+def test_conic_families_on_card_match_cpu(cuda, family):
+    # single_soc takes the Schur backend (the kernel every iteration),
+    # small_sdp the spectral backend (no factorization at all)
+    P = single_soc(n=200) if family == "single_soc" else small_sdp(k=10)
+    before = cholesky_kernel.cholesky_launches
+    sol = conic_ip(*P.args(), device=cuda)
+    used = cholesky_kernel.cholesky_launches - before
+    ref = conic_ip(*P.args(), device="cpu")
+    assert sol.status == ref.status == "Optimal"
+    assert sol.Iter == ref.Iter
+    assert (used >= sol.Iter) if family == "single_soc" else (used == 0)
     assert (sol.y.cpu() - ref.y).abs().max().item() <= 1e-6

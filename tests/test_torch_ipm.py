@@ -211,9 +211,6 @@ def test_problem_from_numpy_round_trip():
 
 def test_not_ported_options_raise():
     H, c, A, b, cones = box(5)
-    with pytest.raises(NotImplementedError):
-        pt.conic_ip(np.eye(3), np.ones(3), np.eye(3), np.zeros(3), [("Q", 3)],
-                    device="cpu")
     for kw in (dict(factor_dtype=torch.float32), dict(mixedResiduals=True),
                dict(eliminateEqualities=True)):
         with pytest.raises(NotImplementedError):

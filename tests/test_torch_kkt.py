@@ -1,9 +1,10 @@
 """The port's KKT solvers (conicip_tpu_torch.kkt) against conicip_tpu.kkt.
 
 One ``solve3x3gen(F, FinvT)`` solve through the dense Schur backend (with
-and without equalities) and through the diagonal backend in its three
-equality modes, from the same numpy data on the CPU in f64, must agree
-with the JAX package at 1e-9 and solve the 3x3 KKT system.
+and without equalities), through the diagonal backend in its three
+equality modes and through the spectral backend on R, Q and S cones, from
+the same numpy data on the CPU in f64, must agree with the JAX package at
+1e-9 and solve the 3x3 KKT system.
 """
 
 import functools
@@ -16,12 +17,18 @@ import torch
 import conicip_tpu.cones as jc
 import conicip_tpu.kkt as jk
 from conicip_tpu.kkt.diag import equality_mode as jax_equality_mode
+from conicip_tpu.kkt.spectral import kktsolver_spectral as jax_spectral
+from conicip_tpu.kkt.spectral import spectral_applicable as jax_applicable
 from conicip_tpu_torch.cones import scaling as tsc
 from conicip_tpu_torch.cones.spec import ConeSpec
 from conicip_tpu_torch.kkt import (kktsolver_diag, kktsolver_schur, pivot,
                                    separable)
 from conicip_tpu_torch.kkt.diag import equality_mode
+from conicip_tpu_torch.kkt.spectral import (kktsolver_spectral,
+                                            spectral_applicable,
+                                            spectral_kktsolver)
 from conicip_tpu_torch.ops.control import retry_while
+from test_torch_cones import cone_interior
 
 torch.set_num_threads(1)
 
@@ -190,3 +197,64 @@ def test_schur_ridge_retry_recovers_from_failed_factor(rng, monkeypatch):
     Q, A, G = dense_problem(rng, 0)
     solve_both(Q, A, G, jk.kktsolver_schur, kktsolver_schur, rng)
     assert len(calls) == 2
+
+
+@pytest.mark.parametrize("cones, q", [
+    ([("S", 15)], 0.0), ([("S", 15)], 1.0), ([("S", 15)], 2.5),
+    ([("R", 6), ("Q", 5), ("S", 10)], 0.7),
+    ([("R", 6), ("Q", 5), ("S", 10)], 1.0),
+    ([("Q", 3), ("R", 2), ("Q", 3), ("S", 3), ("S", 3)], 1.3),
+])
+def test_spectral_satisfies_kkt_equations_and_matches_jax(cones, q, rng):
+    # the 3x3 contract with A = I, G empty, Q = qI: q a − c = x and
+    # a + FᵀF c = z
+    spec, js = ConeSpec(cones), jc.ConeSpec(cones)
+    n = spec.m
+    z_v, z_s = cone_interior(rng, spec), cone_interior(rng, spec)
+    x, z = rng.standard_normal(n), rng.standard_normal(n)
+    F = tsc.nt_scaling(spec, t(z_v), t(z_s))
+    solve = kktsolver_spectral(t(q * np.eye(n)), t(np.eye(n)),
+                               t(np.zeros((0, n))), spec)(
+        F, tsc.nt_inv_adjoint(spec, F))
+    a, b, c = solve(t(x), t(np.zeros(0)), t(z))
+    assert b.shape == (0,)
+    np.testing.assert_allclose((q * a - c).numpy(), x, atol=1e-9)
+    FtFc = tsc.apply_adjoint(spec, F, tsc.apply(spec, F, c))
+    np.testing.assert_allclose((a + FtFc).numpy(), z, atol=1e-8)
+    Fj = jc.nt_scaling(js, jnp.asarray(z_v), jnp.asarray(z_s))
+    ref = jax_spectral(q * jnp.eye(n), jnp.eye(n), jnp.zeros((0, n)), js)(
+        Fj, jc.nt_inv_adjoint(js, Fj))(jnp.asarray(x), jnp.zeros(0),
+                                       jnp.asarray(z))
+    for u, r in zip((a, c), (ref[0], ref[2])):
+        np.testing.assert_allclose(u.numpy(), np.asarray(r), rtol=1e-9,
+                                   atol=1e-9)
+
+
+def test_spectral_applicable_matches_jax():
+    n = 10  # one 4 x 4 S cone
+    I = np.eye(n)
+    Q2, A2 = I.copy(), I.copy()
+    Q2[0, 0], A2[0, 1] = 3.0, 0.5
+    S = [("S", n)]
+    cases = [
+        (2.5 * I, I, None, S, True),
+        (np.broadcast_to(I, (3, n, n)), np.broadcast_to(I, (3, n, n)), None,
+         S, True),
+        (I, A2, None, S, False),  # A is not I
+        (Q2, I, None, S, False),  # Q is not qI
+        (I, I, np.ones((1, n)), S, False),  # equalities
+        (np.eye(n + 2), np.eye(n + 2), None, [("R", 2), ("S", n)], True),
+        # Q cones need q > 0
+        (np.zeros((n + 3, n + 3)), np.eye(n + 3), None, [("Q", 3), ("S", n)],
+         False),
+        (I, np.vstack([np.zeros((1, n)), I])[:, :n], None, [("Q", n)], False),
+    ]
+    for Q, A, G, cones, want in cases:
+        assert spectral_applicable(Q, A, G, ConeSpec(cones)) is want
+        assert jax_applicable(Q, A, G, jc.ConeSpec(cones)) is want
+        assert spectral_applicable(t(Q), t(A), None if G is None else t(G),
+                                   ConeSpec(cones)) is want
+    assert spectral_kktsolver() is spectral_kktsolver(None)
+    with pytest.raises(NotImplementedError):
+        spectral_kktsolver("refined")(t(I), t(I), t(np.zeros((0, n))),
+                                      ConeSpec(S))

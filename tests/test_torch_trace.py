@@ -38,3 +38,14 @@ def test_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the profile would run")
     assert trace.main(["--n", "8"]) == 2
+    assert trace.main(["--family", "larger_sdp"]) == 2
+
+
+def test_families_make_their_problems():
+    assert sorted(trace.FAMILIES) == ["box_qp_dense", "larger_sdp",
+                                      "many_small_socs", "mixed_rqs",
+                                      "single_soc"]
+    P = trace.FAMILIES["single_soc"](8, 42)
+    assert P.name == "single_soc(n=8)" and P.cone_dims == [("Q", 9)]
+    assert trace.FAMILIES["box_qp_dense"](8, 42).A.shape == (16, 8)
+    assert trace.FAMILIES["larger_sdp"](8, 42).cone_dims == [("S", 465)]
