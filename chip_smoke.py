@@ -6,7 +6,11 @@ Builds the port's CUDA kernel from this checkout, holds it against its
 plain PyTorch version, then drives ``conicip_tpu_torch.conic_ip`` through
 every default KKT backend (dense Schur, diagonal, spectral) on R, Q and S
 cone problems at the sizes the repository benchmarks, and checks the
-answers. Every phase prints one line per case; any failed check raises, so
+answers. Three further phases drive the options around the default path:
+``[f32]`` the f32-factor solves (the kernel's f32 entry, the last-mile
+switch to f64 factors), ``[eq]`` null-space elimination of equalities and
+the rank-repairing preprocessor, ``[backends]`` the qr, lu and low-rank KKT
+solvers. Every phase prints one line per case; any failed check raises, so
 the script exits non-zero. It imports nothing of JAX.
 
 The second-to-last line is a JSON object describing each kernel of the
@@ -35,6 +39,24 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # ill-conditioned SPD per dtype: condition number, and the bound on
 # |LL' - M| / |M| (rounding of a backward-stable factor at n = 500)
 ILL = {torch.float64: (1e12, 1e-13), torch.float32: (1e5, 1e-5)}
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+# 3.35 TB/s; 67 TFLOP/s in f64 on the tensor cores, which the kernel's f64
+# products use, and 67 TFLOP/s in f32 outside them (the f32 entry keeps
+# full f32, no TF32).
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
+# the f32 solves must land this close to the f64 solution, relative to
+# max(1, |y|_inf): both end at optTol = 1e-6, on differently rounded paths
+F32_Y_TOL = 1e-5
+
+
+def cholesky_bound_ms(n, dtype):
+    """Least time the card could take for one order-n factor: n^3/3
+    operations at the peak rate of the dtype against the matrix read once
+    and the factor written once at the memory rate. Returns (ms, which)."""
+    ops = (n ** 3 / 3.0) / PEAK_FLOPS[dtype]
+    moved = 2.0 * n * n * torch.finfo(dtype).bits / 8 / PEAK_BYTES
+    return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
 
 
 def check(ok, what):
@@ -166,20 +188,27 @@ def phase_kernel():
             M = M64.to(dt).contiguous()
             ms = cuda_ms(lambda: cholesky_factor(M), reps)
             plain = cuda_ms(lambda: cholesky_plain(M), reps)
+            # the one library call for the same function (cuSOLVER's
+            # potrf); a yardstick only, the port never calls it on the card
+            library = cuda_ms(lambda: torch.linalg.cholesky_ex(M), reps)
+            bound, bound_by = cholesky_bound_ms(n, dt)
             per_factor = cuda_launches(lambda: cholesky_factor(M))
             check(per_factor <= budget,
                   f"n={n} {dt}: {per_factor} CUDA launches per factor, "
                   f"budget {budget}")
-            times[(n, dt)] = (ms, plain)
+            times[(n, dt)] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                  bound_by=bound_by, library_ms=library)
             line("kernel_time", n=n, dtype=str(dt).split(".")[-1],
                  kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                 library_ms=f"{library:.4f}", bound_ms=f"{bound:.5f}",
+                 bound_by=bound_by, bound_share=f"{bound / ms:.4f}",
                  ratio=f"{ms / plain:.3f}", launches_per_factor=per_factor,
                  launch_budget=budget, reps=reps)
-    ms, plain = times[(1024, torch.float64)]
     return {"name": "cholesky", "route": "cuda",
             "source": "conicip_tpu_torch/csrc/cholesky.cu",
             "replaces": "conicip_tpu/ops/pallas_cholesky.py:41",
-            "max_abs_err": worst[torch.float64], "ms": ms, "plain_ms": plain}
+            "max_abs_err": worst[torch.float64],
+            "shape": "(1024, 1024) float64", **times[(1024, torch.float64)]}
 
 
 def solve_timed(args, **kw):
@@ -192,10 +221,10 @@ def solve_timed(args, **kw):
     return sol, (time.perf_counter() - t) * 1e3
 
 
-def launches():
+def launches(dtype=None, n=None):
     from conicip_tpu_torch.ops import cholesky_kernel
 
-    return cholesky_kernel.cholesky_launches
+    return cholesky_kernel.launch_count(dtype, n)
 
 
 def phase_schur():
@@ -300,6 +329,14 @@ def factor_sizes():
             sizes.add(P.Q.shape[0])
             if P.G is not None and P.G.shape[0]:
                 sizes.add(P.G.shape[0])
+    for _, P, _ in f32_cases():
+        sizes.add(P.Q.shape[0])
+    for P in eq_cases():  # the reduced problem: order n - p, no equalities
+        sizes.add(P.Q.shape[0] - P.G.shape[0])
+    P = redundant_eq_case()  # direct saddle after the rank repair
+    sizes |= {P.Q.shape[0], EQ_RANK}
+    P = lowrank_case()  # r = SOC rows + equality rows, and p
+    sizes |= {P.A.shape[0] - P.Q.shape[0] + P.G.shape[0], P.G.shape[0]}
     return sizes
 
 
@@ -338,6 +375,268 @@ def phase_conic():
              **extra)
 
 
+@functools.lru_cache(maxsize=None)
+def f32_cases():
+    """(label, problem, kktsolver or None) of the [f32] phase. mixed_rqs
+    takes the spectral backend by default, which factors nothing, so it is
+    given the dense Schur backend in its f32 last-mile configuration, as
+    the default path builds it."""
+    from conicip_tpu_torch import models
+    from conicip_tpu_torch.kkt import kktsolver_schur
+
+    schur_f32 = functools.partial(kktsolver_schur, factor_dtype=torch.float32,
+                                  lastmile=True)
+    return (
+        ("box_qp_dense(n=1024)", models.box_qp_dense(n=1024), None),
+        ("box_qp_dense(n=4096)", models.box_qp_dense(n=4096), None),
+        ("single_soc(n=4096)", models.single_soc(n=4096), None),
+        ("many_small_socs(k=250,n=500)", models.many_small_socs(), None),
+        ("mixed_rqs(n=86) schur", models.mixed_rqs(), schur_f32),
+    )
+
+
+def run_stats():
+    """What the latest conic_ip call's runs did: KKT builds by the
+    precision they factored in (a run with f32 factors builds its cold
+    start and fast steps in f32 and its last-mile steps in f64; any other
+    run builds everything in the working dtype, f64 here), full-precision
+    recertifications of the mixed residuals, and the number of runs (more
+    than one: the escalation ladder or an elimination retry ran)."""
+    from conicip_tpu_torch import solver
+
+    out = dict(f32_builds=0, f64_builds=0, lastmile_steps=0, recertified=0,
+               runs=len(solver.runs))
+    for r in solver.runs:
+        kw = getattr(r.kktsolver, "keywords", {})
+        fast = r.fast_steps + r.cold_start
+        if kw.get("factor_dtype") == torch.float32:
+            out["f32_builds"] += fast
+            out["f64_builds"] += r.slow_steps
+            out["lastmile_steps"] += r.slow_steps
+        else:
+            out["f64_builds"] += fast + r.slow_steps
+        out["recertified"] += r.recertified
+    return out
+
+
+def phase_f32():
+    """f32 factors with the last-mile switch, against the f64 solve of the
+    same instance from the same run. No speed is asserted."""
+    from conicip_tpu_torch import conic_ip
+    from conicip_tpu_torch.kkt import kktsolver_schur
+
+    f32, f64 = torch.float32, torch.float64
+    for label, P, kkt in f32_cases():
+        n = P.Q.shape[0]
+        kw64 = dict(device="cuda")
+        kw32 = dict(device="cuda", factor_dtype=f32)
+        if kkt is not None:
+            # a caller's kktsolver gets no default last-mile trigger: ask
+            # for the one the default path sets
+            kw32.update(kktsolver=kkt, lastmileProactive=50.0)
+            kw64.update(kktsolver=kktsolver_schur)
+        solve_timed(P.args(), **kw64)  # warm-ups
+        solve_timed(P.args(), **kw32)
+        # in turns on one card: f64, f32, f32, f64
+        ref, t64a = solve_timed(P.args(), **kw64)
+        c32, c64, at_n = launches(f32), launches(f64), launches(n=n)
+        sol, t32a = solve_timed(P.args(), **kw32)
+        used32, used64 = launches(f32) - c32, launches(f64) - c64
+        at_n = launches(n=n) - at_n
+        stats = run_stats()
+        _, t32b = solve_timed(P.args(), **kw32)
+        _, t64b = solve_timed(P.args(), **kw64)
+        cpu = conic_ip(*P.args(), **dict(kw32, device="cpu"))
+        resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
+        check(sol.status == "Optimal", f"{label}: f32 status {sol.status}")
+        check(ref.status == "Optimal", f"{label}: f64 status {ref.status}")
+        check(resid < 1e-6, f"{label}: f32 residual {resid:.3e}")
+        dy = (sol.y - ref.y).abs().max().item()
+        scale = max(1.0, ref.y.abs().max().item())
+        check(dy <= F32_Y_TOL * scale,
+              f"{label}: |y_f32 - y_f64| {dy:.3e} over {F32_Y_TOL:g} x "
+              f"{scale:.3g}")
+        # these cases have no equalities: one order-n factor per KKT
+        # build, through the f32 entry on a fast build and the f64 entry on
+        # a last-mile step; what a count exceeds its builds by are ridge
+        # retries
+        fast, slow = stats["f32_builds"], stats["f64_builds"]
+        check(used32 >= fast > 0,
+              f"{label}: {used32} f32 launches for {fast} f32 builds")
+        check(used64 >= slow,
+              f"{label}: {used64} f64 launches for {slow} f64 builds")
+        check(at_n == used32 + used64,
+              f"{label}: {at_n} of {used32 + used64} launches at order {n}")
+        check(abs(cpu.Iter - sol.Iter) <= 2 and cpu.status == sol.status,
+              f"{label}: cpu {cpu.status}/{cpu.Iter} vs gpu "
+              f"{sol.status}/{sol.Iter}")
+        line("f32", instance=label, status=sol.status, Iter=sol.Iter,
+             f64_iter=ref.Iter, cpu_iter=cpu.Iter, resid=f"{resid:.3e}",
+             y_diff_f64=f"{dy:.3e}", runs=stats["runs"], f32_builds=fast,
+             f64_builds=slow, lastmile_steps=stats["lastmile_steps"],
+             f32_launches=used32, f64_launches=used64,
+             f32_retries=used32 - fast, f64_retries=used64 - slow,
+             recertified=stats["recertified"],
+             ms_per_solve=f"{(t32a + t32b) / 2:.2f}",
+             f64_ms_per_solve=f"{(t64a + t64b) / 2:.2f}")
+
+
+EQ_RANK = 10  # rank of every [eq] instance's equality block
+
+
+@functools.lru_cache(maxsize=None)
+def eq_cases():
+    from conicip_tpu_torch import models
+
+    return (models.mixed_rq_eq(), models.mixed_rq_eq(n=1000))
+
+
+@functools.lru_cache(maxsize=None)
+def redundant_eq_case():
+    """mixed_rq_eq with two dependent equality rows appended (rank 10 of
+    12 rows, consistent): the preprocessor has to drop two."""
+    from conicip_tpu_torch import models
+
+    P = models.mixed_rq_eq()
+    G = np.vstack([P.G, P.G[0] + P.G[1], 2.0 * P.G[2]])
+    d = np.concatenate([P.d, [P.d[0] + P.d[1], 2.0 * P.d[2]]])
+    return models.Problem("mixed_rq_eq(n=200,p=10+2 redundant)", P.Q, P.c,
+                          P.A, P.b, P.cone_dims, G, d)
+
+
+def eq_residual(P, sol):
+    G = torch.as_tensor(P.G, device=sol.y.device)
+    d = torch.as_tensor(P.d, device=sol.y.device)
+    return (G @ sol.y - d).abs().max().item()
+
+
+def phase_eq():
+    """Equality elimination and the preprocessor, against the port's own
+    CPU solve."""
+    from conicip_tpu_torch import conic_ip, native, preprocess_conic_ip
+
+    for P in eq_cases():
+        n, p = P.Q.shape[0], P.G.shape[0]
+        kw = dict(eliminateEqualities=True)
+        solve_timed(P.args(), device="cuda", **kw)  # warm-up
+        before, at_order = launches(), launches(n=n - p)
+        sol, ms = solve_timed(P.args(), device="cuda", **kw)
+        used = launches() - before
+        at_order = launches(n=n - p) - at_order
+        ref = conic_ip(*P.args(), device="cpu", **kw)
+        resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
+        gy = eq_residual(P, sol)
+        check(sol.status == "Optimal", f"{P.name}: status {sol.status}")
+        check(resid < 1e-6, f"{P.name}: residual {resid:.3e}")
+        check(ref.status == sol.status and ref.Iter == sol.Iter,
+              f"{P.name}: cpu {ref.status}/{ref.Iter} vs gpu "
+              f"{sol.status}/{sol.Iter}")
+        check(gy < 1e-8, f"{P.name}: |Gy - d| {gy:.3e}")
+        dy = (sol.y.cpu() - ref.y).abs().max().item()
+        check(dy <= 1e-6, f"{P.name}: y diff {dy:.3e}")
+        # the reduced problem has no equalities: every factor is of order
+        # n - p, one per KKT build
+        check(used >= sol.Iter and at_order == used,
+              f"{P.name}: {used} launches, not all at order {n - p}")
+        line("eq", instance=P.name, path="eliminated", status=sol.status,
+             Iter=sol.Iter, cpu_iter=ref.Iter, resid=f"{resid:.3e}",
+             Gy_minus_d=f"{gy:.3e}", y_diff=f"{dy:.3e}", launches=used,
+             reduced_order=n - p, ms_per_solve=f"{ms:.2f}",
+             pivoted_qr=native.backend())
+
+    P = redundant_eq_case()
+    before = launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sol = preprocess_conic_ip(*P.args(), device="cuda")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    used = launches() - before
+    ref = preprocess_conic_ip(*P.args(), device="cpu")
+    gy = eq_residual(P, sol)
+    dropped = int((sol.w == 0).sum().item())
+    check(sol.status == "Optimal", f"{P.name}: status {sol.status}")
+    check(ref.status == sol.status and ref.Iter == sol.Iter,
+          f"{P.name}: cpu {ref.status}/{ref.Iter} vs gpu "
+          f"{sol.status}/{sol.Iter}")
+    check(sol.w.shape[0] == P.G.shape[0] and sol.w.device.type == "cuda",
+          f"{P.name}: w of shape {tuple(sol.w.shape)} on {sol.w.device}")
+    check(dropped == P.G.shape[0] - EQ_RANK,
+          f"{P.name}: {dropped} zero duals, "
+          f"{P.G.shape[0] - EQ_RANK} redundant rows")
+    check(gy < 1e-8, f"{P.name}: |Gy - d| {gy:.3e}")
+    check(used >= 2 * sol.Iter, f"{P.name}: {used} launches")
+    line("eq", instance=P.name, path="preprocessed", status=sol.status,
+         Iter=sol.Iter, cpu_iter=ref.Iter,
+         resid=f"{max(sol.prFeas, sol.duFeas, sol.muFeas):.3e}",
+         Gy_minus_d=f"{gy:.3e}", rows_dropped=dropped, launches=used,
+         ms_per_solve=f"{ms:.2f}", pivoted_qr=native.backend())
+
+
+@functools.lru_cache(maxsize=None)
+def lowrank_case():
+    """Instance 0 of the low-rank backend's family at the shape of
+    mixed_rq_eq: r = 51 SOC rows + 10 equality rows = 61."""
+    from conicip_tpu_torch import models
+
+    Q, c, A, b, cones, G, d = models.batched_mixed_rq_eq(
+        1, n=200, n_q=51, p=10)
+    return models.Problem("batched_mixed_rq_eq(1,n=200,n_q=51,p=10)[0]",
+                          Q[0], c[0], A[0], b[0], cones, G, d[0])
+
+
+def phase_backends():
+    """The KKT backends a caller picks by hand: qr and lu (library
+    factorizations, no kernel of this package) and the low-rank Woodbury
+    solver, whose two small factors run the kernel."""
+    from conicip_tpu_torch import conic_ip, kktsolver_lu, kktsolver_qr, models
+    from conicip_tpu_torch.cones.spec import ConeSpec
+    from conicip_tpu_torch.kkt.lowrank import (lowrank_applicable,
+                                               lowrank_kktsolver)
+
+    low = lowrank_case()
+    check(lowrank_applicable(low.Q, low.A, low.G, ConeSpec(low.cone_dims)),
+          "the low-rank backend does not apply to its own family")
+    for name, P, kkt in (("qr", models.mixed_rq_eq(), kktsolver_qr),
+                         ("lu", models.mixed_rq_eq(), kktsolver_lu),
+                         ("lowrank", low, lowrank_kktsolver())):
+        solve_timed(P.args(), device="cuda", kktsolver=kkt)  # warm-up
+        before = launches()
+        sol, ms = solve_timed(P.args(), device="cuda", kktsolver=kkt)
+        used = launches() - before
+        builds = run_stats()["f64_builds"]
+        by_order = {k: launches(n=k) for k in (P.Q.shape[0], P.G.shape[0],
+                    P.A.shape[0] - P.Q.shape[0] + P.G.shape[0])}
+        ref = conic_ip(*P.args(), device="cpu", kktsolver=kkt)
+        resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
+        dy = (sol.y.cpu() - ref.y).abs().max().item()
+        check(sol.status == "Optimal", f"{name}: status {sol.status}")
+        check(resid < 1e-6, f"{name}: residual {resid:.3e}")
+        check(ref.status == sol.status and ref.Iter == sol.Iter,
+              f"{name}: cpu {ref.status}/{ref.Iter} vs gpu "
+              f"{sol.status}/{sol.Iter}")
+        check(dy <= 1e-6, f"{name}: y diff {dy:.3e}")
+        extra = {}
+        if name == "lowrank":
+            n, p = P.Q.shape[0], P.G.shape[0]
+            r = P.A.shape[0] - n + p
+            at_r, at_p = by_order[r], by_order[p]
+            # counts since the phase began: the warm-up solve doubles them
+            check(at_r == at_p == 2 * builds and by_order[n] == 0,
+                  f"lowrank: {at_r} launches at r={r}, {at_p} at p={p}, "
+                  f"{by_order[n]} at n={n}, for {builds} KKT builds")
+            check(used == 2 * builds, f"lowrank: {used} launches")
+            extra = dict(r=r, p=p, kkt_builds=builds,
+                         launches_at_r=at_r // 2, launches_at_p=at_p // 2,
+                         launches_at_n=0)
+        else:
+            check(used == 0, f"{name}: {used} Cholesky launches")
+        line("backends", backend=name, instance=P.name, status=sol.status,
+             Iter=sol.Iter, cpu_iter=ref.Iter, resid=f"{resid:.3e}",
+             y_diff=f"{dy:.3e}", launches=used, ms_per_solve=f"{ms:.2f}",
+             **extra)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -352,13 +651,20 @@ def main():
 
     # each path of the main run is driven with the count at 0 and read
     # just after; the comparison launches of phase_kernel do not count
-    record["launches"] = 0
-    for phase in (phase_schur, phase_diag, phase_conic):
-        cholesky_kernel.cholesky_launches = 0
+    record.update(launches=0, launches_f64=0, launches_f32=0)
+    for phase in (phase_schur, phase_diag, phase_conic, phase_f32, phase_eq,
+                  phase_backends):
+        cholesky_kernel.reset_launch_count()
         phase()
-        used = cholesky_kernel.cholesky_launches
+        used = cholesky_kernel.launch_count()
+        used32 = cholesky_kernel.launch_count(torch.float32)
         check(used > 0, f"{phase.__name__} never launched the kernel")
+        check((used32 > 0) == (phase is phase_f32),
+              f"{phase.__name__}: {used32} launches of the f32 entry")
+        line("launches", of=phase.__name__, f64=used - used32, f32=used32)
         record["launches"] += used
+        record["launches_f64"] += used - used32
+        record["launches_f32"] += used32
 
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {

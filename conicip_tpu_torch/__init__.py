@@ -12,7 +12,7 @@ choice and 3-level KKT-callback contract. The dense Cholesky of every
 Schur-path iteration runs a hand-written CUDA kernel on CUDA tensors
 (``csrc/cholesky.cu``) and a plain PyTorch version on the CPU.
 
-This package imports torch and numpy only; it never imports JAX or
+This package imports torch, numpy and scipy only; it never imports JAX or
 ``conicip_tpu``. It computes nothing at import and never changes torch's
 default dtype.
 """
@@ -22,7 +22,9 @@ from .cones import (ConeSpec, cone_div, cone_prod, mat, maxstep,
                     vecm)
 from .interop import (problem_from_numpy, solution_to_numpy, warm_from_numpy,
                       warm_to_numpy)
-from .kkt import kktsolver_2x2, kktsolver_diag, kktsolver_schur, pivot, separable
+from .kkt import (kktsolver_2x2, kktsolver_diag, kktsolver_lu, kktsolver_qr,
+                  kktsolver_schur, pivot, separable)
+from .preprocess import imcols, preprocess_conic_ip
 from .solver import IPMOptions, Solution, conic_ip
 
 __version__ = "0.1.0"
@@ -45,7 +47,11 @@ __all__ = [
     "kktsolver_2x2",
     "kktsolver_schur",
     "kktsolver_diag",
+    "kktsolver_qr",
+    "kktsolver_lu",
     "separable",
+    "preprocess_conic_ip",
+    "imcols",
     "problem_from_numpy",
     "solution_to_numpy",
     "warm_from_numpy",

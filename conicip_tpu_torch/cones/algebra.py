@@ -1,6 +1,6 @@
 """Euclidean-Jordan-algebra operations over a cone product, per cone group.
 
-Counterpart of ``conicip_tpu/cones/algebra.py`` at full precision. Every
+Counterpart of ``conicip_tpu/cones/algebra.py``. Every
 cone group (all R coordinates; all Q cones of one dim; all S cones of one
 order) is processed by one batched expression:
 
@@ -18,6 +18,12 @@ R is elementwise, Q takes the arrow-matrix closed forms, S the batched
 ``torch.linalg`` decompositions of ``ops/batched.py`` (NaN, never an
 exception, on a bad batch entry). No function reads a value back to the
 host. All take 1-D ``(m,)`` tensors and return tensors on their device.
+
+``eig_dtype`` on the S-cone functions picks the precision of their d x d
+decompositions: ``None`` is the working dtype, a dtype (``torch.float32``)
+computes there and returns the working dtype, and ``"refined"`` is accepted
+and computes the working-dtype decomposition (the reference's refined
+kernels exist for hardware without native f64).
 """
 
 from __future__ import annotations
@@ -65,18 +71,42 @@ def cone_prod(spec: ConeSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return o
 
 
-def sdp_eighs(spec: ConeSpec, x: torch.Tensor):
+def _eigh_d(A: torch.Tensor, eig_dtype):
+    """Batched symmetric eigendecomposition under the ``eig_dtype``
+    contract (module docstring); factors come back in A's dtype."""
+    if eig_dtype is not None and eig_dtype != "refined" and eig_dtype != A.dtype:
+        w, U = safe_eigh(A.to(eig_dtype))
+        return w.to(A.dtype), U.to(A.dtype)
+    return safe_eigh(A)
+
+
+def _arith_dtype(wd, eig_dtype):
+    """Dtype of the arithmetic around a decomposition: the working dtype
+    unless an explicit lower ``eig_dtype`` asks the whole block to run there."""
+    return wd if eig_dtype in (None, "refined") else eig_dtype
+
+
+def sdp_eighs(spec: ConeSpec, x: torch.Tensor, eig_dtype=None):
     """Per-S-group ``(w, U)`` of ``mat(x)``, computed once and passed to
     :func:`cone_div` and :func:`maxstep_multi`."""
-    return tuple(safe_eigh(mat(take_group(g, x))) for g in spec.sdp_groups)
+    wd = x.dtype
+    ed = _arith_dtype(wd, eig_dtype)
+    out = []
+    for g in spec.sdp_groups:
+        w, U = _eigh_d(mat(take_group(g, x)).to(ed), eig_dtype)
+        out.append((w.to(wd), U.to(wd)))
+    return tuple(out)
 
 
-def lyap_solve(Y: torch.Tensor, X: torch.Tensor, y_eig=None) -> torch.Tensor:
+def lyap_solve(Y: torch.Tensor, X: torch.Tensor, eig_dtype=None,
+               y_eig=None) -> torch.Tensor:
     """Solve ``Y O + O Y = X`` for symmetric Y, X, batched over leading dims:
     with Y = U diag(w) Uᵀ, O = U ((Uᵀ X U)_ij / (w_i + w_j)) Uᵀ. ``y_eig``
     supplies ``(w, U)``; ``U = None`` means Y is diag(w) in the standard
-    basis (the NT-scaled point), and the solve is elementwise."""
-    w, U = safe_eigh(Y) if y_eig is None else y_eig
+    basis (the NT-scaled point), and the solve is elementwise. ``eig_dtype``
+    runs the eigendecomposition in another precision, the combination in
+    the working dtype."""
+    w, U = _eigh_d(Y, eig_dtype) if y_eig is None else y_eig
     denom = w[..., :, None] + w[..., None, :]
     if U is None:
         return X / denom
@@ -85,7 +115,7 @@ def lyap_solve(Y: torch.Tensor, X: torch.Tensor, y_eig=None) -> torch.Tensor:
 
 
 def cone_div(spec: ConeSpec, x: torch.Tensor, y: torch.Tensor,
-             y_eigs=None) -> torch.Tensor:
+             eig_dtype=None, y_eigs=None) -> torch.Tensor:
     if spec.only_r:
         return x / y
     o = torch.zeros_like(x)
@@ -105,7 +135,7 @@ def cone_div(spec: ConeSpec, x: torch.Tensor, y: torch.Tensor,
     for gi, g in enumerate(spec.sdp_groups):
         X, Y = mat(take_group(g, x)), mat(take_group(g, y))
         y_eig = None if y_eigs is None else y_eigs[gi]
-        put_group(g, o, vecm(lyap_solve(Y, X, y_eig)))
+        put_group(g, o, vecm(lyap_solve(Y, X, eig_dtype, y_eig=y_eig)))
     return o
 
 
@@ -149,8 +179,12 @@ def _inv_sqrt_parts(wX):
     return pd, torch.rsqrt(torch.clamp(wX, min=torch.finfo(wX.dtype).tiny))
 
 
-def maxstep(spec: ConeSpec, x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """``sup { α : x - α d ∈ K }`` as a 0-dim tensor (inf when unbounded)."""
+def maxstep(spec: ConeSpec, x: torch.Tensor, d: torch.Tensor,
+            eig_dtype=None) -> torch.Tensor:
+    """``sup { α : x - α d ∈ K }`` as a 0-dim tensor (inf when unbounded).
+    ``eig_dtype`` runs the S-cone eigendecompositions in another precision:
+    a ~1e-7 relative error of the step sits far inside the 1 %
+    fraction-to-boundary margin."""
     inf = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
     steps = [inf]
     if spec.nr:
@@ -158,18 +192,20 @@ def maxstep(spec: ConeSpec, x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     for g in spec.soc_groups:
         sg, xbar = _soc_frame(take_group(g, x))
         steps.append(_soc_step(sg, xbar, take_group(g, d), inf))
+    ed = _arith_dtype(x.dtype, eig_dtype)
     for g in spec.sdp_groups:
-        X, D = mat(take_group(g, x)), mat(take_group(g, d))
-        wX, U = safe_eigh(X)
+        X, D = mat(take_group(g, x)).to(ed), mat(take_group(g, d)).to(ed)
+        wX, U = _eigh_d(X, eig_dtype)
         pd, rs = _inv_sqrt_parts(wX)
         Xih = (U * rs[..., None, :]) @ _t(U)
         M = (Xih @ D) @ Xih
-        lam = safe_eigh(0.5 * (M + _t(M)))[0]
+        lam = _eigh_d(0.5 * (M + _t(M)), eig_dtype)[0].to(x.dtype)
         steps.append(_sdp_step(lam, pd, inf))
     return torch.min(torch.stack(steps))
 
 
-def maxstep_multi(spec: ConeSpec, x: torch.Tensor, ds, x_eigs=None):
+def maxstep_multi(spec: ConeSpec, x: torch.Tensor, ds, eig_dtype=None,
+                  x_eigs=None):
     """Max-steps of ``x`` against each direction in ``ds``, as a tuple.
 
     The S-cone matrices ``M = X^{-1/2} D X^{-1/2}`` of all directions are
@@ -188,29 +224,36 @@ def maxstep_multi(spec: ConeSpec, x: torch.Tensor, ds, x_eigs=None):
         sg, xbar = _soc_frame(take_group(g, x))
         for i, d in enumerate(ds):
             steps[i].append(_soc_step(sg, xbar, take_group(g, d), inf))
+    ed = _arith_dtype(x.dtype, eig_dtype)
     for gi, g in enumerate(spec.sdp_groups):
-        wX, U = (safe_eigh(mat(take_group(g, x))) if x_eigs is None
-                 else x_eigs[gi])
+        if x_eigs is None:
+            wX, U = _eigh_d(mat(take_group(g, x)).to(ed), eig_dtype)
+        else:
+            wX, U = x_eigs[gi]
+            wX = wX.to(ed)
+            U = None if U is None else U.to(ed)
         pd, rs = _inv_sqrt_parts(wX)
         if U is not None:
             Xih = (U * rs[..., None, :]) @ _t(U)
         Ms = []
         for d in ds:
-            D = mat(take_group(g, d))
+            D = mat(take_group(g, d)).to(ed)
             M = (D * rs[..., :, None] * rs[..., None, :] if U is None
                  else (Xih @ D) @ Xih)
             Ms.append(0.5 * (M + _t(M)))
         Mc = torch.cat(Ms, dim=0)
         if Mc.dtype == torch.float64:
-            lam_all = safe_eigvalsh(Mc.to(torch.float32)).to(x.dtype)
+            lam_all = safe_eigvalsh(Mc.to(torch.float32))
         else:
-            lam_all = safe_eigh(Mc)[0]
+            lam_all = _eigh_d(Mc, eig_dtype)[0]
+        lam_all = lam_all.to(x.dtype)
         for i, lam in enumerate(torch.split(lam_all, g.count)):
             steps[i].append(_sdp_step(lam, pd, inf))
     return tuple(torch.min(torch.stack(s)) for s in steps)
 
 
-def centrality_correction(spec: ConeSpec, w: torch.Tensor, lo, hi) -> torch.Tensor:
+def centrality_correction(spec: ConeSpec, w: torch.Tensor, lo, hi,
+                          eig_dtype=None) -> torch.Tensor:
     """Gondzio centrality-corrector term ``q = Π_{[lo,hi]}(λ) − λ`` on the
     spectral values λ of ``w``, with the floor clamp ``q ≥ −hi``:
     componentwise on R, the two-eigenvalue Jordan frame on Q, a batched
@@ -237,8 +280,10 @@ def centrality_correction(spec: ConeSpec, w: torch.Tensor, lo, hi) -> torch.Tens
         head = 0.5 * (dplus + dminus)
         tail = 0.5 * (dplus - dminus)[:, None] * what
         put_group(g, q, torch.cat([head[:, None], tail], dim=1))
+    ed = _arith_dtype(w.dtype, eig_dtype)
     for g in spec.sdp_groups:
-        lmb, U = safe_eigh(mat(take_group(g, w)))
+        lmb, U = _eigh_d(mat(take_group(g, w)).to(ed), eig_dtype)
+        lmb, U = lmb.to(w.dtype), U.to(w.dtype)
         put_group(g, q, vecm((U * _clip(lmb)[..., None, :]) @ _t(U)))
     return q
 

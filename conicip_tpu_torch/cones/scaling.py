@@ -1,6 +1,6 @@
 """Structured Nesterov-Todd scaling operators.
 
-Counterpart of ``conicip_tpu/cones/scaling.py`` at full precision. The
+Counterpart of ``conicip_tpu/cones/scaling.py``. The
 scaling keeps one structure per cone group and is never materialized:
 
 - R block:  ``F = diag(r_d)``
@@ -44,6 +44,7 @@ __all__ = [
     "apply_mat",
     "apply_adjoint_mat",
     "dense_gram",
+    "dense",
     "cast",
 ]
 
@@ -113,14 +114,26 @@ def _sdp_scaling(Z: torch.Tensor, Sm: torch.Tensor) -> SdpScaling:
                       lam=lam)
 
 
-def nt_scaling(spec: ConeSpec, z: torch.Tensor, s: torch.Tensor) -> NTScaling:
-    """NT scaling F with ``F z = F⁻ᵀ s = λ``."""
+def nt_scaling(spec: ConeSpec, z: torch.Tensor, s: torch.Tensor,
+               eig_dtype=None) -> NTScaling:
+    """NT scaling F with ``F z = F⁻ᵀ s = λ``.
+
+    ``eig_dtype`` (a dtype) runs the S-cone factorizations (two Choleskys,
+    one SVD, one triangular solve per group) in that precision and returns
+    the scaling in the working dtype; ``None`` and ``"refined"`` run them
+    in the working dtype."""
     r_d = torch.sqrt(take_r(spec, s) / take_r(spec, z)) if spec.nr else z[:0]
     soc = tuple(_soc_scaling(take_group(g, z), take_group(g, s))
                 for g in spec.soc_groups)
-    sdp = tuple(_sdp_scaling(mat(take_group(g, z)), mat(take_group(g, s)))
-                for g in spec.sdp_groups)
-    return NTScaling(r_d=r_d, soc=soc, sdp=sdp)
+    wd = z.dtype
+    ed = wd if eig_dtype in (None, "refined") else eig_dtype
+    sdp = []
+    for g in spec.sdp_groups:
+        sd = _sdp_scaling(mat(take_group(g, z)).to(ed),
+                          mat(take_group(g, s)).to(ed))
+        sdp.append(SdpScaling(S=sd.S.to(wd), Sinv=sd.Sinv.to(wd),
+                              lam=sd.lam.to(wd)))
+    return NTScaling(r_d=r_d, soc=soc, sdp=tuple(sdp))
 
 
 def nt_identity(spec: ConeSpec, dtype=torch.float64, device="cpu") -> NTScaling:
@@ -224,6 +237,16 @@ def apply_adjoint_mat(spec: ConeSpec, F: NTScaling, A: torch.Tensor) -> torch.Te
     return _apply_mat(spec, F, A, transpose_sdp=True)
 
 
+def _index(idx, dev):
+    return torch.from_numpy(idx.astype(np.int64)).to(dev)
+
+
+def _put_blocks(M, idx, blk):
+    """Write the (k, dim, dim) blocks onto M's diagonal at rows/cols idx (k, dim)."""
+    ix = _index(idx, M.device)
+    M[ix[:, :, None], ix[:, None, :]] = blk.to(M.dtype)
+
+
 def dense_gram(spec: ConeSpec, F: NTScaling, dtype=None) -> torch.Tensor:
     """``FᵀF`` as an (m, m) block-diagonal matrix, built from the structured
     parts in O(Σ k·d³): R rows square the diagonal; Q blocks form the
@@ -234,23 +257,40 @@ def dense_gram(spec: ConeSpec, F: NTScaling, dtype=None) -> torch.Tensor:
     dev = F.r_d.device
     M = torch.zeros(spec.m, spec.m, dtype=dtype, device=dev)
 
-    def index(idx):
-        return torch.from_numpy(idx.astype(np.int64)).to(dev)
-
-    def put_block(idx, blk):
-        ix = index(idx)
-        M[ix[:, :, None], ix[:, None, :]] = blk.to(dtype)
-
     if spec.nr:
-        ix = index(spec.r_idx)
+        ix = _index(spec.r_idx, dev)
         M[ix, ix] = (F.r_d * F.r_d).to(dtype)
     for g, sc in zip(spec.soc_groups, F.soc):
         blk = (torch.diag_embed(sc.d)
                + sc.alpha[:, None, None] * sc.u[:, :, None] * sc.u[:, None, :])
-        put_block(g.idx, blk @ blk)
+        _put_blocks(M, g.idx, blk @ blk)
     for g, sd in zip(spec.sdp_groups, F.sdp):
         basis = mat(torch.eye(g.tdim, dtype=sd.S.dtype, device=dev))  # (t, d, d)
         P = sd.S @ _t(sd.S)
         Y = (P[:, None] @ basis) @ P[:, None]  # (k, t, d, d)
-        put_block(g.idx, _t(vecm(Y)))
+        _put_blocks(M, g.idx, _t(vecm(Y)))
+    return M
+
+
+def dense(spec: ConeSpec, F: NTScaling, dtype=None) -> torch.Tensor:
+    """F itself as an (m, m) block-diagonal matrix: the diagonal on R, the
+    (dim, dim) diagonal-plus-rank-1 block per Q cone, and per S cone the
+    matrix whose column j is ``vecm(Sᵀ mat(e_j) S)``. For solvers that need
+    the full operator; the Schur path never calls it."""
+    dtype = dtype or F.r_d.dtype
+    dev = F.r_d.device
+    M = torch.zeros(spec.m, spec.m, dtype=dtype, device=dev)
+
+    if spec.nr:
+        ix = _index(spec.r_idx, dev)
+        M[ix, ix] = F.r_d.to(dtype)
+    for g, sc in zip(spec.soc_groups, F.soc):
+        _put_blocks(M, g.idx, torch.diag_embed(sc.d)
+                    + sc.alpha[:, None, None] * sc.u[:, :, None]
+                    * sc.u[:, None, :])
+    for g, sd in zip(spec.sdp_groups, F.sdp):
+        basis = mat(torch.eye(g.tdim, dtype=sd.S.dtype, device=dev))  # (t, d, d)
+        S = sd.S[:, None]
+        Y = (_t(S) @ basis) @ S  # (k, t, d, d): Y[k, j] = Sᵀ mat(e_j) S
+        _put_blocks(M, g.idx, _t(vecm(Y)))
     return M

@@ -15,10 +15,20 @@ solving::
 
 Every level works on tensors; ``F``/``FinvT`` are structured
 :class:`~conicip_tpu_torch.cones.scaling.NTScaling` records.
+
+- :func:`kktsolver_schur`: dense Schur complement, the default;
+- :func:`kktsolver_diag`: diagonal Schur matrix for separable problems;
+- :func:`kktsolver_qr`: CVXOPT §10.2 double QR, for rank-deficient Q;
+- :func:`kktsolver_lu`: dense LU of the full 3x3 saddle system.
+
+``kkt.spectral`` and ``kkt.lowrank`` are reached by module path, as in
+``conicip_tpu.kkt``.
 """
 
 from .diag import kktsolver_diag, separable
+from .lu import kktsolver_lu
 from .pivot import pivot
+from .qr import kktsolver_qr
 from .schur import kktsolver_2x2, kktsolver_schur
 
 __all__ = [
@@ -27,4 +37,6 @@ __all__ = [
     "pivot",
     "kktsolver_2x2",
     "kktsolver_schur",
+    "kktsolver_qr",
+    "kktsolver_lu",
 ]

@@ -15,7 +15,9 @@ Equalities use the exact augmented-saddle recovery of the dense path
   a (p, p) Cholesky plus thin products. Needs a strictly positive diag(Q).
 
 Both (p, p) factors go through ``ops/cholesky.py``, so on CUDA they run the
-hand-written kernel. Applicability is checked on host arrays by
+hand-written kernel. ``factor_dtype`` runs the whole 2x2 solve (pattern
+data, diagonal, factors, back-solves) in that precision and returns the
+working dtype. Applicability is checked on host arrays by
 :func:`separable` and :func:`equality_mode`, not inside the solver.
 """
 
@@ -74,33 +76,36 @@ def separable(Q, A, G, spec: ConeSpec) -> bool:
     return equality_mode(Q, G) is not None
 
 
-def kktsolver_2x2_diag(Q, A, G, spec: ConeSpec, *, eq_mode="woodbury"):
+def kktsolver_2x2_diag(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
+                       eq_mode="woodbury"):
     """2x2 solver with a diagonal Schur matrix (module docstring)."""
     n = Q.shape[0]
     p = G.shape[0]
-    dt = Q.dtype
+    wd = Q.dtype
+    fd = wd if factor_dtype is None else factor_dtype
     dev = Q.device
-    finfo = torch.finfo(dt)
+    finfo = torch.finfo(fd)
     if p and eq_mode not in ("disjoint", "woodbury"):
         raise ValueError(f"unknown eq_mode {eq_mode!r}")
 
     # column index + coefficient of each row's single nonzero
     cols = torch.argmax(torch.abs(A), dim=1)
-    coef = torch.gather(A, 1, cols[:, None])[:, 0]
-    P = (torch.nn.functional.one_hot(cols, n).to(dt).T
-         * (coef != 0).to(dt)[None, :])  # (n, m) incidence
+    coef = torch.gather(A, 1, cols[:, None])[:, 0].to(fd)
+    P = (torch.nn.functional.one_hot(cols, n).to(fd).T
+         * (coef != 0).to(fd)[None, :])  # (n, m) incidence
     asq = coef * coef
-    qdiag = torch.diagonal(Q)
+    qdiag = torch.diagonal(Q).to(fd)
+    G = G.to(fd)
     GT = G.T
     ridge = 30 * finfo.eps
 
     def _spd_inv_factor(S, k):
-        eye = torch.eye(k, dtype=dt, device=dev)
+        eye = torch.eye(k, dtype=fd, device=dev)
         return tri_inv(cholesky(S + (ridge * torch.trace(S) / k) * eye))
 
     def solve2x2gen(F, FinvT):
         # (FᵀF)⁻¹ is diagonal for R cones: F = diag(r_d) ⇒ rinv = r_d⁻²
-        rinv = 1.0 / (F.r_d * F.r_d)
+        rinv = (1.0 / (F.r_d * F.r_d)).to(fd)
         mdiag = qdiag + P @ (rinv * asq)
         if p:
             gamma = (torch.sum(mdiag) / n) / (torch.sum(G * G) / p + finfo.tiny)
@@ -118,7 +123,7 @@ def kktsolver_2x2_diag(Q, A, G, spec: ConeSpec, *, eq_mode="woodbury"):
                 dinv = 1.0 / torch.clamp(mdiag, min=finfo.tiny)
                 GD = G * dinv[None, :]  # G D⁻¹  (p, n)
                 GDGt = GD @ GT  # (p, p)
-                K = GDGt + torch.eye(p, dtype=dt, device=dev) / gamma
+                K = GDGt + torch.eye(p, dtype=fd, device=dev) / gamma
                 Lkinv = _spd_inv_factor(K, p)
                 Kinv = Lkinv.T @ Lkinv
                 GDT = GD.T
@@ -134,11 +139,13 @@ def kktsolver_2x2_diag(Q, A, G, spec: ConeSpec, *, eq_mode="woodbury"):
             minv_d = 1.0 / mdiag
 
         def solve2x2(by, bw):
+            by = by.to(fd)
+            bw = bw.to(fd)
             if p:
                 t = minv(by + gamma * (GT @ bw))
                 b2 = Lsinv.T @ (Lsinv @ (G @ t - bw))
-                return t - ET @ b2, b2
-            return minv_d * by, by[:0]
+                return (t - ET @ b2).to(wd), b2.to(wd)
+            return (minv_d * by).to(wd), by[:0].to(wd)
 
         return solve2x2
 
@@ -152,9 +159,6 @@ def kktsolver_diag(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
     on the host data first."""
     if spec.soc_groups or spec.sdp_groups:
         raise ValueError("kktsolver_diag supports R cones only")
-    if factor_dtype is not None:
-        raise NotImplementedError(
-            "the PyTorch port factors in the working dtype only "
-            "(see ROADMAP.md, queue 1)")
-    inner = functools.partial(kktsolver_2x2_diag, eq_mode=eq_mode)
-    return pivot(inner)(Q, A, G, spec)
+    inner = functools.partial(kktsolver_2x2_diag, factor_dtype=factor_dtype,
+                              eq_mode=eq_mode)
+    return pivot(inner, factor_dtype=factor_dtype)(Q, A, G, spec)

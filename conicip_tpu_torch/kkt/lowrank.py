@@ -1,0 +1,172 @@
+"""Diagonal + low-rank Schur KKT solver.
+
+Counterpart of ``conicip_tpu/kkt/lowrank.py``. For problems whose
+inequality matrix is ``A = [I_n; A_s]`` (bound rows for every R coordinate
+plus a small block of general rows tied to SOC cones) with diagonal ``Q``,
+the Schur matrix is diagonal plus low rank:
+
+    M = diag(Q) + diag(1/r_d²) + A_sᵀ (F⁻²)_soc A_s + γ GᵀG
+      = D + U Kb Uᵀ,   U = [A_sᵀ, Gᵀ]  (n, r),  r = m_s + p
+
+with ``Kb = blockdiag((F⁻²)_soc, γI)``, both blocks in closed form from the
+NT scaling's (d, u, α) parameters. Woodbury reduces every ``M⁻¹`` apply to
+diagonal scalings, thin products against the constant U, and one r x r
+factorization per iteration in place of the dense (n, n) one. Equalities
+use the same exact augmented-saddle recovery as ``kkt/schur.kktsolver_2x2``
+(γ-augmented M, second Schur on G: no regularization error), with a second
+factor of order p.
+
+Working dtype only. Both factors go through ``ops/cholesky.py``, so on CUDA
+they run the hand-written kernel at orders r and p, never n. Applicability
+is checked on host data by :func:`lowrank_applicable`; ``conic_ip`` does
+not select this backend by itself.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..cones.scaling import _index
+from ..cones.spec import ConeSpec
+from ..ops.cholesky import cholesky, tri_inv
+from .diag import _host
+from .pivot import pivot
+
+__all__ = ["kktsolver_lowrank", "lowrank_applicable", "lowrank_kktsolver"]
+
+
+def lowrank_applicable(Q, A, G, spec: ConeSpec, max_rank: int = 160) -> bool:
+    """Host-side check: no SDP cones, ``nr == n`` with the R rows of A
+    equal to I, diagonal Q, full-row-rank G, and a small total low-rank
+    dimension (SOC rows + equality rows ≤ ``max_rank``)."""
+    if spec.sdp_groups or not spec.soc_groups or not spec.nr:
+        return False
+    Qh = _host(Q)
+    Ah = _host(A)
+    n = Qh.shape[-1]
+    if spec.nr != n or Ah.shape[-1] != n:
+        return False
+    m_s = Ah.shape[-2] - n
+    p = 0 if G is None else np.shape(G)[-2]
+    if m_s <= 0 or m_s + p > max_rank:
+        return False
+    if p:
+        # rank-deficient or inconsistent equality systems keep the
+        # elimination path, whose host-side rank repair and consistency
+        # check the direct saddle lacks
+        Gh = np.asarray(_host(G), np.float64)
+        for Gi in Gh.reshape(-1, p, Gh.shape[-1]):
+            if np.linalg.matrix_rank(Gi) < p:
+                return False
+    # R rows must come first and equal I
+    r_idx = np.asarray(spec.r_idx)
+    if r_idx.size != n or not np.array_equal(r_idx, np.arange(n)):
+        return False
+    eye = np.eye(n)
+    for Ai in Ah.reshape(-1, *Ah.shape[-2:]):
+        if not np.array_equal(Ai[:n], eye):
+            return False
+    for Qi in Qh.reshape(-1, n, n):
+        if not np.array_equal(Qi, np.diag(np.diagonal(Qi))):
+            return False
+        if np.any(np.diagonal(Qi) < 0):
+            return False
+    return True
+
+
+def _soc_sq_dense(soc_params, idxs, K):
+    """Write blockdiag(F²) (or F⁻² from the inverse scaling's parameters)
+    over the SOC section onto the leading block of ``K``:
+    F² = diag(d²) + α(v₁uᵀ + uv₁ᵀ) + α²(uᵀu)uuᵀ, v₁ = d∘u. ``idxs`` holds
+    per cone group the (k, dim) rows relative to the SOC section, on K's
+    device; one scatter per group, whatever its count."""
+    for ix, sc_ in zip(idxs, soc_params):
+        v1 = sc_.d * sc_.u
+        s_uu = torch.sum(sc_.u * sc_.u, dim=-1)
+        blk = (
+            torch.diag_embed(sc_.d * sc_.d)
+            + sc_.alpha[:, None, None]
+            * (v1[:, :, None] * sc_.u[:, None, :]
+               + sc_.u[:, :, None] * v1[:, None, :])
+            + (sc_.alpha * sc_.alpha * s_uu)[:, None, None]
+            * sc_.u[:, :, None] * sc_.u[:, None, :]
+        )  # (k, dim, dim)
+        K[ix[:, :, None], ix[:, None, :]] = blk
+    return K
+
+
+def kktsolver_lowrank(Q, A, G, spec: ConeSpec):
+    """2x2 solver factory (wrapped by :func:`pivot` in
+    :func:`lowrank_kktsolver`); module docstring for the math."""
+    n = Q.shape[-1]
+    m_s = A.shape[0] - n
+    p = G.shape[0]
+    wd, dev = Q.dtype, Q.device
+    finfo = torch.finfo(wd)
+    qdiag = torch.diagonal(Q)
+    A_s = A[n:, :]  # (m_s, n), constant
+    GT = G.T
+    U = torch.cat([A_s.T, GT], dim=1) if p else A_s.T  # (n, r)
+    UT = U.T.contiguous()
+    r = m_s + p
+    ridge = 30.0 * finfo.eps
+    eq_diag = torch.arange(m_s, r, device=dev)
+    soc_idx = [_index(g.idx - n, dev) for g in spec.soc_groups]
+
+    def _equilibrated_inv_factor(T, k):
+        scale = torch.rsqrt(torch.clamp(torch.diagonal(T), min=finfo.tiny))
+        Ts = T * scale[:, None] * scale[None, :]
+        L = cholesky(Ts + ridge * torch.eye(k, dtype=wd, device=dev))
+        return tri_inv(L), scale
+
+    def _apply_inv(Linv, scale, x):
+        # T⁻¹x = S L⁻ᵀ L⁻¹ S x with S the equilibration scale; x is (k,)
+        # or (k, j)
+        s = scale if x.dim() == 1 else scale[:, None]
+        return s * (Linv.T @ (Linv @ (s * x)))
+
+    def solve2x2gen(F, FinvT):
+        winv = 1.0 / (F.r_d * F.r_d)  # (n,)
+        D = qdiag + winv
+        if p:
+            gamma = (torch.sum(D) / n) / (torch.sum(G * G) / p + finfo.tiny)
+            gamma = torch.where(torch.isfinite(gamma) & (gamma > 0), gamma,
+                                torch.ones_like(gamma))
+        # Kb⁻¹ = blockdiag((F²)_soc, (1/γ) I_p)
+        Kinv = _soc_sq_dense(F.soc, soc_idx,
+                             torch.zeros(r, r, dtype=wd, device=dev))
+        if p:
+            Kinv[eq_diag, eq_diag] = 1.0 / gamma
+        Dinv = 1.0 / D
+        UD = U * Dinv[:, None]  # D⁻¹U  (n, r)
+        T = Kinv + UT @ UD  # (r, r), SPD
+        Linv, dscale = _equilibrated_inv_factor(0.5 * (T + T.T), r)
+
+        def Minv(x):
+            # Woodbury: M̃⁻¹x = D⁻¹x − D⁻¹U T⁻¹ UᵀD⁻¹x
+            Dx = Dinv * x if x.dim() == 1 else Dinv[:, None] * x
+            return Dx - UD @ _apply_inv(Linv, dscale, UD.T @ x)
+
+        if p:
+            S = G @ Minv(GT)  # p×p SPD
+            Lsinv, sscale = _equilibrated_inv_factor(0.5 * (S + S.T), p)
+
+        def solve(by, bw):
+            if p:
+                t = Minv(by + gamma * (GT @ bw))
+                b2 = _apply_inv(Lsinv, sscale, G @ t - bw)
+                return t - Minv(GT @ b2), b2
+            return Minv(by), by[:0]
+
+        return solve
+
+    return solve2x2gen
+
+
+@functools.lru_cache(maxsize=None)
+def lowrank_kktsolver():
+    """The 3x3 factory (pivot-adapted), one object per process."""
+    return pivot(kktsolver_lowrank)

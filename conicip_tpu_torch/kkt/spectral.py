@@ -1,6 +1,6 @@
 """Closed-form spectral KKT solver for PSD-projection structure.
 
-Counterpart of ``conicip_tpu/kkt/spectral.py`` at full precision. With
+Counterpart of ``conicip_tpu/kkt/spectral.py``. With
 ``A = I``, no equalities and ``Q = q·I`` the 3x3 contract reads
 
     q·a − c = x        (dual row)
@@ -33,7 +33,7 @@ import torch
 from ..cones.segment import put_group, put_r, take_group, take_r
 from ..cones.spec import ConeSpec
 from ..cones.symm import mat, vecm
-from ..ops.batched import safe_eigh
+from ..cones.algebra import _eigh_d
 from .diag import _host
 
 __all__ = ["kktsolver_spectral", "spectral_applicable", "spectral_kktsolver"]
@@ -72,12 +72,10 @@ def spectral_applicable(Q, A, G, spec: ConeSpec) -> bool:
 
 
 def kktsolver_spectral(Q, A, G, spec: ConeSpec, *, eig_dtype=None):
-    """3-level KKT callback (module docstring). Only ``eig_dtype=None``
-    (decompositions in the working dtype) is ported."""
-    if eig_dtype is not None:
-        raise NotImplementedError(
-            "kktsolver_spectral: eig_dtype is not ported yet; the port "
-            "decomposes in the working dtype (see ROADMAP.md, queue 1)")
+    """3-level KKT callback (module docstring). ``eig_dtype`` follows the
+    cone layer's contract: ``None`` decomposes ``P`` in the working dtype,
+    a dtype decomposes there and returns the working dtype, ``"refined"``
+    is accepted and is the working-dtype decomposition."""
     q = Q[0, 0]
 
     def solve3x3gen(F, FinvT):
@@ -86,7 +84,7 @@ def kktsolver_spectral(Q, A, G, spec: ConeSpec, *, eig_dtype=None):
         for sd in F.sdp:
             P = sd.S @ _t(sd.S)
             P = 0.5 * (P + _t(P))
-            theta, V = safe_eigh(P)
+            theta, V = _eigh_d(P, eig_dtype)
             eigs.append((theta, V, P))
         w_r = F.r_d * F.r_d if spec.nr else None
         # SOC: FᵀF = F² = diag(d²) + α(v₁uᵀ + uv₁ᵀ) + α²(uᵀu)uuᵀ, v₁ = d∘u

@@ -1,8 +1,9 @@
 """Benchmark problem-family generators (numpy).
 
 Counterpart of ``conicip_tpu/models/generators.py`` for its eight
-single-instance families: same seeds, RNG calls, shapes and data, so both
-packages solve the same instances.
+single-instance families and the batched family of the low-rank backend:
+same seeds, RNG calls, shapes and data, so both packages solve the same
+instances.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from ..cones.spec import tri_dim
 
 __all__ = ["Problem", "box_qp_dense", "box_qp_sparse", "single_soc",
            "many_small_socs", "small_sdp", "larger_sdp", "mixed_rq_eq",
-           "mixed_rqs"]
+           "mixed_rqs", "batched_mixed_rq_eq"]
 
 
 @dataclass
@@ -137,3 +138,31 @@ def mixed_rqs(seed: int = 42) -> Problem:
         f"mixed_rqs(n={n})", Q, c, A, b,
         [("R", n_r), ("Q", n_q), ("S", n_s)],
     )
+
+
+def batched_mixed_rq_eq(batch: int, n: int = 60, seed: int = 0,
+                        n_q: int = 21, p: int = 6):
+    """Stacked independent mixed R+Q instances with a shared equality
+    system: per-instance objectives and right-hand sides under one set of
+    coupling equalities, bound-R rows first, then one SOC block (the
+    low-rank backend's family). Returns ``(Q, c, A, b, cone_dims, G, d)``
+    with a leading batch axis on all but ``cone_dims`` and ``G``.
+    ``n=200, n_q=51, p=10`` is the shape of :func:`mixed_rq_eq`."""
+    rng = np.random.default_rng(seed)
+    Q = np.broadcast_to(np.eye(n), (batch, n, n)).copy()
+    c = rng.standard_normal((batch, n))
+    A_q = (rng.random((n_q, n)) < 0.2) * rng.standard_normal((n_q, n))
+    A_q[0, :] = 0.0
+    # every instance's point y_i = s_i·1 is strictly feasible by
+    # construction: R slack s_i·1 > 0, SOC slack (1, s_i·A_q[1:]·1) with
+    # the tail scaled to norm ≤ 0.5 < 1, and d_i = G y_i
+    s = 1.0 + 0.1 * rng.random(batch)
+    tail = np.linalg.norm(A_q[1:] @ np.ones(n)) * s.max()
+    A_q[1:] *= 0.5 / max(tail, 1e-9)
+    A0 = np.vstack([np.eye(n), A_q])
+    A = np.broadcast_to(A0, (batch, n + n_q, n)).copy()
+    b0 = np.concatenate([np.zeros(n), [-1.0], np.zeros(n_q - 1)])
+    b = np.broadcast_to(b0, (batch, n + n_q)).copy()
+    G = rng.standard_normal((p, n))
+    d = s[:, None] * (G @ np.ones(n))[None, :]
+    return Q, c, A, b, [("R", n), ("Q", n_q)], G, d

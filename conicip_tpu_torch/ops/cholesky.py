@@ -1,10 +1,12 @@
 """Cholesky factorization and triangular solves — the solver's hot kernel.
 
-Counterpart of ``conicip_tpu/ops/cholesky.py`` on its full-precision path.
-:func:`cholesky` dispatches on the tensor's device through
+Counterpart of ``conicip_tpu/ops/cholesky.py``. :func:`cholesky`
+dispatches on the tensor's device through
 :func:`~conicip_tpu_torch.ops.cholesky_kernel.cholesky_factor`: the
-hand-written CUDA kernel on a CUDA tensor, the plain PyTorch version on the
-CPU. :func:`tri_inv` stays a library triangular solve, as the JAX package
+hand-written CUDA kernel on a CUDA tensor (its f64 or its f32 entry, by
+the dtype factored), the plain PyTorch version on the CPU.
+``factor_dtype`` casts the matrix first, so the factor comes back in that
+dtype. :func:`tri_inv` stays a library triangular solve, as the JAX package
 leaves it to XLA.
 """
 
@@ -14,11 +16,14 @@ import torch
 
 from .cholesky_kernel import cholesky_factor
 
-__all__ = ["cholesky", "tri_inv", "cho_solve"]
+__all__ = ["cholesky", "tri_inv", "cho_solve", "CholFactor"]
 
 
-def cholesky(M: torch.Tensor) -> torch.Tensor:
-    """Lower-triangular Cholesky factor; non-finite where M is not SPD."""
+def cholesky(M: torch.Tensor, factor_dtype=None) -> torch.Tensor:
+    """Lower-triangular Cholesky factor, optionally in another precision;
+    non-finite where M is not SPD."""
+    if factor_dtype is not None and factor_dtype != M.dtype:
+        M = M.to(factor_dtype)
     return cholesky_factor(M.contiguous())
 
 
@@ -39,3 +44,13 @@ def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     y = torch.linalg.solve_triangular(L, b, upper=False)
     x = torch.linalg.solve_triangular(L.T, y, upper=True)
     return (x[:, 0] if col else x).to(out_dtype)
+
+
+class CholFactor:
+    """A factor bundled with its solve."""
+
+    def __init__(self, M: torch.Tensor, factor_dtype=None):
+        self.L = cholesky(M, factor_dtype)
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        return cho_solve(self.L, b)

@@ -14,15 +14,31 @@ retry depends on that.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
 from .build import load_library
 
-__all__ = ["cholesky_factor", "cholesky_plain", "cholesky_launches"]
+__all__ = ["cholesky_factor", "cholesky_plain", "cholesky_launches",
+           "launch_count", "reset_launch_count"]
 
-# Launches of the CUDA kernel, counted by the wrapper.
-cholesky_launches = 0
+# Launches of the CUDA kernel, keyed by (dtype, order): the dtype names the
+# entry point that ran. Counted by the wrapper where it launches and
+# nowhere else.
+cholesky_launches: Counter = Counter()
+
+
+def launch_count(dtype=None, n=None) -> int:
+    """Kernel launches so far, optionally of one entry point (``dtype``)
+    and of one matrix order (``n``)."""
+    return sum(c for (dt, k), c in cholesky_launches.items()
+               if dtype in (None, dt) and n in (None, k))
+
+
+def reset_launch_count() -> None:
+    cholesky_launches.clear()
+
 
 _ENTRY = {torch.float64: "conicip_cholesky_f64",
           torch.float32: "conicip_cholesky_f32"}
@@ -50,7 +66,6 @@ def _entry(dtype):
 
 def cholesky_factor(M: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of the (n, n) SPD matrix ``M``."""
-    global cholesky_launches
     if M.device.type == "cpu":
         return cholesky_plain(M)
     if M.device.type != "cuda":
@@ -75,5 +90,5 @@ def cholesky_factor(M: torch.Tensor) -> torch.Tensor:
                  None if work is None else work.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError(f"cholesky kernel launch failed: CUDA error {err}")
-    cholesky_launches += 1
+    cholesky_launches[(M.dtype, n)] += 1
     return out

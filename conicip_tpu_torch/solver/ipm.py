@@ -1,15 +1,13 @@
 """Mehrotra predictor-corrector interior-point core.
 
-Counterpart of ``conicip_tpu/solver/ipm.py`` on its full-precision path
-(no mixed residuals, single-variant KKT generator, no f32 or refined
-eigendecompositions), over any product of R, Q and S cones. The JAX
-package runs the whole solve as one ``lax.while_loop``; here the iteration
-is a Python loop over device tensors that reads the status back once per
-iteration, and the refinement loop reads its stopping test once per step.
-(On S cones each ``torch.linalg`` decomposition on CUDA also reads its
-``info`` back inside the call.) Everything else (status, best iterate,
-certificates, step guards, the Gondzio acceptance) stays mask-based on the
-device, as in the reference:
+Counterpart of ``conicip_tpu/solver/ipm.py``, over any product of R, Q and
+S cones. The JAX package runs the whole solve as one ``lax.while_loop``;
+here the iteration is a Python loop over device tensors that reads the
+status back once per iteration, and the refinement loop reads its stopping
+test once per step. (On S cones each ``torch.linalg`` decomposition on CUDA
+also reads its ``info`` back inside the call.) Everything else (status,
+best iterate, certificates, step guards, the Gondzio acceptance) stays
+mask-based on the device, as in the reference:
 
 - same initial point, residual normalizations and CVXOPT+ECOS
   infeasibility certificates,
@@ -18,6 +16,25 @@ device, as in the reference:
 - iterative refinement with its stall cutoff, fraction-to-boundary step,
   non-finite scrubbing and optional Gondzio centrality correctors,
 - the λ-frame max-steps and Lyapunov divisions when S cones are present.
+
+Mixed-precision options (all off by default; on hardware with native f64
+the full-precision path is the default):
+
+- ``mixedResiduals``: every residual product runs in f32 against one-time
+  f32 copies of the operators and is carried across iterations by the
+  incremental update ``P ← P − α·K·Δz``, with ``drift`` bounding the
+  accumulated error in relative-residual units. The products are recomputed
+  in the working dtype only when a tolerance decision is near and the drift
+  could affect it, so convergence and certificates are only ever decided
+  on full-precision values.
+- a KKT generator that takes ``mode="fast"|"slow"`` (kkt/schur.py with
+  ``lastmile``) is switched, once and for good, to its full-precision
+  variant when the low-precision factor stalls near tolerance or breaks
+  down; only the variant picked factors.
+
+Both decisions are taken on the device and come to the host in the
+iteration's one status read (a firing recompute reads a second time, in
+that iteration only).
 """
 
 from __future__ import annotations
@@ -30,6 +47,7 @@ import torch
 from ..cones import algebra as ca
 from ..cones import scaling as sc
 from ..cones.spec import ConeSpec
+from ..kkt.pivot import accepts_mode
 from .state import SolState, Status, Vec4
 
 __all__ = ["IPMOptions", "ipm_solve"]
@@ -37,8 +55,7 @@ __all__ = ["IPMOptions", "ipm_solve"]
 
 @dataclass(frozen=True)
 class IPMOptions:
-    """Solver options (kwarg-compatible with ``conicip_tpu.IPMOptions`` on
-    the fields this path reads)."""
+    """Solver options (kwarg-compatible with ``conicip_tpu.IPMOptions``)."""
 
     optTol: float = 1e-6
     DTB: float = 0.01  # fraction-to-boundary
@@ -48,10 +65,28 @@ class IPMOptions:
     cache_nestodd: bool = False  # accepted and unused, as in the reference
     infeasTol: Optional[float] = None
     refinementThreshold: Optional[float] = None
-    # near-tolerance factor of the stall cutoff
+    # f32 residual products with full-precision recertification near the
+    # tolerances (module docstring); conic_ip turns it on with
+    # factor_dtype=float32 over a float64 working dtype
+    mixedResiduals: bool = False
+    # "near" means within this factor of a tolerance
     residualSwitch: float = 50.0
     # Gondzio centrality correctors per iteration; 0 disables
     centralityCorrectors: int = 0
+    # S-cone decompositions of the fast phase in f32. None: when the
+    # two-variant KKT generator gives an in-loop full-precision escape.
+    # True: also without one (the caller re-solves a breakdown at higher
+    # precision). False: always the working dtype.
+    fastEig: Optional[bool] = None
+    # route full-precision S-cone decompositions through eig_dtype="refined"
+    # (cones/algebra.py: the same function as the stock decomposition here)
+    refinedEig: Optional[bool] = None
+    # None: use a generator's fast/slow ``mode`` contract when it has one.
+    # False: pin the fast variant; the caller owns escalation.
+    twoModeKKT: Optional[bool] = None
+    # also enter the generator's full-precision variant once the residual
+    # is within this factor of tolerance (0: only on a stall or breakdown)
+    lastmileProactive: float = 0.0
     # end Abandoned after this many consecutive non-improving iterations
     # once the best residual is within residualSwitch x optTol; None
     # disables
@@ -116,7 +151,16 @@ def ipm_solve(
     kktsolver: Callable,
     opts: IPMOptions,
     warm: Optional[Vec4] = None,
+    stats: Optional[dict] = None,
 ) -> SolState:
+    """One interior-point solve (module docstring). ``stats``, when given,
+    receives what only the loop knows: ``fast_steps`` and ``slow_steps``
+    (steps taken on a generator's low- and full-precision variant; every
+    step of a single-variant generator is a fast one), ``cold_start`` (1
+    when the initial point cost a KKT build) and ``recertified`` (mixed
+    mode: iterations that recomputed the products in full precision)."""
+    counts = dict(fast_steps=0, slow_steps=0, recertified=0,
+                  cold_start=int(warm is None))
     n = c.shape[0]
     m = A.shape[0]
     p = G.shape[0]
@@ -150,8 +194,22 @@ def ipm_solve(
     GA = torch.cat([G, A], dim=0)
     GAt = torch.cat([G.T, -A.T], dim=1)
 
-    def products(y, w, v):
+    mixed = bool(opts.mixedResiduals) and dtype != torch.float32
+    if mixed:
+        f32 = torch.float32
+        Q32, GA32, GAt32 = Q.to(f32), GA.to(f32), GAt.to(f32)
+        eps32 = torch.finfo(f32).eps
+
+    def products_full(y, w, v):
         return _Products(Q @ y, GA @ y, GAt @ torch.cat([w, v]))
+
+    def products_fast(y, w, v):
+        if not mixed:
+            return products_full(y, w, v)
+        y32 = y.to(f32)
+        wv32 = torch.cat([w, v]).to(f32)
+        return _Products((Q32 @ y32).to(dtype), (GA32 @ y32).to(dtype),
+                         (GAt32 @ wv32).to(dtype))
 
     def residual_block(P: _Products, z: Vec4, lam) -> _Resid:
         rleft = Vec4(P.Qy + P.GAtwv, P.GAy[:p], P.GAy[p:] - z.s,
@@ -207,14 +265,23 @@ def ipm_solve(
 
     # LEVEL-1 plugin callback: one-time setup
     solve3x3gen = kktsolver(Q, A, G, spec)
+    # A generator that takes ``mode`` has two variants, "fast" and "slow",
+    # and the loop picks one per iteration (kkt/schur.py). With
+    # twoModeKKT=False the fast variant is pinned.
+    two_mode = accepts_mode(solve3x3gen)
+    if two_mode and opts.twoModeKKT is False:
+        _gen = solve3x3gen
+        solve3x3gen = lambda F, FinvT: _gen(F, FinvT, mode="fast")  # noqa: E731
+        two_mode = False
 
-    def make_solve4(lam, F, solve3x3, lam_eigs=None):
+    def make_solve4(lam, F, solve3x3, eig_dtype=None, lam_eigs=None):
         """4x4 → 3x3 reduction. ``lam_eigs`` gives the spectral data of
         mat(λ) per S group for every Lyapunov division (ca.sdp_eighs)."""
 
         def solve4(r: Vec4) -> Vec4:
-            t1 = sc.apply_adjoint(spec, F,
-                                  ca.cone_div(spec, r.s, lam, y_eigs=lam_eigs))
+            t1 = sc.apply_adjoint(
+                spec, F, ca.cone_div(spec, r.s, lam, eig_dtype,
+                                     y_eigs=lam_eigs))
             dy, dw, dv = solve3x3(r.y, r.w, r.v + t1)
             ds = t1 - sc.apply_adjoint(spec, F, sc.apply(spec, F, dv))
             return Vec4(dy, dw, dv, ds)
@@ -236,7 +303,7 @@ def ipm_solve(
     # then shift v, s strictly inside the cone.
     if warm is None:
         Fi = sc.nt_identity(spec, dtype, dev)
-        z0 = make_solve4(e, Fi, solve3x3gen(Fi, Fi), lam_eigs(Fi))(
+        z0 = make_solve4(e, Fi, solve3x3gen(Fi, Fi), lam_eigs=lam_eigs(Fi))(
             Vec4(c, d, b, torch.zeros(m, dtype=dtype, device=dev)))
     else:
         z0 = warm.map(lambda x: x.to(dtype=dtype, device=dev))
@@ -258,7 +325,19 @@ def ipm_solve(
         return (torch.dot(x1, x2) - a2 * torch.dot(x1, y2)
                 - a1 * torch.dot(y1, x2) + a1 * a2 * torch.dot(y1, y2))
 
-    def take_step(z, F, FinvT, lam, R: _Resid):
+    sw = opts.residualSwitch
+
+    # S-cone decompositions of the fast phase (NT scaling, max-step,
+    # Lyapunov division, corrector clip) in f32: with the two-variant
+    # generator the slow branch reverts to full precision and a non-finite
+    # fast iteration escalates instead of ending in Error; fastEig=True
+    # without such a generator runs f32 decompositions throughout.
+    has_sdp = bool(spec.sdp_groups)
+    fast_eig = opts.fastEig is not False and two_mode and has_sdp
+    force_fast_eig = bool(opts.fastEig) and not two_mode and has_sdp
+    slow_ed = "refined" if (opts.refinedEig and has_sdp) else None
+
+    def take_step(z, F, FinvT, lam, R: _Resid, solve3x3, eig_dtype):
         r0, rleft, mu, mubar = R.r0, R.rleft, R.mu, R.mubar
 
         eigs = lam_eigs(F)
@@ -266,17 +345,17 @@ def ipm_solve(
         def steps(dv, ds):
             # direct frame: the max-steps of z.v along dv and z.s along ds
             return torch.minimum(
-                torch.clamp(ca.maxstep(spec, z.v, dv), max=1.0),
-                torch.clamp(ca.maxstep(spec, z.s, ds), max=1.0))
+                torch.clamp(ca.maxstep(spec, z.v, dv, eig_dtype), max=1.0),
+                torch.clamp(ca.maxstep(spec, z.s, ds, eig_dtype), max=1.0))
 
         def steps2(Fdv, FiTds):
             # λ-frame: the same steps from the scaled directions F dv, F⁻ᵀ ds
-            av, as_ = ca.maxstep_multi(spec, lam, (Fdv, FiTds), eigs)
+            av, as_ = ca.maxstep_multi(spec, lam, (Fdv, FiTds), eig_dtype,
+                                       eigs)
             return torch.minimum(torch.clamp(av, max=1.0),
                                  torch.clamp(as_, max=1.0))
 
-        # LEVEL-2 plugin callback: per-iteration numeric refactorization
-        solve4 = make_solve4(lam, F, solve3x3gen(F, FinvT), eigs)
+        solve4 = make_solve4(lam, F, solve3x3, eig_dtype, eigs)
 
         # predictor
         d_aff = solve4(r0)
@@ -292,7 +371,9 @@ def ipm_solve(
         r = Vec4(r0.y, r0.w, r0.v, rleft.s - lc)
 
         def K4(dz):
-            Pd = products(dz.y, dz.w, dz.v)
+            # through the fast operators: refinement needs the residual
+            # accurately relative to Δz only
+            Pd = products_fast(dz.y, dz.w, dz.v)
             return Vec4(
                 Pd.Qy + Pd.GAtwv,
                 Pd.GAy[:p],
@@ -306,7 +387,8 @@ def ipm_solve(
             return rIr, rIr.norm() / (n + 2 * m)
 
         # Newton step + iterative refinement, stopped when a step fails to
-        # halve the residual
+        # halve the residual. With a low-precision factor this loop is what
+        # recovers the working dtype's accuracy.
         dz = solve4(r)
         rIr, rnorm = resid(dz)
         rn_prev, rstep = inf, 0
@@ -317,8 +399,9 @@ def ipm_solve(
             rIr, rnorm = resid(dz)
             rstep += 1
 
-        # step with fraction-to-boundary; a non-finite direction freezes
-        # the iterate instead of corrupting it
+        # step with fraction-to-boundary; a non-finite direction (a failed
+        # low-precision factor, say) freezes the iterate instead of
+        # corrupting it
         inv_dtb = 1.0 / (1.0 - opts.DTB)
         if lam_frame:
             alpha = steps2(sc.apply(spec, F, dz.v) * inv_dtb,
@@ -338,7 +421,8 @@ def ipm_solve(
             Fdv = sc.apply(spec, F, dz.v)
             FiTds_c = sc.apply(spec, FinvT, dz.s)
             w_trial = ca.cone_prod(spec, lam - atil * Fdv, lam - atil * FiTds_c)
-            q = ca.centrality_correction(spec, w_trial, 0.1 * smu, 10.0 * smu)
+            q = ca.centrality_correction(spec, w_trial, 0.1 * smu, 10.0 * smu,
+                                         eig_dtype)
             zero = torch.zeros_like
             ddz = solve4(Vec4(zero(dz.y), zero(dz.w), zero(dz.v), -q))
             dz_c = dz + ddz
@@ -356,32 +440,21 @@ def ipm_solve(
             alpha = torch.where(accept, a_c, alpha)
             active = accept
 
-        return z - dz.scale(alpha), rnorm, rstep + 1
+        # products of the taken step, to update the carried ones
+        Pd = products_fast(dz.y, dz.w, dz.v) if mixed else None
+        return z - dz.scale(alpha), rnorm, rstep + 1, Pd, alpha
 
-    if opts.verbose:
-        _print_banner()
-
-    sw = opts.residualSwitch
-    optBest = inf
-    stall = torch.zeros((), **int32)
-    rnorm_prev, rstep_prev = 0.0, 0
-    k = 1
-    while k <= opts.maxIters:
-        F = sc.nt_scaling(spec, z.v, z.s)
-        FinvT = sc.nt_inv_adjoint(spec, F)
-        lam = sc.apply(spec, F, z.v)  # scaled point: = F⁻ᵀ z.s too
-
-        R = residual_block(products(z.y, z.w, z.v), z, lam)
-
-        # best-iterate tracking
+    def assess(R: _Resid, z, k, sol, optBest, stall, lm_was):
+        """Best iterate, status and the last-mile trigger from this
+        iteration's residuals; nothing is read back."""
         improved = R.rmax < optBest
-        optBest = torch.where(improved, R.rmax, optBest)
-        stall = torch.where(improved, 0, stall + 1).to(torch.int32)
+        best = torch.where(improved, R.rmax, optBest)
+        stalled = torch.where(improved, 0, stall + 1).to(torch.int32)
 
         def upd(new, old):
             return torch.where(improved, new, old)
 
-        sol = SolState(
+        st = SolState(
             y=upd(z.y, sol.y), w=upd(z.w, sol.w), v=upd(z.v, sol.v),
             status=sol.status,
             Iter=torch.where(improved, k, sol.Iter).to(torch.int32),
@@ -403,36 +476,152 @@ def ipm_solve(
             status = torch.where(unbnd, Status.UNBOUNDED, status)
             # certificate normalizations overwrite the solution fields
             dw_bv = torch.dot(d, z.w) - torch.dot(b, z.v)
-            sol = replace(
-                sol,
+            st = replace(
+                st,
                 y=torch.where(infeas, nan,
-                              torch.where(unbnd, z.y / torch.abs(R.cty), sol.y)),
+                              torch.where(unbnd, z.y / torch.abs(R.cty),
+                                          st.y)),
                 w=torch.where(infeas, z.w / -dw_bv,
-                              torch.where(unbnd, nan, sol.w)),
+                              torch.where(unbnd, nan, st.w)),
                 v=torch.where(infeas, z.v / -dw_bv,
-                              torch.where(unbnd, nan, sol.v)),
+                              torch.where(unbnd, nan, st.v)),
             )
 
-        # divergence of unknown cause
-        bad = ~_all_finite(R.mu, R.rDu, R.rPr, R.rCp)
-        status = torch.where((status == Status.RUNNING) & bad, Status.ERROR,
-                             status)
+        running = status == Status.RUNNING
+        # Divergence of unknown cause. With a two-variant generator a
+        # non-finite fast iteration freezes its step and escalates
+        # through lm_on; only a breakdown inside the full-precision
+        # branch is a terminal Error.
+        if not two_mode or lm_was:
+            bad = ~_all_finite(R.mu, R.rDu, R.rPr, R.rCp)
+            status = torch.where(running & bad, Status.ERROR, status)
+        if mixed and (not two_mode or lm_was):
+            # Exhaustion of the low-precision factor, terminal only
+            # once the full-precision branch (where there is one) has
+            # had its turn. The caller's ladder re-solves from the best
+            # iterate. Three signatures, all after the iterate has been
+            # near tolerance: a 100x residual blow-up; complementarity
+            # collapsed 1000x below the stuck best residual; and
+            # complementarity already below tolerance and 100x below
+            # the best residual. The last two only on a non-improving
+            # iteration, so a converging solve stays alive.
+            near_best = best < sw * opts.optTol
+            exhausted = near_best & (R.rmax > 100.0 * best)
+            exhausted = exhausted | (
+                near_best & (R.rCp < 1e-3 * best) & ~improved)
+            exhausted = exhausted | (
+                near_best & (R.rCp < 0.1 * opts.optTol)
+                & (R.rCp < 0.01 * best) & ~improved)
+            status = torch.where((status == Status.RUNNING) & exhausted,
+                                 Status.ABANDONED, status)
         if opts.stallCutoff is not None:
-            plateau = (optBest < sw * opts.optTol) & (stall >= opts.stallCutoff)
+            plateau = (best < sw * opts.optTol) & (
+                stalled >= opts.stallCutoff)
             status = torch.where((status == Status.RUNNING) & plateau,
                                  Status.ABANDONED, status)
         status = status.to(torch.int32)
-        sol = replace(sol, status=status)
+
+        lm = None
+        if two_mode and not lm_was:
+            # Reactive: the iterate is near tolerance and this
+            # iteration failed to improve the best residual (healthy
+            # solves improve every iteration), or the residual is
+            # non-finite. Proactive: the residual is within
+            # lastmileProactive x tolerance.
+            lm = ((best < sw * opts.optTol) & ~improved) | ~torch.isfinite(
+                R.rmax)
+            if opts.lastmileProactive > 0:
+                lm = lm | (R.rmax < opts.lastmileProactive * opts.optTol)
+        return replace(st, status=status), best, stalled, status, lm
+
+    def read(status, *flags):
+        """The iteration's read-back: the status and the device
+        booleans that the host branches on, in one copy."""
+        flags = [f for f in flags if f is not None]
+        if not flags:
+            return (int(status),)
+        return tuple(torch.stack(
+            [status] + [f.to(torch.int32) for f in flags]).tolist())
+
+    if opts.verbose:
+        _print_banner()
+
+    optBest = inf
+    stall = torch.zeros((), **int32)
+    rnorm_prev, rstep_prev = 0.0, 0
+    lm_on = False  # sticky: the generator's full-precision variant is on
+    # Carried products (mixed mode): fast estimates with an infinite drift,
+    # so the first near-tolerance decision always recomputes them.
+    P = products_fast(z.y, z.w, z.v) if mixed else None
+    drift = inf
+    k = 1
+    while k <= opts.maxIters:
+        lm_was = lm_on
+        if (fast_eig and not lm_on) or force_fast_eig:
+            F = sc.nt_scaling(spec, z.v, z.s, eig_dtype=torch.float32)
+        else:
+            F = sc.nt_scaling(spec, z.v, z.s, eig_dtype=slow_ed)
+        FinvT = sc.nt_inv_adjoint(spec, F)
+        lam = sc.apply(spec, F, z.v)  # scaled point: = F⁻ᵀ z.s too
+
+        if mixed:
+            # Estimates from the carried products decide whether a
+            # tolerance decision is near and the drift could affect it;
+            # the honesty guard recertifies once drift reaches 10 % of the
+            # estimated residual, so reported residuals stay trustworthy.
+            R = residual_block(P, z, lam)
+            near = ((R.rmax < sw * opts.optTol)
+                    | (R.p_infeas < sw * opts.infeas_tol)
+                    | (R.d_infeas < sw * opts.infeas_tol)
+                    | ~torch.isfinite(R.rmax))
+            fire = (near & (drift > 0.05 * opts.optTol)) | (
+                drift > 0.1 * R.rmax)
+            out = assess(R, z, k, sol, optBest, stall, lm_was)
+            *got, fired = read(out[3], out[4], fire)
+            if fired:
+                counts["recertified"] += 1
+                P = products_full(z.y, z.w, z.v)
+                drift = scalar(0.0)
+                R = residual_block(P, z, lam)
+                out = assess(R, z, k, sol, optBest, stall, lm_was)
+                got = read(out[3], out[4])
+        else:
+            R = residual_block(products_full(z.y, z.w, z.v), z, lam)
+            out = assess(R, z, k, sol, optBest, stall, lm_was)
+            got = read(out[3], out[4])
+        sol, optBest, stall = out[:3]
+        code = got[0]
+        if len(got) > 1:
+            lm_on = lm_on or bool(got[1])
 
         if opts.verbose:
             _print_row(k, R, rstep_prev, rnorm_prev)
 
-        # the one read-back of the iteration
-        if int(status) != Status.RUNNING:
+        if code != Status.RUNNING:
             break
-        z, rnorm_prev, rstep_prev = take_step(z, F, FinvT, lam, R)
+        # LEVEL-2 plugin callback: per-iteration numeric refactorization,
+        # of the one variant this iteration runs
+        counts["slow_steps" if two_mode and lm_on else "fast_steps"] += 1
+        if two_mode:
+            solve3x3 = solve3x3gen(F, FinvT, mode="slow" if lm_on else "fast")
+            ed = torch.float32 if (fast_eig and not lm_on) else slow_ed
+        else:
+            solve3x3 = solve3x3gen(F, FinvT)
+            ed = torch.float32 if force_fast_eig else slow_ed
+        z, rnorm_prev, rstep_prev, Pd, alpha = take_step(
+            z, F, FinvT, lam, R, solve3x3, ed)
+        if mixed:
+            # incremental product update and its drift bound
+            P = _Products(P.Qy - alpha * Pd.Qy, P.GAy - alpha * Pd.GAy,
+                          P.GAtwv - alpha * Pd.GAtwv)
+            drift = drift + 10.0 * eps32 * alpha * (
+                (torch.linalg.norm(Pd.Qy) + torch.linalg.norm(Pd.GAtwv))
+                / (1.0 + normc)
+                + _normsafe(Pd.GAy) / (1.0 + normb))
         k += 1
 
+    if stats is not None:
+        stats.update(counts)
     # loop exhausted without a status → Abandoned
     return replace(sol, status=torch.where(
         sol.status == Status.RUNNING, Status.ABANDONED, sol.status

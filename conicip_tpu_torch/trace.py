@@ -1,17 +1,20 @@
 """Where one solve's device time goes: a profiler trace of ``conic_ip``.
 
     python -m conicip_tpu_torch.trace [--family box_qp_dense] [--n 4096]
-                                      [--seed 42]
+                                      [--seed 42] [--factor-dtype float64]
 
 Solves one instance of a problem family (``--n`` sizes ``box_qp_dense`` and
 ``single_soc``; the other families take their default sizes) from inputs
 already on the card, once to warm up and once under ``torch.profiler``, and
 prints one line each for: the solve (wall time, device busy time as the
 union of kernel and copy intervals, iterations, kernel launches and
-elementwise launches per iteration, device-to-host copies per iteration),
-the Cholesky kernel split into its diagonal-block, panel and trailing
-kernels, and the other device operations by total time. It needs a CUDA
-device and fails without one.
+elementwise launches per iteration, device-to-host copies per iteration,
+launches of the Cholesky kernel's f64 and f32 entries), the Cholesky kernel
+split into its diagonal-block, panel and trailing kernels, and the other
+device operations by total time.
+``--factor-dtype float32`` profiles the f32-factor solve (mixed residuals,
+last-mile switch, ladder) in place of the full-precision default. It needs
+a CUDA device and fails without one.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from . import conic_ip
 from . import models
+from .ops import cholesky_kernel
 
 # problem families, made at size n where they take one
 FAMILIES = {
@@ -61,12 +65,22 @@ def _kernel_name(name):
     return name.split("(")[0][:60]
 
 
-def main(argv=None):
+# --factor-dtype: the keyword conic_ip gets ("auto" is full precision)
+FACTOR_DTYPES = {"float64": "auto", "float32": torch.float32}
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--family", choices=sorted(FAMILIES), default="box_qp_dense")
     ap.add_argument("--n", type=int, default=4096)
     ap.add_argument("--seed", type=int, default=42)
-    args = ap.parse_args(argv)
+    ap.add_argument("--factor-dtype", choices=sorted(FACTOR_DTYPES),
+                    default="float64")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("trace: no CUDA device", file=sys.stderr)
         return 2
@@ -77,12 +91,14 @@ def main(argv=None):
     Q, c, A, b, G, d = (None if x is None else
                         torch.as_tensor(x, dtype=torch.float64, device=dev)
                         for x in (P.Q, P.c, P.A, P.b, P.G, P.d))
-    conic_ip(Q, c, A, b, P.cone_dims, G, d, device=dev)  # warm-up, builds
+    kw = dict(device=dev, factor_dtype=FACTOR_DTYPES[args.factor_dtype])
+    conic_ip(Q, c, A, b, P.cone_dims, G, d, **kw)  # warm-up, builds
     torch.cuda.synchronize()
+    cholesky_kernel.reset_launch_count()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        sol = conic_ip(Q, c, A, b, P.cone_dims, G, d, device=dev)
+        sol = conic_ip(Q, c, A, b, P.cone_dims, G, d, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     with tempfile.TemporaryDirectory() as tmp:
@@ -101,11 +117,14 @@ def main(argv=None):
     elementwise = sum(1 for e in kernels if "elementwise" in e["name"])
     dtoh = sum(1 for e in device if "DtoH" in e["name"])
     it = max(sol.Iter, 1)
-    print(f"[solve] family={P.name} status={sol.status} Iter={sol.Iter} "
+    print(f"[solve] family={P.name} factor_dtype={args.factor_dtype} "
+          f"status={sol.status} Iter={sol.Iter} "
           f"wall_ms={wall_ms:.2f} device_busy_ms={_busy_us(device) / 1e3:.2f} "
           f"kernels_per_iter={len(kernels) / it:.1f} "
           f"elementwise_per_iter={elementwise / it:.1f} "
           f"dtoh_per_iter={dtoh / it:.1f} "
+          f"cholesky_f64={cholesky_kernel.launch_count(torch.float64)} "
+          f"cholesky_f32={cholesky_kernel.launch_count(torch.float32)} "
           f"device={torch.cuda.get_device_name(0)!r}")
     chol = [e for e in device if _kernel_name(e["name"]) in CHOLESKY_PARTS]
     print(f"[cholesky] busy_ms={_busy_us(chol) / 1e3:.2f} " + " ".join(

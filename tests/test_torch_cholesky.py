@@ -237,7 +237,7 @@ def test_tri_inv_and_cho_solve_match_jax():
 
 def test_wrapper_takes_plain_version_on_cpu_without_counting():
     M = torch.from_numpy(spd(33, seed=5))
-    before = cholesky_kernel.cholesky_launches
+    before = dict(cholesky_kernel.cholesky_launches)
     L = cholesky_kernel.cholesky_factor(M)
     assert cholesky_kernel.cholesky_launches == before
     assert torch.equal(L, cholesky_kernel.cholesky_plain(M))

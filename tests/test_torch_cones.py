@@ -317,13 +317,13 @@ def test_lyap_solve_matches_jax(rng):
     np.testing.assert_allclose(Y @ O + O @ Y, X, atol=1e-12)
     # the diagonal case (U = None) of the λ-frame, and given factors
     w = rng.uniform(0.5, 2.0, (k, d))
-    Od = talg.lyap_solve(None, t(X), (t(w), None)).numpy()
+    Od = talg.lyap_solve(None, t(X), y_eig=(t(w), None)).numpy()
     np.testing.assert_allclose(
         Od, np.asarray(jalg.lyap_solve(None, j(X), y_eig=(j(w), None))), **TOL)
     D = np.apply_along_axis(np.diag, -1, w)
     np.testing.assert_allclose(D @ Od + Od @ D, X, atol=1e-12)
     wY, UY = np.linalg.eigh(Y)
-    np.testing.assert_allclose(talg.lyap_solve(None, t(X), (t(wY), t(UY))).numpy(),
+    np.testing.assert_allclose(talg.lyap_solve(None, t(X), y_eig=(t(wY), t(UY))).numpy(),
                                O, atol=1e-10)
 
 
@@ -392,6 +392,31 @@ def test_nt_property_and_applies(dims, rng):
 
 
 @pytest.mark.parametrize("dims", CONIC)
+def test_dense_is_the_operator_itself(dims, rng):
+    """``dense(F)`` is F as a matrix: its columns are ``apply`` on the unit
+    vectors, its Gram matrix is ``dense_gram``, and on R and Q blocks
+    (whose scaling has no rotation freedom) it equals the reference's."""
+    ts, js = ConeSpec(dims), jc.ConeSpec(dims)
+    z, s = cone_interior(rng, ts), cone_interior(rng, ts)
+    F = tsc.nt_scaling(ts, t(z), t(s))
+    D = tsc.dense(ts, F)
+    I = torch.eye(ts.m, dtype=torch.float64)
+    np.testing.assert_allclose(D.numpy(), tsc.apply_mat(ts, F, I).numpy(),
+                               atol=1e-12)
+    np.testing.assert_allclose((D.T @ D).numpy(),
+                               tsc.dense_gram(ts, F).numpy(), rtol=1e-12,
+                               atol=1e-12)
+    assert tsc.dense(ts, F, torch.float32).dtype == torch.float32
+    Dj = np.asarray(jsc.dense(js, jsc.nt_scaling(js, j(z), j(s))))
+    rq = np.concatenate([ts.r_idx] + [g.idx.ravel() for g in ts.soc_groups])
+    rq = rq.astype(int)
+    np.testing.assert_allclose(D.numpy()[np.ix_(rq, rq)], Dj[np.ix_(rq, rq)],
+                               **TOL)
+    # S blocks: compared through FᵀF, which the rotation leaves alone
+    np.testing.assert_allclose((D.T @ D).numpy(), Dj.T @ Dj, **DECOMP)
+
+
+@pytest.mark.parametrize("dims", CONIC)
 def test_maxstep_multi_matches_jax_and_the_direct_frame(dims, rng):
     ts, js = ConeSpec(dims), jc.ConeSpec(dims)
     z, s = cone_interior(rng, ts), cone_interior(rng, ts)
@@ -401,7 +426,7 @@ def test_maxstep_multi_matches_jax_and_the_direct_frame(dims, rng):
     lam = tsc.apply(ts, F, t(z))
     Fdv, FiTds = tsc.apply(ts, F, t(dv)), tsc.apply(ts, FiT, t(ds))
     eigs = tuple((sd.lam, None) for sd in F.sdp)
-    got = talg.maxstep_multi(ts, lam, (Fdv, FiTds), eigs)
+    got = talg.maxstep_multi(ts, lam, (Fdv, FiTds), x_eigs=eigs)
     # congruence invariance: maxstep(z, dv) = maxstep(λ, F dv), and
     # maxstep(s, ds) = maxstep(λ, F⁻ᵀ ds)
     direct = (talg.maxstep(ts, t(z), t(dv)), talg.maxstep(ts, t(s), t(ds)))

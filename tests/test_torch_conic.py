@@ -57,7 +57,7 @@ def schur_kw():
 def test_auto_backend_matches_jax(family):
     P = FAMILIES[family]()
     Q, c, A, b, cones, G, d = P.args()
-    got = torch_auto(Q, A, G, ConeSpec(cones))
+    got = torch_auto(Q, A, G, ConeSpec(cones), None)
     ref = jax_auto(Q, A, G, ct.ConeSpec(cones), None)
     assert kind(got, torch_schur, torch_diag) == AUTO_KIND[family]
     assert kind(ref, jax_schur, jax_diag) == AUTO_KIND[family]

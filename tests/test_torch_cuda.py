@@ -40,9 +40,12 @@ def test_kernel_matches_plain(cuda, dtype):
     tol = 1e-10 if dt == torch.float64 else 1e-4
     for n in (1, 31, 127, 128, 129, 255, 257, 500, 1000, 1024, 1280):
         M = torch.from_numpy(spd(n, seed=n)).to(cuda, dt)
-        before = cholesky_kernel.cholesky_launches
+        before = cholesky_kernel.launch_count(dt, n)
+        others = cholesky_kernel.launch_count() - before
         L = cholesky_kernel.cholesky_factor(M)
-        assert cholesky_kernel.cholesky_launches == before + 1
+        # counted once, under the entry point and the order that ran
+        assert cholesky_kernel.launch_count(dt, n) == before + 1
+        assert cholesky_kernel.launch_count() == before + 1 + others
         Lp = cholesky_kernel.cholesky_plain(M)
         assert ((L - Lp).abs().max() / Lp.abs().max()).item() <= tol
         assert torch.equal(L.triu(1), torch.zeros_like(L))
@@ -95,9 +98,9 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 def test_conic_ip_on_card_matches_cpu(cuda):
     args = box_qp_dense(n=64, seed=42).args()
-    before = cholesky_kernel.cholesky_launches
+    before = cholesky_kernel.launch_count()
     sol = conic_ip(*args, device=cuda)
-    used = cholesky_kernel.cholesky_launches - before
+    used = cholesky_kernel.launch_count() - before
     ref = conic_ip(*args, device="cpu")
     assert sol.status == ref.status == "Optimal"
     assert sol.Iter == ref.Iter
@@ -112,11 +115,30 @@ def test_conic_families_on_card_match_cpu(cuda, family):
     # single_soc takes the Schur backend (the kernel every iteration),
     # small_sdp the spectral backend (no factorization at all)
     P = single_soc(n=200) if family == "single_soc" else small_sdp(k=10)
-    before = cholesky_kernel.cholesky_launches
+    before = cholesky_kernel.launch_count()
     sol = conic_ip(*P.args(), device=cuda)
-    used = cholesky_kernel.cholesky_launches - before
+    used = cholesky_kernel.launch_count() - before
     ref = conic_ip(*P.args(), device="cpu")
     assert sol.status == ref.status == "Optimal"
     assert sol.Iter == ref.Iter
     assert (used >= sol.Iter) if family == "single_soc" else (used == 0)
     assert (sol.y.cpu() - ref.y).abs().max().item() <= 1e-6
+
+
+def test_f32_factors_on_card_run_the_f32_entry(cuda):
+    """factor_dtype=float32: the fast iterations factor through the
+    kernel's f32 entry, the last-mile ones through its f64 entry, and the
+    answer is the f64 solve's to the f32 path's accuracy."""
+    f32, f64 = torch.float32, torch.float64
+    args = box_qp_dense(n=200, seed=42).args()
+    ref = conic_ip(*args, device=cuda)
+    c32, c64 = (cholesky_kernel.launch_count(dt) for dt in (f32, f64))
+    sol = conic_ip(*args, device=cuda, factor_dtype=f32)
+    used32 = cholesky_kernel.launch_count(f32) - c32
+    used64 = cholesky_kernel.launch_count(f64) - c64
+    assert sol.status == ref.status == "Optimal"
+    assert abs(sol.Iter - ref.Iter) <= 2
+    assert used32 > 0 and used32 + used64 >= sol.Iter
+    assert max(sol.prFeas, sol.duFeas, sol.muFeas) < 1e-6
+    assert sol.y.dtype == f64
+    assert (sol.y - ref.y).abs().max().item() <= 1e-5

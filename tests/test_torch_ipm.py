@@ -210,11 +210,17 @@ def test_problem_from_numpy_round_trip():
 
 
 def test_not_ported_options_raise():
+    """No option of the reference is left unported: the ones that used to
+    raise now solve, to the reference's status and iterate."""
     H, c, A, b, cones = box(5)
-    for kw in (dict(factor_dtype=torch.float32), dict(mixedResiduals=True),
-               dict(eliminateEqualities=True)):
-        with pytest.raises(NotImplementedError):
-            pt.conic_ip(H, c, A, b, cones, device="cpu", **kw)
+    for kw, jkw in ((dict(factor_dtype=torch.float32),
+                     dict(factor_dtype=jnp.float32)),
+                    (dict(mixedResiduals=True),) * 2,
+                    (dict(eliminateEqualities=True),) * 2):
+        ref = ct.conic_ip(H, c, A, b, cones, **jkw)
+        sol = pt.solution_to_numpy(
+            pt.conic_ip(H, c, A, b, cones, device="cpu", **kw))
+        assert_same(ref, sol, 1e-6)
 
 
 def test_bad_input():
@@ -252,3 +258,48 @@ def test_ipm_solve_stall_cutoff_matches_jax(cutoff):
     if cutoff == 0:
         assert ref.status == "Abandoned"
     assert_same(ref, sol, 1e-9)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """In a fresh interpreter, importing the port and every module of it
+    loads neither ``jax`` nor ``conicip_tpu``."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import conicip_tpu_torch as pt\n"
+        "for m in pkgutil.walk_packages(pt.__path__, 'conicip_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'conicip_tpu' or m.startswith('conicip_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('conicip_tpu_torch')]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, timeout=120,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) > 20
+
+
+def test_conic_ip_takes_the_reference_keywords():
+    """Same keyword list and defaults as ``conicip_tpu.conic_ip`` (the port
+    adds ``device``), and the reference's public names exist."""
+    import inspect
+
+    ref = inspect.signature(ct.conic_ip).parameters
+    mine = inspect.signature(pt.conic_ip).parameters
+    assert list(mine)[:len(ref)] == list(ref)
+    assert list(mine)[len(ref):] == ["device"]
+    for name, par in ref.items():
+        assert mine[name].default == par.default, name
+        assert mine[name].kind == par.kind, name
+    for name in ("preprocess_conic_ip", "imcols", "kktsolver_qr",
+                 "kktsolver_lu", "IPMOptions"):
+        assert callable(getattr(pt, name)) and callable(getattr(ct, name))
+    assert callable(pt.solver.resolve_factor_dtype)
+    fields = lambda cls: {f.name: f.default  # noqa: E731
+                          for f in cls.__dataclass_fields__.values()}
+    assert fields(pt.IPMOptions) == fields(ct.IPMOptions)

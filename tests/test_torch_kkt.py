@@ -154,12 +154,24 @@ def test_structure_checks_match_jax(rng):
 
 
 def test_lower_precision_factors_not_ported():
+    """Lower-precision factors are ported: both backends take
+    ``factor_dtype``, return the working dtype, and agree with their
+    full-precision solve to f32 accuracy."""
     Q, A, G = (t(np.eye(3)), t(np.eye(3)), t(np.zeros((0, 3))))
     spec = ConeSpec([("R", 3)])
-    with pytest.raises(NotImplementedError):
-        kktsolver_schur(Q, A, G, spec, factor_dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        kktsolver_diag(Q, A, G, spec, factor_dtype=torch.float32)
+    F = tsc.nt_scaling(spec, t(np.array([1.0, 2.0, 0.5])),
+                       t(np.array([0.7, 0.3, 1.5])))
+    FinvT = tsc.nt_inv_adjoint(spec, F)
+    rhs = (t(np.array([1.0, -2.0, 0.5])), t(np.zeros(0)),
+           t(np.array([0.3, 0.1, -0.4])))
+    for backend in (kktsolver_schur, kktsolver_diag):
+        full = backend(Q, A, G, spec)(F, FinvT)(*rhs)
+        low = backend(Q, A, G, spec, factor_dtype=torch.float32)(F, FinvT)(
+            *rhs)
+        for u, v in zip(full, low):
+            assert v.dtype == torch.float64
+            np.testing.assert_allclose(v.numpy(), u.numpy(), rtol=1e-5,
+                                       atol=1e-6)
 
 
 def test_retry_while_escalates_until_good_or_cap():
@@ -255,6 +267,86 @@ def test_spectral_applicable_matches_jax():
         assert spectral_applicable(t(Q), t(A), None if G is None else t(G),
                                    ConeSpec(cones)) is want
     assert spectral_kktsolver() is spectral_kktsolver(None)
-    with pytest.raises(NotImplementedError):
-        spectral_kktsolver("refined")(t(I), t(I), t(np.zeros((0, n))),
-                                      ConeSpec(S))
+    # "refined" is accepted and is the working-dtype decomposition
+    spec = ConeSpec(S)
+    rng = np.random.default_rng(0)
+    F = tsc.nt_scaling(spec, t(cone_interior(rng, spec)),
+                       t(cone_interior(rng, spec)))
+    FinvT = tsc.nt_inv_adjoint(spec, F)
+    args = (t(I), t(I), t(np.zeros((0, n))), spec)
+    rhs = (t(rng.standard_normal(n)), t(np.zeros(0)),
+           t(rng.standard_normal(n)))
+    for u, v in zip(spectral_kktsolver("refined")(*args)(F, FinvT)(*rhs),
+                    spectral_kktsolver(None)(*args)(F, FinvT)(*rhs)):
+        assert torch.equal(u, v)
+
+
+MODE_DIMS = {"R": [("R", 12)], "RQ": [("R", 5), ("Q", 4), ("Q", 3)],
+             "RQS": [("R", 3), ("Q", 3), ("S", 6)]}
+
+
+@pytest.mark.parametrize("dims", list(MODE_DIMS))
+@pytest.mark.parametrize("p", [0, 2])
+@pytest.mark.parametrize("layer", ["kktsolver_2x2", "pivot"])
+def test_mode_variants_match_jax(layer, p, dims, rng):
+    """The two-variant ``mode`` contract of a ``lastmile`` generator, at
+    the 2x2 layer and through ``pivot``, on one F: the slow variant is the
+    full-precision solve (1e-10 of the reference's), the fast variant the
+    f32 one (1e-4 relative, of the reference's fast variant and of the
+    slow solve), the default mode is the fast one, and without ``lastmile``
+    the generator takes no ``mode`` at all."""
+    from conicip_tpu_torch.kkt import kktsolver_2x2
+    from conicip_tpu_torch.kkt.pivot import accepts_mode
+
+    cones = MODE_DIMS[dims]
+    ts, js = ConeSpec(cones), jc.ConeSpec(cones)
+    m = ts.m
+    B = rng.standard_normal((N, N))
+    Q, A, G = B @ B.T / N, rng.standard_normal((m, N)), \
+        rng.standard_normal((p, N))
+    z, s = cone_interior(rng, ts), cone_interior(rng, ts)
+    F = tsc.nt_scaling(ts, t(z), t(s))
+    FinvT = tsc.nt_inv_adjoint(ts, F)
+    Fj = jc.nt_scaling(js, jnp.asarray(z), jnp.asarray(s))
+    FjinvT = jc.nt_inv_adjoint(js, Fj)
+    ry, rw, rv = (rng.standard_normal(N), rng.standard_normal(p),
+                  rng.standard_normal(m))
+    kw = dict(factor_dtype=torch.float32, lastmile=True)
+    jkw = dict(factor_dtype=jnp.float32, lastmile=True)
+    if layer == "pivot":
+        gen = kktsolver_schur(t(Q), t(A), t(G), ts, **kw)
+        ref = jk.kktsolver_schur(jnp.asarray(Q), jnp.asarray(A),
+                                 jnp.asarray(G), js, **jkw)
+        plain = kktsolver_schur(t(Q), t(A), t(G), ts,
+                                factor_dtype=torch.float32)
+        rhs, jrhs = (t(ry), t(rw), t(rv)), (jnp.asarray(ry), jnp.asarray(rw),
+                                            jnp.asarray(rv))
+    else:
+        gen = kktsolver_2x2(t(Q), t(A), t(G), ts, **kw)
+        ref = jk.kktsolver_2x2(jnp.asarray(Q), jnp.asarray(A),
+                               jnp.asarray(G), js, **jkw)
+        plain = kktsolver_2x2(t(Q), t(A), t(G), ts,
+                              factor_dtype=torch.float32)
+        rhs, jrhs = (t(ry), t(rw)), (jnp.asarray(ry), jnp.asarray(rw))
+    assert accepts_mode(gen) and not accepts_mode(plain)
+
+    def run(g, F_, Fi_, r, **mode):
+        return [np.asarray(u) for u in g(F_, Fi_, **mode)(*r)]
+
+    slow = run(gen, F, FinvT, rhs, mode="slow")
+    fast = run(gen, F, FinvT, rhs, mode="fast")
+    default = run(gen, F, FinvT, rhs)
+    single = run(plain, F, FinvT, rhs)
+    slow_j = run(ref, Fj, FjinvT, jrhs, mode="slow")
+    fast_j = run(ref, Fj, FjinvT, jrhs, mode="fast")
+    scale = max(np.max(np.abs(u)) for u in slow_j if u.size)
+    for k in range(len(slow)):
+        assert slow[k].dtype == fast[k].dtype == np.float64
+        np.testing.assert_allclose(slow[k], slow_j[k], rtol=0,
+                                   atol=1e-10 * scale)
+        np.testing.assert_allclose(fast[k], fast_j[k], rtol=0,
+                                   atol=1e-4 * scale)
+        np.testing.assert_allclose(fast[k], slow[k], rtol=0,
+                                   atol=1e-4 * scale)
+        np.testing.assert_array_equal(default[k], fast[k])
+        np.testing.assert_array_equal(single[k], fast[k])

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from conicip_tpu_torch import trace
+from conicip_tpu_torch.solver import resolve_factor_dtype
 
 
 @pytest.mark.parametrize("events, busy", [
@@ -39,6 +40,7 @@ def test_needs_a_card():
         pytest.skip("a card is present: the profile would run")
     assert trace.main(["--n", "8"]) == 2
     assert trace.main(["--family", "larger_sdp"]) == 2
+    assert trace.main(["--n", "8", "--factor-dtype", "float32"]) == 2
 
 
 def test_families_make_their_problems():
@@ -49,3 +51,14 @@ def test_families_make_their_problems():
     assert P.name == "single_soc(n=8)" and P.cone_dims == [("Q", 9)]
     assert trace.FAMILIES["box_qp_dense"](8, 42).A.shape == (16, 8)
     assert trace.FAMILIES["larger_sdp"](8, 42).cone_dims == [("S", 465)]
+
+
+def test_factor_dtype_switch_selects_the_solve():
+    assert trace.parse_args([]).factor_dtype == "float64"
+    assert trace.parse_args(["--factor-dtype", "float32"]).factor_dtype == \
+        "float32"
+    # the default is conic_ip's own default, full-precision factors
+    assert resolve_factor_dtype(trace.FACTOR_DTYPES["float64"]) is None
+    assert trace.FACTOR_DTYPES["float32"] is torch.float32
+    with pytest.raises(SystemExit):
+        trace.parse_args(["--factor-dtype", "bfloat16"])
