@@ -17,7 +17,10 @@ order) is processed by one batched expression:
 R is elementwise, Q takes the arrow-matrix closed forms, S the batched
 ``torch.linalg`` decompositions of ``ops/batched.py`` (NaN, never an
 exception, on a bad batch entry). No function reads a value back to the
-host. All take 1-D ``(m,)`` tensors and return tensors on their device.
+host. All take ``(..., m)`` tensors, the last axis the cone axis and any
+leading dims a stack of instances, and return tensors on their device: a
+step length or shift has the leading dims' shape, and no reduction crosses
+them.
 
 ``eig_dtype`` on the S-cone functions picks the precision of their d x d
 decompositions: ``None`` is the working dtype, a dtype (``torch.float32``)
@@ -30,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.batched import safe_eigh, safe_eigvalsh
+from ..ops.batched import bcast, safe_eigh, safe_eigvalsh
 from .segment import put_group, put_r, take_group, take_r
 from .spec import ConeSpec
 from .symm import mat, vecm
@@ -62,11 +65,11 @@ def cone_prod(spec: ConeSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if spec.nr:
         put_r(spec, o, take_r(spec, x) * take_r(spec, y))
     for g in spec.soc_groups:
-        xg, yg = take_group(g, x), take_group(g, y)  # (k, dim)
-        tail = xg[:, :1] * yg[:, 1:] + yg[:, :1] * xg[:, 1:]
-        put_group(g, o, torch.cat([_dot(xg, yg)[:, None], tail], dim=1))
+        xg, yg = take_group(g, x), take_group(g, y)  # (..., k, dim)
+        tail = xg[..., :1] * yg[..., 1:] + yg[..., :1] * xg[..., 1:]
+        put_group(g, o, torch.cat([_dot(xg, yg)[..., None], tail], dim=-1))
     for g in spec.sdp_groups:
-        X, Y = mat(take_group(g, x)), mat(take_group(g, y))  # (k, d, d)
+        X, Y = mat(take_group(g, x)), mat(take_group(g, y))  # (..., k, d, d)
         put_group(g, o, vecm(X @ Y + Y @ X))  # symmetrized product
     return o
 
@@ -124,14 +127,14 @@ def cone_div(spec: ConeSpec, x: torch.Tensor, y: torch.Tensor,
     for g in spec.soc_groups:
         # inverse of the arrow matrix of y, applied to x
         xg, yg = take_group(g, x), take_group(g, y)
-        y1, yb = yg[:, :1], yg[:, 1:]
-        x1, xb = xg[:, :1], xg[:, 1:]
-        alpha = y1 * y1 - _dot(yb, yb)[:, None]  # (k, 1)
-        ybxb = _dot(yb, xb)[:, None]
+        y1, yb = yg[..., :1], yg[..., 1:]
+        x1, xb = xg[..., :1], xg[..., 1:]
+        alpha = y1 * y1 - _dot(yb, yb)[..., None]  # (..., k, 1)
+        ybxb = _dot(yb, xb)[..., None]
         head = (y1 * x1 - ybxb) / alpha
         beta1 = (-x1 / alpha) + ybxb / (y1 * alpha)
         tail = yb * beta1 + xb * (1.0 / y1)
-        put_group(g, o, torch.cat([head, tail], dim=1))
+        put_group(g, o, torch.cat([head, tail], dim=-1))
     for gi, g in enumerate(spec.sdp_groups):
         X, Y = mat(take_group(g, x)), mat(take_group(g, y))
         y_eig = None if y_eigs is None else y_eigs[gi]
@@ -145,32 +148,42 @@ def _qf(x):
 
 
 def _soc_frame(xg):
-    sg = torch.sqrt(_qf(xg))  # (k,)
-    return sg, xg / sg[:, None]
+    sg = torch.sqrt(_qf(xg))  # (..., k)
+    return sg, xg / sg[..., None]
 
 
 def _soc_step(sg, xbar, dg, inf):
     """Closed-form SOC step sup{α : x − α d ∈ Q} from x's frame (sg, xbar)."""
     dn = -dg
-    beta = 2.0 * xbar[:, 0] * dn[:, 0] - _dot(xbar, dn)
+    beta = 2.0 * xbar[..., 0] * dn[..., 0] - _dot(xbar, dn)
     rho1 = beta / sg
-    mu = (beta + dn[:, 0]) / (xbar[:, 0] + 1.0)
-    rho2 = dn[:, 1:] - mu[:, None] * xbar[:, 1:]
+    mu = (beta + dn[..., 0]) / (xbar[..., 0] + 1.0)
+    rho2 = dn[..., 1:] - mu[..., None] * xbar[..., 1:]
     a = torch.linalg.norm(rho2, dim=-1) / sg - rho1
-    return torch.min(torch.where(a < 0, inf, 1.0 / a))
+    return torch.amin(torch.where(a < 0, inf, 1.0 / a), dim=-1)
 
 
 def _r_step(xr, dr, inf):
-    return torch.min(torch.where(dr > 0, xr / dr, inf))
+    return torch.amin(torch.where(dr > 0, xr / dr, inf), dim=-1)
+
+
+def _least(steps, like):
+    """The smallest of per-group values (each of the stack's shape), which
+    is ``like``'s without its last axis; +inf when there is no group."""
+    if not steps:
+        return like.new_full(like.shape[:-1], float("inf"))
+    if len(steps) == 1:
+        return steps[0]
+    return torch.amin(torch.stack(steps, dim=-1), dim=-1)
 
 
 def _sdp_step(lam, pd, inf):
-    """Step from the eigenvalues (k, d) of X^{-1/2} D X^{-1/2}: 1/λmax
+    """Step from the eigenvalues (..., k, d) of X^{-1/2} D X^{-1/2}: 1/λmax
     over positive λ, inf when none is, inf where X is not PD."""
     all_neg = torch.all(lam < 0, dim=-1)
     mx = torch.max(torch.where(lam < 0, -inf, lam), dim=-1).values
     a = torch.where(all_neg, inf, 1.0 / mx)
-    return torch.min(torch.where(pd, a, inf))
+    return torch.amin(torch.where(pd, a, inf), dim=-1)
 
 
 def _inv_sqrt_parts(wX):
@@ -181,12 +194,12 @@ def _inv_sqrt_parts(wX):
 
 def maxstep(spec: ConeSpec, x: torch.Tensor, d: torch.Tensor,
             eig_dtype=None) -> torch.Tensor:
-    """``sup { α : x - α d ∈ K }`` as a 0-dim tensor (inf when unbounded).
+    """``sup { α : x - α d ∈ K }`` per instance (inf when unbounded).
     ``eig_dtype`` runs the S-cone eigendecompositions in another precision:
     a ~1e-7 relative error of the step sits far inside the 1 %
     fraction-to-boundary margin."""
     inf = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
-    steps = [inf]
+    steps = []
     if spec.nr:
         steps.append(_r_step(take_r(spec, x), take_r(spec, d), inf))
     for g in spec.soc_groups:
@@ -201,7 +214,7 @@ def maxstep(spec: ConeSpec, x: torch.Tensor, d: torch.Tensor,
         M = (Xih @ D) @ Xih
         lam = _eigh_d(0.5 * (M + _t(M)), eig_dtype)[0].to(x.dtype)
         steps.append(_sdp_step(lam, pd, inf))
-    return torch.min(torch.stack(steps))
+    return _least(steps, x)
 
 
 def maxstep_multi(spec: ConeSpec, x: torch.Tensor, ds, eig_dtype=None,
@@ -215,7 +228,7 @@ def maxstep_multi(spec: ConeSpec, x: torch.Tensor, ds, eig_dtype=None,
     (:func:`sdp_eighs`) supplies the decomposition of ``mat(x)``; ``U =
     None`` there means ``mat(x) = diag(w)`` (the NT-scaled point)."""
     inf = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
-    steps = [[inf] for _ in ds]
+    steps = [[] for _ in ds]
     if spec.nr:
         xr = take_r(spec, x)
         for i, d in enumerate(ds):
@@ -241,15 +254,15 @@ def maxstep_multi(spec: ConeSpec, x: torch.Tensor, ds, eig_dtype=None,
             M = (D * rs[..., :, None] * rs[..., None, :] if U is None
                  else (Xih @ D) @ Xih)
             Ms.append(0.5 * (M + _t(M)))
-        Mc = torch.cat(Ms, dim=0)
+        Mc = torch.cat(Ms, dim=-3)  # the directions stacked on the cone axis
         if Mc.dtype == torch.float64:
             lam_all = safe_eigvalsh(Mc.to(torch.float32))
         else:
             lam_all = _eigh_d(Mc, eig_dtype)[0]
         lam_all = lam_all.to(x.dtype)
-        for i, lam in enumerate(torch.split(lam_all, g.count)):
+        for i, lam in enumerate(torch.split(lam_all, g.count, dim=-2)):
             steps[i].append(_sdp_step(lam, pd, inf))
-    return tuple(torch.min(torch.stack(s)) for s in steps)
+    return tuple(_least(s, x) for s in steps)
 
 
 def centrality_correction(spec: ConeSpec, w: torch.Tensor, lo, hi,
@@ -260,8 +273,10 @@ def centrality_correction(spec: ConeSpec, w: torch.Tensor, lo, hi,
     eigendecomposition on S."""
 
     def _clip(lmb):
+        # lo and hi are one value per instance: trailing dims up to lmb's
+        lo_, hi_ = bcast(lo, lmb), bcast(hi, lmb)
         return torch.maximum(
-            torch.minimum(torch.maximum(lmb, lo), hi) - lmb, -hi)
+            torch.minimum(torch.maximum(lmb, lo_), hi_) - lmb, -hi_)
 
     lo = torch.as_tensor(lo, dtype=w.dtype, device=w.device)
     hi = torch.as_tensor(hi, dtype=w.dtype, device=w.device)
@@ -271,15 +286,16 @@ def centrality_correction(spec: ConeSpec, w: torch.Tensor, lo, hi,
     if spec.nr:
         put_r(spec, q, _clip(take_r(spec, w)))
     for g in spec.soc_groups:
-        wg = take_group(g, w)  # (k, dim)
-        w0 = wg[:, 0]
-        nrm = torch.linalg.norm(wg[:, 1:], dim=-1)
-        dplus, dminus = _clip(w0 + nrm), _clip(w0 - nrm)  # (k,)
+        wg = take_group(g, w)  # (..., k, dim)
+        w0 = wg[..., 0]
+        nrm = torch.linalg.norm(wg[..., 1:], dim=-1)
+        dplus, dminus = _clip(w0 + nrm), _clip(w0 - nrm)  # (..., k)
         # q = δ₊c₊ + δ₋c₋, c± = ½(1, ±ŵ), ŵ = w̄/‖w̄‖ (0 when w̄ = 0)
-        what = wg[:, 1:] / torch.clamp(nrm, min=torch.finfo(w.dtype).tiny)[:, None]
+        what = wg[..., 1:] / torch.clamp(
+            nrm, min=torch.finfo(w.dtype).tiny)[..., None]
         head = 0.5 * (dplus + dminus)
-        tail = 0.5 * (dplus - dminus)[:, None] * what
-        put_group(g, q, torch.cat([head[:, None], tail], dim=1))
+        tail = 0.5 * (dplus - dminus)[..., None] * what
+        put_group(g, q, torch.cat([head[..., None], tail], dim=-1))
     ed = _arith_dtype(w.dtype, eig_dtype)
     for g in spec.sdp_groups:
         lmb, U = _eigh_d(mat(take_group(g, w)).to(ed), eig_dtype)
@@ -293,15 +309,17 @@ def maxstep_to_cone(spec: ConeSpec, x: torch.Tensor) -> torch.Tensor:
     ``-1 + (most negative spectral value)`` that pushes the initial point
     inside."""
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    steps = [zero]
+    steps = []
     if spec.nr:
-        mn = torch.min(take_r(spec, x))
+        mn = torch.amin(take_r(spec, x), dim=-1)
         steps.append(torch.where(mn > 0, zero, mn - 1.0))
     for g in spec.soc_groups:
         xg = take_group(g, x)
-        a = torch.linalg.norm(xg[:, 1:], dim=-1) - xg[:, 0]
-        steps.append(torch.min(torch.where(a < 0, zero, -1.0 - a)))
+        a = torch.linalg.norm(xg[..., 1:], dim=-1) - xg[..., 0]
+        steps.append(torch.amin(torch.where(a < 0, zero, -1.0 - a), dim=-1))
     for g in spec.sdp_groups:
-        mn = torch.min(safe_eigvalsh(mat(take_group(g, x))), dim=-1).values
-        steps.append(torch.min(torch.where(mn > 0, zero, mn - 1.0)))
-    return torch.min(torch.stack(steps))
+        mn = torch.amin(safe_eigvalsh(mat(take_group(g, x))), dim=-1)
+        steps.append(torch.amin(torch.where(mn > 0, zero, mn - 1.0), dim=-1))
+    if not steps:
+        return x.new_zeros(x.shape[:-1])
+    return _least(steps, x)

@@ -8,7 +8,9 @@ scaling keeps one structure per cone group and is never materialized:
 - S group:  per cone ``F x = vecm(Sᵀ mat(x) S)`` (a congruence)
 
 Applying F, Fᵀ or F⁻ᵀ to a vector or to the rows of a matrix is a few
-batched elementwise products and matmuls per group.
+batched elementwise products and matmuls per group. Every function takes a
+stack of instances as leading dims: points and vectors (..., m), matrices
+(..., m, n), and a scaling whose fields carry the same leading dims.
 
 The S-cone scaling takes the reference's off-TPU branch: ``Lz = chol(Z)``,
 ``Ls = chol(S)``, ``U, λ = svd(Lzᵀ Ls)``, ``R = Lz⁻ᵀ U diag(√λ)``. Where
@@ -51,23 +53,23 @@ __all__ = [
 
 @dataclass(frozen=True)
 class SocScaling:
-    d: torch.Tensor  # (k, dim) diagonal entries
-    u: torch.Tensor  # (k, dim) rank-1 factor
-    alpha: torch.Tensor  # (k,) rank-1 weight
+    d: torch.Tensor  # (..., k, dim) diagonal entries
+    u: torch.Tensor  # (..., k, dim) rank-1 factor
+    alpha: torch.Tensor  # (..., k) rank-1 weight
 
 
 @dataclass(frozen=True)
 class SdpScaling:
-    S: torch.Tensor  # (k, d, d): F x = vecm(Sᵀ mat(x) S)
-    Sinv: torch.Tensor  # (k, d, d), in closed form from the construction
+    S: torch.Tensor  # (..., k, d, d): F x = vecm(Sᵀ mat(x) S)
+    Sinv: torch.Tensor  # (..., k, d, d), in closed form from the construction
     # eigenvalues of the scaled point: mat(F z) = RᵀZR = diag(lam) exactly,
     # so the λ-frame needs no eigendecomposition of mat(λ)
-    lam: torch.Tensor  # (k, d)
+    lam: torch.Tensor  # (..., k, d)
 
 
 @dataclass(frozen=True)
 class NTScaling:
-    r_d: torch.Tensor  # (nr,)
+    r_d: torch.Tensor  # (..., nr)
     soc: Tuple[SocScaling, ...] = ()
     sdp: Tuple[SdpScaling, ...] = ()
 
@@ -88,16 +90,17 @@ def _t(X):
 def _soc_scaling(zg: torch.Tensor, sg: torch.Tensor) -> SocScaling:
     qz = _qf(zg)
     qs = _qf(sg)
-    beta = (qs / qz) ** 0.25  # (k,)
-    zb = zg / torch.sqrt(qz)[:, None]
-    sb = sg / torch.sqrt(qs)[:, None]
-    gam = torch.sqrt((1.0 + _dot(zb, sb)) / 2.0)  # (k,)
-    Jzb = torch.cat([zb[:, :1], -zb[:, 1:]], dim=1)
-    w = (sb + Jzb) / (2.0 * gam[:, None])
-    w = torch.cat([w[:, :1] + 1.0, w[:, 1:]], dim=1)
-    w = w * (torch.sqrt(beta) / torch.sqrt(w[:, 0]))[:, None]
-    dvec = torch.cat([-beta[:, None],
-                      beta[:, None].expand(-1, zg.shape[1] - 1)], dim=1)
+    beta = (qs / qz) ** 0.25  # (..., k)
+    zb = zg / torch.sqrt(qz)[..., None]
+    sb = sg / torch.sqrt(qs)[..., None]
+    gam = torch.sqrt((1.0 + _dot(zb, sb)) / 2.0)  # (..., k)
+    Jzb = torch.cat([zb[..., :1], -zb[..., 1:]], dim=-1)
+    w = (sb + Jzb) / (2.0 * gam[..., None])
+    w = torch.cat([w[..., :1] + 1.0, w[..., 1:]], dim=-1)
+    w = w * (torch.sqrt(beta) / torch.sqrt(w[..., 0]))[..., None]
+    dvec = torch.cat([-beta[..., None],
+                      beta[..., None].expand(*beta.shape, zg.shape[-1] - 1)],
+                     dim=-1)
     return SocScaling(d=dvec, u=w, alpha=torch.ones_like(beta))
 
 
@@ -122,7 +125,8 @@ def nt_scaling(spec: ConeSpec, z: torch.Tensor, s: torch.Tensor,
     one SVD, one triangular solve per group) in that precision and returns
     the scaling in the working dtype; ``None`` and ``"refined"`` run them
     in the working dtype."""
-    r_d = torch.sqrt(take_r(spec, s) / take_r(spec, z)) if spec.nr else z[:0]
+    r_d = (torch.sqrt(take_r(spec, s) / take_r(spec, z)) if spec.nr
+           else z[..., :0])
     soc = tuple(_soc_scaling(take_group(g, z), take_group(g, s))
                 for g in spec.soc_groups)
     wd = z.dtype
@@ -136,20 +140,24 @@ def nt_scaling(spec: ConeSpec, z: torch.Tensor, s: torch.Tensor,
     return NTScaling(r_d=r_d, soc=soc, sdp=tuple(sdp))
 
 
-def nt_identity(spec: ConeSpec, dtype=torch.float64, device="cpu") -> NTScaling:
-    """Identity scaling, used for the cold-start KKT solve."""
+def nt_identity(spec: ConeSpec, dtype=torch.float64, device="cpu",
+                batch_shape=()) -> NTScaling:
+    """Identity scaling, used for the cold-start KKT solve; ``batch_shape``
+    gives its fields the leading dims of a stack of instances."""
     kw = dict(dtype=dtype, device=device)
-    soc = tuple(SocScaling(d=torch.ones(g.count, g.dim, **kw),
-                           u=torch.zeros(g.count, g.dim, **kw),
-                           alpha=torch.zeros(g.count, **kw))
+    bs = tuple(batch_shape)
+    soc = tuple(SocScaling(d=torch.ones(*bs, g.count, g.dim, **kw),
+                           u=torch.zeros(*bs, g.count, g.dim, **kw),
+                           alpha=torch.zeros(*bs, g.count, **kw))
                 for g in spec.soc_groups)
     sdp = []
     for g in spec.sdp_groups:
-        eye = torch.eye(g.order, **kw).expand(g.count, g.order, g.order)
+        eye = torch.eye(g.order, **kw).expand(*bs, g.count, g.order, g.order)
         # only used with the cone identity as the scaled point: mat(e) = I
         sdp.append(SdpScaling(S=eye, Sinv=eye,
-                              lam=torch.ones(g.count, g.order, **kw)))
-    return NTScaling(r_d=torch.ones(spec.nr, **kw), soc=soc, sdp=tuple(sdp))
+                              lam=torch.ones(*bs, g.count, g.order, **kw)))
+    return NTScaling(r_d=torch.ones(*bs, spec.nr, **kw), soc=soc,
+                     sdp=tuple(sdp))
 
 
 def nt_inv_adjoint(spec: ConeSpec, F: NTScaling) -> NTScaling:
@@ -186,7 +194,8 @@ def _apply(spec: ConeSpec, F: NTScaling, x: torch.Tensor, transpose_sdp: bool):
         put_r(spec, o, F.r_d * take_r(spec, x))
     for g, sc in zip(spec.soc_groups, F.soc):
         xg = take_group(g, x)
-        put_group(g, o, sc.d * xg + (sc.alpha * _dot(sc.u, xg))[:, None] * sc.u)
+        put_group(g, o,
+                  sc.d * xg + (sc.alpha * _dot(sc.u, xg))[..., None] * sc.u)
     for g, sd in zip(spec.sdp_groups, F.sdp):
         X = mat(take_group(g, x))
         S = sd.S
@@ -207,23 +216,23 @@ def apply_adjoint(spec: ConeSpec, F: NTScaling, x: torch.Tensor) -> torch.Tensor
 
 def _apply_mat(spec: ConeSpec, F: NTScaling, A: torch.Tensor,
                transpose_sdp: bool):
-    """F @ A for A of shape (m, n), column by column: row scaling on R,
+    """F @ A for A of shape (..., m, n), column by column: row scaling on R,
     batched rank-1 updates on Q, batched congruences on S. The Schur
     assembly builds ``Atil = F⁻ᵀ A`` this way."""
     if spec.only_r:
-        return F.r_d[:, None] * A
+        return F.r_d[..., None] * A
     o = torch.zeros_like(A)
     if spec.nr:
-        put_rows_r(spec, o, F.r_d[:, None] * take_rows_r(spec, A))
+        put_rows_r(spec, o, F.r_d[..., None] * take_rows_r(spec, A))
     for g, sc in zip(spec.soc_groups, F.soc):
-        Ag = take_rows_group(g, A)  # (k, dim, n)
-        uA = torch.einsum("kd,kdn->kn", sc.u, Ag)
-        put_rows_group(g, o, sc.d[:, :, None] * Ag
-                       + sc.alpha[:, None, None] * sc.u[:, :, None]
-                       * uA[:, None, :])
+        Ag = take_rows_group(g, A)  # (..., k, dim, n)
+        uA = torch.einsum("...kd,...kdn->...kn", sc.u, Ag)
+        put_rows_group(g, o, sc.d[..., None] * Ag
+                       + sc.alpha[..., None, None] * sc.u[..., None]
+                       * uA[..., None, :])
     for g, sd in zip(spec.sdp_groups, F.sdp):
-        X = mat(_t(take_rows_group(g, A)))  # (k, n, d, d)
-        S = sd.S[:, None]
+        X = mat(_t(take_rows_group(g, A)))  # (..., k, n, d, d)
+        S = sd.S[..., None, :, :]
         Y = (S @ X) @ _t(S) if transpose_sdp else (_t(S) @ X) @ S
         put_rows_group(g, o, _t(vecm(Y)))
     return o
@@ -242,55 +251,57 @@ def _index(idx, dev):
 
 
 def _put_blocks(M, idx, blk):
-    """Write the (k, dim, dim) blocks onto M's diagonal at rows/cols idx (k, dim)."""
+    """Write the (..., k, dim, dim) blocks onto the diagonal of M (..., m, m)
+    at rows/cols idx (k, dim)."""
     ix = _index(idx, M.device)
-    M[ix[:, :, None], ix[:, None, :]] = blk.to(M.dtype)
+    M[..., ix[:, :, None], ix[:, None, :]] = blk.to(M.dtype)
 
 
 def dense_gram(spec: ConeSpec, F: NTScaling, dtype=None) -> torch.Tensor:
-    """``FᵀF`` as an (m, m) block-diagonal matrix, built from the structured
+    """``FᵀF`` as an (..., m, m) block-diagonal matrix, built from the structured
     parts in O(Σ k·d³): R rows square the diagonal; Q blocks form the
     (dim, dim) factor and square it; S blocks use that the congruence
     ``X ↦ SᵀXS`` composed with its adjoint is the congruence by the
     symmetric ``P = SSᵀ``."""
     dtype = dtype or F.r_d.dtype
     dev = F.r_d.device
-    M = torch.zeros(spec.m, spec.m, dtype=dtype, device=dev)
+    M = torch.zeros(*F.r_d.shape[:-1], spec.m, spec.m, dtype=dtype, device=dev)
 
     if spec.nr:
         ix = _index(spec.r_idx, dev)
-        M[ix, ix] = (F.r_d * F.r_d).to(dtype)
+        M[..., ix, ix] = (F.r_d * F.r_d).to(dtype)
     for g, sc in zip(spec.soc_groups, F.soc):
-        blk = (torch.diag_embed(sc.d)
-               + sc.alpha[:, None, None] * sc.u[:, :, None] * sc.u[:, None, :])
+        blk = (torch.diag_embed(sc.d) + sc.alpha[..., None, None]
+               * sc.u[..., :, None] * sc.u[..., None, :])
         _put_blocks(M, g.idx, blk @ blk)
     for g, sd in zip(spec.sdp_groups, F.sdp):
         basis = mat(torch.eye(g.tdim, dtype=sd.S.dtype, device=dev))  # (t, d, d)
         P = sd.S @ _t(sd.S)
-        Y = (P[:, None] @ basis) @ P[:, None]  # (k, t, d, d)
+        Pk = P[..., None, :, :]
+        Y = (Pk @ basis) @ Pk  # (..., k, t, d, d)
         _put_blocks(M, g.idx, _t(vecm(Y)))
     return M
 
 
 def dense(spec: ConeSpec, F: NTScaling, dtype=None) -> torch.Tensor:
-    """F itself as an (m, m) block-diagonal matrix: the diagonal on R, the
+    """F itself as an (..., m, m) block-diagonal matrix: the diagonal on R, the
     (dim, dim) diagonal-plus-rank-1 block per Q cone, and per S cone the
     matrix whose column j is ``vecm(Sᵀ mat(e_j) S)``. For solvers that need
     the full operator; the Schur path never calls it."""
     dtype = dtype or F.r_d.dtype
     dev = F.r_d.device
-    M = torch.zeros(spec.m, spec.m, dtype=dtype, device=dev)
+    M = torch.zeros(*F.r_d.shape[:-1], spec.m, spec.m, dtype=dtype, device=dev)
 
     if spec.nr:
         ix = _index(spec.r_idx, dev)
-        M[ix, ix] = F.r_d.to(dtype)
+        M[..., ix, ix] = F.r_d.to(dtype)
     for g, sc in zip(spec.soc_groups, F.soc):
         _put_blocks(M, g.idx, torch.diag_embed(sc.d)
-                    + sc.alpha[:, None, None] * sc.u[:, :, None]
-                    * sc.u[:, None, :])
+                    + sc.alpha[..., None, None] * sc.u[..., :, None]
+                    * sc.u[..., None, :])
     for g, sd in zip(spec.sdp_groups, F.sdp):
         basis = mat(torch.eye(g.tdim, dtype=sd.S.dtype, device=dev))  # (t, d, d)
-        S = sd.S[:, None]
-        Y = (_t(S) @ basis) @ S  # (k, t, d, d): Y[k, j] = Sᵀ mat(e_j) S
+        S = sd.S[..., None, :, :]
+        Y = (_t(S) @ basis) @ S  # (..., k, t, d, d): Y[k, j] = Sᵀ mat(e_j) S
         _put_blocks(M, g.idx, _t(vecm(Y)))
     return M

@@ -10,7 +10,8 @@ alike. The ``put_*`` helpers write into ``o`` in place and return it;
 callers pass a freshly allocated output.
 
 The vector helpers treat the last axis as the cone axis; the ``rows``
-variants treat the leading axis of an (m, n) matrix as the cone axis.
+variants treat the second-to-last axis of an (..., m, n) matrix as the cone
+axis. Leading dims are a stack of instances and pass through.
 """
 
 from __future__ import annotations
@@ -60,19 +61,22 @@ def put_group(g, o: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
 
 
 def take_rows_r(spec: ConeSpec, X: torch.Tensor) -> torch.Tensor:
-    """Rows of an (m, n) matrix at the R coordinates, shape (nr, n)."""
-    return _take(X, spec.r_runs, 0)
+    """Rows of an (..., m, n) matrix at the R coordinates, (..., nr, n)."""
+    return _take(X, spec.r_runs, X.dim() - 2)
 
 
 def put_rows_r(spec: ConeSpec, O: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    return _put(O, spec.r_runs, val, 0)
+    return _put(O, spec.r_runs, val, O.dim() - 2)
 
 
 def take_rows_group(g, X: torch.Tensor) -> torch.Tensor:
-    """Rows of an (m, n) matrix at one group, shape (count, dim, n)."""
-    return _take(X, g.runs, 0).reshape(g.idx.shape + X.shape[1:])
+    """Rows of an (..., m, n) matrix at one group, (..., count, dim, n)."""
+    return _take(X, g.runs, X.dim() - 2).reshape(
+        X.shape[:-2] + g.idx.shape + X.shape[-1:])
 
 
 def put_rows_group(g, O: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    """O with one group's rows replaced by val (count, dim, n)."""
-    return _put(O, g.runs, val.reshape((-1,) + O.shape[1:]), 0)
+    """O with one group's rows replaced by val (..., count, dim, n)."""
+    return _put(O, g.runs,
+                val.reshape(O.shape[:-2] + (-1,) + O.shape[-1:]),
+                O.dim() - 2)

@@ -40,6 +40,11 @@
 //     launched beside it (programmatic dependent launch) on the free SM,
 //     waits on a counter for those tiles only, and for the whole grid
 //     before it ends: the chain of diagonal blocks overlaps the updates.
+//   - a stack of matrices (the batched solve's per-iteration factors) is the
+//     second dimension of every grid: matrix blockIdx.y of a contiguous
+//     (B, n, n) buffer, with its own inverse block and counter in `work`.
+//     The launches are those of one matrix whatever B is, and each matrix
+//     gets the arithmetic of the single entry, which is the batch of one.
 //   The products stage 32-deep chunks of both operands in shared memory with
 //   cp.async (16 bytes a copy where rows are aligned), the tile of A22
 //   preloaded into the sums. In double they run on the FP64 tensor cores
@@ -86,6 +91,10 @@ constexpr int PANEL_ROWS = 32;      // rows of the panel product per block
 constexpr int PANEL_STAGES = 4;     // chunks in flight in the panel product
 constexpr int TS = 64;              // trailing-update tile
 constexpr int TRAIL_STAGES = 2;     // chunks in flight in the trailing update
+// Scratch of one matrix in `work`: the inverse of a diagonal block, then the
+// counter of finished tiles, padded so that every matrix's inverse starts on
+// a 16-byte boundary (cp.async copies 16 bytes from it).
+constexpr int WORK_STRIDE = NB * NB + 4;
 
 // Row stride of a staged chunk: rows stay 16-byte aligned for cp.async, and
 // 8 banks apart in double for the mma fragments.
@@ -111,11 +120,30 @@ __device__ __forceinline__ float pivot(float d) {
 __device__ __forceinline__ double rsq(double d) { return rsqrt(d); }
 __device__ __forceinline__ float rsq(float d) { return rsqrtf(d); }
 
+// Every kernel takes the batch as blockIdx.y: matrix blockIdx.y of a
+// contiguous (B, n, n) stack, with its own scratch in `work`. A single
+// matrix is the batch of one.
+template <typename T>
+__device__ __forceinline__ T* batch_matrix(T* a, int n) {
+  return a + (size_t)blockIdx.y * n * n;
+}
+template <typename T>
+__device__ __forceinline__ T* batch_work(T* work) {
+  return work + (size_t)blockIdx.y * WORK_STRIDE;
+}
+template <typename T>
+__device__ __forceinline__ unsigned* ready_counter(T* work_b) {
+  return reinterpret_cast<unsigned*>(work_b + NB * NB);
+}
+
 // out = tril(in); also clears the counter of finished diagonal tiles.
 template <typename T>
 __global__ void copy_lower(const T* __restrict__ in, T* __restrict__ out,
-                           int n, unsigned* __restrict__ ready) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) *ready = 0;
+                           int n, T* __restrict__ work) {
+  in = batch_matrix(in, n);
+  out = batch_matrix(out, n);
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    *ready_counter(batch_work(work)) = 0;
   const size_t total = (size_t)n * n;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
@@ -198,17 +226,22 @@ __device__ __forceinline__ void wait_prerequisite() {
 }
 
 // Factor the kb x kb diagonal block at (k, k) of src into dst (which may be
-// src), with the strict upper triangle written as zeros. When `inv` is not
-// null (then kb == NB), also write inv(L_kk), 128 x 128 row-major, to it.
-// With `ready`, it runs beside the previous panel's trailing update and
-// first waits until that has finished `target` tiles in all, which include
-// this block's (a bounded wait: it traps rather than hang).
+// src), with the strict upper triangle written as zeros. With `want_inv`
+// (then kb == NB), also write inv(L_kk), 128 x 128 row-major, to the
+// matrix's scratch in `work`. With `wait`, it runs beside the previous
+// panel's trailing update and first waits until that has finished `target`
+// tiles of this matrix in all, which include this block's (a bounded wait:
+// it traps rather than hang).
 // Rows and columns from kb on are padded with the identity, whose factor is
 // the identity, and are not written back.
 template <typename T>
 __global__ void __launch_bounds__(DIAG_THREADS)
-factor_diag(const T* src, T* dst, T* __restrict__ inv, int n, int k, int kb,
-            const unsigned* ready, unsigned target) {
+factor_diag(const T* src, T* dst, T* work, int n, int k, int kb,
+            bool want_inv, bool wait, unsigned target) {
+  src = batch_matrix(src, n);
+  dst = batch_matrix(dst, n);
+  T* __restrict__ inv = want_inv ? batch_work(work) : nullptr;
+  const unsigned* ready = wait ? ready_counter(batch_work(work)) : nullptr;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* S = reinterpret_cast<T*>(smem_raw);  // the block, L_kk, then inverse
   T* V = S + NB * LD;                     // 4 leaf inverses, LEAF x VL
@@ -662,8 +695,10 @@ __device__ __forceinline__ void product_nt(Tile<T, BM, BN>& tile, T* smem,
 // all of them before it writes.
 template <typename T>
 __global__ void __launch_bounds__(GEMM_THREADS)
-panel_product(T* __restrict__ a, const T* __restrict__ inv, int n, int k,
+panel_product(T* __restrict__ a, const T* __restrict__ work, int n, int k,
               int rest) {
+  a = batch_matrix(a, n);
+  const T* __restrict__ inv = batch_work(work);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int r0 = blockIdx.x * PANEL_ROWS;
@@ -686,8 +721,10 @@ panel_product(T* __restrict__ a, const T* __restrict__ inv, int n, int k,
 template <typename T>
 __global__ void __launch_bounds__(GEMM_THREADS)
 trailing_update(T* __restrict__ a, int n, int k, int rest, int diag_tiles,
-                unsigned* __restrict__ ready) {
+                T* __restrict__ work) {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  a = batch_matrix(a, n);
+  unsigned* __restrict__ ready = ready_counter(batch_work(work));
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int off = k + NB, tiles = (rest + TS - 1) / TS;
@@ -718,22 +755,28 @@ trailing_update(T* __restrict__ a, int n, int k, int rest, int diag_tiles,
   }
 }
 
+// Factor `batch` matrices of order n, contiguous in `in` and `out`. The
+// batch is the grids' second dimension, so a stack costs the launches of one
+// matrix. With one matrix the trailing update is a persistent grid on all
+// SMs but one (left to the factor_diag beside it); with a stack the SMs are
+// shared out between the matrices, at least one block each.
 template <typename T>
-cudaError_t cholesky(const T* in, T* out, T* work, int n, cudaStream_t st) {
-  if (n <= 0 || (n > NB && work == nullptr)) return cudaErrorInvalidValue;
+cudaError_t cholesky(const T* in, T* out, T* work, int batch, int n,
+                     cudaStream_t st) {
+  if (batch <= 0 || batch > 65535 || n <= 0 || (n > NB && work == nullptr))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       factor_diag<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)diag_smem<T>());
   if (err != cudaSuccess) return err;
   if (n <= NB) {
-    factor_diag<T><<<1, DIAG_THREADS, diag_smem<T>(), st>>>(
-        in, out, nullptr, n, 0, n, nullptr, 0u);
+    factor_diag<T><<<dim3(1, batch), DIAG_THREADS, diag_smem<T>(), st>>>(
+        in, out, nullptr, n, 0, n, false, false, 0u);
     return cudaGetLastError();
   }
   constexpr size_t panel_smem = gemm_smem<T>(PANEL_ROWS, NB, PANEL_STAGES);
   constexpr size_t tile_smem = gemm_smem<T>(TS, TS, TRAIL_STAGES);
   static_assert(NB % TS == 0, "the diagonal block is whole tiles");
-  unsigned* ready = reinterpret_cast<unsigned*>(work + NB * NB);
   err = cudaFuncSetAttribute(panel_product<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)panel_smem);
@@ -741,21 +784,20 @@ cudaError_t cholesky(const T* in, T* out, T* work, int n, cudaStream_t st) {
     err = cudaFuncSetAttribute(trailing_update<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)tile_smem);
-  // One block of the trailing update per SM, on all SMs but one: that one is
-  // left to the factor_diag beside it.
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int resident = sms > 1 ? sms - 1 : 1;
+  const int free_sms = sms > 1 ? sms - 1 : 1;
+  const int resident = free_sms / batch > 1 ? free_sms / batch : 1;
 
   const size_t total = (size_t)n * n;
   const int copy_blocks =
       (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  copy_lower<T><<<copy_blocks, 256, 0, st>>>(in, out, n, ready);
-  factor_diag<T><<<1, DIAG_THREADS, diag_smem<T>(), st>>>(
-      out, out, work, n, 0, NB, nullptr, 0u);
+  copy_lower<T><<<dim3(copy_blocks, batch), 256, 0, st>>>(in, out, n, work);
+  factor_diag<T><<<dim3(1, batch), DIAG_THREADS, diag_smem<T>(), st>>>(
+      out, out, work, n, 0, NB, true, false, 0u);
   err = cudaGetLastError();
   // Panel k: its rows below are solved; then the trailing update, whose
   // first tiles are the next diagonal block, and beside it (programmatic
@@ -765,15 +807,16 @@ cudaError_t cholesky(const T* in, T* out, T* work, int n, cudaStream_t st) {
   for (int k = 0; k + NB < n && err == cudaSuccess; k += NB) {
     const int rest = n - k - NB;
     const int kb = rest < NB ? rest : NB;  // the next panel's width
-    panel_product<T><<<(rest + PANEL_ROWS - 1) / PANEL_ROWS, GEMM_THREADS,
-                       panel_smem, st>>>(out, work, n, k, rest);
+    panel_product<T><<<dim3((rest + PANEL_ROWS - 1) / PANEL_ROWS, batch),
+                       GEMM_THREADS, panel_smem, st>>>(out, work, n, k, rest);
     const int tiles = (rest + TS - 1) / TS, tk = (kb + TS - 1) / TS;
     const int count = tiles * (tiles + 1) / 2, diag_tiles = tk * (tk + 1) / 2;
-    trailing_update<T><<<count < resident ? count : resident, GEMM_THREADS,
-                         tile_smem, st>>>(out, n, k, rest, diag_tiles, ready);
+    trailing_update<T><<<dim3(count < resident ? count : resident, batch),
+                         GEMM_THREADS, tile_smem, st>>>(out, n, k, rest,
+                                                        diag_tiles, work);
     target += (unsigned)diag_tiles;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(1);
+    cfg.gridDim = dim3(1, batch);
     cfg.blockDim = dim3(DIAG_THREADS);
     cfg.dynamicSmemBytes = diag_smem<T>();
     cfg.stream = st;
@@ -782,9 +825,8 @@ cudaError_t cholesky(const T* in, T* out, T* work, int n, cudaStream_t st) {
     attr.val.programmaticStreamSerializationAllowed = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, factor_diag<T>, (const T*)out, out,
-                             rest > NB ? work : (T*)nullptr, n, k + NB, kb,
-                             (const unsigned*)ready, target);
+    err = cudaLaunchKernelEx(&cfg, factor_diag<T>, (const T*)out, out, work, n,
+                             k + NB, kb, rest > NB, true, target);
     if (err == cudaSuccess) err = cudaGetLastError();
   }
   return err;
@@ -793,16 +835,17 @@ cudaError_t cholesky(const T* in, T* out, T* work, int n, cudaStream_t st) {
 }  // namespace
 
 // Plain C entry points, bound with ctypes. `in` and `out` are distinct
-// row-major contiguous n x n device buffers; `work` is a scratch buffer of
-// the same type of 128 x 128 + 1 elements, needed only when n > 128 (may be
-// null below).
+// row-major contiguous device buffers, n x n for the single entries and
+// batch x n x n for the batched ones; `work` is a scratch buffer of the same
+// type, needed only when n > 128 (may be null below): 128 x 128 + 1 elements
+// for a single matrix, 128 x 128 + 4 for each matrix of a batch.
 // Nothing is allocated and the stream is not synchronised. Returns
 // cudaGetLastError() after the launches.
 extern "C" int conicip_cholesky_f64(const void* in, void* out, void* work,
                                     int n, void* stream) {
   return (int)cholesky<double>(static_cast<const double*>(in),
                                static_cast<double*>(out),
-                               static_cast<double*>(work), n,
+                               static_cast<double*>(work), 1, n,
                                static_cast<cudaStream_t>(stream));
 }
 
@@ -810,6 +853,27 @@ extern "C" int conicip_cholesky_f32(const void* in, void* out, void* work,
                                     int n, void* stream) {
   return (int)cholesky<float>(static_cast<const float*>(in),
                               static_cast<float*>(out),
-                              static_cast<float*>(work), n,
+                              static_cast<float*>(work), 1, n,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The batched entries: every matrix of the stack gets the factor the single
+// entry gives it (a failed one is NaN from its failing pivot on, the others
+// untouched), in the launches of one matrix of order n.
+extern "C" int conicip_cholesky_batched_f64(const void* in, void* out,
+                                            void* work, int batch, int n,
+                                            void* stream) {
+  return (int)cholesky<double>(static_cast<const double*>(in),
+                               static_cast<double*>(out),
+                               static_cast<double*>(work), batch, n,
+                               static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int conicip_cholesky_batched_f32(const void* in, void* out,
+                                            void* work, int batch, int n,
+                                            void* stream) {
+  return (int)cholesky<float>(static_cast<const float*>(in),
+                              static_cast<float*>(out),
+                              static_cast<float*>(work), batch, n,
                               static_cast<cudaStream_t>(stream));
 }

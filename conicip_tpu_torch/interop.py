@@ -12,11 +12,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .parallel.batch import BatchSolution
 from .solver import _densify
 from .solver.state import Solution
 
 __all__ = ["problem_from_numpy", "solution_to_numpy", "warm_from_numpy",
-           "warm_to_numpy"]
+           "warm_to_numpy", "batch_from_numpy", "batch_solution_to_numpy"]
 
 
 def problem_from_numpy(Q, c, A, b, cone_dims, G=None, d=None, *,
@@ -27,6 +28,23 @@ def problem_from_numpy(Q, c, A, b, cone_dims, G=None, d=None, *,
             _densify(A, dtype, device), _densify(b, dtype, device),
             list(cone_dims), _densify(G, dtype, device),
             _densify(d, dtype, device))
+
+
+def batch_from_numpy(Q, c, A, b, cone_dims, G=None, d=None, *,
+                     device="cuda", dtype=torch.float64):
+    """A stack of problems (leading batch axis on Q, c, A, b; G and d
+    stacked or shared) as tensors, ready for
+    :func:`conicip_tpu_torch.solve_batch`'s positional arguments."""
+    return problem_from_numpy(Q, c, A, b, cone_dims, G, d, device=device,
+                              dtype=dtype)
+
+
+def batch_solution_to_numpy(sol: BatchSolution) -> BatchSolution:
+    """A copy of ``sol`` with every field a host numpy array,
+    field-compatible with ``conicip_tpu.BatchSolution`` (its ``statuses``
+    included)."""
+    return BatchSolution(**{f: getattr(sol, f).detach().cpu().numpy()
+                            for f in BatchSolution.__dataclass_fields__})
 
 
 def solution_to_numpy(sol: Solution) -> Solution:
@@ -42,12 +60,15 @@ def solution_to_numpy(sol: Solution) -> Solution:
 def warm_from_numpy(y, w: Optional[np.ndarray], v, *, device="cuda",
                     dtype=torch.float64):
     """The port's ``warm_start`` from a solution's numpy fields (for example
-    those of a ``conicip_tpu.Solution``): a ``(y, w, v)`` tensor tuple."""
+    those of a ``conicip_tpu.Solution``, or the stacked fields of a
+    ``conicip_tpu.BatchSolution`` for ``solve_batch``): a ``(y, w, v)``
+    tensor tuple."""
     return (_densify(y, dtype, device), _densify(w, dtype, device),
             _densify(v, dtype, device))
 
 
 def warm_to_numpy(sol) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """``(y, w, v)`` of a port solution as numpy arrays, a ``warm_start``
-    that ``conicip_tpu.conic_ip`` accepts."""
+    that ``conicip_tpu.conic_ip`` accepts (``conicip_tpu.solve_batch``, when
+    ``sol`` is a :class:`BatchSolution`)."""
     return tuple(x.detach().cpu().numpy() for x in (sol.y, sol.w, sol.v))

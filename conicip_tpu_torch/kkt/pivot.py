@@ -22,6 +22,10 @@ dtype. ``t₁ = (FᵀF)⁻¹v`` is amplified by 1/μ near convergence, so a
 low-precision ``Aᵀt₁`` alone would re-inject the noise the inner
 full-precision factors just removed. The IPM picks the variant once per
 iteration, on the host; both variants are straight-line code.
+
+Operands may carry a stack of instances as leading dims (Q (..., n, n),
+A (..., m, n), vectors (..., n)): every product is then a batched one, and
+the inner solver receives and returns stacked tensors.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import inspect
 
 from ..cones import scaling as sc
 from ..cones.spec import ConeSpec
+from ..ops.batched import mv
 
 __all__ = ["pivot", "accepts_mode"]
 
@@ -51,7 +56,7 @@ def pivot(kktsolver_2x2, factor_dtype=None, lastmile=False):
         wd = Q.dtype
         fd = wd if factor_dtype is None else factor_dtype
         Af = A.to(fd)
-        AfT = Af.T
+        AfT = Af.mT
 
         # (FᵀF)⁻¹ has κ ~ 1/μ near convergence. For pure-R specs it is
         # diagonal: a low-precision apply is accurate per component with
@@ -72,9 +77,9 @@ def pivot(kktsolver_2x2, factor_dtype=None, lastmile=False):
 
             def solve3x3(y, w, v):
                 t1 = w2inv(v.to(td_x))
-                dy, dw = solve2x2(y + (AxT @ t1.to(pd)).to(wd), w)
+                dy, dw = solve2x2(y + mv(AxT, t1.to(pd)).to(wd), w)
                 # Δv = (FᵀF)⁻¹ (v - A Δy)
-                dv = t1 - w2inv((Ax @ dy.to(pd)).to(td_x))
+                dv = t1 - w2inv(mv(Ax, dy.to(pd)).to(td_x))
                 return dy, dw, dv.to(wd)
 
             return solve3x3
@@ -94,7 +99,7 @@ def pivot(kktsolver_2x2, factor_dtype=None, lastmile=False):
 
         def solve3x3gen_lm(F, FinvT, mode="fast"):
             if mode == "slow":
-                return _mk_solve3(_inner(F, FinvT, "slow"), A, A.T, FinvT, wd)
+                return _mk_solve3(_inner(F, FinvT, "slow"), A, A.mT, FinvT, wd)
             return solve3x3gen(F, FinvT)
 
         return solve3x3gen_lm

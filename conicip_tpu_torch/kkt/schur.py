@@ -21,6 +21,12 @@ as the H100, this is an option and f64 the default. ``assemble_dtype`` pins
 a (possibly higher) assembly precision: SOC scalings span ~16 decades near
 convergence and the Gram assembly cancels catastrophically in f32.
 
+A stack of instances (Q (..., n, n), A (..., m, n), G (..., p, n), vectors
+(..., n)) is assembled and solved by the same code: the products become
+batched library products, each instance is equilibrated and ridge-retried
+by itself, and the two factors run the kernel's batched entry, one stacked
+factor per build.
+
 Last-mile full-precision iterations (``lastmile=True``): near convergence
 κ(M) ~ 1/μ exceeds what an f32 factor can solve and refinement stalls just
 above tolerance. A ``lastmile`` generator exposes two variants through
@@ -38,6 +44,7 @@ import torch
 
 from ..cones import scaling as sc
 from ..cones.spec import ConeSpec
+from ..ops.batched import col, mv, sum_all, trace
 from ..ops.cholesky import cholesky, tri_inv
 from ..ops.control import retry_while
 from .pivot import pivot
@@ -63,8 +70,8 @@ def kktsolver_2x2(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
     ``lastmile`` exposes the two-variant ``mode`` contract (module
     docstring).
     """
-    n = Q.shape[0]
-    p = G.shape[0]
+    n = Q.shape[-1]
+    p = G.shape[-2]
     wd = Q.dtype  # working dtype of the IPM vectors
     fd = wd if factor_dtype is None else factor_dtype
     ad = fd if assemble_dtype is None else assemble_dtype
@@ -75,14 +82,14 @@ def kktsolver_2x2(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
         ``odt``) the augmented Schur system. Returns ``odt`` tensors:
         (Linv, dscale, gamma, Lsinv, sscale)."""
         Atil = sc.apply_mat(spec, sc.cast(FinvT, adt), A.to(adt))  # F⁻ᵀ A
-        M = Q.to(adt) + Atil.T @ Atil
+        M = Q.to(adt) + Atil.mT @ Atil
         if p:
             Ga = G.to(adt)
-            gamma = (torch.trace(M) / n) / (
-                torch.sum(Ga * Ga) / p + torch.finfo(adt).tiny)
+            gamma = (trace(M) / n) / (
+                sum_all(Ga * Ga) / p + torch.finfo(adt).tiny)
             gamma = torch.where(torch.isfinite(gamma) & (gamma > 0), gamma,
                                 torch.ones_like(gamma))
-            M = M + gamma * (Ga.T @ Ga)
+            M = M + gamma[..., None, None] * (Ga.mT @ Ga)
         else:
             gamma = None
 
@@ -90,8 +97,9 @@ def kktsolver_2x2(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
 
         def _equilibrate(Msym):
             dscale = torch.rsqrt(torch.clamp(
-                torch.diagonal(Msym), min=torch.finfo(Msym.dtype).tiny))
-            Ms = (Msym * dscale[:, None] * dscale[None, :]).to(odt)
+                torch.diagonal(Msym, dim1=-2, dim2=-1),
+                min=torch.finfo(Msym.dtype).tiny))
+            Ms = (Msym * dscale[..., :, None] * dscale[..., None, :]).to(odt)
             return Ms, dscale.to(odt)
 
         def _factor_inv(Ms, k):
@@ -99,10 +107,10 @@ def kktsolver_2x2(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
             # ridge keeps the factor finite as κ(M) grows like 1/μ;
             # escalating-ridge retries (boosts 1e3, then 1e6) catch what
             # rounding leaves indefinite. A failed factor is non-finite,
-            # which is what triggers the retry.
+            # which is what triggers the retry, per instance of a stack.
             Ik = torch.eye(k, dtype=odt, device=Ms.device)
             L = retry_while(
-                lambda L: ~torch.isfinite(L).all(),
+                lambda L: ~torch.isfinite(L).flatten(-2).all(-1),
                 lambda boost: cholesky(Ms + (boost * ridge) * Ik),
                 cholesky(Ms + ridge * Ik),
                 1e3,
@@ -115,8 +123,8 @@ def kktsolver_2x2(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
         Linv = _factor_inv(Ms, n)
         if p:
             # S = G M̃⁻¹ Gᵀ = Ê Êᵀ with Ê = G D L⁻ᵀ in equilibrated space
-            E = Linv @ (dscale[:, None] * G.T.to(odt))
-            Ss, sscale = _equilibrate(E.T @ E)
+            E = Linv @ (dscale[..., None] * G.mT.to(odt))
+            Ss, sscale = _equilibrate(E.mT @ E)
             Lsinv = _factor_inv(Ss, p)
             gamma = gamma.to(odt)
         else:
@@ -129,22 +137,22 @@ def kktsolver_2x2(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
 
         def inv2(Tinv, scale, x):
             # M⁻¹x = D L⁻ᵀ L⁻¹ D x with D the equilibration scale
-            return scale * (Tinv.T @ (Tinv @ (scale * x)))
+            return scale * mv(Tinv.mT, mv(Tinv, scale * x))
 
         def solve(by, bw):
             by = by.to(td)
             bw = bw.to(td)
             if p:
-                t = inv2(Linv, dscale, by + gamma * (GdT @ bw))
-                b2 = inv2(Lsinv, sscale, Gd @ t - bw)
-                a = t - inv2(Linv, dscale, GdT @ b2)
+                t = inv2(Linv, dscale, by + col(gamma) * mv(GdT, bw))
+                b2 = inv2(Lsinv, sscale, mv(Gd, t) - bw)
+                a = t - inv2(Linv, dscale, mv(GdT, b2))
                 return a.to(wd), b2.to(wd)
-            return inv2(Linv, dscale, by).to(wd), by[:0].to(wd)
+            return inv2(Linv, dscale, by).to(wd), by[..., :0].to(wd)
 
         return solve
 
     Gf = G.to(fd)
-    GfT = Gf.T
+    GfT = Gf.mT
 
     if not lastmile:
 
@@ -153,7 +161,7 @@ def kktsolver_2x2(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
 
         return solve2x2gen
 
-    GT = G.T
+    GT = G.mT
 
     def solve2x2gen_lm(F, FinvT, mode="fast"):
         if mode == "slow":

@@ -20,7 +20,9 @@ One defect-correction pass against the exact ``FᵀF`` follows, as in the
 reference. The solver runs no Cholesky, so it never launches the CUDA
 kernel. Applicability is checked on the host by :func:`spectral_applicable`
 (like ``kkt/diag.separable``); the solver trusts its caller. This module is
-not exported from :mod:`conicip_tpu_torch.kkt`, as in the reference.
+not exported from :mod:`conicip_tpu_torch.kkt`, as in the reference. With a
+stack of instances (leading dims on Q and on every vector) ``q`` is one
+value per instance and everything else is already per cone.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..cones.segment import put_group, put_r, take_group, take_r
 from ..cones.spec import ConeSpec
 from ..cones.symm import mat, vecm
 from ..cones.algebra import _eigh_d
-from .diag import _host
+from .diag import _where_it_is
 
 __all__ = ["kktsolver_spectral", "spectral_applicable", "spectral_kktsolver"]
 
@@ -51,24 +53,20 @@ def spectral_applicable(Q, A, G, spec: ConeSpec) -> bool:
     """Host-side structure check: no equalities, ``A = I`` and ``Q = q·I``
     with q ≥ 0 (q > 0 when there are Q cones, whose 2x2 uses 1/q), for
     every instance of a leading batch dim."""
-    Gh = None if G is None else _host(G)
-    if Gh is not None and Gh.ndim >= 2 and Gh.shape[-2] > 0:
+    if G is not None and np.ndim(G) >= 2 and np.shape(G)[-2] > 0:
         return False
-    Qh = _host(Q)
-    Ah = _host(A)
-    n = Qh.shape[-1]
-    if spec.soc_groups and float(Qh.reshape(-1, n, n)[0, 0, 0]) <= 0:
+    Qt = _where_it_is(Q)
+    At = _where_it_is(A)
+    n = Qt.shape[-1]
+    if spec.soc_groups and float(Qt.reshape(-1, n, n)[0, 0, 0]) <= 0:
         return False
-    if Ah.shape[-2] != n or Ah.shape[-1] != n:
+    if At.shape[-2] != n or At.shape[-1] != n:
         return False
-    eye = np.eye(n)
-    if not all(np.array_equal(Ai, eye) for Ai in Ah.reshape(-1, n, n)):
+    if not bool((At == torch.eye(n, dtype=At.dtype, device=At.device)).all()):
         return False
-    for Qi in Qh.reshape(-1, n, n):
-        q = Qi[0, 0]
-        if q < 0 or not np.array_equal(Qi, q * eye):
-            return False
-    return True
+    q = Qt[..., :1, :1]
+    eye = torch.eye(n, dtype=Qt.dtype, device=Qt.device)
+    return bool(((q >= 0) & (Qt == q * eye)).all())
 
 
 def kktsolver_spectral(Q, A, G, spec: ConeSpec, *, eig_dtype=None):
@@ -76,7 +74,12 @@ def kktsolver_spectral(Q, A, G, spec: ConeSpec, *, eig_dtype=None):
     cone layer's contract: ``None`` decomposes ``P`` in the working dtype,
     a dtype decomposes there and returns the working dtype, ``"refined"``
     is accepted and is the working-dtype decomposition."""
-    q = Q[0, 0]
+    q = Q[..., 0, 0]
+    # per-instance q against vectors (..., m), groups (..., k, dim) and
+    # eigenvalue grids (..., k, d, d)
+    q1 = q[..., None] if q.dim() else q
+    q2 = q[..., None, None] if q.dim() else q
+    q3 = q[..., None, None, None] if q.dim() else q
 
     def solve3x3gen(F, FinvT):
         # per group: P = S Sᵀ and its eigendecomposition
@@ -101,13 +104,13 @@ def kktsolver_spectral(Q, A, G, spec: ConeSpec, *, eig_dtype=None):
             # (D + q·U C Uᵀ)⁻¹ rhs with U = [u, v₁], C = [[α²s, α], [α, 0]],
             # D = diag(1 + q d²): Woodbury through the 2x2 K = C⁻¹/q +
             # UᵀD⁻¹U, scaled by α so that the α = 0 limit stays exact
-            D = 1.0 + q * sc_.d * sc_.d
+            D = 1.0 + q2 * sc_.d * sc_.d
             ir, iu, iv = rhs / D, sc_.u / D, v1 / D
             a11, a12, a22 = _dot(sc_.u, iu), _dot(sc_.u, iv), _dot(v1, iv)
             al = sc_.alpha
             k11 = al * a11
-            k12 = 1.0 / q + al * a12
-            k22 = -al * s_uu / q + al * a22
+            k12 = 1.0 / q1 + al * a12
+            k22 = -al * s_uu / q1 + al * a22
             det = k11 * k22 - k12 * k12
             r1 = al * _dot(sc_.u, ir)
             r2 = al * _dot(v1, ir)
@@ -119,7 +122,7 @@ def kktsolver_spectral(Q, A, G, spec: ConeSpec, *, eig_dtype=None):
             a = torch.zeros_like(x)
             if spec.nr:
                 xr, zr = take_r(spec, x), take_r(spec, z)
-                put_r(spec, a, (zr + w_r * xr) / (1.0 + q * w_r))
+                put_r(spec, a, (zr + w_r * xr) / (1.0 + q1 * w_r))
             for g, (sc_, v1, s_uu) in zip(spec.soc_groups, socs):
                 rhs = take_group(g, z) + _soc_ftf(sc_, v1, s_uu, take_group(g, x))
                 put_group(g, a, _soc_solve(sc_, v1, s_uu, rhs))
@@ -129,7 +132,7 @@ def kktsolver_spectral(Q, A, G, spec: ConeSpec, *, eig_dtype=None):
                 Xt = (Vt @ X) @ V
                 Zt = (Vt @ Z) @ V
                 tt = theta[..., :, None] * theta[..., None, :]
-                At = (Zt + tt * Xt) / (1.0 + q * tt)
+                At = (Zt + tt * Xt) / (1.0 + q3 * tt)
                 put_group(g, a, vecm((V @ At) @ Vt))
             return a
 
@@ -150,9 +153,9 @@ def kktsolver_spectral(Q, A, G, spec: ConeSpec, *, eig_dtype=None):
             # c = qa − x satisfies the dual row exactly; one defect
             # correction on the cone row squares the eigenbasis error
             a = base_solve(x, z)
-            e = cone_residual(a, q * a - x, z)
+            e = cone_residual(a, q1 * a - x, z)
             a = a + base_solve(torch.zeros_like(x), e)
-            return a, y[:0], q * a - x
+            return a, y[..., :0], q1 * a - x
 
         return solve3x3
 

@@ -1,9 +1,8 @@
 """Benchmark problem-family generators (numpy).
 
-Counterpart of ``conicip_tpu/models/generators.py`` for its eight
-single-instance families and the batched family of the low-rank backend:
-same seeds, RNG calls, shapes and data, so both packages solve the same
-instances.
+Counterpart of ``conicip_tpu/models/generators.py``: its eight
+single-instance families and its four batched ones, with the same seeds,
+RNG calls, shapes and data, so both packages solve the same instances.
 """
 
 from __future__ import annotations
@@ -13,11 +12,12 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..cones.spec import tri_dim
+from ..cones.spec import tri_dim, tri_indices
 
 __all__ = ["Problem", "box_qp_dense", "box_qp_sparse", "single_soc",
            "many_small_socs", "small_sdp", "larger_sdp", "mixed_rq_eq",
-           "mixed_rqs", "batched_mixed_rq_eq"]
+           "mixed_rqs", "batched_box_qp", "batched_small_sdp",
+           "batched_mixed_rq_eq", "batched_mixed_rqs", "ALL_GENERATORS"]
 
 
 @dataclass
@@ -140,6 +140,41 @@ def mixed_rqs(seed: int = 42) -> Problem:
     )
 
 
+def batched_box_qp(batch: int, n: int = 100, seed: int = 0):
+    """Stacked independent dense box QPs, −1 ≤ y ≤ 1: ``(Q, c, A, b,
+    cone_dims)`` with a leading batch axis on all but ``cone_dims``."""
+    rng = np.random.default_rng(seed)
+    Ms = rng.standard_normal((batch, n, n))
+    Q = np.einsum("bij,bik->bjk", Ms, Ms) / n + np.eye(n)
+    c = rng.standard_normal((batch, n))
+    A = np.broadcast_to(np.vstack([np.eye(n), -np.eye(n)]), (batch, 2 * n, n)).copy()
+    b = np.broadcast_to(-np.ones(2 * n), (batch, 2 * n)).copy()
+    return Q, c, A, b, [("R", 2 * n)]
+
+
+def _vecm_np(X: np.ndarray) -> np.ndarray:
+    """Host-side packed √2-scaled upper triangle of a stack of symmetric
+    matrices (the ``vecm`` convention of ``cones/symm.py``)."""
+    rows, cols, scale = tri_indices(X.shape[-1])
+    return X[..., rows, cols] * scale
+
+
+def batched_small_sdp(batch: int, k: int = 10, seed: int = 0):
+    """Stacked independent small SDPs: projection of a random symmetric
+    k x k matrix onto the PSD cone under the trace metric (batched
+    covariance repair). Distinct data per instance; shared A = I, b = 0:
+    the spectral backend's batched family."""
+    n = tri_dim(k)
+    rng = np.random.default_rng(seed)
+    C = rng.standard_normal((batch, k, k))
+    C = (C + np.swapaxes(C, -1, -2)) / np.sqrt(2 * k)
+    c = _vecm_np(C)
+    Q = np.broadcast_to(np.eye(n), (batch, n, n)).copy()
+    A = np.broadcast_to(np.eye(n), (batch, n, n)).copy()
+    b = np.zeros((batch, n))
+    return Q, c, A, b, [("S", n)]
+
+
 def batched_mixed_rq_eq(batch: int, n: int = 60, seed: int = 0,
                         n_q: int = 21, p: int = 6):
     """Stacked independent mixed R+Q instances with a shared equality
@@ -166,3 +201,46 @@ def batched_mixed_rq_eq(batch: int, n: int = 60, seed: int = 0,
     G = rng.standard_normal((p, n))
     d = s[:, None] * (G @ np.ones(n))[None, :]
     return Q, c, A, b, [("R", n), ("Q", n_q)], G, d
+
+
+def batched_mixed_rqs(batch: int, seed: int = 0):
+    """Stacked independent R(50) x Q(21) x S(5 x 5) instances, A = I,
+    Q = I (n = 86), with distinct linear terms per instance."""
+    n_r, n_q, k_s = 50, 21, 5
+    n_s = tri_dim(k_s)
+    n = n_r + n_q + n_s  # 86
+    rng = np.random.default_rng(seed)
+    Q = np.broadcast_to(np.eye(n), (batch, n, n)).copy()
+    c = rng.standard_normal((batch, n))
+    A = np.broadcast_to(np.eye(n), (batch, n, n)).copy()
+    b0 = np.concatenate(
+        [np.zeros(n_r), [-1.0], np.zeros(n_q - 1), np.zeros(n_s)]
+    )
+    b = np.broadcast_to(b0, (batch, n)).copy()
+    return Q, c, A, b, [("R", n_r), ("Q", n_q), ("S", n_s)]
+
+
+ALL_GENERATORS = [
+    box_qp_dense,
+    box_qp_sparse,
+    single_soc,
+    many_small_socs,
+    small_sdp,
+    larger_sdp,
+    mixed_rq_eq,
+    mixed_rqs,
+]
+
+# Each generator's instance name at its default parameters, so that a
+# caller can pick families without building their data.
+for _g, _n in [
+    (box_qp_dense, "box_qp_dense(n=500)"),
+    (box_qp_sparse, "box_qp_sparse(n=1000)"),
+    (single_soc, "single_soc(n=500)"),
+    (many_small_socs, "many_small_socs(k=250,n=500)"),
+    (small_sdp, "small_sdp(k=10)"),
+    (larger_sdp, "small_sdp(k=30)"),  # larger_sdp delegates to small_sdp
+    (mixed_rq_eq, "mixed_rq_eq(n=200,p=10)"),
+    (mixed_rqs, "mixed_rqs(n=86)"),
+]:
+    _g.family_name = _n

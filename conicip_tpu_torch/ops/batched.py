@@ -9,13 +9,60 @@ JAX behaviour: before a decomposition every non-finite batch entry is
 replaced by the identity and its results are NaN-filled afterwards. (The
 batched Cholesky is ``ops.cholesky_kernel.cholesky_plain``: ``cholesky_ex``
 without its check, NaN-filled where it fails.)
+
+The second half are the products and reductions of the solve path written
+for an optional stack of instances: vectors are (..., n), matrices
+(..., m, n), per-instance scalars (...,), and nothing reduces across the
+leading dims, so a NaN instance cannot reach its neighbours. Without
+leading dims each is the one call the single solve always made.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["nan_where_bad", "safe_eigh", "safe_eigvalsh", "safe_svd"]
+__all__ = ["nan_where_bad", "safe_eigh", "safe_eigvalsh", "safe_svd", "mv",
+           "dot", "trace", "sum_all", "col", "bcast"]
+
+
+def mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Matrix-vector product over leading batch dims: A (..., m, n) against
+    x (..., n). Without batch dims it is the plain ``A @ x``."""
+    if x.dim() == 1 and A.dim() == 2:
+        return A @ x
+    return torch.matmul(A, x.unsqueeze(-1)).squeeze(-1)
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inner product along the last axis; ``torch.dot`` for two vectors."""
+    if a.dim() == 1 and b.dim() == 1:
+        return torch.dot(a, b)
+    return torch.sum(a * b, dim=-1)
+
+
+def trace(M: torch.Tensor) -> torch.Tensor:
+    """Trace over the last two axes."""
+    if M.dim() == 2:
+        return torch.trace(M)
+    return torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+
+
+def sum_all(M: torch.Tensor) -> torch.Tensor:
+    """Sum of each matrix's entries (the last two axes)."""
+    if M.dim() == 2:
+        return torch.sum(M)
+    return torch.sum(M, dim=(-2, -1))
+
+
+def col(s: torch.Tensor) -> torch.Tensor:
+    """A per-instance scalar (...,) shaped to scale vectors (..., n)."""
+    return s.unsqueeze(-1) if s.dim() else s
+
+
+def bcast(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-instance value (...,) with trailing unit dims up to ``like``'s
+    rank, for ``torch.where`` and products against per-instance tensors."""
+    return s.reshape(s.shape + (1,) * (like.dim() - s.dim()))
 
 
 def nan_where_bad(bad: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

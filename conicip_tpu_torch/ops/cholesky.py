@@ -4,7 +4,8 @@ Counterpart of ``conicip_tpu/ops/cholesky.py``. :func:`cholesky`
 dispatches on the tensor's device through
 :func:`~conicip_tpu_torch.ops.cholesky_kernel.cholesky_factor`: the
 hand-written CUDA kernel on a CUDA tensor (its f64 or its f32 entry, by
-the dtype factored), the plain PyTorch version on the CPU.
+the dtype factored; its batched entry for a stack of matrices), the plain
+PyTorch version on the CPU. Every function takes (..., n, n).
 ``factor_dtype`` casts the matrix first, so the factor comes back in that
 dtype. :func:`tri_inv` stays a library triangular solve, as the JAX package
 leaves it to XLA.
@@ -30,20 +31,22 @@ def cholesky(M: torch.Tensor, factor_dtype=None) -> torch.Tensor:
 def tri_inv(L: torch.Tensor) -> torch.Tensor:
     """Explicit lower-triangular inverse L⁻¹: every later back-solve becomes
     two matrix-vector products."""
-    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
     return torch.linalg.solve_triangular(L, eye, upper=False)
 
 
 def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve (L Lᵀ) x = b given the lower Cholesky factor L."""
+    """Solve (L Lᵀ) x = b given the lower Cholesky factor L (..., n, n);
+    b is a vector (..., n) or, with one more dim than that, a matrix of
+    right-hand sides (..., n, k)."""
     out_dtype = b.dtype
     b = b.to(L.dtype)
-    col = b.dim() == 1
+    col = b.dim() == L.dim() - 1
     if col:
-        b = b[:, None]
+        b = b[..., None]
     y = torch.linalg.solve_triangular(L, b, upper=False)
-    x = torch.linalg.solve_triangular(L.T, y, upper=True)
-    return (x[:, 0] if col else x).to(out_dtype)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)
+    return (x[..., 0] if col else x).to(out_dtype)
 
 
 class CholFactor:

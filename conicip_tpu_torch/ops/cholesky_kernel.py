@@ -2,7 +2,10 @@
 
 Counterpart of ``conicip_tpu/ops/pallas_cholesky.py``. :func:`cholesky_factor`
 is the wrapper: for a tensor on the CPU it runs :func:`cholesky_plain`; for
-a CUDA tensor it launches the kernel or raises, and never falls back.
+a CUDA tensor it launches the kernel or raises, and never falls back. An
+(n, n) matrix goes to the kernel's single entry, a stack (..., n, n) to its
+batched entry, where the batch is a grid dimension: the launches of one
+matrix whatever the stack's size, and per matrix the single entry's factor.
 
 Both return the lower factor with the strict upper triangle zeroed, and
 both leave non-finite values where the matrix is not positive definite
@@ -23,17 +26,29 @@ from .build import load_library
 __all__ = ["cholesky_factor", "cholesky_plain", "cholesky_launches",
            "launch_count", "reset_launch_count"]
 
-# Launches of the CUDA kernel, keyed by (dtype, order): the dtype names the
+# Launches of the CUDA kernel, keyed by (dtype, order) for the single
+# entries and (dtype, order, B) for the batched ones: the dtype names the
 # entry point that ran. Counted by the wrapper where it launches and
 # nowhere else.
 cholesky_launches: Counter = Counter()
 
 
-def launch_count(dtype=None, n=None) -> int:
-    """Kernel launches so far, optionally of one entry point (``dtype``)
-    and of one matrix order (``n``)."""
-    return sum(c for (dt, k), c in cholesky_launches.items()
-               if dtype in (None, dt) and n in (None, k))
+def launch_count(dtype=None, n=None, batch=None) -> int:
+    """Kernel launches so far, optionally of one dtype's entry points
+    (``dtype``) and of one matrix order (``n``). ``batch`` picks the entry:
+    ``None`` counts both, ``False`` the single entry only, ``True`` the
+    batched entry at any stack size, an int the batched entry at that
+    size."""
+    total = 0
+    for key, c in cholesky_launches.items():
+        dt, k, B = key if len(key) == 3 else (*key, None)
+        if dtype not in (None, dt) or n not in (None, k):
+            continue
+        if batch is None or (batch is False and B is None) or (
+                batch is True and B is not None) or (
+                batch is not True and batch is not False and batch == B):
+            total += c
+    return total
 
 
 def reset_launch_count() -> None:
@@ -42,10 +57,17 @@ def reset_launch_count() -> None:
 
 _ENTRY = {torch.float64: "conicip_cholesky_f64",
           torch.float32: "conicip_cholesky_f32"}
+_BATCHED_ENTRY = {torch.float64: "conicip_cholesky_batched_f64",
+                  torch.float32: "conicip_cholesky_batched_f32"}
 
 # Panel width of the kernel: above it, the kernel needs a scratch buffer for
-# the inverse of each diagonal block (PANEL x PANEL) and one counter.
+# the inverse of each diagonal block (PANEL x PANEL) and one counter; a
+# batch has one such scratch per matrix, WORK_PAD elements apart beyond the
+# block so that each stays 16-byte aligned.
 PANEL = 128
+WORK_PAD = 4
+# the batch is a grid dimension, which CUDA caps
+MAX_GRID_BATCH = 65535
 
 
 def cholesky_plain(M: torch.Tensor) -> torch.Tensor:
@@ -56,39 +78,53 @@ def cholesky_plain(M: torch.Tensor) -> torch.Tensor:
     return torch.where(info[..., None, None] == 0, L, torch.nan).tril()
 
 
-def _entry(dtype):
-    fn = getattr(load_library("cholesky"), _ENTRY[dtype])
+def _entry(dtype, batched=False):
+    fn = getattr(load_library("cholesky"),
+                 (_BATCHED_ENTRY if batched else _ENTRY)[dtype])
+    ints = [ctypes.c_int] * (2 if batched else 1)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p]
+                   *ints, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def cholesky_factor(M: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of the (n, n) SPD matrix ``M``."""
+    """Lower Cholesky factor of the SPD matrix ``M`` (n, n), or of every
+    matrix of a stack (..., n, n)."""
     if M.device.type == "cpu":
         return cholesky_plain(M)
     if M.device.type != "cuda":
         raise ValueError(f"cholesky_factor: unsupported device {M.device}")
     if M.dtype not in _ENTRY:
         raise TypeError(f"cholesky_factor: unsupported dtype {M.dtype}")
-    if M.dim() != 2 or M.shape[0] != M.shape[1]:
-        raise ValueError(f"cholesky_factor: expected a square matrix, got "
+    if M.dim() < 2 or M.shape[-1] != M.shape[-2]:
+        raise ValueError(f"cholesky_factor: expected square matrices, got "
                          f"shape {tuple(M.shape)}")
     if not M.is_contiguous():
         raise ValueError("cholesky_factor: M must be contiguous")
-    n = M.shape[0]
+    n = M.shape[-1]
     out = torch.empty_like(M)
-    if n == 0:
+    if M.numel() == 0:
         return out
-    work = (torch.empty(PANEL * PANEL + 1, dtype=M.dtype, device=M.device)
-            if n > PANEL else None)
-    fn = _entry(M.dtype)
+    batched = M.dim() > 2
+    B = M.numel() // (n * n)
+    if B > MAX_GRID_BATCH:
+        flat_in, flat_out = M.reshape(B, n, n), out.view(B, n, n)
+        for lo in range(0, B, MAX_GRID_BATCH):
+            flat_out[lo:lo + MAX_GRID_BATCH] = cholesky_factor(
+                flat_in[lo:lo + MAX_GRID_BATCH])
+        return out
+    work = None
+    if n > PANEL:
+        per = PANEL * PANEL + (WORK_PAD if batched else 1)
+        work = torch.empty(B * per, dtype=M.dtype, device=M.device)
+    fn = _entry(M.dtype, batched)
     with torch.cuda.device(M.device):
         stream = torch.cuda.current_stream(M.device).cuda_stream
+        sizes = (B, n) if batched else (n,)
         err = fn(M.data_ptr(), out.data_ptr(),
-                 None if work is None else work.data_ptr(), n, stream)
+                 None if work is None else work.data_ptr(), *sizes, stream)
     if err != 0:
         raise RuntimeError(f"cholesky kernel launch failed: CUDA error {err}")
-    cholesky_launches[(M.dtype, n)] += 1
+    cholesky_launches[(M.dtype, n, B) if batched else (M.dtype, n)] += 1
     return out

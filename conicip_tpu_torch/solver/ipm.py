@@ -35,11 +35,27 @@ the full-precision path is the default):
 Both decisions are taken on the device and come to the host in the
 iteration's one status read (a firing recompute reads a second time, in
 that iteration only).
+
+A stack of instances. Every operand may carry leading batch dims (Q
+(..., n, n), c (..., n), A (..., m, n), b (..., m); G and d stacked or
+shared), which is what ``jax.vmap`` made of the reference's solve and is
+written out here: status, ``Iter``, the best residual, the stall counter,
+the last-mile flag, the drift and every step length are one value per
+instance; no reduction crosses instances, so a NaN instance cannot reach
+its neighbours; the loop runs while any instance is ``RUNNING``, and every
+carried value of a finished instance is frozen by mask, so its ``Iter``,
+status and iterate are those of its own single solve. The host still reads
+once per iteration, for the whole stack: whether any instance runs, fires a
+recompute, or needs either variant of a two-variant generator. When
+instances of one stack are on different variants, both are built on that
+iteration and each instance takes its own. The refinement loop runs while
+any instance continues, and an instance that stopped keeps its ``dz``. A
+single solve is the case without leading dims and runs the same code.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, is_dataclass, replace
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -48,6 +64,7 @@ from ..cones import algebra as ca
 from ..cones import scaling as sc
 from ..cones.spec import ConeSpec
 from ..kkt.pivot import accepts_mode
+from ..ops.batched import col, dot, mv
 from .state import SolState, Status, Vec4
 
 __all__ = ["IPMOptions", "ipm_solve"]
@@ -105,16 +122,19 @@ class IPMOptions:
         )
 
 
-def _normsafe(x):
-    return torch.linalg.norm(x) if x.shape[0] else x.new_zeros(())
+def _norm(x):
+    """Euclidean norm along the last axis, 0 for an empty one."""
+    if x.shape[-1]:
+        return torch.linalg.norm(x, dim=-1)
+    return x.new_zeros(x.shape[:-1])
 
 
 class _Products(NamedTuple):
     """The three stacked mat-vecs everything per-iteration derives from."""
 
-    Qy: torch.Tensor  # Q @ y                       (n,)
-    GAy: torch.Tensor  # [G; A] @ y                 (p+m,)
-    GAtwv: torch.Tensor  # [Gᵀ, -Aᵀ] @ [w; v]       (n,)
+    Qy: torch.Tensor  # Q @ y                       (..., n)
+    GAy: torch.Tensor  # [G; A] @ y                 (..., p+m)
+    GAtwv: torch.Tensor  # [Gᵀ, -Aᵀ] @ [w; v]       (..., n)
 
 
 class _Resid(NamedTuple):
@@ -133,11 +153,39 @@ class _Resid(NamedTuple):
     d_infeas: torch.Tensor
 
 
-def _all_finite(*xs) -> torch.Tensor:
-    ok = torch.isfinite(xs[0]).all()
+def _finite_rows(*xs) -> torch.Tensor:
+    """Per instance: every entry of every vector finite."""
+    ok = torch.isfinite(xs[0]).all(-1)
     for x in xs[1:]:
-        ok = ok & torch.isfinite(x).all()
+        ok = ok & torch.isfinite(x).all(-1)
     return ok
+
+
+def _finite_each(*xs) -> torch.Tensor:
+    """Per instance: every one of the per-instance scalars finite."""
+    ok = torch.isfinite(xs[0])
+    for x in xs[1:]:
+        ok = ok & torch.isfinite(x)
+    return ok
+
+
+def _select(mask, new, old):
+    """Per-instance choice between two values of the loop's carried state:
+    tensors (``mask`` gets trailing unit dims), and records (iterates,
+    residuals, scalings) and tuples of them, field by field. Anything else
+    (a host count, None) is taken from ``new``."""
+    if isinstance(new, torch.Tensor):
+        old = torch.as_tensor(old, dtype=new.dtype, device=new.device)
+        pick = mask.reshape(mask.shape + (1,) * (
+            max(new.dim(), old.dim()) - mask.dim()))
+        return torch.where(pick, new, old)
+    if is_dataclass(new):
+        return type(new)(**{f: _select(mask, getattr(new, f), getattr(old, f))
+                            for f in new.__dataclass_fields__})
+    if isinstance(new, tuple):
+        vals = [_select(mask, a, b) for a, b in zip(new, old)]
+        return type(new)(*vals) if hasattr(new, "_fields") else tuple(vals)
+    return new
 
 
 def ipm_solve(
@@ -153,28 +201,42 @@ def ipm_solve(
     warm: Optional[Vec4] = None,
     stats: Optional[dict] = None,
 ) -> SolState:
-    """One interior-point solve (module docstring). ``stats``, when given,
-    receives what only the loop knows: ``fast_steps`` and ``slow_steps``
-    (steps taken on a generator's low- and full-precision variant; every
-    step of a single-variant generator is a fast one), ``cold_start`` (1
-    when the initial point cost a KKT build) and ``recertified`` (mixed
-    mode: iterations that recomputed the products in full precision)."""
+    """One interior-point solve, or one solve of a stack of instances
+    (module docstring): with leading batch dims on ``c`` every field of the
+    returned state has them too. ``kktsolver`` then receives stacked
+    tensors. ``stats``, when given, receives what only the loop knows:
+    ``fast_steps`` and ``slow_steps`` (steps taken on a generator's low-
+    and full-precision variant; every step of a single-variant generator is
+    a fast one; for a stack, iterations on which some instance took one),
+    ``cold_start`` (1 when the initial point cost a KKT build) and
+    ``recertified`` (mixed mode: iterations that recomputed the products in
+    full precision)."""
     counts = dict(fast_steps=0, slow_steps=0, recertified=0,
                   cold_start=int(warm is None))
-    n = c.shape[0]
-    m = A.shape[0]
-    p = G.shape[0]
+    n = c.shape[-1]
+    m = A.shape[-2]
+    p = G.shape[-2]
+    bs = tuple(c.shape[:-1])  # the stack's shape; () for a single solve
+    batched = bool(bs)
     dtype, dev = c.dtype, c.device
 
-    if Q.shape != (n, n):
+    if batched:
+        if opts.verbose:
+            raise ValueError("verbose output is not supported in batched mode")
+        # a shared equality system serves every instance
+        if G.dim() == 2:
+            G = G.expand(bs + G.shape)
+        if d.dim() == 1:
+            d = d.expand(bs + d.shape)
+    if Q.shape != bs + (n, n):
         raise ValueError("Q is not square / inconsistent with objective")
-    if b.shape != (m,):
+    if b.shape != bs + (m,):
         raise ValueError("Inconsistency in inequalities")
-    if A.shape != (m, n):
+    if A.shape != bs + (m, n):
         raise ValueError("Inconsistency in inequalities/objective")
-    if d.shape != (p,):
+    if d.shape != bs + (p,):
         raise ValueError("Inconsistency in equalities")
-    if G.shape != (p, n):
+    if G.shape != bs + (p, n):
         raise ValueError("Inconsistency in equalities/objective")
     if spec.m != m:
         raise ValueError("cone dimensions do not sum to size(A, 1)")
@@ -182,17 +244,21 @@ def ipm_solve(
     def scalar(x):
         return torch.full((), x, dtype=dtype, device=dev)
 
+    def each(x):
+        # one value per instance
+        return torch.full(bs, x, dtype=dtype, device=dev)
+
     nan, inf = scalar(float("nan")), scalar(float("inf"))
     e = torch.tensor(spec.identity, dtype=dtype, device=dev)
     conedim = spec.conedim
-    normc = torch.linalg.norm(c)
-    normb = _normsafe(b)
-    normd = -inf if p == 0 else torch.linalg.norm(d)
+    normc = torch.linalg.norm(c, dim=-1)
+    normb = _norm(b)
+    normd = -inf if p == 0 else torch.linalg.norm(d, dim=-1)
 
     # Stacked residual operators: GA = [G; A], GAt = [Gᵀ, -Aᵀ], so that
     # rleft.y = Qy + GAt@[w;v], rleft.w = GAy[:p], rleft.v = GAy[p:] - s.
-    GA = torch.cat([G, A], dim=0)
-    GAt = torch.cat([G.T, -A.T], dim=1)
+    GA = torch.cat([G, A], dim=-2)
+    GAt = torch.cat([G.mT, -A.mT], dim=-1)
 
     mixed = bool(opts.mixedResiduals) and dtype != torch.float32
     if mixed:
@@ -201,39 +267,40 @@ def ipm_solve(
         eps32 = torch.finfo(f32).eps
 
     def products_full(y, w, v):
-        return _Products(Q @ y, GA @ y, GAt @ torch.cat([w, v]))
+        return _Products(mv(Q, y), mv(GA, y),
+                         mv(GAt, torch.cat([w, v], dim=-1)))
 
     def products_fast(y, w, v):
         if not mixed:
             return products_full(y, w, v)
         y32 = y.to(f32)
-        wv32 = torch.cat([w, v]).to(f32)
-        return _Products((Q32 @ y32).to(dtype), (GA32 @ y32).to(dtype),
-                         (GAt32 @ wv32).to(dtype))
+        wv32 = torch.cat([w, v], dim=-1).to(f32)
+        return _Products(mv(Q32, y32).to(dtype), mv(GA32, y32).to(dtype),
+                         mv(GAt32, wv32).to(dtype))
 
     def residual_block(P: _Products, z: Vec4, lam) -> _Resid:
-        rleft = Vec4(P.Qy + P.GAtwv, P.GAy[:p], P.GAy[p:] - z.s,
+        rleft = Vec4(P.Qy + P.GAtwv, P.GAy[..., :p], P.GAy[..., p:] - z.s,
                      ca.cone_prod(spec, lam, lam))
         r0 = Vec4(rleft.y - c, rleft.w - d, rleft.v - b, rleft.s)
 
-        mubar = torch.dot(z.v, z.s)
+        mubar = dot(z.v, z.s)
         mu = mubar / conedim
-        cty = torch.dot(c, z.y)
-        rDu = torch.linalg.norm(r0.y) / (1.0 + normc)
-        rPr = _normsafe(r0.v) / (1.0 + normb)
-        rCp = _normsafe(r0.s) / (1.0 + torch.abs(cty))
+        cty = dot(c, z.y)
+        rDu = torch.linalg.norm(r0.y, dim=-1) / (1.0 + normc)
+        rPr = _norm(r0.v) / (1.0 + normb)
+        rCp = _norm(r0.s) / (1.0 + torch.abs(cty))
         rmax = torch.maximum(rDu, torch.maximum(rPr, rCp))
-        pobj = 0.5 * torch.dot(z.y, P.Qy) - cty
-        dobj = pobj + torch.dot(z.w, r0.w) + torch.dot(z.v, r0.v) - mubar
+        pobj = 0.5 * dot(z.y, P.Qy) - cty
+        dobj = pobj + dot(z.w, r0.w) + dot(z.v, r0.v) - mubar
 
         p_infeas = nan
         d_infeas = nan
         if not (p == 0 and m == 0):
             # primal infeasibility (Farkas certificate, CVXOPT+ECOS scalings)
-            dw_bv = torch.dot(d, z.w) - torch.dot(b, z.v)
-            p_unscaled = torch.linalg.norm(P.GAtwv)  # ‖Gᵀw − Aᵀv‖
+            dw_bv = dot(d, z.w) - dot(b, z.v)
+            p_unscaled = torch.linalg.norm(P.GAtwv, dim=-1)  # ‖Gᵀw − Aᵀv‖
             p_cvx = torch.where(
-                dw_bv < 0, p_unscaled / (_normsafe(z.y) + _normsafe(z.v)), nan)
+                dw_bv < 0, p_unscaled / (_norm(z.y) + _norm(z.v)), nan)
             p_ecos = torch.where(
                 dw_bv < 0,
                 p_unscaled / (torch.clamp(normc, min=1.0) * torch.abs(dw_bv)),
@@ -241,10 +308,10 @@ def ipm_solve(
             p_infeas = torch.maximum(p_cvx, p_ecos)
 
             # dual infeasibility / unboundedness
-            d1 = torch.linalg.norm(rleft.v) if m else -inf  # ‖Ay − s‖
-            d2 = torch.linalg.norm(rleft.w) if p else -inf  # ‖Gy‖
-            d3 = torch.where(torch.isfinite(z.y).all(),
-                             torch.linalg.norm(P.Qy), nan)
+            d1 = torch.linalg.norm(rleft.v, dim=-1) if m else -inf  # ‖Ay − s‖
+            d2 = torch.linalg.norm(rleft.w, dim=-1) if p else -inf  # ‖Gy‖
+            d3 = torch.where(torch.isfinite(z.y).all(-1),
+                             torch.linalg.norm(P.Qy, dim=-1), nan)
             d_cvx = torch.where(
                 cty > 0,
                 torch.maximum(
@@ -256,7 +323,7 @@ def ipm_solve(
             d_ecos = torch.where(
                 cty > 0,
                 torch.maximum(d1, torch.maximum(d2, d3))
-                / torch.linalg.norm(z.y),
+                / torch.linalg.norm(z.y, dim=-1),
                 nan)
             d_infeas = torch.abs(torch.maximum(d_cvx, d_ecos))
 
@@ -302,28 +369,29 @@ def ipm_solve(
     # Initial point: one KKT solve at F = I, or the caller's warm start;
     # then shift v, s strictly inside the cone.
     if warm is None:
-        Fi = sc.nt_identity(spec, dtype, dev)
+        Fi = sc.nt_identity(spec, dtype, dev, bs)
         z0 = make_solve4(e, Fi, solve3x3gen(Fi, Fi), lam_eigs=lam_eigs(Fi))(
-            Vec4(c, d, b, torch.zeros(m, dtype=dtype, device=dev)))
+            Vec4(c, d, b, torch.zeros(bs + (m,), dtype=dtype, device=dev)))
     else:
         z0 = warm.map(lambda x: x.to(dtype=dtype, device=dev))
     a_v = ca.maxstep_to_cone(spec, z0.v)
     a_s = ca.maxstep_to_cone(spec, z0.s)
-    z = Vec4(z0.y, z0.w, z0.v - a_v * e, z0.s - a_s * e)
+    z = Vec4(z0.y, z0.w, z0.v - col(a_v) * e, z0.s - col(a_s) * e)
 
     int32 = dict(dtype=torch.int32, device=dev)
     sol = SolState(
         y=z.y, w=z.w, v=z.v,
-        status=torch.full((), Status.RUNNING, **int32),
-        Iter=torch.zeros((), **int32),
-        Mu=scalar(0.0), prFeas=inf, duFeas=inf, muFeas=inf,
-        pobj=inf, dobj=-inf,
+        status=torch.full(bs, Status.RUNNING, **int32),
+        Iter=torch.zeros(bs, **int32),
+        Mu=each(0.0), prFeas=each(float("inf")), duFeas=each(float("inf")),
+        muFeas=each(float("inf")),
+        pobj=each(float("inf")), dobj=each(float("-inf")),
     )
 
     def fts(x1, a1, y1, x2, a2, y2):
         # (x1 - a1*y1)ᵀ(x2 - a2*y2) without forming the differences
-        return (torch.dot(x1, x2) - a2 * torch.dot(x1, y2)
-                - a1 * torch.dot(y1, x2) + a1 * a2 * torch.dot(y1, y2))
+        return (dot(x1, x2) - a2 * dot(x1, y2)
+                - a1 * dot(y1, x2) + a1 * a2 * dot(y1, y2))
 
     sw = opts.residualSwitch
 
@@ -336,6 +404,13 @@ def ipm_solve(
     fast_eig = opts.fastEig is not False and two_mode and has_sdp
     force_fast_eig = bool(opts.fastEig) and not two_mode and has_sdp
     slow_ed = "refined" if (opts.refinedEig and has_sdp) else None
+
+    def eig_dtype_of(slow: bool):
+        """Precision of an iteration's S-cone decompositions on the fast or
+        the slow variant."""
+        if two_mode:
+            return torch.float32 if (fast_eig and not slow) else slow_ed
+        return torch.float32 if force_fast_eig else slow_ed
 
     def take_step(z, F, FinvT, lam, R: _Resid, solve3x3, eig_dtype):
         r0, rleft, mu, mubar = R.r0, R.rleft, R.mu, R.mubar
@@ -367,7 +442,7 @@ def ipm_solve(
         sigma = torch.clamp(rho, 0.0, 1.0) ** 3
 
         # corrector
-        lc = -ca.cone_prod(spec, FiTds, Fdv) + sigma * mu * e
+        lc = -ca.cone_prod(spec, FiTds, Fdv) + col(sigma * mu) * e
         r = Vec4(r0.y, r0.w, r0.v, rleft.s - lc)
 
         def K4(dz):
@@ -376,8 +451,8 @@ def ipm_solve(
             Pd = products_fast(dz.y, dz.w, dz.v)
             return Vec4(
                 Pd.Qy + Pd.GAtwv,
-                Pd.GAy[:p],
-                Pd.GAy[p:] - dz.s,
+                Pd.GAy[..., :p],
+                Pd.GAy[..., p:] - dz.s,
                 ca.cone_prod(spec, lam, sc.apply(spec, F, dz.v))
                 + ca.cone_prod(spec, lam, sc.apply(spec, FinvT, dz.s)),
             )
@@ -388,14 +463,22 @@ def ipm_solve(
 
         # Newton step + iterative refinement, stopped when a step fails to
         # halve the residual. With a low-precision factor this loop is what
-        # recovers the working dtype's accuracy.
+        # recovers the working dtype's accuracy. In a stack each instance
+        # has its own stopping test: the loop goes on while any continues,
+        # and one that stopped keeps its dz.
         dz = solve4(r)
         rIr, rnorm = resid(dz)
         rn_prev, rstep = inf, 0
-        while rstep < opts.maxRefinementSteps and bool(
-                (rnorm >= opts.refinement_threshold) & (rnorm < 0.5 * rn_prev)):
-            dz = dz + solve4(rIr)
-            rn_prev = rnorm
+        while rstep < opts.maxRefinementSteps:
+            go = (rnorm >= opts.refinement_threshold) & (rnorm < 0.5 * rn_prev)
+            if not bool(go.any() if batched else go):
+                break
+            if batched:
+                dz = _select(go, dz + solve4(rIr), dz)
+                rn_prev = torch.where(go, rnorm, rn_prev)
+            else:
+                dz = dz + solve4(rIr)
+                rn_prev = rnorm
             rIr, rnorm = resid(dz)
             rstep += 1
 
@@ -408,9 +491,9 @@ def ipm_solve(
                            sc.apply(spec, FinvT, dz.s) * inv_dtb)
         else:
             alpha = steps(dz.v * inv_dtb, dz.s * inv_dtb)
-        dz_ok = _all_finite(dz.y, dz.v, dz.s, *((dz.w,) if p else ()))
+        dz_ok = _finite_rows(dz.y, dz.v, dz.s, *((dz.w,) if p else ()))
         alpha = torch.where(dz_ok & torch.isfinite(alpha), alpha, 0.0)
-        dz = dz.map(lambda u: torch.where(dz_ok, u, torch.zeros_like(u)))
+        dz = dz.map(lambda u: torch.where(col(dz_ok), u, torch.zeros_like(u)))
 
         # Gondzio centrality correctors, each accepted by mask; `active`
         # turns off after the first rejection
@@ -420,7 +503,8 @@ def ipm_solve(
             atil = torch.clamp(1.08 * alpha + 0.08, max=1.0)
             Fdv = sc.apply(spec, F, dz.v)
             FiTds_c = sc.apply(spec, FinvT, dz.s)
-            w_trial = ca.cone_prod(spec, lam - atil * Fdv, lam - atil * FiTds_c)
+            w_trial = ca.cone_prod(spec, lam - col(atil) * Fdv,
+                                   lam - col(atil) * FiTds_c)
             q = ca.centrality_correction(spec, w_trial, 0.1 * smu, 10.0 * smu,
                                          eig_dtype)
             zero = torch.zeros_like
@@ -431,12 +515,9 @@ def ipm_solve(
                              (FiTds_c + sc.apply(spec, FinvT, ddz.s)) * inv_dtb)
             else:
                 a_c = steps(dz_c.v * inv_dtb, dz_c.s * inv_dtb)
-            fin = _all_finite(ddz.y, ddz.v, ddz.s, a_c)
+            fin = _finite_rows(ddz.y, ddz.v, ddz.s) & torch.isfinite(a_c)
             accept = active & fin & (a_c >= alpha + 0.1 * (atil - alpha))
-            dz = Vec4(*(torch.where(accept, new, old)
-                        for new, old in zip(
-                            (dz_c.y, dz_c.w, dz_c.v, dz_c.s),
-                            (dz.y, dz.w, dz.v, dz.s))))
+            dz = _select(accept, dz_c, dz)
             alpha = torch.where(accept, a_c, alpha)
             active = accept
 
@@ -446,13 +527,15 @@ def ipm_solve(
 
     def assess(R: _Resid, z, k, sol, optBest, stall, lm_was):
         """Best iterate, status and the last-mile trigger from this
-        iteration's residuals; nothing is read back."""
+        iteration's residuals; nothing is read back. ``lm_was`` says
+        whether the full-precision variant was on: a host bool, or one
+        flag per instance of a stack."""
         improved = R.rmax < optBest
         best = torch.where(improved, R.rmax, optBest)
         stalled = torch.where(improved, 0, stall + 1).to(torch.int32)
 
         def upd(new, old):
-            return torch.where(improved, new, old)
+            return _select(improved, new, old)
 
         st = SolState(
             y=upd(z.y, sol.y), w=upd(z.w, sol.w), v=upd(z.v, sol.v),
@@ -475,27 +558,38 @@ def ipm_solve(
             status = torch.where(infeas, Status.INFEASIBLE, status)
             status = torch.where(unbnd, Status.UNBOUNDED, status)
             # certificate normalizations overwrite the solution fields
-            dw_bv = torch.dot(d, z.w) - torch.dot(b, z.v)
+            dw_bv = dot(d, z.w) - dot(b, z.v)
+            infeas_c, unbnd_c = col(infeas), col(unbnd)
             st = replace(
                 st,
-                y=torch.where(infeas, nan,
-                              torch.where(unbnd, z.y / torch.abs(R.cty),
+                y=torch.where(infeas_c, nan,
+                              torch.where(unbnd_c, z.y / col(torch.abs(R.cty)),
                                           st.y)),
-                w=torch.where(infeas, z.w / -dw_bv,
-                              torch.where(unbnd, nan, st.w)),
-                v=torch.where(infeas, z.v / -dw_bv,
-                              torch.where(unbnd, nan, st.v)),
+                w=torch.where(infeas_c, z.w / col(-dw_bv),
+                              torch.where(unbnd_c, nan, st.w)),
+                v=torch.where(infeas_c, z.v / col(-dw_bv),
+                              torch.where(unbnd_c, nan, st.v)),
             )
+
+        # whether a breakdown is terminal, and whether the last-mile
+        # trigger is still open: True, False, or one flag per instance
+        terminal = lm_was if two_mode else True
+        lm_open = two_mode and (
+            ~lm_was if isinstance(lm_was, torch.Tensor) else not lm_was)
+
+        def where_terminal(cond):
+            return cond if terminal is True else cond & terminal
 
         running = status == Status.RUNNING
         # Divergence of unknown cause. With a two-variant generator a
         # non-finite fast iteration freezes its step and escalates
         # through lm_on; only a breakdown inside the full-precision
         # branch is a terminal Error.
-        if not two_mode or lm_was:
-            bad = ~_all_finite(R.mu, R.rDu, R.rPr, R.rCp)
-            status = torch.where(running & bad, Status.ERROR, status)
-        if mixed and (not two_mode or lm_was):
+        if terminal is not False:
+            bad = ~_finite_each(R.mu, R.rDu, R.rPr, R.rCp)
+            status = torch.where(where_terminal(running & bad), Status.ERROR,
+                                 status)
+        if mixed and terminal is not False:
             # Exhaustion of the low-precision factor, terminal only
             # once the full-precision branch (where there is one) has
             # had its turn. The caller's ladder re-solves from the best
@@ -512,8 +606,9 @@ def ipm_solve(
             exhausted = exhausted | (
                 near_best & (R.rCp < 0.1 * opts.optTol)
                 & (R.rCp < 0.01 * best) & ~improved)
-            status = torch.where((status == Status.RUNNING) & exhausted,
-                                 Status.ABANDONED, status)
+            status = torch.where(
+                where_terminal((status == Status.RUNNING) & exhausted),
+                Status.ABANDONED, status)
         if opts.stallCutoff is not None:
             plateau = (best < sw * opts.optTol) & (
                 stalled >= opts.stallCutoff)
@@ -522,7 +617,7 @@ def ipm_solve(
         status = status.to(torch.int32)
 
         lm = None
-        if two_mode and not lm_was:
+        if lm_open is not False:
             # Reactive: the iterate is near tolerance and this
             # iteration failed to improve the best residual (healthy
             # solves improve every iteration), or the residual is
@@ -532,36 +627,83 @@ def ipm_solve(
                 R.rmax)
             if opts.lastmileProactive > 0:
                 lm = lm | (R.rmax < opts.lastmileProactive * opts.optTol)
-        return replace(st, status=status), best, stalled, status, lm
-
-    def read(status, *flags):
-        """The iteration's read-back: the status and the device
-        booleans that the host branches on, in one copy."""
-        flags = [f for f in flags if f is not None]
-        if not flags:
-            return (int(status),)
-        return tuple(torch.stack(
-            [status] + [f.to(torch.int32) for f in flags]).tolist())
+            if lm_open is not True:
+                lm = lm & lm_open
+        return replace(st, status=status), best, stalled, lm
 
     if opts.verbose:
         _print_banner()
 
-    optBest = inf
-    stall = torch.zeros((), **int32)
+    optBest = each(float("inf"))
+    stall = torch.zeros(bs, **int32)
     rnorm_prev, rstep_prev = 0.0, 0
-    lm_on = False  # sticky: the generator's full-precision variant is on
+    # Sticky: the generator's full-precision variant is on. A host bool for
+    # a single solve; for a stack one flag per instance on the device, with
+    # `modes` the variants (False fast, True slow) that some running
+    # instance is on, as the host knows them from the latest read.
+    lm_on = torch.zeros(bs, dtype=torch.bool, device=dev) if batched else False
+    modes = (False,)
     # Carried products (mixed mode): fast estimates with an infinite drift,
     # so the first near-tolerance decision always recomputes them.
     P = products_fast(z.y, z.w, z.v) if mixed else None
-    drift = inf
+    drift = each(float("inf"))
+
+    def per_variant(which, flags, fn):
+        """``fn(slow)`` on the variant(s) in ``which``; when a stack is on
+        both, each instance takes its own by ``flags``."""
+        if len(which) == 1:
+            return fn(which[0])
+        return _select(flags, fn(True), fn(False))
+
+    def evaluate(P, lam):
+        """Residuals and assessment of the iterate against products P; in
+        a stack, finished instances keep what they had."""
+        R = residual_block(P, z, lam)
+        st, best, stalled, lm = assess(R, z, k, sol, optBest, stall, lm_on)
+        if batched:
+            run = sol.status == Status.RUNNING
+            st = _select(run, st, sol)
+            best = torch.where(run, best, optBest)
+            stalled = torch.where(run, stalled, stall)
+            lm = None if lm is None else lm & run
+        return R, st, best, stalled, lm
+
+    def read(st, lm, fire=None):
+        """The iteration's read-back, in one copy: whether the solve (any
+        instance of a stack) is still running, the last-mile flag(s) after
+        this iteration, the variants the step needs, and whether a
+        recompute fired."""
+        if not batched:
+            flags = [f.to(torch.int32) for f in (lm, fire) if f is not None]
+            got = (torch.stack([st.status] + flags).tolist() if flags
+                   else [int(st.status)])
+            on = lm_on or (lm is not None and bool(got[1]))
+            return (got[0] == Status.RUNNING, on, (on,),
+                    fire is not None and bool(got[-1]))
+        run = st.status == Status.RUNNING
+        on = lm_on if lm is None else lm_on | lm
+        flags = [run.any()]
+        if two_mode:
+            flags += [(run & ~on).any(), (run & on).any()]
+        if fire is not None:
+            flags.append(fire.any())
+        got = torch.stack(flags).tolist()
+        need = (False,)
+        if two_mode:
+            need = tuple(v for v, f in zip((False, True), got[1:3]) if f)
+        return got[0], on, need or modes, fire is not None and got[-1]
+
     k = 1
     while k <= opts.maxIters:
-        lm_was = lm_on
-        if (fast_eig and not lm_on) or force_fast_eig:
-            F = sc.nt_scaling(spec, z.v, z.s, eig_dtype=torch.float32)
-        else:
-            F = sc.nt_scaling(spec, z.v, z.s, eig_dtype=slow_ed)
-        FinvT = sc.nt_inv_adjoint(spec, F)
+        # the scaling is the variant's an instance was on when the
+        # iteration began; the variants differ only in the precision of
+        # the S-cone decompositions
+        def scaling(slow):
+            F = sc.nt_scaling(spec, z.v, z.s, eig_dtype=eig_dtype_of(slow))
+            return F, sc.nt_inv_adjoint(spec, F)
+
+        shared = eig_dtype_of(False) == eig_dtype_of(True)
+        F, FinvT = per_variant(modes[:1] if shared else modes, lm_on, scaling)
         lam = sc.apply(spec, F, z.v)  # scaled point: = F⁻ᵀ z.s too
 
         if mixed:
@@ -569,55 +711,72 @@ def ipm_solve(
             # tolerance decision is near and the drift could affect it;
             # the honesty guard recertifies once drift reaches 10 % of the
             # estimated residual, so reported residuals stay trustworthy.
-            R = residual_block(P, z, lam)
+            R, st, best, stalled, lm = evaluate(P, lam)
             near = ((R.rmax < sw * opts.optTol)
                     | (R.p_infeas < sw * opts.infeas_tol)
                     | (R.d_infeas < sw * opts.infeas_tol)
                     | ~torch.isfinite(R.rmax))
             fire = (near & (drift > 0.05 * opts.optTol)) | (
                 drift > 0.1 * R.rmax)
-            out = assess(R, z, k, sol, optBest, stall, lm_was)
-            *got, fired = read(out[3], out[4], fire)
+            if batched:
+                fire = fire & (sol.status == Status.RUNNING)
+            go, on, need, fired = read(st, lm, fire)
             if fired:
                 counts["recertified"] += 1
-                P = products_full(z.y, z.w, z.v)
-                drift = scalar(0.0)
-                R = residual_block(P, z, lam)
-                out = assess(R, z, k, sol, optBest, stall, lm_was)
-                got = read(out[3], out[4])
+                Pf = products_full(z.y, z.w, z.v)
+                P = _select(fire, Pf, P) if batched else Pf
+                drift = torch.where(fire, 0.0, drift) if batched else each(0.0)
+                R, st, best, stalled, lm = evaluate(P, lam)
+                go, on, need, _ = read(st, lm)
         else:
-            R = residual_block(products_full(z.y, z.w, z.v), z, lam)
-            out = assess(R, z, k, sol, optBest, stall, lm_was)
-            got = read(out[3], out[4])
-        sol, optBest, stall = out[:3]
-        code = got[0]
-        if len(got) > 1:
-            lm_on = lm_on or bool(got[1])
+            R, st, best, stalled, lm = evaluate(
+                products_full(z.y, z.w, z.v), lam)
+            go, on, need, _ = read(st, lm)
+        sol, optBest, stall, lm_on, modes = st, best, stalled, on, need
 
         if opts.verbose:
             _print_row(k, R, rstep_prev, rnorm_prev)
 
-        if code != Status.RUNNING:
+        if not go:
             break
         # LEVEL-2 plugin callback: per-iteration numeric refactorization,
-        # of the one variant this iteration runs
-        counts["slow_steps" if two_mode and lm_on else "fast_steps"] += 1
-        if two_mode:
-            solve3x3 = solve3x3gen(F, FinvT, mode="slow" if lm_on else "fast")
-            ed = torch.float32 if (fast_eig and not lm_on) else slow_ed
+        # of the variant(s) this iteration steps on (an instance that
+        # switched on this iteration steps on its new one)
+        if two_mode and True in modes:
+            counts["slow_steps"] += 1
+        if not two_mode or False in modes:
+            counts["fast_steps"] += 1
+
+        def step(slow):
+            if two_mode:
+                solve3x3 = solve3x3gen(F, FinvT,
+                                       mode="slow" if slow else "fast")
+            else:
+                solve3x3 = solve3x3gen(F, FinvT)
+            return take_step(z, F, FinvT, lam, R, solve3x3,
+                             eig_dtype_of(slow))
+
+        z_new, rnorm_prev, rstep_prev, Pd, alpha = per_variant(
+            modes, lm_on, step)
+        if batched:
+            run = sol.status == Status.RUNNING
+            z = _select(run, z_new, z)
         else:
-            solve3x3 = solve3x3gen(F, FinvT)
-            ed = torch.float32 if force_fast_eig else slow_ed
-        z, rnorm_prev, rstep_prev, Pd, alpha = take_step(
-            z, F, FinvT, lam, R, solve3x3, ed)
+            z = z_new
         if mixed:
             # incremental product update and its drift bound
-            P = _Products(P.Qy - alpha * Pd.Qy, P.GAy - alpha * Pd.GAy,
-                          P.GAtwv - alpha * Pd.GAtwv)
-            drift = drift + 10.0 * eps32 * alpha * (
-                (torch.linalg.norm(Pd.Qy) + torch.linalg.norm(Pd.GAtwv))
-                / (1.0 + normc)
-                + _normsafe(Pd.GAy) / (1.0 + normb))
+            P_new = _Products(P.Qy - col(alpha) * Pd.Qy,
+                              P.GAy - col(alpha) * Pd.GAy,
+                              P.GAtwv - col(alpha) * Pd.GAtwv)
+            drift_new = drift + 10.0 * eps32 * alpha * (
+                (torch.linalg.norm(Pd.Qy, dim=-1)
+                 + torch.linalg.norm(Pd.GAtwv, dim=-1)) / (1.0 + normc)
+                + _norm(Pd.GAy) / (1.0 + normb))
+            if batched:
+                P, drift = _select(run, P_new, P), torch.where(
+                    run, drift_new, drift)
+            else:
+                P, drift = P_new, drift_new
         k += 1
 
     if stats is not None:

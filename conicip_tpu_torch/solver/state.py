@@ -14,7 +14,8 @@ __all__ = ["Vec4", "Status", "SolState", "Solution", "STATUS_NAMES"]
 
 @dataclass(frozen=True)
 class Vec4:
-    """4-block iterate: primal y, equality dual w, cone dual v, slack s."""
+    """4-block iterate: primal y, equality dual w, cone dual v, slack s;
+    each (..., dim), with any leading dims a stack of instances."""
 
     y: torch.Tensor
     w: torch.Tensor
@@ -28,17 +29,21 @@ class Vec4:
         return Vec4(self.y - o.y, self.w - o.w, self.v - o.v, self.s - o.s)
 
     def scale(self, a) -> "Vec4":
+        """``a`` times every block; a tensor ``a`` is one factor per
+        instance."""
+        if isinstance(a, torch.Tensor) and a.dim():
+            a = a.unsqueeze(-1)
         return Vec4(a * self.y, a * self.w, a * self.v, a * self.s)
 
     def map(self, fn) -> "Vec4":
         return Vec4(fn(self.y), fn(self.w), fn(self.v), fn(self.s))
 
     def norm(self) -> torch.Tensor:
-        # sum of block norms, empty blocks contributing 0
-        out = torch.linalg.norm(self.y)
+        # sum of block norms per instance, empty blocks contributing 0
+        out = torch.linalg.norm(self.y, dim=-1)
         for blk in (self.w, self.v, self.s):
-            if blk.shape[0]:
-                out = out + torch.linalg.norm(blk)
+            if blk.shape[-1]:
+                out = out + torch.linalg.norm(blk, dim=-1)
         return out
 
 

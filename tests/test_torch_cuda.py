@@ -86,6 +86,77 @@ def test_kernel_nan_from_failing_pivot(cuda, p):
                                       (c >= p) & (i >= c))
 
 
+BATCH_SHAPES = ((64, 500), (64, 200), (64, 86), (256, 55), (7, 129), (3, 1),
+                (5, 257), (2, 1000))
+
+
+def spd_stack(B, n, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((B, n, n))
+    return X @ X.transpose(0, 2, 1) / n + np.eye(n)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B, n", BATCH_SHAPES)
+def test_batched_kernel_matches_plain_and_single(cuda, dtype, B, n):
+    # the batched entry against the plain version (same relative bounds as
+    # the single entry), and per matrix against the single entry, whose
+    # arithmetic it repeats: equal bit for bit
+    dt = getattr(torch, dtype)
+    tol = 1e-10 if dt == torch.float64 else 1e-4
+    M = torch.from_numpy(spd_stack(B, n, seed=n)).to(cuda, dt)
+    before = cholesky_kernel.launch_count(dt, n, batch=B)
+    singles = cholesky_kernel.launch_count(batch=False)
+    L = cholesky_kernel.cholesky_factor(M)
+    assert cholesky_kernel.launch_count(dt, n, batch=B) == before + 1
+    assert cholesky_kernel.launch_count(batch=False) == singles
+    Lp = cholesky_kernel.cholesky_plain(M)
+    assert ((L - Lp).abs().max() / Lp.abs().max()).item() <= tol
+    assert torch.equal(L.triu(1), torch.zeros_like(L))
+    for i in sorted({0, B // 2, B - 1}):
+        assert torch.equal(L[i], cholesky_kernel.cholesky_factor(
+            M[i].contiguous()))
+    # leading dims beyond one are a stack all the same
+    if B % 2 == 0:
+        L2 = cholesky_kernel.cholesky_factor(M.view(2, B // 2, n, n))
+        assert torch.equal(L2.view(B, n, n), L)
+
+
+@pytest.mark.parametrize("B, n, p", [(5, 300, 200), (9, 100, 37), (4, 129, 128)])
+def test_batched_kernel_nan_stays_in_its_instance(cuda, B, n, p):
+    # one indefinite matrix in the middle of the stack: NaN from its
+    # failing pivot on, and every other factor what it was without it
+    for dt in (torch.float64, torch.float32):
+        M = torch.from_numpy(spd_stack(B, n, seed=3)).to(cuda, dt)
+        good = cholesky_kernel.cholesky_factor(M)
+        bad = M.clone()
+        bad[B // 2, p, p] = -1.0
+        L = cholesky_kernel.cholesky_factor(bad)
+        i, c = np.indices((n, n))
+        np.testing.assert_array_equal(
+            torch.isnan(L[B // 2]).cpu().numpy(), (c >= p) & (i >= c))
+        keep = [j for j in range(B) if j != B // 2]
+        assert torch.equal(L[keep], good[keep])
+
+
+def test_solve_batch_on_card_matches_cpu(cuda):
+    from conicip_tpu_torch import solve_batch
+    from conicip_tpu_torch.models import batched_box_qp
+
+    Q, c, A, b, cones = batched_box_qp(6, n=40, seed=1)
+    cholesky_kernel.reset_launch_count()
+    out = solve_batch(Q, c, A, b, cones, device=cuda)
+    used = cholesky_kernel.launch_count(torch.float64, 40, batch=6)
+    ref = solve_batch(Q, c, A, b, cones, device="cpu")
+    assert out.statuses == ref.statuses == ["Optimal"] * 6
+    assert torch.equal(out.Iter.cpu(), ref.Iter)
+    # one stacked factor for the cold start and one per step, none single
+    assert used >= int(out.Iter.max())
+    assert cholesky_kernel.launch_count(batch=False) == 0
+    assert out.y.device.type == "cuda"
+    assert (out.y.cpu() - ref.y).abs().max().item() <= 1e-6
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     M = torch.eye(8, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
