@@ -10,11 +10,15 @@ answers. Three further phases drive the options around the default path:
 ``[f32]`` the f32-factor solves (the kernel's f32 entry, the last-mile
 switch to f64 factors), ``[eq]`` null-space elimination of equalities and
 the rank-repairing preprocessor, ``[backends]`` the qr, lu and low-rank KKT
-solvers. Every phase prints one line per case; any failed check raises, so
-the script exits non-zero. It imports nothing of JAX.
+solvers. ``[batch]`` drives ``solve_batch`` on stacks of 64 instances of the
+four batched families (every dense factor one launch of the kernel's
+batched entry, sampled instances held against their single solves) and
+``[checkpoint]`` an interrupted and resumed ``solve_batch_resumable``. Every
+phase prints one line per case; any failed check raises, so the script
+exits non-zero. It imports nothing of JAX.
 
-The second-to-last line is a JSON object describing each kernel of the
-path; the last line is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON object describing each kernel entry of
+the path; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -35,6 +41,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZES = (1, 31, 127, 128, 129, 257, 500, 1000, 1024, 1280, 2048, 4096)
 SCHUR_N = (1024, 4096)  # box_qp_dense orders of the [schur] phase
 TIMED = (128, 1024, 2048, 4096)
+# stacks (B, n) the batched entry is held against the plain version at: the
+# orders the [batch] phase factors, a ragged second panel, and order 1
+BATCH_SHAPES = ((64, 500), (64, 200), (64, 86), (256, 55), (7, 129), (3, 1))
+BATCH_TIMED = ((64, 500), (64, 200))
+BATCH = 64  # instances per stack in the [batch] and [checkpoint] phases
+SAMPLED = (0, 1, 31, 63)  # instances held against their single solves
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # ill-conditioned SPD per dtype: condition number, and the bound on
 # |LL' - M| / |M| (rounding of a backward-stable factor at n = 500)
@@ -50,12 +62,13 @@ PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
 F32_Y_TOL = 1e-5
 
 
-def cholesky_bound_ms(n, dtype):
-    """Least time the card could take for one order-n factor: n^3/3
-    operations at the peak rate of the dtype against the matrix read once
-    and the factor written once at the memory rate. Returns (ms, which)."""
-    ops = (n ** 3 / 3.0) / PEAK_FLOPS[dtype]
-    moved = 2.0 * n * n * torch.finfo(dtype).bits / 8 / PEAK_BYTES
+def cholesky_bound_ms(n, dtype, batch=1):
+    """Least time the card could take for ``batch`` order-n factors: n^3/3
+    operations each at the peak rate of the dtype against every matrix read
+    once and every factor written once at the memory rate. Returns (ms,
+    which)."""
+    ops = batch * (n ** 3 / 3.0) / PEAK_FLOPS[dtype]
+    moved = batch * 2.0 * n * n * torch.finfo(dtype).bits / 8 / PEAK_BYTES
     return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
 
 
@@ -204,11 +217,103 @@ def phase_kernel():
                  bound_by=bound_by, bound_share=f"{bound / ms:.4f}",
                  ratio=f"{ms / plain:.3f}", launches_per_factor=per_factor,
                  launch_budget=budget, reps=reps)
-    return {"name": "cholesky", "route": "cuda",
-            "source": "conicip_tpu_torch/csrc/cholesky.cu",
-            "replaces": "conicip_tpu/ops/pallas_cholesky.py:41",
-            "max_abs_err": worst[torch.float64],
-            "shape": "(1024, 1024) float64", **times[(1024, torch.float64)]}
+    record = {"name": "cholesky", "route": "cuda",
+              "source": "conicip_tpu_torch/csrc/cholesky.cu",
+              "replaces": "conicip_tpu/ops/pallas_cholesky.py:41",
+              "max_abs_err": worst[torch.float64],
+              "shape": "(1024, 1024) float64", **times[(1024, torch.float64)]}
+    return [record] + phase_kernel_batched()
+
+
+def spd_stack(B, n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(B, n, n, generator=g, device="cuda", dtype=torch.float64)
+    return X @ X.mT / n + torch.eye(n, device="cuda", dtype=torch.float64)
+
+
+def phase_kernel_batched():
+    """The kernel's batched entries against the plain version on stacks
+    (B, n, n); returns their JSON records (one per dtype)."""
+    from conicip_tpu_torch.ops.cholesky_kernel import (cholesky_factor,
+                                                       cholesky_plain)
+
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+    for B, n in BATCH_SHAPES:
+        M64 = spd_stack(B, n, seed=B + n)
+        for dt in (torch.float64, torch.float32):
+            M = M64.to(dt)
+            L = cholesky_factor(M)
+            Lp = cholesky_plain(M)
+            torch.cuda.synchronize()
+            err = (L - Lp).abs().max().item()
+            rel = err / Lp.abs().max().item()
+            rec = ((L @ L.mT - M).abs().max() / M.abs().max()).item()
+            what = f"batched ({B}, {n}) {dt}"
+            check(rel <= TOL[dt], f"{what}: |L-L_plain| rel {rel:.3e}")
+            check(rec <= TOL[dt], f"{what}: |LL'-M| rel {rec:.3e}")
+            check(bool(torch.equal(L.triu(1), torch.zeros_like(L))),
+                  f"{what}: strict upper triangle not zero")
+            one = cholesky_factor(M[B // 2].contiguous())
+            check(bool(torch.equal(L[B // 2], one)),
+                  f"{what}: instance {B // 2} differs from the single entry")
+            # the batch is a grid dimension: the launches of one matrix
+            per_stack = cuda_launches(lambda: cholesky_factor(M))
+            per_one = cuda_launches(lambda: cholesky_factor(M[0]))
+            check(per_stack == per_one,
+                  f"{what}: {per_stack} CUDA launches for the stack, "
+                  f"{per_one} for one matrix")
+            worst[dt] = max(worst[dt], err)
+            line("kernel_batched", B=B, n=n, dtype=str(dt).split(".")[-1],
+                 max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
+                 recon_rel=f"{rec:.3e}", launches_per_factor=per_stack,
+                 equals_single="bitwise")
+    # one indefinite matrix in the middle of a stack: NaN from its failing
+    # pivot on, every other factor untouched
+    B, n = 64, 200
+    for dt in (torch.float64, torch.float32):
+        M = spd_stack(B, n, seed=9).to(dt)
+        good = cholesky_factor(M)
+        bad = M.clone()
+        bad[31, n // 2, n // 2] = -1.0
+        L = cholesky_factor(bad)
+        keep = [i for i in range(B) if i != 31]
+        Lp = cholesky_plain(M)
+        rel = ((L[keep] - Lp[keep]).abs().max() / Lp.abs().max()).item()
+        check(not bool(torch.isfinite(L[31]).all()),
+              f"batched {dt}: the indefinite instance gave a finite factor")
+        check(bool(torch.isfinite(L[31, :n // 2]).all()),
+              f"batched {dt}: NaN before the failing pivot")
+        check(bool(torch.equal(L[keep], good[keep])) and rel <= TOL[dt],
+              f"batched {dt}: an indefinite instance touched its neighbours")
+        line("kernel_batched_nan", B=B, n=n, dtype=str(dt).split(".")[-1],
+             bad_instance="non-finite", others_rel_err=f"{rel:.3e}",
+             others="bitwise unchanged")
+    records = {}
+    for B, n in BATCH_TIMED:
+        M64 = spd_stack(B, n, seed=n)
+        for dt in (torch.float64, torch.float32):
+            M = M64.to(dt).contiguous()
+            reps = 20
+            ms = cuda_ms(lambda: cholesky_factor(M), reps)
+            plain = cuda_ms(lambda: cholesky_plain(M), reps)
+            library = cuda_ms(lambda: torch.linalg.cholesky_ex(M), reps)
+            bound, bound_by = cholesky_bound_ms(n, dt, B)
+            name = str(dt).split(".")[-1]
+            line("kernel_time", B=B, n=n, dtype=name, kernel_ms=f"{ms:.4f}",
+                 plain_ms=f"{plain:.4f}", library_ms=f"{library:.4f}",
+                 bound_ms=f"{bound:.5f}", bound_by=bound_by,
+                 bound_share=f"{bound / ms:.4f}", ratio=f"{ms / plain:.3f}",
+                 reps=reps)
+            if (B, n) == BATCH_TIMED[0]:
+                records[dt] = {
+                    "name": f"cholesky_batched_{'f64' if dt == torch.float64 else 'f32'}",
+                    "route": "cuda",
+                    "source": "conicip_tpu_torch/csrc/cholesky.cu",
+                    "replaces": "conicip_tpu/ops/pallas_cholesky.py:41",
+                    "max_abs_err": worst[dt], "shape": f"({B}, {n}, {n}) {name}",
+                    "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                    "bound_by": bound_by, "library_ms": library}
+    return [records[torch.float64], records[torch.float32]]
 
 
 def solve_timed(args, **kw):
@@ -221,10 +326,10 @@ def solve_timed(args, **kw):
     return sol, (time.perf_counter() - t) * 1e3
 
 
-def launches(dtype=None, n=None):
+def launches(dtype=None, n=None, batch=None):
     from conicip_tpu_torch.ops import cholesky_kernel
 
-    return cholesky_kernel.launch_count(dtype, n)
+    return cholesky_kernel.launch_count(dtype, n, batch)
 
 
 def phase_schur():
@@ -637,6 +742,261 @@ def phase_backends():
              **extra)
 
 
+def on_card(args):
+    """A stacked problem's arrays as f64 tensors on the card."""
+    return tuple(x if isinstance(x, list) or x is None
+                 else torch.as_tensor(x, dtype=torch.float64, device="cuda")
+                 for x in args)
+
+
+def instance(args, i):
+    """conic_ip's positional arguments for instance i of a stack (G shared
+    when it is 2-D)."""
+    Q, c, A, b, cones = args[:5]
+    G = d = None
+    if len(args) > 5 and args[5] is not None:
+        G = args[5] if args[5].dim() == 2 else args[5][i]
+        d = args[6][i]
+    return Q[i], c[i], A[i], b[i], cones, G, d
+
+
+def batch_cases():
+    """(label, stacked arguments, solve_batch keywords, the keywords that
+    give conic_ip the same solver on one instance, orders factored by
+    backend). Widths of the batched families; 64 instances each."""
+    from conicip_tpu_torch import models
+    from conicip_tpu_torch.kkt import kktsolver_schur
+
+    f32 = torch.float32
+    schur1 = dict(kktsolver=kktsolver_schur, centralityCorrectors=1)
+    schur0 = dict(kktsolver=kktsolver_schur, centralityCorrectors=0)
+    rq = on_card(models.batched_mixed_rq_eq(BATCH, n=200, n_q=51, p=10))
+    sdp = on_card(models.batched_small_sdp(BATCH))
+    # orders by backend: the Schur solver factors n and, with equalities,
+    # p; the low-rank one r = SOC rows + p, and p; the spectral one nothing
+    return (
+        ("batched_box_qp(64,n=500)",
+         on_card(models.batched_box_qp(BATCH, n=500)), {}, schur1,
+         dict(schur=(500,))),
+        ("batched_mixed_rq_eq(64,n=200,n_q=51,p=10)", rq, {}, schur1,
+         dict(schur=(200, 10))),
+        ("batched_mixed_rq_eq(64,n=200,n_q=51,p=10) f32", rq,
+         dict(factor_dtype=f32),
+         dict(factor_dtype=f32, eliminateEqualities=False),
+         dict(schur=(200, 10), lowrank=(61, 10))),
+        ("batched_mixed_rq_eq(64,n=200,n_q=51,p=10) f32 eliminated", rq,
+         dict(factor_dtype=f32, eliminate_equalities=True),
+         dict(factor_dtype=f32, eliminateEqualities=True),
+         dict(schur=(190,))),
+        ("batched_mixed_rqs(64)", on_card(models.batched_mixed_rqs(BATCH)),
+         {}, schur0, dict(schur=(86,))),
+        ("batched_small_sdp(64)", sdp, {}, schur0, dict(schur=(55,))),
+        ("batched_small_sdp(64) f32", sdp, dict(factor_dtype=f32),
+         dict(factor_dtype=f32), dict(schur=(55,))),
+    )
+
+
+def expected_batched_launches(runs, orders):
+    """Launches of the batched entries that the stacked runs of one
+    solve_batch call must have made, as a Counter over (dtype, order): one
+    factor per order of its backend and per KKT build of a run (its cold
+    start and every step)."""
+    from conicip_tpu_torch.kkt.lowrank import lowrank_kktsolver
+    from conicip_tpu_torch.kkt.spectral import spectral_kktsolver
+
+    want = Counter()
+    for r in runs:
+        builds = r.fast_steps + r.slow_steps + r.cold_start
+        if r.kktsolver is spectral_kktsolver(None):
+            continue
+        if r.kktsolver is lowrank_kktsolver():
+            dt, sizes = torch.float64, orders["lowrank"]
+        else:
+            kw = getattr(r.kktsolver, "keywords", {})
+            dt = kw.get("factor_dtype") or torch.float64
+            sizes = orders["schur"]
+        for k in sizes:
+            want[(dt, k)] += builds
+    return want
+
+
+def batched_launches_by_order():
+    from conicip_tpu_torch.ops import cholesky_kernel
+
+    got = Counter()
+    for key, count in cholesky_kernel.cholesky_launches.items():
+        if len(key) == 3:
+            got[key[:2]] += count
+    return got
+
+
+def timed_batch(args, **kw):
+    from conicip_tpu_torch import solve_batch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = solve_batch(*args, device="cuda", **kw)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def phase_batch():
+    """solve_batch on stacks of 64 instances, every instance checked, four
+    of them against their own conic_ip solve, and the kernel's batched
+    launches against the KKT builds of the stacked runs."""
+    from conicip_tpu_torch import conic_ip, models
+    from conicip_tpu_torch.ops import cholesky_kernel
+    from conicip_tpu_torch.parallel import batch as pbatch
+
+    total = Counter()
+    for label, args, kw, single_kw, orders in batch_cases():
+        f32 = "factor_dtype" in kw
+        timed_batch(args, **kw)  # warm-up
+        total.update(cholesky_kernel.cholesky_launches)
+        cholesky_kernel.reset_launch_count()
+        out, ms = timed_batch(args, **kw)
+        runs = list(pbatch.runs)
+        got = batched_launches_by_order()
+        singles = launches(batch=False)
+        want = expected_batched_launches(runs, orders)
+        _, ms2 = timed_batch(args, **kw)
+        resid = torch.maximum(out.prFeas, torch.maximum(
+            out.duFeas, out.muFeas)).max().item()
+        statuses = out.statuses
+        check(statuses == ["Optimal"] * BATCH,
+              f"{label}: {Counter(statuses)}")
+        check(resid < 1e-6, f"{label}: max residual {resid:.3e}")
+        check(out.y.device.type == "cuda", f"{label}: result not on cuda")
+        # one stacked factor per order and KKT build; what a count exceeds
+        # its builds by are ridge retries (f32 factors near convergence)
+        retries = sum(got.values()) - sum(want.values())
+        check(set(got) == set(want) and all(got[k] >= want[k] for k in want)
+              and singles == 0,
+              f"{label}: batched launches {dict(got)}, KKT builds "
+              f"{dict(want)}, single-entry launches {singles}")
+        check(f32 or retries == 0, f"{label}: {retries} ridge retries in f64")
+        if not want:
+            check(launches() == 0, f"{label}: the spectral tier launched")
+        iters = out.Iter.tolist()
+        t_single = 0.0
+        for i in range(8):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            one = conic_ip(*instance(args, i), device="cuda", **single_kw)
+            torch.cuda.synchronize()
+            t_single += (time.perf_counter() - t) * 1e3
+        pairs = []
+        for i in SAMPLED:
+            one = conic_ip(*instance(args, i), device="cuda", **single_kw)
+            pairs.append(f"{iters[i]}/{one.Iter}")
+            # f64: the same count. f32: within 2 of the single solve's when
+            # the main tier finished the instance; one that a rescue tier
+            # finished reports that tier's own (smaller) count, as the
+            # single solve's ladder does
+            same = (abs(one.Iter - iters[i]) <= 2
+                    or (len(runs) > 1 and iters[i] < one.Iter)) if f32 \
+                else one.Iter == iters[i]
+            check(one.status == statuses[i] and same,
+                  f"{label}[{i}]: batch {statuses[i]}/{iters[i]} vs single "
+                  f"{one.status}/{one.Iter}")
+        line("batch", family=repr(label), B=BATCH, status="Optimal x64",
+             Iter=f"{min(iters)}-{max(iters)}", resid=f"{resid:.3e}",
+             tiers="+".join(f"{r.tier}:{r.batch}" for r in runs),
+             batched_launches=",".join(
+                 f"{str(dt).split('.')[-1]}@{k}:{v}"
+                 for (dt, k), v in sorted(got.items(), key=str)) or "none",
+             kkt_builds=sum(want.values()), ridge_retries=retries,
+             sampled_iter_batch_single=",".join(pairs),
+             ms_per_batch=f"{(ms + ms2) / 2:.2f}",
+             ms_64_single_solves=f"{8 * t_single:.2f}",
+             single_measured_on="8 instances x 8",
+             speedup=f"{8 * t_single / ((ms + ms2) / 2):.1f}")
+        total.update(cholesky_kernel.cholesky_launches)
+        cholesky_kernel.reset_launch_count()
+
+    # one infeasible and one unbounded instance in a stack of dense box QPs
+    Q, c, A, b, cones = models.batched_box_qp(BATCH, n=100)
+    n, inf_i, unb_i = 100, BATCH // 3, 2 * BATCH // 3
+    b[inf_i] = np.ones(2 * n)  # y >= 1 and -y >= 1
+    Q[unb_i] = 0.0  # no curvature, only y >= -1: +c is a free ray
+    A[unb_i, n:] = np.eye(n)
+    c[unb_i] = np.abs(c[unb_i]) + 0.1
+    out, ms = timed_batch(on_card((Q, c, A, b, cones)))
+    statuses = out.statuses
+    others = [i for i in range(BATCH) if i not in (inf_i, unb_i)]
+    rest = [statuses[i] for i in others]
+    check(statuses[inf_i] == "Infeasible" and statuses[unb_i] == "Unbounded"
+          and rest == ["Optimal"] * (BATCH - 2),
+          f"planted batch: {statuses[inf_i]}, {statuses[unb_i]}, "
+          f"{Counter(rest)}")
+    check(bool(torch.isfinite(out.y[others]).all()),
+          "planted batch: a certificate's NaN reached another instance")
+    line("batch", family="'batched_box_qp(64,n=100) planted'", B=BATCH,
+         infeasible=f"{statuses[inf_i]}@{inf_i}",
+         unbounded=f"{statuses[unb_i]}@{unb_i}",
+         others=f"Optimal x{len(rest)}", ms_per_batch=f"{ms:.2f}")
+    total.update(cholesky_kernel.cholesky_launches)
+    # leave the phase's whole count for the caller to read
+    cholesky_kernel.reset_launch_count()
+    cholesky_kernel.cholesky_launches.update(total)
+
+
+def phase_checkpoint():
+    """solve_batch_resumable stopped after its first chunk and resumed."""
+    from conicip_tpu_torch import models, solve_batch
+    from conicip_tpu_torch.parallel import checkpoint as cp
+
+    args = on_card(models.batched_box_qp(BATCH, n=100))
+    ref = solve_batch(*args, device="cuda")
+    orig, calls = cp.solve_batch, {"n": 0}
+
+    def preempted(*a, **k):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise KeyboardInterrupt
+        return orig(*a, **k)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "snapshot.npz")
+        cp.solve_batch = preempted
+        try:
+            cp.solve_batch_resumable(*args, store=store, chunk_iters=3,
+                                     maxIters=60, device="cuda")
+            check(False, "checkpoint: the second chunk did not stop the run")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            cp.solve_batch = orig
+        info = cp.load_snapshot(store)
+        check(info is not None and info.iters_done == 3 and not info.done
+              and info.batch == BATCH,
+              f"checkpoint: snapshot after the first chunk {info}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = cp.solve_batch_resumable(*args, store=store, chunk_iters=50,
+                                       maxIters=60, device="cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        done = cp.load_snapshot(store)
+    resid = torch.maximum(out.prFeas, torch.maximum(
+        out.duFeas, out.muFeas)).max().item()
+    dy = (out.y - ref.y).abs().max().item()
+    check(out.statuses == ref.statuses == ["Optimal"] * BATCH,
+          f"checkpoint: {Counter(out.statuses)} vs {Counter(ref.statuses)}")
+    check(done.done and int(out.Iter.min()) > 3 and resid < 1e-6,
+          f"checkpoint: done={done.done} Iter>={int(out.Iter.min())} "
+          f"resid {resid:.3e}")
+    check(out.y.device.type == "cuda", "checkpoint: result not on cuda")
+    # a chunk boundary warm-restarts the iteration: two tolerance-accurate
+    # answers of one problem
+    check(dy <= 2e-3, f"checkpoint: |y - y_uninterrupted| {dy:.3e}")
+    line("checkpoint", family="'batched_box_qp(64,n=100)'", chunk_iters=3,
+         stopped_after="chunk 1", finished_at_stop=info.n_finished,
+         resumed="Optimal x64", Iter=f"{int(out.Iter.min())}-"
+         f"{int(out.Iter.max())}", resid=f"{resid:.3e}",
+         y_diff_uninterrupted=f"{dy:.3e}", resume_ms=f"{ms:.2f}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -645,28 +1005,42 @@ def main():
     sys.path.insert(0, ROOT)
     phase_environment()
     phase_build()
-    record = phase_kernel()
+    single, batched64, batched32 = phase_kernel()
 
     from conicip_tpu_torch.ops import cholesky_kernel
 
     # each path of the main run is driven with the count at 0 and read
     # just after; the comparison launches of phase_kernel do not count
-    record.update(launches=0, launches_f64=0, launches_f32=0)
+    f32, f64 = torch.float32, torch.float64
+    single.update(launches=0, launches_f64=0, launches_f32=0)
+    batched64["launches"] = batched32["launches"] = 0
     for phase in (phase_schur, phase_diag, phase_conic, phase_f32, phase_eq,
-                  phase_backends):
+                  phase_backends, phase_batch, phase_checkpoint):
         cholesky_kernel.reset_launch_count()
         phase()
         used = cholesky_kernel.launch_count()
-        used32 = cholesky_kernel.launch_count(torch.float32)
+        used32 = cholesky_kernel.launch_count(f32)
+        stacked = {dt: cholesky_kernel.launch_count(dt, batch=True)
+                   for dt in (f32, f64)}
         check(used > 0, f"{phase.__name__} never launched the kernel")
-        check((used32 > 0) == (phase is phase_f32),
-              f"{phase.__name__}: {used32} launches of the f32 entry")
-        line("launches", of=phase.__name__, f64=used - used32, f32=used32)
-        record["launches"] += used
-        record["launches_f64"] += used - used32
-        record["launches_f32"] += used32
+        check((used32 > 0) == (phase in (phase_f32, phase_batch)),
+              f"{phase.__name__}: {used32} launches of the f32 entries")
+        # the stacked solves run the batched entries, and nothing else does
+        check((sum(stacked.values()) > 0)
+              == (phase in (phase_batch, phase_checkpoint)),
+              f"{phase.__name__}: {stacked} launches of the batched entries")
+        line("launches", of=phase.__name__, f64=used - used32, f32=used32,
+             batched_f64=stacked[f64], batched_f32=stacked[f32])
+        single["launches"] += used - sum(stacked.values())
+        single["launches_f64"] += used - used32 - stacked[f64]
+        single["launches_f32"] += used32 - stacked[f32]
+        batched64["launches"] += stacked[f64]
+        batched32["launches"] += stacked[f32]
+    for rec in (single, batched64, batched32):
+        check(rec["launches"] > 0, f"{rec['name']} was never launched on "
+              "the main paths")
 
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [single, batched64, batched32]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,9 +9,9 @@ Solves, like ``conicip_tpu`` (note the MINUS sign on cᵀy):
 with the same Mehrotra predictor-corrector method, Nesterov-Todd scaling,
 statuses, certificates, best-iterate rule, warm starts, default backend
 choice and 3-level KKT-callback contract, for one problem
-(:func:`conic_ip`) or a stack of them (:func:`solve_batch`). The dense Cholesky of every
-Schur-path iteration runs a hand-written CUDA kernel on CUDA tensors
-(``csrc/cholesky.cu``) and a plain PyTorch version on the CPU.
+(:func:`conic_ip`) or a stack of them (:func:`solve_batch`). The dense
+Cholesky of every Schur-path iteration runs a hand-written CUDA kernel on
+CUDA tensors (``csrc/cholesky.cu``) and a plain PyTorch version on the CPU.
 
 This package imports torch, numpy and scipy only; it never imports JAX or
 ``conicip_tpu``. It computes nothing at import and never changes torch's

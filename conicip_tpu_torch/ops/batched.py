@@ -6,7 +6,11 @@ batch entry they cannot handle, and the IPM reads that NaN on the device
 (its non-finite guard). ``torch.linalg.cholesky`` raises instead, and
 ``eigh``/``svd`` may raise on non-finite input. These wrappers keep the
 JAX behaviour: before a decomposition every non-finite batch entry is
-replaced by the identity and its results are NaN-filled afterwards. (The
+replaced by the identity and its results are NaN-filled afterwards; and
+when the library gives up on a finite entry (an iteration that does not
+converge raises for the whole stack), the stack is halved until the entry
+stands alone, is tried once more in f64, and is NaN-filled if that fails
+too, so one instance of a stack cannot take down the rest. (The
 batched Cholesky is ``ops.cholesky_kernel.cholesky_plain``: ``cholesky_ex``
 without its check, NaN-filled where it fails.)
 
@@ -78,21 +82,46 @@ def _finite_or_identity(A: torch.Tensor):
     return bad, torch.where(bad[..., None, None], eye, A)
 
 
+def _per_entry(op, A: torch.Tensor):
+    """``op(A)`` (a tuple of tensors) for a stack (..., d, d) of finite
+    matrices, surviving entries the library fails on (module docstring)."""
+    try:
+        return op(A)
+    except torch.linalg.LinAlgError:
+        pass
+    flat = A.reshape((-1,) + A.shape[-2:])
+    if flat.shape[0] == 1:
+        try:
+            outs = tuple(o.to(A.dtype) for o in op(flat.double()))
+        except torch.linalg.LinAlgError:
+            eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+            outs = tuple(torch.full_like(o, torch.nan) for o in op(eye[None]))
+    else:
+        half = flat.shape[0] // 2
+        outs = tuple(torch.cat(pair) for pair in zip(
+            _per_entry(op, flat[:half]), _per_entry(op, flat[half:])))
+    return tuple(o.reshape(A.shape[:-2] + o.shape[1:]) for o in outs)
+
+
 def safe_eigh(A: torch.Tensor):
-    """``(w, U)`` of symmetric (..., d, d), ascending; NaN where A is not finite."""
+    """``(w, U)`` of symmetric (..., d, d), ascending; NaN where A is not
+    finite or the decomposition fails."""
     bad, A = _finite_or_identity(A)
-    w, U = torch.linalg.eigh(A)
+    w, U = _per_entry(lambda X: tuple(torch.linalg.eigh(X)), A)
     return nan_where_bad(bad, w), nan_where_bad(bad, U)
 
 
 def safe_eigvalsh(A: torch.Tensor) -> torch.Tensor:
-    """Eigenvalues of symmetric (..., d, d), ascending; NaN where A is not finite."""
+    """Eigenvalues of symmetric (..., d, d), ascending; NaN where A is not
+    finite or the decomposition fails."""
     bad, A = _finite_or_identity(A)
-    return nan_where_bad(bad, torch.linalg.eigvalsh(A))
+    (w,) = _per_entry(lambda X: (torch.linalg.eigvalsh(X),), A)
+    return nan_where_bad(bad, w)
 
 
 def safe_svd(A: torch.Tensor):
-    """``(U, σ)`` of (..., d, d), σ descending; NaN where A is not finite."""
+    """``(U, σ)`` of (..., d, d), σ descending; NaN where A is not finite or
+    the decomposition fails."""
     bad, A = _finite_or_identity(A)
-    U, sig, _ = torch.linalg.svd(A)
+    U, sig = _per_entry(lambda X: torch.linalg.svd(X)[:2], A)
     return nan_where_bad(bad, U), nan_where_bad(bad, sig)

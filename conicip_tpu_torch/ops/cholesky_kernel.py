@@ -109,11 +109,8 @@ def cholesky_factor(M: torch.Tensor) -> torch.Tensor:
     batched = M.dim() > 2
     B = M.numel() // (n * n)
     if B > MAX_GRID_BATCH:
-        flat_in, flat_out = M.reshape(B, n, n), out.view(B, n, n)
-        for lo in range(0, B, MAX_GRID_BATCH):
-            flat_out[lo:lo + MAX_GRID_BATCH] = cholesky_factor(
-                flat_in[lo:lo + MAX_GRID_BATCH])
-        return out
+        raise ValueError(f"cholesky_factor: a stack of {B} matrices exceeds "
+                         f"the kernel's {MAX_GRID_BATCH}")
     work = None
     if n > PANEL:
         per = PANEL * PANEL + (WORK_PAD if batched else 1)

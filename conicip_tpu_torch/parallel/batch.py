@@ -7,7 +7,7 @@ status, masks that freeze finished instances while the loop keeps stepping
 the rest, one host read per iteration for the whole stack, and every dense
 factor of an iteration one launch of the CUDA kernel's batched entry. A
 single-instance solve on the card is bound by the host issuing a few
-hundred small launches per iteration; a stack of B issues the same launches
+hundred small launches per iteration; a stack of B makes the same launches
 for B times the work.
 
 :func:`solve_batch` keeps the reference's policy: the automatic backend

@@ -2,6 +2,7 @@
 
     python -m conicip_tpu_torch.trace [--family box_qp_dense] [--n 4096]
                                       [--seed 42] [--factor-dtype float64]
+                                      [--batch B]
 
 Solves one instance of a problem family (``--n`` sizes ``box_qp_dense`` and
 ``single_soc``; the other families take their default sizes) from inputs
@@ -13,8 +14,13 @@ launches of the Cholesky kernel's f64 and f32 entries), the Cholesky kernel
 split into its diagonal-block, panel and trailing kernels, and the other
 device operations by total time.
 ``--factor-dtype float32`` profiles the f32-factor solve (mixed residuals,
-last-mile switch, ladder) in place of the full-precision default. It needs
-a CUDA device and fails without one.
+last-mile switch, ladder) in place of the full-precision default.
+``--batch B`` profiles one ``solve_batch`` of a stack of B instances of the
+family's batched form instead (``box_qp_dense`` sized by ``--n``,
+``mixed_rq_eq`` at n=200, ``mixed_rqs``, ``small_sdp``): the same lines, per
+iteration of the stack (``Iter`` is the slowest instance's), with the
+launches of the kernel's batched entries. It needs a CUDA device and fails
+without one.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from collections import defaultdict
 
 import torch
 
-from . import conic_ip
+from . import conic_ip, solve_batch
 from . import models
 from .ops import cholesky_kernel
 
@@ -40,6 +46,15 @@ FAMILIES = {
     "many_small_socs": lambda n, seed: models.many_small_socs(seed=seed),
     "larger_sdp": lambda n, seed: models.larger_sdp(seed=seed),
     "mixed_rqs": lambda n, seed: models.mixed_rqs(seed=seed),
+}
+
+# --batch: stacks of B instances, (Q, c, A, b, cone_dims[, G, d])
+BATCH_FAMILIES = {
+    "box_qp_dense": lambda B, n, seed: models.batched_box_qp(B, n=n, seed=seed),
+    "mixed_rq_eq": lambda B, n, seed: models.batched_mixed_rq_eq(
+        B, n=200, seed=seed, n_q=51, p=10),
+    "mixed_rqs": lambda B, n, seed: models.batched_mixed_rqs(B, seed=seed),
+    "small_sdp": lambda B, n, seed: models.batched_small_sdp(B, seed=seed),
 }
 
 # the Cholesky kernel's parts, by kernel name (csrc/cholesky.cu)
@@ -71,12 +86,20 @@ FACTOR_DTYPES = {"float64": "auto", "float32": torch.float32}
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--family", choices=sorted(FAMILIES), default="box_qp_dense")
+    ap.add_argument("--family", default="box_qp_dense",
+                    choices=sorted(set(FAMILIES) | set(BATCH_FAMILIES)))
     ap.add_argument("--n", type=int, default=4096)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--factor-dtype", choices=sorted(FACTOR_DTYPES),
                     default="float64")
-    return ap.parse_args(argv)
+    ap.add_argument("--batch", type=int, default=0,
+                    help="profile solve_batch on a stack of this many "
+                         "instances")
+    args = ap.parse_args(argv)
+    if args.family not in (BATCH_FAMILIES if args.batch else FAMILIES):
+        ap.error(f"--family {args.family} has no "
+                 f"{'batched' if args.batch else 'single-instance'} form")
+    return args
 
 
 def main(argv=None):
@@ -86,19 +109,36 @@ def main(argv=None):
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    P = FAMILIES[args.family](args.n, args.seed)
     dev = torch.device("cuda")
-    Q, c, A, b, G, d = (None if x is None else
-                        torch.as_tensor(x, dtype=torch.float64, device=dev)
-                        for x in (P.Q, P.c, P.A, P.b, P.G, P.d))
     kw = dict(device=dev, factor_dtype=FACTOR_DTYPES[args.factor_dtype])
-    conic_ip(Q, c, A, b, P.cone_dims, G, d, **kw)  # warm-up, builds
+
+    def on_card(x):
+        return (None if x is None else
+                torch.as_tensor(x, dtype=torch.float64, device=dev))
+
+    if args.batch:
+        data = BATCH_FAMILIES[args.family](args.batch, args.n, args.seed)
+        cones = data[4]
+        tensors = [on_card(x) for x in data[:4] + data[5:]]
+        name = f"batched_{args.family}(B={args.batch},n={data[1].shape[-1]})"
+
+        def solve():
+            return solve_batch(*tensors[:4], cones, *tensors[4:], **kw)
+    else:
+        P = FAMILIES[args.family](args.n, args.seed)
+        tensors = [on_card(x) for x in (P.Q, P.c, P.A, P.b, P.G, P.d)]
+        cones, name = P.cone_dims, P.name
+
+        def solve():
+            return conic_ip(*tensors[:4], cones, *tensors[4:], **kw)
+
+    solve()  # warm-up, builds
     torch.cuda.synchronize()
     cholesky_kernel.reset_launch_count()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        sol = conic_ip(Q, c, A, b, P.cone_dims, G, d, **kw)
+        sol = solve()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     with tempfile.TemporaryDirectory() as tmp:
@@ -116,15 +156,26 @@ def main(argv=None):
     kernels = [e for e in device if e["cat"] == "kernel"]
     elementwise = sum(1 for e in kernels if "elementwise" in e["name"])
     dtoh = sum(1 for e in device if "DtoH" in e["name"])
-    it = max(sol.Iter, 1)
-    print(f"[solve] family={P.name} factor_dtype={args.factor_dtype} "
-          f"status={sol.status} Iter={sol.Iter} "
-          f"wall_ms={wall_ms:.2f} device_busy_ms={_busy_us(device) / 1e3:.2f} "
+    if args.batch:
+        counts = {}
+        for st in sol.statuses:
+            counts[st] = counts.get(st, 0) + 1
+        status = ",".join(f"{k}x{v}" for k, v in sorted(counts.items()))
+        iters = int(sol.Iter.max())
+    else:
+        status, iters = sol.status, sol.Iter
+    it = max(iters, 1)
+    busy_ms = _busy_us(device) / 1e3
+    print(f"[solve] family={name} factor_dtype={args.factor_dtype} "
+          f"status={status} Iter={iters} "
+          f"wall_ms={wall_ms:.2f} device_busy_ms={busy_ms:.2f} "
+          f"device_idle_share={1 - busy_ms / wall_ms:.3f} "
           f"kernels_per_iter={len(kernels) / it:.1f} "
           f"elementwise_per_iter={elementwise / it:.1f} "
           f"dtoh_per_iter={dtoh / it:.1f} "
           f"cholesky_f64={cholesky_kernel.launch_count(torch.float64)} "
           f"cholesky_f32={cholesky_kernel.launch_count(torch.float32)} "
+          f"cholesky_batched={cholesky_kernel.launch_count(batch=True)} "
           f"device={torch.cuda.get_device_name(0)!r}")
     chol = [e for e in device if _kernel_name(e["name"]) in CHOLESKY_PARTS]
     print(f"[cholesky] busy_ms={_busy_us(chol) / 1e3:.2f} " + " ".join(

@@ -473,26 +473,17 @@ def test_batched_generators_give_the_reference_data():
         g.family_name for g in ref_gen.ALL_GENERATORS]
 
 
-def test_solve_batch_takes_the_reference_keywords():
-    """Same parameters, kinds and defaults as the reference's entry points
-    (the port adds ``device``), and the same public names."""
-    import inspect
-
+def test_parallel_exports_the_reference_names():
+    """The reference's public names of batch and checkpoint, and no more
+    (mesh and the distributed Schur solver are not in this package)."""
     import conicip_tpu_torch.parallel as mine_pkg
 
-    for name in ("solve_batch", "solve_batch_resumable"):
-        ref = inspect.signature(getattr(ct_parallel, name)).parameters
-        mine = inspect.signature(getattr(mine_pkg, name)).parameters
-        assert [k for k in mine if k != "device"] == list(ref), name
-        for key, par in ref.items():
-            assert mine[key].kind == par.kind, (name, key)
-            if key != "mesh":  # annotated with a JAX type there
-                assert mine[key].default == par.default, (name, key)
     assert set(mine_pkg.__all__) == set(ct_parallel.__all__) - {
         "kktsolver_schur_tp", "distributed_normal_matrix", "make_mesh"}
     for name in ("solve_batch", "BatchSolution"):
         assert getattr(pt, name) is getattr(mine_pkg, name)
         assert getattr(ct, name) is getattr(ct_parallel, name)
+    assert callable(pt.batch_from_numpy)
 
 
 def test_no_library_cholesky_on_the_kkt_and_batch_paths():

@@ -254,3 +254,83 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(build.os.path, "isfile", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.find_nvcc()
+
+
+# ── stacks of matrices: the batched entry's contract, on the CPU ──
+
+
+def spd_stack(B, n, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((B, n, n))
+    return X @ X.transpose(0, 2, 1) / n + np.eye(n)
+
+
+@pytest.mark.parametrize("B, n", [(5, 129), (3, 40), (4, 1)])
+def test_blocked_model_per_instance_over_a_stack(B, n):
+    # the batched entry gives every matrix the single entry's arithmetic
+    # (the batch is a grid dimension): the model run per instance, against
+    # the stacked plain version and JAX's vmapped factor, f64 rounding
+    M = spd_stack(B, n, seed=n)
+    L = torch.stack([cholesky_blocked_model(torch.from_numpy(M[i]))
+                     for i in range(B)]).numpy()
+    Lp = cholesky_kernel.cholesky_plain(torch.from_numpy(M)).numpy()
+    Lj = np.asarray(jax.vmap(jax_cholesky)(jnp.asarray(M)))
+    assert rel_err(L, Lp) <= 1e-12 and rel_err(L, Lj) <= 1e-12
+    assert np.array_equal(np.triu(L, 1), np.zeros_like(L))
+
+
+def test_blocked_model_nan_instance_stays_alone():
+    # an indefinite matrix in the middle of a stack: NaN from its failing
+    # pivot on in the model, NaN in the plain version's whole lower
+    # triangle, and in both every other instance's factor untouched
+    B, n, p = 5, 200, 150
+    M = spd_stack(B, n, seed=3)
+    good = cholesky_kernel.cholesky_plain(torch.from_numpy(M))
+    M[2, p, p] = -1.0
+    Lp = cholesky_kernel.cholesky_plain(torch.from_numpy(M))
+    L = torch.stack([cholesky_blocked_model(torch.from_numpy(M[i]))
+                     for i in range(B)])
+    i, c = np.indices((n, n))
+    np.testing.assert_array_equal(torch.isnan(L[2]).numpy(), (c >= p) & (i >= c))
+    np.testing.assert_array_equal(torch.isnan(Lp[2]).numpy(), i >= c)
+    keep = [0, 1, 3, 4]
+    assert torch.equal(Lp[keep], good[keep])
+    assert rel_err(L[keep].numpy(), good[keep].numpy()) <= 1e-12
+
+
+def test_stacked_cholesky_tri_inv_cho_solve_match_jax():
+    B, n = 4, 30
+    M = spd_stack(B, n, seed=1).reshape(2, 2, n, n)  # two leading dims
+    rng = np.random.default_rng(2)
+    b, Bm = rng.standard_normal((2, 2, n)), rng.standard_normal((2, 2, n, 3))
+    L = cholesky(torch.from_numpy(M))
+    Lj = jax.vmap(jax.vmap(jax_cholesky))(jnp.asarray(M))
+    assert rel_err(L.numpy(), np.asarray(Lj)) <= 1e-12
+    assert rel_err(tri_inv(L).numpy(),
+                   np.asarray(jax.vmap(jax.vmap(jax_tri_inv))(Lj))) <= 1e-11
+    x = cho_solve(L, torch.from_numpy(b))
+    xj = jax.vmap(jax.vmap(jax_cho_solve))(Lj, jnp.asarray(b))
+    assert x.shape == (2, 2, n) and rel_err(x.numpy(), np.asarray(xj)) <= 1e-11
+    X = cho_solve(L, torch.from_numpy(Bm))
+    Xj = jax.vmap(jax.vmap(jax_cho_solve))(Lj, jnp.asarray(Bm))
+    assert rel_err(X.numpy(), np.asarray(Xj)) <= 1e-11
+    L32 = cholesky(torch.from_numpy(M), torch.float32)
+    assert L32.dtype == torch.float32 and rel_err(L32.numpy(), L.numpy()) <= 1e-5
+
+
+def test_launch_count_tells_batched_from_single_launches():
+    f64, f32 = torch.float64, torch.float32
+    saved = dict(cholesky_kernel.cholesky_launches)
+    try:
+        cholesky_kernel.reset_launch_count()
+        cholesky_kernel.cholesky_launches.update(
+            {(f64, 500): 3, (f64, 500, 64): 7, (f32, 500, 64): 2,
+             (f64, 10, 8): 5})
+        count = cholesky_kernel.launch_count
+        assert count() == 17 and count(f64) == 15 and count(n=500) == 12
+        assert count(batch=False) == 3 and count(batch=True) == 14
+        assert count(batch=64) == 9 and count(f64, 500, 64) == 7
+        assert count(f32, batch=False) == 0 and count(f64, 10, batch=8) == 5
+    finally:
+        cholesky_kernel.reset_launch_count()
+        cholesky_kernel.cholesky_launches.update(saved)

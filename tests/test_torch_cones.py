@@ -479,3 +479,142 @@ def test_bad_points_give_nan_not_exceptions(rng):
                       jalg.maxstep_multi(js, j(xx), (j(s),))[0])):
             assert float(a) == pytest.approx(float(b), rel=1e-12, nan_ok=True)
     assert np.isfinite(float(talg.maxstep(ts, x_s_only, t(s))))
+
+
+# ── stacks of instances: every function against a loop over instances ──
+
+STACK = 3
+
+
+def stack_of(fn, *xs):
+    """fn through the JAX package, instance by instance, stacked."""
+    return np.stack([np.asarray(fn(*(j(x[i]) for x in xs)))
+                     for i in range(STACK)])
+
+
+@pytest.mark.parametrize("dims", CONIC + [SPECS[1]])
+def test_stacked_algebra_matches_jax_per_instance(dims, rng):
+    ts, js = ConeSpec(dims), jc.ConeSpec(dims)
+    x = np.stack([cone_interior(rng, ts) for _ in range(STACK)])
+    y = np.stack([cone_interior(rng, ts) for _ in range(STACK)])
+    d = rng.standard_normal((STACK, ts.m))
+    tx, ty, td = t(x), t(y), t(d)
+    cases = [
+        (talg.cone_prod(ts, tx, ty), lambda a, b: jalg.cone_prod(js, a, b),
+         (x, y)),
+        (talg.cone_div(ts, tx, ty), lambda a, b: jalg.cone_div(js, a, b),
+         (x, y)),
+        (talg.maxstep(ts, tx, td), lambda a, b: jalg.maxstep(js, a, b),
+         (x, d)),
+        (talg.maxstep_to_cone(ts, td), lambda a: jalg.maxstep_to_cone(js, a),
+         (d,)),
+    ]
+    for got, fn, xs in cases:
+        np.testing.assert_allclose(got.numpy(), stack_of(fn, *xs), **DECOMP)
+    # a step length is one value per instance, and the single call's
+    for i in range(STACK):
+        assert torch.equal(talg.maxstep(ts, tx, td)[i],
+                           talg.maxstep(ts, tx[i], td[i]))
+    both_steps = talg.maxstep_multi(ts, tx, (td, -td))
+    assert both_steps[0].shape == (STACK,)
+    # the stacked eigenvalue call of maxstep_multi runs in f32
+    np.testing.assert_allclose(both_steps[0].numpy(),
+                               talg.maxstep(ts, tx, td).numpy(), rtol=1e-4)
+    lo, hi = t(rng.uniform(0.1, 0.2, STACK)), t(rng.uniform(2.0, 3.0, STACK))
+    q = talg.centrality_correction(ts, tx, lo, hi)
+    for i in range(STACK):
+        np.testing.assert_allclose(
+            q[i].numpy(),
+            np.asarray(jalg.centrality_correction(js, j(x[i]), float(lo[i]),
+                                                  float(hi[i]))), **DECOMP)
+
+
+@pytest.mark.parametrize("dims", CONIC)
+def test_stacked_scaling_matches_jax_per_instance(dims, rng):
+    ts, js = ConeSpec(dims), jc.ConeSpec(dims)
+    z = np.stack([cone_interior(rng, ts) for _ in range(STACK)])
+    s = np.stack([cone_interior(rng, ts) for _ in range(STACK)])
+    x = rng.standard_normal((STACK, ts.m))
+    A = rng.standard_normal((STACK, ts.m, 4))
+    F = tsc.nt_scaling(ts, t(z), t(s))
+    Fi = tsc.nt_inv_adjoint(ts, F)
+
+    def via_jax(i):
+        Fj = jsc.nt_scaling(js, j(z[i]), j(s[i]))
+        Fij = jsc.nt_inv_adjoint(js, Fj)
+        return (jsc.apply(js, Fj, j(x[i])), jsc.apply_adjoint(js, Fij, j(x[i])),
+                jsc.apply_mat(js, Fij, j(A[i])), jsc.dense_gram(js, Fj))
+
+    ref = [np.stack([np.asarray(via_jax(i)[k]) for i in range(STACK)])
+           for k in range(4)]
+    got = (tsc.apply(ts, F, t(x)), tsc.apply_adjoint(ts, Fi, t(x)),
+           tsc.apply_mat(ts, Fi, t(A)), tsc.dense_gram(ts, F))
+    # the S-cone factors differ by SVD signs; FᵀF, F x on the NT pair and
+    # F⁻ᵀ through FᵀF do not. Compare what is sign-free.
+    np.testing.assert_allclose(got[3].numpy(), ref[3], rtol=1e-9, atol=1e-10)
+    lam = tsc.apply(ts, F, t(z))
+    np.testing.assert_allclose(lam.numpy(),
+                               tsc.apply(ts, Fi, t(s)).numpy(), **DECOMP)
+    if not ts.sdp_groups:
+        for g, r in zip(got[:3], ref[:3]):
+            np.testing.assert_allclose(g.numpy(), r, **DECOMP)
+    # FᵀF x two ways: through the stacked dense Gram and the structured applies
+    FtFx = tsc.apply_adjoint(ts, F, tsc.apply(ts, F, t(x)))
+    np.testing.assert_allclose(
+        FtFx.numpy(), (got[3] @ t(x)[..., None])[..., 0].numpy(), **DECOMP)
+    # the identity scaling with a batch shape applies as the identity
+    I = tsc.nt_identity(ts, batch_shape=(STACK,))
+    np.testing.assert_allclose(tsc.apply(ts, I, t(x)).numpy(), x, rtol=1e-15,
+                               atol=1e-15)
+    np.testing.assert_allclose(tsc.dense(ts, I).numpy(),
+                               np.broadcast_to(np.eye(ts.m),
+                                               (STACK, ts.m, ts.m)))
+
+
+def test_a_nan_instance_does_not_reach_its_neighbours(rng):
+    ts = ConeSpec(MIXED)
+    x = np.stack([cone_interior(rng, ts) for _ in range(STACK)])
+    s = np.stack([cone_interior(rng, ts) for _ in range(STACK)])
+    d = rng.standard_normal((STACK, ts.m))
+    bad = x.copy()
+    bad[1] = np.nan
+    for fn in (lambda a: talg.maxstep(ts, a, t(d)),
+               lambda a: talg.maxstep_to_cone(ts, a),
+               lambda a: talg.cone_div(ts, t(d), a),
+               lambda a: tsc.apply(ts, tsc.nt_scaling(ts, a, t(s)), t(d))):
+        good, hurt = fn(t(x)), fn(t(bad))
+        assert torch.equal(hurt[[0, 2]], good[[0, 2]])
+        assert not bool(torch.isfinite(hurt[1]).all())
+
+
+def test_a_decomposition_the_library_gives_up_on_stays_in_its_entry(
+        rng, monkeypatch):
+    # torch.linalg raises for the whole stack when one entry does not
+    # converge; the wrappers isolate that entry (retried in f64, then NaN)
+    from conicip_tpu_torch.ops import batched
+
+    A = sym(rng, 2, 3, 4, 4).astype(np.float32)
+    poison = torch.from_numpy(A[1, 2].copy())
+    real = torch.linalg.eigvalsh
+    calls = []
+
+    def flaky(X, always=False):
+        calls.append(tuple(X.shape))
+        hit = (X.to(torch.float32) == poison).all(-1).all(-1)
+        if bool(hit.any()) and (always or X.dtype == torch.float32):
+            raise torch.linalg.LinAlgError("linalg.eigh: (Batch element 5)")
+        return real(X)
+
+    monkeypatch.setattr(torch.linalg, "eigvalsh", flaky)
+    w = batched.safe_eigvalsh(torch.from_numpy(A))
+    np.testing.assert_allclose(w.numpy(), np.linalg.eigvalsh(A), rtol=1e-5,
+                               atol=1e-5)  # the f64 retry saved the entry
+    assert calls[-1] != (6, 4, 4) and (1, 4, 4) in calls
+    monkeypatch.setattr(torch.linalg, "eigvalsh",
+                        lambda X: flaky(X, always=True))
+    w = batched.safe_eigvalsh(torch.from_numpy(A))
+    assert torch.isnan(w[1, 2]).all()
+    keep = np.ones((2, 3), bool)
+    keep[1, 2] = False
+    np.testing.assert_allclose(w.numpy()[keep], np.linalg.eigvalsh(A)[keep],
+                               rtol=1e-5, atol=1e-5)

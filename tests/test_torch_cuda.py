@@ -87,7 +87,10 @@ def test_kernel_nan_from_failing_pivot(cuda, p):
 
 
 BATCH_SHAPES = ((64, 500), (64, 200), (64, 86), (256, 55), (7, 129), (3, 1),
-                (5, 257), (2, 1000))
+                (5, 257), (2, 1000),
+                # more matrices than the card has SMs, above one panel: the
+                # look-ahead factor_diag blocks outnumber the resident ones
+                (600, 300), (2000, 129))
 
 
 def spd_stack(B, n, seed=0):

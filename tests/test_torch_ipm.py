@@ -273,6 +273,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import conicip_tpu_torch as pt\n"
         "for m in pkgutil.walk_packages(pt.__path__, 'conicip_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import conicip_tpu_torch.parallel as par\n"
+        "for name in ('solve_batch', 'solve_batch_resumable', 'load_snapshot',\n"
+        "             'SnapshotInfo', 'BatchSolution', 'make_batched_solver',\n"
+        "             'make_batched_warm_solver'):\n"
+        "    assert name in par.__all__ and hasattr(par, name), name\n"
+        "for mod in ('parallel.batch', 'parallel.checkpoint'):\n"
+        "    assert 'conicip_tpu_torch.' + mod in sys.modules, mod\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'conicip_tpu' or m.startswith('conicip_tpu.')]\n"
         "assert not bad, bad\n"
@@ -303,3 +310,16 @@ def test_conic_ip_takes_the_reference_keywords():
     fields = lambda cls: {f.name: f.default  # noqa: E731
                           for f in cls.__dataclass_fields__.values()}
     assert fields(pt.IPMOptions) == fields(ct.IPMOptions)
+    # the batched entry points: the reference's parameters in its order,
+    # with its kinds and defaults (``mesh`` carries a JAX annotation there)
+    import conicip_tpu.parallel as ct_par
+    import conicip_tpu_torch.parallel as pt_par
+
+    for name in ("solve_batch", "solve_batch_resumable"):
+        ref = inspect.signature(getattr(ct_par, name)).parameters
+        mine = inspect.signature(getattr(pt_par, name)).parameters
+        assert [k for k in mine if k != "device"] == list(ref), name
+        for key, par in ref.items():
+            assert mine[key].kind == par.kind, (name, key)
+            assert mine[key].default == par.default, (name, key)
+    assert pt.solve_batch is pt_par.solve_batch

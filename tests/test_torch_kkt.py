@@ -350,3 +350,122 @@ def test_mode_variants_match_jax(layer, p, dims, rng):
                                    atol=1e-4 * scale)
         np.testing.assert_array_equal(default[k], fast[k])
         np.testing.assert_array_equal(single[k], fast[k])
+
+
+# ── stacks of instances ──
+
+
+def test_retry_while_retries_only_the_bad_instances():
+    # instance 1 needs boost 1e3, instance 2 needs 1e6, instance 0 nothing:
+    # each ends with the state its own loop gives it
+    need = torch.tensor([0.0, 1e3, 1e6])
+    seen = []
+
+    def attempt(boost):
+        return torch.where(boost >= need, boost, torch.nan)[:, None].repeat(1, 2)
+
+    def step(boost):
+        seen.append(boost)
+        return attempt(torch.tensor(boost))
+
+    out = retry_while(lambda s: ~torch.isfinite(s).all(-1), step,
+                      attempt(torch.tensor(1.0)), 1e3, 1e3, 1e7)
+    assert seen == [1e3, 1e6]
+    assert out[:, 0].tolist() == [1.0, 1e3, 1e6]
+    # one instance that never recovers stops at the cap; the rest keep theirs
+    need = torch.tensor([0.0, float("inf")])
+    out = retry_while(lambda s: ~torch.isfinite(s).all(-1), step,
+                      attempt(torch.tensor(1.0)), 1e3, 1e3, 1e7)
+    assert out[0, 0] == 1.0 and torch.isnan(out[1]).all()
+
+
+def stacked_solve(cones, Qs, As, Gs, jax_solver, torch_solver, rng, tol=1e-9):
+    """A stacked KKT solve by the port against jax.vmap of the reference's
+    on the same stack."""
+    import jax
+
+    B, m, n = As.shape
+    p = Gs.shape[1]
+    ts, js = ConeSpec(cones), jc.ConeSpec(cones)
+    z = np.stack([cone_interior(rng, ts) for _ in range(B)])
+    s = np.stack([cone_interior(rng, ts) for _ in range(B)])
+    ry, rw, rv = (rng.standard_normal((B, n)), rng.standard_normal((B, p)),
+                  rng.standard_normal((B, m)))
+
+    def one(Q, A, G, z, s, ry, rw, rv):
+        F = jc.nt_scaling(js, z, s)
+        return jax_solver(Q, A, G, js)(F, jc.nt_inv_adjoint(js, F))(ry, rw, rv)
+
+    ref = jax.vmap(one)(*(jnp.asarray(x) for x in (Qs, As, Gs, z, s, ry, rw,
+                                                     rv)))
+    F = tsc.nt_scaling(ts, t(z), t(s))
+    out = torch_solver(t(Qs), t(As), t(Gs), ts)(
+        F, tsc.nt_inv_adjoint(ts, F))(t(ry), t(rw), t(rv))
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=tol,
+                                   atol=tol)
+    # and each instance equals its own single solve of the port
+    for i in range(B):
+        Fi = tsc.nt_scaling(ts, t(z[i]), t(s[i]))
+        one_out = torch_solver(t(Qs[i]), t(As[i]), t(Gs[i]), ts)(
+            Fi, tsc.nt_inv_adjoint(ts, Fi))(t(ry[i]), t(rw[i]), t(rv[i]))
+        for a, b in zip(out, one_out):
+            np.testing.assert_allclose(a[i].numpy(), b.numpy(), rtol=1e-10,
+                                       atol=1e-10)
+
+
+@pytest.mark.parametrize("p", [0, 3])
+@pytest.mark.parametrize("cones", [[("R", 12)], [("R", 4), ("Q", 5),
+                                                 ("S", 3)]])
+def test_stacked_schur_matches_vmapped_jax(cones, p, rng):
+    Qs, As, Gs = (np.stack(x) for x in zip(*(dense_problem(rng, p)
+                                             for _ in range(3))))
+    stacked_solve(cones, Qs, As, Gs, jk.kktsolver_schur, kktsolver_schur, rng)
+
+
+@pytest.mark.parametrize("mode", ["none", "disjoint", "woodbury"])
+def test_stacked_diag_matches_vmapped_jax(mode, rng):
+    G = g_for(mode, rng)
+    Qs, As, Gs = (np.stack(x) for x in zip(*(bound_problem(rng, G)
+                                             for _ in range(3))))
+    from conicip_tpu_torch.kkt.diag import separable_batch
+    from conicip_tpu.kkt.diag import separable_batch as jax_separable_batch
+
+    spec = ConeSpec([("R", 16)])
+    assert separable_batch(Qs, As, Gs, spec)
+    assert jax_separable_batch(Qs, As, Gs, jc.ConeSpec([("R", 16)]))
+    assert separable_batch(t(Qs), t(As), t(G), spec)  # tensors, shared G
+    Qbad = Qs.copy()
+    Qbad[1, 0, 1] = 0.1
+    assert not separable_batch(Qbad, As, Gs, spec)
+    assert not separable_batch(Qs[0], As, Gs, spec)  # not a stack
+    jax_solver = functools.partial(jk.kktsolver_diag, eq_mode=mode) \
+        if mode != "none" else jk.kktsolver_diag
+    torch_solver = functools.partial(kktsolver_diag, eq_mode=mode) \
+        if mode != "none" else kktsolver_diag
+    stacked_solve([("R", 16)], Qs, As, Gs, jax_solver, torch_solver, rng)
+
+
+def test_stacked_spectral_and_lowrank_match_their_single_solves(rng):
+    from conicip_tpu_torch.kkt.lowrank import (lowrank_applicable,
+                                               lowrank_kktsolver)
+    from conicip_tpu_torch.models import batched_mixed_rq_eq
+
+    cones = [("R", 3), ("Q", 4), ("S", 3)]
+    n, B = 10, 3
+    Qs = np.stack([q * np.eye(n) for q in (0.5, 1.0, 2.0)])
+    As = np.stack([np.eye(n)] * B)
+    Gs = np.zeros((B, 0, n))
+    assert spectral_applicable(Qs, As, None, ConeSpec(cones))
+    assert spectral_applicable(t(Qs), t(As), None, ConeSpec(cones))
+    assert not spectral_applicable(Qs, 2 * As, None, ConeSpec(cones))
+    stacked_solve(cones, Qs, As, Gs, jax_spectral, kktsolver_spectral, rng)
+
+    Q, c, A, b, cones, G, d = batched_mixed_rq_eq(3, n=12, n_q=5, p=2)
+    Gs = np.broadcast_to(G, (3,) + G.shape).copy()
+    assert lowrank_applicable(Q, A, G, ConeSpec(cones))
+    assert lowrank_applicable(t(Q), t(A), t(G), ConeSpec(cones))
+    assert not lowrank_applicable(Q + 0.1, A, G, ConeSpec(cones))
+    from conicip_tpu.kkt.lowrank import lowrank_kktsolver as jax_lowrank
+
+    stacked_solve(cones, Q, A, Gs, jax_lowrank(), lowrank_kktsolver(), rng)

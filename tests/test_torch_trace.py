@@ -62,3 +62,22 @@ def test_factor_dtype_switch_selects_the_solve():
     assert trace.FACTOR_DTYPES["float32"] is torch.float32
     with pytest.raises(SystemExit):
         trace.parse_args(["--factor-dtype", "bfloat16"])
+
+
+def test_batch_switch_profiles_a_stacked_solve():
+    assert trace.parse_args([]).batch == 0
+    args = trace.parse_args(["--batch", "64", "--n", "500"])
+    assert (args.batch, args.family) == (64, "box_qp_dense")
+    Q, c, A, b, cones = trace.BATCH_FAMILIES["box_qp_dense"](3, 8, 42)
+    assert Q.shape == (3, 8, 8) and A.shape == (3, 16, 8)
+    out = trace.BATCH_FAMILIES["mixed_rq_eq"](2, 0, 42)
+    assert out[0].shape == (2, 200, 200) and out[5].shape == (10, 200)
+    assert sorted(trace.BATCH_FAMILIES) == ["box_qp_dense", "mixed_rq_eq",
+                                            "mixed_rqs", "small_sdp"]
+    # a family without the form asked for is refused
+    with pytest.raises(SystemExit):
+        trace.parse_args(["--batch", "8", "--family", "single_soc"])
+    with pytest.raises(SystemExit):
+        trace.parse_args(["--family", "small_sdp"])
+    if not torch.cuda.is_available():
+        assert trace.main(["--batch", "4", "--n", "8"]) == 2
