@@ -9,9 +9,8 @@ JAX behaviour: before a decomposition every non-finite batch entry is
 replaced by the identity and its results are NaN-filled afterwards; and
 when the library gives up on a finite entry (an iteration that does not
 converge raises for the whole stack), the stack is halved until the entry
-stands alone, is tried once more in f64, and is NaN-filled if that fails
-too, so one instance of a stack cannot take down the rest. (The
-batched Cholesky is ``ops.cholesky_kernel.cholesky_plain``: ``cholesky_ex``
+stands alone and is NaN-filled, so one instance of a stack cannot take
+down the rest. (The batched Cholesky is ``ops.cholesky_kernel.cholesky_plain``: ``cholesky_ex``
 without its check, NaN-filled where it fails.)
 
 The second half are the products and reductions of the solve path written
@@ -91,11 +90,8 @@ def _per_entry(op, A: torch.Tensor):
         pass
     flat = A.reshape((-1,) + A.shape[-2:])
     if flat.shape[0] == 1:
-        try:
-            outs = tuple(o.to(A.dtype) for o in op(flat.double()))
-        except torch.linalg.LinAlgError:
-            eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-            outs = tuple(torch.full_like(o, torch.nan) for o in op(eye[None]))
+        eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+        outs = tuple(torch.full_like(o, torch.nan) for o in op(eye[None]))
     else:
         half = flat.shape[0] // 2
         outs = tuple(torch.cat(pair) for pair in zip(

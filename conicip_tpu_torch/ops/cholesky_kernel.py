@@ -37,16 +37,14 @@ def launch_count(dtype=None, n=None, batch=None) -> int:
     """Kernel launches so far, optionally of one dtype's entry points
     (``dtype``) and of one matrix order (``n``). ``batch`` picks the entry:
     ``None`` counts both, ``False`` the single entry only, ``True`` the
-    batched entry at any stack size, an int the batched entry at that
-    size."""
+    batched entry (``cholesky_launches[(dtype, n, B)]`` is the count at one
+    stack size)."""
     total = 0
     for key, c in cholesky_launches.items():
-        dt, k, B = key if len(key) == 3 else (*key, None)
+        dt, k = key[:2]
         if dtype not in (None, dt) or n not in (None, k):
             continue
-        if batch is None or (batch is False and B is None) or (
-                batch is True and B is not None) or (
-                batch is not True and batch is not False and batch == B):
+        if batch is None or batch == (len(key) == 3):
             total += c
     return total
 

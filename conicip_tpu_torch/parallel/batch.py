@@ -73,13 +73,25 @@ class BatchRun(NamedTuple):
 
     kktsolver: object
     tier: str  # "main", "fused-1", ..., "backstop-1", ...
-    batch: int
-    stalled: int  # instances it left Abandoned or Error
-    max_iter: int
+    status: tuple  # per instance of this run's stack, as it ended here
+    Iter: tuple  # per instance, this run's own count
     fast_steps: int
     slow_steps: int
     cold_start: int
     recertified: int
+
+    @property
+    def batch(self) -> int:
+        return len(self.status)
+
+    @property
+    def stalled(self) -> int:
+        """Instances this run left Abandoned or Error."""
+        return sum(s in (Status.ABANDONED, Status.ERROR) for s in self.status)
+
+    @property
+    def max_iter(self) -> int:
+        return max(self.Iter, default=0)
 
 
 # Every stacked run of the latest solve_batch call, in order: the main
@@ -101,9 +113,8 @@ def _run(spec, kktsolver, opts, tier, Q, c, A, b, G, d, warm=None):
     stats = {}
     st = ipm_solve(Q, c, A, b, G, d, spec, kktsolver, opts, warm=warm,
                    stats=stats)
-    runs.append(BatchRun(kktsolver, tier, c.shape[0],
-                         int(_stalled_mask(st.status).sum()),
-                         int(st.Iter.max()) if c.shape[0] else 0, **stats))
+    runs.append(BatchRun(kktsolver, tier, tuple(st.status.tolist()),
+                         tuple(st.Iter.tolist()), **stats))
     return st
 
 

@@ -198,23 +198,106 @@ def test_solve_batch_f32_lowrank_direct_path():
     np.testing.assert_allclose(sol.y @ G.T, d, atol=1e-6)
 
 
-def test_solve_batch_eliminated_inconsistent_instance():
+def inconsistent_row_batch():
     Q, c, A, b, cones, G, d = batched_mixed_rq_eq(batch=4, n=30)
     # duplicate an equality row with a contradictory rhs in instance 2 only
     G2 = np.vstack([G, G[0]])
     d2 = np.concatenate([d, d[:, :1]], axis=1)
     d2[2, -1] += 1.0
-    ref, sol = both(Q, c, A, b, cones, G2, d2, f32=True, optTol=1e-7)
+    return Q, c, A, b, cones, G2, d2
+
+
+def test_solve_batch_eliminated_inconsistent_instance():
+    ref, sol = both(*inconsistent_row_batch(), f32=True, optTol=1e-7)
     assert sol.statuses[2] == "Infeasible"
     assert sol.statuses[0] == sol.statuses[1] == sol.statuses[3] == "Optimal"
     assert np.all(np.isnan(sol.y[2])) and sol.Iter[2] == 0
-    # every feasible instance stalls in the f32 tier here, and ``Iter`` is
-    # the accepted rescue tier's own count: instance 0 is accepted from the
-    # last tier in this package (Iter 5) and from an earlier one in the
-    # reference (Iter 2), both Optimal. The others agree.
     assert sol.statuses == ref.statuses
     assert np.abs(sol.Iter - np.asarray(ref.Iter))[1:].max() <= 2
     assert resid(sol)[[0, 1, 3]].max() < 1e-7
+    # Every instance of the reduced stack stalls in the f32 tier in both
+    # packages, and ``Iter`` is the accepted rescue tier's own count.
+    # Instance 0 sits on an edge: the two f32 main tiers end 1e-6 apart in
+    # y, and from this package's iterate the f64-assembled tier finishes it
+    # in 5 steps, while from the reference's it stalls and the f64 tier
+    # finishes it in 2. (The test below shows that each tier, given the
+    # other package's iterate, does what the other package's tier does.)
+    # Pinned as observed, with the tier that finished each instance:
+    main, fused1, fused2 = pt_batch.runs
+    assert [r.tier for r in pt_batch.runs] == ["main", "fused-1", "fused-2"]
+    stalled = (pt_batch.Status.ABANDONED,) * 4
+    assert main.status == stalled and main.Iter == (6, 6, 6, 6)
+    assert fused1.status == (1, 4, 4, 1) and fused1.Iter == (5, 1, 1, 5)
+    assert fused2.status == (1, 1, 1, 1) and fused2.Iter[1] == 4
+    assert sol.Iter.tolist() == [5, 4, 0, 5]
+    assert np.asarray(ref.Iter).tolist() == [2, 4, 0, 5]
+
+
+def test_rescue_tier_from_the_same_iterate_matches_reference(monkeypatch):
+    # the f64-assembled rescue tier of both packages from the same warm
+    # iterate, crossed: from this package's f32 main iterate both finish
+    # instance 0 in 5 steps, from the reference's both leave it stalled
+    # after 1. The tiers and their accept rule agree; the difference in the
+    # test above is the rounding of the f32 main tier.
+    import conicip_tpu.parallel.batch as ct_batch
+    from conicip_tpu.cones.spec import ConeSpec as RefSpec
+    from conicip_tpu.solver import _default_kktsolver as ref_kkt
+    from conicip_tpu.solver.ipm import IPMOptions as RefOptions
+    from conicip_tpu.solver.state import Vec4 as RefVec4
+    from conicip_tpu_torch.solver import _default_kktsolver as pt_kkt
+
+    args = inconsistent_row_batch()
+    cones = args[4]
+    seen = {}
+    run = pt_batch._run
+
+    def spy(spec, kkt, opts, tier, *operands, **kw):
+        st = run(spec, kkt, opts, tier, *operands, **kw)
+        seen.setdefault(tier, (spec, kkt, opts, operands[:6], st))
+        return st
+
+    monkeypatch.setattr(pt_batch, "_run", spy)
+    pt_batch.make_batched_ladder_solver.cache_clear()
+    pt.solve_batch(*args, factor_dtype=torch.float32, optTol=1e-7,
+                   device="cpu")
+    monkeypatch.undo()
+    pt_batch.make_batched_ladder_solver.cache_clear()
+    spec, _, opts, reduced, pt_main = seen["main"]
+    _, kkt1, opts1, _, pt_fused1 = seen["fused-1"]
+    assert kkt1 is pt_kkt(torch.float32, torch.float64)
+
+    def as_dict(o):
+        return {f: getattr(o, f) for f in o.__dataclass_fields__}
+
+    Qr, cr, Ar, br, Gr, dr = (jnp.asarray(x.numpy()) for x in reduced)
+    ref_spec = RefSpec(tuple(cones))
+    ref_main = ct_batch.make_batched_solver(
+        ref_spec, ref_kkt(jnp.float32), RefOptions(**as_dict(opts)))(
+        Qr, cr, Ar, br, Gr, dr)
+    ref_tier = ct_batch.make_batched_warm_solver(
+        ref_spec, ref_kkt(jnp.float32, jnp.float64),
+        RefOptions(**as_dict(opts1)))
+
+    def ref_from(y, w, v):
+        y, w, v = (jnp.asarray(np.asarray(x)) for x in (y, w, v))
+        s = jnp.einsum("bij,bj->bi", Ar, y) - br
+        return ref_tier(Qr, cr, Ar, br, Gr, dr, RefVec4(y, w, v, s))
+
+    def pt_from(y, w, v):
+        y, w, v = (torch.as_tensor(np.array(x)) for x in (y, w, v))
+        return run(spec, kkt1, opts1, "crossed", *reduced,
+                   pt_batch._neutral_warm(y, w, v, reduced[2], reduced[3]))
+
+    def outcome(st):
+        return (np.asarray(st.status).tolist(), np.asarray(st.Iter).tolist())
+
+    assert outcome(ref_main) == outcome(pt_main) == ([4] * 4, [6] * 4)
+    own = outcome(pt_fused1)
+    assert own == ([1, 4, 4, 1], [5, 1, 1, 5])
+    assert outcome(ref_from(pt_main.y, pt_main.w, pt_main.v)) == own
+    ref_own = outcome(ref_from(ref_main.y, ref_main.w, ref_main.v))
+    assert ref_own == ([4, 4, 4, 1], [1, 1, 1, 5])
+    assert outcome(pt_from(ref_main.y, ref_main.w, ref_main.v)) == ref_own
 
 
 def test_solve_batch_eliminate_requires_shared_G():

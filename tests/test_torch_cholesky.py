@@ -329,8 +329,10 @@ def test_launch_count_tells_batched_from_single_launches():
         count = cholesky_kernel.launch_count
         assert count() == 17 and count(f64) == 15 and count(n=500) == 12
         assert count(batch=False) == 3 and count(batch=True) == 14
-        assert count(batch=64) == 9 and count(f64, 500, 64) == 7
-        assert count(f32, batch=False) == 0 and count(f64, 10, batch=8) == 5
+        assert count(f64, 500, True) == 7 and count(f64, 500, False) == 3
+        assert count(f32, batch=False) == 0 and count(f64, 10, batch=True) == 5
+        # one stack size is one key of the counter
+        assert cholesky_kernel.cholesky_launches[(f64, 500, 64)] == 7
     finally:
         cholesky_kernel.reset_launch_count()
         cholesky_kernel.cholesky_launches.update(saved)

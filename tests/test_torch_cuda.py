@@ -108,10 +108,10 @@ def test_batched_kernel_matches_plain_and_single(cuda, dtype, B, n):
     dt = getattr(torch, dtype)
     tol = 1e-10 if dt == torch.float64 else 1e-4
     M = torch.from_numpy(spd_stack(B, n, seed=n)).to(cuda, dt)
-    before = cholesky_kernel.launch_count(dt, n, batch=B)
+    before = cholesky_kernel.cholesky_launches[(dt, n, B)]
     singles = cholesky_kernel.launch_count(batch=False)
     L = cholesky_kernel.cholesky_factor(M)
-    assert cholesky_kernel.launch_count(dt, n, batch=B) == before + 1
+    assert cholesky_kernel.cholesky_launches[(dt, n, B)] == before + 1
     assert cholesky_kernel.launch_count(batch=False) == singles
     Lp = cholesky_kernel.cholesky_plain(M)
     assert ((L - Lp).abs().max() / Lp.abs().max()).item() <= tol
@@ -149,7 +149,7 @@ def test_solve_batch_on_card_matches_cpu(cuda):
     Q, c, A, b, cones = batched_box_qp(6, n=40, seed=1)
     cholesky_kernel.reset_launch_count()
     out = solve_batch(Q, c, A, b, cones, device=cuda)
-    used = cholesky_kernel.launch_count(torch.float64, 40, batch=6)
+    used = cholesky_kernel.cholesky_launches[(torch.float64, 40, 6)]
     ref = solve_batch(Q, c, A, b, cones, device="cpu")
     assert out.statuses == ref.statuses == ["Optimal"] * 6
     assert torch.equal(out.Iter.cpu(), ref.Iter)
