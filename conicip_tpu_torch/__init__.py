@@ -12,15 +12,20 @@ choice and 3-level KKT-callback contract, for one problem
 (:func:`conic_ip`) or a stack of them (:func:`solve_batch`). The dense
 Cholesky of every Schur-path iteration runs a hand-written CUDA kernel on
 CUDA tensors (``csrc/cholesky.cu``) and a plain PyTorch version on the CPU.
+:mod:`conicip_tpu_torch.frontend` holds the modeling frontends
+(:class:`Optimizer`, ``solve_conic_form``, the CVXPY bridge).
 
 This package imports torch, numpy and scipy only; it never imports JAX or
 ``conicip_tpu``. It computes nothing at import and never changes torch's
 default dtype.
 """
 
+import torch
+
 from .cones import (ConeSpec, cone_div, cone_prod, mat, maxstep,
                     maxstep_to_cone, nt_identity, nt_inv_adjoint, nt_scaling,
                     vecm)
+from .frontend import Optimizer
 from .interop import (batch_from_numpy, batch_solution_to_numpy,
                       problem_from_numpy, solution_to_numpy, warm_from_numpy,
                       warm_to_numpy)
@@ -31,6 +36,12 @@ from .preprocess import imcols, preprocess_conic_ip
 from .solver import IPMOptions, Solution, conic_ip
 
 __version__ = "0.1.0"
+
+
+def Id(n: int, *, device="cuda", dtype=torch.float64):
+    """n-by-n identity on ``device``."""
+    return torch.eye(int(n), dtype=dtype, device=device)
+
 
 __all__ = [
     "ConeSpec",
@@ -63,4 +74,6 @@ __all__ = [
     "BatchSolution",
     "batch_from_numpy",
     "batch_solution_to_numpy",
+    "Optimizer",
+    "Id",
 ]

@@ -14,10 +14,11 @@ import torch
 
 from .parallel.batch import BatchSolution
 from .solver import _densify
-from .solver.state import Solution
+from .solver.state import Solution, to_host
 
 __all__ = ["problem_from_numpy", "solution_to_numpy", "warm_from_numpy",
-           "warm_to_numpy", "batch_from_numpy", "batch_solution_to_numpy"]
+           "warm_to_numpy", "batch_from_numpy", "batch_solution_to_numpy",
+           "to_host"]
 
 
 def problem_from_numpy(Q, c, A, b, cone_dims, G=None, d=None, *,

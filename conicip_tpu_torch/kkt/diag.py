@@ -39,12 +39,6 @@ __all__ = ["kktsolver_diag", "kktsolver_2x2_diag", "separable",
            "separable_batch", "equality_mode"]
 
 
-def _host(X):
-    if isinstance(X, torch.Tensor):
-        return X.detach().cpu().numpy()
-    return np.asarray(X.toarray() if hasattr(X, "toarray") else X)
-
-
 def _where_it_is(X) -> torch.Tensor:
     """The caller's array as a tensor on the device it already lies on
     (host data stays on the host, without a copy where numpy allows), so

@@ -10,6 +10,12 @@ Both QR factorizations and the triangular solves are ``torch.linalg``
 calls, as they are library calls in the JAX package. None of them reads a
 status back or raises on a singular factor: a breakdown gives a non-finite
 step, which the IPM's guard sees.
+
+A stack of instances (Q (..., n, n), A (..., m, n), vectors (..., n)) goes
+through the same code as batched library calls; G may be stacked
+(..., p, n) or one shared (p, n) system, whose one-time QR then serves
+every instance. A non-finite instance of a stack gives non-finite factors
+for itself alone.
 """
 
 from __future__ import annotations
@@ -18,48 +24,51 @@ import torch
 
 from ..cones import scaling as sc
 from ..cones.spec import ConeSpec
+from ..ops.batched import mv
 
 __all__ = ["kktsolver_qr"]
 
 
 def _tri_solve(T, b, upper):
-    return torch.linalg.solve_triangular(T, b[:, None], upper=upper)[:, 0]
+    return torch.linalg.solve_triangular(
+        T, b.unsqueeze(-1), upper=upper).squeeze(-1)
 
 
 def _qr_solve(Qf, Rf, b):
     """Least-squares solve via a reduced QR factorization."""
-    return _tri_solve(Rf, Qf.T @ b, upper=True)
+    return _tri_solve(Rf, mv(Qf.mT, b), upper=True)
 
 
 def kktsolver_qr(Q, A, G, spec: ConeSpec):
-    p = G.shape[0]
+    p = G.shape[-2]
 
     if p:
-        Q0, R = torch.linalg.qr(G.T, mode="complete")  # (n,n), (n,p)
-        Q1 = Q0[:, :p]
-        Q2 = Q0[:, p:]
-        R1 = R[:p, :p]
+        Q0, R = torch.linalg.qr(G.mT, mode="complete")  # (n,n), (n,p)
+        Q1 = Q0[..., :, :p]
+        Q2 = Q0[..., :, p:]
+        R1 = R[..., :p, :p]
 
     def solve3x3gen(F, FinvT):
         Atil = sc.apply_mat(spec, FinvT, A)  # F⁻ᵀ A
-        M = Q + Atil.T @ Atil  # Q + AᵀF⁻¹F⁻ᵀA
-        Lq, Lr = torch.linalg.qr((Q2.T @ M) @ Q2 if p else M)
+        M = Q + Atil.mT @ Atil  # Q + AᵀF⁻¹F⁻ᵀA
+        Lq, Lr = torch.linalg.qr((Q2.mT @ M) @ Q2 if p else M)
 
         def solve3x3(bx, by, bz):
             Fz0 = sc.apply(spec, FinvT, bz)  # F⁻ᵀ bz
-            rhs = bx + Atil.T @ Fz0
+            rhs = bx + mv(Atil.mT, Fz0)
             if p:
-                u1 = _tri_solve(R1.T, by, upper=False)  # Q1ᵀ a
-                t = M @ (Q1 @ u1)
-                u2 = _qr_solve(Lq, Lr, Q2.T @ rhs - Q2.T @ t)  # Q2ᵀ a
+                u1 = _tri_solve(R1.mT, by, upper=False)  # Q1ᵀ a
+                t = mv(M, mv(Q1, u1))
+                u2 = _qr_solve(Lq, Lr, mv(Q2.mT, rhs) - mv(Q2.mT, t))  # Q2ᵀ a
                 b = _tri_solve(
-                    R1, Q1.T @ rhs - Q1.T @ t - Q1.T @ (M @ (Q2 @ u2)),
+                    R1, mv(Q1.mT, rhs) - mv(Q1.mT, t)
+                    - mv(Q1.mT, mv(M, mv(Q2, u2))),
                     upper=True)
-                a = Q1 @ u1 + Q2 @ u2
+                a = mv(Q1, u1) + mv(Q2, u2)
             else:
                 a = _qr_solve(Lq, Lr, rhs)
-                b = bx[:0]
-            Fz = Fz0 - Atil @ a  # F⁻ᵀ(bz - A a)
+                b = bx[..., :0]
+            Fz = Fz0 - mv(Atil, a)  # F⁻ᵀ(bz - A a)
             c = sc.apply_adjoint(spec, FinvT, Fz)  # (FᵀF)⁻¹(bz - A a)
             return a, b, c
 

@@ -27,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..solver.state import Status
+from ..solver.state import Status, to_host
 from .batch import BatchSolution, solve_batch
 
 __all__ = ["solve_batch_resumable", "load_snapshot", "SnapshotInfo"]
@@ -47,12 +47,6 @@ class SnapshotInfo:
     @property
     def done(self) -> bool:
         return self.n_finished == self.batch
-
-
-def _host(a) -> np.ndarray:
-    if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
-    return np.asarray(a)
 
 
 def _digest(*arrays, cone_dims=None) -> str:
@@ -112,10 +106,10 @@ def solve_batch_resumable(
     differ slightly from an uninterrupted ``solve_batch``; statuses and
     residual tolerances do not.
     """
-    cn = _host(c)
+    cn = to_host(c)
     batch = cn.shape[0]
-    extra = [_host(x) for x in (G, d) if x is not None]
-    fingerprint = _digest(_host(Q), cn, _host(A), _host(b), *extra,
+    extra = [to_host(x) for x in (G, d) if x is not None]
+    fingerprint = _digest(to_host(Q), cn, to_host(A), to_host(b), *extra,
                           cone_dims=cone_dims)
 
     # ── resume state ─────────────────────────────────────────────
@@ -150,11 +144,11 @@ def solve_batch_resumable(
         # Freeze instances that reached a definitive status; Abandoned
         # within a chunk just means "not converged yet" unless the
         # iteration budget is exhausted.
-        bs_status = _host(bs.status)
+        bs_status = to_host(bs.status)
         definitive = ~np.isin(bs_status, (Status.ABANDONED, Status.RUNNING))
         newly_done = active & (definitive | (iters_done >= maxIters))
         for k in _FIELDS:
-            arr = np.array(_host(getattr(bs, k)))
+            arr = np.array(to_host(getattr(bs, k)))
             if k == "Iter":  # cumulative across chunks
                 arr = (iters_done - step + arr).astype(np.int32)
             if k not in frozen:
@@ -166,7 +160,7 @@ def solve_batch_resumable(
         snap_status[active] = Status.RUNNING
         frozen["status"] = snap_status
 
-        warm = tuple(np.array(_host(x)) for x in (bs.y, bs.w, bs.v))
+        warm = tuple(np.array(to_host(x)) for x in (bs.y, bs.w, bs.v))
         _save(store, dict(
             fingerprint=fingerprint, iters_done=iters_done,
             warm_y=warm[0], warm_w=warm[1], warm_v=warm[2],
@@ -180,7 +174,7 @@ def solve_batch_resumable(
     fin["status"] = np.where(
         fin["status"] == Status.RUNNING, Status.ABANDONED, fin["status"]
     ).astype(np.int32)
-    last = {k: np.array(_host(getattr(out, k))) if out is not None else fin[k]
+    last = {k: np.array(to_host(getattr(out, k))) if out is not None else fin[k]
             for k in ("y", "w", "v")}
     _save(store, dict(
         fingerprint=fingerprint, iters_done=iters_done,

@@ -24,14 +24,13 @@ import torch
 from scipy.linalg import qr as _pivoted_qr
 
 from . import native
-from .kkt.diag import _host
-from .solver.state import Solution
+from .solver.state import Solution, to_host
 
 __all__ = ["imcols", "preprocess_conic_ip"]
 
 
 def _to_dense_np(X) -> np.ndarray:
-    return np.asarray(_host(X), dtype=np.float64)
+    return np.asarray(to_host(X), dtype=np.float64)
 
 
 def imcols(A, b, eps: float = 1e-8) -> Tuple[np.ndarray, bool]:
@@ -80,10 +79,11 @@ def preprocess_conic_ip(
     d=None,
     *,
     verbose: bool = False,
+    device="cuda",
     **options,
 ) -> Solution:
-    """``conic_ip`` with rank repair. ``options`` go to
-    :func:`~conicip_tpu_torch.conic_ip` (``device``, ``dtype``, ...); the
+    """``conic_ip`` with rank repair, solved on ``device``. ``options`` go
+    to :func:`~conicip_tpu_torch.conic_ip` (``dtype``, ``optTol``, ...); the
     solution's ``y``, ``w``, ``v`` are tensors on the solve's device."""
     from .solver import conic_ip
 
@@ -97,7 +97,7 @@ def preprocess_conic_ip(
     d = _to_dense_np(d) if d is not None else np.zeros(0)
     p = G.shape[0]
     like = dict(dtype=options.get("dtype") or torch.float64,
-                device=torch.device(options.get("device", "cuda")))
+                device=torch.device(device))
 
     if verbose:
         print("\n > CONICIP-TPU-TORCH PREPROCESSOR v0.1\n")
@@ -127,7 +127,8 @@ def preprocess_conic_ip(
     Qz = Q + np.diag(z)
 
     sol = conic_ip(
-        Qz, c, A, b, cone_dims, G[IP, :], d[IP], verbose=verbose, **options
+        Qz, c, A, b, cone_dims, G[IP, :], d[IP], verbose=verbose,
+        device=device, **options
     )
 
     # re-inflate equality duals with zeros for the dropped rows

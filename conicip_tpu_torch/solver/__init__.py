@@ -17,12 +17,12 @@ import numpy as np
 import torch
 
 from ..cones.spec import ConeSpec
-from ..kkt.diag import _host, equality_mode, kktsolver_diag, separable
+from ..kkt.diag import equality_mode, kktsolver_diag, separable
 from ..kkt.schur import kktsolver_schur
 from ..kkt.spectral import spectral_applicable, spectral_kktsolver
 from ..reduce import eliminate_equalities
 from .ipm import IPMOptions, ipm_solve
-from .state import SolState, Solution, Status, Vec4
+from .state import SolState, Solution, Status, Vec4, to_host
 
 __all__ = ["conic_ip", "Solution", "SolState", "Status", "IPMOptions", "Vec4",
            "ipm_solve", "resolve_factor_dtype"]
@@ -345,8 +345,8 @@ def _solve_eliminated(tensors, structure, cone_dims, warm_start, options
     sub_warm = None
     if warm_start is not None:
         ws = warm_start
-        y_w = np.asarray(_host(ws.y if hasattr(ws, "y") else ws[0]), float)
-        v_w = np.asarray(_host(ws.v if hasattr(ws, "v") else ws[2]), float)
+        y_w = np.asarray(to_host(ws.y if hasattr(ws, "y") else ws[0]), float)
+        v_w = np.asarray(to_host(ws.v if hasattr(ws, "v") else ws[2]), float)
         if (y_w.shape == (n,) and np.all(np.isfinite(y_w))
                 and np.all(np.isfinite(v_w))):
             sub_warm = (red.Z.T @ (y_w - red.y0), None, v_w)

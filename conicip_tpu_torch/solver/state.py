@@ -7,9 +7,19 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-__all__ = ["Vec4", "Status", "SolState", "Solution", "STATUS_NAMES"]
+__all__ = ["Vec4", "Status", "SolState", "Solution", "STATUS_NAMES",
+           "to_host"]
+
+
+def to_host(X) -> np.ndarray:
+    """A tensor (on any device), scipy.sparse matrix or array-like as a host
+    numpy array."""
+    if isinstance(X, torch.Tensor):
+        return X.detach().cpu().numpy()
+    return np.asarray(X.toarray() if hasattr(X, "toarray") else X)
 
 
 @dataclass(frozen=True)

@@ -439,6 +439,75 @@ def test_batch_matches_own_single_solves(family):
             1.0, float(one.y.abs().max()))
 
 
+# the KKT backends a caller picks by hand, on a stack: each package's own
+# qr and lu solver under its solve_batch
+BY_HAND = {
+    "qr": (ct.kktsolver_qr, pt.kktsolver_qr),
+    "lu": (ct.kktsolver_lu, pt.kktsolver_lu),
+}
+STACKS = {
+    "mixed_rq_eq-stacked_G": lambda: batched_mixed_rq_eq(4, n=30),
+    "mixed_rq_eq-shared_G": lambda: batched_mixed_rq_eq(4, n=30),
+    "box_qp": lambda: batched_box_qp(4, n=20),
+}
+
+
+@pytest.mark.parametrize("stack", sorted(STACKS))
+@pytest.mark.parametrize("backend", sorted(BY_HAND))
+def test_solve_batch_qr_lu_on_a_stack(backend, stack):
+    ref_kkt, kkt = BY_HAND[backend]
+    args = list(STACKS[stack]())
+    if stack.endswith("stacked_G"):
+        args[5] = np.broadcast_to(args[5], (4,) + args[5].shape).copy()
+    ref, sol = both(*args, jax_kw=dict(kktsolver=ref_kkt),
+                    torch_kw=dict(kktsolver=kkt))
+    assert sol.statuses == ["Optimal"] * 4
+    assert_same(ref, sol, 1e-6)
+    np.testing.assert_allclose(sol.w, np.asarray(ref.w), atol=1e-6)
+    assert [r.kktsolver for r in pt_batch.runs] == [kkt]
+    for i in range(4):
+        one = single(args, i, kktsolver=kkt)
+        assert (one.status, one.Iter) == (sol.statuses[i], int(sol.Iter[i]))
+        for f in ("y", "w", "v"):
+            np.testing.assert_allclose(getattr(sol, f)[i],
+                                       getattr(one, f).numpy(), rtol=0,
+                                       atol=1e-6, err_msg=f)
+
+
+@pytest.mark.parametrize("backend", sorted(BY_HAND))
+def test_qr_lu_take_a_shared_G_and_a_broken_instance(backend):
+    # G as one 2-D system under stacked Q and A (make_batched_solver with
+    # batch_G=False), against the same stack with G stacked; and an
+    # instance with non-finite data, which reaches the factorizations:
+    # nothing raises, it ends Error, and its neighbours are untouched
+    from conicip_tpu_torch.parallel.batch import make_batched_solver
+
+    kkt = BY_HAND[backend][1]
+    Q, c, A, b, cones, G, d = batched_mixed_rq_eq(4, n=30)
+    T = lambda x: torch.as_tensor(x, dtype=torch.float64)  # noqa: E731
+    spec, opts = pt.ConeSpec(tuple(cones)), pt.IPMOptions()
+    shared = make_batched_solver(spec, kkt, opts, batch_G=False)(
+        T(Q), T(c), T(A), T(b), T(G), T(d))
+    Gb = T(G).expand(4, *G.shape)
+    stacked = make_batched_solver(spec, kkt, opts)(
+        T(Q), T(c), T(A), T(b), Gb, T(d))
+    assert shared.status.tolist() == stacked.status.tolist() == [1] * 4
+    assert shared.Iter.tolist() == stacked.Iter.tolist()
+    assert float((shared.y - stacked.y).abs().max()) <= 1e-9
+    with pytest.raises(ValueError, match="batch_G"):
+        make_batched_solver(spec, kkt, opts, batch_G=False)(
+            T(Q), T(c), T(A), T(b), Gb, T(d))
+    for where in ("c", "Q", "G"):
+        Qn, cn, Gn = Q.copy(), c.copy(), np.array(Gb)
+        {"c": cn, "Q": Qn, "G": Gn}[where][2].flat[3] = np.nan
+        hurt = pt.solve_batch(Qn, cn, A, b, cones, Gn, d, kktsolver=kkt,
+                              device="cpu")
+        assert hurt.statuses == ["Optimal"] * 2 + ["Error"] + ["Optimal"]
+        keep = [0, 1, 3]
+        assert hurt.Iter[keep].tolist() == stacked.Iter[keep].tolist()
+        assert float((hurt.y[keep] - stacked.y[keep]).abs().max()) <= 1e-9
+
+
 def test_instances_finish_apart_and_a_failed_one_stays_alone():
     # instances that need 6 and 7 iterations under a budget of 6: the slow
     # ones end Abandoned with their own best iterate, the others Optimal
