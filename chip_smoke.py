@@ -20,9 +20,13 @@ direct ``conic_ip`` solve and against the CPU solve through the same
 frontend; ``[ladder]`` drives the rescue paths behind f32 factors: a single
 solve that climbs every tier of ``conic_ip``'s ladder and a stack whose
 stalled instances are finished by ``solve_batch``'s backstop, each held to
-the CPU run of the same call. Every phase prints one line per case; any
-failed check raises, so the script exits non-zero. It imports nothing of
-JAX.
+the CPU run of the same call. ``[distributed]`` drives the distributed
+paths: a world of one rank (NCCL, started by the phase) runs
+``distributed_normal_matrix``, ``kktsolver_schur_tp`` and a sharded
+``solve_batch``, and two ranks sharing the card (gloo), each this script run
+with ``--distributed-rank``, solve three of those problems together and a
+stack split between them. Every phase prints one line per case; any failed
+check raises, so the script exits non-zero. It imports nothing of JAX.
 
 The second-to-last line is a JSON object describing each kernel entry of
 the path; the last line is ``{"ok": true, "device": {...}}``.
@@ -508,6 +512,8 @@ def factor_sizes():
             sizes.add(P.Q.shape[0])
     P = ladder_case()  # eliminated: the reduced problem, order n - p
     sizes.add(P.Q.shape[0] - P.G.shape[0])
+    for ranks in (1, DIST_RANKS):  # [distributed], a world of one and two
+        sizes |= distributed_factor_shapes(ranks)[0]
     return sizes
 
 
@@ -927,6 +933,8 @@ def batch_factor_shapes():
         for sizes in by_backend.values():
             shapes.update((B, n) for n in sizes
                           for B in ((BATCH, 1) if kw else (BATCH,)))
+    for ranks in (1, DIST_RANKS):  # [distributed]: a slice of the stack each
+        shapes |= distributed_factor_shapes(ranks)[1]
     return shapes
 
 
@@ -1600,12 +1608,363 @@ def phase_ladder():
          kkt_builds=sum(want.values()), ms_per_batch=f"{ms:.2f}")
 
 
+DIST_N = 4096  # box_qp_dense order of [distributed]'s world of one
+DIST_PAIR_N = 1024  # ... and of its two ranks sharing the card
+DIST_RANKS = 2
+DIST_TIMEOUT = 300.0  # seconds the two ranks may take in all
+
+
+@functools.lru_cache(maxsize=None)
+def multichip_problem():
+    """The production-sized problem the reference's multichip dry run
+    solves through its kktsolver_schur_tp (``__graft_entry__.py``): n = 512,
+    R(1024) x Q(32) x Q(32), m = 1088, p = 16, diagonal Q, strictly
+    feasible."""
+    from conicip_tpu_torch import models
+    from conicip_tpu_torch.cones.spec import ConeSpec
+
+    n, p = 512, 16
+    cones = [("R", 2 * n), ("Q", 32), ("Q", 32)]
+    m = sum(k for _, k in cones)
+    rng = np.random.default_rng(0)
+    Q = np.diag(1.0 + rng.random(n))
+    c = rng.standard_normal(n)
+    A = np.vstack([np.eye(n), -np.eye(n),
+                   rng.standard_normal((m - 2 * n, n)) * 0.1])
+    y0 = rng.standard_normal(n) * 0.1
+    b = A @ y0 - ConeSpec(cones).identity
+    G = rng.standard_normal((p, n))
+    return models.Problem(f"rq_eq(n={n},m={m},p={p})", Q, c, A, b,
+                          cones, G, G @ y0)
+
+
+@functools.lru_cache(maxsize=None)
+def distributed_cases():
+    """(label, problem, kktsolver_schur_tp keywords, conic_ip keywords,
+    whether the CPU solve is run beside it) of [distributed]'s world of
+    one; the two ranks sharing the card solve the ones of pair_cases()."""
+    from conicip_tpu_torch import models
+
+    rq, rqs = models.mixed_rq_eq(), models.mixed_rqs()
+    return (
+        (f"box_qp_dense(n={DIST_N})", models.box_qp_dense(n=DIST_N), {}, {},
+         False),
+        (f"box_qp_dense(n={DIST_PAIR_N})", models.box_qp_dense(n=DIST_PAIR_N),
+         {}, {}, True),
+        ("mixed_rq_eq(n=200,p=10)", rq, {}, {}, True),
+        ("mixed_rq_eq(n=200,p=10) shard_scaling=False", rq,
+         dict(shard_scaling=False), {}, True),
+        ("mixed_rq_eq(n=200,p=10) distributed_factor=False", rq,
+         dict(distributed_factor=False), {}, True),
+        ("mixed_rqs(n=86)", rqs, {}, {}, True),
+        # f32 factors on S cones stop near 2-3e-7 (the factor is the
+        # floor there): optTol stays at 1e-6; the CPU tests hold the SOC
+        # problem to 1e-7
+        ("mixed_rqs(n=86) f32", rqs, dict(factor_dtype=torch.float32),
+         dict(mixedResiduals=True), False),
+        (multichip_problem().name, multichip_problem(), {}, {}, True),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def pair_cases():
+    from conicip_tpu_torch import models
+
+    return ((f"box_qp_dense(n={DIST_PAIR_N})",
+             models.box_qp_dense(n=DIST_PAIR_N)),
+            ("mixed_rq_eq(n=200,p=10)", models.mixed_rq_eq()),
+            (multichip_problem().name, multichip_problem()))
+
+
+def distributed_factor_shapes(ranks):
+    """Orders a world of ``ranks`` ranks hands the single entries through
+    kktsolver_schur_tp (r = n_pad / ranks per panel, p for the equality
+    factor, n_pad with distributed_factor=False), and the stacks its
+    sharded solve_batch hands the batched ones."""
+    if ranks == 1:
+        cases = [(P, kw) for _, P, kw, _, _ in distributed_cases()]
+    else:
+        cases = [(P, {}) for _, P in pair_cases()]
+    sizes = set()
+    for P, kw in cases:
+        n_pad = -(-P.Q.shape[0] // ranks) * ranks
+        sizes.add(n_pad if kw.get("distributed_factor") is False
+                  else n_pad // ranks)
+        if P.G is not None:
+            sizes.add(P.G.shape[0])
+    return sizes, {(BATCH // ranks, 500)}
+
+
+def tp_solve(P, mesh, kkt_kw, **kw):
+    """P through kktsolver_schur_tp over the mesh's "tp" axis, on the card:
+    (solution, ms, KKT builds, kernel launches of the solve)."""
+    from conicip_tpu_torch import conic_ip, kktsolver_schur_tp, solver
+    from conicip_tpu_torch.ops import cholesky_kernel
+
+    before = Counter(cholesky_kernel.cholesky_launches)
+    kkt = kktsolver_schur_tp(mesh, "tp", **kkt_kw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sol = conic_ip(*P.args(), kktsolver=kkt, device="cuda", **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    r = solver.runs[-1]
+    return (sol, ms, r.fast_steps + r.slow_steps + r.cold_start,
+            cholesky_kernel.cholesky_launches - before)
+
+
+def tp_launches_ok(P, got, builds, ranks, kkt_kw):
+    """A TP solve's launches on one rank: per KKT build ``ranks`` factors
+    of order r = n_pad / ranks (one of order n_pad with
+    distributed_factor=False), one of order p with equalities; a ridge
+    retry repeats the first kind. Returns (ok, description)."""
+    n = P.Q.shape[0]
+    n_pad = -(-n // ranks) * ranks
+    whole = kkt_kw.get("distributed_factor") is False
+    r, per = (n_pad, 1) if whole else (n_pad // ranks, ranks)
+    dt = kkt_kw.get("factor_dtype", torch.float64)
+    p = 0 if P.G is None else P.G.shape[0]
+    want = {(dt, r)} | ({(dt, p)} if p else set())
+    at_r, at_p = got[(dt, r)], got[(dt, p)] if p else 0
+    ok = (set(got) == want and at_r >= per * builds and at_r % per == 0
+          and at_p == (builds if p else 0))
+    return ok, f"{at_r}@{r}" + (f"+{at_p}@{p}" if p else "")
+
+
+def phase_distributed():
+    """Distribution on the card: (a) a world of one rank (NCCL, started
+    here): distributed_normal_matrix, kktsolver_schur_tp on each of
+    distributed_cases() against the port's single-device Schur solve with 0
+    correctors (and its CPU solve where it is small), solve_batch over a
+    mesh against the unsharded stack; (b) two ranks sharing the card (gloo),
+    this script run with --distributed-rank. Returns the kernel launches the
+    two ranks made, which main() counts as this phase's."""
+    import torch.distributed as dist
+
+    from conicip_tpu_torch import make_mesh, models, solve_batch
+    from conicip_tpu_torch.parallel import distributed_normal_matrix
+    from conicip_tpu_torch.parallel.mesh import start_rank
+
+    f64 = torch.float64
+    one = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        start_rank(0, 1, "file://" + os.path.join(tmp, "rendezvous"), "cuda")
+        try:
+            check(dist.get_backend() == "nccl",
+                  f"world of one on {dist.get_backend()}, not nccl")
+            tp = make_mesh((1,), ("tp",))
+            g = torch.Generator(device="cuda").manual_seed(7)
+            n, m = 1024, 2048
+            A = torch.randn(m, n, generator=g, device="cuda", dtype=f64)
+            dinv = 0.5 + torch.rand(m, generator=g, device="cuda", dtype=f64)
+            Q = torch.eye(n, device="cuda", dtype=f64)
+            M = distributed_normal_matrix(Q, A, dinv, tp, "tp")
+            At = A * dinv[:, None]
+            ref = Q + At.T @ At
+            rel = ((M - ref).abs().max() / ref.abs().max()).item()
+            check(rel <= 1e-12, f"distributed_normal_matrix: rel {rel:.3e}")
+            line("distributed", world=1, backend="nccl",
+                 case="distributed_normal_matrix", n=n, m=m,
+                 rel_err=f"{rel:.3e}")
+            for label, P, kkt_kw, kw, cpu in distributed_cases():
+                one[label] = tp_case(label, P, tp, kkt_kw, kw, cpu, one)
+            args = on_card(models.batched_box_qp(BATCH, n=500))
+            plain = solve_batch(*args, device="cuda")
+            bmesh = make_mesh((1,), ("batch",))
+            timed_batch(args, mesh=bmesh)  # warm-up
+            out, ms = timed_batch(args, mesh=bmesh)
+            _, plain_ms = timed_batch(args)
+            dy = (out.y - plain.y).abs().max().item()
+            check(out.statuses == plain.statuses == ["Optimal"] * BATCH
+                  and torch.equal(out.Iter, plain.Iter) and dy <= 1e-12,
+                  f"solve_batch over a mesh of one: {Counter(out.statuses)}, "
+                  f"Iter equal {torch.equal(out.Iter, plain.Iter)}, "
+                  f"|y - y_unsharded| {dy:.3e}")
+            one["batch"] = dict(status=plain.status.cpu(),
+                                Iter=plain.Iter.cpu(), ms=plain_ms)
+            line("distributed", world=1, backend="nccl",
+                 case=f"'solve_batch batched_box_qp({BATCH},n=500)'",
+                 mesh="(1,) batch", status=f"Optimal x{BATCH}",
+                 Iter="equal to unsharded", y_diff_unsharded=f"{dy:.3e}",
+                 ms_per_batch=f"{ms:.2f}", unsharded_ms=f"{plain_ms:.2f}")
+        finally:
+            dist.destroy_process_group()
+    return pair_of_ranks(one)
+
+
+def tp_case(label, P, mesh, kkt_kw, kw, cpu, one):
+    """One TP solve of the world of one, held against the single-device
+    Schur solve (0 correctors) on the card and, where ``cpu``, on the
+    CPU."""
+    from conicip_tpu_torch import conic_ip
+    from conicip_tpu_torch.kkt import kktsolver_schur
+
+    tp_solve(P, mesh, kkt_kw, **kw)  # warm-up
+    sol, ms, builds, got = tp_solve(P, mesh, kkt_kw, **kw)
+    single_kw = dict(kktsolver=kktsolver_schur, centralityCorrectors=0, **kw)
+    if "factor_dtype" in kkt_kw:
+        single_kw["kktsolver"] = functools.partial(
+            kktsolver_schur, factor_dtype=kkt_kw["factor_dtype"])
+    ref, ref_ms = solve_timed(P.args(), device="cuda", **single_kw)
+    resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
+    dy = (sol.y - ref.y).abs().max().item()
+    what = f"world of one, {label}"
+    f32 = "factor_dtype" in kkt_kw
+    check(sol.status == ref.status == "Optimal",
+          f"{what}: {sol.status}, single {ref.status}")
+    # f32 factors round differently on the two paths: Iter within 2, as in
+    # the [f32] phase, and y to F32_Y_TOL of the f64 TP solve below
+    check(abs(sol.Iter - ref.Iter) <= (2 if f32 else 0),
+          f"{what}: Iter {sol.Iter}, single {ref.Iter}")
+    check(f32 or dy <= 1e-6, f"{what}: |y - y_single| {dy:.3e}")
+    check(resid < 1e-6, f"{what}: residual {resid:.3e}")
+    extra = {}
+    if cpu:
+        cref = conic_ip(*P.args(), device="cpu", **single_kw)
+        check(cref.Iter == sol.Iter and cref.status == sol.status,
+              f"{what}: cpu {cref.status}/{cref.Iter}")
+        extra["cpu_iter"] = cref.Iter
+    base = label.split(" ")[0]
+    if base != label:  # a variant of the default keywords, solved before
+        dd = (sol.y - one[base]["y"].to(sol.y.device)).abs().max().item()
+        tol = (1e-8 if kkt_kw.get("shard_scaling") is False
+               else F32_Y_TOL if f32 else 1e-6)
+        check(dd <= tol, f"{what}: |y - y_default| {dd:.3e}")
+        extra["y_diff_default"] = f"{dd:.3e}"
+    ok, by_order = tp_launches_ok(P, got, builds, 1, kkt_kw)
+    check(ok, f"{what}: launches {dict(got)} for {builds} KKT builds")
+    line("distributed", world=1, backend="nccl", case=repr(label),
+         status=sol.status, Iter=sol.Iter, single_iter=ref.Iter, **extra,
+         resid=f"{resid:.3e}", y_diff_single=f"{dy:.3e}", kkt_builds=builds,
+         launches=by_order, ms_per_solve=f"{ms:.2f}",
+         single_ms_per_solve=f"{ref_ms:.2f}")
+    return dict(status=sol.status, Iter=sol.Iter, y=sol.y.cpu(), ms=ms,
+                single_ms=ref_ms)
+
+
+def pair_of_ranks(one):
+    """(b): two ranks on the one card, each this script with
+    --distributed-rank, held against the world of one's answers."""
+    from conicip_tpu_torch.parallel.mesh import spawn_world
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+    with tempfile.TemporaryDirectory() as out:
+        t = time.perf_counter()
+        world = spawn_world(
+            lambda k, init: [sys.executable, os.path.abspath(__file__),
+                             "--distributed-rank", str(k), "--init", init,
+                             "--out", out], DIST_RANKS, DIST_TIMEOUT, env=env)
+        seconds = time.perf_counter() - t
+        check(world.ok, f"ranks exited {world.codes} (timed out "
+              f"{world.timed_out}):\n" + "\n".join(world.err))
+        got = [torch.load(os.path.join(out, f"rank{k}.pt"))
+               for k in range(DIST_RANKS)]
+    ranks = Counter()
+    for k, text in enumerate(world.out):
+        rec = json.loads(next(s for s in text.splitlines()
+                              if s.startswith('{"rank_launches"')))
+        for dt, n, B, count in rec["rank_launches"]:
+            key = (getattr(torch, dt), n) + ((B,) if B else ())
+            ranks[key] += count
+        line("distributed", world=DIST_RANKS, rank=k,
+             launches=",".join(f"{dt}@{n}" + (f"x{B}" if B else "")
+                               + f":{c}" for dt, n, B, c in
+                               rec["rank_launches"]))
+    for label, _ in pair_cases():
+        a, b = got[0][label], got[1][label]
+        ref = one[label]
+        dy = (a["y"] - ref["y"]).abs().max().item()
+        what = f"{DIST_RANKS} ranks, {label}"
+        check(torch.equal(a["y"], b["y"]) and a["Iter"] == b["Iter"],
+              f"{what}: the ranks' answers differ")
+        check(a["status"] == "Optimal" and a["Iter"] == ref["Iter"],
+              f"{what}: {a['status']}/{a['Iter']}, world of one "
+              f"{ref['status']}/{ref['Iter']}")
+        check(dy <= 1e-8, f"{what}: |y - y_world_of_one| {dy:.3e}")
+        check(a["launches_ok"] and b["launches_ok"],
+              f"{what}: launches {a['launches']} / {b['launches']} for "
+              f"{a['builds']} KKT builds")
+        line("distributed", world=DIST_RANKS, backend="gloo",
+             device="cuda:0 shared", case=repr(label), status=a["status"],
+             Iter=a["Iter"], world_of_one_iter=ref["Iter"],
+             y_diff_world_of_one=f"{dy:.3e}", ranks_y="bitwise equal",
+             kkt_builds=a["builds"], launches_per_rank=a["launches"],
+             ms_per_solve=f"{a['ms']:.2f}",
+             world_of_one_ms=f"{ref['ms']:.2f}",
+             single_ms_per_solve=f"{ref['single_ms']:.2f}")
+    a, b = got[0]["batch"], got[1]["batch"]
+    ref = one["batch"]
+    check(torch.equal(a["status"], ref["status"])
+          and torch.equal(a["Iter"], ref["Iter"])
+          and torch.equal(a["y"], b["y"]),
+          f"{DIST_RANKS} ranks, solve_batch: statuses or Iter differ from "
+          "the unsharded stack's, or the ranks' answers differ")
+    line("distributed", world=DIST_RANKS, backend="gloo",
+         case=f"'solve_batch batched_box_qp({BATCH},n=500)'",
+         mesh=f"({DIST_RANKS},) batch", per_rank=BATCH // DIST_RANKS,
+         status=f"Optimal x{BATCH}", Iter="equal to unsharded",
+         ms_per_batch=f"{a['ms']:.2f}", unsharded_ms=f"{ref['ms']:.2f}")
+    line("distributed", world=DIST_RANKS, backend="gloo",
+         collectives="all_reduce,reduce_scatter,all_gather,broadcast",
+         on="CUDA tensors", staged="none", world_seconds=f"{seconds:.1f}")
+    return ranks
+
+
+def distributed_rank(rank, init, out):
+    """One of the two ranks of [distributed] (b): both on the one card,
+    gloo. Saves its answers to ``out/rank<k>.pt`` and prints its kernel
+    launches as a JSON line."""
+    import torch.distributed as dist
+
+    from conicip_tpu_torch import make_mesh, models
+    from conicip_tpu_torch.ops import cholesky_kernel
+    from conicip_tpu_torch.parallel.mesh import start_rank
+
+    start_rank(rank, DIST_RANKS, init, "cuda")
+    res = {}
+    try:
+        check(dist.get_backend() == "gloo", "ranks sharing a card: not gloo")
+        tp = make_mesh((DIST_RANKS,), ("tp",))
+        for label, P in pair_cases():
+            tp_solve(P, tp, {})  # warm-up
+            sol, ms, builds, got = tp_solve(P, tp, {})
+            ok, by_order = tp_launches_ok(P, got, builds, DIST_RANKS, {})
+            res[label] = dict(status=sol.status, Iter=sol.Iter,
+                              y=sol.y.cpu(), ms=ms, builds=builds,
+                              launches=by_order, launches_ok=ok)
+        args = on_card(models.batched_box_qp(BATCH, n=500))
+        bmesh = make_mesh((DIST_RANKS,), ("batch",))
+        timed_batch(args, mesh=bmesh)  # warm-up
+        bs, ms = timed_batch(args, mesh=bmesh)
+        res["batch"] = dict(status=bs.status.cpu(), Iter=bs.Iter.cpu(),
+                            y=bs.y.cpu(), ms=ms)
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    print(json.dumps({"rank_launches": [
+        [str(k[0]).split(".")[-1], k[1], k[2] if len(k) == 3 else None, c]
+        for k, c in sorted(cholesky_kernel.cholesky_launches.items(),
+                           key=str)]}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if "--distributed-rank" in sys.argv:
+        import argparse
+
+        parser = argparse.ArgumentParser()
+        parser.add_argument("--distributed-rank", type=int, required=True)
+        parser.add_argument("--init", required=True)
+        parser.add_argument("--out", required=True)
+        a = parser.parse_args()
+        distributed_rank(a.distributed_rank, a.init, a.out)
+        return 0
     phase_environment()
     phase_build()
     single, batched64, batched32 = phase_kernel()
@@ -1620,20 +1979,24 @@ def main():
     launched = set()  # the counter's keys: every shape a path gave an entry
     for phase in (phase_schur, phase_diag, phase_conic, phase_f32, phase_eq,
                   phase_backends, phase_batch, phase_checkpoint,
-                  phase_frontend, phase_ladder):
+                  phase_frontend, phase_ladder, phase_distributed):
         cholesky_kernel.reset_launch_count()
-        phase()
-        used = cholesky_kernel.launch_count()
-        used32 = cholesky_kernel.launch_count(f32)
-        stacked = {dt: cholesky_kernel.launch_count(dt, batch=True)
+        # launches of the ranks a phase spawned, counted by their wrappers
+        ranks = phase() or Counter()
+        counts = cholesky_kernel.cholesky_launches + ranks
+        used = sum(counts.values())
+        used32 = sum(c for k, c in counts.items() if k[0] == f32)
+        stacked = {dt: sum(c for k, c in counts.items()
+                           if k[0] == dt and len(k) == 3)
                    for dt in (f32, f64)}
         check(used > 0, f"{phase.__name__} never launched the kernel")
         check((used32 > 0) == (phase in (phase_f32, phase_batch,
-                                         phase_ladder)),
+                                         phase_ladder, phase_distributed)),
               f"{phase.__name__}: {used32} launches of the f32 entries")
         # the stacked solves run the batched entries, and nothing else does
         check((sum(stacked.values()) > 0)
-              == (phase in (phase_batch, phase_checkpoint, phase_ladder)),
+              == (phase in (phase_batch, phase_checkpoint, phase_ladder,
+                            phase_distributed)),
               f"{phase.__name__}: {stacked} launches of the batched entries")
         line("launches", of=phase.__name__, f64=used - used32, f32=used32,
              batched_f64=stacked[f64], batched_f32=stacked[f32])
@@ -1642,7 +2005,7 @@ def main():
         single["launches_f32"] += used32 - stacked[f32]
         batched64["launches"] += stacked[f64]
         batched32["launches"] += stacked[f32]
-        launched |= set(cholesky_kernel.cholesky_launches)
+        launched |= set(counts)
     for rec in (single, batched64, batched32):
         check(rec["launches"] > 0, f"{rec['name']} was never launched on "
               "the main paths")

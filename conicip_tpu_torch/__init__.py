@@ -9,7 +9,10 @@ Solves, like ``conicip_tpu`` (note the MINUS sign on cᵀy):
 with the same Mehrotra predictor-corrector method, Nesterov-Todd scaling,
 statuses, certificates, best-iterate rule, warm starts, default backend
 choice and 3-level KKT-callback contract, for one problem
-(:func:`conic_ip`) or a stack of them (:func:`solve_batch`). The dense
+(:func:`conic_ip`) or a stack of them (:func:`solve_batch`), on one
+device or over the ranks of a ``torch.distributed`` mesh
+(:func:`make_mesh`: ``solve_batch(mesh=...)`` shards a stack, and
+:func:`kktsolver_schur_tp` one problem's Schur solve). The dense
 Cholesky of every Schur-path iteration runs a hand-written CUDA kernel on
 CUDA tensors (``csrc/cholesky.cu``) and a plain PyTorch version on the CPU.
 :mod:`conicip_tpu_torch.frontend` holds the modeling frontends
@@ -31,7 +34,8 @@ from .interop import (batch_from_numpy, batch_solution_to_numpy,
                       warm_to_numpy)
 from .kkt import (kktsolver_2x2, kktsolver_diag, kktsolver_lu, kktsolver_qr,
                   kktsolver_schur, pivot, separable)
-from .parallel import BatchSolution, solve_batch
+from .parallel import (BatchSolution, kktsolver_schur_tp, make_mesh,
+                       solve_batch)
 from .preprocess import imcols, preprocess_conic_ip
 from .solver import IPMOptions, Solution, conic_ip
 
@@ -72,6 +76,8 @@ __all__ = [
     "warm_to_numpy",
     "solve_batch",
     "BatchSolution",
+    "kktsolver_schur_tp",
+    "make_mesh",
     "batch_from_numpy",
     "batch_solution_to_numpy",
     "Optimizer",

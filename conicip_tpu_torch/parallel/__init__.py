@@ -1,6 +1,7 @@
-"""Batched solving and its checkpointing (``conicip_tpu/parallel``'s
-``batch`` and ``checkpoint``). Sharding a batch over a device mesh and the
-distributed Schur solver are not part of this package yet."""
+"""Batched solving, its checkpointing, and distribution over
+``torch.distributed`` (``conicip_tpu/parallel``): a stack sharded over a
+mesh with ``solve_batch(mesh=...)``, one problem's Schur solve sharded with
+:func:`kktsolver_schur_tp`."""
 
 from .batch import (
     BatchSolution,
@@ -9,6 +10,8 @@ from .batch import (
     solve_batch,
 )
 from .checkpoint import SnapshotInfo, load_snapshot, solve_batch_resumable
+from .distributed import distributed_normal_matrix, kktsolver_schur_tp
+from .mesh import make_mesh
 
 __all__ = [
     "solve_batch",
@@ -18,4 +21,7 @@ __all__ = [
     "BatchSolution",
     "make_batched_solver",
     "make_batched_warm_solver",
+    "kktsolver_schur_tp",
+    "distributed_normal_matrix",
+    "make_mesh",
 ]

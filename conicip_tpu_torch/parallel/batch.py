@@ -32,6 +32,7 @@ from ..ops.batched import mv
 from ..solver import _densify
 from ..solver.ipm import IPMOptions, _select, ipm_solve
 from ..solver.state import STATUS_NAMES, SolState, Status, Vec4
+from .mesh import MeshAxis
 
 __all__ = [
     "solve_batch",
@@ -203,7 +204,7 @@ def solve_batch(
     d=None,
     *,
     mesh=None,
-    batch_axis: str = "batch",
+    batch_axis="batch",
     kktsolver=None,
     factor_dtype="auto",
     dtype=None,
@@ -218,8 +219,13 @@ def solve_batch(
     they are moved to ``device`` in ``dtype`` (default float64), and the
     returned :class:`BatchSolution` holds tensors there.
 
-    ``mesh`` and ``batch_axis`` shard the batch over a device mesh in the
-    reference; this package runs on one card and raises on a ``mesh``.
+    ``mesh`` (a ``DeviceMesh`` from :func:`~conicip_tpu_torch.make_mesh`)
+    shards the stack over the mesh dimension ``batch_axis``, or over
+    several (a tuple of names, the first the slowest, as a JAX
+    ``PartitionSpec`` orders them). Every rank of the mesh makes the same
+    call; each solves its contiguous slice of the stack, rescue tiers
+    included, and every rank returns the whole :class:`BatchSolution`,
+    gathered. The batch must divide over the ranks of ``batch_axis``.
 
     ``kktsolver`` is the 3-level plugin callback; it receives stacked
     tensors (Q (B, n, n), A (B, m, n), G (B, p, n), scalings and vectors
@@ -243,26 +249,64 @@ def solve_batch(
     eliminated problems and 0 otherwise.
     """
     del runs[:]
-    return _solve_batch(Q, c, A, b, cone_dims, G, d, mesh=mesh,
-                        batch_axis=batch_axis, kktsolver=kktsolver,
-                        factor_dtype=factor_dtype, dtype=dtype,
-                        warm_start=warm_start, backstop=backstop,
-                        eliminate_equalities=eliminate_equalities,
-                        device=device, **options)
+    kw = dict(kktsolver=kktsolver, factor_dtype=factor_dtype, dtype=dtype,
+              backstop=backstop, eliminate_equalities=eliminate_equalities,
+              device=device, **options)
+    if mesh is not None:
+        return _solve_sharded(mesh, batch_axis, (Q, c, A, b, G, d),
+                              cone_dims, warm_start, kw)
+    return _solve_batch(Q, c, A, b, cone_dims, G, d, warm_start=warm_start,
+                        **kw)
 
 
-def _solve_batch(Q, c, A, b, cone_dims, G=None, d=None, *, mesh=None,
-                 batch_axis="batch", kktsolver=None, factor_dtype="auto",
-                 dtype=None, warm_start=None, backstop=True,
-                 eliminate_equalities=None, device="cuda", **options):
+# leading-axis rank of each operand of a stack: (Q, c, A, b, G, d); G and d
+# of lower rank are one system shared by every instance
+_STACKED_NDIM = (3, 2, 3, 2, 3, 2)
+
+
+def _solve_sharded(mesh, batch_axis, operands, cone_dims, warm_start, kw):
+    """This rank's contiguous slice of the stack, solved by
+    :func:`_solve_batch`, then every field gathered over the batch axes."""
+    names = (batch_axis,) if isinstance(batch_axis, str) else batch_axis
+    axes = [MeshAxis(mesh, name) for name in names]
+    if torch.device(kw["device"]).type != mesh.device_type:
+        raise ValueError(f"solve_batch: device {kw['device']!r} on a mesh of "
+                         f"{mesh.device_type!r} ranks")
+    shards, index = 1, 0
+    for ax in axes:  # the first axis is the slowest
+        shards, index = shards * ax.size, index * ax.size + ax.rank
+    batch = operands[1].shape[0]
+    if batch % shards:
+        raise ValueError(
+            f"solve_batch: a batch of {batch} does not split over the "
+            f"{shards} ranks of mesh axes {batch_axis!r}: dimension 0 should "
+            f"be divisible by {shards} (full shape "
+            f"{tuple(operands[0].shape)})")
+    k = batch // shards
+    mine = slice(index * k, (index + 1) * k)
+    part = [X[mine] if X is not None and np.ndim(X) == nd else X
+            for X, nd in zip(operands, _STACKED_NDIM)]
+    if warm_start is not None:
+        warm_start = tuple(None if x is None else x[mine]
+                           for x in _warm_fields(warm_start))
+    out = _solve_batch(*part[:4], cone_dims, *part[4:],
+                       warm_start=warm_start, **kw)
+    fields_ = {}
+    for f in fields(out):
+        x = getattr(out, f.name)
+        for ax in reversed(axes):  # the fastest axis first: contiguous
+            x = ax.all_gather(x)
+        fields_[f.name] = x
+    return BatchSolution(**fields_)
+
+
+def _solve_batch(Q, c, A, b, cone_dims, G=None, d=None, *, kktsolver=None,
+                 factor_dtype="auto", dtype=None, warm_start=None,
+                 backstop=True, eliminate_equalities=None, device="cuda",
+                 **options):
     from ..solver import (_default_kktsolver, _diag_kktsolver,
                           resolve_factor_dtype)
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_batch(mesh=...): sharding a batch over several cards is "
-            "not ported yet (ROADMAP queue 1 item 16, parallel/mesh.py); "
-            "this package solves a batch on one card")
     dtype = dtype or torch.float64
     device = torch.device(device)
     factor_dtype = resolve_factor_dtype(factor_dtype)

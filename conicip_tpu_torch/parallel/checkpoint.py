@@ -26,9 +26,11 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..solver.state import Status, to_host
 from .batch import BatchSolution, solve_batch
+from .mesh import MeshAxis
 
 __all__ = ["solve_batch_resumable", "load_snapshot", "SnapshotInfo"]
 
@@ -100,12 +102,19 @@ def solve_batch_resumable(
     interior-point iterations, and an interrupted run re-invoked with the
     same arguments resumes from the snapshot instead of restarting.
 
-    Accepts everything :func:`solve_batch` does (``factor_dtype``,
-    ``device``, ...). Semantics note: a chunk boundary warm-restarts the
-    Mehrotra iteration (fresh initial scaling), so iterate trajectories
-    differ slightly from an uninterrupted ``solve_batch``; statuses and
-    residual tolerances do not.
+    Accepts everything :func:`solve_batch` does (``mesh`` sharding,
+    ``factor_dtype``, ``device``, ...). Semantics note: a chunk boundary
+    warm-restarts the Mehrotra iteration (fresh initial scaling), so iterate
+    trajectories differ slightly from an uninterrupted ``solve_batch``;
+    statuses and residual tolerances do not.
+
+    With a ``mesh`` every rank makes the call and holds the same gathered
+    state; the lowest rank of the mesh writes the snapshot, and the call
+    returns on no rank before the last write is done, so a later call
+    reads a whole snapshot on every rank.
     """
+    mesh = options.get("mesh")
+    writer = mesh is None or dist.get_rank() == int(mesh.mesh.min())
     cn = to_host(c)
     batch = cn.shape[0]
     extra = [to_host(x) for x in (G, d) if x is not None]
@@ -161,11 +170,12 @@ def solve_batch_resumable(
         frozen["status"] = snap_status
 
         warm = tuple(np.array(to_host(x)) for x in (bs.y, bs.w, bs.v))
-        _save(store, dict(
-            fingerprint=fingerprint, iters_done=iters_done,
-            warm_y=warm[0], warm_w=warm[1], warm_v=warm[2],
-            **frozen,
-        ))
+        if writer:
+            _save(store, dict(
+                fingerprint=fingerprint, iters_done=iters_done,
+                warm_y=warm[0], warm_w=warm[1], warm_v=warm[2],
+                **frozen,
+            ))
         out = bs
 
     # assemble the final BatchSolution from frozen fields
@@ -176,11 +186,19 @@ def solve_batch_resumable(
     ).astype(np.int32)
     last = {k: np.array(to_host(getattr(out, k))) if out is not None else fin[k]
             for k in ("y", "w", "v")}
-    _save(store, dict(
-        fingerprint=fingerprint, iters_done=iters_done,
-        warm_y=last["y"], warm_w=last["w"], warm_v=last["v"],
-        **fin,
-    ))
+    if writer:
+        _save(store, dict(
+            fingerprint=fingerprint, iters_done=iters_done,
+            warm_y=last["y"], warm_w=last["w"], warm_v=last["v"],
+            **fin,
+        ))
+    if mesh is not None:
+        # a barrier over the whole mesh: one all_reduce along each axis
+        # (every rank waits for every other), then a host read
+        flag = torch.zeros(1, device=mesh.device_type)
+        for name in mesh.mesh_dim_names:
+            MeshAxis(mesh, name).all_reduce(flag)
+        flag.item()
     device = out.y.device if out is not None else torch.device(
         options.get("device", "cuda"))
     return BatchSolution(**{k: torch.as_tensor(v, device=device)

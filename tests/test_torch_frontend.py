@@ -564,7 +564,7 @@ def test_every_public_name_of_the_reference_exists():
         assert getattr(ct, name) is not None
     public = set(ct.__all__) | set(lazy) | {"Id"}
     missing = {name for name in public if not hasattr(pt, name)}
-    assert missing == {"make_mesh", "kktsolver_schur_tp"}
+    assert missing == set()
     assert set(rf.__all__) == set(pt_fe.__all__)
     for name in rf.__all__:
         assert hasattr(pt_fe, name)
