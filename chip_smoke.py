@@ -2,8 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from this checkout, holds it against its
-plain PyTorch version, then drives ``conicip_tpu_torch.conic_ip`` through
+Builds the port's CUDA kernels from this checkout (one nvcc per source,
+all at once), holds the Cholesky kernel against its plain PyTorch version,
+then in ``[jacobi]`` the Jacobi eigendecomposition and SVD kernels
+(``csrc/jacobi.cu``: eigh, values-only eigh, SVD; f64 and f32) against
+theirs at every (d, stack) the S-cone phases hand them (``jacobi_shapes()``)
+and at edge shapes (d = 1-64, d = 128 and 200 on the device-memory route, a
+stack of 200, the identity, a clustered spectrum, an indefinite matrix, an
+ill-conditioned Lzᵀ Ls, NaN and Inf entries, the sweep limit), and times
+them beside cuSOLVER; then it drives ``conicip_tpu_torch.conic_ip`` through
 every default KKT backend (dense Schur, diagonal, spectral) on R, Q and S
 cone problems at the sizes the repository benchmarks, and checks the
 answers. Three further phases drive the options around the default path:
@@ -25,8 +32,12 @@ paths: a world of one rank (NCCL, started by the phase) runs
 ``distributed_normal_matrix``, ``kktsolver_schur_tp`` and a sharded
 ``solve_batch``, and two ranks sharing the card (gloo), each this script run
 with ``--distributed-rank``, solve three of those problems together and a
-stack split between them. Every phase prints one line per case; any failed
-check raises, so the script exits non-zero. It imports nothing of JAX.
+stack split between them. Every phase that solves an S cone must launch the
+Jacobi kernels and no other phase may (their counter,
+``ops.jacobi_kernel.jacobi_launches``, keyed by (kind, dtype, d, stack), is
+read per phase like the Cholesky's). Every phase prints one line per case;
+any failed check raises, so the script exits non-zero. It imports nothing
+of JAX.
 
 The second-to-last line is a JSON object describing each kernel entry of
 the path; the last line is ``{"ok": true, "device": {...}}``.
@@ -137,13 +148,26 @@ def phase_environment():
           "TF32 matmul must be off (the reference ran products at HIGHEST)")
 
 
+KERNEL_SOURCES = ("cholesky", "jacobi")  # csrc/<name>.cu
+
+
 def phase_build():
+    """Every kernel source, one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from conicip_tpu_torch.ops.build import load_library
 
+    def timed(name):
+        t = time.perf_counter()
+        load_library(name)
+        return time.perf_counter() - t
+
     t = time.perf_counter()
-    load_library("cholesky")
-    line("build", kernel="csrc/cholesky.cu",
-         seconds=f"{time.perf_counter() - t:.2f}")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        took = dict(zip(KERNEL_SOURCES, pool.map(timed, KERNEL_SOURCES)))
+    for name, seconds in took.items():
+        line("build", kernel=f"csrc/{name}.cu", seconds=f"{seconds:.2f}")
+    line("build", all_seconds=f"{time.perf_counter() - t:.2f}")
 
 
 def spd(n, seed):
@@ -379,6 +403,275 @@ def phase_kernel_batched():
     return [records[torch.float64], records[torch.float32]]
 
 
+# ── the Jacobi kernels (csrc/jacobi.cu) ─────────────────────────────────
+JACOBI_KINDS = ("eigh", "eigvalsh", "svd")
+# orders held besides those the paths hand the kernels (jacobi_shapes):
+# the smallest, a warp's edges, two warps; and orders whose matrices exceed
+# a block's shared memory (128: eigh; 200: every kind)
+JACOBI_EDGE_D = (1, 2, 3, 31, 32, 33, 64)
+JACOBI_GLOBAL_D = (128, 200)
+JACOBI_BIG_STACK = 200  # more matrices than SMs
+# (stack, d) timed: the stacks of 64 at d = 10 and 5, larger_sdp's one
+# matrix at 30, the step eigenvalues of two stacked directions at 10, the
+# [ladder] stack at 20
+JACOBI_TIMED = ((64, 10), (64, 5), (1, 30), (128, 10), (64, 20))
+# the shape of each kind's JSON record: the [batch] stacks' (the values-only
+# kind: their stacked step eigenvalues)
+JACOBI_RECORD = {"eigh": (64, 10), "eigvalsh": (128, 10), "svd": (64, 10)}
+# relative to max(1, |A|_F) (|M|_F^2 for the SVD's Gram identity, which is
+# quadratic in M)
+JACOBI_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# Golub and Van Loan's flop counts (Matrix Computations, 4th ed.: the
+# symmetric QR algorithm 9 d^3 with vectors and 4 d^3 / 3 without; the SVD
+# of a square matrix 12 d^3 for sigma and U)
+JACOBI_FLOPS = {"eigh": 9.0, "eigvalsh": 4.0 / 3.0, "svd": 12.0}
+# the reference's decomposition each kind replaces (no Pallas kernel: XLA
+# ran these on the TPU inside the loop)
+JACOBI_REPLACES = {"eigh": "conicip_tpu/cones/algebra.py:111",
+                   "eigvalsh": "conicip_tpu/cones/algebra.py:334",
+                   "svd": "conicip_tpu/cones/scaling.py:160"}
+# every (kind, dtype, d, stack) a kernel was held against its plain version
+# at, the keys of its launch counter, with max |values - plain values|
+JACOBI_HELD = {}
+
+
+def dtname(dt):
+    return str(dt).split(".")[-1]
+
+
+def jacobi_bound_ms(kind, B, d, dtype):
+    """Least time the card could take for the decompositions of B order-d
+    matrices: Golub and Van Loan's count at the dtype's peak rate against the
+    stack read once and the outputs written once. Returns (ms, which)."""
+    ops = B * JACOBI_FLOPS[kind] * d ** 3 / PEAK_FLOPS[dtype]
+    out = d + (0 if kind == "eigvalsh" else d * d)
+    moved = B * (d * d + out) * torch.finfo(dtype).bits / 8 / PEAK_BYTES
+    return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
+
+
+@functools.lru_cache(maxsize=None)
+def jacobi_shapes():
+    """(d, stack) of every S group the S-cone phases solve: k matrices of a
+    group of k cones per instance for the scaling, the KKT build, the
+    corrector and the initial shift, 2 k for the step eigenvalues of two
+    stacked directions; a stack of 64 instances and its sampled instances
+    alone."""
+    from conicip_tpu_torch import models
+    from conicip_tpu_torch.cones.spec import ConeSpec
+
+    problems = [(P.cone_dims, 1) for _, P, _, _, _ in conic_cases()]
+    problems += [(P.cone_dims, 1) for _, P, _ in f32_cases()]
+    problems += [(args[4], BATCH) for _, args, _, _, _ in batch_cases()]
+    problems += [(P.cone_dims, 1) for _, P, _, _, _ in frontend_cases()]
+    problems += [(models.batched_small_sdp(1, k=BACKSTOP_K)[4], BATCH)]
+    problems += [(P.cone_dims, 1) for _, P, _, _, _ in distributed_cases()]
+    shapes = set()
+    for dims, B in problems:
+        for g in ConeSpec(dims).sdp_groups:
+            for b in {1, B}:
+                shapes |= {(g.order, b * g.count), (g.order, 2 * b * g.count)}
+    return shapes
+
+
+def jacobi_input(kind, B, d, dt, seed):
+    """A stack of B random order-d matrices: symmetric (and indefinite) for
+    the eigendecompositions, general for the SVD."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(B, d, d, generator=g, device="cuda", dtype=torch.float64)
+    return (X if kind == "svd" else (X + X.mT) / 2).to(dt).contiguous()
+
+
+def jacobi_run(kind, A, plain=False):
+    """(values, vectors or None) of one kind on the stack A, by the kernel
+    or by its plain version (ops/batched.py: torch.linalg behind the
+    non-finite and per-entry guards)."""
+    from conicip_tpu_torch.ops import batched, jacobi_kernel
+
+    if kind == "eigh":
+        return (batched.eigh_plain if plain else jacobi_kernel.eigh)(A)
+    if kind == "eigvalsh":
+        return (batched.eigvalsh_plain if plain
+                else jacobi_kernel.eigvalsh)(A), None
+    U, sig = (batched.svd_plain if plain else jacobi_kernel.svd)(A)
+    return sig, U
+
+
+def jacobi_library(kind, A):
+    """The one torch.linalg call for the same function (cuSOLVER), a
+    yardstick only: the port never calls it on the card."""
+    if kind == "eigh":
+        return torch.linalg.eigh(A)
+    if kind == "eigvalsh":
+        return torch.linalg.eigvalsh(A)
+    return torch.linalg.svd(A)
+
+
+def hold_jacobi(kind, dt, d, B, A=None, what="random"):
+    """The kernel against its plain version on the stack A (B, d, d),
+    random when None: its values against the plain values, and the
+    identities that do not depend on signs or bases, each relative to
+    max(1, |A|_F): |U diag(w) U^T - A|_F and |U^T U - I|_F, for the SVD
+    |U^T M M^T U - diag(σ^2)|_F over max(1, |M|_F)^2. Returns the worst
+    error over its tolerance."""
+    if A is None:
+        A = jacobi_input(kind, B, d, dt, seed=1000 * d + B)
+    vals, vecs = jacobi_run(kind, A)
+    plain, _ = jacobi_run(kind, A, plain=True)
+    torch.cuda.synchronize()
+    A64, v = A.double(), vals.double()
+    scale = torch.linalg.matrix_norm(A64).clamp_min(1.0)
+    err = {"values": (v - plain.double()).abs().amax(-1) / scale}
+    if vecs is not None:
+        U = vecs.double()
+        eye = torch.eye(d, dtype=torch.float64, device="cuda")
+        err["orth"] = torch.linalg.matrix_norm(U.mT @ U - eye) / scale
+        if kind == "eigh":
+            err["recon"] = torch.linalg.matrix_norm(
+                U @ torch.diag_embed(v) @ U.mT - A64) / scale
+        else:
+            err["gram"] = torch.linalg.matrix_norm(
+                U.mT @ A64 @ A64.mT @ U - torch.diag_embed(v * v)) / scale ** 2
+    err = {k: e.max().item() for k, e in err.items()}
+    tol = JACOBI_TOL[dt]
+    what = f"jacobi {kind} {dtname(dt)} ({B}, {d}, {d}) {what}"
+    check(all(e <= tol for e in err.values()), f"{what}: {err} over {tol:g}")
+    steps = v.diff(dim=-1)
+    check(bool((steps >= 0).all() if kind != "svd" else (steps <= 0).all()),
+          f"{what}: values out of order")
+    if kind == "eigvalsh":
+        # the values-only mode runs eigh's arithmetic on A: the same values
+        check(torch.equal(vals, jacobi_run("eigh", A)[0]),
+              f"{what}: values differ from the eigh mode's")
+    key = (kind, dt, d, B)
+    max_abs = (v - plain.double()).abs().max().item()
+    JACOBI_HELD[key] = max(JACOBI_HELD.get(key, 0.0), max_abs)
+    return max(err.values()) / tol
+
+
+def jacobi_special(dt):
+    """Inputs the solver meets besides random ones, at d = 10 and 30: the
+    identity, a clustered spectrum (three values, repeated: the central
+    path's mat(λ) has such), an indefinite matrix, and for the SVD the
+    ill-conditioned Lz^T Ls of the NT scaling."""
+    f64 = torch.float64
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out = []
+    for d in (10, 30):
+        Q, P = torch.linalg.qr(torch.randn(2, 4, d, d, generator=g,
+                                           device="cuda", dtype=f64))[0]
+        eye = torch.eye(d, device="cuda", dtype=f64).expand(4, d, d)
+        w = torch.tensor([2.0, -0.5, 1.0], device="cuda",
+                         dtype=f64).repeat_interleave(-(-d // 3))[:d]
+        clustered = (Q * w) @ Q.mT
+        X = torch.randn(4, d, d, generator=g, device="cuda", dtype=f64)
+        indefinite = (X + X.mT) / 2 - 2.0 * eye
+
+        def spd(V, kappa):
+            lam = torch.logspace(0, -np.log10(kappa), d, device="cuda",
+                                 dtype=f64)
+            return (V * lam) @ V.mT
+
+        Lz = torch.linalg.cholesky(spd(Q, 1e8))
+        Ls = torch.linalg.cholesky(spd(P, 1e5))
+        for label, A, kinds in (
+                ("identity", eye, JACOBI_KINDS),
+                ("clustered", clustered, JACOBI_KINDS),
+                ("indefinite", indefinite, ("eigh", "eigvalsh")),
+                ("LzT_Ls", Lz.mT @ Ls, ("svd",))):
+            out.append((d, label, A.to(dt).contiguous(), kinds))
+    return out
+
+
+def phase_jacobi():
+    """The Jacobi kernels against their plain versions at every shape the
+    S-cone paths hand them and at edge shapes, their failure semantics, and
+    their times; returns their JSON records by (kind, dtype)."""
+    from conicip_tpu_torch.ops import jacobi_kernel
+
+    f32, f64 = torch.float32, torch.float64
+    on_path = jacobi_shapes()
+    edges = {(d, 3) for d in JACOBI_EDGE_D} | {(d, 2) for d in
+                                              JACOBI_GLOBAL_D}
+    edges.add((10, JACOBI_BIG_STACK))
+    for d, B in sorted(on_path | edges):
+        worst = {}
+        for dt in (f64, f32):
+            for kind in JACOBI_KINDS:
+                worst[f"{kind}_{dtname(dt)}"] = (
+                    f"{hold_jacobi(kind, dt, d, B):.3g}")
+        line("jacobi", d=d, B=B, main_path=(d, B) in on_path,
+             worst_over_tol=",".join(f"{k}:{v}" for k, v in worst.items()))
+    for dt in (f64, f32):
+        for d, label, A, kinds in jacobi_special(dt):
+            worst = {k: hold_jacobi(k, dt, d, A.shape[0], A=A, what=label)
+                     for k in kinds}
+            line("jacobi", case=label, d=d, B=A.shape[0], dtype=dtname(dt),
+                 worst_over_tol=",".join(f"{k}:{v:.3g}"
+                                         for k, v in worst.items()))
+    # a non-finite entry (NaN in one, +inf in another) and an entry at the
+    # sweep limit come back NaN alone; the others as in a clean stack
+    for dt in (f64, f32):
+        for kind in JACOBI_KINDS:
+            A = jacobi_input(kind, 8, 10, dt, seed=13)
+            bad = A.clone()
+            bad[2, 4, 1] = float("nan")
+            bad[5, 0, 7] = float("inf")
+            clean = jacobi_run(kind, A)
+            hurt = jacobi_run(kind, bad)
+            keep = [i for i in range(8) if i not in (2, 5)]
+            for c, h in zip(clean, hurt):
+                if c is None:
+                    continue
+                check(bool(torch.isnan(h[[2, 5]]).all())
+                      and torch.equal(h[keep], c[keep]),
+                      f"jacobi {kind} {dtname(dt)}: a non-finite entry is "
+                      "not NaN alone")
+            D = A[:2].clone()
+            D[0] = torch.diag(torch.arange(10, device="cuda", dtype=dt))
+            limited = jacobi_kernel._launch(kind, D.contiguous(), max_sweeps=1)
+            for out in limited:
+                if out is None:
+                    continue
+                check(bool(torch.isfinite(out[0]).all()
+                           and torch.isnan(out[1]).all()),
+                      f"jacobi {kind} {dtname(dt)}: at the sweep limit")
+            line("jacobi_nan", kind=kind, dtype=dtname(dt), B=8, d=10,
+                 nan_at="2,5", inf_at="5", others="bitwise as a clean stack",
+                 sweep_limit_1="NaN alone (a diagonal entry converges)")
+    records = {}
+    for B, d in JACOBI_TIMED:
+        for kind in JACOBI_KINDS:
+            for dt in (f64, f32):
+                A = jacobi_input(kind, B, d, dt, seed=B + d)
+                reps = 20
+                ms = cuda_ms(lambda: jacobi_run(kind, A), reps)
+                plain = cuda_ms(lambda: jacobi_run(kind, A, plain=True), reps)
+                library = cuda_ms(lambda: jacobi_library(kind, A), reps)
+                bound, bound_by = jacobi_bound_ms(kind, B, d, dt)
+                per_call = "untraced"
+                if (B, d) == JACOBI_RECORD[kind]:
+                    per_call = cuda_launches(lambda: jacobi_run(kind, A), 1)
+                    check(per_call == 1, f"jacobi {kind} {dtname(dt)}: "
+                          f"{per_call} CUDA launches per call")
+                line("jacobi_time", kind=kind, B=B, d=d, dtype=dtname(dt),
+                     kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                     library_ms=f"{library:.4f}", bound_ms=f"{bound:.6f}",
+                     bound_by=bound_by, bound_share=f"{bound / ms:.5f}",
+                     ratio_to_library=f"{ms / library:.3f}",
+                     launches_per_call=per_call, reps=reps)
+                if (B, d) == JACOBI_RECORD[kind]:
+                    records[(kind, dt)] = ({
+                        "name": f"jacobi_{kind}_{'f64' if dt == f64 else 'f32'}",
+                        "route": "cuda",
+                        "source": "conicip_tpu_torch/csrc/jacobi.cu",
+                        "replaces": JACOBI_REPLACES[kind],
+                        "shape": f"({B}, {d}, {d}) {dtname(dt)}",
+                        "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                        "bound_by": bound_by, "library_ms": library})
+    return dict(sorted(records.items(), key=lambda kv: (
+        JACOBI_KINDS.index(kv[0][0]), kv[0][1] == f32)))
+
+
 def solve_timed(args, **kw):
     from conicip_tpu_torch import conic_ip
 
@@ -393,6 +686,17 @@ def launches(dtype=None, n=None):
     from conicip_tpu_torch.ops import cholesky_kernel
 
     return cholesky_kernel.launch_count(dtype, n)
+
+
+def jacobi_launches():
+    """Launches of the Jacobi kernels so far, every kind and dtype."""
+    from conicip_tpu_torch.ops import jacobi_kernel
+
+    return jacobi_kernel.launch_count()
+
+
+def has_sdp(cone_dims):
+    return any(t == "S" for t, _ in cone_dims)
 
 
 def phase_schur():
@@ -524,12 +828,15 @@ def phase_conic():
         backend = "auto" if kkt is None else "schur"
         kw = {} if kkt is None else dict(kktsolver=kkt)
         solve_timed(P.args(), device="cuda", **kw)  # warm-up
-        before = launches()
+        before, jbefore = launches(), jacobi_launches()
         sol, ms = solve_timed(P.args(), device="cuda", **kw)
-        used = launches() - before
+        used, jused = launches() - before, jacobi_launches() - jbefore
         resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
         what = f"{label} {backend}"
         check(sol.status == "Optimal", f"{what}: status {sol.status}")
+        # an S cone's decompositions run the Jacobi kernels, nothing else does
+        check((jused > 0) == has_sdp(P.cone_dims),
+              f"{what}: {jused} Jacobi launches")
         check(resid < 1e-6, f"{what}: residual {resid:.3e}")
         check(all(t.device.type == "cuda" for t in (sol.y, sol.w, sol.v)),
               f"{what}: result tensors are not on cuda")
@@ -548,6 +855,7 @@ def phase_conic():
             extra = dict(cpu_iter=ref.Iter, y_diff=f"{dy:.3e}")
         line("conic", instance=label, backend=backend, status=sol.status,
              Iter=sol.Iter, resid=f"{resid:.3e}", launches=used,
+             jacobi_launches=jused,
              ms_per_solve=f"{ms:.2f}", ms_per_iter=f"{ms / sol.Iter:.3f}",
              **extra)
 
@@ -1033,9 +1341,13 @@ def phase_batch():
         f32 = "factor_dtype" in kw
         timed_batch(args, **kw)  # warm-up
         before = Counter(cholesky_kernel.cholesky_launches)
+        jbefore = jacobi_launches()
         out, ms = timed_batch(args, **kw)
+        jused = jacobi_launches() - jbefore
         runs = list(pbatch.runs)
         got, singles = launched_since(before)
+        check((jused > 0) == has_sdp(args[4]),
+              f"{label}: {jused} Jacobi launches")
         want = expected_batched_launches(runs, orders)
         _, ms2 = timed_batch(args, **kw)
         resid = torch.maximum(out.prFeas, torch.maximum(
@@ -1103,6 +1415,7 @@ def phase_batch():
                  f"{str(dt).split('.')[-1]}@{k}:{v}"
                  for (dt, k), v in sorted(got.items(), key=str)) or "none",
              kkt_builds=sum(want.values()), ridge_retries=retries,
+             jacobi_launches=jused,
              sampled_iter_batch_single=",".join(pairs),
              ms_per_batch=f"{(ms + ms2) / 2:.2f}",
              ms_64_single_solves=f"{8 * t_single:.2f}",
@@ -1309,9 +1622,11 @@ def phase_frontend():
         solve_timed(P.args(), device="cuda", **options)  # warm-up
         # one frontend call between the direct ones: its host rank
         # detection takes seconds at n = 1024, so it is not repeated
-        before = launches()
+        before, jbefore = launches(), jacobi_launches()
         got = through_frontend(route, P, options)  # on the card by default
-        used = launches() - before
+        used, jused = launches() - before, jacobi_launches() - jbefore
+        check((jused > 0) == has_sdp(P.cone_dims),
+              f"{what}: {jused} Jacobi launches")
         direct, d1 = solve_timed(P.args(), device="cuda", **options)
         _, d2 = solve_timed(P.args(), device="cuda", **options)
         cpu = through_frontend(route, P, options, device="cpu")
@@ -1358,6 +1673,7 @@ def phase_frontend():
         solve_ms, build_ms = got["solve_ms"], got["build_ms"]
         line("frontend", call=route, instance=repr(label), status=sol.status,
              Iter=sol.Iter, cpu_iter=cpu["sol"].Iter, launches=used,
+             jacobi_launches=jused,
              obj_diff_direct=f"{diffs['direct'][0]:.3e}",
              primal_diff_direct=f"{diffs['direct'][1]:.3e}",
              dual_diff_direct=f"{diffs['direct'][2]:.3e}",
@@ -1737,8 +2053,9 @@ def phase_distributed():
     distributed_cases() against the port's single-device Schur solve with 0
     correctors (and its CPU solve where it is small), solve_batch over a
     mesh against the unsharded stack; (b) two ranks sharing the card (gloo),
-    this script run with --distributed-rank. Returns the kernel launches the
-    two ranks made, which main() counts as this phase's."""
+    this script run with --distributed-rank. Returns the Cholesky and the
+    Jacobi launches the two ranks made, which main() counts as this
+    phase's."""
     import torch.distributed as dist
 
     from conicip_tpu_torch import make_mesh, models, solve_batch
@@ -1861,13 +2178,15 @@ def pair_of_ranks(one):
               f"{world.timed_out}):\n" + "\n".join(world.err))
         got = [torch.load(os.path.join(out, f"rank{k}.pt"))
                for k in range(DIST_RANKS)]
-    ranks = Counter()
+    ranks, ranks_jacobi = Counter(), Counter()
     for k, text in enumerate(world.out):
         rec = json.loads(next(s for s in text.splitlines()
                               if s.startswith('{"rank_launches"')))
         for dt, n, B, count in rec["rank_launches"]:
             key = (getattr(torch, dt), n) + ((B,) if B else ())
             ranks[key] += count
+        for kind, dt, d, B, count in rec["rank_jacobi_launches"]:
+            ranks_jacobi[(kind, getattr(torch, dt), d, B)] += count
         line("distributed", world=DIST_RANKS, rank=k,
              launches=",".join(f"{dt}@{n}" + (f"x{B}" if B else "")
                                + f":{c}" for dt, n, B, c in
@@ -1909,7 +2228,7 @@ def pair_of_ranks(one):
     line("distributed", world=DIST_RANKS, backend="gloo",
          collectives="all_reduce,reduce_scatter,all_gather,broadcast",
          on="CUDA tensors", staged="none", world_seconds=f"{seconds:.1f}")
-    return ranks
+    return ranks, ranks_jacobi
 
 
 def distributed_rank(rank, init, out):
@@ -1919,7 +2238,7 @@ def distributed_rank(rank, init, out):
     import torch.distributed as dist
 
     from conicip_tpu_torch import make_mesh, models
-    from conicip_tpu_torch.ops import cholesky_kernel
+    from conicip_tpu_torch.ops import cholesky_kernel, jacobi_kernel
     from conicip_tpu_torch.parallel.mesh import start_rank
 
     start_rank(rank, DIST_RANKS, init, "cuda")
@@ -1946,7 +2265,9 @@ def distributed_rank(rank, init, out):
     print(json.dumps({"rank_launches": [
         [str(k[0]).split(".")[-1], k[1], k[2] if len(k) == 3 else None, c]
         for k, c in sorted(cholesky_kernel.cholesky_launches.items(),
-                           key=str)]}), flush=True)
+                           key=str)], "rank_jacobi_launches": [
+        [kind, dtname(dt), d, B, c] for (kind, dt, d, B), c in sorted(
+            jacobi_kernel.jacobi_launches.items(), key=str)]}), flush=True)
 
 
 def main():
@@ -1968,22 +2289,32 @@ def main():
     phase_environment()
     phase_build()
     single, batched64, batched32 = phase_kernel()
+    jacobi = phase_jacobi()
 
-    from conicip_tpu_torch.ops import cholesky_kernel
+    from conicip_tpu_torch.ops import cholesky_kernel, jacobi_kernel
 
-    # each path of the main run is driven with the count at 0 and read
-    # just after; the comparison launches of phase_kernel do not count
+    # each path of the main run is driven with the counts at 0 and read
+    # just after; the comparison launches of the kernel phases do not count
     f32, f64 = torch.float32, torch.float64
     single.update(launches=0, launches_f64=0, launches_f32=0)
     batched64["launches"] = batched32["launches"] = 0
-    launched = set()  # the counter's keys: every shape a path gave an entry
+    for rec in jacobi.values():
+        rec["launches"] = 0
+    launched = set()  # the counters' keys: every shape a path gave an entry
+    jacobi_launched = set()
+    # the phases that solve S-cone problems, whose decompositions are the
+    # Jacobi kernels' (and no other phase's)
+    s_cone = (phase_conic, phase_f32, phase_batch, phase_frontend,
+              phase_ladder, phase_distributed)
     for phase in (phase_schur, phase_diag, phase_conic, phase_f32, phase_eq,
                   phase_backends, phase_batch, phase_checkpoint,
                   phase_frontend, phase_ladder, phase_distributed):
         cholesky_kernel.reset_launch_count()
+        jacobi_kernel.reset_launch_count()
         # launches of the ranks a phase spawned, counted by their wrappers
-        ranks = phase() or Counter()
+        ranks, ranks_jacobi = phase() or (Counter(), Counter())
         counts = cholesky_kernel.cholesky_launches + ranks
+        jcounts = jacobi_kernel.jacobi_launches + ranks_jacobi
         used = sum(counts.values())
         used32 = sum(c for k, c in counts.items() if k[0] == f32)
         stacked = {dt: sum(c for k, c in counts.items()
@@ -1998,15 +2329,27 @@ def main():
               == (phase in (phase_batch, phase_checkpoint, phase_ladder,
                             phase_distributed)),
               f"{phase.__name__}: {stacked} launches of the batched entries")
+        by_kind = Counter()
+        for (kind, dt, _, _), c in jcounts.items():
+            by_kind[kind] += c
+            jacobi[(kind, dt)]["launches"] += c
+        if phase in s_cone:
+            check(by_kind["svd"] > 0 and by_kind["eigh"] + by_kind["eigvalsh"] > 0,
+                  f"{phase.__name__}: Jacobi launches {dict(by_kind)}")
+        else:
+            check(not jcounts, f"{phase.__name__} solves no S cone but "
+                  f"launched the Jacobi kernels {dict(by_kind)}")
         line("launches", of=phase.__name__, f64=used - used32, f32=used32,
-             batched_f64=stacked[f64], batched_f32=stacked[f32])
+             batched_f64=stacked[f64], batched_f32=stacked[f32],
+             jacobi=",".join(f"{k}:{by_kind[k]}" for k in JACOBI_KINDS))
         single["launches"] += used - sum(stacked.values())
         single["launches_f64"] += used - used32 - stacked[f64]
         single["launches_f32"] += used32 - stacked[f32]
         batched64["launches"] += stacked[f64]
         batched32["launches"] += stacked[f32]
         launched |= set(counts)
-    for rec in (single, batched64, batched32):
+        jacobi_launched |= set(jcounts)
+    for rec in (single, batched64, batched32, *jacobi.values()):
         check(rec["launches"] > 0, f"{rec['name']} was never launched on "
               "the main paths")
     # a shape the paths gave the kernel that the kernel phase did not
@@ -2018,12 +2361,20 @@ def main():
             hold_batched(B[0], n, dt, True, traced=False)
         else:
             hold_single(n, dt, True)
+    for kind, dt, d, B in sorted(jacobi_launched - set(JACOBI_HELD), key=str):
+        worst = hold_jacobi(kind, dt, d, B)
+        line("jacobi", d=d, B=B, kind=kind, dtype=dtname(dt), main_path=True,
+             foreseen=False, worst_over_tol=f"{worst:.3g}")
     for rec, dt, batched in ((single, f64, False), (batched64, f64, True),
                              (batched32, f32, True)):
         rec["max_abs_err"] = max(err for key, err in HELD.items() if
                                  key[0] == dt and (len(key) == 3) == batched)
+    for (kind, dt), rec in jacobi.items():
+        rec["max_abs_err"] = max(err for key, err in JACOBI_HELD.items()
+                                 if key[:2] == (kind, dt))
 
-    print(json.dumps({"kernels": [single, batched64, batched32]}), flush=True)
+    print(json.dumps({"kernels": [single, batched64, batched32,
+                                  *jacobi.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

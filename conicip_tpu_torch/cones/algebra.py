@@ -15,9 +15,9 @@ order) is processed by one batched expression:
   ``max(clip(λ, lo, hi) - λ, -hi)`` on the spectral values λ of w
 
 R is elementwise, Q takes the arrow-matrix closed forms, S the batched
-``torch.linalg`` decompositions of ``ops/batched.py`` (NaN, never an
-exception, on a bad batch entry). No function reads a value back to the
-host. All take ``(..., m)`` tensors, the last axis the cone axis and any
+decompositions of ``ops/batched.py`` (the Jacobi kernels on the card,
+``torch.linalg`` on the CPU; NaN, never an exception, on a bad batch
+entry). No function reads a value back to the host. All take ``(..., m)`` tensors, the last axis the cone axis and any
 leading dims a stack of instances, and return tensors on their device: a
 step length or shift has the leading dims' shape, and no reduction crosses
 them.

@@ -3,15 +3,25 @@
 The S-cone code factors and decomposes stacks of d x d matrices. In the JAX
 package ``jnp.linalg.cholesky``, ``eigh`` and ``svd`` return NaN for a
 batch entry they cannot handle, and the IPM reads that NaN on the device
-(its non-finite guard). ``torch.linalg.cholesky`` raises instead, and
-``eigh``/``svd`` may raise on non-finite input. These wrappers keep the
-JAX behaviour: before a decomposition every non-finite batch entry is
-replaced by the identity and its results are NaN-filled afterwards; and
-when the library gives up on a finite entry (an iteration that does not
-converge raises for the whole stack), the stack is halved until the entry
-stands alone and is NaN-filled, so one instance of a stack cannot take
-down the rest. (The batched Cholesky is ``ops.cholesky_kernel.cholesky_plain``: ``cholesky_ex``
-without its check, NaN-filled where it fails.)
+(its non-finite guard). :func:`safe_eigh`, :func:`safe_eigvalsh` and
+:func:`safe_svd` keep that behaviour on two routes, chosen by the device
+of the tensor they are given:
+
+- on the card, the hand-written Jacobi kernels of ``ops/jacobi_kernel.py``
+  (``csrc/jacobi.cu``), one launch per stack: an entry that is not finite
+  or does not converge comes back NaN from the kernel itself, nothing is
+  read back to the host and nothing raises. A tensor the kernels do not
+  take (another dtype, not square) raises; there is no other route.
+- on the CPU, the plain versions :func:`eigh_plain`, :func:`eigvalsh_plain`
+  and :func:`svd_plain` (``torch.linalg``): before a decomposition every
+  non-finite batch entry is replaced by the identity and its results are
+  NaN-filled afterwards; and when the library gives up on a finite entry
+  (an iteration that does not converge raises for the whole stack), the
+  stack is halved until the entry stands alone and is NaN-filled, so one
+  instance of a stack cannot take down the rest.
+
+(The batched Cholesky is ``ops.cholesky_kernel.cholesky_plain``:
+``cholesky_ex`` without its check, NaN-filled where it fails.)
 
 The second half are the products and reductions of the solve path written
 for an optional stack of instances: vectors are (..., n), matrices
@@ -24,8 +34,11 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["nan_where_bad", "safe_eigh", "safe_eigvalsh", "safe_svd", "mv",
-           "dot", "trace", "sum_all", "col", "bcast"]
+from . import jacobi_kernel
+
+__all__ = ["nan_where_bad", "safe_eigh", "safe_eigvalsh", "safe_svd",
+           "eigh_plain", "eigvalsh_plain", "svd_plain", "mv", "dot", "trace",
+           "sum_all", "col", "bcast"]
 
 
 def mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -99,25 +112,46 @@ def _per_entry(op, A: torch.Tensor):
     return tuple(o.reshape(A.shape[:-2] + o.shape[1:]) for o in outs)
 
 
-def safe_eigh(A: torch.Tensor):
-    """``(w, U)`` of symmetric (..., d, d), ascending; NaN where A is not
-    finite or the decomposition fails."""
+def eigh_plain(A: torch.Tensor):
+    """Plain version of :func:`safe_eigh` (``torch.linalg.eigh``)."""
     bad, A = _finite_or_identity(A)
     w, U = _per_entry(lambda X: tuple(torch.linalg.eigh(X)), A)
     return nan_where_bad(bad, w), nan_where_bad(bad, U)
 
 
-def safe_eigvalsh(A: torch.Tensor) -> torch.Tensor:
-    """Eigenvalues of symmetric (..., d, d), ascending; NaN where A is not
-    finite or the decomposition fails."""
+def eigvalsh_plain(A: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`safe_eigvalsh` (``torch.linalg.eigvalsh``)."""
     bad, A = _finite_or_identity(A)
     (w,) = _per_entry(lambda X: (torch.linalg.eigvalsh(X),), A)
     return nan_where_bad(bad, w)
 
 
-def safe_svd(A: torch.Tensor):
-    """``(U, σ)`` of (..., d, d), σ descending; NaN where A is not finite or
-    the decomposition fails."""
+def svd_plain(A: torch.Tensor):
+    """Plain version of :func:`safe_svd` (``torch.linalg.svd``)."""
     bad, A = _finite_or_identity(A)
     U, sig = _per_entry(lambda X: torch.linalg.svd(X)[:2], A)
     return nan_where_bad(bad, U), nan_where_bad(bad, sig)
+
+
+def safe_eigh(A: torch.Tensor):
+    """``(w, U)`` of symmetric (..., d, d), ascending; NaN where A is not
+    finite or the decomposition fails."""
+    if A.device.type == "cpu":
+        return eigh_plain(A)
+    return jacobi_kernel.eigh(A.contiguous())
+
+
+def safe_eigvalsh(A: torch.Tensor) -> torch.Tensor:
+    """Eigenvalues of symmetric (..., d, d), ascending; NaN where A is not
+    finite or the decomposition fails."""
+    if A.device.type == "cpu":
+        return eigvalsh_plain(A)
+    return jacobi_kernel.eigvalsh(A.contiguous())
+
+
+def safe_svd(A: torch.Tensor):
+    """``(U, σ)`` of (..., d, d), σ descending; NaN where A is not finite or
+    the decomposition fails."""
+    if A.device.type == "cpu":
+        return svd_plain(A)
+    return jacobi_kernel.svd(A.contiguous())

@@ -10,9 +10,11 @@ already on the card, once to warm up and once under ``torch.profiler``, and
 prints one line each for: the solve (wall time, device busy time as the
 union of kernel and copy intervals, iterations, kernel launches and
 elementwise launches per iteration, device-to-host copies per iteration,
-launches of the Cholesky kernel's f64 and f32 entries), the Cholesky kernel
-split into its diagonal-block, panel and trailing kernels, and the other
-device operations by total time.
+launches of the Cholesky kernel's f64 and f32 entries and of the Jacobi
+kernels by kind, and the count of cuSOLVER eigen- or singular-value kernels,
+which an S-cone solve no longer runs), the Cholesky kernel split into its
+diagonal-block, panel and trailing kernels, the Jacobi kernels' device time,
+and the other device operations by total time.
 ``--factor-dtype float32`` profiles the f32-factor solve (mixed residuals,
 last-mile switch, ladder) in place of the full-precision default.
 ``--batch B`` profiles one ``solve_batch`` of a stack of B instances of the
@@ -37,7 +39,7 @@ import torch
 
 from . import conic_ip, solve_batch
 from . import models
-from .ops import cholesky_kernel
+from .ops import cholesky_kernel, jacobi_kernel
 
 # problem families, made at size n where they take one
 FAMILIES = {
@@ -60,6 +62,10 @@ BATCH_FAMILIES = {
 # the Cholesky kernel's parts, by kernel name (csrc/cholesky.cu)
 CHOLESKY_PARTS = ("copy_lower", "factor_diag", "panel_product",
                   "trailing_update")
+# the Jacobi kernels, by kernel name (csrc/jacobi.cu)
+JACOBI_PARTS = ("eigh_jacobi", "svd_jacobi")
+# pieces of the names of cuSOLVER's eigen- and singular-value kernels
+CUSOLVER_EIG_SVD = ("syevj", "syevd", "sytrd", "gesvdj", "batched_svd")
 
 
 def _busy_us(events):
@@ -74,10 +80,14 @@ def _busy_us(events):
 
 
 def _kernel_name(name):
-    for part in CHOLESKY_PARTS:
+    for part in CHOLESKY_PARTS + JACOBI_PARTS:
         if f"{part}<" in name:
             return part
     return name.split("(")[0][:60]
+
+
+def _is_cusolver_eig_svd(name):
+    return any(piece in name for piece in CUSOLVER_EIG_SVD)
 
 
 # --factor-dtype: the keyword conic_ip gets ("auto" is full precision)
@@ -135,6 +145,7 @@ def main(argv=None):
     solve()  # warm-up, builds
     torch.cuda.synchronize()
     cholesky_kernel.reset_launch_count()
+    jacobi_kernel.reset_launch_count()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -156,6 +167,7 @@ def main(argv=None):
     kernels = [e for e in device if e["cat"] == "kernel"]
     elementwise = sum(1 for e in kernels if "elementwise" in e["name"])
     dtoh = sum(1 for e in device if "DtoH" in e["name"])
+    cusolver = sum(1 for e in kernels if _is_cusolver_eig_svd(e["name"]))
     if args.batch:
         counts = {}
         for st in sol.statuses:
@@ -176,13 +188,20 @@ def main(argv=None):
           f"cholesky_f64={cholesky_kernel.launch_count(torch.float64)} "
           f"cholesky_f32={cholesky_kernel.launch_count(torch.float32)} "
           f"cholesky_batched={cholesky_kernel.launch_count(batch=True)} "
+          + "".join(f"jacobi_{k}={jacobi_kernel.launch_count(k)} "
+                    for k in jacobi_kernel.KINDS)
+          + f"cusolver_eig_svd_kernels={cusolver} "
           f"device={torch.cuda.get_device_name(0)!r}")
     chol = [e for e in device if _kernel_name(e["name"]) in CHOLESKY_PARTS]
     print(f"[cholesky] busy_ms={_busy_us(chol) / 1e3:.2f} " + " ".join(
         f"{p}_ms={by_name[p][0] / 1e3:.2f}/{by_name[p][1]}"
         for p in CHOLESKY_PARTS))
+    jac = [e for e in device if _kernel_name(e["name"]) in JACOBI_PARTS]
+    print(f"[jacobi] busy_ms={_busy_us(jac) / 1e3:.2f} " + " ".join(
+        f"{p}_ms={by_name[p][0] / 1e3:.2f}/{by_name[p][1]}"
+        for p in JACOBI_PARTS))
     others = sorted(((v[0], k, v[1]) for k, v in by_name.items()
-                     if k not in CHOLESKY_PARTS), reverse=True)
+                     if k not in CHOLESKY_PARTS + JACOBI_PARTS), reverse=True)
     for us, name, count in others[:10]:
         print(f"[op] ms={us / 1e3:.2f} calls={count} name={name!r}")
     return 0

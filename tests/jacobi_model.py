@@ -1,0 +1,154 @@
+"""The Jacobi kernels' arithmetic (conicip_tpu_torch/csrc/jacobi.cu) in numpy.
+
+Step for step as the kernels do it, one matrix at a time and in double
+whatever the input's type (the f32 entries read and write f32): the
+power-of-two scaling, the circle ordering of the pairs, Rutishauser's
+rotation, the row update, the column update and the exact 2 x 2 block of
+each round, the convergence tests, the sweep limit and the sort (stable:
+ties by index).
+Only the order of the sums in the reductions differs, so a result may
+differ from the kernel's in the last bits and, at a convergence test that
+lands on its threshold, by one sweep. Change both together.
+
+It imports no JAX: tests/test_torch_jacobi.py holds it against LAPACK and
+the JAX package, tests/test_torch_cuda.py holds the kernels against it.
+"""
+
+import numpy as np
+
+MAX_SWEEPS = 40  # as conicip_tpu_torch.ops.jacobi_kernel.MAX_SWEEPS
+
+
+def pairs(r, n):
+    """Pairs (p < q) of round r of the circle ordering of n (even) indices:
+    index n - 1 stays, the others turn."""
+    k = np.arange(n // 2)
+    a = np.where(k == 0, n - 1, (r + k) % (n - 1))
+    b = np.where(k == 0, r, (r - k + (n - 1)) % (n - 1))
+    return np.minimum(a, b), np.maximum(a, b)
+
+
+def rotation(app, apq, aqq):
+    """(c, s, t) zeroing [[app, apq], [apq, aqq]], elementwise; s = 0 where
+    apq = 0."""
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        theta = (aqq - app) / (2 * apq)
+        t = np.where(theta >= 0, 1.0, -1.0) / (np.abs(theta)
+                                               + np.hypot(theta, 1.0))
+    t = np.where(apq != 0, t, 0.0)
+    c = 1 / np.sqrt(1 + t * t)
+    return c, t * c, t
+
+
+def _scaled(X):
+    """X in double, scaled by 2^-e to a largest entry in [1/2, 1), and e."""
+    X = X.astype(np.float64)
+    big = np.abs(X).max()
+    e = int(np.frexp(big)[1]) if big > 0 else 0
+    return np.ldexp(X, -e), e
+
+
+def _rotate_columns(X, p, q, c, s):
+    x, y = X[:, p].copy(), X[:, q].copy()
+    X[:, p] = x * c - y * s
+    X[:, q] = x * s + y * c
+
+
+def eigh_one(X, vectors=True, max_sweeps=MAX_SWEEPS):
+    """(w ascending, U or None) of the symmetric matrix whose lower
+    triangle X holds; NaN where X is not finite or at the sweep limit."""
+    d, dt = X.shape[-1], X.dtype
+    nan = (np.full(d, np.nan, dt), np.full((d, d), np.nan, dt) if vectors
+           else None)
+    if not np.isfinite(X).all():
+        return nan
+    A, e = _scaled(np.tril(X) + np.tril(X, -1).T)
+    U = np.eye(d)
+    eps = np.finfo(np.float64).eps
+    tol2 = eps * eps * np.sum(A * A)
+    n = d + (d & 1)
+    off_diag = ~np.eye(d, dtype=bool)
+    sweep = 0
+    while np.sum(A[off_diag] ** 2) > tol2:
+        if sweep == max_sweeps:
+            return nan
+        for r in range(n - 1):
+            p, q = pairs(r, n)
+            p, q = p[q < d], q[q < d]
+            apq, app, aqq = A[p, q], A[p, p], A[q, q]
+            c, s, t = rotation(app, apq, aqq)
+            on = s != 0
+            p, q, c, s, t = p[on], q[on], c[on], s[on], t[on]
+            new_p, new_q = app[on] - t * apq[on], aqq[on] + t * apq[on]
+            x, y = A[p, :].copy(), A[q, :].copy()
+            A[p, :] = c[:, None] * x - s[:, None] * y
+            A[q, :] = s[:, None] * x + c[:, None] * y
+            _rotate_columns(A, p, q, c, s)
+            if vectors:
+                _rotate_columns(U, p, q, c, s)
+            A[p, p], A[q, q], A[p, q], A[q, p] = new_p, new_q, 0, 0
+        sweep += 1
+    w = np.diag(A).copy()
+    order = np.argsort(w, kind="stable")
+    return (np.ldexp(w[order], e).astype(dt),
+            U[:, order].astype(dt) if vectors else None)
+
+
+def svd_one(X, max_sweeps=MAX_SWEEPS):
+    """(U, σ descending) of the square X by one-sided Jacobi on its
+    columns; NaN where X is not finite or at the sweep limit."""
+    d, dt = X.shape[-1], X.dtype
+    nan = (np.full((d, d), np.nan, dt), np.full(d, np.nan, dt))
+    if not np.isfinite(X).all():
+        return nan
+    W, e = _scaled(X)
+    tol = d * np.finfo(np.float64).eps
+    n = d + (d & 1)
+    for _ in range(max_sweeps):
+        rotated = False
+        for r in range(n - 1):
+            p, q = pairs(r, n)
+            p, q = p[q < d], q[q < d]
+            a = np.sum(W[:, p] * W[:, p], axis=0)
+            b = np.sum(W[:, q] * W[:, q], axis=0)
+            g = np.sum(W[:, p] * W[:, q], axis=0)
+            c, s, _ = rotation(a, g, b)
+            need = np.abs(g) > tol * np.sqrt(a) * np.sqrt(b)
+            on = need & (s != 0)
+            rotated |= bool(on.any())
+            _rotate_columns(W, p[on], q[on], c[on], s[on])
+        if not rotated:
+            break
+    else:
+        return nan
+    sig = np.sqrt(np.sum(W * W, axis=0))
+    order = np.argsort(-sig, kind="stable")
+    with np.errstate(divide="ignore", invalid="ignore"):
+        U = np.where(sig > 0, W / sig, 0.0)
+    return U[:, order].astype(dt), np.ldexp(sig[order], e).astype(dt)
+
+
+def _stacked(one, X, *outs):
+    """Apply ``one`` to every matrix of the stack X (..., d, d)."""
+    X = np.asarray(X)
+    flat = X.reshape((-1,) + X.shape[-2:])
+    res = [one(M) for M in flat]
+    return tuple(None if res[0][i] is None else
+                 np.stack([r[i] for r in res]).reshape(X.shape[:-2] + shape)
+                 for i, shape in enumerate(outs))
+
+
+def eigh(X, max_sweeps=MAX_SWEEPS):
+    d = X.shape[-1]
+    return _stacked(lambda M: eigh_one(M, True, max_sweeps), X, (d,), (d, d))
+
+
+def eigvalsh(X, max_sweeps=MAX_SWEEPS):
+    d = X.shape[-1]
+    return _stacked(lambda M: eigh_one(M, False, max_sweeps), X, (d,),
+                    (d, d))[0]
+
+
+def svd(X, max_sweeps=MAX_SWEEPS):
+    d = X.shape[-1]
+    return _stacked(lambda M: svd_one(M, max_sweeps), X, (d, d), (d,))

@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+import jacobi_model
 from conicip_tpu_torch import conic_ip
 from conicip_tpu_torch.models import box_qp_dense, single_soc, small_sdp
-from conicip_tpu_torch.ops import cholesky_kernel
+from conicip_tpu_torch.ops import batched, cholesky_kernel, jacobi_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -190,13 +191,85 @@ def test_conic_families_on_card_match_cpu(cuda, family):
     # small_sdp the spectral backend (no factorization at all)
     P = single_soc(n=200) if family == "single_soc" else small_sdp(k=10)
     before = cholesky_kernel.launch_count()
+    jbefore = jacobi_kernel.launch_count()
     sol = conic_ip(*P.args(), device=cuda)
     used = cholesky_kernel.launch_count() - before
+    jused = jacobi_kernel.launch_count() - jbefore
     ref = conic_ip(*P.args(), device="cpu")
     assert sol.status == ref.status == "Optimal"
     assert sol.Iter == ref.Iter
     assert (used >= sol.Iter) if family == "single_soc" else (used == 0)
+    # the S cone's decompositions run the Jacobi kernels: an SVD per
+    # scaling, so one at least per iteration
+    assert (jused >= sol.Iter) if family == "small_sdp" else (jused == 0)
     assert (sol.y.cpu() - ref.y).abs().max().item() <= 1e-6
+
+
+def _invariants(A, w, U, svd):
+    """Errors that do not depend on signs or bases, relative to max(1,
+    |A|_F) (|A|_F^2 for the SVD's Gram identity)."""
+    A, w, U = A.double(), w.double(), U.double()
+    s = torch.linalg.matrix_norm(A).clamp_min(1.0)
+    eye = torch.eye(A.shape[-1], dtype=torch.float64, device=A.device)
+    if svd:
+        G = U.mT @ A @ A.mT @ U - torch.diag_embed(w * w)
+        first = torch.linalg.matrix_norm(G) / (s * s)
+    else:
+        first = torch.linalg.matrix_norm(U @ torch.diag_embed(w) @ U.mT - A) / s
+    return max(first.max().item(),
+               (torch.linalg.matrix_norm(U.mT @ U - eye) / s).max().item())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B, d", [(64, 10), (3, 33)])
+def test_jacobi_kernels_match_model_and_library(cuda, dtype, B, d):
+    # the model (tests/jacobi_model.py) does the kernels' arithmetic in
+    # another summation order: values and vectors agree to a few hundred
+    # units of rounding of the working type, at most a sweep apart; the
+    # library (cuSOLVER) and the identities to 1e-12 / 1e-5 of max(1, |A|_F)
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    near = 1e-10 if dt == torch.float64 else 1e-5
+    rng = np.random.default_rng(B + d)
+    X = rng.standard_normal((B, d, d))
+    S = ((X + X.swapaxes(-1, -2)) / 2).astype(dtype)
+    M = X.astype(dtype)
+    A, Mt = (torch.from_numpy(a).to(cuda) for a in (S, M))
+    scale = torch.linalg.matrix_norm(A.double()).clamp_min(1.0)[:, None]
+
+    before = jacobi_kernel.launch_count("eigh", dt, d)
+    w, U = jacobi_kernel.eigh(A)
+    assert jacobi_kernel.launch_count("eigh", dt, d) == before + 1
+    assert jacobi_kernel.jacobi_launches[("eigh", dt, d, B)] >= 1
+    wm, Um = jacobi_model.eigh(S)
+    assert np.abs(w.cpu().numpy() - wm).max() <= near * np.sqrt(d)
+    assert np.abs(np.abs(U.cpu().numpy()) - np.abs(Um)).max() <= near * 1e3
+    wl = torch.linalg.eigvalsh(A)
+    assert ((w - wl).abs().double() / scale).max().item() <= tol
+    assert _invariants(A, w, U, svd=False) <= tol
+    assert torch.equal(jacobi_kernel.eigvalsh(A), w)
+
+    Us, sig = jacobi_kernel.svd(Mt)
+    Um, sm = jacobi_model.svd(M)
+    assert np.abs(sig.cpu().numpy() - sm).max() <= near * np.sqrt(d)
+    sl = torch.linalg.svdvals(Mt)
+    ms = torch.linalg.matrix_norm(Mt.double()).clamp_min(1.0)[:, None]
+    assert ((sig - sl).abs().double() / ms).max().item() <= tol
+    assert _invariants(Mt, sig, Us, svd=True) <= tol
+
+
+def test_jacobi_nan_stays_in_its_entry_and_nothing_is_read_back(cuda):
+    A = torch.eye(6, device=cuda, dtype=torch.float64).repeat(5, 1, 1)
+    A[2, 3, 1] = float("nan")
+    w, U = batched.safe_eigh(A)
+    Us, sig = batched.safe_svd(A)
+    for out in (w, U, Us, sig, batched.safe_eigvalsh(A)):
+        assert torch.isnan(out[2]).all()
+        assert torch.isfinite(out[[0, 1, 3, 4]]).all()
+    with pytest.raises(TypeError):
+        batched.safe_eigh(A.half())
+    with pytest.raises(ValueError):
+        jacobi_kernel.svd(A[:, :, :4])
 
 
 def test_f32_factors_on_card_run_the_f32_entry(cuda):

@@ -35,6 +35,21 @@ def test_kernel_names_group_by_cholesky_part():
     assert trace._kernel_name(other) == other.split("(")[0]
 
 
+def test_kernel_names_group_the_jacobi_kernels_and_spot_cusolver():
+    assert trace._kernel_name(
+        "void (anonymous namespace)::eigh_jacobi<float>(float const*, "
+        "float*, float*, double*, int, int, int)") == "eigh_jacobi"
+    assert trace._kernel_name(
+        "void (anonymous namespace)::svd_jacobi<double>(double const*, "
+        "double*, double*, double*, int, int, int)") == "svd_jacobi"
+    for name in ("void syevj_batch_parallel_jacobi_kernel<double>(int)",
+                 "void batched_svd_parallel_jacobi_32x16<double, double>()",
+                 "void sytrd_lower_kernel<float>(int)"):
+        assert trace._is_cusolver_eig_svd(name)
+    assert not trace._is_cusolver_eig_svd(
+        "void (anonymous namespace)::eigh_jacobi<double>(double const*)")
+
+
 def test_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the profile would run")
