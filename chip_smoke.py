@@ -10,7 +10,9 @@ theirs at every (d, stack) the S-cone phases hand them (``jacobi_shapes()``)
 and at edge shapes (d = 1-64, d = 128 and 200 on the device-memory route, a
 stack of 200, the identity, a clustered spectrum, an indefinite matrix, an
 ill-conditioned Lzᵀ Ls, NaN and Inf entries, the sweep limit), and times
-them beside cuSOLVER; then it drives ``conicip_tpu_torch.conic_ip`` through
+them beside cuSOLVER on random stacks and on the first stack of each kind
+that one larger_sdp(k=30) solve and one batched_small_sdp(64) solve hand
+them; then it drives ``conicip_tpu_torch.conic_ip`` through
 every default KKT backend (dense Schur, diagonal, spectral) on R, Q and S
 cone problems at the sizes the repository benchmarks, and checks the
 answers. Three further phases drive the options around the default path:
@@ -35,7 +37,8 @@ with ``--distributed-rank``, solve three of those problems together and a
 stack split between them. Every phase that solves an S cone must launch the
 Jacobi kernels and no other phase may (their counter,
 ``ops.jacobi_kernel.jacobi_launches``, keyed by (kind, dtype, d, stack), is
-read per phase like the Cholesky's). Every phase prints one line per case;
+read per phase like the Cholesky's, and ``[jacobi_launches]`` prints the
+main path's launches per key). Every phase prints one line per case;
 any failed check raises, so the script exits non-zero. It imports nothing
 of JAX.
 
@@ -433,6 +436,9 @@ JACOBI_REPLACES = {"eigh": "conicip_tpu/cones/algebra.py:111",
 # every (kind, dtype, d, stack) a kernel was held against its plain version
 # at, the keys of its launch counter, with max |values - plain values|
 JACOBI_HELD = {}
+# the solves whose first stack of each kind [jacobi_time] times beside the
+# random stacks: larger_sdp's one 30 x 30 matrix and the [batch] stack of 64
+JACOBI_PATH_SOLVES = ("larger_sdp(k=30)", "batched_small_sdp(64)")
 
 
 def dtname(dt):
@@ -506,6 +512,24 @@ def jacobi_library(kind, A):
     return torch.linalg.svd(A)
 
 
+def jacobi_rotation_inputs(count, seed=0):
+    """(a_pp, a_pq, a_qq) on the card over the range the kernels' scaled
+    matrices give: |a| < 1, a_pq down to the subnormals, every 97th a_pq 0
+    and every 89th a_qq = a_pp (the last two leave a fast path)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def spread(lowest):
+        mant = torch.rand(count, generator=g, device="cuda",
+                          dtype=torch.float64) * 2 - 1
+        ex = torch.randint(lowest, 1, (count,), generator=g, device="cuda")
+        return mant * torch.pow(2.0, ex.double())
+
+    app, apq, aqq = spread(-60), spread(-1074), spread(-60)
+    apq[::97] = 0
+    aqq[::89] = app[::89]
+    return app, apq, aqq
+
+
 def hold_jacobi(kind, dt, d, B, A=None, what="random"):
     """The kernel against its plain version on the stack A (B, d, d),
     random when None: its values against the plain values, and the
@@ -546,6 +570,44 @@ def hold_jacobi(kind, dt, d, B, A=None, what="random"):
     max_abs = (v - plain.double()).abs().max().item()
     JACOBI_HELD[key] = max(JACOBI_HELD.get(key, 0.0), max_abs)
     return max(err.values()) / tol
+
+
+def jacobi_path_inputs():
+    """{(solve, kind): the first stack the Jacobi kernels were handed for
+    that kind} in one ``conic_ip`` solve of larger_sdp(k=30) and one
+    ``solve_batch`` of batched_small_sdp(64) on the card."""
+    from conicip_tpu_torch import conic_ip, models
+    from conicip_tpu_torch.ops import jacobi_kernel
+
+    solves = dict(zip(JACOBI_PATH_SOLVES, (
+        lambda: conic_ip(*models.larger_sdp(k=30).args(), device="cuda"),
+        lambda: timed_batch(on_card(models.batched_small_sdp(BATCH))))))
+    first = {}
+    launch = jacobi_kernel._launch
+    try:
+        for label, solve in solves.items():
+            def record(kind, A, *args, **kw):
+                first.setdefault((label, kind), A.clone())
+                return launch(kind, A, *args, **kw)
+
+            jacobi_kernel._launch = record
+            solve()
+    finally:
+        jacobi_kernel._launch = launch
+    return first
+
+
+def jacobi_sweeps(kind, A):
+    """Sweeps the kernel takes on the stack A (its slowest matrix), found by
+    running it under a rising sweep limit; the SVD's count includes the
+    sweep that finds nothing left to rotate."""
+    from conicip_tpu_torch.ops import jacobi_kernel
+
+    for sweeps in range(jacobi_kernel.MAX_SWEEPS + 1):
+        out = jacobi_kernel._launch(kind, A, max_sweeps=sweeps)
+        if all(o is None or bool(torch.isfinite(o).all()) for o in out):
+            return sweeps
+    return None
 
 
 def jacobi_special(dt):
@@ -638,6 +700,15 @@ def phase_jacobi():
             line("jacobi_nan", kind=kind, dtype=dtname(dt), B=8, d=10,
                  nan_at="2,5", inf_at="5", others="bitwise as a clean stack",
                  sweep_limit_1="NaN alone (a diagonal entry converges)")
+    # the d <= 32 kernels' branch-free rotation against the library's
+    # correctly rounded operations, bit for bit where its fast paths hold
+    app, apq, aqq = jacobi_rotation_inputs(1 << 20)
+    mismatched, slow = jacobi_kernel.rotation_check(app, apq, aqq)
+    check(mismatched == 0, f"jacobi rotation: {mismatched} triples differ "
+          "from the library's rounding")
+    check(slow > 0, "jacobi rotation: no triple left a fast path")
+    line("jacobi_rotation", triples=app.numel(), mismatched=mismatched,
+         slow_path=slow)
     records = {}
     for B, d in JACOBI_TIMED:
         for kind in JACOBI_KINDS:
@@ -668,6 +739,23 @@ def phase_jacobi():
                         "shape": f"({B}, {d}, {d}) {dtname(dt)}",
                         "ms": ms, "plain_ms": plain, "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": library})
+    # the paths' own matrices: the first stack of each kind in two solves
+    for (solve, kind), A in sorted(jacobi_path_inputs().items()):
+        d, dt = A.shape[-1], A.dtype
+        B = A.numel() // (d * d)
+        hold_jacobi(kind, dt, d, B, A=A, what=f"{solve} first stack")
+        reps = 20
+        ms = cuda_ms(lambda: jacobi_run(kind, A), reps)
+        plain = cuda_ms(lambda: jacobi_run(kind, A, plain=True), reps)
+        library = cuda_ms(lambda: jacobi_library(kind, A), reps)
+        bound, bound_by = jacobi_bound_ms(kind, B, d, dt)
+        line("jacobi_time", kind=kind, B=B, d=d, dtype=dtname(dt),
+             input=repr(f"{solve} first stack"),
+             sweeps=jacobi_sweeps(kind, A), kernel_ms=f"{ms:.4f}",
+             plain_ms=f"{plain:.4f}", library_ms=f"{library:.4f}",
+             bound_ms=f"{bound:.6f}", bound_by=bound_by,
+             bound_share=f"{bound / ms:.5f}",
+             ratio_to_library=f"{ms / library:.3f}", reps=reps)
     return dict(sorted(records.items(), key=lambda kv: (
         JACOBI_KINDS.index(kv[0][0]), kv[0][1] == f32)))
 
@@ -2301,7 +2389,7 @@ def main():
     for rec in jacobi.values():
         rec["launches"] = 0
     launched = set()  # the counters' keys: every shape a path gave an entry
-    jacobi_launched = set()
+    jacobi_main = Counter()  # launches by (kind, dtype, d, stack)
     # the phases that solve S-cone problems, whose decompositions are the
     # Jacobi kernels' (and no other phase's)
     s_cone = (phase_conic, phase_f32, phase_batch, phase_frontend,
@@ -2348,7 +2436,7 @@ def main():
         batched64["launches"] += stacked[f64]
         batched32["launches"] += stacked[f32]
         launched |= set(counts)
-        jacobi_launched |= set(jcounts)
+        jacobi_main += jcounts
     for rec in (single, batched64, batched32, *jacobi.values()):
         check(rec["launches"] > 0, f"{rec['name']} was never launched on "
               "the main paths")
@@ -2361,7 +2449,13 @@ def main():
             hold_batched(B[0], n, dt, True, traced=False)
         else:
             hold_single(n, dt, True)
-    for kind, dt, d, B in sorted(jacobi_launched - set(JACOBI_HELD), key=str):
+    for (kind, dt, d, B), c in sorted(jacobi_main.items(), key=lambda kv: (
+            JACOBI_KINDS.index(kv[0][0]), kv[0][1] == torch.float32,
+            kv[0][2], kv[0][3])):
+        line("jacobi_launches", kind=kind, dtype=dtname(dt), d=d, B=B,
+             main_path_launches=c)
+    for kind, dt, d, B in sorted(set(jacobi_main) - set(JACOBI_HELD),
+                                 key=str):
         worst = hold_jacobi(kind, dt, d, B)
         line("jacobi", d=d, B=B, kind=kind, dtype=dtname(dt), main_path=True,
              foreseen=False, worst_over_tol=f"{worst:.3g}")

@@ -3,11 +3,14 @@
 Stacks (..., d, d) of the S cones' small matrices: :func:`eigh` (values
 ascending and vectors), :func:`eigvalsh` (values only) and :func:`svd` (U
 and σ descending, no V), in f64 or f32 (computed in double, read and
-written in f32). Each is one launch for the whole stack, one thread block
-per matrix. An entry whose input is not finite, or that does not
+written in f32). Each is one launch for the whole stack: one warp per
+matrix for d <= 32 (every order the S cones give), one thread block per
+matrix above. An entry whose input is not finite, or that does not
 converge within ``MAX_SWEEPS`` sweeps, comes back NaN in every output and
 the others are untouched: nothing is read back to the host and nothing
-raises for it.
+raises for it. :func:`rotation_check` holds the d <= 32 kernels'
+branch-free rotation to the library's rounding (a check the tests and
+``chip_smoke.py`` run; the solver never calls it).
 
 These take CUDA tensors only. ``ops/batched.py`` (``safe_eigh``,
 ``safe_eigvalsh``, ``safe_svd``) is the wrapper the cone code calls: for a
@@ -27,7 +30,7 @@ import torch
 from .build import load_library
 
 __all__ = ["eigh", "eigvalsh", "svd", "jacobi_launches", "launch_count",
-           "reset_launch_count", "MAX_SWEEPS", "KINDS"]
+           "reset_launch_count", "rotation_check", "MAX_SWEEPS", "KINDS"]
 
 # Launches of the kernels, keyed by (kind, dtype, d, stack size), kind one
 # of KINDS. Counted by the wrapper where it launches and nowhere else.
@@ -65,6 +68,9 @@ def _library():
         fn.restype = ctypes.c_int
     lib.conicip_jacobi_work_elems.argtypes = [ctypes.c_int] * 2
     lib.conicip_jacobi_work_elems.restype = ctypes.c_longlong
+    lib.conicip_jacobi_rotation_check.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] + [ctypes.c_void_p] * 2
+    lib.conicip_jacobi_rotation_check.restype = ctypes.c_int
     return lib
 
 
@@ -111,6 +117,30 @@ def _launch(kind: str, A: torch.Tensor, max_sweeps: int = MAX_SWEEPS):
                            f"{err}")
     jacobi_launches[(kind, A.dtype, d, B)] += 1
     return (mats, vec) if kind == "svd" else (vec, mats)
+
+
+def rotation_check(app: torch.Tensor, apq: torch.Tensor,
+                   aqq: torch.Tensor) -> tuple[int, int]:
+    """Holds the d <= 32 kernels' branch-free rotation (the fast paths of the
+    correctly rounded division, reciprocal and square root) against the
+    library's rounding on CUDA f64 vectors of (a_pp, a_pq, a_qq): returns
+    (triples whose (c, s, t) differ in a bit while the fast paths hold, which
+    must be 0; triples that leave a fast path, where the kernels take the
+    library's values). Reads the two counts back; not used by the solver."""
+    for v in (app, apq, aqq):
+        if v.device.type != "cuda" or v.dtype != torch.float64:
+            raise ValueError("rotation_check takes CUDA float64 vectors")
+    app, apq, aqq = (v.contiguous() for v in (app, apq, aqq))
+    counts = torch.zeros(2, dtype=torch.int64, device=app.device)
+    with torch.cuda.device(app.device):
+        stream = torch.cuda.current_stream(app.device).cuda_stream
+        err = _library().conicip_jacobi_rotation_check(
+            app.data_ptr(), apq.data_ptr(), aqq.data_ptr(), app.numel(),
+            counts.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"jacobi rotation check failed: CUDA error {err}")
+    mismatched, slow = counts.tolist()
+    return mismatched, slow
 
 
 def eigh(A: torch.Tensor):

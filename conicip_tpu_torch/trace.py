@@ -62,8 +62,10 @@ BATCH_FAMILIES = {
 # the Cholesky kernel's parts, by kernel name (csrc/cholesky.cu)
 CHOLESKY_PARTS = ("copy_lower", "factor_diag", "panel_product",
                   "trailing_update")
-# the Jacobi kernels, by kernel name (csrc/jacobi.cu)
-JACOBI_PARTS = ("eigh_jacobi", "svd_jacobi")
+# the Jacobi kernels, by kernel name (csrc/jacobi.cu): one warp per matrix
+# for d <= 32, one block per matrix above
+JACOBI_PARTS = ("eigh_jacobi_warp", "svd_jacobi_warp", "eigh_jacobi",
+                "svd_jacobi")
 # pieces of the names of cuSOLVER's eigen- and singular-value kernels
 CUSOLVER_EIG_SVD = ("syevj", "syevd", "sytrd", "gesvdj", "batched_svd")
 

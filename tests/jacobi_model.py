@@ -6,9 +6,17 @@ power-of-two scaling, the circle ordering of the pairs, Rutishauser's
 rotation, the row update, the column update and the exact 2 x 2 block of
 each round, the convergence tests, the sweep limit and the sort (stable:
 ties by index).
-Only the order of the sums in the reductions differs, so a result may
-differ from the kernel's in the last bits and, at a convergence test that
-lands on its threshold, by one sweep. Change both together.
+Only the order of the sums in the reductions differs (and the kernels
+round one product of each rotated value and fuse the other into an FMA),
+so a result may differ from the kernel's in the last bits and, at a
+convergence test that lands on its threshold, by one sweep. Change both
+together.
+
+The kernels for d <= 32 rotate a round as one pass over 2 x 2 blocks
+(rows, then columns, from each block's own four values) where this model
+makes a row pass and then a column pass; :func:`fused_round` is that pass
+in numpy, and ``eigh_one(..., fused=True)`` runs it in their place. The
+two give the same bits (tests/test_torch_jacobi.py).
 
 It imports no JAX: tests/test_torch_jacobi.py holds it against LAPACK and
 the JAX package, tests/test_torch_cuda.py holds the kernels against it.
@@ -54,9 +62,41 @@ def _rotate_columns(X, p, q, c, s):
     X[:, q] = x * s + y * c
 
 
-def eigh_one(X, vectors=True, max_sweeps=MAX_SWEEPS):
+def fused_round(A, P, Q, k, c, s):
+    """Round (pairs P, Q of ``pairs``) of A (d x d, in place) as the d <= 32
+    kernels compute it: every 2 x 2 block A[{P_k, Q_k}, {P_l, Q_l}] on its
+    own, its rows rotated by J_k and then its columns by J_l, for the
+    rotating pairs ``k`` (cosines c, sines s); the other pairs (s = 0, and
+    the idle index of odd d, padded with a zero row and column) leave their
+    rows and columns as they are. The diagonal blocks are the caller's."""
+    d = A.shape[0]
+    n = d + (d & 1)
+    on = np.zeros(n // 2, bool)
+    cf, sf = np.ones(n // 2), np.zeros(n // 2)
+    on[k], cf[k], sf[k] = True, c, s
+    Ap = np.zeros((n, n))
+    Ap[:d, :d] = A
+    X00, X01 = Ap[np.ix_(P, P)], Ap[np.ix_(P, Q)]
+    X10, X11 = Ap[np.ix_(Q, P)], Ap[np.ix_(Q, Q)]
+    ck, sk, rk = cf[:, None], sf[:, None], on[:, None]
+    # rows P_k, Q_k by J_k
+    Y00 = np.where(rk, ck * X00 - sk * X10, X00)
+    Y10 = np.where(rk, sk * X00 + ck * X10, X10)
+    Y01 = np.where(rk, ck * X01 - sk * X11, X01)
+    Y11 = np.where(rk, sk * X01 + ck * X11, X11)
+    # then columns P_l, Q_l by J_l
+    cl, sl, rl = cf[None, :], sf[None, :], on[None, :]
+    Ap[np.ix_(P, P)] = np.where(rl, Y00 * cl - Y01 * sl, Y00)
+    Ap[np.ix_(P, Q)] = np.where(rl, Y00 * sl + Y01 * cl, Y01)
+    Ap[np.ix_(Q, P)] = np.where(rl, Y10 * cl - Y11 * sl, Y10)
+    Ap[np.ix_(Q, Q)] = np.where(rl, Y10 * sl + Y11 * cl, Y11)
+    A[:] = Ap[:d, :d]
+
+
+def eigh_one(X, vectors=True, max_sweeps=MAX_SWEEPS, fused=False):
     """(w ascending, U or None) of the symmetric matrix whose lower
-    triangle X holds; NaN where X is not finite or at the sweep limit."""
+    triangle X holds; NaN where X is not finite or at the sweep limit.
+    ``fused`` rotates each round with :func:`fused_round`."""
     d, dt = X.shape[-1], X.dtype
     nan = (np.full(d, np.nan, dt), np.full((d, d), np.nan, dt) if vectors
            else None)
@@ -73,17 +113,20 @@ def eigh_one(X, vectors=True, max_sweeps=MAX_SWEEPS):
         if sweep == max_sweeps:
             return nan
         for r in range(n - 1):
-            p, q = pairs(r, n)
-            p, q = p[q < d], q[q < d]
+            P, Q = pairs(r, n)
+            p, q = P[Q < d], Q[Q < d]
             apq, app, aqq = A[p, q], A[p, p], A[q, q]
             c, s, t = rotation(app, apq, aqq)
             on = s != 0
             p, q, c, s, t = p[on], q[on], c[on], s[on], t[on]
             new_p, new_q = app[on] - t * apq[on], aqq[on] + t * apq[on]
-            x, y = A[p, :].copy(), A[q, :].copy()
-            A[p, :] = c[:, None] * x - s[:, None] * y
-            A[q, :] = s[:, None] * x + c[:, None] * y
-            _rotate_columns(A, p, q, c, s)
+            if fused:
+                fused_round(A, P, Q, np.flatnonzero(Q < d)[on], c, s)
+            else:
+                x, y = A[p, :].copy(), A[q, :].copy()
+                A[p, :] = c[:, None] * x - s[:, None] * y
+                A[q, :] = s[:, None] * x + c[:, None] * y
+                _rotate_columns(A, p, q, c, s)
             if vectors:
                 _rotate_columns(U, p, q, c, s)
             A[p, p], A[q, q], A[p, q], A[q, p] = new_p, new_q, 0, 0

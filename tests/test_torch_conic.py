@@ -67,6 +67,43 @@ def test_auto_backend_matches_jax(family):
     assert_same(ref_sol, sol, 1e-6)
 
 
+@pytest.mark.parametrize("family", ["small_sdp", "mixed_rqs"])
+def test_a_solve_on_the_jacobi_kernels_arithmetic_gives_the_references(
+        family, monkeypatch):
+    # the port's S-cone decompositions routed to tests/jacobi_model.py, the
+    # CUDA Jacobi kernels' arithmetic (their rotations, ordering,
+    # convergence tests and sort, not LAPACK's algorithm): the solve takes
+    # the reference's path, status and Iter. The reference solves are the
+    # ones test_auto_backend_matches_jax compiled just before.
+    import jacobi_model as model
+    from conicip_tpu_torch.cones import algebra, scaling
+    from conicip_tpu_torch.ops import batched
+
+    calls = []
+
+    def routed(fn):
+        def run(A):
+            calls.append(fn.__name__)
+            out = fn(A.detach().numpy())
+            return (torch.from_numpy(out) if isinstance(out, np.ndarray)
+                    else tuple(torch.from_numpy(o) for o in out))
+        return run
+
+    for name, fn in (("safe_eigh", model.eigh),
+                     ("safe_eigvalsh", model.eigvalsh),
+                     ("safe_svd", model.svd)):
+        monkeypatch.setattr(batched, name, routed(fn))
+        for mod in (algebra, scaling):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, routed(fn))
+    P = FAMILIES[family]()
+    ref = ct.conic_ip(*P.args())
+    sol = pt.conic_ip(*P.args(), device="cpu")
+    assert {"eigh", "svd"} <= set(calls)
+    assert sol.status == ref.status == "Optimal"
+    assert sol.Iter == ref.Iter
+
+
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_schur_backend_matches_jax(family):
     ref, sol = both(*FAMILIES[family]().args(), **schur_kw())

@@ -221,12 +221,16 @@ def _invariants(A, w, U, svd):
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("B, d", [(64, 10), (3, 33)])
+@pytest.mark.parametrize("B, d", [(64, 10), (3, 33), (1, 30), (64, 20),
+                                  (64, 5), (200, 10)])
 def test_jacobi_kernels_match_model_and_library(cuda, dtype, B, d):
     # the model (tests/jacobi_model.py) does the kernels' arithmetic in
     # another summation order: values and vectors agree to a few hundred
     # units of rounding of the working type, at most a sweep apart; the
-    # library (cuSOLVER) and the identities to 1e-12 / 1e-5 of max(1, |A|_F)
+    # library (cuSOLVER) and the identities to 1e-12 / 1e-5 of max(1, |A|_F).
+    # The shapes: a warp alone (1, 30), stacks of one-warp matrices at the
+    # paths' orders, more matrices than SMs (200, 10), and the block-per-
+    # matrix kernel of d > 32 (3, 33)
     dt = getattr(torch, dtype)
     tol = 1e-12 if dt == torch.float64 else 1e-5
     near = 1e-10 if dt == torch.float64 else 1e-5
@@ -256,6 +260,60 @@ def test_jacobi_kernels_match_model_and_library(cuda, dtype, B, d):
     ms = torch.linalg.matrix_norm(Mt.double()).clamp_min(1.0)[:, None]
     assert ((sig - sl).abs().double() / ms).max().item() <= tol
     assert _invariants(Mt, sig, Us, svd=True) <= tol
+
+
+def test_jacobi_branch_free_rotation_gives_the_librarys_bits(cuda):
+    # the d <= 32 kernels compute each rotation on the fast paths of the
+    # correctly rounded division, reciprocal and square root, with no branch
+    # (csrc/jacobi.cu rotation_fast), and take the library's values where a
+    # fast path would not hold: where they hold, the bits are the library's,
+    # over the range of a scaled matrix (|a| < 1, a_pq down to the
+    # subnormals, 0, and a_pp = a_qq); the subnormal a_pq (theta overflows)
+    # and a_pp = a_qq (a zero dividend) leave a fast path
+    g = torch.Generator(device=cuda).manual_seed(0)
+    n = 1 << 20
+
+    def spread(lowest):
+        mant = torch.rand(n, generator=g, device=cuda,
+                          dtype=torch.float64) * 2 - 1
+        ex = torch.randint(lowest, 1, (n,), generator=g, device=cuda)
+        return mant * torch.pow(2.0, ex.double())
+
+    app, apq, aqq = spread(-60), spread(-1074), spread(-60)
+    apq[::97] = 0
+    aqq[::89] = app[::89]
+    mismatched, slow = jacobi_kernel.rotation_check(app, apq, aqq)
+    assert mismatched == 0, (mismatched, slow)
+    assert 0 < slow < n, (mismatched, slow)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("d", [10, 30])
+def test_jacobi_a_matrix_that_converges_early_leaves_its_neighbours_alone(
+        cuda, dtype, d):
+    # a near-diagonal matrix between random ones needs fewer sweeps: its
+    # warp leaves the sweep loop while the others go on, and it gets the
+    # answer it gets alone, bit for bit; so do the random ones
+    rng = np.random.default_rng(d)
+    X = rng.standard_normal((5, d, d))
+    S = (X + X.swapaxes(-1, -2)) / 2
+    S[2] = np.diag(np.arange(1.0, d + 1)) + 1e-6 * S[2]
+    A = torch.from_numpy(S.astype(dtype)).to(cuda)
+    for fn in (jacobi_kernel.eigh, jacobi_kernel.svd,
+               lambda M: (jacobi_kernel.eigvalsh(M),)):
+        stack = fn(A)
+        for i in range(5):
+            alone = fn(A[i:i + 1].contiguous())
+            for a, b in zip(stack, alone):
+                assert torch.equal(a[i], b[0])
+    # two sweeps are enough for the near-diagonal one and no other (the
+    # SVD counts a third, which finds nothing left to rotate)
+    for kind, sweeps in (("eigh", 2), ("eigvalsh", 2), ("svd", 3)):
+        for out in jacobi_kernel._launch(kind, A, max_sweeps=sweeps):
+            if out is None:
+                continue
+            assert torch.isfinite(out[2]).all(), kind
+            assert torch.isnan(out[[0, 1, 3, 4]]).all(), kind
 
 
 def test_jacobi_nan_stays_in_its_entry_and_nothing_is_read_back(cuda):

@@ -134,6 +134,23 @@ def test_svd_model_against_lapack_and_jax(d, dtype):
             assert np.abs(P - np.eye(d)).max() <= 1e3 * tol, label
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", ORDERS)
+def test_the_fused_round_gives_the_two_pass_rounds_bits(d, dtype):
+    # the d <= 32 kernels rotate each 2 x 2 block rows-then-columns in one
+    # pass: the same products in the same order as the row pass followed
+    # by the column pass, so the same bits, values and vectors
+    rng = np.random.default_rng(d)
+    for label, A in eigh_cases(rng, d):
+        A = A.astype(dtype)
+        for vectors in (True, False):
+            two = model.eigh_one(A, vectors)
+            one = model.eigh_one(A, vectors, fused=True)
+            for a, b in zip(two, one):
+                assert (a is None and b is None) or np.array_equal(a, b), (
+                    label, vectors)
+
+
 def test_the_ordering_pairs_every_index_once_a_round_and_every_pair_once():
     for d in (1, 2, 3, 10, 33):
         n = d + (d & 1)

@@ -42,6 +42,13 @@ def test_kernel_names_group_the_jacobi_kernels_and_spot_cusolver():
     assert trace._kernel_name(
         "void (anonymous namespace)::svd_jacobi<double>(double const*, "
         "double*, double*, double*, int, int, int)") == "svd_jacobi"
+    assert trace._kernel_name(
+        "void (anonymous namespace)::eigh_jacobi_warp<double, 30, true>("
+        "double const*, double*, double*, int, int, int)"
+    ) == "eigh_jacobi_warp"
+    assert trace._kernel_name(
+        "void (anonymous namespace)::svd_jacobi_warp<float, 0>(float "
+        "const*, float*, float*, int, int, int)") == "svd_jacobi_warp"
     for name in ("void syevj_batch_parallel_jacobi_kernel<double>(int)",
                  "void batched_svd_parallel_jacobi_32x16<double, double>()",
                  "void sytrd_lower_kernel<float>(int)"):
