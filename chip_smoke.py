@@ -15,7 +15,12 @@ that one larger_sdp(k=30) solve and one batched_small_sdp(64) solve hand
 them; then it drives ``conicip_tpu_torch.conic_ip`` through
 every default KKT backend (dense Schur, diagonal, spectral) on R, Q and S
 cone problems at the sizes the repository benchmarks, and checks the
-answers. Three further phases drive the options around the default path:
+answers; ``[graph]`` holds each of those solves on the device loop (a
+captured CUDA graph, ``solver/graph.py``) against the eager loop on the
+same arguments and against the CPU, with its host reads, replays and
+device-to-host copies, after the kernel phase has held the Cholesky
+kernel's predicated entry (the ridge retries) against its plain form.
+Three further phases drive the options around the default path:
 ``[f32]`` the f32-factor solves (the kernel's f32 entry, the last-mile
 switch to f64 factors), ``[eq]`` null-space elimination of equalities and
 the rank-repairing preprocessor, ``[backends]`` the qr, lu and low-rank KKT
@@ -93,6 +98,11 @@ F32_Y_TOL = 1e-5
 # (dtype, n) for the single entries, (dtype, n, B) for the batched ones,
 # the keys of the wrapper's launch counter, with max |L - L_plain| there
 HELD = {}
+# (status, Iter) of the port's own CPU solves, by case, as the [schur] and
+# [conic] phases hold them; [graph] holds its solves to them again
+CPU_REF = {}
+# orders (n, n) and stacks (B, n, n) the predicated entry is held at
+PREDICATED_SHAPES = ((128, 128), (1024, 1024), (4096, 4096), (64, 500, 500))
 
 
 def cholesky_bound_ms(n, dtype, batch=1):
@@ -302,7 +312,85 @@ def phase_kernel():
               "source": "conicip_tpu_torch/csrc/cholesky.cu",
               "replaces": "conicip_tpu/ops/pallas_cholesky.py:41",
               "shape": "(1024, 1024) float64", **times[(1024, torch.float64)]}
+    hold_predicated()
     return [record] + phase_kernel_batched()
+
+
+def hold_predicated():
+    """The predicated entry (the Schur solver's ridge retries) against the
+    plain version's predicated form: every flag set (``out`` kept bit for
+    bit), none set, and on the stack every other one; then, at n = 4096,
+    what a skipped factor costs (its launches return at once) beside a
+    full one, issued eagerly and replayed from a CUDA graph, and whether
+    the graph kept the factor's programmatic dependent launches."""
+    from conicip_tpu_torch.ops.cholesky_kernel import (
+        PANEL, cholesky_factor, cholesky_plain, graph_edges)
+
+    for shape in PREDICATED_SHAPES:
+        n = shape[-1]
+        stack = shape[:-2]
+        make = (lambda seed: spd_stack(stack[0], n, seed)) if stack else (
+            lambda seed: spd(n, seed))
+        M = make(1)
+        prev = cholesky_factor(make(2))  # what a skipped matrix keeps
+        flag_sets = {"set": torch.ones(stack, dtype=torch.bool),
+                     "unset": torch.zeros(stack, dtype=torch.bool)}
+        if stack:
+            flag_sets["alternate"] = torch.arange(stack[0]) % 2 == 0
+        for what, flags in flag_sets.items():
+            flags = flags.cuda()
+            L = cholesky_factor(M, skip=flags, out=prev.clone())
+            Lp = cholesky_plain(M, skip=flags, out=prev.clone())
+            torch.cuda.synchronize()
+            err = (L - Lp).abs().max().item()
+            rel = err / Lp.abs().max().item()
+            kept = bool(torch.equal(L[flags], prev[flags]))
+            check(rel <= TOL[torch.float64] and kept,
+                  f"predicated {shape} flags {what}: |L-L_plain| rel "
+                  f"{rel:.3e}, flagged kept bit for bit: {kept}")
+            line("kernel_predicated", shape=str(shape).replace(" ", ""),
+                 flags=what, max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
+                 flagged="kept bitwise")
+    n = 4096
+    M = spd(n, seed=3)
+    L = cholesky_factor(M)
+    skip = torch.ones((), dtype=torch.bool, device="cuda")
+    reps = 20
+    full = cuda_ms(lambda: cholesky_factor(M), reps)
+    skipped = cuda_ms(lambda: cholesky_factor(M, skip=skip, out=L), reps)
+    per = launches_of_order(n)
+    traced = cuda_launches(lambda: cholesky_factor(M, skip=skip, out=L), per)
+    check(traced == per, f"a skipped factor ran {traced} CUDA launches, "
+          f"{per} expected")
+    # the same two captured in CUDA graphs, as the device loop runs them
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graphs = {}
+    with torch.cuda.stream(stream):
+        for name, fn in (("full", lambda: cholesky_factor(M)),
+                         ("skipped", lambda: cholesky_factor(
+                             M, skip=skip, out=L))):
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            g.capture_begin()
+            out = fn()
+            g.capture_end()
+            graphs[name] = (g, out)
+        edges, programmatic = graph_edges(graphs["full"][0])
+        for g, _ in graphs.values():
+            g.instantiate()
+    torch.cuda.current_stream().wait_stream(stream)
+    want = -(-n // PANEL) - 1  # one per panel: the next diagonal block's
+    check(programmatic == want, f"the captured factor kept {programmatic} "
+          f"programmatic edges of {edges}, {want} expected")
+    g_full = cuda_ms(graphs["full"][0].replay, reps)
+    g_skipped = cuda_ms(graphs["skipped"][0].replay, reps)
+    check(torch.equal(graphs["full"][1], cholesky_factor(M)),
+          "the factor replayed from a graph differs from the eager one")
+    line("kernel_predicated_time", n=n, launches_per_factor=per,
+         factor_ms=f"{full:.4f}", skipped_ms=f"{skipped:.4f}",
+         graph_factor_ms=f"{g_full:.4f}", graph_skipped_ms=f"{g_skipped:.4f}",
+         per_kkt_build_ms=f"{2 * g_skipped:.4f}",
+         programmatic_edges=f"{programmatic}/{edges}", reps=reps)
 
 
 def spd_stack(B, n, seed):
@@ -776,6 +864,40 @@ def launches(dtype=None, n=None):
     return cholesky_kernel.launch_count(dtype, n)
 
 
+def predicated(dtype=None, n=None):
+    """Predicated launches of the kernel (the Schur solver's ridge
+    retries) so far."""
+    from conicip_tpu_torch.ops import cholesky_kernel
+
+    return cholesky_kernel.launch_count(dtype, n, predicated=True)
+
+
+def run_builds(r):
+    """KKT builds the card ran in one interior-point run: the cold start,
+    and one per iteration executed: POLL per chunk on the device loop (the
+    frozen iterations past the end of a chunk included; a chunk is followed
+    by one poll), one per step on the eager loop."""
+    from conicip_tpu_torch.solver import ipm
+
+    steps = (ipm.POLL * r.polls if r.loop != "eager"
+             else r.fast_steps + r.slow_steps)
+    return r.cold_start + steps
+
+
+def kkt_builds():
+    """KKT builds of the latest conic_ip call's runs (run_builds)."""
+    from conicip_tpu_torch import solver
+
+    return sum(run_builds(r) for r in solver.runs)
+
+
+def loops():
+    """The loops the latest conic_ip call's runs took."""
+    from conicip_tpu_torch import solver
+
+    return "+".join(r.loop for r in solver.runs)
+
+
 def jacobi_launches():
     """Launches of the Jacobi kernels so far, every kind and dtype."""
     from conicip_tpu_torch.ops import jacobi_kernel
@@ -793,19 +915,22 @@ def phase_schur():
 
     for n in SCHUR_N:
         args = box_qp_dense(n=n, seed=42).args()
-        before = launches()
+        before, pbefore = launches(), predicated()
         sol, ms = solve_timed(args, device="cuda")
-        used = launches() - before
+        used, pred = launches() - before, predicated() - pbefore
+        builds, loop = kkt_builds(), loops()
         resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
         check(sol.status == "Optimal", f"n={n}: status {sol.status}")
         check(resid < 1e-6, f"n={n}: residual {resid:.3e}")
         check(all(t.device.type == "cuda" for t in (sol.y, sol.w, sol.v)),
               f"n={n}: result tensors are not on cuda")
-        # one factor for the cold-start solve and one per step taken: the
-        # loop stops at the iteration that reaches Optimal, so an Optimal
-        # solve that ends on its best iterate takes Iter - 1 steps
-        check(used >= sol.Iter,
-              f"n={n}: {used} kernel launches for Iter {sol.Iter}")
+        # the device loop on the card (a CUDA graph); one factor per KKT
+        # build, the cold start's and one per iteration the card ran (POLL
+        # per chunk), and two predicated ridge retries beside each
+        check(loop == "graph", f"n={n}: the {loop} loop ran")
+        check(used == builds and pred == 2 * builds,
+              f"n={n}: {used} kernel launches and {pred} predicated for "
+              f"{builds} KKT builds")
         _, ms2 = solve_timed(args, device="cuda")
         extra = {}
         if n == 1024:
@@ -819,8 +944,10 @@ def phase_schur():
             check(dy <= 1e-6, f"n={n}: y diff {dy:.3e}")
             extra = dict(cpu_iter=ref.Iter, pobj_diff=f"{dp:.3e}",
                          y_diff=f"{dy:.3e}")
+            CPU_REF[f"box_qp_dense(n={n})"] = (ref.status, ref.Iter)
         line("schur", n=n, status=sol.status, Iter=sol.Iter,
-             resid=f"{resid:.3e}", launches=used,
+             resid=f"{resid:.3e}", launches=used, predicated=pred,
+             kkt_builds=builds, loop=loop,
              ms_per_solve=f"{ms2:.2f}", ms_per_iter=f"{ms2 / sol.Iter:.3f}",
              first_solve_ms=f"{ms:.2f}", **extra)
 
@@ -841,23 +968,31 @@ def phase_diag():
         before = launches()
         sol, ms = solve_timed(args, device="cuda")
         used = launches() - before
+        builds, loop = kkt_builds(), loops()
         _, ms2 = solve_timed(args, device="cuda")
         check(sol.status == "Optimal", f"diag eq={eq}: status {sol.status}")
-        if eq:
-            check(used > 0, "diag woodbury: the kernel was never launched")
+        check(loop == "graph", f"diag eq={eq}: the {loop} loop ran")
+        # the Woodbury equality mode factors two (p, p) matrices per KKT
+        # build (K and S); without equalities nothing is factored
+        check(used == (2 * builds if eq else 0),
+              f"diag eq={eq}: {used} launches for {builds} KKT builds")
         line("diag", n=n, equality=eq, status=sol.status, Iter=sol.Iter,
              resid=f"{max(sol.prFeas, sol.duFeas, sol.muFeas):.3e}",
-             launches=used, ms_per_solve=f"{ms2:.2f}",
+             launches=used, kkt_builds=builds, loop=loop,
+             ms_per_solve=f"{ms2:.2f}",
              ms_per_iter=f"{ms2 / sol.Iter:.3f}", first_solve_ms=f"{ms:.2f}")
 
 
 @functools.lru_cache(maxsize=None)
 def conic_cases():
     """(label, problem, backend, launch rule) of the [conic] phase. The
-    rule: "iter" launches >= Iter (one factor per KKT build), "2iter"
-    >= 2 Iter (the n and the p factor of an equality solve), "none" no
-    launch at all (the spectral backend factors nothing); ``cpu`` says
-    whether Iter is held against the port's own CPU solve."""
+    rule: "iter" one factor per KKT build (kkt_builds: the device loop's
+    executed iterations, or the eager loop's steps, and the cold start),
+    "2iter" two (the n and the p factor of an equality solve), each with
+    two predicated ridge retries beside it, "none" no launch at all (the
+    spectral backend factors nothing); ``cpu`` says whether Iter is held
+    against the port's own CPU solve. The automatic backends take the
+    device loop (a CUDA graph), a caller's Schur solver the eager one."""
     from conicip_tpu_torch import models
     from conicip_tpu_torch.kkt import kktsolver_schur
 
@@ -917,10 +1052,15 @@ def phase_conic():
         kw = {} if kkt is None else dict(kktsolver=kkt)
         solve_timed(P.args(), device="cuda", **kw)  # warm-up
         before, jbefore = launches(), jacobi_launches()
+        pbefore = predicated()
         sol, ms = solve_timed(P.args(), device="cuda", **kw)
         used, jused = launches() - before, jacobi_launches() - jbefore
+        pred = predicated() - pbefore
+        builds, loop = kkt_builds(), loops()
         resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
         what = f"{label} {backend}"
+        check(loop == ("graph" if kkt is None else "eager"),
+              f"{what}: the {loop} loop ran")
         check(sol.status == "Optimal", f"{what}: status {sol.status}")
         # an S cone's decompositions run the Jacobi kernels, nothing else does
         check((jused > 0) == has_sdp(P.cone_dims),
@@ -928,10 +1068,10 @@ def phase_conic():
         check(resid < 1e-6, f"{what}: residual {resid:.3e}")
         check(all(t.device.type == "cuda" for t in (sol.y, sol.w, sol.v)),
               f"{what}: result tensors are not on cuda")
-        need = {"iter": sol.Iter, "2iter": 2 * sol.Iter, "none": 0}[rule]
-        check(used == 0 if rule == "none" else used >= need,
-              f"{what}: {used} kernel launches for Iter {sol.Iter} "
-              f"(rule {rule})")
+        need = {"iter": builds, "2iter": 2 * builds, "none": 0}[rule]
+        check(used == need and pred == 2 * need,
+              f"{what}: {used} kernel launches and {pred} predicated for "
+              f"{builds} KKT builds (rule {rule})")
         extra = {}
         if cpu:
             ref = conic_ip(*P.args(), device="cpu", **kw)
@@ -941,11 +1081,139 @@ def phase_conic():
                   f"{sol.status}/{sol.Iter}")
             check(dy <= 1e-6, f"{what}: y diff {dy:.3e}")
             extra = dict(cpu_iter=ref.Iter, y_diff=f"{dy:.3e}")
+            CPU_REF[f"{label} {backend}"] = (ref.status, ref.Iter)
         line("conic", instance=label, backend=backend, status=sol.status,
              Iter=sol.Iter, resid=f"{resid:.3e}", launches=used,
+             predicated=pred, kkt_builds=builds, loop=loop,
              jacobi_launches=jused,
              ms_per_solve=f"{ms:.2f}", ms_per_iter=f"{ms / sol.Iter:.3f}",
              **extra)
+
+
+def graph_cases():
+    """(label, args, CPU_REF key) of the [graph] phase: every solve of the
+    device loop's slice that the script runs ([schur], [diag] and the
+    automatic-backend cases of [conic])."""
+    from conicip_tpu_torch import models
+
+    cases = [(f"box_qp_dense(n={n})", models.box_qp_dense(n=n, seed=42).args(),
+              f"box_qp_dense(n={n})") for n in SCHUR_N]
+    cases += [(f"readme_box(n=1000{',eq' if eq else ''})", diag_args(eq),
+               None) for eq in (False, True)]
+    cases += [(label, P.args(), f"{label} auto")
+              for label, P, kkt, _, _ in conic_cases() if kkt is None]
+    return cases
+
+
+def event_ms(fn):
+    """Milliseconds of one call of ``fn`` between two CUDA events."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def profiled(fn):
+    """One call of ``fn`` under the profiler: kernels, device-to-host
+    copies, and the device loop's own counts (trace.loop_counts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from conicip_tpu_torch.trace import loop_counts
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    out = loop_counts(events)
+    out["kernels"] = sum(1 for e in events if e.get("cat") == "kernel")
+    out["dtoh"] = out["dtoh_loop"] + out["dtoh_fixed"]
+    return out
+
+
+def phase_graph():
+    """Each solve of the slice through conic_ip (the device loop, a CUDA
+    graph) and through the eager loop on the same arguments (ipm_solve
+    without a device loop): the same status and Iter, also as the CPU's, y
+    within 1e-9; then, on the device operands conic_ip made, each loop
+    alone: ms per solve (median of 3, CUDA events), kernels and
+    device-to-host copies per iteration (profiler); host reads and graph
+    replays; during the replays the host launches no kernel."""
+    from conicip_tpu_torch import conic_ip, solver
+    from conicip_tpu_torch.solver import graph, ipm
+    from conicip_tpu_torch.solver.state import Solution
+
+    real, seen = graph.solve, {}
+
+    def spy(*args, **kw):
+        seen["call"] = (args, kw)
+        return real(*args, **kw)
+
+    for label, args, key in graph_cases():
+        graph.solve = spy
+        try:
+            sol = conic_ip(*args, device="cuda")
+        finally:
+            graph.solve = real
+        (run,) = solver.runs
+        a, kw = seen.pop("call")
+
+        # the two loops on the same device operands: graph.solve, which
+        # conic_ip reached, and ipm_solve without a device loop
+        def graphed():
+            return Solution.from_state(real(*a, warm=kw["warm"]))
+
+        def eager():
+            return Solution.from_state(ipm.ipm_solve(*a, warm=kw["warm"]))
+
+        ref = eager()
+        check(run.loop == "graph", f"[graph] {label}: the {run.loop} loop ran")
+        check(sol.status == ref.status and sol.Iter == ref.Iter,
+              f"[graph] {label}: graph {sol.status}/{sol.Iter}, eager "
+              f"{ref.status}/{ref.Iter}")
+        cpu = CPU_REF.get(key)
+        check(cpu is None or cpu == (sol.status, sol.Iter),
+              f"[graph] {label}: graph {sol.status}/{sol.Iter}, cpu {cpu}")
+        dy = (sol.y - ref.y).abs().max().item()
+        check(dy <= 1e-9, f"[graph] {label}: |y - y_eager| {dy:.3e}")
+        # iterations run: the steps and the one that set the status; one
+        # read per chunk of POLL, one replay per chunk after the first
+        ran = run.fast_steps + (run.status != "Abandoned")
+        chunks = -(-ran // ipm.POLL)
+        check(run.polls == chunks and run.replays == chunks - 1,
+              f"[graph] {label}: {run.polls} polls and {run.replays} "
+              f"replays for {ran} iterations at POLL {ipm.POLL}")
+        ms_g = float(np.median([event_ms(graphed) for _ in range(3)]))
+        ms_e = float(np.median([event_ms(eager) for _ in range(3)]))
+        pg = profiled(graphed)
+        pe = profiled(eager)
+        # the tracer may lose events, never invents one: at most one copy
+        # per poll inside the loop, and no kernel launched by the host
+        # while the graph is replayed
+        check(pg["dtoh_loop"] <= run.polls and pg["replay_host_launches"] == 0,
+              f"[graph] {label}: {pg['dtoh_loop']} device-to-host copies in "
+              f"the loop for {run.polls} polls, "
+              f"{pg['replay_host_launches']} host launches during replays")
+        it = sol.Iter
+        line("graph", instance=label, status=sol.status, Iter=it,
+             cpu_iter=cpu[1] if cpu else "-", y_diff_eager=f"{dy:.3e}",
+             poll=ipm.POLL, polls=run.polls, replays=run.replays,
+             ms_graph=f"{ms_g:.2f}", ms_eager=f"{ms_e:.2f}",
+             dtoh_per_iter_graph=f"{pg['dtoh'] / it:.2f}",
+             dtoh_per_iter_eager=f"{pe['dtoh'] / it:.2f}",
+             dtoh_loop=pg["dtoh_loop"], dtoh_fixed=pg["dtoh_fixed"],
+             kernels_per_iter_graph=f"{pg['kernels'] / it:.1f}",
+             kernels_per_iter_eager=f"{pe['kernels'] / it:.1f}",
+             replay_host_launches=pg["replay_host_launches"])
 
 
 @functools.lru_cache(maxsize=None)
@@ -974,20 +1242,20 @@ def run_stats():
     start and fast steps in f32 and its last-mile steps in f64; any other
     run builds everything in the working dtype, f64 here), full-precision
     recertifications of the mixed residuals, and the number of runs (more
-    than one: the escalation ladder or an elimination retry ran)."""
+    than one: the escalation ladder or an elimination retry ran). A run on
+    the device loop builds once per iteration it executed (run_builds)."""
     from conicip_tpu_torch import solver
 
     out = dict(f32_builds=0, f64_builds=0, lastmile_steps=0, recertified=0,
                runs=len(solver.runs))
     for r in solver.runs:
         kw = getattr(r.kktsolver, "keywords", {})
-        fast = r.fast_steps + r.cold_start
         if kw.get("factor_dtype") == torch.float32:
-            out["f32_builds"] += fast
+            out["f32_builds"] += r.fast_steps + r.cold_start
             out["f64_builds"] += r.slow_steps
             out["lastmile_steps"] += r.slow_steps
         else:
-            out["f64_builds"] += fast + r.slow_steps
+            out["f64_builds"] += run_builds(r)
         out["recertified"] += r.recertified
     return out
 
@@ -1095,6 +1363,7 @@ def phase_eq():
         before, at_order = launches(), launches(n=n - p)
         sol, ms = solve_timed(P.args(), device="cuda", **kw)
         used = launches() - before
+        builds, loop = kkt_builds(), loops()
         at_order = launches(n=n - p) - at_order
         ref = conic_ip(*P.args(), device="cpu", **kw)
         resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
@@ -1108,9 +1377,10 @@ def phase_eq():
         dy = (sol.y.cpu() - ref.y).abs().max().item()
         check(dy <= 1e-6, f"{P.name}: y diff {dy:.3e}")
         # the reduced problem has no equalities: every factor is of order
-        # n - p, one per KKT build
-        check(used >= sol.Iter and at_order == used,
-              f"{P.name}: {used} launches, not all at order {n - p}")
+        # n - p, one per KKT build; in f64 it takes the device loop
+        check(used == builds and at_order == used and "eager" not in loop,
+              f"{P.name}: {used} launches for {builds} KKT builds "
+              f"({loop}), {at_order} at order {n - p}")
         line("eq", instance=P.name, path="eliminated", status=sol.status,
              Iter=sol.Iter, cpu_iter=ref.Iter, resid=f"{resid:.3e}",
              Gy_minus_d=f"{gy:.3e}", y_diff=f"{dy:.3e}", launches=used,
@@ -1125,6 +1395,7 @@ def phase_eq():
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t) * 1e3
     used = launches() - before
+    builds = kkt_builds()
     ref = preprocess_conic_ip(*P.args(), device="cpu")
     gy = eq_residual(P, sol)
     dropped = int((sol.w == 0).sum().item())
@@ -1138,7 +1409,9 @@ def phase_eq():
           f"{P.name}: {dropped} zero duals, "
           f"{P.G.shape[0] - EQ_RANK} redundant rows")
     check(gy < 1e-8, f"{P.name}: |Gy - d| {gy:.3e}")
-    check(used >= 2 * sol.Iter, f"{P.name}: {used} launches")
+    # the direct saddle: the n and the p factor per KKT build
+    check(used == 2 * builds, f"{P.name}: {used} launches for {builds} KKT "
+          f"builds")
     line("eq", instance=P.name, path="preprocessed", status=sol.status,
          Iter=sol.Iter, cpu_iter=ref.Iter,
          resid=f"{max(sol.prFeas, sol.duFeas, sol.muFeas):.3e}",
@@ -1713,6 +1986,7 @@ def phase_frontend():
         before, jbefore = launches(), jacobi_launches()
         got = through_frontend(route, P, options)  # on the card by default
         used, jused = launches() - before, jacobi_launches() - jbefore
+        builds = kkt_builds()
         check((jused > 0) == has_sdp(P.cone_dims),
               f"{what}: {jused} Jacobi launches")
         direct, d1 = solve_timed(P.args(), device="cuda", **options)
@@ -1731,9 +2005,9 @@ def phase_frontend():
         check(sol.Iter == direct.Iter == cpu["sol"].Iter,
               f"{what}: Iter {sol.Iter}, direct {direct.Iter}, cpu "
               f"{cpu['sol'].Iter}")
-        need = {"iter": sol.Iter, "none": 0}[rule]
-        check(used == 0 if rule == "none" else used >= need,
-              f"{what}: {used} kernel launches for Iter {sol.Iter} "
+        need = {"iter": builds, "none": 0}[rule]
+        check(used == need,
+              f"{what}: {used} kernel launches for {builds} KKT builds "
               f"(rule {rule})")
         want = dict(primal=direct.y.cpu().numpy(), w=direct.w.cpu().numpy(),
                     duals=list(np.split(
@@ -2384,24 +2658,28 @@ def main():
     # each path of the main run is driven with the counts at 0 and read
     # just after; the comparison launches of the kernel phases do not count
     f32, f64 = torch.float32, torch.float64
-    single.update(launches=0, launches_f64=0, launches_f32=0)
+    single.update(launches=0, launches_f64=0, launches_f32=0,
+                  launches_predicated=0)
     batched64["launches"] = batched32["launches"] = 0
+    batched64["launches_predicated"] = batched32["launches_predicated"] = 0
     for rec in jacobi.values():
         rec["launches"] = 0
     launched = set()  # the counters' keys: every shape a path gave an entry
     jacobi_main = Counter()  # launches by (kind, dtype, d, stack)
     # the phases that solve S-cone problems, whose decompositions are the
     # Jacobi kernels' (and no other phase's)
-    s_cone = (phase_conic, phase_f32, phase_batch, phase_frontend,
-              phase_ladder, phase_distributed)
-    for phase in (phase_schur, phase_diag, phase_conic, phase_f32, phase_eq,
-                  phase_backends, phase_batch, phase_checkpoint,
-                  phase_frontend, phase_ladder, phase_distributed):
+    s_cone = (phase_conic, phase_graph, phase_f32, phase_batch,
+              phase_frontend, phase_ladder, phase_distributed)
+    for phase in (phase_schur, phase_diag, phase_conic, phase_graph,
+                  phase_f32, phase_eq, phase_backends, phase_batch,
+                  phase_checkpoint, phase_frontend, phase_ladder,
+                  phase_distributed):
         cholesky_kernel.reset_launch_count()
         jacobi_kernel.reset_launch_count()
         # launches of the ranks a phase spawned, counted by their wrappers
         ranks, ranks_jacobi = phase() or (Counter(), Counter())
         counts = cholesky_kernel.cholesky_launches + ranks
+        pcounts = Counter(cholesky_kernel.predicated_launches)
         jcounts = jacobi_kernel.jacobi_launches + ranks_jacobi
         used = sum(counts.values())
         used32 = sum(c for k, c in counts.items() if k[0] == f32)
@@ -2427,15 +2705,23 @@ def main():
         else:
             check(not jcounts, f"{phase.__name__} solves no S cone but "
                   f"launched the Jacobi kernels {dict(by_kind)}")
+        pstacked = {dt: sum(c for k, c in pcounts.items()
+                            if k[0] == dt and len(k) == 3)
+                    for dt in (f32, f64)}
         line("launches", of=phase.__name__, f64=used - used32, f32=used32,
              batched_f64=stacked[f64], batched_f32=stacked[f32],
+             predicated=sum(pcounts.values()),
              jacobi=",".join(f"{k}:{by_kind[k]}" for k in JACOBI_KINDS))
         single["launches"] += used - sum(stacked.values())
         single["launches_f64"] += used - used32 - stacked[f64]
         single["launches_f32"] += used32 - stacked[f32]
         batched64["launches"] += stacked[f64]
         batched32["launches"] += stacked[f32]
-        launched |= set(counts)
+        single["launches_predicated"] += (sum(pcounts.values())
+                                          - sum(pstacked.values()))
+        batched64["launches_predicated"] += pstacked[f64]
+        batched32["launches_predicated"] += pstacked[f32]
+        launched |= set(counts) | set(pcounts)
         jacobi_main += jcounts
     for rec in (single, batched64, batched32, *jacobi.values()):
         check(rec["launches"] > 0, f"{rec['name']} was never launched on "

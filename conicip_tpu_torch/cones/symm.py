@@ -20,7 +20,7 @@ import torch
 
 from .spec import tri_indices, tri_order
 
-__all__ = ["vecm", "mat"]
+__all__ = ["vecm", "mat", "vecm_single", "mat_single"]
 
 
 @lru_cache(maxsize=None)
@@ -51,3 +51,9 @@ def mat(x: torch.Tensor) -> torch.Tensor:
     d = tri_order(x.shape[-1])
     _, full, scale = _maps(d, x.device, x.dtype)
     return (x / scale)[..., full].reshape(x.shape[:-1] + (d, d))
+
+
+# The reference's aliases for the unbatched use (the same functions: both
+# take any leading dims).
+vecm_single = vecm
+mat_single = mat

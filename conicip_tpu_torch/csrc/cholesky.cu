@@ -45,6 +45,10 @@
 //     (B, n, n) buffer, with its own inverse block and counter in `work`.
 //     The launches are those of one matrix whatever B is, and each matrix
 //     gets the arithmetic of the single entry, which is the batch of one.
+//   - a predicated factor: with a device flag per matrix, a flagged matrix's
+//     kernels return at their first instruction and leave `out` as it was,
+//     so the Schur solver's ridge retries are decided on the device and a
+//     retry not needed costs the launches' latency, not a factor.
 //   The products stage 32-deep chunks of both operands in shared memory with
 //   cp.async (16 bytes a copy where rows are aligned), the tile of A22
 //   preloaded into the sums. In double they run on the FP64 tensor cores
@@ -136,10 +140,21 @@ __device__ __forceinline__ unsigned* ready_counter(T* work_b) {
   return reinterpret_cast<unsigned*>(work_b + NB * NB);
 }
 
+// The predicated factor: where matrix blockIdx.y's flag in `skip` is set,
+// each kernel of its factor returns at its first instruction and leaves
+// `out` as it was. Null runs every matrix. The Schur solver's ridge retries
+// take this form, so a retry that is not needed costs empty launches, not a
+// factor, and no flag is read back to the host.
+__device__ __forceinline__ bool skipped(const unsigned char* skip) {
+  return skip != nullptr && skip[blockIdx.y] != 0;
+}
+
 // out = tril(in); also clears the counter of finished diagonal tiles.
 template <typename T>
 __global__ void copy_lower(const T* __restrict__ in, T* __restrict__ out,
-                           int n, T* __restrict__ work) {
+                           int n, T* __restrict__ work,
+                           const unsigned char* __restrict__ skip) {
+  if (skipped(skip)) return;
   in = batch_matrix(in, n);
   out = batch_matrix(out, n);
   if (blockIdx.x == 0 && threadIdx.x == 0)
@@ -237,7 +252,9 @@ __device__ __forceinline__ void wait_prerequisite() {
 template <typename T>
 __global__ void __launch_bounds__(DIAG_THREADS)
 factor_diag(const T* src, T* dst, T* work, int n, int k, int kb,
-            bool want_inv, bool wait, unsigned target) {
+            bool want_inv, bool wait, unsigned target,
+            const unsigned char* __restrict__ skip) {
+  if (skipped(skip)) return;
   src = batch_matrix(src, n);
   dst = batch_matrix(dst, n);
   T* __restrict__ inv = want_inv ? batch_work(work) : nullptr;
@@ -696,7 +713,8 @@ __device__ __forceinline__ void product_nt(Tile<T, BM, BN>& tile, T* smem,
 template <typename T>
 __global__ void __launch_bounds__(GEMM_THREADS)
 panel_product(T* __restrict__ a, const T* __restrict__ work, int n, int k,
-              int rest) {
+              int rest, const unsigned char* __restrict__ skip) {
+  if (skipped(skip)) return;
   a = batch_matrix(a, n);
   const T* __restrict__ inv = batch_work(work);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -721,7 +739,8 @@ panel_product(T* __restrict__ a, const T* __restrict__ work, int n, int k,
 template <typename T>
 __global__ void __launch_bounds__(GEMM_THREADS)
 trailing_update(T* __restrict__ a, int n, int k, int rest, int diag_tiles,
-                T* __restrict__ work) {
+                T* __restrict__ work, const unsigned char* __restrict__ skip) {
+  if (skipped(skip)) return;
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   a = batch_matrix(a, n);
   unsigned* __restrict__ ready = ready_counter(batch_work(work));
@@ -755,14 +774,31 @@ trailing_update(T* __restrict__ a, int n, int k, int rest, int diag_tiles,
   }
 }
 
+// Multiprocessor count of a device, read once: the launches may be captured
+// into a CUDA graph, and then they make no call but the launches themselves
+// and the attribute settings.
+int multiprocessors(int dev, cudaError_t& err) {
+  static int cached[64] = {};
+  if (dev < 0 || dev >= 64) {
+    err = cudaErrorInvalidDevice;
+    return 0;
+  }
+  if (cached[dev] == 0)
+    err = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+  return cached[dev];
+}
+
 // Factor `batch` matrices of order n, contiguous in `in` and `out`. The
 // batch is the grids' second dimension, so a stack costs the launches of one
 // matrix. With one matrix the trailing update is a persistent grid on all
 // SMs but one (left to the factor_diag beside it); with a stack the SMs are
-// shared out between the matrices, at least one block each.
+// shared out between the matrices, at least one block each. `skip`, when
+// not null, holds one flag per matrix on the device: a flagged matrix's
+// `out` is left as it was (every launch below returns at once for it).
 template <typename T>
 cudaError_t cholesky(const T* in, T* out, T* work, int batch, int n,
-                     cudaStream_t st) {
+                     const unsigned char* skip, cudaStream_t st) {
   if (batch <= 0 || batch > 65535 || n <= 0 || (n > NB && work == nullptr))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -771,7 +807,7 @@ cudaError_t cholesky(const T* in, T* out, T* work, int batch, int n,
   if (err != cudaSuccess) return err;
   if (n <= NB) {
     factor_diag<T><<<dim3(1, batch), DIAG_THREADS, diag_smem<T>(), st>>>(
-        in, out, nullptr, n, 0, n, false, false, 0u);
+        in, out, nullptr, n, 0, n, false, false, 0u, skip);
     return cudaGetLastError();
   }
   constexpr size_t panel_smem = gemm_smem<T>(PANEL_ROWS, NB, PANEL_STAGES);
@@ -786,8 +822,7 @@ cudaError_t cholesky(const T* in, T* out, T* work, int batch, int n,
                                (int)tile_smem);
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) sms = multiprocessors(dev, err);
   if (err != cudaSuccess) return err;
   const int free_sms = sms > 1 ? sms - 1 : 1;
   const int resident = free_sms / batch > 1 ? free_sms / batch : 1;
@@ -795,9 +830,10 @@ cudaError_t cholesky(const T* in, T* out, T* work, int batch, int n,
   const size_t total = (size_t)n * n;
   const int copy_blocks =
       (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  copy_lower<T><<<dim3(copy_blocks, batch), 256, 0, st>>>(in, out, n, work);
+  copy_lower<T><<<dim3(copy_blocks, batch), 256, 0, st>>>(in, out, n, work,
+                                                          skip);
   factor_diag<T><<<dim3(1, batch), DIAG_THREADS, diag_smem<T>(), st>>>(
-      out, out, work, n, 0, NB, true, false, 0u);
+      out, out, work, n, 0, NB, true, false, 0u, skip);
   err = cudaGetLastError();
   // Panel k: its rows below are solved; then the trailing update, whose
   // first tiles are the next diagonal block, and beside it (programmatic
@@ -808,12 +844,13 @@ cudaError_t cholesky(const T* in, T* out, T* work, int batch, int n,
     const int rest = n - k - NB;
     const int kb = rest < NB ? rest : NB;  // the next panel's width
     panel_product<T><<<dim3((rest + PANEL_ROWS - 1) / PANEL_ROWS, batch),
-                       GEMM_THREADS, panel_smem, st>>>(out, work, n, k, rest);
+                       GEMM_THREADS, panel_smem, st>>>(out, work, n, k, rest,
+                                                       skip);
     const int tiles = (rest + TS - 1) / TS, tk = (kb + TS - 1) / TS;
     const int count = tiles * (tiles + 1) / 2, diag_tiles = tk * (tk + 1) / 2;
     trailing_update<T><<<dim3(count < resident ? count : resident, batch),
-                         GEMM_THREADS, tile_smem, st>>>(out, n, k, rest,
-                                                        diag_tiles, work);
+                         GEMM_THREADS, tile_smem, st>>>(
+        out, n, k, rest, diag_tiles, work, skip);
     target += (unsigned)diag_tiles;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(1, batch);
@@ -826,7 +863,7 @@ cudaError_t cholesky(const T* in, T* out, T* work, int batch, int n,
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, factor_diag<T>, (const T*)out, out, work, n,
-                             k + NB, kb, rest > NB, true, target);
+                             k + NB, kb, rest > NB, true, target, skip);
     if (err == cudaSuccess) err = cudaGetLastError();
   }
   return err;
@@ -838,22 +875,26 @@ cudaError_t cholesky(const T* in, T* out, T* work, int batch, int n,
 // row-major contiguous device buffers, n x n for the single entries and
 // batch x n x n for the batched ones; `work` is a scratch buffer of the same
 // type, needed only when n > 128 (may be null below): 128 x 128 + 1 elements
-// for a single matrix, 128 x 128 + 4 for each matrix of a batch.
+// for a single matrix, 128 x 128 + 4 for each matrix of a batch. `skip` is
+// null (factor every matrix) or a device buffer of one byte per matrix: a
+// matrix whose byte is not 0 keeps what `out` held.
 // Nothing is allocated and the stream is not synchronised. Returns
 // cudaGetLastError() after the launches.
 extern "C" int conicip_cholesky_f64(const void* in, void* out, void* work,
-                                    int n, void* stream) {
+                                    int n, const void* skip, void* stream) {
   return (int)cholesky<double>(static_cast<const double*>(in),
                                static_cast<double*>(out),
                                static_cast<double*>(work), 1, n,
+                               static_cast<const unsigned char*>(skip),
                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int conicip_cholesky_f32(const void* in, void* out, void* work,
-                                    int n, void* stream) {
+                                    int n, const void* skip, void* stream) {
   return (int)cholesky<float>(static_cast<const float*>(in),
                               static_cast<float*>(out),
                               static_cast<float*>(work), 1, n,
+                              static_cast<const unsigned char*>(skip),
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -862,18 +903,43 @@ extern "C" int conicip_cholesky_f32(const void* in, void* out, void* work,
 // untouched), in the launches of one matrix of order n.
 extern "C" int conicip_cholesky_batched_f64(const void* in, void* out,
                                             void* work, int batch, int n,
-                                            void* stream) {
+                                            const void* skip, void* stream) {
   return (int)cholesky<double>(static_cast<const double*>(in),
                                static_cast<double*>(out),
                                static_cast<double*>(work), batch, n,
+                               static_cast<const unsigned char*>(skip),
                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int conicip_cholesky_batched_f32(const void* in, void* out,
                                             void* work, int batch, int n,
-                                            void* stream) {
+                                            const void* skip, void* stream) {
   return (int)cholesky<float>(static_cast<const float*>(in),
                               static_cast<float*>(out),
                               static_cast<float*>(work), batch, n,
+                              static_cast<const unsigned char*>(skip),
                               static_cast<cudaStream_t>(stream));
+}
+
+// Edges of a captured CUDA graph (a cudaGraph_t): all of them, and those
+// that are programmatic (a programmatic dependent launch kept as such by
+// the capture). Returns the CUDA error of the query.
+extern "C" int conicip_graph_edges(void* graph, long long* total,
+                                   long long* programmatic) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t count = 0;
+  cudaError_t err = cudaGraphGetEdges_v2(g, nullptr, nullptr, nullptr, &count);
+  *total = (long long)count;
+  *programmatic = 0;
+  if (err != cudaSuccess || count == 0) return (int)err;
+  cudaGraphNode_t* from = new cudaGraphNode_t[count];
+  cudaGraphNode_t* to = new cudaGraphNode_t[count];
+  cudaGraphEdgeData* data = new cudaGraphEdgeData[count];
+  err = cudaGraphGetEdges_v2(g, from, to, data, &count);
+  for (size_t i = 0; err == cudaSuccess && i < count; ++i)
+    if (data[i].type == cudaGraphDependencyTypeProgrammatic) ++*programmatic;
+  delete[] from;
+  delete[] to;
+  delete[] data;
+  return (int)err;
 }

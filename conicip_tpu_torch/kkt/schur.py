@@ -107,11 +107,13 @@ def kktsolver_2x2(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
             # ridge keeps the factor finite as κ(M) grows like 1/μ;
             # escalating-ridge retries (boosts 1e3, then 1e6) catch what
             # rounding leaves indefinite. A failed factor is non-finite,
-            # which is what triggers the retry, per instance of a stack.
+            # which is what triggers the retry, per instance of a stack;
+            # both retries are predicated factors, decided on the device.
             Ik = torch.eye(k, dtype=odt, device=Ms.device)
             L = retry_while(
                 lambda L: ~torch.isfinite(L).flatten(-2).all(-1),
-                lambda boost: cholesky(Ms + (boost * ridge) * Ik),
+                lambda boost, skip, L: cholesky(
+                    Ms + (boost * ridge) * Ik, skip=skip, out=L),
                 cholesky(Ms + ridge * Ik),
                 1e3,
                 1e3,

@@ -20,12 +20,15 @@ from .cholesky_kernel import cholesky_factor
 __all__ = ["cholesky", "tri_inv", "cho_solve", "CholFactor"]
 
 
-def cholesky(M: torch.Tensor, factor_dtype=None) -> torch.Tensor:
+def cholesky(M: torch.Tensor, factor_dtype=None, skip=None, out=None
+             ) -> torch.Tensor:
     """Lower-triangular Cholesky factor, optionally in another precision;
-    non-finite where M is not SPD."""
+    non-finite where M is not SPD. ``skip`` and ``out`` make it the
+    predicated factor of :func:`cholesky_factor`: the flagged matrices keep
+    ``out``'s."""
     if factor_dtype is not None and factor_dtype != M.dtype:
         M = M.to(factor_dtype)
-    return cholesky_factor(M.contiguous())
+    return cholesky_factor(M.contiguous(), skip, out)
 
 
 def tri_inv(L: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,13 @@ both leave non-finite values where the matrix is not positive definite
 (the kernel NaN from the failing pivot on, the plain version everywhere in
 the lower triangle, as JAX's CPU factor does). The Schur solver's ridge
 retry depends on that.
+
+Both also take a predicated form, ``(M, skip=flags, out=L)``: where a
+matrix's flag (a bool tensor on M's device, one per matrix) is set, its
+factor is not computed and ``out`` keeps what it held; elsewhere the factor
+is written into ``out``. The kernel reads the flags on the device (its
+launches return at once for a flagged matrix), so the caller reads nothing
+back; the plain version selects with ``torch.where``.
 """
 
 from __future__ import annotations
@@ -24,23 +31,31 @@ import torch
 from .build import load_library
 
 __all__ = ["cholesky_factor", "cholesky_plain", "cholesky_launches",
-           "launch_count", "reset_launch_count"]
+           "predicated_launches", "launch_count", "reset_launch_count",
+           "graph_edges"]
 
 # Launches of the CUDA kernel, keyed by (dtype, order) for the single
 # entries and (dtype, order, B) for the batched ones: the dtype names the
 # entry point that ran. Counted by the wrapper where it launches and
-# nowhere else.
+# nowhere else: unconditional factors in ``cholesky_launches``, predicated
+# ones (``skip`` given; whether a matrix was factored is known only on the
+# device) apart in ``predicated_launches``. A CUDA graph's replays add what
+# its capture counted (solver/graph.py).
 cholesky_launches: Counter = Counter()
+predicated_launches: Counter = Counter()
 
 
-def launch_count(dtype=None, n=None, batch=None) -> int:
+def launch_count(dtype=None, n=None, batch=None, predicated=False) -> int:
     """Kernel launches so far, optionally of one dtype's entry points
     (``dtype``) and of one matrix order (``n``). ``batch`` picks the entry:
     ``None`` counts both, ``False`` the single entry only, ``True`` the
     batched entry (``cholesky_launches[(dtype, n, B)]`` is the count at one
-    stack size)."""
+    stack size). ``predicated`` picks the counter: ``False`` the
+    unconditional factors, ``True`` the predicated ones, ``None`` both."""
+    counters = {False: (cholesky_launches,), True: (predicated_launches,),
+                None: (cholesky_launches, predicated_launches)}[predicated]
     total = 0
-    for key, c in cholesky_launches.items():
+    for key, c in (kv for cnt in counters for kv in cnt.items()):
         dt, k = key[:2]
         if dtype not in (None, dt) or n not in (None, k):
             continue
@@ -51,6 +66,7 @@ def launch_count(dtype=None, n=None, batch=None) -> int:
 
 def reset_launch_count() -> None:
     cholesky_launches.clear()
+    predicated_launches.clear()
 
 
 _ENTRY = {torch.float64: "conicip_cholesky_f64",
@@ -68,12 +84,31 @@ WORK_PAD = 4
 MAX_GRID_BATCH = 65535
 
 
-def cholesky_plain(M: torch.Tensor) -> torch.Tensor:
+def _check_predicate(M, skip, out):
+    if skip is None:
+        return
+    if out is None:
+        raise ValueError("a predicated factor needs `out`, whose matrices "
+                         "the flagged ones keep")
+    if skip.dtype != torch.bool or tuple(skip.shape) != tuple(M.shape[:-2]):
+        raise ValueError(f"skip must be a bool tensor of shape "
+                         f"{tuple(M.shape[:-2])}, got {skip.dtype} "
+                         f"{tuple(skip.shape)}")
+    if skip.device != M.device:
+        raise ValueError("skip must lie on M's device")
+    if out.shape != M.shape or out.dtype != M.dtype or out.device != M.device:
+        raise ValueError("out must match M's shape, dtype and device")
+
+
+def cholesky_plain(M: torch.Tensor, skip=None, out=None) -> torch.Tensor:
     """Plain PyTorch version, batched over leading dims: each factor is
     NaN-filled (lower triangle) where its factorization fails. It never
-    reads ``info`` back to the host."""
+    reads ``info`` back to the host. With ``skip``, the flagged matrices
+    are ``out``'s (module docstring)."""
+    _check_predicate(M, skip, out)
     L, info = torch.linalg.cholesky_ex(M)
-    return torch.where(info[..., None, None] == 0, L, torch.nan).tril()
+    L = torch.where(info[..., None, None] == 0, L, torch.nan).tril()
+    return L if skip is None else torch.where(skip[..., None, None], out, L)
 
 
 def _entry(dtype, batched=False):
@@ -81,16 +116,32 @@ def _entry(dtype, batched=False):
                  (_BATCHED_ENTRY if batched else _ENTRY)[dtype])
     ints = [ctypes.c_int] * (2 if batched else 1)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   *ints, ctypes.c_void_p]
+                   *ints, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def cholesky_factor(M: torch.Tensor) -> torch.Tensor:
+def graph_edges(graph) -> tuple[int, int]:
+    """(edges, programmatic edges) of a captured ``torch.cuda.CUDAGraph``
+    made with ``keep_graph=True``: whether the capture kept the factor's
+    programmatic dependent launches as such."""
+    fn = load_library("cholesky").conicip_graph_edges
+    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    total, prog = ctypes.c_longlong(), ctypes.c_longlong()
+    err = fn(graph.raw_cuda_graph(), ctypes.byref(total), ctypes.byref(prog))
+    if err != 0:
+        raise RuntimeError(f"graph edge query failed: CUDA error {err}")
+    return total.value, prog.value
+
+
+def cholesky_factor(M: torch.Tensor, skip=None, out=None) -> torch.Tensor:
     """Lower Cholesky factor of the SPD matrix ``M`` (n, n), or of every
-    matrix of a stack (..., n, n)."""
+    matrix of a stack (..., n, n); with ``skip``, the predicated factor
+    into ``out`` (module docstring)."""
     if M.device.type == "cpu":
-        return cholesky_plain(M)
+        return cholesky_plain(M, skip, out)
     if M.device.type != "cuda":
         raise ValueError(f"cholesky_factor: unsupported device {M.device}")
     if M.dtype not in _ENTRY:
@@ -100,8 +151,12 @@ def cholesky_factor(M: torch.Tensor) -> torch.Tensor:
                          f"shape {tuple(M.shape)}")
     if not M.is_contiguous():
         raise ValueError("cholesky_factor: M must be contiguous")
+    _check_predicate(M, skip, out)
+    if skip is None:
+        out = torch.empty_like(M)
+    elif not (out.is_contiguous() and skip.is_contiguous()):
+        raise ValueError("cholesky_factor: out and skip must be contiguous")
     n = M.shape[-1]
-    out = torch.empty_like(M)
     if M.numel() == 0:
         return out
     batched = M.dim() > 2
@@ -118,8 +173,10 @@ def cholesky_factor(M: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(M.device).cuda_stream
         sizes = (B, n) if batched else (n,)
         err = fn(M.data_ptr(), out.data_ptr(),
-                 None if work is None else work.data_ptr(), *sizes, stream)
+                 None if work is None else work.data_ptr(), *sizes,
+                 None if skip is None else skip.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"cholesky kernel launch failed: CUDA error {err}")
-    cholesky_launches[(M.dtype, n, B) if batched else (M.dtype, n)] += 1
+    counter = cholesky_launches if skip is None else predicated_launches
+    counter[(M.dtype, n, B) if batched else (M.dtype, n)] += 1
     return out

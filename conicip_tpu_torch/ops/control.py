@@ -1,43 +1,44 @@
-"""Host-side control flow for the solve path.
+"""Device-side control flow for the solve path.
 
 Counterpart of ``conicip_tpu/ops/control.py``. The JAX package expresses
 conditionals as 0/1-trip ``while_loop``s so that they stay real branches
-under ``vmap``. PyTorch runs eagerly, so ``cond_once`` becomes a plain
-``if`` at its call sites and ``retry_while`` a Python loop that reads its
-predicate back from the device once per test.
+under ``vmap`` and never leave the device. Here ``cond_once`` becomes a
+plain ``if`` at its call sites (the host already knows its predicate), and
+``retry_while`` a fixed number of predicated attempts: its predicate stays
+on the device, so a solve that runs it reads nothing back and can be
+captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
-import torch
+import math
 
-__all__ = ["retry_while"]
+__all__ = ["retry_while", "retry_attempts"]
+
+
+def retry_attempts(scale0: float, factor: float, cap: float) -> int:
+    """Attempts the reference's loop can make at most: one at each of
+    scale0, scale0·factor, ... below ``cap``."""
+    if scale0 >= cap:
+        return 0
+    return math.ceil(math.log(cap / scale0) / math.log(factor))
 
 
 def retry_while(bad, step, state0, scale0, factor, cap):
-    """Escalating retries: repeat ``state = step(scale)`` with ``scale``
-    multiplied by ``factor`` after each attempt, while ``bad(state)`` holds
-    and ``scale < cap``. ``state0`` is the already-computed first attempt,
-    so a healthy first attempt costs one predicate read and no retry.
+    """Escalating retries: ``state = step(scale, skip, state)`` at scale
+    ``scale0``, ``scale0·factor``, ... below ``cap``, each taken only where
+    ``bad(state)`` holds. ``state0`` is the already-computed first attempt.
 
-    ``bad`` may return one flag per instance of a stack (``state`` then has
-    that many leading dims): the loop goes on while any instance is bad,
-    and only the bad instances take the new attempt, so each instance ends
-    with the state its own loop would have given it (what ``vmap`` makes of
-    the reference's ``while_loop``)."""
+    ``step`` is predicated: ``skip`` is ``~bad(state)`` (``bad`` gives a
+    bool tensor: one flag, or one per instance of a stack), and where it
+    is set ``step`` must return ``state`` unchanged, and should cost
+    nothing (the Cholesky kernel's predicated entry returns at once). So
+    every attempt is launched, and each instance ends with the state the
+    reference's ``while_loop`` gives it: the first good attempt, or the
+    last one below the cap. Nothing is read back to decide it."""
     state, scale = state0, scale0
-
-    def per_instance(flags):
-        return isinstance(flags, torch.Tensor) and flags.dim() > 0
-
-    flags = bad(state)
-    while bool(flags.any() if per_instance(flags) else flags) and scale < cap:
-        new = step(scale)
-        if per_instance(flags):
-            pick = flags.reshape(flags.shape + (1,) * (new.dim() - flags.dim()))
-            state = torch.where(pick, new, state)
-        else:
-            state = new
+    for _ in range(retry_attempts(scale0, factor, cap)):
+        skip = ~bad(state)
+        state = step(scale, skip, state)
         scale = scale * factor
-        flags = bad(state)
     return state

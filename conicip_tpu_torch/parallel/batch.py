@@ -80,6 +80,9 @@ class BatchRun(NamedTuple):
     slow_steps: int
     cold_start: int
     recertified: int
+    polls: int  # host reads of the loop's status
+    replays: int  # CUDA graph replays (0: the eager loop)
+    loop: str  # "eager": solve_batch runs the eager loop
 
     @property
     def batch(self) -> int:

@@ -21,7 +21,8 @@ from ..kkt.diag import equality_mode, kktsolver_diag, separable
 from ..kkt.schur import kktsolver_schur
 from ..kkt.spectral import spectral_applicable, spectral_kktsolver
 from ..reduce import eliminate_equalities
-from .ipm import IPMOptions, ipm_solve
+from . import graph
+from .ipm import IPMOptions, ipm_solve, run_chunks
 from .state import SolState, Solution, Status, Vec4, to_host
 
 __all__ = ["conic_ip", "Solution", "SolState", "Status", "IPMOptions", "Vec4",
@@ -37,6 +38,9 @@ class Run(NamedTuple):
     slow_steps: int  # steps on its full-precision last-mile variant
     cold_start: int  # 1 when the initial point cost a KKT build
     recertified: int  # mixed mode: full-precision product recomputes
+    polls: int  # host reads of the loop's status
+    replays: int  # CUDA graph replays of one captured chunk
+    loop: str  # "graph", "chunks" (the device loop) or "eager"
 
 
 # Every interior-point run of the latest conic_ip call, in order: the first
@@ -92,6 +96,21 @@ def _diag_kktsolver(factor_dtype, eq_mode="woodbury"):
         return kktsolver_diag
     return functools.partial(kktsolver_diag, factor_dtype=factor_dtype,
                              eq_mode=eq_mode)
+
+
+def _device_loop(kktsolver, user_kktsolver, opts) -> bool:
+    """Whether a run takes the device loop (``ipm.POLL`` iterations per
+    host read; on CUDA a captured CUDA graph, solver/graph.py) or the eager
+    loop (one host read per iteration). The device loop takes the built-in
+    backends in full precision. The eager loop keeps what holds host state
+    or reads the device from the host: f32 factors (the last-mile variant
+    switch and mixed residuals live on the host, ipm.py), verbose output (a
+    print per iteration) and a caller's own kktsolver (whose callbacks may
+    read the device). ``solve_batch`` and the distributed path call
+    ``ipm_solve`` themselves and keep the eager loop too."""
+    return not (user_kktsolver or opts.mixedResiduals or opts.verbose
+                or getattr(kktsolver, "keywords", {}).get("factor_dtype")
+                is not None)
 
 
 def _is_diag(kktsolver) -> bool:
@@ -252,8 +271,15 @@ def _solve_direct(tensors, structure, cone_dims, warm_start, options
         opts = IPMOptions(mixedResiduals=mixed, lastmileProactive=proactive,
                           centralityCorrectors=centralityCorrectors, **o)
         stats = {}
-        sol = Solution.from_state(ipm_solve(
-            Q, c, A, b, G, d, spec, kkt, opts, warm=warm, stats=stats))
+        args = (Q, c, A, b, G, d, spec, kkt, opts)
+        if not _device_loop(kkt, user_kktsolver, opts):
+            st = ipm_solve(*args, warm=warm, stats=stats)
+        elif c.device.type == "cuda":
+            st = graph.solve(*args, warm=warm, stats=stats)
+        else:
+            st = ipm_solve(*args, warm=warm, stats=stats,
+                           device_loop=run_chunks)
+        sol = Solution.from_state(st)
         runs.append(Run(kkt, sol.status, sol.Iter, **stats))
         return sol
 

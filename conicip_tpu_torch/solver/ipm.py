@@ -2,12 +2,30 @@
 
 Counterpart of ``conicip_tpu/solver/ipm.py``, over any product of R, Q and
 S cones. The JAX package runs the whole solve as one ``lax.while_loop``;
-here the iteration is a Python loop over device tensors that reads the
-status back once per iteration, and the refinement loop reads its stopping
-test once per step. (On S cones each ``torch.linalg`` decomposition on CUDA
-also reads its ``info`` back inside the call.) Everything else (status,
-best iterate, certificates, step guards, the Gondzio acceptance) stays
-mask-based on the device, as in the reference:
+here one iteration is a function of a carry (:class:`Carry`: the iterate,
+the best-iterate record, the best residual, the stall count, and the
+iteration number and the steps taken as device integers), and two loops
+drive it:
+
+- the device loop (``device_loop``): :data:`POLL` iterations at a time with no
+  host read and no early exit, the host reading once per chunk whether any
+  instance is still running. On CUDA ``solver/graph.py`` captures one chunk
+  in a CUDA graph and replays it; on the CPU :func:`run_chunks` runs the
+  chunks eagerly. An iteration past the end (the solve finished inside a
+  chunk, or ``k > maxIters``) changes nothing: every carried value is
+  frozen by mask, ``pobj``/``dobj`` included. Refinement runs its
+  ``maxRefinementSteps`` trips with a latched stopping test, and the Schur
+  backend's ridge retries are predicated factors (ops/control.py), so
+  nothing reads back inside an iteration.
+- the eager loop (``device_loop=None``), for what keeps host state: a
+  two-variant KKT generator, mixed residuals, verbose output; and for
+  callers that run it themselves (``solve_batch``, the distributed path).
+  It reads the status once per iteration and stops there, and stops
+  refinement as soon as no instance goes on.
+
+Both loops run the same arithmetic (``evaluate``, ``take_step``,
+``advance``), and everything else is mask-based on the device, as in the
+reference:
 
 - same initial point, residual normalizations and CVXOPT+ECOS
   infeasibility certificates,
@@ -18,7 +36,7 @@ mask-based on the device, as in the reference:
 - the λ-frame max-steps and Lyapunov divisions when S cones are present.
 
 Mixed-precision options (all off by default; on hardware with native f64
-the full-precision path is the default):
+the full-precision path is the default; eager loop only):
 
 - ``mixedResiduals``: every residual product runs in f32 against one-time
   f32 copies of the operators and is carried across iterations by the
@@ -44,13 +62,12 @@ the last-mile flag, the drift and every step length are one value per
 instance; no reduction crosses instances, so a NaN instance cannot reach
 its neighbours; the loop runs while any instance is ``RUNNING``, and every
 carried value of a finished instance is frozen by mask, so its ``Iter``,
-status and iterate are those of its own single solve. The host still reads
+status and iterate are those of its own single solve. The eager loop reads
 once per iteration, for the whole stack: whether any instance runs, fires a
 recompute, or needs either variant of a two-variant generator. When
 instances of one stack are on different variants, both are built on that
-iteration and each instance takes its own. The refinement loop runs while
-any instance continues, and an instance that stopped keeps its ``dz``. A
-single solve is the case without leading dims and runs the same code.
+iteration and each instance takes its own. A single solve is the case
+without leading dims and runs the same code.
 """
 
 from __future__ import annotations
@@ -67,7 +84,14 @@ from ..kkt.pivot import accepts_mode
 from ..ops.batched import col, dot, mv
 from .state import SolState, Status, Vec4
 
-__all__ = ["IPMOptions", "ipm_solve"]
+__all__ = ["IPMOptions", "ipm_solve", "run_chunks", "Carry", "POLL"]
+
+# Iterations per chunk of the device loop: the host reads the status once
+# per chunk, and solver/graph.py captures one chunk. A solve runs up to
+# POLL - 1 frozen iterations past its end, and the first chunk is run
+# eagerly and then issued again for the capture. 1 had the least wall time
+# of 1, 2, 4 and 8 on every solve timed on the H100 (PERF.md §6).
+POLL = 1
 
 
 @dataclass(frozen=True)
@@ -200,6 +224,7 @@ def ipm_solve(
     opts: IPMOptions,
     warm: Optional[Vec4] = None,
     stats: Optional[dict] = None,
+    device_loop: Optional[Callable] = None,
 ) -> SolState:
     """One interior-point solve, or one solve of a stack of instances
     (module docstring): with leading batch dims on ``c`` every field of the
@@ -208,9 +233,20 @@ def ipm_solve(
     ``fast_steps`` and ``slow_steps`` (steps taken on a generator's low-
     and full-precision variant; every step of a single-variant generator is
     a fast one; for a stack, iterations on which some instance took one),
-    ``cold_start`` (1 when the initial point cost a KKT build) and
+    ``cold_start`` (1 when the initial point cost a KKT build),
     ``recertified`` (mixed mode: iterations that recomputed the products in
-    full precision)."""
+    full precision), ``polls`` (host reads of the loop's status),
+    ``replays`` (CUDA graph replays) and ``loop`` ("eager", "chunks" or
+    "graph": which loop ran).
+
+    ``device_loop``, when given, runs the device loop (module docstring):
+    ``device_loop(carry, iterate, active)`` applies ``iterate`` (one iteration,
+    carry to carry) until ``active(carry)``, a device bool, is false, and
+    returns the final carry and a dict of ``polls``, ``replays`` and
+    ``loop`` (:func:`run_chunks`, ``solver.graph.drive``). It takes a
+    single-variant generator without mixed residuals or verbose output.
+    Everything before the loop (checks, the level-1 callback, the initial
+    point) may read the device; nothing in the loop does."""
     counts = dict(fast_steps=0, slow_steps=0, recertified=0,
                   cold_start=int(warm is None))
     n = c.shape[-1]
@@ -412,7 +448,8 @@ def ipm_solve(
             return torch.float32 if (fast_eig and not slow) else slow_ed
         return torch.float32 if force_fast_eig else slow_ed
 
-    def take_step(z, F, FinvT, lam, R: _Resid, solve3x3, eig_dtype):
+    def take_step(z, F, FinvT, lam, R: _Resid, solve3x3, eig_dtype,
+                  early_exit):
         r0, rleft, mu, mubar = R.r0, R.rleft, R.mu, R.mubar
 
         eigs = lam_eigs(F)
@@ -463,24 +500,28 @@ def ipm_solve(
 
         # Newton step + iterative refinement, stopped when a step fails to
         # halve the residual. With a low-precision factor this loop is what
-        # recovers the working dtype's accuracy. In a stack each instance
-        # has its own stopping test: the loop goes on while any continues,
-        # and one that stopped keeps its dz.
+        # recovers the working dtype's accuracy. Each instance of a stack
+        # has its own stopping test, latched in `go` (the reference's
+        # ref_cond): a trip changes only the instances still going. The
+        # device loop runs all maxRefinementSteps trips; with
+        # ``early_exit`` the host reads `go` and stops once none goes on,
+        # which changes no value.
         dz = solve4(r)
         rIr, rnorm = resid(dz)
-        rn_prev, rstep = inf, 0
-        while rstep < opts.maxRefinementSteps:
-            go = (rnorm >= opts.refinement_threshold) & (rnorm < 0.5 * rn_prev)
-            if not bool(go.any() if batched else go):
+        rn_prev = torch.full_like(rnorm, float("inf"))
+        rstep = torch.zeros(rnorm.shape, dtype=torch.int32, device=dev)
+        go = torch.ones(rnorm.shape, dtype=torch.bool, device=dev)
+        for _ in range(opts.maxRefinementSteps):
+            go = go & (rnorm >= opts.refinement_threshold) & (
+                rnorm < 0.5 * rn_prev)
+            if early_exit and not bool(go.any()):
                 break
-            if batched:
-                dz = _select(go, dz + solve4(rIr), dz)
-                rn_prev = torch.where(go, rnorm, rn_prev)
-            else:
-                dz = dz + solve4(rIr)
-                rn_prev = rnorm
-            rIr, rnorm = resid(dz)
-            rstep += 1
+            dz = _select(go, dz + solve4(rIr), dz)
+            rn_prev = torch.where(go, rnorm, rn_prev)
+            rIr_new, rnorm_new = resid(dz)
+            rIr = _select(go, rIr_new, rIr)
+            rnorm = torch.where(go, rnorm_new, rnorm)
+            rstep = rstep + go
 
         # step with fraction-to-boundary; a non-finite direction (a failed
         # low-precision factor, say) freezes the iterate instead of
@@ -631,11 +672,70 @@ def ipm_solve(
                 lm = lm & lm_open
         return replace(st, status=status), best, stalled, lm
 
+    def scaling(z, slow):
+        # the variant's precision of the S-cone decompositions
+        F = sc.nt_scaling(spec, z.v, z.s, eig_dtype=eig_dtype_of(slow))
+        return F, sc.nt_inv_adjoint(spec, F)
+
+    def active_of(cy: Carry):
+        """Per instance: the iteration numbered ``cy.k`` is taken (the
+        instance runs and k <= maxIters). Everything an iteration carries
+        is frozen by this mask, so iterations past the end change nothing."""
+        return (cy.sol.status == Status.RUNNING) & (cy.k <= opts.maxIters)
+
+    def evaluate(cy: Carry, P, lam, lm_was):
+        """Residuals and assessment of the iterate against products P; an
+        instance that is not active keeps what it had."""
+        R = residual_block(P, cy.z, lam)
+        st, best, stalled, lm = assess(R, cy.z, cy.k, cy.sol, cy.best,
+                                       cy.stall, lm_was)
+        run = active_of(cy)
+        st = _select(run, st, cy.sol)
+        best = torch.where(run, best, cy.best)
+        stalled = torch.where(run, stalled, cy.stall)
+        lm = None if lm is None else lm & run
+        return R, st, best, stalled, lm
+
+    def advance(cy: Carry, st, best, stalled, z_new, go) -> Carry:
+        """The carry after an iteration: the new iterate where it stepped
+        (``go``), the counts on the device."""
+        return Carry(z=_select(go, z_new, cy.z), sol=st, best=best,
+                     stall=stalled,
+                     k=(cy.k + active_of(cy).any()).to(torch.int32),
+                     steps=(cy.steps + go.any()).to(torch.int32))
+
+    def iterate(cy: Carry) -> Carry:
+        """One iteration of the device loop (single-variant generator, no
+        mixed residuals): no host read and no early exit, so a chunk of
+        them can be captured in a CUDA graph (solver/graph.py)."""
+        F, FinvT = scaling(cy.z, False)
+        lam = sc.apply(spec, F, cy.z.v)
+        R, st, best, stalled, _ = evaluate(
+            cy, products_full(cy.z.y, cy.z.w, cy.z.v), lam, False)
+        go = active_of(cy) & (st.status == Status.RUNNING)
+        z_new = take_step(cy.z, F, FinvT, lam, R, solve3x3gen(F, FinvT),
+                          eig_dtype_of(False), early_exit=False)[0]
+        return advance(cy, st, best, stalled, z_new, go)
+
+    cy = Carry(z=z, sol=sol, best=each(float("inf")),
+               stall=torch.zeros(bs, **int32),
+               k=torch.ones((), **int32), steps=torch.zeros((), **int32))
+
+    if device_loop is not None:
+        if two_mode or mixed or opts.verbose:
+            raise ValueError("the device loop takes a single-variant KKT "
+                             "generator without mixed residuals or verbose "
+                             "output")
+        cy, info = device_loop(cy, iterate,
+                               lambda cy: active_of(cy).any())
+        counts.update(info, fast_steps=int(cy.steps))
+        if stats is not None:
+            stats.update(counts)
+        return _finish(cy.sol)
+
     if opts.verbose:
         _print_banner()
 
-    optBest = each(float("inf"))
-    stall = torch.zeros(bs, **int32)
     rnorm_prev, rstep_prev = 0.0, 0
     # Sticky: the generator's full-precision variant is on. A host bool for
     # a single solve; for a stack one flag per instance on the device, with
@@ -647,6 +747,7 @@ def ipm_solve(
     # so the first near-tolerance decision always recomputes them.
     P = products_fast(z.y, z.w, z.v) if mixed else None
     drift = each(float("inf"))
+    counts.update(polls=0, replays=0, loop="eager")
 
     def per_variant(which, flags, fn):
         """``fn(slow)`` on the variant(s) in ``which``; when a stack is on
@@ -655,24 +756,12 @@ def ipm_solve(
             return fn(which[0])
         return _select(flags, fn(True), fn(False))
 
-    def evaluate(P, lam):
-        """Residuals and assessment of the iterate against products P; in
-        a stack, finished instances keep what they had."""
-        R = residual_block(P, z, lam)
-        st, best, stalled, lm = assess(R, z, k, sol, optBest, stall, lm_on)
-        if batched:
-            run = sol.status == Status.RUNNING
-            st = _select(run, st, sol)
-            best = torch.where(run, best, optBest)
-            stalled = torch.where(run, stalled, stall)
-            lm = None if lm is None else lm & run
-        return R, st, best, stalled, lm
-
     def read(st, lm, fire=None):
         """The iteration's read-back, in one copy: whether the solve (any
         instance of a stack) is still running, the last-mile flag(s) after
         this iteration, the variants the step needs, and whether a
         recompute fired."""
+        counts["polls"] += 1
         if not batched:
             flags = [f.to(torch.int32) for f in (lm, fire) if f is not None]
             got = (torch.stack([st.status] + flags).tolist() if flags
@@ -693,51 +782,50 @@ def ipm_solve(
             need = tuple(v for v, f in zip((False, True), got[1:3]) if f)
         return got[0], on, need or modes, fire is not None and got[-1]
 
+    # The eager loop: the configurations the device loop does not take, one
+    # host read per iteration (module docstring). Its arithmetic is the
+    # device loop's (evaluate, take_step, advance); the reads decide the
+    # early exits, the variant and the recompute.
     k = 1
     while k <= opts.maxIters:
         # the scaling is the variant's an instance was on when the
         # iteration began; the variants differ only in the precision of
         # the S-cone decompositions
-        def scaling(slow):
-            F = sc.nt_scaling(spec, z.v, z.s, eig_dtype=eig_dtype_of(slow))
-            return F, sc.nt_inv_adjoint(spec, F)
-
         shared = eig_dtype_of(False) == eig_dtype_of(True)
-        F, FinvT = per_variant(modes[:1] if shared else modes, lm_on, scaling)
-        lam = sc.apply(spec, F, z.v)  # scaled point: = F⁻ᵀ z.s too
+        F, FinvT = per_variant(modes[:1] if shared else modes, lm_on,
+                               lambda slow: scaling(cy.z, slow))
+        lam = sc.apply(spec, F, cy.z.v)  # scaled point: = F⁻ᵀ z.s too
 
         if mixed:
             # Estimates from the carried products decide whether a
             # tolerance decision is near and the drift could affect it;
             # the honesty guard recertifies once drift reaches 10 % of the
             # estimated residual, so reported residuals stay trustworthy.
-            R, st, best, stalled, lm = evaluate(P, lam)
+            R, st, best, stalled, lm = evaluate(cy, P, lam, lm_on)
             near = ((R.rmax < sw * opts.optTol)
                     | (R.p_infeas < sw * opts.infeas_tol)
                     | (R.d_infeas < sw * opts.infeas_tol)
                     | ~torch.isfinite(R.rmax))
-            fire = (near & (drift > 0.05 * opts.optTol)) | (
-                drift > 0.1 * R.rmax)
-            if batched:
-                fire = fire & (sol.status == Status.RUNNING)
+            fire = ((near & (drift > 0.05 * opts.optTol))
+                    | (drift > 0.1 * R.rmax)) & active_of(cy)
             go, on, need, fired = read(st, lm, fire)
             if fired:
                 counts["recertified"] += 1
-                Pf = products_full(z.y, z.w, z.v)
-                P = _select(fire, Pf, P) if batched else Pf
-                drift = torch.where(fire, 0.0, drift) if batched else each(0.0)
-                R, st, best, stalled, lm = evaluate(P, lam)
+                P = _select(fire, products_full(cy.z.y, cy.z.w, cy.z.v), P)
+                drift = torch.where(fire, 0.0, drift)
+                R, st, best, stalled, lm = evaluate(cy, P, lam, lm_on)
                 go, on, need, _ = read(st, lm)
         else:
             R, st, best, stalled, lm = evaluate(
-                products_full(z.y, z.w, z.v), lam)
+                cy, products_full(cy.z.y, cy.z.w, cy.z.v), lam, lm_on)
             go, on, need, _ = read(st, lm)
-        sol, optBest, stall, lm_on, modes = st, best, stalled, on, need
+        lm_on, modes = on, need
 
         if opts.verbose:
             _print_row(k, R, rstep_prev, rnorm_prev)
 
         if not go:
+            cy = cy._replace(sol=st)
             break
         # LEVEL-2 plugin callback: per-iteration numeric refactorization,
         # of the variant(s) this iteration steps on (an instance that
@@ -753,16 +841,12 @@ def ipm_solve(
                                        mode="slow" if slow else "fast")
             else:
                 solve3x3 = solve3x3gen(F, FinvT)
-            return take_step(z, F, FinvT, lam, R, solve3x3,
-                             eig_dtype_of(slow))
+            return take_step(cy.z, F, FinvT, lam, R, solve3x3,
+                             eig_dtype_of(slow), early_exit=True)
 
         z_new, rnorm_prev, rstep_prev, Pd, alpha = per_variant(
             modes, lm_on, step)
-        if batched:
-            run = sol.status == Status.RUNNING
-            z = _select(run, z_new, z)
-        else:
-            z = z_new
+        run = active_of(cy) & (st.status == Status.RUNNING)
         if mixed:
             # incremental product update and its drift bound
             P_new = _Products(P.Qy - col(alpha) * Pd.Qy,
@@ -772,19 +856,50 @@ def ipm_solve(
                 (torch.linalg.norm(Pd.Qy, dim=-1)
                  + torch.linalg.norm(Pd.GAtwv, dim=-1)) / (1.0 + normc)
                 + _norm(Pd.GAy) / (1.0 + normb))
-            if batched:
-                P, drift = _select(run, P_new, P), torch.where(
-                    run, drift_new, drift)
-            else:
-                P, drift = P_new, drift_new
+            P, drift = _select(run, P_new, P), torch.where(
+                run, drift_new, drift)
+        cy = advance(cy, st, best, stalled, z_new, run)
         k += 1
 
     if stats is not None:
         stats.update(counts)
-    # loop exhausted without a status → Abandoned
+    return _finish(cy.sol)
+
+
+class Carry(NamedTuple):
+    """What one iteration hands the next (the reference's while_loop
+    carry): the iterate, the best-iterate record, the best residual and
+    the stall count per instance, the number of the next iteration and the
+    count of iterations on which some instance stepped (device int32)."""
+
+    z: Vec4
+    sol: SolState
+    best: torch.Tensor
+    stall: torch.Tensor
+    k: torch.Tensor
+    steps: torch.Tensor
+
+
+def _finish(sol: SolState) -> SolState:
+    """A loop exhausted without a status ends Abandoned."""
     return replace(sol, status=torch.where(
         sol.status == Status.RUNNING, Status.ABANDONED, sol.status
     ).to(torch.int32))
+
+
+def run_chunks(cy: Carry, iterate, active):
+    """The device loop run eagerly (the CPU's counterpart of
+    solver/graph.py): chunks of :data:`POLL` iterations, the host reading
+    whether any instance is still active once after each. Returns the
+    final carry and what the loop did (``polls`` reads, no ``replays``,
+    ``loop`` "chunks")."""
+    polls = 0
+    while True:
+        for _ in range(POLL):
+            cy = iterate(cy)
+        polls += 1
+        if not bool(active(cy)):
+            return cy, dict(polls=polls, replays=0, loop="chunks")
 
 
 def _print_banner():

@@ -116,16 +116,17 @@ class Solution:
 
     @classmethod
     def from_state(cls, st: SolState) -> "Solution":
+        """The solution of a finished solve; its scalars come to the host
+        in one copy."""
+        names = ("status", "Iter", "Mu", "prFeas", "duFeas", "muFeas",
+                 "pobj", "dobj")
+        vals = dict(zip(names, torch.stack([
+            getattr(st, f).to(torch.float64) for f in names]).tolist()))
         return cls(
             y=st.y,
             w=st.w,
             v=st.v,
-            status=STATUS_NAMES[int(st.status)],
-            Iter=int(st.Iter),
-            Mu=float(st.Mu),
-            prFeas=float(st.prFeas),
-            duFeas=float(st.duFeas),
-            muFeas=float(st.muFeas),
-            pobj=float(st.pobj),
-            dobj=float(st.dobj),
+            status=STATUS_NAMES[int(vals.pop("status"))],
+            Iter=int(vals.pop("Iter")),
+            **vals,
         )

@@ -2,17 +2,22 @@
 
     python -m conicip_tpu_torch.trace [--family box_qp_dense] [--n 4096]
                                       [--seed 42] [--factor-dtype float64]
-                                      [--batch B]
+                                      [--batch B] [--poll K]
 
 Solves one instance of a problem family (``--n`` sizes ``box_qp_dense`` and
 ``single_soc``; the other families take their default sizes) from inputs
-already on the card, once to warm up and once under ``torch.profiler``, and
-prints one line each for: the solve (wall time, device busy time as the
-union of kernel and copy intervals, iterations, kernel launches and
+already on the card, once to warm up, five times unprofiled and once under
+``torch.profiler``, and prints one line each for: the solve (wall time of
+the profiled solve and the median of the unprofiled ones, device busy time
+as the union of kernel and copy intervals, iterations, kernel launches and
 elementwise launches per iteration, device-to-host copies per iteration,
 launches of the Cholesky kernel's f64 and f32 entries and of the Jacobi
 kernels by kind, and the count of cuSOLVER eigen- or singular-value kernels,
-which an S-cone solve no longer runs), the Cholesky kernel split into its
+which an S-cone solve no longer runs; and the interior-point loop: whether
+it ran as a CUDA graph (``graph=1``), its host reads of the status
+(``polls``), the graph's ``replays``, the device-to-host copies inside the
+loop and outside it, and the kernels the host launched during the replays,
+which must be none), the Cholesky kernel split into its
 diagonal-block, panel and trailing kernels, the Jacobi kernels' device time,
 and the other device operations by total time.
 ``--factor-dtype float32`` profiles the f32-factor solve (mixed residuals,
@@ -21,8 +26,9 @@ last-mile switch, ladder) in place of the full-precision default.
 family's batched form instead (``box_qp_dense`` sized by ``--n``,
 ``mixed_rq_eq`` at n=200, ``mixed_rqs``, ``small_sdp``): the same lines, per
 iteration of the stack (``Iter`` is the slowest instance's), with the
-launches of the kernel's batched entries. It needs a CUDA device and fails
-without one.
+launches of the kernel's batched entries. ``--poll K`` profiles the device
+loop at K iterations per chunk in place of ``solver.ipm.POLL`` (how that
+constant was chosen). It needs a CUDA device and fails without one.
 """
 
 from __future__ import annotations
@@ -37,9 +43,11 @@ from collections import defaultdict
 
 import torch
 
-from . import conic_ip, solve_batch
+from . import conic_ip, solve_batch, solver
 from . import models
 from .ops import cholesky_kernel, jacobi_kernel
+from .parallel import batch as parallel_batch
+from .solver import graph, ipm
 
 # problem families, made at size n where they take one
 FAMILIES = {
@@ -92,6 +100,45 @@ def _is_cusolver_eig_svd(name):
     return any(piece in name for piece in CUSOLVER_EIG_SVD)
 
 
+# host calls that launch a kernel (through the CUDA runtime or the driver
+# API), and the one that launches a graph
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                 "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
+
+
+def loop_counts(events):
+    """From a chrome trace of one solve: the device-to-host copies made
+    while the device loop (solver/graph.py) ran and outside it, and the
+    kernels the host launched while its graph was replayed (on the device
+    loop none: the replays are graph launches and the status reads)."""
+    def spans(name):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("cat") == "user_annotation" and e["name"] == name]
+
+    def inside(ts, within):
+        return any(lo <= ts <= hi for lo, hi in within)
+
+    host = {e["args"]["correlation"]: e for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and "correlation" in e.get("args", {})}
+    loop, replay = spans(graph.LOOP), spans(graph.REPLAY)
+    dtoh_loop = dtoh = 0
+    for e in events:
+        if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]:
+            dtoh += 1
+            call = host.get(e.get("args", {}).get("correlation"))
+            dtoh_loop += call is not None and inside(call["ts"], loop)
+    launched = sum(1 for e in host.values()
+                   if e["name"] in HOST_LAUNCHES and inside(e["ts"], replay))
+    return dict(dtoh_loop=dtoh_loop, dtoh_fixed=dtoh - dtoh_loop,
+                replay_host_launches=launched)
+
+
+# unprofiled solves before the profiled one, whose median wall time the
+# [solve] line reports beside the profiled one's
+REPEATS = 5
+
 # --factor-dtype: the keyword conic_ip gets ("auto" is full precision)
 FACTOR_DTYPES = {"float64": "auto", "float32": torch.float32}
 
@@ -107,6 +154,9 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=0,
                     help="profile solve_batch on a stack of this many "
                          "instances")
+    ap.add_argument("--poll", type=int, default=0,
+                    help="iterations per chunk of the device loop for this "
+                         "profile (default: solver.ipm.POLL)")
     args = ap.parse_args(argv)
     if args.family not in (BATCH_FAMILIES if args.batch else FAMILIES):
         ap.error(f"--family {args.family} has no "
@@ -119,6 +169,15 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("trace: no CUDA device", file=sys.stderr)
         return 2
+    default = ipm.POLL
+    ipm.POLL = args.poll or default
+    try:
+        return _profile(args)
+    finally:
+        ipm.POLL = default
+
+
+def _profile(args):
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
@@ -146,6 +205,12 @@ def main(argv=None):
 
     solve()  # warm-up, builds
     torch.cuda.synchronize()
+    unprofiled = []
+    for _ in range(REPEATS):
+        t = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        unprofiled.append((time.perf_counter() - t) * 1e3)
     cholesky_kernel.reset_launch_count()
     jacobi_kernel.reset_launch_count()
     with profile(activities=[ProfilerActivity.CPU,
@@ -176,20 +241,32 @@ def main(argv=None):
             counts[st] = counts.get(st, 0) + 1
         status = ",".join(f"{k}x{v}" for k, v in sorted(counts.items()))
         iters = int(sol.Iter.max())
+        runs = parallel_batch.runs
     else:
         status, iters = sol.status, sol.Iter
+        runs = solver.runs
+    loop = loop_counts(events)
     it = max(iters, 1)
     busy_ms = _busy_us(device) / 1e3
     print(f"[solve] family={name} factor_dtype={args.factor_dtype} "
           f"status={status} Iter={iters} "
-          f"wall_ms={wall_ms:.2f} device_busy_ms={busy_ms:.2f} "
+          f"wall_ms={wall_ms:.2f} "
+          f"wall_ms_unprofiled={sorted(unprofiled)[REPEATS // 2]:.2f} "
+          f"device_busy_ms={busy_ms:.2f} "
           f"device_idle_share={1 - busy_ms / wall_ms:.3f} "
           f"kernels_per_iter={len(kernels) / it:.1f} "
           f"elementwise_per_iter={elementwise / it:.1f} "
-          f"dtoh_per_iter={dtoh / it:.1f} "
+          f"dtoh_per_iter={dtoh / it:.2f} "
+          f"graph={int(any(r.loop == 'graph' for r in runs))} "
+          f"poll={ipm.POLL} polls={sum(r.polls for r in runs)} "
+          f"replays={sum(r.replays for r in runs)} "
+          f"dtoh_loop={loop['dtoh_loop']} dtoh_fixed={loop['dtoh_fixed']} "
+          f"replay_host_launches={loop['replay_host_launches']} "
           f"cholesky_f64={cholesky_kernel.launch_count(torch.float64)} "
           f"cholesky_f32={cholesky_kernel.launch_count(torch.float32)} "
           f"cholesky_batched={cholesky_kernel.launch_count(batch=True)} "
+          f"cholesky_predicated="
+          f"{cholesky_kernel.launch_count(predicated=True)} "
           + "".join(f"jacobi_{k}={jacobi_kernel.launch_count(k)} "
                     for k in jacobi_kernel.KINDS)
           + f"cusolver_eig_svd_kernels={cusolver} "

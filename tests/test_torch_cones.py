@@ -243,6 +243,21 @@ def test_symm_matches_jax(d, rng):
         np.trace(X @ Y, axis1=-2, axis2=-1), rtol=1e-12)
 
 
+def test_symm_single_aliases_match_jax(rng):
+    # the reference's unbatched names: exported, the same functions, and
+    # equal to the reference's on one matrix
+    for name in ("vecm_single", "mat_single"):
+        assert name in tsymm.__all__ and name in jsymm.__all__
+    assert tsymm.vecm_single is tsymm.vecm and tsymm.mat_single is tsymm.mat
+    X = sym(rng, 4, 4)
+    vx = tsymm.vecm_single(t(X))
+    np.testing.assert_allclose(vx.numpy(),
+                               np.asarray(jsymm.vecm_single(j(X))), **TOL)
+    np.testing.assert_allclose(tsymm.mat_single(vx).numpy(),
+                               np.asarray(jsymm.mat_single(j(vx.numpy()))),
+                               **TOL)
+
+
 @pytest.mark.parametrize("dims", CONIC)
 def test_group_segments_match_jax(dims, rng):
     ts, js = ConeSpec(dims), jc.ConeSpec(dims)

@@ -347,3 +347,39 @@ def test_f32_factors_on_card_run_the_f32_entry(cuda):
     assert max(sol.prFeas, sol.duFeas, sol.muFeas) < 1e-6
     assert sol.y.dtype == f64
     assert (sol.y - ref.y).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (300, 300), (8, 200, 200)])
+def test_predicated_entry_matches_plain(cuda, shape):
+    # the ridge retries' form: a flagged matrix keeps `out` bit for bit, an
+    # unflagged one is factored as the plain version factors it
+    rng = np.random.default_rng(1)
+    B = rng.standard_normal(shape)
+    M = torch.from_numpy(B @ np.swapaxes(B, -1, -2) / shape[-1]
+                         + np.eye(shape[-1])).to(cuda)
+    prev = torch.full_like(M, 7.0)
+    lead = shape[:-2]
+    for flags in (torch.ones(lead, dtype=torch.bool),
+                  torch.zeros(lead, dtype=torch.bool),
+                  torch.arange(lead[0] if lead else 1).reshape(lead) % 2 == 0):
+        flags = flags.to(cuda)
+        before = cholesky_kernel.launch_count(predicated=True)
+        L = cholesky_kernel.cholesky_factor(M, skip=flags, out=prev.clone())
+        assert cholesky_kernel.launch_count(predicated=True) == before + 1
+        Lp = cholesky_kernel.cholesky_plain(M, skip=flags, out=prev.clone())
+        assert torch.equal(L[flags], prev[flags])
+        assert ((L - Lp).abs().max() / Lp.abs().max()).item() <= 1e-10
+
+
+def test_graph_solve_matches_cpu(cuda):
+    # conic_ip's device loop on the card (a captured CUDA graph) against
+    # the same loop run eagerly on the CPU
+    from conicip_tpu_torch import solver
+
+    for P in (box_qp_dense(n=64, seed=42), single_soc(n=40), small_sdp(k=4)):
+        sol = conic_ip(*P.args(), device="cuda")
+        (run,) = solver.runs
+        ref = conic_ip(*P.args(), device="cpu")
+        assert run.loop == "graph" and sol.status == ref.status == "Optimal"
+        assert sol.Iter == ref.Iter
+        assert (sol.y.cpu() - ref.y).abs().max().item() <= 1e-8

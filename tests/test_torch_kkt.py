@@ -27,7 +27,7 @@ from conicip_tpu_torch.kkt.diag import equality_mode
 from conicip_tpu_torch.kkt.spectral import (kktsolver_spectral,
                                             spectral_applicable,
                                             spectral_kktsolver)
-from conicip_tpu_torch.ops.control import retry_while
+from conicip_tpu_torch.ops.control import retry_attempts, retry_while
 from test_torch_cones import cone_interior
 
 torch.set_num_threads(1)
@@ -175,21 +175,31 @@ def test_lower_precision_factors_not_ported():
 
 
 def test_retry_while_escalates_until_good_or_cap():
+    # a fixed number of predicated attempts (two at the Schur solver's
+    # scale0 1e3, factor 1e3, cap 1e7), each given skip = ~bad(state) on
+    # the device, nothing read back to decide them
     seen = []
 
-    def step(scale):
-        seen.append(scale)
-        return scale
+    def step(scale, skip, state):
+        seen.append((scale, bool(skip)))
+        return torch.where(skip, state, torch.tensor(scale))
 
-    # healthy first attempt: no retry
-    assert retry_while(lambda s: False, step, "first", 1e3, 1e3, 1e7) == "first"
-    assert seen == []
+    first = torch.tensor(-1.0)
+    assert retry_attempts(1e3, 1e3, 1e7) == 2
+    assert retry_attempts(1e3, 1e3, 1e3) == 0
+    # healthy first attempt: both attempts skipped, the first kept
+    good = torch.tensor(False)
+    assert retry_while(lambda s: good, step, first, 1e3, 1e3, 1e7) == -1.0
+    assert seen == [(1e3, True), (1e6, True)]
     # always bad: tries 1e3 and 1e6, stops at the cap
-    assert retry_while(lambda s: True, step, "first", 1e3, 1e3, 1e7) == 1e6
-    assert seen == [1e3, 1e6]
-    # the predicate may be a device boolean
-    assert retry_while(lambda s: torch.tensor(s == "first"), step, "first",
-                       1e3, 1e3, 1e7) == 1e3
+    del seen[:]
+    bad = torch.tensor(True)
+    assert retry_while(lambda s: bad, step, first, 1e3, 1e3, 1e7) == 1e6
+    assert seen == [(1e3, False), (1e6, False)]
+    # bad until the first retry: the second is skipped
+    del seen[:]
+    assert retry_while(lambda s: s < 0, step, first, 1e3, 1e3, 1e7) == 1e3
+    assert seen == [(1e3, False), (1e6, True)]
 
 
 def test_schur_ridge_retry_recovers_from_failed_factor(rng, monkeypatch):
@@ -200,15 +210,18 @@ def test_schur_ridge_retry_recovers_from_failed_factor(rng, monkeypatch):
     calls = []
     real = schur.cholesky
 
-    def flaky(M):
-        calls.append(1)
-        L = real(M)
+    def flaky(M, **predicate):
+        calls.append(predicate.get("skip"))
+        L = real(M, **predicate)
         return torch.full_like(L, float("nan")) if len(calls) == 1 else L
 
     monkeypatch.setattr(schur, "cholesky", flaky)
     Q, A, G = dense_problem(rng, 0)
     solve_both(Q, A, G, jk.kktsolver_schur, kktsolver_schur, rng)
-    assert len(calls) == 2
+    # the first factor, then two predicated retries: the first taken, the
+    # second skipped
+    assert len(calls) == 3 and calls[0] is None
+    assert [bool(s) for s in calls[1:]] == [False, True]
 
 
 @pytest.mark.parametrize("cones, q", [
@@ -364,9 +377,9 @@ def test_retry_while_retries_only_the_bad_instances():
     def attempt(boost):
         return torch.where(boost >= need, boost, torch.nan)[:, None].repeat(1, 2)
 
-    def step(boost):
+    def step(boost, skip, state):
         seen.append(boost)
-        return attempt(torch.tensor(boost))
+        return torch.where(skip[:, None], state, attempt(torch.tensor(boost)))
 
     out = retry_while(lambda s: ~torch.isfinite(s).all(-1), step,
                       attempt(torch.tensor(1.0)), 1e3, 1e3, 1e7)

@@ -57,6 +57,39 @@ def test_kernel_names_group_the_jacobi_kernels_and_spot_cusolver():
         "void (anonymous namespace)::eigh_jacobi<double>(double const*)")
 
 
+def test_loop_counts_read_the_device_loop_ranges():
+    # a copy and a launch are placed by the host call they came from
+    # (correlation ids): inside the loop's range or not, inside its replays
+    # or not
+    from conicip_tpu_torch.solver import graph
+
+    def host(name, ts, corr):
+        return {"cat": "cuda_runtime", "name": name, "ts": ts, "dur": 1,
+                "args": {"correlation": corr}}
+
+    def copy(corr):
+        return {"cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> "
+                "Pageable)", "ts": 500, "dur": 1,
+                "args": {"correlation": corr}}
+
+    events = [
+        {"cat": "user_annotation", "name": graph.LOOP, "ts": 10, "dur": 90},
+        {"cat": "user_annotation", "name": graph.REPLAY, "ts": 50,
+         "dur": 40},
+        host("cudaMemcpyAsync", 5, 1), copy(1),  # before the loop
+        host("cudaLaunchKernel", 20, 2),  # the first chunk, eager
+        host("cudaMemcpyAsync", 30, 3), copy(3),  # its poll
+        host("cudaGraphLaunch", 60, 4),
+        host("cudaMemcpyAsync", 70, 5), copy(5),  # a replay's poll
+        host("cudaLaunchKernel", 80, 6),  # a launch during the replays
+        {"cat": "gpu_memcpy", "name": "Memcpy HtoD (Pageable -> Device)",
+         "ts": 1, "dur": 1, "args": {"correlation": 7}},
+        host("cudaMemcpyAsync", 95, 7),
+    ]
+    assert trace.loop_counts(events) == dict(
+        dtoh_loop=2, dtoh_fixed=1, replay_host_launches=1)
+
+
 def test_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the profile would run")
