@@ -15,11 +15,17 @@ that one larger_sdp(k=30) solve and one batched_small_sdp(64) solve hand
 them; then it drives ``conicip_tpu_torch.conic_ip`` through
 every default KKT backend (dense Schur, diagonal, spectral) on R, Q and S
 cone problems at the sizes the repository benchmarks, and checks the
-answers; ``[graph]`` holds each of those solves on the device loop (a
-captured CUDA graph, ``solver/graph.py``) against the eager loop on the
-same arguments and against the CPU, with its host reads, replays and
-device-to-host copies, after the kernel phase has held the Cholesky
-kernel's predicated entry (the ridge retries) against its plain form.
+answers; ``[graph]`` holds each of those solves on the device loop
+(CUDA graphs kept across calls, ``solver/graph.py``) against the eager loop
+on the same arguments and against the CPU, bit for bit, with its KKT
+builds, refinement trips (each a conditional graph node,
+``csrc/graph_cond.cu``), host reads, replays and device-to-host copies,
+after the kernel phase has held the Cholesky kernel's predicated entry
+(the ridge retries) against its plain form; ``[graph_cache]`` solves chains
+of six instances of one shape on the device loop's cache (one capture,
+hits equal to solves after ``graph.clear()`` bit for bit, flat reserved
+memory, an evicted entry's pools freed) and times hits, misses and the
+eager loop.
 Three further phases drive the options around the default path:
 ``[f32]`` the f32-factor solves (the kernel's f32 entry, the last-mile
 switch to f64 factors), ``[eq]`` null-space elimination of equalities and
@@ -161,7 +167,8 @@ def phase_environment():
           "TF32 matmul must be off (the reference ran products at HIGHEST)")
 
 
-KERNEL_SOURCES = ("cholesky", "jacobi")  # csrc/<name>.cu
+# csrc/<name>.cu: the two kernels, and the device loop's conditional node
+KERNEL_SOURCES = ("cholesky", "jacobi", "graph_cond")
 
 
 def phase_build():
@@ -873,15 +880,17 @@ def predicated(dtype=None, n=None):
 
 
 def run_builds(r):
-    """KKT builds the card ran in one interior-point run: the cold start,
-    and one per iteration executed: POLL per chunk on the device loop (the
-    frozen iterations past the end of a chunk included; a chunk is followed
-    by one poll), one per step on the eager loop."""
+    """KKT builds the card ran in one interior-point run: the cold start's,
+    and one per step. On the device loop a step is a unit, POLL per chunk
+    (the frozen units past the end of a chunk included), and every unit is
+    followed by one poll, as is the prologue; a miss runs the prologue
+    twice (eagerly, then from its graph). On the eager loop one per step."""
     from conicip_tpu_torch.solver import ipm
 
-    steps = (ipm.POLL * r.polls if r.loop != "eager"
-             else r.fast_steps + r.slow_steps)
-    return r.cold_start + steps
+    if r.loop == "eager":
+        return r.cold_start + r.fast_steps + r.slow_steps
+    prologues = 2 if r.loop == "graph" and not r.cache_hit else 1
+    return r.cold_start * prologues + ipm.POLL * (r.polls - 1)
 
 
 def kkt_builds():
@@ -1141,13 +1150,16 @@ def profiled(fn):
 
 
 def phase_graph():
-    """Each solve of the slice through conic_ip (the device loop, a CUDA
-    graph) and through the eager loop on the same arguments (ipm_solve
-    without a device loop): the same status and Iter, also as the CPU's, y
-    within 1e-9; then, on the device operands conic_ip made, each loop
-    alone: ms per solve (median of 3, CUDA events), kernels and
-    device-to-host copies per iteration (profiler); host reads and graph
-    replays; during the replays the host launches no kernel."""
+    """Each solve of the slice through conic_ip (the device loop, CUDA
+    graphs kept across calls) and through the eager loop on the same
+    arguments (ipm_solve without a device loop): the same status and Iter,
+    also as the CPU's, and y bit for bit; then the same device operands
+    through the device loop again, a cache hit: the same bits, the KKT
+    builds and refinement trips of the eager loop, one host read after the
+    prologue and one per chunk replay; then each loop alone: ms per solve
+    (median of 3, CUDA events), kernels and device-to-host copies per
+    iteration (profiler); during the replays the host launches no
+    kernel."""
     from conicip_tpu_torch import conic_ip, solver
     from conicip_tpu_torch.solver import graph, ipm
     from conicip_tpu_torch.solver.state import Solution
@@ -1164,19 +1176,23 @@ def phase_graph():
             sol = conic_ip(*args, device="cuda")
         finally:
             graph.solve = real
-        (run,) = solver.runs
+        (first,) = solver.runs
         a, kw = seen.pop("call")
 
         # the two loops on the same device operands: graph.solve, which
         # conic_ip reached, and ipm_solve without a device loop
-        def graphed():
-            return Solution.from_state(real(*a, warm=kw["warm"]))
+        def graphed(stats=None):
+            return Solution.from_state(real(*a, warm=kw["warm"],
+                                            stats=stats))
 
-        def eager():
-            return Solution.from_state(ipm.ipm_solve(*a, warm=kw["warm"]))
+        def eager(stats=None):
+            return Solution.from_state(ipm.ipm_solve(*a, warm=kw["warm"],
+                                                     stats=stats))
 
-        ref = eager()
-        check(run.loop == "graph", f"[graph] {label}: the {run.loop} loop ran")
+        est = {}
+        ref = eager(est)
+        check(first.loop == "graph",
+              f"[graph] {label}: the {first.loop} loop ran")
         check(sol.status == ref.status and sol.Iter == ref.Iter,
               f"[graph] {label}: graph {sol.status}/{sol.Iter}, eager "
               f"{ref.status}/{ref.Iter}")
@@ -1184,14 +1200,31 @@ def phase_graph():
         check(cpu is None or cpu == (sol.status, sol.Iter),
               f"[graph] {label}: graph {sol.status}/{sol.Iter}, cpu {cpu}")
         dy = (sol.y - ref.y).abs().max().item()
-        check(dy <= 1e-9, f"[graph] {label}: |y - y_eager| {dy:.3e}")
-        # iterations run: the steps and the one that set the status; one
-        # read per chunk of POLL, one replay per chunk after the first
-        ran = run.fast_steps + (run.status != "Abandoned")
-        chunks = -(-ran // ipm.POLL)
-        check(run.polls == chunks and run.replays == chunks - 1,
+        check(dy == 0, f"[graph] {label}: |y - y_eager| {dy:.3e}")
+        hst = {}
+        hit = graphed(hst)
+        run = solver.Run(None, hit.status, hit.Iter, **hst)
+        check(run.cache_hit and torch.equal(hit.y, sol.y)
+              and (hit.status, hit.Iter) == (sol.status, sol.Iter),
+              f"[graph] {label}: the second solve of the same operands "
+              f"(cache hit {run.cache_hit}) differs from the first")
+        erun = solver.Run(None, ref.status, ref.Iter, **est)
+        builds, ebuilds = run_builds(run), run_builds(erun)
+        check(builds == ebuilds and run.fast_steps == erun.fast_steps,
+              f"[graph] {label}: {builds} KKT builds on the device loop, "
+              f"{ebuilds} on the eager loop")
+        check(run.trips == erun.trips,
+              f"[graph] {label}: {run.trips} refinement trips on the device "
+              f"loop, {erun.trips} on the eager loop")
+        # a hit reads once after the prologue and once per chunk: one
+        # chunk of POLL units per step; a miss runs its first chunk eagerly
+        chunks = -(-run.fast_steps // ipm.POLL)
+        eager_chunk = not first.cache_hit and first.fast_steps > 0
+        check(run.polls == 1 + chunks and run.replays == chunks
+              and first.polls == 1 + eager_chunk + first.replays,
               f"[graph] {label}: {run.polls} polls and {run.replays} "
-              f"replays for {ran} iterations at POLL {ipm.POLL}")
+              f"replays on a hit, {first.polls} and {first.replays} on a "
+              f"miss, for {run.fast_steps} steps at POLL {ipm.POLL}")
         ms_g = float(np.median([event_ms(graphed) for _ in range(3)]))
         ms_e = float(np.median([event_ms(eager) for _ in range(3)]))
         pg = profiled(graphed)
@@ -1206,6 +1239,10 @@ def phase_graph():
         it = sol.Iter
         line("graph", instance=label, status=sol.status, Iter=it,
              cpu_iter=cpu[1] if cpu else "-", y_diff_eager=f"{dy:.3e}",
+             first_call="hit" if first.cache_hit else "miss",
+             kkt_builds_graph=builds, kkt_builds_eager=ebuilds,
+             trips_per_iter_graph=f"{run.trips / it:.2f}",
+             trips_per_iter_eager=f"{erun.trips / it:.2f}",
              poll=ipm.POLL, polls=run.polls, replays=run.replays,
              ms_graph=f"{ms_g:.2f}", ms_eager=f"{ms_e:.2f}",
              dtoh_per_iter_graph=f"{pg['dtoh'] / it:.2f}",
@@ -1214,6 +1251,190 @@ def phase_graph():
              kernels_per_iter_graph=f"{pg['kernels'] / it:.1f}",
              kernels_per_iter_eager=f"{pe['kernels'] / it:.1f}",
              replay_host_launches=pg["replay_host_launches"])
+
+
+def readme_box(seed, n=1000, eq=False, pattern=False):
+    """The README box QP (diag backend) with its objective shifted by the
+    seed; with one equality; or with A's rows in another order, signs and
+    scales (one nonzero each, the box kept by b), so that the diag
+    backend's level-1 data (columns, coefficients, incidence) differ from
+    one instance to the next."""
+    H, c, A, b, cones, G, d = diag_args(eq, n)
+    rng = np.random.default_rng(seed)
+    c = c + rng.standard_normal(n)
+    if pattern:
+        perm = rng.permutation(n)
+        signs = rng.choice([-1.0, 1.0], size=2 * n)
+        scale = rng.uniform(0.5, 2.0, size=2 * n)
+        A = (signs * scale)[:, None] * np.vstack([np.eye(n)[perm],
+                                                  -np.eye(n)[perm]])
+        b = -scale
+    return H, c, A, b, cones, G, d
+
+
+def graph_cache_cases():
+    """(label, instance at a seed) of the [graph_cache] phase: the eight
+    solves of PERF.md §5's table, a README box with an equality (the diag
+    backend's Woodbury buffers) and one whose A changes its sign pattern
+    from one instance to the next."""
+    from conicip_tpu_torch import models
+
+    return (
+        ("box_qp_dense(n=500)", lambda s: models.box_qp_dense(500, s).args()),
+        ("box_qp_dense(n=1024)",
+         lambda s: models.box_qp_dense(1024, s).args()),
+        ("box_qp_dense(n=4096)",
+         lambda s: models.box_qp_dense(4096, s).args()),
+        ("single_soc(n=500)", lambda s: models.single_soc(500, s).args()),
+        ("single_soc(n=4096)", lambda s: models.single_soc(4096, s).args()),
+        ("many_small_socs(k=250)",
+         lambda s: models.many_small_socs(seed=s).args()),
+        ("larger_sdp(k=30)", lambda s: models.larger_sdp(seed=s).args()),
+        ("mixed_rqs(n=86)", lambda s: models.mixed_rqs(seed=s).args()),
+        ("readme_box(n=1000,eq)", lambda s: readme_box(s, eq=True)),
+        ("readme_box(n=1000,sign pattern)",
+         lambda s: readme_box(s, pattern=True)),
+    )
+
+
+CHAIN = 6  # instances of one shape per [graph_cache] case
+
+
+def spread(ms):
+    """median, least and most of a list of times, as line fields"""
+    ms = sorted(ms)
+    return f"{ms[len(ms) // 2]:.2f}/{ms[0]:.2f}/{ms[-1]:.2f}"
+
+
+def phase_graph_cache():
+    """The device loop's cache (solver/graph.py) on each case of
+    graph_cache_cases(): a chain of CHAIN instances of one shape (seeds
+    1...CHAIN). The first call misses and builds the entry, the other five
+    hit it (one capture for the key); torch.cuda.memory_reserved() is flat
+    across the hits; the first solution is unchanged after the last call.
+    Then each hit's instance again after graph.clear() (a miss): the same
+    status, Iter and y, w, v bit for bit, and the CPU's status and Iter.
+    One solve of another shape misses, and filling the cache past its
+    bound with small solves evicts the case's entry, whose memory pools
+    leave no segment behind. ms per solve (host clock around a
+    synchronised call on the device operands conic_ip made, the result's
+    scalars read; median, least and most of the five): hit, miss and the
+    eager loop."""
+    from conicip_tpu_torch import conic_ip, models, solver
+    from conicip_tpu_torch.solver import graph, ipm
+    from conicip_tpu_torch.solver.state import Solution
+
+    real, seen = graph.solve, {}
+
+    def spy(*args, **kw):
+        seen["call"] = (args, kw)
+        return real(*args, **kw)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def pools_left(ids):
+        return sum(1 for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) in ids)
+
+    for label, make in graph_cache_cases():
+        graph.clear()
+        instances = [make(seed) for seed in range(1, CHAIN + 1)]
+        first = conic_ip(*instances[0], device="cuda")
+        check(not solver.runs[0].cache_hit, f"[graph_cache] {label}: the "
+              "first call of an empty cache hit")
+        (key,) = graph.cache_info()
+        kept = first.y.clone()
+        hits, reserved = [], []
+        for args in instances[1:]:
+            sol = conic_ip(*args, device="cuda")
+            (run,) = solver.runs
+            check(run.cache_hit and run.loop == "graph"
+                  and graph.cache_info() == [key],
+                  f"[graph_cache] {label}: a call of the chain missed")
+            reserved.append(torch.cuda.memory_reserved())
+            hits.append((sol.status, sol.Iter,
+                         *(getattr(sol, f).cpu() for f in "ywv")))
+            del sol
+        check(len(set(reserved)) == 1,
+              f"[graph_cache] {label}: memory reserved across the hits "
+              f"{reserved}")
+        check(torch.equal(first.y, kept),
+              f"[graph_cache] {label}: the first solution changed")
+
+        # the times, on the device operands conic_ip made (graph.solve and
+        # ipm_solve as [graph] calls them): hits, then the eager loop
+        operands = []
+        for args in instances[1:]:
+            graph.solve = spy
+            try:
+                conic_ip(*args, device="cuda")
+            finally:
+                graph.solve = real
+            operands.append(seen.pop("call")[0])
+
+        def loop(a, stats=None):
+            return Solution.from_state(real(*a, stats=stats))
+
+        ms_hit = [timed(lambda: loop(a))[1] for a in operands]
+        ms_eager = [timed(lambda: Solution.from_state(ipm.ipm_solve(*a)))[1]
+                    for a in operands]
+        ms_miss, cpu_iters = [], []
+        for args, a, (status, Iter, y, w, v) in zip(instances[1:], operands,
+                                                    hits):
+            graph.clear()
+            stats = {}
+            fresh, ms = timed(lambda: loop(a, stats))
+            check(not stats["cache_hit"]
+                  and (fresh.status, fresh.Iter) == (status, Iter)
+                  and all(torch.equal(getattr(fresh, f).cpu(), x)
+                          for f, x in zip("ywv", (y, w, v))),
+                  f"[graph_cache] {label}: a hit {status}/{Iter} differs "
+                  f"from the solve after clear() {fresh.status}/"
+                  f"{fresh.Iter}")
+            ms_miss.append(ms)
+            cpu = conic_ip(*args, device="cpu")
+            check((cpu.status, cpu.Iter) == (status, Iter),
+                  f"[graph_cache] {label}: card {status}/{Iter}, cpu "
+                  f"{cpu.status}/{cpu.Iter}")
+            cpu_iters.append(cpu.Iter)
+        del operands
+        # the entry of this key again, then a solve of another shape
+        conic_ip(*instances[0], device="cuda")
+        entry = graph._cache[key]
+        ids = {tuple(entry.pool.id), tuple(entry.body_pool.id)}
+        check(pools_left(ids) > 0, f"[graph_cache] {label}: no segment in "
+              "the entry's pools")
+        del entry
+        conic_ip(*models.box_qp_dense(n=8).args(), device="cuda")
+        other_missed = not solver.runs[0].cache_hit
+        check(other_missed, f"[graph_cache] {label}: another shape hit the "
+              "cache")
+        # past the bound: the key goes once CACHE_SIZE newer entries are
+        # kept (the CPU solves above keep entries of their own, older)
+        added = 1
+        while key in graph.cache_info() and added <= graph.CACHE_SIZE:
+            conic_ip(*models.box_qp_dense(n=8 + added).args(), device="cuda")
+            added += 1
+        check(key not in graph.cache_info() and added == graph.CACHE_SIZE
+              and len(graph.cache_info()) == graph.CACHE_SIZE,
+              f"[graph_cache] {label}: the entry was evicted after {added} "
+              f"newer ones, {len(graph.cache_info())} kept")
+        left = pools_left(ids)
+        check(left == 0, f"[graph_cache] {label}: {left} segments of the "
+              "evicted entry's pools remain")
+        line("graph_cache", instance=label, status=first.status,
+             Iter=first.Iter, chain=CHAIN, hits=len(hits), captures=1,
+             hits_equal_fresh=True, cpu_iters=",".join(map(str, cpu_iters)),
+             first_unchanged=True, reserved_mb=f"{reserved[0] / 2**20:.0f}",
+             other_shape_missed=other_missed, evicted_pool_segments=left,
+             ms_hit=spread(ms_hit), ms_miss=spread(ms_miss),
+             ms_eager=spread(ms_eager))
+    graph.clear()
 
 
 @functools.lru_cache(maxsize=None)
@@ -2668,11 +2889,11 @@ def main():
     jacobi_main = Counter()  # launches by (kind, dtype, d, stack)
     # the phases that solve S-cone problems, whose decompositions are the
     # Jacobi kernels' (and no other phase's)
-    s_cone = (phase_conic, phase_graph, phase_f32, phase_batch,
-              phase_frontend, phase_ladder, phase_distributed)
+    s_cone = (phase_conic, phase_graph, phase_graph_cache, phase_f32,
+              phase_batch, phase_frontend, phase_ladder, phase_distributed)
     for phase in (phase_schur, phase_diag, phase_conic, phase_graph,
-                  phase_f32, phase_eq, phase_backends, phase_batch,
-                  phase_checkpoint, phase_frontend, phase_ladder,
+                  phase_graph_cache, phase_f32, phase_eq, phase_backends,
+                  phase_batch, phase_checkpoint, phase_frontend, phase_ladder,
                   phase_distributed):
         cholesky_kernel.reset_launch_count()
         jacobi_kernel.reset_launch_count()

@@ -25,7 +25,7 @@ Every level works on tensors; ``F``/``FinvT`` are structured
 ``conicip_tpu.kkt``.
 """
 
-from .diag import kktsolver_diag, separable
+from .diag import kktsolver_diag, separable, separable_batch
 from .lu import kktsolver_lu
 from .pivot import pivot
 from .qr import kktsolver_qr
@@ -34,6 +34,7 @@ from .schur import kktsolver_2x2, kktsolver_schur
 __all__ = [
     "kktsolver_diag",
     "separable",
+    "separable_batch",
     "pivot",
     "kktsolver_2x2",
     "kktsolver_schur",

@@ -83,6 +83,8 @@ class BatchRun(NamedTuple):
     polls: int  # host reads of the loop's status
     replays: int  # CUDA graph replays (0: the eager loop)
     loop: str  # "eager": solve_batch runs the eager loop
+    trips: int  # refinement trips run (some instance went on)
+    cache_hit: bool  # False: the eager loop keeps nothing across calls
 
     @property
     def batch(self) -> int:

@@ -22,7 +22,7 @@ from ..kkt.schur import kktsolver_schur
 from ..kkt.spectral import spectral_applicable, spectral_kktsolver
 from ..reduce import eliminate_equalities
 from . import graph
-from .ipm import IPMOptions, ipm_solve, run_chunks
+from .ipm import IPMOptions, ipm_solve
 from .state import SolState, Solution, Status, Vec4, to_host
 
 __all__ = ["conic_ip", "Solution", "SolState", "Status", "IPMOptions", "Vec4",
@@ -41,6 +41,8 @@ class Run(NamedTuple):
     polls: int  # host reads of the loop's status
     replays: int  # CUDA graph replays of one captured chunk
     loop: str  # "graph", "chunks" (the device loop) or "eager"
+    trips: int  # refinement trips run (on a stack: some instance went on)
+    cache_hit: bool  # the device loop's entry was kept from an earlier call
 
 
 # Every interior-point run of the latest conic_ip call, in order: the first
@@ -99,14 +101,14 @@ def _diag_kktsolver(factor_dtype, eq_mode="woodbury"):
 
 
 def _device_loop(kktsolver, user_kktsolver, opts) -> bool:
-    """Whether a run takes the device loop (``ipm.POLL`` iterations per
-    host read; on CUDA a captured CUDA graph, solver/graph.py) or the eager
-    loop (one host read per iteration). The device loop takes the built-in
-    backends in full precision. The eager loop keeps what holds host state
-    or reads the device from the host: f32 factors (the last-mile variant
-    switch and mixed residuals live on the host, ipm.py), verbose output (a
-    print per iteration) and a caller's own kktsolver (whose callbacks may
-    read the device). ``solve_batch`` and the distributed path call
+    """Whether a run takes the device loop (``ipm.POLL`` units per host
+    read, through solver/graph.py's cache; on CUDA captured CUDA graphs,
+    kept across calls) or the eager loop (one host read per iteration).
+    The device loop takes the built-in backends in full precision. The
+    eager loop keeps what holds host state or reads the device from the
+    host: f32 factors (the last-mile variant switch and mixed residuals
+    live on the host, ipm.py), verbose output (a print per iteration) and a
+    caller's own kktsolver (whose callbacks may read the device). ``solve_batch`` and the distributed path call
     ``ipm_solve`` themselves and keep the eager loop too."""
     return not (user_kktsolver or opts.mixedResiduals or opts.verbose
                 or getattr(kktsolver, "keywords", {}).get("factor_dtype")
@@ -272,13 +274,10 @@ def _solve_direct(tensors, structure, cone_dims, warm_start, options
                           centralityCorrectors=centralityCorrectors, **o)
         stats = {}
         args = (Q, c, A, b, G, d, spec, kkt, opts)
-        if not _device_loop(kkt, user_kktsolver, opts):
-            st = ipm_solve(*args, warm=warm, stats=stats)
-        elif c.device.type == "cuda":
+        if _device_loop(kkt, user_kktsolver, opts):
             st = graph.solve(*args, warm=warm, stats=stats)
         else:
-            st = ipm_solve(*args, warm=warm, stats=stats,
-                           device_loop=run_chunks)
+            st = ipm_solve(*args, warm=warm, stats=stats)
         sol = Solution.from_state(st)
         runs.append(Run(kkt, sol.status, sol.Iter, **stats))
         return sol

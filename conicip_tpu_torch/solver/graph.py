@@ -1,53 +1,79 @@
-"""The device loop on CUDA, captured in a CUDA graph.
+"""The device loop, kept across calls: on CUDA as captured CUDA graphs.
 
 Counterpart of ``_solve_jit`` and ``_solve_warm_jit``
-(``conicip_tpu/solver/__init__.py``), which compile the whole solve into
-one program that reads nothing back until it ends. :func:`solve` runs
-:func:`~conicip_tpu_torch.solver.ipm.ipm_solve` on a stream of its own
-with :func:`drive` as its loop:
+(``conicip_tpu/solver/__init__.py``), which compile the whole solve once
+per configuration, read nothing back until it ends, and keep the program
+for the next call. :func:`solve` runs
+:func:`~conicip_tpu_torch.solver.ipm.ipm_solve` with the device loop
+through a cache of at most :data:`CACHE_SIZE` entries, least recently used
+first out. Its key is what the captured work reads besides the data: the
+device, the dtype, every operand's shape, the ``ConeSpec``, the KKT
+generator (one object per configuration), the ``IPMOptions``, a cold or a
+warm start, and ``ipm.POLL``. An entry owns
 
-- the inputs are copied into buffers of the solve (a graph reads its
-  tensors by address), and the structure checks, the level-1 KKT callback
-  and the initial point run first, outside any graph, where they may read
-  the device;
-- the first chunk of :data:`~conicip_tpu_torch.solver.ipm.POLL` iterations
-  runs eagerly on that stream: it builds the kernels and warms up cuBLAS,
-  and its work is the solve's own;
-- one chunk is captured in a ``torch.cuda.CUDAGraph`` (a private memory
-  pool, released after the solve) while the card still runs the first;
-  then, if an instance is still running, the graph is replayed, the host
-  reading one flag per replay, until no instance runs or ``k > maxIters``.
+- input buffers for Q, c, A, b, G, d and the warm start, into which each
+  call copies its data;
+- on CUDA, two graphs captured in the entry's own ``torch.cuda.MemPool``:
+  the *prologue* (``ipm.device_prologue``: the level-1 callback, whose
+  tensors are derived from the input buffers, the initial point and its
+  evaluation) and one *chunk* of ``ipm.POLL`` units (step, then evaluate),
+  both writing one buffer per carried tensor and the flag the host polls;
+  and the launch counts of each capture.
 
-A read inside the captured chunk fails the capture, and a capture or
-replay error raises: nothing runs the loop eagerly in its place. Graphs
-are not kept from one call to the next: the level-1 callbacks
-(``kkt/diag.py``, ``kkt/spectral.py``) build device tensors from each
-call's data that a kept graph would hold stale.
+A call that misses builds its entry on the solve's stream: the prologue
+runs eagerly (it builds the kernels and warms cuBLAS) and is captured, its
+graph is replayed, the first unit runs eagerly and the chunk is captured
+while the card runs it, and then the chunk is replayed while an instance
+runs. A call that hits
+copies its data into the buffers, replays the prologue, reads the flag,
+and replays the chunk until the flag is false: no eager work, no capture,
+no instantiation. Both return copies of the results, so a later call never
+changes an earlier solution. On the CPU an entry holds the buffers and the
+loop runs eagerly (``ipm.run_chunks``).
+
+Each refinement trip of a captured unit is the body of a conditional IF
+node (``csrc/graph_cond.cu``), run only while some instance goes on, as
+the reference's ``while_loop`` and the eager loop stop; its allocations go
+to a second pool of the entry. A read inside a capture fails it, and a capture,
+replay or conditional-node error raises: nothing runs the loop eagerly in
+its place. An evicted entry, and every entry on :func:`clear`, returns
+its pools' memory to CUDA.
 
 The kernels' wrappers count a launch where they issue it. Under capture
-the card runs nothing, so :func:`drive` takes the capture's counts back
-and adds them once per replay: the counters say what the card ran.
+the card runs nothing, so each capture's counts are taken back and added
+once per replay: the counters say what the card ran. A refinement trip
+launches no counted kernel; a capture in which one does raises, as a
+conditional node's replay count is known only on the device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
-from collections import Counter
+from collections import Counter, OrderedDict
 from dataclasses import fields, is_dataclass
 
 import torch
 from torch.profiler import record_function
 
 from ..ops import cholesky_kernel, jacobi_kernel
+from ..ops.build import load_library
 from . import ipm
 from .state import SolState
 
-__all__ = ["solve", "drive", "LOOP", "REPLAY"]
+__all__ = ["solve", "clear", "cache_info", "CACHE_SIZE", "LOOP", "REPLAY"]
 
 # profiler ranges (python -m conicip_tpu_torch.trace reads them): the whole
 # loop, and its replays, in which the host issues no kernel
 LOOP, REPLAY = "conicip::loop", "conicip::replay"
+
+# Entries kept, least recently used first out. The reference's jit cache is
+# unbounded; an entry's pool holds the loop's device memory (about 3.2 GB
+# for an n=4096 Schur solve on the H100, PERF.md §6), so the port bounds it.
+CACHE_SIZE = 4
+
+_cache: OrderedDict = OrderedDict()
 
 
 def _counters():
@@ -78,44 +104,121 @@ def _rebuild(like, leaves):
     return type(like)(*vals) if hasattr(like, "_fields") else tuple(vals)
 
 
-def drive(cy: ipm.Carry, iterate, active):
-    """``ipm_solve``'s loop on CUDA (module docstring): the first chunk
-    eagerly, then replays of one captured chunk. Returns the final carry and
-    what the loop did: host reads (``polls``), ``replays``, ``loop``
-    "graph"."""
+def _copy(dst, src) -> None:
+    for a, b in zip(_leaves(dst), _leaves(src)):
+        a.copy_(b)
 
-    def chunk(cy):
-        for _ in range(ipm.POLL):
-            cy = iterate(cy)
-        return cy
 
+def _clone(x):
+    return _rebuild(x, iter([t.clone() for t in _leaves(x)]))
+
+
+def _key(args, spec, kktsolver, opts, warm) -> tuple:
+    c = args[1]
+    return (c.device.type, c.device.index, c.dtype,
+            tuple(tuple(x.shape) for x in args), spec, kktsolver, opts,
+            warm is None, ipm.POLL)
+
+
+def cache_info() -> list:
+    """The keys of the entries kept, least recently used first."""
+    return list(_cache)
+
+
+def clear() -> None:
+    """Release every entry: its graphs, buffers and memory pool."""
+    while _cache:
+        _cache.popitem(last=False)[1].release()
+
+
+class _Entry:
+    """One configuration's buffers and, on CUDA, graphs (module
+    docstring)."""
+
+    def __init__(self, key, prologue, inputs):
+        self.key = key
+        self.prologue = prologue
+        # the inputs' buffers: the call's tensors, copied
+        self.inputs = tuple(
+            None if x is None else _rebuild(x, iter([
+                t.clone(memory_format=torch.contiguous_format)
+                for t in _leaves(x)])) for x in inputs)
+        self.graphs = ()  # (prologue, chunk) on CUDA
+        self.deltas = ()  # their captures' launch counts
+        self.static = self.flag = self.body = None
+        # the graphs' memory pools: the captures', and that of the
+        # conditional nodes' bodies, which a capture's pool cannot take
+        self.pool = self.body_pool = None
+
+    def refresh(self, inputs) -> None:
+        for dst, src in zip(self.inputs, inputs):
+            if dst is not None:
+                _copy(dst, src)
+
+    def release(self) -> None:
+        if self.pool is not None:
+            torch.cuda.synchronize(self.inputs[1].device)
+            for g in self.graphs:
+                g.reset()
+        self.graphs = self.deltas = ()
+        self.static = self.flag = self.body = self.inputs = None
+        if self.pool is not None:
+            # the pools' segments are freed with them
+            self.pool = self.body_pool = None
+            torch.cuda.empty_cache()
+
+
+def _make_room() -> None:
+    """Evict the least recently used entries until one more fits."""
+    while len(_cache) >= CACHE_SIZE:
+        _cache.popitem(last=False)[1].release()
+
+
+def _result(cy: ipm.Carry) -> ipm.Carry:
+    """What the caller keeps of the final carry, copied out of the
+    entry's buffers: the next call overwrites them."""
+    return cy._replace(sol=_clone(cy.sol), steps=cy.steps.clone(),
+                       trips=cy.trips.clone())
+
+
+def _drive(key, prologue, inputs):
+    """``ipm_solve``'s device loop through the cache (module docstring)."""
+    entry = _cache.get(key)
+    hit = entry is not None
     with record_function(LOOP):
-        return _drive(cy, chunk, active)
+        if hit:
+            _cache.move_to_end(key)
+            entry.refresh(inputs)
+        else:
+            _make_room()
+            entry = _Entry(key, prologue, inputs)
+        if inputs[1].device.type != "cuda":
+            cy, info = ipm.run_chunks(entry.prologue, entry.inputs)
+        elif hit:
+            cy, info = _replay(entry)
+        else:
+            try:
+                cy, info = _build(entry)
+            except BaseException:
+                entry.release()
+                raise
+        out = _result(cy)
+    if not hit and (entry.graphs or inputs[1].device.type != "cuda"):
+        _cache[key] = entry
+    return out, dict(info, cache_hit=hit)
 
 
-def _drive(cy, chunk, active):
-    with record_function("conicip::chunk0"):
-        cy = chunk(cy)
-    # Whether any instance still runs after the first chunk is read only
-    # after the capture: the host captures while the card runs that chunk.
-    # A solve that ends inside it throws the graph away unreplayed.
-    running = active(cy)
-    # the graph's inputs and outputs: one buffer per carried tensor, and
-    # the flag the host polls, computed inside the graph
-    static = _rebuild(cy, iter([t.clone() for t in _leaves(cy)]))
-    flag = torch.empty((), dtype=torch.bool, device=cy.k.device)
+def _capture(entry, fn):
+    """Capture ``fn()`` into a new graph in the entry's pool; returns the
+    graph and the launch counts the capture made, taken back from the
+    counters."""
     counters = _counters()
     before = [Counter(c) for c in counters]
-    # the graph's private memory pool, freed with it after the solve
-    pool = torch.cuda.MemPool()
     graph = torch.cuda.CUDAGraph()
     with record_function("conicip::capture"):
-        graph.capture_begin(pool=pool.id)
+        graph.capture_begin(pool=entry.pool.id)
         try:
-            out = chunk(static)
-            for dst, src in zip(_leaves(static), _leaves(out)):
-                dst.copy_(src)
-            flag.copy_(active(static))
+            fn()
         except BaseException:
             # end the capture so that the stream is usable again; the
             # error raised is the capture's own
@@ -123,31 +226,146 @@ def _drive(cy, chunk, active):
                 graph.capture_end()
             raise
         graph.capture_end()
-    del out
     deltas = []
     for c, b in zip(counters, before):
         deltas.append(c - b)
         c.clear()
         c.update(b)
+    return graph, deltas
 
-    polls, replays = 1, 0
-    if bool(running):
-        with record_function(REPLAY):
-            while True:
-                graph.replay()
-                replays += 1
-                for c, delta in zip(counters, deltas):
-                    c.update(delta)
-                polls += 1
-                if not bool(flag):
-                    break
-        cy = static
-    graph.reset()
-    # the pool's large blocks go with it; its small ones stay cached until
-    # the cache is emptied (2 MiB a solve, measured on the H100)
-    del pool
-    torch.cuda.empty_cache()
-    return cy, dict(polls=polls, replays=replays, loop="graph")
+
+def _play(graph, deltas) -> None:
+    graph.replay()
+    for c, delta in zip(_counters(), deltas):
+        c.update(delta)
+
+
+def _build(entry):
+    """A miss on CUDA. The prologue runs eagerly, to build the kernels and
+    warm cuBLAS and the caches a capture cannot fill, and is captured while
+    the card runs it; its graph is then replayed as on a hit, since the
+    chunk reads the tensors that graph writes (so a miss does the
+    prologue's device work twice). The first unit runs eagerly on them,
+    the chunk is captured while the card runs it, and replayed while an
+    instance runs."""
+    inputs = entry.inputs
+    with record_function("conicip::warmup"):
+        _, cy = entry.prologue(*inputs)
+    entry.static = _clone(cy)
+    entry.flag = torch.empty((), dtype=torch.bool, device=cy.k.device)
+    entry.pool = torch.cuda.MemPool()
+    entry.body_pool = torch.cuda.MemPool()
+
+    def prologue():
+        entry.body, out = entry.prologue(*inputs)
+        _copy(entry.static, out)
+        entry.flag.copy_(entry.body.active(entry.static))
+
+    gp, dp = _capture(entry, prologue)
+    _play(gp, dp)
+    if not bool(entry.flag):
+        # ended at its first iterate: nothing to keep
+        cy = entry.static
+        gp.reset()
+        entry.release()
+        return cy, dict(polls=1, replays=0, loop="graph")
+    with record_function("conicip::unit0"):
+        cy = entry.static
+        for _ in range(ipm.POLL):
+            cy = entry.body.unit(cy)
+    branch = _conditional(entry.body_pool, cy.k.device)
+
+    def chunk():
+        out = entry.static
+        for _ in range(ipm.POLL):
+            out = entry.body.unit(out, branch)
+        _copy(entry.static, out)
+        entry.flag.copy_(entry.body.active(entry.static))
+
+    gc, dc = _capture(entry, chunk)
+    entry.graphs, entry.deltas = (gp, gc), (dp, dc)
+    _copy(entry.static, cy)
+    replays = _chunks(entry) if bool(entry.body.active(cy)) else 0
+    return entry.static, dict(polls=2 + replays, replays=replays,
+                              loop="graph")
+
+
+def _replay(entry):
+    """A hit on CUDA: the prologue's replay, then the chunk's."""
+    (gp, _), (dp, _) = entry.graphs, entry.deltas
+    _play(gp, dp)
+    replays = _chunks(entry) if bool(entry.flag) else 0
+    return entry.static, dict(polls=1 + replays, replays=replays,
+                              loop="graph")
+
+
+def _chunks(entry) -> int:
+    """Replays of the chunk, one flag read after each, until it is false.
+    Returns the replays, which are also the reads."""
+    (_, gc), (_, dc) = entry.graphs, entry.deltas
+    replays = 0
+    with record_function(REPLAY):
+        while True:
+            _play(gc, dc)
+            replays += 1
+            if not bool(entry.flag):
+                return replays
+
+
+@functools.lru_cache(maxsize=None)
+def _cond_library():
+    lib = load_library("graph_cond")
+    lib.conicip_if_begin.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.conicip_if_begin.restype = ctypes.c_int
+    lib.conicip_if_end.argtypes = [ctypes.c_void_p]
+    lib.conicip_if_end.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _body_stream(device_index):
+    """The stream a conditional node's body is captured on, one per
+    device, its cuBLAS workspace made before any capture."""
+    stream = torch.cuda.Stream(device_index)
+    with torch.cuda.stream(stream):
+        for dt in (torch.float64, torch.float32):
+            x = torch.ones(2, dtype=dt, device=stream.device)
+            torch.mv(torch.ones(2, 2, dtype=dt, device=stream.device), x)
+    stream.synchronize()
+    return stream
+
+
+def _conditional(pool, device):
+    """The captured unit's ``branch``: each refinement trip the body of a
+    conditional IF node on ``pred`` (module docstring)."""
+    lib = _cond_library()
+    child = _body_stream(device.index)
+    # torch.cuda.graphs captures in "global" mode: so is each body
+    global_mode = 0
+
+    def branch(pred, trip) -> bool:
+        stream = torch.cuda.current_stream(device)
+        flag = pred.to(torch.bool)
+        counts = [Counter(c) for c in _counters()]
+        err = lib.conicip_if_begin(stream.cuda_stream, child.cuda_stream,
+                                   flag.data_ptr(), global_mode)
+        if err != 0:
+            raise RuntimeError(f"conditional node: CUDA error {err}")
+        try:
+            with torch.cuda.stream(child), torch.cuda.use_mem_pool(pool):
+                trip()
+        except BaseException:
+            lib.conicip_if_end(child.cuda_stream)
+            raise
+        err = lib.conicip_if_end(child.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"conditional node body: CUDA error {err}")
+        if [Counter(c) for c in _counters()] != counts:
+            raise RuntimeError("a refinement trip launched a counted kernel "
+                               "inside a conditional node")
+        return True
+
+    return branch
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,20 +378,26 @@ def _stream(device_index):
 
 def solve(Q, c, A, b, G, d, spec, kktsolver, opts, warm=None,
           stats=None) -> SolState:
-    """``ipm_solve`` of CUDA operands with the device loop in a CUDA graph
-    (module docstring); the arguments are ``ipm_solve``'s. The returned
-    state's tensors may be used on the caller's stream at once."""
+    """``ipm_solve`` with the device loop through the cache (module
+    docstring); the arguments are ``ipm_solve``'s. The returned state's
+    tensors are the caller's own; on CUDA they may be used on the caller's
+    stream at once."""
+    args = (Q, c, A, b, G, d)
+    key = _key(args, spec, kktsolver, opts, warm)
+
+    def loop(prologue, inputs):
+        return _drive(key, prologue, inputs)
+
+    if c.device.type != "cuda":
+        return ipm.ipm_solve(*args, spec, kktsolver, opts, warm=warm,
+                             stats=stats, device_loop=loop)
     dev = c.device
     caller = torch.cuda.current_stream(dev)
     stream = _stream(dev.index)
     stream.wait_stream(caller)
     with torch.cuda.device(dev), torch.cuda.stream(stream):
-        args = [x.clone(memory_format=torch.contiguous_format)
-                for x in (Q, c, A, b, G, d)]
-        if warm is not None:
-            warm = warm.map(torch.clone)
         st = ipm.ipm_solve(*args, spec, kktsolver, opts, warm=warm,
-                           stats=stats, device_loop=drive)
+                           stats=stats, device_loop=loop)
     caller.wait_stream(stream)
     for t in _leaves(st):
         t.record_stream(caller)

@@ -7,25 +7,30 @@ the best-iterate record, the best residual, the stall count, and the
 iteration number and the steps taken as device integers), and two loops
 drive it:
 
-- the device loop (``device_loop``): :data:`POLL` iterations at a time with no
-  host read and no early exit, the host reading once per chunk whether any
-  instance is still running. On CUDA ``solver/graph.py`` captures one chunk
-  in a CUDA graph and replays it; on the CPU :func:`run_chunks` runs the
-  chunks eagerly. An iteration past the end (the solve finished inside a
-  chunk, or ``k > maxIters``) changes nothing: every carried value is
-  frozen by mask, ``pobj``/``dobj`` included. Refinement runs its
-  ``maxRefinementSteps`` trips with a latched stopping test, and the Schur
-  backend's ridge retries are predicated factors (ops/control.py), so
-  nothing reads back inside an iteration.
+- the device loop (``device_loop``, :func:`device_prologue`): a prologue
+  (the level-1 callback, the initial point and its evaluation), then units
+  of *step, then evaluate*, :data:`POLL` at a time with no host read and no
+  early exit, the host reading once after the prologue and once per chunk
+  whether any instance is still running, so the loop stops before a step
+  that would change nothing, where the eager loop and the reference stop.
+  On CUDA ``solver/graph.py`` captures the prologue and one chunk in CUDA
+  graphs, kept across calls, and replays them; on the CPU
+  :func:`run_chunks` runs them eagerly. A unit past the end (the solve
+  finished inside a chunk, or ``k > maxIters``) changes nothing: every
+  carried value is frozen by mask, ``pobj``/``dobj`` included. Each
+  refinement trip is handed to a ``branch``: a conditional graph node,
+  which runs it only while some instance goes on, or :func:`masked`; and
+  the Schur backend's ridge retries are predicated factors
+  (ops/control.py), so nothing reads back inside a unit.
 - the eager loop (``device_loop=None``), for what keeps host state: a
   two-variant KKT generator, mixed residuals, verbose output; and for
   callers that run it themselves (``solve_batch``, the distributed path).
   It reads the status once per iteration and stops there, and stops
   refinement as soon as no instance goes on.
 
-Both loops run the same arithmetic (``evaluate``, ``take_step``,
-``advance``), and everything else is mask-based on the device, as in the
-reference:
+Both loops run the same arithmetic (``evaluate``, ``take_step``; the
+eager loop's ``advance``, the device loop's ``unit``), and everything else
+is mask-based on the device, as in the reference:
 
 - same initial point, residual normalizations and CVXOPT+ECOS
   infeasibility certificates,
@@ -72,7 +77,9 @@ without leading dims and runs the same code.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, is_dataclass, replace
+from types import SimpleNamespace
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -84,13 +91,14 @@ from ..kkt.pivot import accepts_mode
 from ..ops.batched import col, dot, mv
 from .state import SolState, Status, Vec4
 
-__all__ = ["IPMOptions", "ipm_solve", "run_chunks", "Carry", "POLL"]
+__all__ = ["IPMOptions", "ipm_solve", "device_prologue", "run_chunks",
+           "Carry", "POLL"]
 
-# Iterations per chunk of the device loop: the host reads the status once
-# per chunk, and solver/graph.py captures one chunk. A solve runs up to
-# POLL - 1 frozen iterations past its end, and the first chunk is run
-# eagerly and then issued again for the capture. 1 had the least wall time
-# of 1, 2, 4 and 8 on every solve timed on the H100 (PERF.md §6).
+# Units per chunk of the device loop: the host reads the status once per
+# chunk, and solver/graph.py captures one chunk. A solve runs up to
+# POLL - 1 frozen units past its end (each a masked step, KKT build
+# included). 1 had the least wall time of 1, 2, 4 and 8 on every solve
+# timed on the H100 (PERF.md §6).
 POLL = 1
 
 
@@ -212,53 +220,14 @@ def _select(mask, new, old):
     return new
 
 
-def ipm_solve(
-    Q: torch.Tensor,
-    c: torch.Tensor,
-    A: torch.Tensor,
-    b: torch.Tensor,
-    G: torch.Tensor,
-    d: torch.Tensor,
-    spec: ConeSpec,
-    kktsolver: Callable,
-    opts: IPMOptions,
-    warm: Optional[Vec4] = None,
-    stats: Optional[dict] = None,
-    device_loop: Optional[Callable] = None,
-) -> SolState:
-    """One interior-point solve, or one solve of a stack of instances
-    (module docstring): with leading batch dims on ``c`` every field of the
-    returned state has them too. ``kktsolver`` then receives stacked
-    tensors. ``stats``, when given, receives what only the loop knows:
-    ``fast_steps`` and ``slow_steps`` (steps taken on a generator's low-
-    and full-precision variant; every step of a single-variant generator is
-    a fast one; for a stack, iterations on which some instance took one),
-    ``cold_start`` (1 when the initial point cost a KKT build),
-    ``recertified`` (mixed mode: iterations that recomputed the products in
-    full precision), ``polls`` (host reads of the loop's status),
-    ``replays`` (CUDA graph replays) and ``loop`` ("eager", "chunks" or
-    "graph": which loop ran).
-
-    ``device_loop``, when given, runs the device loop (module docstring):
-    ``device_loop(carry, iterate, active)`` applies ``iterate`` (one iteration,
-    carry to carry) until ``active(carry)``, a device bool, is false, and
-    returns the final carry and a dict of ``polls``, ``replays`` and
-    ``loop`` (:func:`run_chunks`, ``solver.graph.drive``). It takes a
-    single-variant generator without mixed residuals or verbose output.
-    Everything before the loop (checks, the level-1 callback, the initial
-    point) may read the device; nothing in the loop does."""
-    counts = dict(fast_steps=0, slow_steps=0, recertified=0,
-                  cold_start=int(warm is None))
+def _operands(Q, c, A, b, G, d, spec: ConeSpec):
+    """The operands checked against each other and the spec, a shared
+    equality system expanded over a stack's instances."""
     n = c.shape[-1]
     m = A.shape[-2]
     p = G.shape[-2]
     bs = tuple(c.shape[:-1])  # the stack's shape; () for a single solve
-    batched = bool(bs)
-    dtype, dev = c.dtype, c.device
-
-    if batched:
-        if opts.verbose:
-            raise ValueError("verbose output is not supported in batched mode")
+    if bs:
         # a shared equality system serves every instance
         if G.dim() == 2:
             G = G.expand(bs + G.shape)
@@ -276,6 +245,38 @@ def ipm_solve(
         raise ValueError("Inconsistency in equalities/objective")
     if spec.m != m:
         raise ValueError("cone dimensions do not sum to size(A, 1)")
+    return Q, c, A, b, G, d
+
+
+@functools.lru_cache(maxsize=None)
+def _identity(spec: ConeSpec, dtype, device) -> torch.Tensor:
+    """The cone identity ``e`` on a device: one tensor per configuration,
+    made by the first solve, eagerly, so that a captured prologue
+    (solver/graph.py) copies nothing from the host."""
+    return torch.tensor(spec.identity, dtype=dtype, device=device)
+
+
+def masked(pred, trip) -> bool:
+    """The device loop's refinement trip without a conditional node: the
+    trip runs, and its writes are masked by the latched stopping test, so
+    it changes nothing once ``pred`` (no instance goes on) is false."""
+    trip()
+    return True
+
+
+def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
+          warm: Optional[Vec4]):
+    """Everything one solve's iterations read, and the functions of a
+    carry they are made of, over checked operands (:func:`_operands`):
+    the norms and stacked operators of the residuals, the cone identity,
+    the level-1 generator (the LEVEL-1 plugin callback) and the initial
+    iterate, an unevaluated :class:`Carry` (``cy0``). Nothing here reads the
+    device: under ``device_prologue`` this is captured in a CUDA graph."""
+    n = c.shape[-1]
+    m = A.shape[-2]
+    p = G.shape[-2]
+    bs = tuple(c.shape[:-1])
+    dtype, dev = c.dtype, c.device
 
     def scalar(x):
         return torch.full((), x, dtype=dtype, device=dev)
@@ -285,7 +286,7 @@ def ipm_solve(
         return torch.full(bs, x, dtype=dtype, device=dev)
 
     nan, inf = scalar(float("nan")), scalar(float("inf"))
-    e = torch.tensor(spec.identity, dtype=dtype, device=dev)
+    e = _identity(spec, dtype, dev)
     conedim = spec.conedim
     normc = torch.linalg.norm(c, dim=-1)
     normb = _norm(b)
@@ -300,7 +301,6 @@ def ipm_solve(
     if mixed:
         f32 = torch.float32
         Q32, GA32, GAt32 = Q.to(f32), GA.to(f32), GAt.to(f32)
-        eps32 = torch.finfo(f32).eps
 
     def products_full(y, w, v):
         return _Products(mv(Q, y), mv(GA, y),
@@ -448,8 +448,16 @@ def ipm_solve(
             return torch.float32 if (fast_eig and not slow) else slow_ed
         return torch.float32 if force_fast_eig else slow_ed
 
-    def take_step(z, F, FinvT, lam, R: _Resid, solve3x3, eig_dtype,
-                  early_exit):
+    def take_step(z, F, FinvT, lam, R: _Resid, solve3x3, eig_dtype, running,
+                  branch):
+        """The Newton step from the iterate ``z`` and its scaling and
+        residuals. ``running`` says which instances step (the others'
+        refinement stops at once), ``branch(pred, trip)`` runs a
+        refinement trip (:func:`masked`, a host read, or a conditional
+        graph node) and says whether the next may run. Returns the new
+        iterate, the refinement residual and trips + 1 per instance, the
+        step's products (mixed mode), the step length, and the number of
+        refinement trips run (device int32)."""
         r0, rleft, mu, mubar = R.r0, R.rleft, R.mu, R.mubar
 
         eigs = lam_eigs(F)
@@ -502,26 +510,32 @@ def ipm_solve(
         # halve the residual. With a low-precision factor this loop is what
         # recovers the working dtype's accuracy. Each instance of a stack
         # has its own stopping test, latched in `go` (the reference's
-        # ref_cond): a trip changes only the instances still going. The
-        # device loop runs all maxRefinementSteps trips; with
-        # ``early_exit`` the host reads `go` and stops once none goes on,
-        # which changes no value.
+        # ref_cond): a trip changes only the instances still going, and
+        # writes its results into the refinement's own tensors, so that a
+        # trip that does not run (a conditional graph node whose `pred` is
+        # false) leaves them as a masked one would.
         dz = solve4(r)
         rIr, rnorm = resid(dz)
         rn_prev = torch.full_like(rnorm, float("inf"))
         rstep = torch.zeros(rnorm.shape, dtype=torch.int32, device=dev)
-        go = torch.ones(rnorm.shape, dtype=torch.bool, device=dev)
+        go = running.clone()
+        trips = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def trip():
+            new = _select(go, dz + solve4(rIr), dz)
+            rn_prev.copy_(torch.where(go, rnorm, rn_prev))
+            rIr_new, rnorm_new = resid(new)
+            _assign(rIr, _select(go, rIr_new, rIr))
+            rnorm.copy_(torch.where(go, rnorm_new, rnorm))
+            _assign(dz, new)
+            rstep.add_(go)
+            trips.add_(go.any())
+
         for _ in range(opts.maxRefinementSteps):
-            go = go & (rnorm >= opts.refinement_threshold) & (
-                rnorm < 0.5 * rn_prev)
-            if early_exit and not bool(go.any()):
+            go.logical_and_((rnorm >= opts.refinement_threshold)
+                            & (rnorm < 0.5 * rn_prev))
+            if not branch(go.any(), trip):
                 break
-            dz = _select(go, dz + solve4(rIr), dz)
-            rn_prev = torch.where(go, rnorm, rn_prev)
-            rIr_new, rnorm_new = resid(dz)
-            rIr = _select(go, rIr_new, rIr)
-            rnorm = torch.where(go, rnorm_new, rnorm)
-            rstep = rstep + go
 
         # step with fraction-to-boundary; a non-finite direction (a failed
         # low-precision factor, say) freezes the iterate instead of
@@ -564,7 +578,7 @@ def ipm_solve(
 
         # products of the taken step, to update the carried ones
         Pd = products_fast(dz.y, dz.w, dz.v) if mixed else None
-        return z - dz.scale(alpha), rnorm, rstep + 1, Pd, alpha
+        return z - dz.scale(alpha), rnorm, rstep + 1, Pd, alpha, trips
 
     def assess(R: _Resid, z, k, sol, optBest, stall, lm_was):
         """Best iterate, status and the last-mile trigger from this
@@ -697,41 +711,137 @@ def ipm_solve(
         return R, st, best, stalled, lm
 
     def advance(cy: Carry, st, best, stalled, z_new, go) -> Carry:
-        """The carry after an iteration: the new iterate where it stepped
-        (``go``), the counts on the device."""
-        return Carry(z=_select(go, z_new, cy.z), sol=st, best=best,
-                     stall=stalled,
-                     k=(cy.k + active_of(cy).any()).to(torch.int32),
-                     steps=(cy.steps + go.any()).to(torch.int32))
+        """The eager loop's carry after an iteration: the new iterate where
+        it stepped (``go``), the counts on the device."""
+        return cy._replace(z=_select(go, z_new, cy.z), sol=st, best=best,
+                           stall=stalled,
+                           k=(cy.k + active_of(cy).any()).to(torch.int32),
+                           steps=(cy.steps + go.any()).to(torch.int32))
 
-    def iterate(cy: Carry) -> Carry:
-        """One iteration of the device loop (single-variant generator, no
-        mixed residuals): no host read and no early exit, so a chunk of
-        them can be captured in a CUDA graph (solver/graph.py)."""
+    def evaluated(cy: Carry) -> Carry:
+        """The device loop's carry with its iterate, numbered ``cy.k``,
+        scaled and evaluated: what the next step starts from."""
         F, FinvT = scaling(cy.z, False)
-        lam = sc.apply(spec, F, cy.z.v)
+        lam = sc.apply(spec, F, cy.z.v)  # scaled point: = F⁻ᵀ z.s too
         R, st, best, stalled, _ = evaluate(
             cy, products_full(cy.z.y, cy.z.w, cy.z.v), lam, False)
-        go = active_of(cy) & (st.status == Status.RUNNING)
-        z_new = take_step(cy.z, F, FinvT, lam, R, solve3x3gen(F, FinvT),
-                          eig_dtype_of(False), early_exit=False)[0]
-        return advance(cy, st, best, stalled, z_new, go)
+        return cy._replace(sol=st, best=best, stall=stalled, F=F,
+                           FinvT=FinvT, lam=lam, R=R)
 
-    cy = Carry(z=z, sol=sol, best=each(float("inf")),
-               stall=torch.zeros(bs, **int32),
-               k=torch.ones((), **int32), steps=torch.zeros((), **int32))
+    def unit(cy: Carry, branch=masked) -> Carry:
+        """One unit of the device loop (single-variant generator, no mixed
+        residuals): the step from the evaluated iterate, where it still
+        runs, then the new iterate evaluated. No host read and no early
+        exit, so it can be captured in a CUDA graph (solver/graph.py);
+        ``branch`` runs the refinement trips (:func:`masked`, or a
+        conditional node inside a capture)."""
+        go = active_of(cy)
+        z_new, _, _, _, _, trips = take_step(
+            cy.z, cy.F, cy.FinvT, cy.lam, cy.R,
+            solve3x3gen(cy.F, cy.FinvT), eig_dtype_of(False), go, branch)
+        moved = go.any()
+        return evaluated(cy._replace(
+            z=_select(go, z_new, cy.z),
+            k=(cy.k + moved).to(torch.int32),
+            steps=(cy.steps + moved).to(torch.int32),
+            trips=(cy.trips + trips).to(torch.int32)))
+
+    cy0 = Carry(z=z, sol=sol, best=each(float("inf")),
+                stall=torch.zeros(bs, **int32),
+                k=torch.ones((), **int32), steps=torch.zeros((), **int32),
+                trips=torch.zeros((), **int32))
+    return SimpleNamespace(
+        cy0=cy0, two_mode=two_mode, mixed=mixed, normc=normc, normb=normb,
+        solve3x3gen=solve3x3gen, products_full=products_full,
+        products_fast=products_fast, scaling=scaling, active_of=active_of,
+        eig_dtype_of=eig_dtype_of, evaluate=evaluate, take_step=take_step,
+        advance=advance, evaluated=evaluated, unit=unit)
+
+
+def device_prologue(spec: ConeSpec, kktsolver, opts: IPMOptions):
+    """The device loop's prologue for one configuration: a function of the
+    operands ``(Q, c, A, b, G, d, warm)`` that sets the solve up (the
+    level-1 callback, the initial point) and evaluates its first iterate,
+    reading nothing back. It returns the loop's functions (``unit``, and
+    ``active``: a device bool, whether any instance still runs) and the
+    first carry. Takes a single-variant generator without mixed residuals
+    or verbose output."""
+    refused = ("the device loop takes a single-variant KKT generator "
+               "without mixed residuals or verbose output")
+    if opts.verbose:
+        raise ValueError(refused)
+
+    def prologue(Q, c, A, b, G, d, warm=None):
+        L = _loop(*_operands(Q, c, A, b, G, d, spec), spec, kktsolver, opts,
+                  warm)
+        if L.two_mode or L.mixed:
+            raise ValueError(refused)
+        body = SimpleNamespace(unit=L.unit,
+                               active=lambda cy: L.active_of(cy).any())
+        return body, L.evaluated(L.cy0)
+
+    return prologue
+
+
+def ipm_solve(
+    Q: torch.Tensor,
+    c: torch.Tensor,
+    A: torch.Tensor,
+    b: torch.Tensor,
+    G: torch.Tensor,
+    d: torch.Tensor,
+    spec: ConeSpec,
+    kktsolver: Callable,
+    opts: IPMOptions,
+    warm: Optional[Vec4] = None,
+    stats: Optional[dict] = None,
+    device_loop: Optional[Callable] = None,
+) -> SolState:
+    """One interior-point solve, or one solve of a stack of instances
+    (module docstring): with leading batch dims on ``c`` every field of the
+    returned state has them too. ``kktsolver`` then receives stacked
+    tensors. ``stats``, when given, receives what only the loop knows:
+    ``fast_steps`` and ``slow_steps`` (steps taken on a generator's low-
+    and full-precision variant; every step of a single-variant generator is
+    a fast one; for a stack, iterations on which some instance took one),
+    ``cold_start`` (1 when the initial point cost a KKT build),
+    ``recertified`` (mixed mode: iterations that recomputed the products in
+    full precision), ``trips`` (refinement trips run: trips on which some
+    instance went on), ``polls`` (host reads of the loop's status),
+    ``replays`` (CUDA graph replays), ``loop`` ("eager", "chunks" or
+    "graph": which loop ran) and ``cache_hit`` (the loop's CUDA graphs were
+    kept from an earlier call).
+
+    ``device_loop``, when given, runs the device loop (module docstring):
+    ``device_loop(prologue, inputs)`` calls ``prologue(*inputs)``
+    (:func:`device_prologue`; ``inputs`` are the operands and ``warm``),
+    which gives the loop's functions and the first carry, and applies
+    ``unit`` until ``active(carry)``, a device bool, is false; it returns
+    the final carry and a dict of ``polls``, ``replays`` and ``loop``
+    (:func:`run_chunks`). It takes a single-variant generator without
+    mixed residuals or verbose output. Nothing in the prologue or the loop
+    reads the device."""
+    counts = dict(fast_steps=0, slow_steps=0, recertified=0, trips=0,
+                  cold_start=int(warm is None), cache_hit=False)
+    if c.dim() > 1 and opts.verbose:
+        raise ValueError("verbose output is not supported in batched mode")
 
     if device_loop is not None:
-        if two_mode or mixed or opts.verbose:
-            raise ValueError("the device loop takes a single-variant KKT "
-                             "generator without mixed residuals or verbose "
-                             "output")
-        cy, info = device_loop(cy, iterate,
-                               lambda cy: active_of(cy).any())
-        counts.update(info, fast_steps=int(cy.steps))
-        if stats is not None:
-            stats.update(counts)
-        return _finish(cy.sol)
+        cy, info = device_loop(device_prologue(spec, kktsolver, opts),
+                               (Q, c, A, b, G, d, warm))
+        return _device_result(cy, info, counts, stats)
+
+    Q, c, A, b, G, d = _operands(Q, c, A, b, G, d, spec)
+    L = _loop(Q, c, A, b, G, d, spec, kktsolver, opts, warm)
+    two_mode, mixed, cy = L.two_mode, L.mixed, L.cy0
+    evaluate, take_step, advance = L.evaluate, L.take_step, L.advance
+    products_full, products_fast = L.products_full, L.products_fast
+    scaling, active_of, eig_dtype_of = L.scaling, L.active_of, L.eig_dtype_of
+    solve3x3gen = L.solve3x3gen
+    batched = bool(c.dim() > 1)
+    bs, dev = tuple(c.shape[:-1]), c.device
+    sw = opts.residualSwitch
+    eps32 = torch.finfo(torch.float32).eps
 
     if opts.verbose:
         _print_banner()
@@ -745,8 +855,9 @@ def ipm_solve(
     modes = (False,)
     # Carried products (mixed mode): fast estimates with an infinite drift,
     # so the first near-tolerance decision always recomputes them.
+    z = cy.z
     P = products_fast(z.y, z.w, z.v) if mixed else None
-    drift = each(float("inf"))
+    drift = torch.full(bs, float("inf"), dtype=c.dtype, device=dev)
     counts.update(polls=0, replays=0, loop="eager")
 
     def per_variant(which, flags, fn):
@@ -781,6 +892,15 @@ def ipm_solve(
         if two_mode:
             need = tuple(v for v, f in zip((False, True), got[1:3]) if f)
         return got[0], on, need or modes, fire is not None and got[-1]
+
+    def branch(pred, trip):
+        # the eager loop's refinement trip: a host read, and no trip once
+        # no instance goes on
+        if not bool(pred):
+            return False
+        trip()
+        counts["trips"] += 1
+        return True
 
     # The eager loop: the configurations the device loop does not take, one
     # host read per iteration (module docstring). Its arithmetic is the
@@ -834,6 +954,7 @@ def ipm_solve(
             counts["slow_steps"] += 1
         if not two_mode or False in modes:
             counts["fast_steps"] += 1
+        run = active_of(cy) & (st.status == Status.RUNNING)
 
         def step(slow):
             if two_mode:
@@ -842,11 +963,10 @@ def ipm_solve(
             else:
                 solve3x3 = solve3x3gen(F, FinvT)
             return take_step(cy.z, F, FinvT, lam, R, solve3x3,
-                             eig_dtype_of(slow), early_exit=True)
+                             eig_dtype_of(slow), run, branch)[:5]
 
         z_new, rnorm_prev, rstep_prev, Pd, alpha = per_variant(
             modes, lm_on, step)
-        run = active_of(cy) & (st.status == Status.RUNNING)
         if mixed:
             # incremental product update and its drift bound
             P_new = _Products(P.Qy - col(alpha) * Pd.Qy,
@@ -854,8 +974,8 @@ def ipm_solve(
                               P.GAtwv - col(alpha) * Pd.GAtwv)
             drift_new = drift + 10.0 * eps32 * alpha * (
                 (torch.linalg.norm(Pd.Qy, dim=-1)
-                 + torch.linalg.norm(Pd.GAtwv, dim=-1)) / (1.0 + normc)
-                + _norm(Pd.GAy) / (1.0 + normb))
+                 + torch.linalg.norm(Pd.GAtwv, dim=-1)) / (1.0 + L.normc)
+                + _norm(Pd.GAy) / (1.0 + L.normb))
             P, drift = _select(run, P_new, P), torch.where(
                 run, drift_new, drift)
         cy = advance(cy, st, best, stalled, z_new, run)
@@ -866,11 +986,25 @@ def ipm_solve(
     return _finish(cy.sol)
 
 
+def _device_result(cy, info, counts, stats) -> SolState:
+    """The device loop's result and its counts: the steps and the
+    refinement trips come back in one copy."""
+    steps, trips = torch.stack([cy.steps, cy.trips]).tolist()
+    counts.update(info, fast_steps=steps, trips=trips)
+    if stats is not None:
+        stats.update(counts)
+    return _finish(cy.sol)
+
+
 class Carry(NamedTuple):
     """What one iteration hands the next (the reference's while_loop
     carry): the iterate, the best-iterate record, the best residual and
-    the stall count per instance, the number of the next iteration and the
-    count of iterations on which some instance stepped (device int32)."""
+    the stall count per instance, the number of the iteration (device
+    int32: on the device loop the number of the evaluated iterate, on the
+    eager loop that of the next), the count of iterations on which some
+    instance stepped and of the refinement trips run. The device loop also
+    carries what its next step starts from: the iterate's scaling
+    (``F``, ``FinvT``), scaled point ``lam`` and residuals ``R``."""
 
     z: Vec4
     sol: SolState
@@ -878,6 +1012,21 @@ class Carry(NamedTuple):
     stall: torch.Tensor
     k: torch.Tensor
     steps: torch.Tensor
+    trips: torch.Tensor
+    F: Optional[sc.NTScaling] = None
+    FinvT: Optional[sc.NTScaling] = None
+    lam: Optional[torch.Tensor] = None
+    R: Optional[_Resid] = None
+
+
+def _assign(dst, src) -> None:
+    """Write the tensors of ``src`` into those of ``dst`` (records of
+    tensors of one structure), in place."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+        return
+    for f in dst.__dataclass_fields__:
+        _assign(getattr(dst, f), getattr(src, f))
 
 
 def _finish(sol: SolState) -> SolState:
@@ -887,19 +1036,19 @@ def _finish(sol: SolState) -> SolState:
     ).to(torch.int32))
 
 
-def run_chunks(cy: Carry, iterate, active):
+def run_chunks(prologue, inputs):
     """The device loop run eagerly (the CPU's counterpart of
-    solver/graph.py): chunks of :data:`POLL` iterations, the host reading
-    whether any instance is still active once after each. Returns the
-    final carry and what the loop did (``polls`` reads, no ``replays``,
-    ``loop`` "chunks")."""
-    polls = 0
-    while True:
+    solver/graph.py): the prologue, then chunks of :data:`POLL` units, the
+    host reading whether any instance is still active once after the
+    prologue and once after each chunk. Returns the final carry and what
+    the loop did (``polls`` reads, no ``replays``, ``loop`` "chunks")."""
+    body, cy = prologue(*inputs)
+    polls = 1
+    while bool(body.active(cy)):
         for _ in range(POLL):
-            cy = iterate(cy)
+            cy = body.unit(cy)
         polls += 1
-        if not bool(active(cy)):
-            return cy, dict(polls=polls, replays=0, loop="chunks")
+    return cy, dict(polls=polls, replays=0, loop="chunks")
 
 
 def _print_banner():

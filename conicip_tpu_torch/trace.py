@@ -27,8 +27,16 @@ family's batched form instead (``box_qp_dense`` sized by ``--n``,
 ``mixed_rq_eq`` at n=200, ``mixed_rqs``, ``small_sdp``): the same lines, per
 iteration of the stack (``Iter`` is the slowest instance's), with the
 launches of the kernel's batched entries. ``--poll K`` profiles the device
-loop at K iterations per chunk in place of ``solver.ipm.POLL`` (how that
-constant was chosen). It needs a CUDA device and fails without one.
+loop at K units per chunk in place of ``solver.ipm.POLL`` (how that
+constant was chosen). The [solve] line also says whether the profiled
+solve hit the device loop's cache (``cache_hit``; the unprofiled solves
+before it repeat its instance, so it does) and the refinement trips it ran.
+``--chain K`` adds a [chain] line: K instances of the family (seeds
+``seed`` ... ``seed + K - 1``, inputs already on the card) solved back to
+back, the cache emptied first, for one round and then :data:`ROUNDS` more;
+ms per solve of each later round (median, least and most), of the first
+round (one miss per configuration), and the hits and captures (misses) of
+all rounds. It needs a CUDA device and fails without one.
 """
 
 from __future__ import annotations
@@ -139,6 +147,10 @@ def loop_counts(events):
 # [solve] line reports beside the profiled one's
 REPEATS = 5
 
+# rounds of a --chain after its first, whose ms per solve the [chain] line
+# reports (median, least, most)
+ROUNDS = 5
+
 # --factor-dtype: the keyword conic_ip gets ("auto" is full precision)
 FACTOR_DTYPES = {"float64": "auto", "float32": torch.float32}
 
@@ -155,12 +167,17 @@ def parse_args(argv=None):
                     help="profile solve_batch on a stack of this many "
                          "instances")
     ap.add_argument("--poll", type=int, default=0,
-                    help="iterations per chunk of the device loop for this "
+                    help="units per chunk of the device loop for this "
                          "profile (default: solver.ipm.POLL)")
+    ap.add_argument("--chain", type=int, default=0,
+                    help="also time this many instances solved back to "
+                         "back")
     args = ap.parse_args(argv)
     if args.family not in (BATCH_FAMILIES if args.batch else FAMILIES):
         ap.error(f"--family {args.family} has no "
                  f"{'batched' if args.batch else 'single-instance'} form")
+    if args.chain and args.batch:
+        ap.error("--chain takes a single-instance family")
     return args
 
 
@@ -260,6 +277,8 @@ def _profile(args):
           f"graph={int(any(r.loop == 'graph' for r in runs))} "
           f"poll={ipm.POLL} polls={sum(r.polls for r in runs)} "
           f"replays={sum(r.replays for r in runs)} "
+          f"cache_hit={int(all(getattr(r, 'cache_hit', 0) for r in runs))} "
+          f"trips={sum(getattr(r, 'trips', -1) for r in runs)} "
           f"dtoh_loop={loop['dtoh_loop']} dtoh_fixed={loop['dtoh_fixed']} "
           f"replay_host_launches={loop['replay_host_launches']} "
           f"cholesky_f64={cholesky_kernel.launch_count(torch.float64)} "
@@ -283,7 +302,40 @@ def _profile(args):
                      if k not in CHOLESKY_PARTS + JACOBI_PARTS), reverse=True)
     for us, name, count in others[:10]:
         print(f"[op] ms={us / 1e3:.2f} calls={count} name={name!r}")
+    if args.chain:
+        _chain(args, kw, on_card)
     return 0
+
+
+def _chain(args, kw, on_card):
+    """The [chain] line (module docstring). A tree without the cache has no
+    ``graph.clear`` and no ``Run.cache_hit``: its solves count as misses."""
+    problems = []
+    for seed in range(args.seed, args.seed + args.chain):
+        P = FAMILIES[args.family](args.n, seed)
+        problems.append(([on_card(x) for x in (P.Q, P.c, P.A, P.b, P.G,
+                                                P.d)], P.cone_dims))
+    getattr(graph, "clear", lambda: None)()
+    hits = misses = 0
+    per_solve = []
+    for _ in range(ROUNDS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for tensors, cones in problems:
+            conic_ip(*tensors[:4], cones, *tensors[4:], **kw)
+            hit = all(getattr(r, "cache_hit", False) for r in solver.runs)
+            hits += hit
+            misses += not hit
+        torch.cuda.synchronize()
+        per_solve.append((time.perf_counter() - t) * 1e3 / len(problems))
+    later = sorted(per_solve[1:])
+    print(f"[chain] family={args.family} n={problems[0][0][1].shape[-1]} "
+          f"instances={args.chain} rounds={ROUNDS} "
+          f"ms_per_solve={later[ROUNDS // 2]:.2f} "
+          f"ms_per_solve_min={later[0]:.2f} ms_per_solve_max={later[-1]:.2f} "
+          f"first_round_ms_per_solve={per_solve[0]:.2f} "
+          f"hits={hits} captures={misses} "
+          f"device={torch.cuda.get_device_name(0)!r}")
 
 
 if __name__ == "__main__":

@@ -184,13 +184,17 @@ def test_default_centrality_correctors(family, backend, expect, monkeypatch):
     from conicip_tpu_torch import solver
 
     seen = {}
-    real = solver.ipm_solve
 
-    def spy(*args, **kw):
-        seen["opts"] = args[8]
-        return real(*args, **kw)
+    def spy(real):
+        def call(*args, **kw):
+            seen["opts"] = args[8]
+            return real(*args, **kw)
+        return call
 
-    monkeypatch.setattr(solver, "ipm_solve", spy)
+    # the eager loop (a user callback) is ipm_solve, the device loop (the
+    # automatic backends) graph.solve: both take ipm_solve's arguments
+    monkeypatch.setattr(solver, "ipm_solve", spy(solver.ipm_solve))
+    monkeypatch.setattr(solver.graph, "solve", spy(solver.graph.solve))
     kw = {} if backend is None else dict(kktsolver=torch_schur)
     sol = pt.conic_ip(*FAMILIES[family]().args(), device="cpu", **kw)
     assert sol.status == "Optimal"

@@ -383,3 +383,31 @@ def test_graph_solve_matches_cpu(cuda):
         assert run.loop == "graph" and sol.status == ref.status == "Optimal"
         assert sol.Iter == ref.Iter
         assert (sol.y.cpu() - ref.y).abs().max().item() <= 1e-8
+
+
+def test_a_cached_solve_equals_one_after_clear(cuda):
+    # the device loop's kept graphs (solver/graph.py), refreshed with other
+    # instances of one configuration: bit for bit a solve of the same data
+    # from an empty cache, and an earlier solution left as it was
+    from conicip_tpu_torch import solver
+    from conicip_tpu_torch.solver import graph
+
+    for make in (lambda s: box_qp_dense(n=64, seed=s),
+                 lambda s: single_soc(n=40, seed=s),
+                 lambda s: small_sdp(k=4, seed=s)):
+        graph.clear()
+        first = conic_ip(*make(1).args(), device="cuda")
+        kept = first.y.clone()
+        for seed in (2, 3):
+            sol = conic_ip(*make(seed).args(), device="cuda")
+            assert solver.runs[0].cache_hit and solver.runs[0].loop == "graph"
+            graph.clear()
+            fresh = conic_ip(*make(seed).args(), device="cuda")
+            assert not solver.runs[0].cache_hit
+            assert (sol.status, sol.Iter) == (fresh.status, fresh.Iter)
+            assert torch.equal(sol.y, fresh.y) and torch.equal(sol.v, fresh.v)
+            # the entry now holds the first instance's data again
+            conic_ip(*make(1).args(), device="cuda")
+        assert torch.equal(first.y, kept)
+    graph.clear()
+    assert graph.cache_info() == []

@@ -575,6 +575,54 @@ def test_every_public_name_of_the_reference_exists():
     assert pt.Id(2, device="cpu", dtype=torch.float32).dtype == torch.float32
 
 
+
+# The reference's subpackages that declare ``__all__`` (``conicip_tpu.native``
+# declares none), and the names of theirs the port leaves out on purpose:
+# ROADMAP.md's "Do not port" list (the v5e's emulated-f64 and Ozaki
+# helpers, ``cond_once``) and the CVXPY name constant, which the port
+# renames ``CONICIP_TPU_TORCH``.
+SUBPACKAGES = ("cones", "frontend", "kkt", "models", "ops", "parallel",
+               "solver")
+NOT_PORTED = {"blocked_cholesky", "blocked_tri_inv", "PreciseMatvec",
+              "cond_once", "CONICIP_TPU"}
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_every_subpackage_exports_the_references_names(sub):
+    import importlib
+
+    ref = importlib.import_module(f"conicip_tpu.{sub}")
+    port = importlib.import_module(f"conicip_tpu_torch.{sub}")
+    missing = {name for name in ref.__all__
+               if name not in NOT_PORTED and not hasattr(port, name)}
+    assert missing == set()
+    assert set(ref.__all__) - NOT_PORTED <= set(port.__all__)
+    # what a name is in the reference, it is in the port: a function
+    # shadows a submodule of the same name (ops.cholesky)
+    for name in set(ref.__all__) - NOT_PORTED:
+        assert callable(getattr(port, name)) == callable(getattr(ref, name))
+
+
+def test_the_reference_exports_of_kkt_and_ops_import():
+    from conicip_tpu_torch.kkt import separable_batch
+    from conicip_tpu_torch.kkt.diag import separable_batch as defined
+    from conicip_tpu_torch.ops import CholFactor, cho_solve, cholesky
+    from conicip_tpu_torch.ops.cholesky import cholesky as factor
+
+    assert separable_batch is defined and cholesky is factor
+    B = np.random.default_rng(0).standard_normal((5, 5))
+    M = torch.from_numpy(B @ B.T + 5 * np.eye(5))
+    b = torch.arange(5, dtype=torch.float64)
+    x = cho_solve(cholesky(M), b)
+    torch.testing.assert_close(M @ x, b, rtol=0, atol=1e-12)
+    torch.testing.assert_close(CholFactor(M).solve(b), x, rtol=0, atol=0)
+    spec = pt.ConeSpec([("R", 4)])
+    Q = np.stack([np.diag([1.0, 2.0])] * 3)
+    A = np.stack([np.vstack([np.eye(2), -np.eye(2)])] * 3)
+    assert separable_batch(Q, A, None, spec)
+    assert not separable_batch(Q, A + 0.5, None, spec)
+
+
 IMPORTS = {
     "frontend": """
         import conicip_tpu_torch.frontend

@@ -68,23 +68,22 @@ def port(args, **kw):
     return pt.solution_to_numpy(sol), run
 
 
-def iterations_run(run):
-    """Iterations the loop evaluated: the steps, and the one that set the
-    status (an Abandoned solve stops at maxIters instead)."""
-    return run.fast_steps + (run.status != "Abandoned")
+def chunks_run(run, poll):
+    """Chunks of ``poll`` units the loop ran: one unit per step taken."""
+    return -(-run.fast_steps // poll)
 
 
 @pytest.mark.parametrize("poll", [1, 3, 100])
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_chunked_loop_matches_jax(family, poll, monkeypatch):
     # POLL = 100 = maxIters: one chunk, the solve's end and every frozen
-    # iteration after it inside it
+    # unit after it inside it
     monkeypatch.setattr(ipm, "POLL", poll)
     sol, run = port(FAMILIES[family]())
     ref = reference(family)
     assert_same(ref, sol, OPT_TOL)
-    # one host read of the loop per chunk
-    assert run.polls == -(-iterations_run(run) // poll)
+    # one host read of the loop after the prologue, and one per chunk
+    assert run.polls == 1 + chunks_run(run, poll)
 
 
 class HostRead(AssertionError):
@@ -105,14 +104,19 @@ def no_host_reads():
         yield
 
 
-def guarded_first_chunk(cy, iterate, active):
-    """A device loop whose first chunk runs with host reads refused; the
-    rest as ``run_chunks``."""
+def guarded_first_chunk(prologue, inputs):
+    """A device loop whose prologue and first chunk run with host reads
+    refused; the rest as ``run_chunks``."""
     with no_host_reads():
+        body, cy = prologue(*inputs)
         for _ in range(ipm.POLL):
-            cy = iterate(cy)
-    cy, info = ipm.run_chunks(cy, iterate, active)
-    return cy, dict(info, polls=info["polls"] + 1)
+            cy = body.unit(cy)
+    polls = 2
+    while bool(body.active(cy)):
+        for _ in range(ipm.POLL):
+            cy = body.unit(cy)
+        polls += 1
+    return cy, dict(polls=polls, replays=0, loop="chunks")
 
 
 def sdp_with_equalities():
@@ -143,7 +147,7 @@ def test_a_chunk_reads_nothing_back(case, monkeypatch):
     # the same solve with its first chunk under the guard: no read, and the
     # reference's answer
     args = GUARDED[case]()
-    monkeypatch.setattr(pt_solver, "run_chunks", guarded_first_chunk)
+    monkeypatch.setattr(ipm, "run_chunks", guarded_first_chunk)
     sol, run = port(args)
     assert run.polls >= 2
     assert_same(ct.conic_ip(*args), sol, OPT_TOL)
@@ -180,7 +184,7 @@ def test_max_iters_not_a_multiple_of_poll_is_abandoned(max_iters, poll,
     assert ref.status == "Abandoned"
     assert_same(ref, sol, OPT_TOL)
     assert run.fast_steps == max_iters
-    assert run.polls == -(-max_iters // poll)
+    assert run.polls == 1 + -(-max_iters // poll)
 
 
 def test_warm_start_on_the_chunked_loop():
@@ -331,18 +335,25 @@ def test_the_graphs_buffers_rebuild_the_carry():
 
     seen = {}
 
-    def keep(cy, iterate, active):
-        seen["carry"] = cy
-        return ipm.run_chunks(cy, iterate, active)
+    def keep(prologue, inputs):
+        seen["carry"] = prologue(*inputs)[1]
+        return ipm.run_chunks(prologue, inputs)
 
     args = GUARDED["RQ schur, equalities"]()
+    spec = ConeSpec(args[4])
     ipm.ipm_solve(*(torch.from_numpy(np.asarray(x)) for x in args[:4]),
                   torch.from_numpy(args[5]), torch.from_numpy(args[6]),
-                  ConeSpec(args[4]), kktsolver_schur, ipm.IPMOptions(),
+                  spec, kktsolver_schur, ipm.IPMOptions(),
                   device_loop=keep)
     cy = seen["carry"]
     leaves = graph._leaves(cy)
-    assert len(leaves) == 4 + 11 + 4 and leaves[0] is cy.z.y
+    # the iterate, the best record, best/stall/k/steps/trips, the scaling
+    # and its inverse adjoint (r_d, and d, u, alpha per SOC group), the
+    # scaled point, and the residuals (rleft, r0 and 11 scalars)
+    scaling = 1 + 3 * len(spec.soc_groups)
+    assert spec.soc_groups and spec.nr
+    assert len(leaves) == 4 + 11 + 5 + 2 * scaling + 1 + (4 + 4 + 11)
+    assert leaves[0] is cy.z.y
     copy = graph._rebuild(cy, iter([t.clone() for t in leaves]))
     assert type(copy) is ipm.Carry and copy.k.shape == ()
     for a, b in zip(graph._leaves(copy), leaves):

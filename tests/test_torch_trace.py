@@ -136,3 +136,17 @@ def test_batch_switch_profiles_a_stacked_solve():
         trace.parse_args(["--family", "small_sdp"])
     if not torch.cuda.is_available():
         assert trace.main(["--batch", "4", "--n", "8"]) == 2
+
+
+def test_chain_switch_solves_seeded_instances():
+    assert trace.parse_args([]).chain == 0
+    args = trace.parse_args(["--chain", "6", "--family", "single_soc"])
+    assert (args.chain, args.family) == (6, "single_soc")
+    # the instances differ: one seed each
+    a, b = (trace.FAMILIES["single_soc"](8, s) for s in (42, 43))
+    assert a.A.shape == b.A.shape and not (a.c == b.c).all()
+    with pytest.raises(SystemExit):
+        trace.parse_args(["--chain", "6", "--batch", "4"])
+    assert trace.ROUNDS >= 5
+    if not torch.cuda.is_available():
+        assert trace.main(["--n", "8", "--chain", "2"]) == 2
