@@ -32,8 +32,14 @@ switch to f64 factors), ``[eq]`` null-space elimination of equalities and
 the rank-repairing preprocessor, ``[backends]`` the qr, lu and low-rank KKT
 solvers. ``[batch]`` drives ``solve_batch`` on stacks of 64 instances of the
 four batched families (every dense factor one launch of the kernel's
-batched entry, sampled instances held against their single solves) and
-``[checkpoint]`` an interrupted and resumed ``solve_batch_resumable``.
+batched entry, sampled instances held against their single solves; the
+f64 stacks and the S-cone policy behind f32 on the device loop, a cache
+hit), ``[batch_graph]`` holds each f64 stack on the device loop against the
+eager loop on the same operands and against the CPU as ``[graph]`` holds
+the single solves, with its reads, builds, trips, times and the memory its
+cache entry holds, and ``[checkpoint]`` an interrupted and resumed
+``solve_batch_resumable`` whose resumed chunks hit the device loop's
+cache.
 ``[frontend]`` builds three generator families through the modeling
 frontends (``Optimizer``, ``solve_conic_form``) and holds each against the
 direct ``conic_ip`` solve and against the CPU solve through the same
@@ -498,6 +504,27 @@ def phase_kernel_batched():
                     "shape": f"({B}, {n}, {n}) {name}",
                     "ms": ms, "plain_ms": plain, "bound_ms": bound,
                     "bound_by": bound_by, "library_ms": library}
+    # the predicated entry on the same stacks, as the device loop's ridge
+    # retries run it: every flag unset (each matrix factored: a full
+    # factor's work) and every flag set (a retry that no matrix needs)
+    for B, n in BATCH_TIMED:
+        M = spd_stack(B, n, seed=n)
+        out = torch.empty_like(M)
+        unset = torch.zeros(B, dtype=torch.bool, device="cuda")
+        every = torch.ones(B, dtype=torch.bool, device="cuda")
+        reps = 20
+        ms = cuda_ms(lambda: cholesky_factor(M, skip=unset, out=out), reps)
+        skipped = cuda_ms(lambda: cholesky_factor(M, skip=every, out=out),
+                          reps)
+        plain = cuda_ms(lambda: cholesky_plain(M, skip=unset, out=out), reps)
+        library = cuda_ms(lambda: torch.linalg.cholesky_ex(M), reps)
+        bound, bound_by = cholesky_bound_ms(n, torch.float64, B)
+        line("kernel_predicated_time", B=B, n=n, dtype="float64",
+             kernel_ms=f"{ms:.4f}", skipped_ms=f"{skipped:.4f}",
+             plain_ms=f"{plain:.4f}", library_ms=f"{library:.4f}",
+             bound_ms=f"{bound:.5f}", bound_by=bound_by,
+             bound_share=f"{bound / ms:.4f}", ratio=f"{ms / plain:.3f}",
+             reps=reps)
     return [records[torch.float64], records[torch.float32]]
 
 
@@ -880,17 +907,12 @@ def predicated(dtype=None, n=None):
 
 
 def run_builds(r):
-    """KKT builds the card ran in one interior-point run: the cold start's,
-    and one per step. On the device loop a step is a unit, POLL per chunk
-    (the frozen units past the end of a chunk included), and every unit is
-    followed by one poll, as is the prologue; a miss runs the prologue
-    twice (eagerly, then from its graph). On the eager loop one per step."""
-    from conicip_tpu_torch.solver import ipm
+    """KKT builds the card ran in one interior-point run
+    (``trace.kkt_builds``: on the device loop one per unit, a miss's
+    prologue twice; on the eager loop one per step)."""
+    from conicip_tpu_torch.trace import kkt_builds
 
-    if r.loop == "eager":
-        return r.cold_start + r.fast_steps + r.slow_steps
-    prologues = 2 if r.loop == "graph" and not r.cache_hit else 1
-    return r.cold_start * prologues + ipm.POLL * (r.polls - 1)
+    return kkt_builds(r)
 
 
 def kkt_builds():
@@ -1865,14 +1887,15 @@ def finished_by(runs, i, batch):
 def expected_batched_launches(runs, orders):
     """Launches of the batched entries that the stacked runs of one
     solve_batch call must have made, as a Counter over (dtype, order): one
-    factor per order of its backend and per KKT build of a run (its cold
-    start and every step)."""
+    factor per order of its backend and per KKT build of a run
+    (run_builds: its cold start, twice on a device loop's miss, and every
+    step)."""
     from conicip_tpu_torch.kkt.lowrank import lowrank_kktsolver
     from conicip_tpu_torch.kkt.spectral import spectral_kktsolver
 
     want = Counter()
     for r in runs:
-        builds = r.fast_steps + r.slow_steps + r.cold_start
+        builds = run_builds(r)
         if r.kktsolver is spectral_kktsolver(None):
             continue
         if r.kktsolver is lowrank_kktsolver():
@@ -1928,6 +1951,17 @@ def phase_batch():
         jused = jacobi_launches() - jbefore
         runs = list(pbatch.runs)
         got, singles = launched_since(before)
+        # the solver's own full-precision main run (f64, or the S-cone
+        # policy behind f32) takes the device loop, a hit after the
+        # warm-up; f32 factors with mixed residuals keep the eager loop
+        own = not f32 or has_sdp(args[4])
+        check((runs[0].loop, runs[0].cache_hit) == (
+            ("graph", True) if own else ("eager", False)),
+            f"{label}: the main run took the {runs[0].loop} loop (cache hit "
+            f"{runs[0].cache_hit})")
+        check(all(r.loop == "eager" for r in runs
+                  if r.tier.startswith("backstop")),
+              f"{label}: a backstop sub-batch left the eager loop")
         check((jused > 0) == has_sdp(args[4]),
               f"{label}: {jused} Jacobi launches")
         want = expected_batched_launches(runs, orders)
@@ -1993,6 +2027,7 @@ def phase_batch():
         line("batch", family=repr(label), B=BATCH, status="Optimal x64",
              Iter=f"{min(iters)}-{max(iters)}", resid=f"{resid:.3e}",
              tiers="+".join(f"{r.tier}:{r.batch}" for r in runs),
+             loops="+".join(r.loop for r in runs),
              batched_launches=",".join(
                  f"{str(dt).split('.')[-1]}@{k}:{v}"
                  for (dt, k), v in sorted(got.items(), key=str)) or "none",
@@ -2027,9 +2062,154 @@ def phase_batch():
          others=f"Optimal x{len(rest)}", ms_per_batch=f"{ms:.2f}")
 
 
+def phase_batch_graph():
+    """Each f64 stack of batch_cases() on the device loop and on the eager
+    loop, on the same device operands, as [graph] holds the single solves:
+    the operands solve_batch's main run gave graph.solve; a miss after
+    graph.clear() (the batched launches it made, one more cold-start factor
+    per order than a hit, and the memory the card reserved for the entry),
+    the eager loop (ipm_solve without a device loop) and a hit: per
+    instance the same status and Iter, also as the CPU's, y bit for bit,
+    the same KKT builds and refinement trips; a hit reads once after the
+    prologue and once per chunk replay, copies at most once per read to
+    the host inside the loop, and the host launches no kernel during the
+    replays. ms per stack (median, least and most of 3, CUDA events): hit,
+    miss and the eager loop; kernels and device-to-host copies per
+    iteration of the stack (profiler)."""
+    from conicip_tpu_torch import solve_batch
+    from conicip_tpu_torch.ops import cholesky_kernel
+    from conicip_tpu_torch.parallel import batch as pbatch
+    from conicip_tpu_torch.solver import graph, ipm
+
+    real, seen = graph.solve, []
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    for label, args, kw, _, orders in batch_cases():
+        if kw:
+            continue  # an f32 stack: [batch] holds its runs' loops
+        graph.solve = spy
+        try:
+            solve_batch(*args, device="cuda")
+        finally:
+            graph.solve = real
+        (main,) = pbatch.runs
+        ((a, akw),) = seen
+        seen.clear()
+
+        def graphed(stats=None):
+            return pbatch.BatchSolution.from_state(
+                real(*a, warm=akw["warm"], stats=stats))
+
+        def eager(stats=None):
+            return pbatch.BatchSolution.from_state(
+                ipm.ipm_solve(*a, warm=akw["warm"], stats=stats))
+
+        def run_of(sol, stats):
+            return pbatch.BatchRun(main.kktsolver, "main",
+                                   tuple(sol.status.tolist()),
+                                   tuple(sol.Iter.tolist()), **stats)
+
+        graph.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        before = Counter(cholesky_kernel.cholesky_launches)
+        fst = {}
+        first = graphed(fst)
+        torch.cuda.synchronize()
+        got, singles = launched_since(before)
+        torch.cuda.empty_cache()
+        entry_mb = (torch.cuda.memory_reserved() - reserved) / 2**20
+        est, hst = {}, {}
+        ref = eager(est)
+        hit = graphed(hst)
+        frun, erun, run = (run_of(first, fst), run_of(ref, est),
+                           run_of(hit, hst))
+        statuses, iters = first.statuses, first.Iter.tolist()
+        check(main.loop == "graph" and frun.loop == "graph"
+              and not frun.cache_hit and run.cache_hit,
+              f"[batch_graph] {label}: solve_batch's main run took the "
+              f"{main.loop} loop; a miss after clear() hit "
+              f"{frun.cache_hit}, the next call hit {run.cache_hit}")
+        check(statuses == ref.statuses == hit.statuses
+              and iters == ref.Iter.tolist() == hit.Iter.tolist(),
+              f"[batch_graph] {label}: statuses or Iter differ between the "
+              f"miss, the eager loop and the hit")
+        dy = (first.y - ref.y).abs().max().item()
+        check(dy == 0 and torch.equal(hit.y, first.y),
+              f"[batch_graph] {label}: |y - y_eager| {dy:.3e}, hit equal "
+              f"to the miss {torch.equal(hit.y, first.y)}")
+        builds, ebuilds, mbuilds = (run_builds(run), run_builds(erun),
+                                    run_builds(frun))
+        check(builds == ebuilds and run.fast_steps == erun.fast_steps
+              and mbuilds == ebuilds + 1,
+              f"[batch_graph] {label}: {builds} KKT builds on a hit, "
+              f"{mbuilds} on a miss, {ebuilds} on the eager loop")
+        want = expected_batched_launches([frun], orders)
+        check(got == want and singles == 0,
+              f"[batch_graph] {label}: a miss launched {dict(got)} batched "
+              f"factors for {dict(want)} and {singles} single ones")
+        check(run.trips == erun.trips,
+              f"[batch_graph] {label}: {run.trips} refinement trips on the "
+              f"device loop, {erun.trips} on the eager loop")
+        chunks = -(-run.fast_steps // ipm.POLL)
+        check(run.polls == 1 + chunks and run.replays == chunks
+              and frun.polls == 2 + frun.replays,
+              f"[batch_graph] {label}: {run.polls} polls and {run.replays} "
+              f"replays on a hit, {frun.polls} and {frun.replays} on a "
+              f"miss, for {run.fast_steps} steps at POLL {ipm.POLL}")
+        ms_hit = [event_ms(graphed) for _ in range(3)]
+        ms_eager = [event_ms(eager) for _ in range(3)]
+        pg = profiled(graphed)
+        pe = profiled(eager)
+        check(pg["dtoh_loop"] <= run.polls and pg["replay_host_launches"] == 0,
+              f"[batch_graph] {label}: {pg['dtoh_loop']} device-to-host "
+              f"copies in the loop for {run.polls} polls, "
+              f"{pg['replay_host_launches']} host launches during replays")
+        ms_miss = []
+        for _ in range(3):
+            graph.clear()
+            ms_miss.append(event_ms(graphed))
+        cpu = solve_batch(*(x.cpu() if isinstance(x, torch.Tensor) else x
+                            for x in args), device="cpu")
+        check(cpu.statuses == statuses and cpu.Iter.tolist() == iters,
+              f"[batch_graph] {label}: card {Counter(statuses)}, cpu "
+              f"{Counter(cpu.statuses)}, Iter equal "
+              f"{cpu.Iter.tolist() == iters}")
+        it = max(iters)
+        line("batch_graph", family=repr(label), B=BATCH,
+             status=",".join(f"{k}x{v}" for k, v in
+                             sorted(Counter(statuses).items())),
+             Iter=f"{min(iters)}-{it}", cpu_iter="equal",
+             loop=run.loop, cache_hit=run.cache_hit,
+             y_diff_eager=f"{dy:.3e}", kkt_builds_graph=builds,
+             kkt_builds_miss=mbuilds, kkt_builds_eager=ebuilds,
+             trips_per_iter_graph=f"{run.trips / it:.2f}",
+             trips_per_iter_eager=f"{erun.trips / it:.2f}",
+             poll=ipm.POLL, polls=run.polls, replays=run.replays,
+             ms_hit=spread(ms_hit), ms_miss=spread(ms_miss),
+             ms_eager=spread(ms_eager),
+             dtoh_per_iter_graph=f"{pg['dtoh'] / it:.2f}",
+             dtoh_per_iter_eager=f"{pe['dtoh'] / it:.2f}",
+             dtoh_loop=pg["dtoh_loop"], dtoh_fixed=pg["dtoh_fixed"],
+             kernels_per_iter_graph=f"{pg['kernels'] / it:.1f}",
+             kernels_per_iter_eager=f"{pe['kernels'] / it:.1f}",
+             replay_host_launches=pg["replay_host_launches"],
+             reserved_mb_entry=f"{entry_mb:.1f}")
+        del first, ref, hit, a, akw
+    graph.clear()
+
+
 def phase_checkpoint():
-    """solve_batch_resumable stopped after its first chunk and resumed."""
+    """solve_batch_resumable stopped after its first chunk and resumed in
+    chunks of the same size: each chunk a warm stacked solve of one
+    configuration, so the resumed chunks after the first hit the device
+    loop's entry."""
     from conicip_tpu_torch import models, solve_batch
+    from conicip_tpu_torch.parallel import batch as pbatch
     from conicip_tpu_torch.parallel import checkpoint as cp
 
     args = on_card(models.batched_box_qp(BATCH, n=PLANTED_N))
@@ -2057,13 +2237,30 @@ def phase_checkpoint():
         check(info is not None and info.iters_done == 3 and not info.done
               and info.batch == BATCH,
               f"checkpoint: snapshot after the first chunk {info}")
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = cp.solve_batch_resumable(*args, store=store, chunk_iters=50,
-                                       maxIters=60, device="cuda")
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
+        chunks = []
+
+        def recorded(*a, **k):
+            out = orig(*a, **k)
+            chunks.append([(r.loop, r.cold_start, r.cache_hit)
+                           for r in pbatch.runs])
+            return out
+
+        cp.solve_batch = recorded
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = cp.solve_batch_resumable(*args, store=store, chunk_iters=3,
+                                           maxIters=60, device="cuda")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        finally:
+            cp.solve_batch = orig
         done = cp.load_snapshot(store)
+    # the first resumed chunk builds the warm entry, every later one hits it
+    check(len(chunks) >= 2 and chunks[0] == [("graph", 0, False)]
+          and all(c == [("graph", 0, True)] for c in chunks[1:]),
+          f"checkpoint: resumed chunks' (loop, cold start, cache hit) "
+          f"{chunks}")
     resid = torch.maximum(out.prFeas, torch.maximum(
         out.duFeas, out.muFeas)).max().item()
     dy = (out.y - ref.y).abs().max().item()
@@ -2078,7 +2275,9 @@ def phase_checkpoint():
     check(dy <= 2e-3, f"checkpoint: |y - y_uninterrupted| {dy:.3e}")
     line("checkpoint", family=f"'batched_box_qp(64,n={PLANTED_N})'", chunk_iters=3,
          stopped_after="chunk 1", finished_at_stop=info.n_finished,
-         resumed="Optimal x64", Iter=f"{int(out.Iter.min())}-"
+         resumed="Optimal x64", resumed_chunks=len(chunks),
+         resumed_hits=sum(c[0][2] for c in chunks),
+         Iter=f"{int(out.Iter.min())}-"
          f"{int(out.Iter.max())}", resid=f"{resid:.3e}",
          y_diff_uninterrupted=f"{dy:.3e}", resume_ms=f"{ms:.2f}")
 
@@ -2642,6 +2841,7 @@ def phase_distributed():
     import torch.distributed as dist
 
     from conicip_tpu_torch import make_mesh, models, solve_batch
+    from conicip_tpu_torch.parallel import batch as pbatch
     from conicip_tpu_torch.parallel import distributed_normal_matrix
     from conicip_tpu_torch.parallel.mesh import start_rank
 
@@ -2673,6 +2873,10 @@ def phase_distributed():
             bmesh = make_mesh((1,), ("batch",))
             timed_batch(args, mesh=bmesh)  # warm-up
             out, ms = timed_batch(args, mesh=bmesh)
+            loops = [(r.loop, r.cache_hit) for r in pbatch.runs]
+            check(loops == [("graph", True)],
+                  f"solve_batch over a mesh of one: (loop, cache hit) "
+                  f"{loops}")
             _, plain_ms = timed_batch(args)
             dy = (out.y - plain.y).abs().max().item()
             check(out.statuses == plain.statuses == ["Optimal"] * BATCH
@@ -2686,7 +2890,8 @@ def phase_distributed():
                  case=f"'solve_batch batched_box_qp({BATCH},n=500)'",
                  mesh="(1,) batch", status=f"Optimal x{BATCH}",
                  Iter="equal to unsharded", y_diff_unsharded=f"{dy:.3e}",
-                 ms_per_batch=f"{ms:.2f}", unsharded_ms=f"{plain_ms:.2f}")
+                 loop="graph", ms_per_batch=f"{ms:.2f}",
+                 unsharded_ms=f"{plain_ms:.2f}")
         finally:
             dist.destroy_process_group()
     return pair_of_ranks(one)
@@ -2803,10 +3008,13 @@ def pair_of_ranks(one):
           and torch.equal(a["y"], b["y"]),
           f"{DIST_RANKS} ranks, solve_batch: statuses or Iter differ from "
           "the unsharded stack's, or the ranks' answers differ")
+    check(a["loops"] == b["loops"] == [("graph", True)],
+          f"{DIST_RANKS} ranks, solve_batch: (loop, cache hit) "
+          f"{a['loops']} / {b['loops']}")
     line("distributed", world=DIST_RANKS, backend="gloo",
          case=f"'solve_batch batched_box_qp({BATCH},n=500)'",
          mesh=f"({DIST_RANKS},) batch", per_rank=BATCH // DIST_RANKS,
-         status=f"Optimal x{BATCH}", Iter="equal to unsharded",
+         status=f"Optimal x{BATCH}", Iter="equal to unsharded", loop="graph",
          ms_per_batch=f"{a['ms']:.2f}", unsharded_ms=f"{ref['ms']:.2f}")
     line("distributed", world=DIST_RANKS, backend="gloo",
          collectives="all_reduce,reduce_scatter,all_gather,broadcast",
@@ -2822,6 +3030,7 @@ def distributed_rank(rank, init, out):
 
     from conicip_tpu_torch import make_mesh, models
     from conicip_tpu_torch.ops import cholesky_kernel, jacobi_kernel
+    from conicip_tpu_torch.parallel import batch as pbatch
     from conicip_tpu_torch.parallel.mesh import start_rank
 
     start_rank(rank, DIST_RANKS, init, "cuda")
@@ -2841,7 +3050,8 @@ def distributed_rank(rank, init, out):
         timed_batch(args, mesh=bmesh)  # warm-up
         bs, ms = timed_batch(args, mesh=bmesh)
         res["batch"] = dict(status=bs.status.cpu(), Iter=bs.Iter.cpu(),
-                            y=bs.y.cpu(), ms=ms)
+                            y=bs.y.cpu(), ms=ms, loops=[
+                                (r.loop, r.cache_hit) for r in pbatch.runs])
     finally:
         dist.destroy_process_group()
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
@@ -2869,10 +3079,13 @@ def main():
         a = parser.parse_args()
         distributed_rank(a.distributed_rank, a.init, a.out)
         return 0
+    start = time.perf_counter()
     phase_environment()
     phase_build()
     single, batched64, batched32 = phase_kernel()
     jacobi = phase_jacobi()
+    line("phase_time", of="build+kernel+jacobi",
+         seconds=f"{time.perf_counter() - start:.1f}")
 
     from conicip_tpu_torch.ops import cholesky_kernel, jacobi_kernel
 
@@ -2890,15 +3103,19 @@ def main():
     # the phases that solve S-cone problems, whose decompositions are the
     # Jacobi kernels' (and no other phase's)
     s_cone = (phase_conic, phase_graph, phase_graph_cache, phase_f32,
-              phase_batch, phase_frontend, phase_ladder, phase_distributed)
+              phase_batch, phase_batch_graph, phase_frontend, phase_ladder,
+              phase_distributed)
     for phase in (phase_schur, phase_diag, phase_conic, phase_graph,
                   phase_graph_cache, phase_f32, phase_eq, phase_backends,
-                  phase_batch, phase_checkpoint, phase_frontend, phase_ladder,
-                  phase_distributed):
+                  phase_batch, phase_batch_graph, phase_checkpoint,
+                  phase_frontend, phase_ladder, phase_distributed):
         cholesky_kernel.reset_launch_count()
         jacobi_kernel.reset_launch_count()
         # launches of the ranks a phase spawned, counted by their wrappers
+        t = time.perf_counter()
         ranks, ranks_jacobi = phase() or (Counter(), Counter())
+        line("phase_time", of=phase.__name__,
+             seconds=f"{time.perf_counter() - t:.1f}")
         counts = cholesky_kernel.cholesky_launches + ranks
         pcounts = Counter(cholesky_kernel.predicated_launches)
         jcounts = jacobi_kernel.jacobi_launches + ranks_jacobi
@@ -2913,8 +3130,8 @@ def main():
               f"{phase.__name__}: {used32} launches of the f32 entries")
         # the stacked solves run the batched entries, and nothing else does
         check((sum(stacked.values()) > 0)
-              == (phase in (phase_batch, phase_checkpoint, phase_ladder,
-                            phase_distributed)),
+              == (phase in (phase_batch, phase_batch_graph, phase_checkpoint,
+                            phase_ladder, phase_distributed)),
               f"{phase.__name__}: {stacked} launches of the batched entries")
         by_kind = Counter()
         for (kind, dt, _, _), c in jcounts.items():
@@ -2974,6 +3191,7 @@ def main():
         rec["max_abs_err"] = max(err for key, err in JACOBI_HELD.items()
                                  if key[:2] == (kind, dt))
 
+    line("phase_time", of="all", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": [single, batched64, batched32,
                                   *jacobi.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -75,6 +75,15 @@ def lowrank_applicable(Q, A, G, spec: ConeSpec, max_rank: int = 160) -> bool:
     return not bool((torch.diagonal(Qt, dim1=-2, dim2=-1) < 0).any())
 
 
+@functools.lru_cache(maxsize=None)
+def _soc_index(spec: ConeSpec, n: int, dev) -> tuple:
+    """Per SOC group its (k, dim) rows relative to the SOC section (after
+    the n bound rows), on a device: made by the first solve of a
+    configuration, eagerly, so that a captured level-1 call
+    (solver/graph.py) copies nothing from the host."""
+    return tuple(_index(g.idx - n, dev) for g in spec.soc_groups)
+
+
 def _soc_sq_dense(soc_params, idxs, K):
     """Write blockdiag(F²) (or F⁻² from the inverse scaling's parameters)
     over the SOC section onto the leading block of ``K``:
@@ -113,7 +122,7 @@ def kktsolver_lowrank(Q, A, G, spec: ConeSpec):
     r = m_s + p
     ridge = 30.0 * finfo.eps
     eq_diag = torch.arange(m_s, r, device=dev)
-    soc_idx = [_index(g.idx - n, dev) for g in spec.soc_groups]
+    soc_idx = _soc_index(spec, n, dev)
 
     def _equilibrated_inv_factor(T, k):
         scale = torch.rsqrt(torch.clamp(

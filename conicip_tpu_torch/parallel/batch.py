@@ -1,14 +1,25 @@
 """Batched problem solving: data parallelism over problem instances.
 
 Counterpart of ``conicip_tpu/parallel/batch.py``. There a stack of problems
-is ``jax.jit(jax.vmap(ipm_solve))``; here :func:`ipm_solve` itself takes a
-leading batch axis on every operand (``solver/ipm.py``): per-instance
-status, masks that freeze finished instances while the loop keeps stepping
-the rest, one host read per iteration for the whole stack, and every dense
-factor of an iteration one launch of the CUDA kernel's batched entry. A
-single-instance solve on the card is bound by the host issuing a few
-hundred small launches per iteration; a stack of B makes the same launches
-for B times the work.
+is ``jax.jit(jax.vmap(ipm_solve))``, compiled once per configuration and
+shape and kept; here :func:`ipm_solve` itself takes a leading batch axis on
+every operand (``solver/ipm.py``): per-instance status, masks that freeze
+finished instances while the loop keeps stepping the rest, and every dense
+factor of an iteration one launch of the CUDA kernel's batched entry.
+
+A run whose KKT generator :func:`solve_batch` chose itself, in full
+precision and without mixed residuals, takes the device loop through
+``solver/graph.py``'s cache, as ``conic_ip``'s runs do: on CUDA a captured
+prologue and chunk kept per configuration and stack shape, one host read
+per chunk; on the CPU the same chunks run eagerly. That is the automatic
+main run at f64 (diag, Schur or spectral, cold or warm), the f64 fused
+tiers, and the S-cone policy behind ``factor_dtype=float32``. The eager
+loop (one host read per iteration) keeps a caller's kktsolver (the public
+``make_batched_solver`` / ``make_batched_warm_solver`` hand theirs to it),
+the f32 runs with mixed residuals, and the sub-batches of instances that
+stalled (the host backstop, the eliminated path's retry and fallback),
+whose shape depends on the data: an entry for each would rarely be hit and
+would evict the main run's.
 
 :func:`solve_batch` keeps the reference's policy: the automatic backend
 (diagonal, dense Schur, spectral, low-rank) chosen on the caller's arrays
@@ -29,7 +40,7 @@ import torch
 
 from ..cones.spec import ConeSpec
 from ..ops.batched import mv
-from ..solver import _densify
+from ..solver import _densify, _device_loop, graph
 from ..solver.ipm import IPMOptions, _select, ipm_solve
 from ..solver.state import STATUS_NAMES, SolState, Status, Vec4
 from .mesh import MeshAxis
@@ -81,10 +92,10 @@ class BatchRun(NamedTuple):
     cold_start: int
     recertified: int
     polls: int  # host reads of the loop's status
-    replays: int  # CUDA graph replays (0: the eager loop)
-    loop: str  # "eager": solve_batch runs the eager loop
+    replays: int  # CUDA graph replays of one captured chunk
+    loop: str  # "graph", "chunks" (the device loop) or "eager"
     trips: int  # refinement trips run (some instance went on)
-    cache_hit: bool  # False: the eager loop keeps nothing across calls
+    cache_hit: bool  # the device loop's entry was kept from an earlier call
 
     @property
     def batch(self) -> int:
@@ -115,10 +126,18 @@ def _maxres(st) -> torch.Tensor:
     return torch.maximum(st.prFeas, torch.maximum(st.duFeas, st.muFeas))
 
 
-def _run(spec, kktsolver, opts, tier, Q, c, A, b, G, d, warm=None):
+def _run(spec, kktsolver, opts, tier, Q, c, A, b, G, d, warm=None, *,
+         own=False):
+    """One stacked run, recorded in :data:`runs`. ``own`` says that
+    solve_batch chose the generator itself: then a full-precision run
+    takes the device loop, by conic_ip's rule (``solver._device_loop``);
+    otherwise, and for f32 factors or mixed residuals, the eager loop."""
     stats = {}
-    st = ipm_solve(Q, c, A, b, G, d, spec, kktsolver, opts, warm=warm,
-                   stats=stats)
+    args = (Q, c, A, b, G, d, spec, kktsolver, opts)
+    if own and _device_loop(kktsolver, False, opts):
+        st = graph.solve(*args, warm=warm, stats=stats)
+    else:
+        st = ipm_solve(*args, warm=warm, stats=stats)
     runs.append(BatchRun(kktsolver, tier, tuple(st.status.tolist()),
                          tuple(st.Iter.tolist()), **stats))
     return st
@@ -142,7 +161,8 @@ def make_batched_solver(spec: ConeSpec, kktsolver, opts: IPMOptions,
     """Stacked solver ``(Q, c, A, b, G, d) -> SolState`` with (B,) fields
     for a fixed (spec, kktsolver, opts). With ``batch_G=False`` ``G`` and
     ``d`` are one shared equality system. ``kktsolver`` receives stacked
-    tensors: Q (B, n, n), A (B, m, n), G (B, p, n)."""
+    tensors: Q (B, n, n), A (B, m, n), G (B, p, n). The caller's generator
+    runs the eager loop, as ``conic_ip`` runs a caller's."""
 
     def core(Q, c, A, b, G, d):
         if batch_G != (G.dim() == 3):
@@ -156,7 +176,7 @@ def make_batched_solver(spec: ConeSpec, kktsolver, opts: IPMOptions,
 def make_batched_warm_solver(spec: ConeSpec, kktsolver, opts: IPMOptions,
                              batch_G: bool = True):
     """Stacked warm-started solver ``(Q, c, A, b, G, d, warm) -> SolState``
-    (the warm :class:`Vec4` stacked on axis 0)."""
+    (the warm :class:`Vec4` stacked on axis 0); the eager loop."""
 
     def core(Q, c, A, b, G, d, warm):
         if batch_G != (G.dim() == 3):
@@ -168,21 +188,26 @@ def make_batched_warm_solver(spec: ConeSpec, kktsolver, opts: IPMOptions,
 
 @functools.lru_cache(maxsize=None)
 def make_batched_ladder_solver(spec: ConeSpec, kktsolver, tiers,
-                               opts: IPMOptions, with_warm: bool = False):
+                               opts: IPMOptions, with_warm: bool = False,
+                               own_main: bool = False,
+                               own_tiers: bool = False):
     """Stacked solver with the escalation ladder behind it: after the fast
     tier, each ``(kktsolver, IPMOptions)`` in ``tiers`` runs only when some
     instance ended Abandoned or Error (one host read per tier), warm from
     the stack's best iterates, and its answer is accepted per instance:
-    a stalled instance takes it when it is definitive or no worse."""
+    a stalled instance takes it when it is definitive or no worse.
+    ``own_main`` and ``own_tiers`` say that solve_batch chose the main
+    run's and the tiers' generators (:func:`_run`)."""
 
     def run(Q, c, A, b, G, d, warm=None):
-        st = _run(spec, kktsolver, opts, "main", Q, c, A, b, G, d, warm)
+        st = _run(spec, kktsolver, opts, "main", Q, c, A, b, G, d, warm,
+                  own=own_main)
         for i, (kkt_t, opts_t) in enumerate(tiers, 1):
             stalled = _stalled_mask(st.status)
             if not bool(stalled.any()):
                 continue
             st2 = _run(spec, kkt_t, opts_t, f"fused-{i}", Q, c, A, b, G, d,
-                       _neutral_warm(st.y, st.w, st.v, A, b))
+                       _neutral_warm(st.y, st.w, st.v, A, b), own=own_tiers)
             accept = stalled & (~_stalled_mask(st2.status)
                                 | (_maxres(st2) <= _maxres(st)))
             st = _select(accept, st2, st)
@@ -308,7 +333,10 @@ def _solve_sharded(mesh, batch_axis, operands, cone_dims, warm_start, kw):
 def _solve_batch(Q, c, A, b, cone_dims, G=None, d=None, *, kktsolver=None,
                  factor_dtype="auto", dtype=None, warm_start=None,
                  backstop=True, eliminate_equalities=None, device="cuda",
-                 **options):
+                 own=True, **options):
+    """:func:`solve_batch` on this process's stack. ``own=False`` keeps
+    every run on the eager loop: a sub-batch of the instances that
+    stalled, whose shape depends on the data (module docstring)."""
     from ..solver import (_default_kktsolver, _diag_kktsolver,
                           resolve_factor_dtype)
 
@@ -499,17 +527,12 @@ def _solve_batch(Q, c, A, b, cone_dims, G=None, d=None, *, kktsolver=None,
             opts = IPMOptions(**sdp_cfg)
 
     if fused_tiers:
-        solver = make_batched_ladder_solver(
-            spec, kktsolver, fused_tiers, opts, with_warm=warm is not None
-        )
+        st = make_batched_ladder_solver(
+            spec, kktsolver, fused_tiers, opts, with_warm=True,
+            own_main=own and auto_kkt, own_tiers=own)(Q, c, A, b, G, d, warm)
     else:
-        solver = (
-            make_batched_warm_solver(spec, kktsolver, opts)
-            if warm is not None
-            else make_batched_solver(spec, kktsolver, opts)
-        )
-    st = (solver(Q, c, A, b, G, d, warm) if warm is not None
-          else solver(Q, c, A, b, G, d))
+        st = _run(spec, kktsolver, opts, "main", Q, c, A, b, G, d, warm,
+                  own=own and auto_kkt)
     out = BatchSolution.from_state(st)
 
     # Host backstop (same ladder as conic_ip): instances whose f32 tiers
@@ -696,7 +719,7 @@ def _solve_batch_eliminated(Q, c, A, b, cone_dims, G, d, *, factor_dtype,
         sub2 = _solve_batch(
             Q_red[retry], c_red[retry], A_red[retry], b_red[retry],
             cone_dims, warm_start=(sub.y[retry], None, sub.v[retry]),
-            **direct_args, **tight)
+            own=False, **direct_args, **tight)
         v2 = sub2.v.to(f64)
         y2, w2, _, rDu2, pobj2 = recover(
             sub2.y.to(f64), v2, Q64[retry], c64[retry], A64[retry],
@@ -725,7 +748,7 @@ def _solve_batch_eliminated(Q, c, A, b, cone_dims, G, d, *, factor_dtype,
             torch.as_tensor(Gh, dtype=dtype, device=device).expand(
                 stalled.numel(), p, n),
             torch.as_tensor(dh, dtype=dtype, device=device)[stalled],
-            **direct_args, **options)
+            own=False, **direct_args, **options)
         for f in fields(out):
             getattr(out, f.name)[stalled] = getattr(direct, f.name)
 

@@ -15,6 +15,11 @@ Counterpart of ``conicip_tpu/parallel/checkpoint.py``:
 
 The snapshot also records a digest of the problem data, so resuming
 against different data fails loudly instead of silently mixing batches.
+
+Every chunk after the first is a warm stacked solve of one configuration
+(the stack's shapes, ``maxIters=chunk_iters``), so on the device loop
+(``solver/graph.py``) the first warm chunk builds its cache entry and every
+later one, of this call or of a resumed one, hits it.
 """
 
 from __future__ import annotations

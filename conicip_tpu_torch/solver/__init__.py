@@ -108,8 +108,10 @@ def _device_loop(kktsolver, user_kktsolver, opts) -> bool:
     eager loop keeps what holds host state or reads the device from the
     host: f32 factors (the last-mile variant switch and mixed residuals
     live on the host, ipm.py), verbose output (a print per iteration) and a
-    caller's own kktsolver (whose callbacks may read the device). ``solve_batch`` and the distributed path call
-    ``ipm_solve`` themselves and keep the eager loop too."""
+    caller's own kktsolver (whose callbacks may read the device; the
+    distributed path's ``kktsolver_schur_tp`` is one). ``solve_batch``
+    applies this rule to each stacked run whose generator it chose
+    (parallel/batch.py)."""
     return not (user_kktsolver or opts.mixedResiduals or opts.verbose
                 or getattr(kktsolver, "keywords", {}).get("factor_dtype")
                 is not None)

@@ -7,12 +7,15 @@ for the next call. :func:`solve` runs
 :func:`~conicip_tpu_torch.solver.ipm.ipm_solve` with the device loop
 through a cache of at most :data:`CACHE_SIZE` entries, least recently used
 first out. Its key is what the captured work reads besides the data: the
-device, the dtype, every operand's shape, the ``ConeSpec``, the KKT
-generator (one object per configuration), the ``IPMOptions``, a cold or a
-warm start, and ``ipm.POLL``. An entry owns
+device, the dtype, every operand's shape and strides, the ``ConeSpec``,
+the KKT generator (one object per configuration), the ``IPMOptions``, a
+cold or a warm start, and ``ipm.POLL``. An entry owns
 
 - input buffers for Q, c, A, b, G, d and the warm start, into which each
-  call copies its data;
+  call copies its data: each operand in the caller's layout, which the
+  reductions round by, so that the loop's arithmetic is the eager loop's
+  bit for bit on the caller's tensors; an operand expanded over a stack
+  (stride 0: a G or d shared by every instance) is kept once;
 - on CUDA, two graphs captured in the entry's own ``torch.cuda.MemPool``:
   the *prologue* (``ipm.device_prologue``: the level-1 callback, whose
   tensors are derived from the input buffers, the initial point and its
@@ -30,6 +33,16 @@ and replays the chunk until the flag is false: no eager work, no capture,
 no instantiation. Both return copies of the results, so a later call never
 changes an earlier solution. On the CPU an entry holds the buffers and the
 loop runs eagerly (``ipm.run_chunks``).
+
+Stacks come here too: ``solve_batch`` sends the runs whose generator it
+chose through :func:`solve` (parallel/batch.py), as the reference keeps one
+``jit(vmap(ipm_solve))`` per configuration and stack shape. The stack's
+shape is part of the key, and a shared G (expanded with stride 0) is a
+configuration apart from a stacked one. What an entry holds on an H100
+for the stacks of 64 of ``chip_smoke.py`` ``[batch_graph]`` (reserved
+memory across a miss after :func:`clear`): ``batched_box_qp`` n=500
+1.7 GB, ``batched_mixed_rq_eq`` n=200 0.23 GB, ``batched_mixed_rqs`` and
+``batched_small_sdp`` under 0.07 GB.
 
 Each refinement trip of a captured unit is the body of a conditional IF
 node (``csrc/graph_cond.cu``), run only while some instance goes on, as
@@ -70,7 +83,8 @@ LOOP, REPLAY = "conicip::loop", "conicip::replay"
 
 # Entries kept, least recently used first out. The reference's jit cache is
 # unbounded; an entry's pool holds the loop's device memory (about 3.2 GB
-# for an n=4096 Schur solve on the H100, PERF.md §6), so the port bounds it.
+# for an n=4096 Schur solve on the H100, 1.7 GB for a stack of 64 box QPs
+# at n=500; PERF.md §6), so the port bounds it.
 CACHE_SIZE = 4
 
 _cache: OrderedDict = OrderedDict()
@@ -113,11 +127,27 @@ def _clone(x):
     return _rebuild(x, iter([t.clone() for t in _leaves(x)]))
 
 
+def _shared(t) -> tuple:
+    """The dimensions along which ``t`` repeats one slice (stride 0: a
+    shared G or d expanded over a stack)."""
+    if not t.numel():
+        return ()
+    return tuple(i for i, (n, s) in enumerate(zip(t.shape, t.stride()))
+                 if s == 0 and n > 1)
+
+
+def _base(t):
+    """The one slice of ``t`` that its shared dimensions repeat."""
+    for i in _shared(t):
+        t = t.narrow(i, 0, 1)
+    return t
+
+
 def _key(args, spec, kktsolver, opts, warm) -> tuple:
     c = args[1]
     return (c.device.type, c.device.index, c.dtype,
-            tuple(tuple(x.shape) for x in args), spec, kktsolver, opts,
-            warm is None, ipm.POLL)
+            tuple((tuple(x.shape), x.stride()) for x in args), spec,
+            kktsolver, opts, warm is None, ipm.POLL)
 
 
 def cache_info() -> list:
@@ -138,11 +168,12 @@ class _Entry:
     def __init__(self, key, prologue, inputs):
         self.key = key
         self.prologue = prologue
-        # the inputs' buffers: the call's tensors, copied
-        self.inputs = tuple(
-            None if x is None else _rebuild(x, iter([
-                t.clone(memory_format=torch.contiguous_format)
-                for t in _leaves(x)])) for x in inputs)
+        # the inputs' buffers: the call's tensors, copied in their layout
+        # (the reductions round by it), a shared slice once
+        *args, warm = inputs
+        self.inputs = tuple(_base(x).clone().expand(x.shape)
+                            for x in args) + (
+            None if warm is None else _clone(warm),)
         self.graphs = ()  # (prologue, chunk) on CUDA
         self.deltas = ()  # their captures' launch counts
         self.static = self.flag = self.body = None
@@ -151,9 +182,11 @@ class _Entry:
         self.pool = self.body_pool = None
 
     def refresh(self, inputs) -> None:
-        for dst, src in zip(self.inputs, inputs):
-            if dst is not None:
-                _copy(dst, src)
+        *args, warm = inputs
+        for dst, src in zip(self.inputs, args):
+            _base(dst).copy_(_base(src))
+        if warm is not None:
+            _copy(self.inputs[-1], warm)
 
     def release(self) -> None:
         if self.pool is not None:

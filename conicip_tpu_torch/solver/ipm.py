@@ -23,10 +23,13 @@ drive it:
   the Schur backend's ridge retries are predicated factors
   (ops/control.py), so nothing reads back inside a unit.
 - the eager loop (``device_loop=None``), for what keeps host state: a
-  two-variant KKT generator, mixed residuals, verbose output; and for
-  callers that run it themselves (``solve_batch``, the distributed path).
-  It reads the status once per iteration and stops there, and stops
-  refinement as soon as no instance goes on.
+  two-variant KKT generator, mixed residuals, verbose output; and for a
+  caller's own kktsolver, whose callbacks may read the device
+  (``kktsolver_schur_tp`` of the distributed path is one). ``solve_batch``
+  sends the runs whose generator it chose through the device loop by the
+  same rule, and keeps the backstop's sub-batches on this one. It reads
+  the status once per iteration and stops there, and stops refinement as
+  soon as no instance goes on.
 
 Both loops run the same arithmetic (``evaluate``, ``take_step``; the
 eager loop's ``advance``, the device loop's ``unit``), and everything else

@@ -2,7 +2,7 @@
 
     python -m conicip_tpu_torch.trace [--family box_qp_dense] [--n 4096]
                                       [--seed 42] [--factor-dtype float64]
-                                      [--batch B] [--poll K]
+                                      [--batch B] [--poll K] [--chain K]
 
 Solves one instance of a problem family (``--n`` sizes ``box_qp_dense`` and
 ``single_soc``; the other families take their default sizes) from inputs
@@ -32,11 +32,17 @@ constant was chosen). The [solve] line also says whether the profiled
 solve hit the device loop's cache (``cache_hit``; the unprofiled solves
 before it repeat its instance, so it does) and the refinement trips it ran.
 ``--chain K`` adds a [chain] line: K instances of the family (seeds
-``seed`` ... ``seed + K - 1``, inputs already on the card) solved back to
-back, the cache emptied first, for one round and then :data:`ROUNDS` more;
-ms per solve of each later round (median, least and most), of the first
-round (one miss per configuration), and the hits and captures (misses) of
-all rounds. It needs a CUDA device and fails without one.
+``seed`` ... ``seed + K - 1``, inputs already on the card; with
+``--batch B`` K stacks of B) solved back to back, the cache emptied first,
+for one round and then :data:`ROUNDS` more; ms per solve (per stack) of
+each later round (median, least and most), of the first round (one miss
+per configuration), the hits and captures (misses) of all rounds, and the
+device loop's entries after the first round with the memory the card
+reserved for them (``torch.cuda.memory_reserved()`` across the first
+round, the allocator's free blocks released on both sides). The [solve]
+line names the loop each run took (``loop``, "graph" or "eager", one per
+run) and counts the KKT builds the card ran (:func:`kkt_builds`). It
+needs a CUDA device and fails without one.
 """
 
 from __future__ import annotations
@@ -176,9 +182,19 @@ def parse_args(argv=None):
     if args.family not in (BATCH_FAMILIES if args.batch else FAMILIES):
         ap.error(f"--family {args.family} has no "
                  f"{'batched' if args.batch else 'single-instance'} form")
-    if args.chain and args.batch:
-        ap.error("--chain takes a single-instance family")
     return args
+
+
+def kkt_builds(r) -> int:
+    """KKT builds the card ran in one interior-point run (a ``Run`` or a
+    ``BatchRun``): the cold start's and one per step. On the device loop
+    one per unit, :data:`~conicip_tpu_torch.solver.ipm.POLL` per chunk,
+    each followed by a poll as the prologue is; a miss runs its prologue
+    twice (eagerly, then from its graph)."""
+    if r.loop == "eager":
+        return r.cold_start + r.fast_steps + r.slow_steps
+    prologues = 2 if r.loop == "graph" and not r.cache_hit else 1
+    return r.cold_start * prologues + ipm.POLL * (r.polls - 1)
 
 
 def main(argv=None):
@@ -274,7 +290,8 @@ def _profile(args):
           f"kernels_per_iter={len(kernels) / it:.1f} "
           f"elementwise_per_iter={elementwise / it:.1f} "
           f"dtoh_per_iter={dtoh / it:.2f} "
-          f"graph={int(any(r.loop == 'graph' for r in runs))} "
+          f"loop={'+'.join(r.loop for r in runs)} "
+          f"kkt_builds={sum(kkt_builds(r) for r in runs)} "
           f"poll={ipm.POLL} polls={sum(r.polls for r in runs)} "
           f"replays={sum(r.replays for r in runs)} "
           f"cache_hit={int(all(getattr(r, 'cache_hit', 0) for r in runs))} "
@@ -308,33 +325,51 @@ def _profile(args):
 
 
 def _chain(args, kw, on_card):
-    """The [chain] line (module docstring). A tree without the cache has no
-    ``graph.clear`` and no ``Run.cache_hit``: its solves count as misses."""
+    """The [chain] line (module docstring)."""
     problems = []
     for seed in range(args.seed, args.seed + args.chain):
-        P = FAMILIES[args.family](args.n, seed)
-        problems.append(([on_card(x) for x in (P.Q, P.c, P.A, P.b, P.G,
-                                                P.d)], P.cone_dims))
-    getattr(graph, "clear", lambda: None)()
+        if args.batch:
+            data = BATCH_FAMILIES[args.family](args.batch, args.n, seed)
+            problems.append(([on_card(x) for x in data[:4] + data[5:]],
+                             data[4]))
+        else:
+            P = FAMILIES[args.family](args.n, seed)
+            problems.append(([on_card(x) for x in (P.Q, P.c, P.A, P.b, P.G,
+                                                    P.d)], P.cone_dims))
+    solve, runs = ((solve_batch, parallel_batch.runs) if args.batch
+                   else (conic_ip, solver.runs))
+    graph.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
     hits = misses = 0
     per_solve = []
     for _ in range(ROUNDS + 1):
         torch.cuda.synchronize()
         t = time.perf_counter()
         for tensors, cones in problems:
-            conic_ip(*tensors[:4], cones, *tensors[4:], **kw)
-            hit = all(getattr(r, "cache_hit", False) for r in solver.runs)
+            solve(*tensors[:4], cones, *tensors[4:], **kw)
+            hit = all(r.cache_hit for r in runs)
             hits += hit
             misses += not hit
         torch.cuda.synchronize()
         per_solve.append((time.perf_counter() - t) * 1e3 / len(problems))
+        if len(per_solve) == 1:
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved() - reserved
+            entries = len(graph.cache_info())
     later = sorted(per_solve[1:])
-    print(f"[chain] family={args.family} n={problems[0][0][1].shape[-1]} "
+    unit = "stack" if args.batch else "solve"
+    batch = f" B={args.batch}" if args.batch else ""
+    print(f"[chain] family={args.family}{batch} "
+          f"n={problems[0][0][1].shape[-1]} "
           f"instances={args.chain} rounds={ROUNDS} "
-          f"ms_per_solve={later[ROUNDS // 2]:.2f} "
-          f"ms_per_solve_min={later[0]:.2f} ms_per_solve_max={later[-1]:.2f} "
-          f"first_round_ms_per_solve={per_solve[0]:.2f} "
-          f"hits={hits} captures={misses} "
+          f"ms_per_{unit}={later[ROUNDS // 2]:.2f} "
+          f"ms_per_{unit}_min={later[0]:.2f} "
+          f"ms_per_{unit}_max={later[-1]:.2f} "
+          f"first_round_ms_per_{unit}={per_solve[0]:.2f} "
+          f"hits={hits} captures={misses} entries={entries} "
+          f"reserved_mb_entries={reserved / 2**20:.1f} "
           f"device={torch.cuda.get_device_name(0)!r}")
 
 

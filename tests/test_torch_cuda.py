@@ -411,3 +411,32 @@ def test_a_cached_solve_equals_one_after_clear(cuda):
         assert torch.equal(first.y, kept)
     graph.clear()
     assert graph.cache_info() == []
+
+
+def test_solve_batch_runs_its_stacks_on_kept_graphs(cuda):
+    # solve_batch's own full-precision stacks on the device loop: captured
+    # CUDA graphs kept across calls, a second call of the same stack a hit
+    # equal to the first bit for bit, and per instance the CPU's status and
+    # Iter; a Schur stack with a shared G and an S-cone stack
+    from conicip_tpu_torch import solve_batch
+    from conicip_tpu_torch.models import batched_mixed_rq_eq, batched_small_sdp
+    from conicip_tpu_torch.parallel import batch as pbatch
+    from conicip_tpu_torch.solver import graph
+
+    for args in (batched_mixed_rq_eq(4, n=30, n_q=7, p=3),
+                 batched_small_sdp(3)):
+        graph.clear()
+        first = solve_batch(*args, device=cuda)
+        (run,) = pbatch.runs
+        assert run.loop == "graph" and not run.cache_hit
+        again = solve_batch(*args, device=cuda)
+        (run,) = pbatch.runs
+        assert run.loop == "graph" and run.cache_hit
+        assert torch.equal(again.y, first.y)
+        assert torch.equal(again.Iter, first.Iter)
+        ref = solve_batch(*args, device="cpu")
+        assert first.statuses == ref.statuses == ["Optimal"] * len(
+            ref.statuses)
+        assert torch.equal(first.Iter.cpu(), ref.Iter)
+    graph.clear()
+    assert graph.cache_info() == []

@@ -145,8 +145,30 @@ def test_chain_switch_solves_seeded_instances():
     # the instances differ: one seed each
     a, b = (trace.FAMILIES["single_soc"](8, s) for s in (42, 43))
     assert a.A.shape == b.A.shape and not (a.c == b.c).all()
-    with pytest.raises(SystemExit):
-        trace.parse_args(["--chain", "6", "--batch", "4"])
+    # a chain of stacks: K stacks of B, one seed each
+    args = trace.parse_args(["--chain", "6", "--batch", "64", "--family",
+                             "mixed_rq_eq"])
+    assert (args.chain, args.batch, args.family) == (6, 64, "mixed_rq_eq")
+    a, b = (trace.BATCH_FAMILIES["small_sdp"](3, 0, s) for s in (42, 43))
+    assert a[0].shape == b[0].shape and not (a[1] == b[1]).all()
     assert trace.ROUNDS >= 5
     if not torch.cuda.is_available():
         assert trace.main(["--n", "8", "--chain", "2"]) == 2
+        assert trace.main(["--batch", "4", "--n", "8", "--chain", "2"]) == 2
+
+
+def test_kkt_builds_count_each_loops_work():
+    # the eager loop: the cold start's build and one per step, on either
+    # variant; the device loop: one per unit (a poll after each, as after
+    # the prologue), and a miss's prologue twice on the card
+    from conicip_tpu_torch.solver import Run, ipm
+
+    def run(loop, polls=0, hit=False, cold=1):
+        return Run(None, "Optimal", 7, 7, 2, cold, 0, polls, 0, loop, 0, hit)
+
+    assert trace.kkt_builds(run("eager")) == 1 + 7 + 2
+    assert trace.kkt_builds(run("eager", cold=0)) == 9
+    assert trace.kkt_builds(run("graph", polls=8, hit=True)) == 1 + 7 * ipm.POLL
+    assert trace.kkt_builds(run("graph", polls=8)) == 2 + 7 * ipm.POLL
+    assert trace.kkt_builds(run("chunks", polls=8)) == 1 + 7 * ipm.POLL
+    assert trace.kkt_builds(run("graph", polls=8, cold=0)) == 7 * ipm.POLL
