@@ -15,29 +15,34 @@ that one larger_sdp(k=30) solve and one batched_small_sdp(64) solve hand
 them; then it drives ``conicip_tpu_torch.conic_ip`` through
 every default KKT backend (dense Schur, diagonal, spectral) on R, Q and S
 cone problems at the sizes the repository benchmarks, and checks the
-answers; ``[graph]`` holds each of those solves on the device loop
-(CUDA graphs kept across calls, ``solver/graph.py``) against the eager loop
-on the same arguments and against the CPU, bit for bit, with its KKT
-builds, refinement trips (each a conditional graph node,
-``csrc/graph_cond.cu``), host reads, replays and device-to-host copies,
-after the kernel phase has held the Cholesky kernel's predicated entry
-(the ridge retries) against its plain form; ``[graph_cache]`` solves chains
-of six instances of one shape on the device loop's cache (one capture,
-hits equal to solves after ``graph.clear()`` bit for bit, flat reserved
-memory, an evicted entry's pools freed) and times hits, misses and the
-eager loop.
+answers; ``[graph]`` holds each of those solves, and the f32 solves of
+``[f32]``, on the device loop (CUDA graphs kept across calls,
+``solver/graph.py``) against the eager loop on the same arguments and
+against the CPU, bit for bit, with its KKT builds per precision, steps on
+each variant, mixed-residual recomputes, refinement trips (each
+``lax.cond`` of the reference a conditional graph node,
+``csrc/graph_cond.cu``), kernel launches by entry and dtype, host reads,
+replays and device-to-host copies, after the kernel phase has held the
+Cholesky kernel's predicated entries, f64 and f32 (the ridge retries),
+against their plain form; ``[graph_cache]`` solves chains of six
+instances of one shape, f64 and f32, on the device loop's cache (one
+capture, hits equal to solves after ``graph.clear()`` bit for bit, flat
+reserved memory, an evicted entry's pools freed) and times hits, misses
+and the eager loop.
 Three further phases drive the options around the default path:
 ``[f32]`` the f32-factor solves (the kernel's f32 entry, the last-mile
 switch to f64 factors), ``[eq]`` null-space elimination of equalities and
 the rank-repairing preprocessor, ``[backends]`` the qr, lu and low-rank KKT
 solvers. ``[batch]`` drives ``solve_batch`` on stacks of 64 instances of the
 four batched families (every dense factor one launch of the kernel's
-batched entry, sampled instances held against their single solves; the
-f64 stacks and the S-cone policy behind f32 on the device loop, a cache
-hit), ``[batch_graph]`` holds each f64 stack on the device loop against the
-eager loop on the same operands and against the CPU as ``[graph]`` holds
-the single solves, with its reads, builds, trips, times and the memory its
-cache entry holds, and ``[checkpoint]`` an interrupted and resumed
+batched entry, sampled instances held against their single solves; every
+run the solver chooses, f32 included, on the device loop, a cache hit),
+``[batch_graph]`` holds each stack, f64 and f32, on the device loop
+against the eager loop on the same operands and against the CPU as
+``[graph]`` holds the single solves, with its reads, builds, trips, times
+and the memory its cache entry holds, and a stack split across the two
+variants of the f32 last-mile generator, and ``[checkpoint]`` an
+interrupted and resumed
 ``solve_batch_resumable`` whose resumed chunks hit the device loop's
 cache.
 ``[frontend]`` builds three generator families through the modeling
@@ -113,8 +118,13 @@ HELD = {}
 # (status, Iter) of the port's own CPU solves, by case, as the [schur] and
 # [conic] phases hold them; [graph] holds its solves to them again
 CPU_REF = {}
-# orders (n, n) and stacks (B, n, n) the predicated entry is held at
-PREDICATED_SHAPES = ((128, 128), (1024, 1024), (4096, 4096), (64, 500, 500))
+# orders (n, n) and stacks (B, n, n) the predicated entries are held at,
+# by dtype: the f32 ones are the ridge retries of the f32 Schur builds,
+# which run inside the device loop's conditional graph nodes
+PREDICATED_SHAPES = {
+    torch.float64: ((128, 128), (1024, 1024), (4096, 4096), (64, 500, 500)),
+    torch.float32: ((128, 128), (1024, 1024), (64, 500, 500)),
+}
 
 
 def cholesky_bound_ms(n, dtype, batch=1):
@@ -330,22 +340,24 @@ def phase_kernel():
 
 
 def hold_predicated():
-    """The predicated entry (the Schur solver's ridge retries) against the
-    plain version's predicated form: every flag set (``out`` kept bit for
-    bit), none set, and on the stack every other one; then, at n = 4096,
+    """The predicated entries, f64 and f32 (the Schur solver's ridge
+    retries), against the plain version's predicated form: every flag set
+    (``out`` kept bit for bit), none set, and on the stack every other
+    one, within TOL of the dtype where a matrix is factored; then, at n = 4096,
     what a skipped factor costs (its launches return at once) beside a
     full one, issued eagerly and replayed from a CUDA graph, and whether
     the graph kept the factor's programmatic dependent launches."""
     from conicip_tpu_torch.ops.cholesky_kernel import (
         PANEL, cholesky_factor, cholesky_plain, graph_edges)
 
-    for shape in PREDICATED_SHAPES:
+    for dt, shape in ((dt, shape) for dt, shapes in PREDICATED_SHAPES.items()
+                      for shape in shapes):
         n = shape[-1]
         stack = shape[:-2]
         make = (lambda seed: spd_stack(stack[0], n, seed)) if stack else (
             lambda seed: spd(n, seed))
-        M = make(1)
-        prev = cholesky_factor(make(2))  # what a skipped matrix keeps
+        M = make(1).to(dt)
+        prev = cholesky_factor(make(2).to(dt))  # what a skipped matrix keeps
         flag_sets = {"set": torch.ones(stack, dtype=torch.bool),
                      "unset": torch.zeros(stack, dtype=torch.bool)}
         if stack:
@@ -357,13 +369,14 @@ def hold_predicated():
             torch.cuda.synchronize()
             err = (L - Lp).abs().max().item()
             rel = err / Lp.abs().max().item()
-            kept = bool(torch.equal(L[flags], prev[flags]))
-            check(rel <= TOL[torch.float64] and kept,
-                  f"predicated {shape} flags {what}: |L-L_plain| rel "
+            kept = bool(torch.equal(L[flags], prev[flags])
+                        and torch.equal(Lp[flags], prev[flags]))
+            check(rel <= TOL[dt] and kept,
+                  f"predicated {shape} {dt} flags {what}: |L-L_plain| rel "
                   f"{rel:.3e}, flagged kept bit for bit: {kept}")
             line("kernel_predicated", shape=str(shape).replace(" ", ""),
-                 flags=what, max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
-                 flagged="kept bitwise")
+                 dtype=dtname(dt), flags=what, max_abs_err=f"{err:.3e}",
+                 rel_err=f"{rel:.3e}", flagged="kept bitwise")
     n = 4096
     M = spd(n, seed=3)
     L = cholesky_factor(M)
@@ -504,11 +517,12 @@ def phase_kernel_batched():
                     "shape": f"({B}, {n}, {n}) {name}",
                     "ms": ms, "plain_ms": plain, "bound_ms": bound,
                     "bound_by": bound_by, "library_ms": library}
-    # the predicated entry on the same stacks, as the device loop's ridge
-    # retries run it: every flag unset (each matrix factored: a full
+    # the predicated entries on the same stacks, as the device loop's ridge
+    # retries run them: every flag unset (each matrix factored: a full
     # factor's work) and every flag set (a retry that no matrix needs)
-    for B, n in BATCH_TIMED:
-        M = spd_stack(B, n, seed=n)
+    for (B, n), dt in ((shape, dt) for shape in BATCH_TIMED
+                       for dt in (torch.float64, torch.float32)):
+        M = spd_stack(B, n, seed=n).to(dt)
         out = torch.empty_like(M)
         unset = torch.zeros(B, dtype=torch.bool, device="cuda")
         every = torch.ones(B, dtype=torch.bool, device="cuda")
@@ -518,8 +532,8 @@ def phase_kernel_batched():
                           reps)
         plain = cuda_ms(lambda: cholesky_plain(M, skip=unset, out=out), reps)
         library = cuda_ms(lambda: torch.linalg.cholesky_ex(M), reps)
-        bound, bound_by = cholesky_bound_ms(n, torch.float64, B)
-        line("kernel_predicated_time", B=B, n=n, dtype="float64",
+        bound, bound_by = cholesky_bound_ms(n, dt, B)
+        line("kernel_predicated_time", B=B, n=n, dtype=dtname(dt),
              kernel_ms=f"{ms:.4f}", skipped_ms=f"{skipped:.4f}",
              plain_ms=f"{plain:.4f}", library_ms=f"{library:.4f}",
              bound_ms=f"{bound:.5f}", bound_by=bound_by,
@@ -1171,35 +1185,93 @@ def profiled(fn):
     return out
 
 
+def graph_f32_cases():
+    """(label, problem, conic_ip keywords) of the [f32] phase's solves, as
+    [graph] and [graph_cache] drive them: conic_ip's own f32 path (the
+    last-mile Schur generator with mixed residuals), and mixed_rqs on that
+    generator given as a caller's kktsolver (conic_ip keeps a caller's on
+    the eager loop, so [graph] hands it to graph.solve itself)."""
+    out = []
+    for label, P, kkt in f32_cases():
+        kw = dict(factor_dtype=torch.float32)
+        if kkt is not None:
+            kw.update(kktsolver=kkt, lastmileProactive=50.0)
+        out.append((f"{label} f32", P, kw))
+    return out
+
+
+def launch_counts():
+    """The kernels' launches so far by entry and dtype: the Cholesky
+    kernel's unconditional and predicated factors and each Jacobi kind."""
+    from conicip_tpu_torch.ops import cholesky_kernel, jacobi_kernel
+
+    out = Counter()
+    for name, counter in (("cholesky", cholesky_kernel.cholesky_launches),
+                          ("predicated", cholesky_kernel.predicated_launches)):
+        for key, c in counter.items():
+            out[f"{name}_{dtname(key[0])}"] += c
+    for (kind, dt, _, _), c in jacobi_kernel.jacobi_launches.items():
+        out[f"{kind}_{dtname(dt)}"] += c
+    return out
+
+
+def counted(fn):
+    """``fn()`` and the launches it made (launch_counts)."""
+    before = launch_counts()
+    out = fn()
+    return out, launch_counts() - before
+
+
 def phase_graph():
     """Each solve of the slice through conic_ip (the device loop, CUDA
     graphs kept across calls) and through the eager loop on the same
     arguments (ipm_solve without a device loop): the same status and Iter,
-    also as the CPU's, and y bit for bit; then the same device operands
-    through the device loop again, a cache hit: the same bits, the KKT
-    builds and refinement trips of the eager loop, one host read after the
-    prologue and one per chunk replay; then each loop alone: ms per solve
-    (median of 3, CUDA events), kernels and device-to-host copies per
-    iteration (profiler); during the replays the host launches no
-    kernel."""
+    also as the CPU's (an f32 solve's Iter within 2 of it), and y bit for
+    bit; then the same device operands through the device loop again, a
+    cache hit: the same bits, the KKT builds, steps on each variant,
+    recomputes, refinement trips and kernel launches by entry and dtype of
+    the eager loop, one host read after the prologue and one per chunk
+    replay; then each loop alone: ms per solve (median of 3, CUDA events),
+    kernels and device-to-host copies per iteration (profiler); during the
+    replays the host launches no kernel. The f32 solves (graph_f32_cases)
+    run every body of the device loop: the variants' scalings and steps,
+    the mixed-residual recompute and the refinement trips nested in a
+    step, each a conditional graph node."""
     from conicip_tpu_torch import conic_ip, solver
     from conicip_tpu_torch.solver import graph, ipm
     from conicip_tpu_torch.solver.state import Solution
 
-    real, seen = graph.solve, {}
+    real, real_eager, seen = graph.solve, solver.ipm_solve, {}
 
     def spy(*args, **kw):
         seen["call"] = (args, kw)
         return real(*args, **kw)
 
-    for label, args, key in graph_cases():
-        graph.solve = spy
+    def spy_eager(*args, **kw):
+        seen["call"] = (args, kw)
+        return real_eager(*args, **kw)
+
+    cases = [(label, args, key, {}) for label, args, key in graph_cases()]
+    cases += [(label, P.args(), None, kw)
+              for label, P, kw in graph_f32_cases()]
+    for label, args, key, ckw in cases:
+        callers = "kktsolver" in ckw
+        if callers:
+            # a caller's generator: conic_ip runs it on the eager loop
+            solver.ipm_solve = spy_eager
+        else:
+            graph.solve = spy
         try:
-            sol = conic_ip(*args, device="cuda")
+            sol = conic_ip(*args, device="cuda", **ckw)
         finally:
-            graph.solve = real
-        (first,) = solver.runs
+            graph.solve, solver.ipm_solve = real, real_eager
         a, kw = seen.pop("call")
+        if callers:
+            fst = {}
+            sol = Solution.from_state(real(*a, warm=kw["warm"], stats=fst))
+            first = solver.Run(None, sol.status, sol.Iter, **fst)
+        else:
+            (first,) = solver.runs
 
         # the two loops on the same device operands: graph.solve, which
         # conic_ip reached, and ipm_solve without a device loop
@@ -1212,19 +1284,28 @@ def phase_graph():
                                                      stats=stats))
 
         est = {}
-        ref = eager(est)
+        ref, eager_launches = counted(lambda: eager(est))
         check(first.loop == "graph",
               f"[graph] {label}: the {first.loop} loop ran")
         check(sol.status == ref.status and sol.Iter == ref.Iter,
               f"[graph] {label}: graph {sol.status}/{sol.Iter}, eager "
               f"{ref.status}/{ref.Iter}")
-        cpu = CPU_REF.get(key)
-        check(cpu is None or cpu == (sol.status, sol.Iter),
-              f"[graph] {label}: graph {sol.status}/{sol.Iter}, cpu {cpu}")
+        if ckw:
+            # the CPU's f32 solve, which [f32] holds its solve to again
+            cpu_sol = conic_ip(*args, device="cpu", **ckw)
+            cpu = CPU_REF[label] = (cpu_sol.status, cpu_sol.Iter)
+            check(cpu[0] == sol.status and abs(cpu[1] - sol.Iter) <= 2,
+                  f"[graph] {label}: graph {sol.status}/{sol.Iter}, cpu "
+                  f"{cpu}")
+        else:
+            cpu = CPU_REF.get(key)
+            check(cpu is None or cpu == (sol.status, sol.Iter),
+                  f"[graph] {label}: graph {sol.status}/{sol.Iter}, cpu "
+                  f"{cpu}")
         dy = (sol.y - ref.y).abs().max().item()
         check(dy == 0, f"[graph] {label}: |y - y_eager| {dy:.3e}")
         hst = {}
-        hit = graphed(hst)
+        hit, hit_launches = counted(lambda: graphed(hst))
         run = solver.Run(None, hit.status, hit.Iter, **hst)
         check(run.cache_hit and torch.equal(hit.y, sol.y)
               and (hit.status, hit.Iter) == (sol.status, sol.Iter),
@@ -1232,21 +1313,27 @@ def phase_graph():
               f"(cache hit {run.cache_hit}) differs from the first")
         erun = solver.Run(None, ref.status, ref.Iter, **est)
         builds, ebuilds = run_builds(run), run_builds(erun)
-        check(builds == ebuilds and run.fast_steps == erun.fast_steps,
-              f"[graph] {label}: {builds} KKT builds on the device loop, "
-              f"{ebuilds} on the eager loop")
-        check(run.trips == erun.trips,
-              f"[graph] {label}: {run.trips} refinement trips on the device "
-              f"loop, {erun.trips} on the eager loop")
+        counts = ("fast_steps", "slow_steps", "recertified", "trips")
+        check(builds == ebuilds and all(
+            getattr(run, k) == getattr(erun, k) for k in counts),
+              f"[graph] {label}: {builds} KKT builds, "
+              f"{[getattr(run, k) for k in counts]} {counts} on the device "
+              f"loop, {ebuilds} and {[getattr(erun, k) for k in counts]} "
+              f"on the eager loop")
+        check(hit_launches == eager_launches,
+              f"[graph] {label}: launches {dict(hit_launches)} on a hit, "
+              f"{dict(eager_launches)} on the eager loop")
         # a hit reads once after the prologue and once per chunk: one
-        # chunk of POLL units per step; a miss runs its first chunk eagerly
-        chunks = -(-run.fast_steps // ipm.POLL)
-        eager_chunk = not first.cache_hit and first.fast_steps > 0
+        # chunk of POLL units per step, each step on one variant; a miss
+        # runs its first chunk eagerly
+        steps = run.fast_steps + run.slow_steps
+        chunks = -(-steps // ipm.POLL)
+        eager_chunk = not first.cache_hit and steps > 0
         check(run.polls == 1 + chunks and run.replays == chunks
               and first.polls == 1 + eager_chunk + first.replays,
               f"[graph] {label}: {run.polls} polls and {run.replays} "
               f"replays on a hit, {first.polls} and {first.replays} on a "
-              f"miss, for {run.fast_steps} steps at POLL {ipm.POLL}")
+              f"miss, for {steps} steps at POLL {ipm.POLL}")
         ms_g = float(np.median([event_ms(graphed) for _ in range(3)]))
         ms_e = float(np.median([event_ms(eager) for _ in range(3)]))
         pg = profiled(graphed)
@@ -1263,6 +1350,11 @@ def phase_graph():
              cpu_iter=cpu[1] if cpu else "-", y_diff_eager=f"{dy:.3e}",
              first_call="hit" if first.cache_hit else "miss",
              kkt_builds_graph=builds, kkt_builds_eager=ebuilds,
+             fast_steps=run.fast_steps, slow_steps=run.slow_steps,
+             recertified=run.recertified,
+             launches=",".join(f"{k}:{v}" for k, v in
+                               sorted(hit_launches.items())) or "none",
+             launches_equal_eager=True,
              trips_per_iter_graph=f"{run.trips / it:.2f}",
              trips_per_iter_eager=f"{erun.trips / it:.2f}",
              poll=ipm.POLL, polls=run.polls, replays=run.replays,
@@ -1295,13 +1387,16 @@ def readme_box(seed, n=1000, eq=False, pattern=False):
 
 
 def graph_cache_cases():
-    """(label, instance at a seed) of the [graph_cache] phase: the eight
-    solves of PERF.md §5's table, a README box with an equality (the diag
-    backend's Woodbury buffers) and one whose A changes its sign pattern
-    from one instance to the next."""
+    """(label, instance at a seed, conic_ip keywords) of the [graph_cache]
+    phase: the eight solves of PERF.md §5's table, a README box with an
+    equality (the diag backend's Woodbury buffers) and one whose A changes
+    its sign pattern from one instance to the next; then conic_ip's own
+    f32 solves of the [f32] phase (graph_f32_cases but the caller's
+    generator, which conic_ip keeps on the eager loop)."""
     from conicip_tpu_torch import models
 
-    return (
+    f32 = dict(factor_dtype=torch.float32)
+    cases = [(label, make, {}) for label, make in (
         ("box_qp_dense(n=500)", lambda s: models.box_qp_dense(500, s).args()),
         ("box_qp_dense(n=1024)",
          lambda s: models.box_qp_dense(1024, s).args()),
@@ -1316,7 +1411,17 @@ def graph_cache_cases():
         ("readme_box(n=1000,eq)", lambda s: readme_box(s, eq=True)),
         ("readme_box(n=1000,sign pattern)",
          lambda s: readme_box(s, pattern=True)),
-    )
+    )]
+    return cases + [
+        ("box_qp_dense(n=1024) f32",
+         lambda s: models.box_qp_dense(1024, s).args(), f32),
+        ("box_qp_dense(n=4096) f32",
+         lambda s: models.box_qp_dense(4096, s).args(), f32),
+        ("single_soc(n=4096) f32",
+         lambda s: models.single_soc(4096, s).args(), f32),
+        ("many_small_socs(k=250,n=500) f32",
+         lambda s: models.many_small_socs(seed=s).args(), f32),
+    ]
 
 
 CHAIN = 6  # instances of one shape per [graph_cache] case
@@ -1335,7 +1440,8 @@ def phase_graph_cache():
     hit it (one capture for the key); torch.cuda.memory_reserved() is flat
     across the hits; the first solution is unchanged after the last call.
     Then each hit's instance again after graph.clear() (a miss): the same
-    status, Iter and y, w, v bit for bit, and the CPU's status and Iter.
+    status, Iter and y, w, v bit for bit, and, in f64, the CPU's status
+    and Iter ([graph] holds one f32 solve of each case to the CPU's).
     One solve of another shape misses, and filling the cache past its
     bound with small solves evicts the case's entry, whose memory pools
     leave no segment behind. ms per solve (host clock around a
@@ -1363,17 +1469,17 @@ def phase_graph_cache():
         return sum(1 for seg in torch.cuda.memory_snapshot()
                    if tuple(seg["segment_pool_id"]) in ids)
 
-    for label, make in graph_cache_cases():
+    for label, make, kw in graph_cache_cases():
         graph.clear()
         instances = [make(seed) for seed in range(1, CHAIN + 1)]
-        first = conic_ip(*instances[0], device="cuda")
+        first = conic_ip(*instances[0], device="cuda", **kw)
         check(not solver.runs[0].cache_hit, f"[graph_cache] {label}: the "
               "first call of an empty cache hit")
         (key,) = graph.cache_info()
         kept = first.y.clone()
         hits, reserved = [], []
         for args in instances[1:]:
-            sol = conic_ip(*args, device="cuda")
+            sol = conic_ip(*args, device="cuda", **kw)
             (run,) = solver.runs
             check(run.cache_hit and run.loop == "graph"
                   and graph.cache_info() == [key],
@@ -1394,7 +1500,7 @@ def phase_graph_cache():
         for args in instances[1:]:
             graph.solve = spy
             try:
-                conic_ip(*args, device="cuda")
+                conic_ip(*args, device="cuda", **kw)
             finally:
                 graph.solve = real
             operands.append(seen.pop("call")[0])
@@ -1419,6 +1525,8 @@ def phase_graph_cache():
                   f"from the solve after clear() {fresh.status}/"
                   f"{fresh.Iter}")
             ms_miss.append(ms)
+            if kw:
+                continue
             cpu = conic_ip(*args, device="cpu")
             check((cpu.status, cpu.Iter) == (status, Iter),
                   f"[graph_cache] {label}: card {status}/{Iter}, cpu "
@@ -1426,7 +1534,7 @@ def phase_graph_cache():
             cpu_iters.append(cpu.Iter)
         del operands
         # the entry of this key again, then a solve of another shape
-        conic_ip(*instances[0], device="cuda")
+        conic_ip(*instances[0], device="cuda", **kw)
         entry = graph._cache[key]
         ids = {tuple(entry.pool.id), tuple(entry.body_pool.id)}
         check(pools_left(ids) > 0, f"[graph_cache] {label}: no segment in "
@@ -1451,7 +1559,8 @@ def phase_graph_cache():
               "evicted entry's pools remain")
         line("graph_cache", instance=label, status=first.status,
              Iter=first.Iter, chain=CHAIN, hits=len(hits), captures=1,
-             hits_equal_fresh=True, cpu_iters=",".join(map(str, cpu_iters)),
+             hits_equal_fresh=True,
+             cpu_iters=",".join(map(str, cpu_iters)) or "-",
              first_unchanged=True, reserved_mb=f"{reserved[0] / 2**20:.0f}",
              other_shape_missed=other_missed, evicted_pool_segments=left,
              ms_hit=spread(ms_hit), ms_miss=spread(ms_miss),
@@ -1484,13 +1593,14 @@ def run_stats():
     precision they factored in (a run with f32 factors builds its cold
     start and fast steps in f32 and its last-mile steps in f64; any other
     run builds everything in the working dtype, f64 here), full-precision
-    recertifications of the mixed residuals, and the number of runs (more
-    than one: the escalation ladder or an elimination retry ran). A run on
-    the device loop builds once per iteration it executed (run_builds)."""
+    recertifications of the mixed residuals, the number of runs (more
+    than one: the escalation ladder or an elimination retry ran) and the
+    loops they took. A run on the device loop builds once per iteration it
+    executed (run_builds)."""
     from conicip_tpu_torch import solver
 
     out = dict(f32_builds=0, f64_builds=0, lastmile_steps=0, recertified=0,
-               runs=len(solver.runs))
+               runs=len(solver.runs), loops={r.loop for r in solver.runs})
     for r in solver.runs:
         kw = getattr(r.kktsolver, "keywords", {})
         if kw.get("factor_dtype") == torch.float32:
@@ -1506,7 +1616,7 @@ def run_stats():
 def phase_f32():
     """f32 factors with the last-mile switch, against the f64 solve of the
     same instance from the same run. No speed is asserted."""
-    from conicip_tpu_torch import conic_ip
+
     from conicip_tpu_torch.kkt import kktsolver_schur
 
     f32, f64 = torch.float32, torch.float64
@@ -1530,7 +1640,8 @@ def phase_f32():
         stats = run_stats()
         _, t32b = solve_timed(P.args(), **kw32)
         _, t64b = solve_timed(P.args(), **kw64)
-        cpu = conic_ip(*P.args(), **dict(kw32, device="cpu"))
+        # the CPU's solve of the same call, which [graph] ran
+        cpu_status, cpu_iter = CPU_REF[f"{label} f32"]
         resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
         check(sol.status == "Optimal", f"{label}: f32 status {sol.status}")
         check(ref.status == "Optimal", f"{label}: f64 status {ref.status}")
@@ -1551,11 +1662,15 @@ def phase_f32():
               f"{label}: {used64} f64 launches for {slow} f64 builds")
         check(at_n == used32 + used64,
               f"{label}: {at_n} of {used32 + used64} launches at order {n}")
-        check(abs(cpu.Iter - sol.Iter) <= 2 and cpu.status == sol.status,
-              f"{label}: cpu {cpu.status}/{cpu.Iter} vs gpu "
+        check(abs(cpu_iter - sol.Iter) <= 2 and cpu_status == sol.status,
+              f"{label}: cpu {cpu_status}/{cpu_iter} vs gpu "
               f"{sol.status}/{sol.Iter}")
+        # conic_ip's own f32 path on the device loop, a caller's
+        # generator on the eager one
+        check(stats["loops"] == {"graph" if kkt is None else "eager"},
+              f"{label}: the {stats['loops']} loop ran")
         line("f32", instance=label, status=sol.status, Iter=sol.Iter,
-             f64_iter=ref.Iter, cpu_iter=cpu.Iter, resid=f"{resid:.3e}",
+             f64_iter=ref.Iter, cpu_iter=cpu_iter, resid=f"{resid:.3e}",
              y_diff_f64=f"{dy:.3e}", runs=stats["runs"], f32_builds=fast,
              f64_builds=slow, lastmile_steps=stats["lastmile_steps"],
              f32_launches=used32, f64_launches=used64,
@@ -1951,14 +2066,13 @@ def phase_batch():
         jused = jacobi_launches() - jbefore
         runs = list(pbatch.runs)
         got, singles = launched_since(before)
-        # the solver's own full-precision main run (f64, or the S-cone
-        # policy behind f32) takes the device loop, a hit after the
-        # warm-up; f32 factors with mixed residuals keep the eager loop
-        own = not f32 or has_sdp(args[4])
-        check((runs[0].loop, runs[0].cache_hit) == (
-            ("graph", True) if own else ("eager", False)),
-            f"{label}: the main run took the {runs[0].loop} loop (cache hit "
-            f"{runs[0].cache_hit})")
+        # the solver's own runs (f64, f32 factors with mixed residuals,
+        # the S-cone policy behind f32, the fused tiers) take the device
+        # loop, hits after the warm-up
+        check(all((r.loop, r.cache_hit) == ("graph", True) for r in runs
+                  if not r.tier.startswith("backstop")),
+              f"{label}: the runs took the loops "
+              f"{[(r.tier, r.loop, r.cache_hit) for r in runs]}")
         check(all(r.loop == "eager" for r in runs
                   if r.tier.startswith("backstop")),
               f"{label}: a backstop sub-batch left the eager loop")
@@ -2063,19 +2177,23 @@ def phase_batch():
 
 
 def phase_batch_graph():
-    """Each f64 stack of batch_cases() on the device loop and on the eager
-    loop, on the same device operands, as [graph] holds the single solves:
-    the operands solve_batch's main run gave graph.solve; a miss after
+    """Each stack of batch_cases() (f64, and f32 with mixed residuals) on
+    the device loop and on the eager loop, on the same device operands, as
+    [graph] holds the single solves: the operands solve_batch's main run
+    gave graph.solve; a miss after
     graph.clear() (the batched launches it made, one more cold-start factor
     per order than a hit, and the memory the card reserved for the entry),
     the eager loop (ipm_solve without a device loop) and a hit: per
     instance the same status and Iter, also as the CPU's, y bit for bit,
-    the same KKT builds and refinement trips; a hit reads once after the
+    the same KKT builds, recomputes, refinement trips and kernel launches
+    by entry and dtype (launch_counts); a hit reads once after the
     prologue and once per chunk replay, copies at most once per read to
     the host inside the loop, and the host launches no kernel during the
     replays. ms per stack (median, least and most of 3, CUDA events): hit,
     miss and the eager loop; kernels and device-to-host copies per
-    iteration of the stack (profiler)."""
+    iteration of the stack (profiler). An f32 stack's Iter is held within
+    2 of the CPU's. Then a stack split across the variants
+    (split_stack_of_variants)."""
     from conicip_tpu_torch import solve_batch
     from conicip_tpu_torch.ops import cholesky_kernel
     from conicip_tpu_torch.parallel import batch as pbatch
@@ -2088,15 +2206,15 @@ def phase_batch_graph():
         return real(*args, **kw)
 
     for label, args, kw, _, orders in batch_cases():
-        if kw:
-            continue  # an f32 stack: [batch] holds its runs' loops
+        f32 = "factor_dtype" in kw
         graph.solve = spy
         try:
-            solve_batch(*args, device="cuda")
+            full = solve_batch(*args, device="cuda", **kw)
         finally:
             graph.solve = real
-        (main,) = pbatch.runs
-        ((a, akw),) = seen
+        # the main run, which the fused tiers (f32) may follow
+        main = pbatch.runs[0]
+        (a, akw) = seen[0]
         seen.clear()
 
         def graphed(stats=None):
@@ -2124,8 +2242,8 @@ def phase_batch_graph():
         torch.cuda.empty_cache()
         entry_mb = (torch.cuda.memory_reserved() - reserved) / 2**20
         est, hst = {}, {}
-        ref = eager(est)
-        hit = graphed(hst)
+        ref, eager_launches = counted(lambda: eager(est))
+        hit, hit_launches = counted(lambda: graphed(hst))
         frun, erun, run = (run_of(first, fst), run_of(ref, est),
                            run_of(hit, hst))
         statuses, iters = first.statuses, first.Iter.tolist()
@@ -2145,9 +2263,14 @@ def phase_batch_graph():
         builds, ebuilds, mbuilds = (run_builds(run), run_builds(erun),
                                     run_builds(frun))
         check(builds == ebuilds and run.fast_steps == erun.fast_steps
+              and run.recertified == erun.recertified
               and mbuilds == ebuilds + 1,
               f"[batch_graph] {label}: {builds} KKT builds on a hit, "
-              f"{mbuilds} on a miss, {ebuilds} on the eager loop")
+              f"{mbuilds} on a miss, {ebuilds} on the eager loop; "
+              f"{run.recertified} and {erun.recertified} recomputes")
+        check(hit_launches == eager_launches,
+              f"[batch_graph] {label}: launches {dict(hit_launches)} on a "
+              f"hit, {dict(eager_launches)} on the eager loop")
         want = expected_batched_launches([frun], orders)
         check(got == want and singles == 0,
               f"[batch_graph] {label}: a miss launched {dict(got)} batched "
@@ -2173,20 +2296,39 @@ def phase_batch_graph():
         for _ in range(3):
             graph.clear()
             ms_miss.append(event_ms(graphed))
-        cpu = solve_batch(*(x.cpu() if isinstance(x, torch.Tensor) else x
-                            for x in args), device="cpu")
-        check(cpu.statuses == statuses and cpu.Iter.tolist() == iters,
-              f"[batch_graph] {label}: card {Counter(statuses)}, cpu "
-              f"{Counter(cpu.statuses)}, Iter equal "
-              f"{cpu.Iter.tolist() == iters}")
+        cpu_full = solve_batch(*(x.cpu() if isinstance(x, torch.Tensor)
+                                 else x for x in args), device="cpu", **kw)
+        cpu = pbatch.runs[0]  # the CPU's main run
+        if f32:
+            # f32 rounding decides which instances stall near the
+            # tolerance for the tiers behind to finish, on the card and on
+            # the CPU alike: the call's answers agree, and Iter within 2
+            # where the main run finished an instance on both
+            both = [i for i, (a_, b_) in enumerate(zip(
+                cpu.status, first.status.tolist())) if a_ == b_ == 1]
+            band = max((abs(cpu.Iter[i] - iters[i]) for i in both),
+                       default=0)
+            check(cpu_full.statuses == full.statuses and band <= 2,
+                  f"[batch_graph] {label}: card {Counter(full.statuses)}, "
+                  f"cpu {Counter(cpu_full.statuses)}, main-run Iter {band} "
+                  f"apart")
+        else:
+            band = max(abs(i - j) for i, j in zip(cpu.Iter, iters))
+            check(list(cpu.status) == first.status.tolist() and band == 0,
+                  f"[batch_graph] {label}: card {Counter(statuses)}, cpu "
+                  f"{Counter(cpu.status)}, Iter {band} apart")
         it = max(iters)
         line("batch_graph", family=repr(label), B=BATCH,
              status=",".join(f"{k}x{v}" for k, v in
                              sorted(Counter(statuses).items())),
-             Iter=f"{min(iters)}-{it}", cpu_iter="equal",
+             Iter=f"{min(iters)}-{it}",
+             cpu_iter=f"within {band}" if f32 else "equal",
              loop=run.loop, cache_hit=run.cache_hit,
              y_diff_eager=f"{dy:.3e}", kkt_builds_graph=builds,
              kkt_builds_miss=mbuilds, kkt_builds_eager=ebuilds,
+             recertified=run.recertified,
+             launches=",".join(f"{k}:{v}" for k, v in
+                               sorted(hit_launches.items())),
              trips_per_iter_graph=f"{run.trips / it:.2f}",
              trips_per_iter_eager=f"{erun.trips / it:.2f}",
              poll=ipm.POLL, polls=run.polls, replays=run.replays,
@@ -2201,6 +2343,88 @@ def phase_batch_graph():
              reserved_mb_entry=f"{entry_mb:.1f}")
         del first, ref, hit, a, akw
     graph.clear()
+    split_stack_of_variants()
+    graph.clear()
+
+
+def split_stack_of_variants():
+    """A stack of BATCH box QPs on the two-variant f32 generator (the
+    last-mile Schur solver, mixed residuals) through graph.solve, whose
+    instances enter the full-precision variant on different iterations:
+    on some iteration both variants' conditional bodies run, each instance
+    taking its own. No solve_batch route reaches this (its f32 generator
+    has one variant); the device loop's handling of it is held to the
+    eager loop on the same operands (per instance the same status and
+    Iter, y bit for bit, the same steps per variant, recomputes, trips and
+    launches by entry and dtype: one f32 factor per fast build, one f64
+    factor per last-mile build) and to the CPU (Iter within 2)."""
+    from conicip_tpu_torch import models, solver
+    from conicip_tpu_torch.cones.spec import ConeSpec
+    from conicip_tpu_torch.solver import graph, ipm
+    from conicip_tpu_torch.solver.state import STATUS_NAMES
+
+    f32 = torch.float32
+    Q, c, A, b, cones = on_card(models.batched_box_qp(BATCH, n=PLANTED_N,
+                                                      seed=4))
+    n = c.shape[-1]
+    G = torch.zeros(BATCH, 0, n, dtype=c.dtype, device="cuda")
+    d = torch.zeros(BATCH, 0, dtype=c.dtype, device="cuda")
+    rest = (ConeSpec(cones), solver._default_kktsolver(f32, lastmile=True),
+            ipm.IPMOptions(mixedResiduals=True, lastmileProactive=50.0,
+                           optTol=1e-9))
+    a = (Q, c, A, b, G, d)
+    label = f"batched_box_qp(64,n={PLANTED_N}) two-variant f32"
+    graph.clear()
+    fst, est, hst = {}, {}, {}
+    first = graph.solve(*a, *rest, stats=fst)
+    ref, eager_launches = counted(lambda: ipm.ipm_solve(*a, *rest,
+                                                        stats=est))
+    hit, hit_launches = counted(lambda: graph.solve(*a, *rest, stats=hst))
+    counts = ("fast_steps", "slow_steps", "recertified", "trips")
+    steps = est["polls"] - est["recertified"] - 1  # iterations stepped
+    check(fst["loop"] == hst["loop"] == "graph" and hst["cache_hit"],
+          f"[batch_graph] {label}: loops {fst['loop']}, {hst['loop']}, hit "
+          f"{hst['cache_hit']}")
+    check(torch.equal(first.status, ref.status)
+          and torch.equal(first.Iter, ref.Iter)
+          and torch.equal(first.y, ref.y) and torch.equal(hit.y, first.y),
+          f"[batch_graph] {label}: the device loop differs from the eager "
+          f"loop")
+    check(all(hst[k] == est[k] for k in counts)
+          and hit_launches == eager_launches,
+          f"[batch_graph] {label}: {[hst[k] for k in counts]} {counts} and "
+          f"launches {dict(hit_launches)} on a hit, "
+          f"{[est[k] for k in counts]} and {dict(eager_launches)} on the "
+          f"eager loop")
+    check(hst["slow_steps"] > 0 and hst["fast_steps"] + hst["slow_steps"]
+          > steps,
+          f"[batch_graph] {label}: no iteration split across the variants "
+          f"({hst['fast_steps']} fast, {hst['slow_steps']} slow, {steps} "
+          f"steps)")
+    check(hit_launches["cholesky_float32"] == 1 + hst["fast_steps"]
+          and hit_launches["cholesky_float64"] == hst["slow_steps"],
+          f"[batch_graph] {label}: launches {dict(hit_launches)} for "
+          f"{hst['fast_steps']} fast and {hst['slow_steps']} slow steps")
+    cpu = graph.solve(*(x.cpu() for x in a), *rest)
+    band = int((cpu.Iter - first.Iter.cpu()).abs().max())
+    check(torch.equal(cpu.status, first.status.cpu()) and band <= 2,
+          f"[batch_graph] {label}: cpu status or Iter ({band} apart)")
+    ms_hit = [event_ms(lambda: graph.solve(*a, *rest)) for _ in range(3)]
+    ms_eager = [event_ms(lambda: ipm.ipm_solve(*a, *rest))
+                for _ in range(3)]
+    statuses = Counter(STATUS_NAMES[s] for s in first.status.tolist())
+    line("batch_graph", family=repr(label), B=BATCH,
+         status=",".join(f"{k}x{v}" for k, v in sorted(statuses.items())),
+         Iter=f"{int(first.Iter.min())}-{int(first.Iter.max())}",
+         cpu_iter=f"within {band}", steps=steps,
+         fast_steps=hst["fast_steps"], slow_steps=hst["slow_steps"],
+         split_iterations=hst["fast_steps"] + hst["slow_steps"] - steps,
+         recertified=hst["recertified"], trips=hst["trips"],
+         launches=",".join(f"{k}:{v}" for k, v in
+                           sorted(hit_launches.items())),
+         launches_equal_eager=True, y_diff_eager="0.000e+00",
+         polls=hst["polls"], replays=hst["replays"],
+         ms_hit=spread(ms_hit), ms_eager=spread(ms_eager))
 
 
 def phase_checkpoint():
@@ -2585,6 +2809,10 @@ def phase_ladder():
     what = f"ladder {P.name}"
     check(len(runs) > 1 and tiers == cpu_tiers,
           f"{what}: tiers {tiers}, cpu {cpu_tiers}")
+    # every tier on the device loop, each its own entry of the cache
+    # (CACHE_SIZE of them): after the warm-up, every one a hit
+    check(all((r.loop, r.cache_hit) == ("graph", True) for r in runs),
+          f"{what}: {[(r.loop, r.cache_hit) for r in runs]}")
     check([r.status for r in runs] == [r.status for r in cpu_runs]
           and sol.status == cpu.status == "Optimal",
           f"{what}: {[r.status for r in runs]} vs cpu "
@@ -2607,6 +2835,8 @@ def phase_ladder():
           f"{what}: {used32} f32 / {used64} f64 launches ({at_n} at order "
           f"{order}) for {stats['f32_builds']} / {stats['f64_builds']} builds")
     line("ladder", instance=P.name, call="conic_ip", tiers=">".join(tiers),
+         loops=">".join(f"{r.loop}:{'hit' if r.cache_hit else 'miss'}"
+                        for r in runs),
          statuses=">".join(r.status for r in runs),
          Iter=">".join(str(r.Iter) for r in runs),
          cpu_iter=">".join(str(r.Iter) for r in cpu_runs),
@@ -3093,7 +3323,7 @@ def main():
     # just after; the comparison launches of the kernel phases do not count
     f32, f64 = torch.float32, torch.float64
     single.update(launches=0, launches_f64=0, launches_f32=0,
-                  launches_predicated=0)
+                  launches_predicated=0, launches_predicated_f32=0)
     batched64["launches"] = batched32["launches"] = 0
     batched64["launches_predicated"] = batched32["launches_predicated"] = 0
     for rec in jacobi.values():
@@ -3125,8 +3355,10 @@ def main():
                            if k[0] == dt and len(k) == 3)
                    for dt in (f32, f64)}
         check(used > 0, f"{phase.__name__} never launched the kernel")
-        check((used32 > 0) == (phase in (phase_f32, phase_batch,
-                                         phase_ladder, phase_distributed)),
+        check((used32 > 0) == (phase in (phase_graph, phase_graph_cache,
+                                         phase_f32, phase_batch,
+                                         phase_batch_graph, phase_ladder,
+                                         phase_distributed)),
               f"{phase.__name__}: {used32} launches of the f32 entries")
         # the stacked solves run the batched entries, and nothing else does
         check((sum(stacked.values()) > 0)
@@ -3157,6 +3389,8 @@ def main():
         batched32["launches"] += stacked[f32]
         single["launches_predicated"] += (sum(pcounts.values())
                                           - sum(pstacked.values()))
+        single["launches_predicated_f32"] += sum(
+            c for k, c in pcounts.items() if k[0] == f32) - pstacked[f32]
         batched64["launches_predicated"] += pstacked[f64]
         batched32["launches_predicated"] += pstacked[f32]
         launched |= set(counts) | set(pcounts)
@@ -3164,6 +3398,10 @@ def main():
     for rec in (single, batched64, batched32, *jacobi.values()):
         check(rec["launches"] > 0, f"{rec['name']} was never launched on "
               "the main paths")
+    # the f32 Schur builds' ridge retries, inside the device loop's graphs
+    check(single["launches_predicated_f32"] > 0
+          and batched32["launches_predicated"] > 0,
+          "the f32 predicated entries were never launched on the main paths")
     # a shape the paths gave the kernel that the kernel phase did not
     # foresee (a rescue tier's sub-batch) is held against the plain version
     # now, after the counts were read (untraced: after this much work the

@@ -7,19 +7,20 @@ every operand (``solver/ipm.py``): per-instance status, masks that freeze
 finished instances while the loop keeps stepping the rest, and every dense
 factor of an iteration one launch of the CUDA kernel's batched entry.
 
-A run whose KKT generator :func:`solve_batch` chose itself, in full
-precision and without mixed residuals, takes the device loop through
-``solver/graph.py``'s cache, as ``conic_ip``'s runs do: on CUDA a captured
-prologue and chunk kept per configuration and stack shape, one host read
-per chunk; on the CPU the same chunks run eagerly. That is the automatic
-main run at f64 (diag, Schur or spectral, cold or warm), the f64 fused
-tiers, and the S-cone policy behind ``factor_dtype=float32``. The eager
-loop (one host read per iteration) keeps a caller's kktsolver (the public
-``make_batched_solver`` / ``make_batched_warm_solver`` hand theirs to it),
-the f32 runs with mixed residuals, and the sub-batches of instances that
-stalled (the host backstop, the eliminated path's retry and fallback),
-whose shape depends on the data: an entry for each would rarely be hit and
-would evict the main run's.
+A run whose KKT generator :func:`solve_batch` chose itself takes the
+device loop through ``solver/graph.py``'s cache, as ``conic_ip``'s runs
+do: on CUDA a captured prologue and chunk kept per configuration and stack
+shape, one host read per chunk; on the CPU the same chunks run eagerly.
+That is the automatic main run at f64 or f32 (diag, Schur or spectral,
+cold or warm, with mixed residuals and, in a checkpoint loop's chunks, the
+two-variant generator), every fused tier (the f32-factor tier over an f64
+assembly, the full-precision tier, the low-rank finisher), and the S-cone
+policy behind ``factor_dtype=float32``. The eager loop (one host read per
+iteration) keeps a caller's kktsolver (the public ``make_batched_solver``
+/ ``make_batched_warm_solver`` hand theirs to it) and the sub-batches of
+instances that stalled (the host backstop, the eliminated path's retry
+and fallback), whose shape depends on the data: an entry for each would
+rarely be hit and would evict the main run's.
 
 :func:`solve_batch` keeps the reference's policy: the automatic backend
 (diagonal, dense Schur, spectral, low-rank) chosen on the caller's arrays
@@ -129,12 +130,12 @@ def _maxres(st) -> torch.Tensor:
 def _run(spec, kktsolver, opts, tier, Q, c, A, b, G, d, warm=None, *,
          own=False):
     """One stacked run, recorded in :data:`runs`. ``own`` says that
-    solve_batch chose the generator itself: then a full-precision run
-    takes the device loop, by conic_ip's rule (``solver._device_loop``);
-    otherwise, and for f32 factors or mixed residuals, the eager loop."""
+    solve_batch chose the generator itself: then the run takes the device
+    loop, by conic_ip's rule (``solver._device_loop``), at any precision;
+    otherwise the eager loop."""
     stats = {}
     args = (Q, c, A, b, G, d, spec, kktsolver, opts)
-    if own and _device_loop(kktsolver, False, opts):
+    if own and _device_loop(False, opts):
         st = graph.solve(*args, warm=warm, stats=stats)
     else:
         st = ipm_solve(*args, warm=warm, stats=stats)

@@ -34,8 +34,12 @@ class Run(NamedTuple):
     kktsolver: object
     status: str
     Iter: int
-    fast_steps: int  # steps on the generator's fast (or only) variant
-    slow_steps: int  # steps on its full-precision last-mile variant
+    # steps on the generator's fast (or only) variant and on its
+    # full-precision last-mile variant; on either loop, for a stack, the
+    # iterations on which some instance took one (a split stack's count in
+    # both), which on the device loop are the variant's KKT builds
+    fast_steps: int
+    slow_steps: int
     cold_start: int  # 1 when the initial point cost a KKT build
     recertified: int  # mixed mode: full-precision product recomputes
     polls: int  # host reads of the loop's status
@@ -100,21 +104,18 @@ def _diag_kktsolver(factor_dtype, eq_mode="woodbury"):
                              eq_mode=eq_mode)
 
 
-def _device_loop(kktsolver, user_kktsolver, opts) -> bool:
+def _device_loop(user_kktsolver, opts) -> bool:
     """Whether a run takes the device loop (``ipm.POLL`` units per host
     read, through solver/graph.py's cache; on CUDA captured CUDA graphs,
     kept across calls) or the eager loop (one host read per iteration).
-    The device loop takes the built-in backends in full precision. The
-    eager loop keeps what holds host state or reads the device from the
-    host: f32 factors (the last-mile variant switch and mixed residuals
-    live on the host, ipm.py), verbose output (a print per iteration) and a
-    caller's own kktsolver (whose callbacks may read the device; the
-    distributed path's ``kktsolver_schur_tp`` is one). ``solve_batch``
-    applies this rule to each stacked run whose generator it chose
-    (parallel/batch.py)."""
-    return not (user_kktsolver or opts.mixedResiduals or opts.verbose
-                or getattr(kktsolver, "keywords", {}).get("factor_dtype")
-                is not None)
+    The device loop takes the built-in backends at every precision, the
+    last-mile variant switch and mixed residuals included (both carried on
+    the device, ipm.py). The eager loop keeps verbose output (a print per
+    iteration) and a caller's own kktsolver (whose callbacks may read the
+    device; the distributed path's ``kktsolver_schur_tp`` is one).
+    ``solve_batch`` applies this rule to each stacked run whose generator
+    it chose (parallel/batch.py)."""
+    return not (user_kktsolver or opts.verbose)
 
 
 def _is_diag(kktsolver) -> bool:
@@ -276,7 +277,7 @@ def _solve_direct(tensors, structure, cone_dims, warm_start, options
                           centralityCorrectors=centralityCorrectors, **o)
         stats = {}
         args = (Q, c, A, b, G, d, spec, kkt, opts)
-        if _device_loop(kkt, user_kktsolver, opts):
+        if _device_loop(user_kktsolver, opts):
             st = graph.solve(*args, warm=warm, stats=stats)
         else:
             st = ipm_solve(*args, warm=warm, stats=stats)

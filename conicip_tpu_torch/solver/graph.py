@@ -44,19 +44,29 @@ memory across a miss after :func:`clear`): ``batched_box_qp`` n=500
 1.7 GB, ``batched_mixed_rq_eq`` n=200 0.23 GB, ``batched_mixed_rqs`` and
 ``batched_small_sdp`` under 0.07 GB.
 
-Each refinement trip of a captured unit is the body of a conditional IF
-node (``csrc/graph_cond.cu``), run only while some instance goes on, as
-the reference's ``while_loop`` and the eager loop stop; its allocations go
-to a second pool of the entry. A read inside a capture fails it, and a capture,
-replay or conditional-node error raises: nothing runs the loop eagerly in
-its place. An evicted entry, and every entry on :func:`clear`, returns
-its pools' memory to CUDA.
+What the reference decides by ``lax.cond`` inside its loop is, in a
+captured unit, the body of a conditional IF node (``csrc/graph_cond.cu``)
+that runs only while its predicate holds on the device: each refinement
+trip, run while some instance goes on, as the reference's ``while_loop``
+and the eager loop stop; the mixed-residual recompute, run when it fires
+(the reference's ``cond_once``); and, with a two-variant generator, each
+variant's step (and, where the variants' S-cone decompositions differ,
+its scaling), run while some instance is on it. The trips nest inside a
+variant's step: each level of nesting is captured on a stream of its
+own, and every body's allocations go to a second pool of the entry. The
+first unit of a miss runs eagerly, each body only where its predicate
+holds, as the eager loop runs it. A read inside a capture fails it, and a
+capture, replay or conditional-node error raises: nothing runs the loop
+eagerly in its place. An evicted entry, and every entry on :func:`clear`,
+returns its pools' memory to CUDA.
 
 The kernels' wrappers count a launch where they issue it. Under capture
 the card runs nothing, so each capture's counts are taken back and added
-once per replay: the counters say what the card ran. A refinement trip
-launches no counted kernel; a capture in which one does raises, as a
-conditional node's replay count is known only on the device.
+once per replay: the counters say what the card ran. A conditional body
+that launches a counted kernel (a variant's factors and decompositions)
+also counts its runs on the device; the host reads those counts with the
+loop's own, in the solve's one final copy, and adds the body's captured
+launches once per run.
 """
 
 from __future__ import annotations
@@ -81,6 +91,13 @@ __all__ = ["solve", "clear", "cache_info", "CACHE_SIZE", "LOOP", "REPLAY"]
 # loop, and its replays, in which the host issues no kernel
 LOOP, REPLAY = "conicip::loop", "conicip::replay"
 
+# Levels of conditional nodes in a unit: a variant's step, and the
+# refinement trips inside it.
+NESTING = 2
+# Conditional bodies of a unit that launch counted kernels, at most: each
+# variant's scaling and step.
+COUNTED_BODIES = 4
+
 # Entries kept, least recently used first out. The reference's jit cache is
 # unbounded; an entry's pool holds the loop's device memory (about 3.2 GB
 # for an n=4096 Schur solve on the H100, 1.7 GB for a stack of 64 box QPs
@@ -97,7 +114,10 @@ def _counters():
 
 
 def _leaves(x) -> list:
-    """The tensors of a carry (records and tuples of tensors), in order."""
+    """The tensors of a carry (records and tuples of tensors, None where a
+    configuration carries nothing), in order."""
+    if x is None:
+        return []
     if isinstance(x, torch.Tensor):
         return [x]
     if is_dataclass(x):
@@ -109,6 +129,8 @@ def _leaves(x) -> list:
 
 def _rebuild(like, leaves):
     """``like`` with its tensors replaced, in order, from ``leaves``."""
+    if like is None:
+        return None
     if isinstance(like, torch.Tensor):
         return next(leaves)
     if is_dataclass(like):
@@ -176,6 +198,11 @@ class _Entry:
             None if warm is None else _clone(warm),)
         self.graphs = ()  # (prologue, chunk) on CUDA
         self.deltas = ()  # their captures' launch counts
+        # the chunk's conditional bodies that launch counted kernels: each
+        # [its runs so far (a device int64, a slot of `runs`), its
+        # capture's launch counts, the runs the counters hold]
+        self.bodies = []
+        self.runs = None
         self.static = self.flag = self.body = None
         # the graphs' memory pools: the captures', and that of the
         # conditional nodes' bodies, which a capture's pool cannot take
@@ -194,7 +221,8 @@ class _Entry:
             for g in self.graphs:
                 g.reset()
         self.graphs = self.deltas = ()
-        self.static = self.flag = self.body = self.inputs = None
+        self.bodies = []
+        self.static = self.flag = self.body = self.inputs = self.runs = None
         if self.pool is not None:
             # the pools' segments are freed with them
             self.pool = self.body_pool = None
@@ -207,11 +235,17 @@ def _make_room() -> None:
         _cache.popitem(last=False)[1].release()
 
 
-def _result(cy: ipm.Carry) -> ipm.Carry:
-    """What the caller keeps of the final carry, copied out of the
-    entry's buffers: the next call overwrites them."""
-    return cy._replace(sol=_clone(cy.sol), steps=cy.steps.clone(),
-                       trips=cy.trips.clone())
+def _counts(entry, cy) -> dict:
+    """The loop's counts, and the runs of the entry's counted bodies, in
+    one copy: the bodies' launches are added to the counters once per run
+    since the last read."""
+    counts, runs = ipm.loop_counts(cy, *(b[0] for b in entry.bodies))
+    for body, total in zip(entry.bodies, runs):
+        ran, body[2] = total - body[2], total
+        for c, delta in zip(_counters(), body[1]):
+            for k, v in delta.items():
+                c[k] += v * ran
+    return counts
 
 
 def _drive(key, prologue, inputs):
@@ -235,7 +269,11 @@ def _drive(key, prologue, inputs):
             except BaseException:
                 entry.release()
                 raise
-        out = _result(cy)
+        # what the caller keeps, copied out of the entry's buffers: the
+        # next call overwrites them
+        out = cy._replace(sol=_clone(cy.sol))
+    # outside the loop's range, as the eager loop's final read
+    info.update(_counts(entry, cy))
     if not hit and (entry.graphs or inputs[1].device.type != "cuda"):
         _cache[key] = entry
     return out, dict(info, cache_hit=hit)
@@ -305,8 +343,13 @@ def _build(entry):
     with record_function("conicip::unit0"):
         cy = entry.static
         for _ in range(ipm.POLL):
-            cy = entry.body.unit(cy)
-    branch = _conditional(entry.body_pool, cy.k.device)
+            cy = entry.body.unit(cy, ipm.on_host)
+    # the counted bodies' runs, made before the capture: a counter
+    # allocated inside a captured body and zeroed after the capture counted
+    # nothing on the H100
+    entry.runs = torch.zeros(COUNTED_BODIES * ipm.POLL, dtype=torch.int64,
+                             device=cy.k.device)
+    branch = _conditional(entry, cy.k.device)
 
     def chunk():
         out = entry.static
@@ -356,47 +399,75 @@ def _cond_library():
 
 
 @functools.lru_cache(maxsize=None)
-def _body_stream(device_index):
-    """The stream a conditional node's body is captured on, one per
-    device, its cuBLAS workspace made before any capture."""
+def _body_stream(device_index, depth):
+    """The stream the conditional nodes' bodies at one depth of nesting
+    are captured on, one per device and depth, its cuBLAS workspace made
+    before any capture."""
     stream = torch.cuda.Stream(device_index)
     with torch.cuda.stream(stream):
         for dt in (torch.float64, torch.float32):
-            x = torch.ones(2, dtype=dt, device=stream.device)
-            torch.mv(torch.ones(2, 2, dtype=dt, device=stream.device), x)
+            x = torch.ones(2, 2, dtype=dt, device=stream.device)
+            torch.mv(x, x[0])
+            torch.mm(x, x)
     stream.synchronize()
     return stream
 
 
-def _conditional(pool, device):
-    """The captured unit's ``branch``: each refinement trip the body of a
-    conditional IF node on ``pred`` (module docstring)."""
+def _conditional(entry, device):
+    """The captured unit's ``branch``: each body a conditional IF node on
+    ``pred`` (module docstring), captured on the stream of its depth; a
+    body that launches counted kernels counts its runs in a slot of
+    ``entry.runs`` (``entry.bodies``)."""
     lib = _cond_library()
-    child = _body_stream(device.index)
     # torch.cuda.graphs captures in "global" mode: so is each body
     global_mode = 0
+    # made before the capture, which a new stream's warm-up would break
+    streams = [_body_stream(device.index, d) for d in range(NESTING)]
+    depth = 0
 
-    def branch(pred, trip) -> bool:
+    def branch(pred, body):
+        nonlocal depth
+        if depth == NESTING:
+            raise RuntimeError(f"conditional nodes nested deeper than "
+                               f"{NESTING}")
         stream = torch.cuda.current_stream(device)
+        child = streams[depth]
         flag = pred.to(torch.bool)
-        counts = [Counter(c) for c in _counters()]
+        counters = _counters()
+        before = [Counter(c) for c in counters]
         err = lib.conicip_if_begin(stream.cuda_stream, child.cuda_stream,
                                    flag.data_ptr(), global_mode)
         if err != 0:
             raise RuntimeError(f"conditional node: CUDA error {err}")
+        depth += 1
         try:
-            with torch.cuda.stream(child), torch.cuda.use_mem_pool(pool):
-                trip()
+            # the outermost body routes this thread's allocations to the
+            # bodies' pool, the nested ones with it
+            with torch.cuda.stream(child), (
+                    torch.cuda.use_mem_pool(entry.body_pool) if depth == 1
+                    else contextlib.nullcontext()):
+                out = body()
+                deltas = [c - b for c, b in zip(counters, before)]
+                if any(deltas):
+                    if len(entry.bodies) == entry.runs.numel():
+                        raise RuntimeError("more counted conditional bodies "
+                                           "than the entry has slots for")
+                    runs = entry.runs[len(entry.bodies)]
+                    runs.add_(1)
+                    entry.bodies.append([runs, deltas, 0])
         except BaseException:
             lib.conicip_if_end(child.cuda_stream)
             raise
+        finally:
+            depth -= 1
+            # the body's launches count per run, not per capture
+            for c, b in zip(counters, before):
+                c.clear()
+                c.update(b)
         err = lib.conicip_if_end(child.cuda_stream)
         if err != 0:
             raise RuntimeError(f"conditional node body: CUDA error {err}")
-        if [Counter(c) for c in _counters()] != counts:
-            raise RuntimeError("a refinement trip launched a counted kernel "
-                               "inside a conditional node")
-        return True
+        return out
 
     return branch
 

@@ -17,14 +17,19 @@ drive it:
   graphs, kept across calls, and replays them; on the CPU
   :func:`run_chunks` runs them eagerly. A unit past the end (the solve
   finished inside a chunk, or ``k > maxIters``) changes nothing: every
-  carried value is frozen by mask, ``pobj``/``dobj`` included. Each
-  refinement trip is handed to a ``branch``: a conditional graph node,
-  which runs it only while some instance goes on, or :func:`masked`; and
-  the Schur backend's ridge retries are predicated factors
+  carried value is frozen by mask, ``pobj``/``dobj`` included. What the
+  reference decides by ``lax.cond`` is handed to a ``branch(pred, body)``
+  (:func:`masked`, which runs the body and takes its results by mask; on
+  CUDA a conditional graph node, which runs it only while ``pred``
+  holds): each refinement trip, the mixed-residual recompute (the
+  reference's ``cond_once``) and, with a two-variant generator, each
+  variant's scaling and step, so that a single solve builds one variant
+  per iteration and a stack split across the variants builds both. The
+  last-mile flag, the carried products and their drift are part of the
+  carry, and the Schur backend's ridge retries are predicated factors
   (ops/control.py), so nothing reads back inside a unit.
-- the eager loop (``device_loop=None``), for what keeps host state: a
-  two-variant KKT generator, mixed residuals, verbose output; and for a
-  caller's own kktsolver, whose callbacks may read the device
+- the eager loop (``device_loop=None``), for verbose output and a caller's
+  own kktsolver, whose callbacks may read the device
   (``kktsolver_schur_tp`` of the distributed path is one). ``solve_batch``
   sends the runs whose generator it chose through the device loop by the
   same rule, and keeps the backstop's sub-batches on this one. It reads
@@ -44,7 +49,7 @@ is mask-based on the device, as in the reference:
 - the λ-frame max-steps and Lyapunov divisions when S cones are present.
 
 Mixed-precision options (all off by default; on hardware with native f64
-the full-precision path is the default; eager loop only):
+the full-precision path is the default):
 
 - ``mixedResiduals``: every residual product runs in f32 against one-time
   f32 copies of the operators and is carried across iterations by the
@@ -58,9 +63,9 @@ the full-precision path is the default; eager loop only):
   variant when the low-precision factor stalls near tolerance or breaks
   down; only the variant picked factors.
 
-Both decisions are taken on the device and come to the host in the
-iteration's one status read (a firing recompute reads a second time, in
-that iteration only).
+Both decisions are taken on the device. The eager loop brings them to the
+host in the iteration's one status read (a firing recompute reads a
+second time, in that iteration only); the device loop keeps them there.
 
 A stack of instances. Every operand may carry leading batch dims (Q
 (..., n, n), c (..., n), A (..., m, n), b (..., m); G and d stacked or
@@ -95,13 +100,14 @@ from ..ops.batched import col, dot, mv
 from .state import SolState, Status, Vec4
 
 __all__ = ["IPMOptions", "ipm_solve", "device_prologue", "run_chunks",
-           "Carry", "POLL"]
+           "loop_counts", "masked", "on_host", "Carry", "POLL"]
 
 # Units per chunk of the device loop: the host reads the status once per
 # chunk, and solver/graph.py captures one chunk. A solve runs up to
 # POLL - 1 frozen units past its end (each a masked step, KKT build
-# included). 1 had the least wall time of 1, 2, 4 and 8 on every solve
-# timed on the H100 (PERF.md §6).
+# included; on the card a two-variant generator's variants, conditional
+# bodies, build nothing there). 1 had the least wall time of 1, 2, 4 and
+# 8 on every solve timed on the H100 (PERF.md §6).
 POLL = 1
 
 
@@ -259,12 +265,20 @@ def _identity(spec: ConeSpec, dtype, device) -> torch.Tensor:
     return torch.tensor(spec.identity, dtype=dtype, device=device)
 
 
-def masked(pred, trip) -> bool:
-    """The device loop's refinement trip without a conditional node: the
-    trip runs, and its writes are masked by the latched stopping test, so
-    it changes nothing once ``pred`` (no instance goes on) is false."""
-    trip()
-    return True
+def masked(pred, body):
+    """A body of the device loop without a conditional node: it runs, and
+    what it computes is taken by mask (a refinement trip's writes by its
+    latched stopping test, a variant's results by the last-mile flag, a
+    recompute's by its own), so it changes nothing where ``pred`` is
+    false. Returns the body's result."""
+    return body()
+
+
+def on_host(pred, body):
+    """A body of the device loop as the eager loop runs it: after a host
+    read of ``pred``, and only when it holds. Returns the body's result,
+    or None. solver/graph.py runs the first unit of a capture so."""
+    return body() if bool(pred) else None
 
 
 def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
@@ -433,6 +447,7 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
                 - a1 * dot(y1, x2) + a1 * a2 * dot(y1, y2))
 
     sw = opts.residualSwitch
+    eps32 = torch.finfo(torch.float32).eps
 
     # S-cone decompositions of the fast phase (NT scaling, max-step,
     # Lyapunov division, corrector clip) in f32: with the two-variant
@@ -533,6 +548,7 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
             _assign(dz, new)
             rstep.add_(go)
             trips.add_(go.any())
+            return True
 
         for _ in range(opts.maxRefinementSteps):
             go.logical_and_((rnorm >= opts.refinement_threshold)
@@ -694,11 +710,60 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
         F = sc.nt_scaling(spec, z.v, z.s, eig_dtype=eig_dtype_of(slow))
         return F, sc.nt_inv_adjoint(spec, F)
 
+    # the variants' scalings differ (fastEig on S cones): each iteration
+    # scales on the variant an instance was on when it began
+    split_scaling = eig_dtype_of(False) != eig_dtype_of(True)
+
     def active_of(cy: Carry):
         """Per instance: the iteration numbered ``cy.k`` is taken (the
         instance runs and k <= maxIters). Everything an iteration carries
         is frozen by this mask, so iterations past the end change nothing."""
         return (cy.sol.status == Status.RUNNING) & (cy.k <= opts.maxIters)
+
+    def recompute_due(R: _Resid, drift, run):
+        """Mixed mode, per instance: the products are recomputed in full
+        precision. Estimates from the carried products decide whether a
+        tolerance decision is near and the drift could affect it; the
+        honesty guard recertifies once drift reaches 10 % of the estimated
+        residual, so reported residuals stay trustworthy."""
+        near = ((R.rmax < sw * opts.optTol)
+                | (R.p_infeas < sw * opts.infeas_tol)
+                | (R.d_infeas < sw * opts.infeas_tol)
+                | ~torch.isfinite(R.rmax))
+        return ((near & (drift > 0.05 * opts.optTol))
+                | (drift > 0.1 * R.rmax)) & run
+
+    def stepped_products(P: _Products, drift, Pd: _Products, alpha, run):
+        """Mixed mode: the carried products after a step of length
+        ``alpha`` along a direction with products ``Pd`` (the incremental
+        update) and their drift bound, where an instance stepped."""
+        P_new = _Products(P.Qy - col(alpha) * Pd.Qy,
+                          P.GAy - col(alpha) * Pd.GAy,
+                          P.GAtwv - col(alpha) * Pd.GAtwv)
+        drift_new = drift + 10.0 * eps32 * alpha * (
+            (torch.linalg.norm(Pd.Qy, dim=-1)
+             + torch.linalg.norm(Pd.GAtwv, dim=-1)) / (1.0 + normc)
+            + _norm(Pd.GAy) / (1.0 + normb))
+        return _select(run, P_new, P), torch.where(run, drift_new, drift)
+
+    def variants(lm_on, active, branch, fn):
+        """The device loop's ``lax.cond`` on the last-mile flag: ``fn(slow)``
+        on each variant that some active instance is on, each the body of
+        a ``branch``, and per instance its own variant's result. Returns
+        the fast and the slow result (None for a body a host branch
+        skipped; on the card, the values a body that did not run left)
+        and the two predicates (device bools)."""
+        on = ((active & ~lm_on).any(), (active & lm_on).any())
+        outs = [branch(pred, functools.partial(fn, slow))
+                for slow, pred in zip((False, True), on)]
+        return outs, on
+
+    def pick(lm_on, fast, slow):
+        """Per instance, the result of the variant it is on; None when a
+        host branch ran neither (no instance is active)."""
+        if fast is None or slow is None:
+            return slow if fast is None else fast
+        return _select(lm_on, slow, fast)
 
     def evaluate(cy: Carry, P, lam, lm_was):
         """Residuals and assessment of the iterate against products P; an
@@ -721,44 +786,107 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
                            k=(cy.k + active_of(cy).any()).to(torch.int32),
                            steps=(cy.steps + go.any()).to(torch.int32))
 
-    def evaluated(cy: Carry) -> Carry:
+    def evaluated(cy: Carry, branch=None) -> Carry:
         """The device loop's carry with its iterate, numbered ``cy.k``,
-        scaled and evaluated: what the next step starts from."""
-        F, FinvT = scaling(cy.z, False)
+        scaled and evaluated: what the next step starts from. ``branch``
+        runs the variants' scalings and the mixed-mode recompute; None in
+        the prologue, where every instance is on the fast variant and the
+        recompute is masked."""
+        run = active_of(cy)
+        if split_scaling and branch is not None:
+            outs, _ = variants(cy.lm_on, run, branch,
+                               lambda slow: scaling(cy.z, slow))
+            F, FinvT = pick(cy.lm_on, *outs) or (cy.F, cy.FinvT)
+        else:
+            F, FinvT = scaling(cy.z, False)
         lam = sc.apply(spec, F, cy.z.v)  # scaled point: = F⁻ᵀ z.s too
-        R, st, best, stalled, _ = evaluate(
-            cy, products_full(cy.z.y, cy.z.w, cy.z.v), lam, False)
+        more = {}
+        if mixed:
+            # the reference's cond_once: the full-precision products where
+            # a recompute fires, then the evaluation against them
+            fire = recompute_due(residual_block(cy.P, cy.z, lam), cy.drift,
+                                 run)
+            full = (branch or masked)(
+                fire.any(), lambda: products_full(cy.z.y, cy.z.w, cy.z.v))
+            P, drift = cy.P, cy.drift
+            if full is not None:
+                P = _select(fire, full, P)
+                drift = torch.where(fire, 0.0, drift)
+            more = dict(P=P, drift=drift, recertified=(
+                cy.recertified + fire.any()).to(torch.int32))
+        else:
+            P = products_full(cy.z.y, cy.z.w, cy.z.v)
+        R, st, best, stalled, lm = evaluate(
+            cy, P, lam, cy.lm_on if two_mode else False)
+        if two_mode:
+            more["lm_on"] = cy.lm_on | lm
         return cy._replace(sol=st, best=best, stall=stalled, F=F,
-                           FinvT=FinvT, lam=lam, R=R)
+                           FinvT=FinvT, lam=lam, R=R, **more)
 
     def unit(cy: Carry, branch=masked) -> Carry:
-        """One unit of the device loop (single-variant generator, no mixed
-        residuals): the step from the evaluated iterate, where it still
-        runs, then the new iterate evaluated. No host read and no early
-        exit, so it can be captured in a CUDA graph (solver/graph.py);
-        ``branch`` runs the refinement trips (:func:`masked`, or a
+        """One unit of the device loop: the step from the evaluated
+        iterate, where it still runs, then the new iterate evaluated. No
+        host read and no early exit, so it can be captured in a CUDA graph
+        (solver/graph.py); ``branch`` runs the refinement trips, the
+        variants and the recompute (:func:`masked`, :func:`on_host`, or a
         conditional node inside a capture)."""
         go = active_of(cy)
-        z_new, _, _, _, _, trips = take_step(
-            cy.z, cy.F, cy.FinvT, cy.lam, cy.R,
-            solve3x3gen(cy.F, cy.FinvT), eig_dtype_of(False), go, branch)
+
+        def step(slow):
+            if two_mode:
+                solve3x3 = solve3x3gen(cy.F, cy.FinvT,
+                                       mode="slow" if slow else "fast")
+            else:
+                solve3x3 = solve3x3gen(cy.F, cy.FinvT)
+            out = take_step(cy.z, cy.F, cy.FinvT, cy.lam, cy.R, solve3x3,
+                            eig_dtype_of(slow), go, branch)
+            return out[0], out[3], out[4], out[5]  # z_new, Pd, alpha, trips
+
+        more = {}
+        if two_mode:
+            outs, on = variants(cy.lm_on, go, branch, step)
+            z_new, Pd, alpha = pick(cy.lm_on, *(
+                None if o is None else o[:3] for o in outs)) or (
+                    cy.z, None, None)
+            trips = sum(torch.where(pred, o[3], 0)
+                        for o, pred in zip(outs, on) if o is not None)
+            more = dict(fast_steps=(cy.fast_steps + on[0]).to(torch.int32),
+                        slow_steps=(cy.slow_steps + on[1]).to(torch.int32))
+        else:
+            z_new, Pd, alpha, trips = step(False)
+        if mixed and Pd is not None:
+            more["P"], more["drift"] = stepped_products(cy.P, cy.drift, Pd,
+                                                        alpha, go)
         moved = go.any()
         return evaluated(cy._replace(
             z=_select(go, z_new, cy.z),
             k=(cy.k + moved).to(torch.int32),
             steps=(cy.steps + moved).to(torch.int32),
-            trips=(cy.trips + trips).to(torch.int32)))
+            trips=(cy.trips + trips).to(torch.int32), **more), branch)
+
+    def count():
+        return torch.zeros((), **int32)
 
     cy0 = Carry(z=z, sol=sol, best=each(float("inf")),
                 stall=torch.zeros(bs, **int32),
-                k=torch.ones((), **int32), steps=torch.zeros((), **int32),
-                trips=torch.zeros((), **int32))
+                k=torch.ones((), **int32), steps=count(), trips=count())
+    if two_mode:
+        # sticky: the generator's full-precision variant is on
+        cy0 = cy0._replace(lm_on=torch.zeros(bs, dtype=torch.bool,
+                                             device=dev),
+                           fast_steps=count(), slow_steps=count())
+    if mixed:
+        # fast estimates with an infinite drift, so the first
+        # near-tolerance decision always recomputes them
+        cy0 = cy0._replace(P=products_fast(z.y, z.w, z.v),
+                           drift=each(float("inf")), recertified=count())
     return SimpleNamespace(
-        cy0=cy0, two_mode=two_mode, mixed=mixed, normc=normc, normb=normb,
+        cy0=cy0, two_mode=two_mode, mixed=mixed,
         solve3x3gen=solve3x3gen, products_full=products_full,
-        products_fast=products_fast, scaling=scaling, active_of=active_of,
+        scaling=scaling, split_scaling=split_scaling, active_of=active_of,
         eig_dtype_of=eig_dtype_of, evaluate=evaluate, take_step=take_step,
-        advance=advance, evaluated=evaluated, unit=unit)
+        advance=advance, recompute_due=recompute_due,
+        stepped_products=stepped_products, evaluated=evaluated, unit=unit)
 
 
 def device_prologue(spec: ConeSpec, kktsolver, opts: IPMOptions):
@@ -767,18 +895,13 @@ def device_prologue(spec: ConeSpec, kktsolver, opts: IPMOptions):
     level-1 callback, the initial point) and evaluates its first iterate,
     reading nothing back. It returns the loop's functions (``unit``, and
     ``active``: a device bool, whether any instance still runs) and the
-    first carry. Takes a single-variant generator without mixed residuals
-    or verbose output."""
-    refused = ("the device loop takes a single-variant KKT generator "
-               "without mixed residuals or verbose output")
+    first carry. Takes every configuration but verbose output."""
     if opts.verbose:
-        raise ValueError(refused)
+        raise ValueError("the device loop takes no verbose output")
 
     def prologue(Q, c, A, b, G, d, warm=None):
         L = _loop(*_operands(Q, c, A, b, G, d, spec), spec, kktsolver, opts,
                   warm)
-        if L.two_mode or L.mixed:
-            raise ValueError(refused)
         body = SimpleNamespace(unit=L.unit,
                                active=lambda cy: L.active_of(cy).any())
         return body, L.evaluated(L.cy0)
@@ -821,9 +944,9 @@ def ipm_solve(
     which gives the loop's functions and the first carry, and applies
     ``unit`` until ``active(carry)``, a device bool, is false; it returns
     the final carry and a dict of ``polls``, ``replays`` and ``loop``
-    (:func:`run_chunks`). It takes a single-variant generator without
-    mixed residuals or verbose output. Nothing in the prologue or the loop
-    reads the device."""
+    (:func:`run_chunks`), and of the loop's counts when it read them
+    (:func:`loop_counts`). It takes every configuration but verbose
+    output. Nothing in the prologue or the loop reads the device."""
     counts = dict(fast_steps=0, slow_steps=0, recertified=0, trips=0,
                   cold_start=int(warm is None), cache_hit=False)
     if c.dim() > 1 and opts.verbose:
@@ -838,13 +961,10 @@ def ipm_solve(
     L = _loop(Q, c, A, b, G, d, spec, kktsolver, opts, warm)
     two_mode, mixed, cy = L.two_mode, L.mixed, L.cy0
     evaluate, take_step, advance = L.evaluate, L.take_step, L.advance
-    products_full, products_fast = L.products_full, L.products_fast
     scaling, active_of, eig_dtype_of = L.scaling, L.active_of, L.eig_dtype_of
     solve3x3gen = L.solve3x3gen
     batched = bool(c.dim() > 1)
     bs, dev = tuple(c.shape[:-1]), c.device
-    sw = opts.residualSwitch
-    eps32 = torch.finfo(torch.float32).eps
 
     if opts.verbose:
         _print_banner()
@@ -856,11 +976,7 @@ def ipm_solve(
     # instance is on, as the host knows them from the latest read.
     lm_on = torch.zeros(bs, dtype=torch.bool, device=dev) if batched else False
     modes = (False,)
-    # Carried products (mixed mode): fast estimates with an infinite drift,
-    # so the first near-tolerance decision always recomputes them.
-    z = cy.z
-    P = products_fast(z.y, z.w, z.v) if mixed else None
-    drift = torch.full(bs, float("inf"), dtype=c.dtype, device=dev)
+    P, drift = cy.P, cy.drift  # the carried products (mixed mode)
     counts.update(polls=0, replays=0, loop="eager")
 
     def per_variant(which, flags, fn):
@@ -914,33 +1030,23 @@ def ipm_solve(
         # the scaling is the variant's an instance was on when the
         # iteration began; the variants differ only in the precision of
         # the S-cone decompositions
-        shared = eig_dtype_of(False) == eig_dtype_of(True)
-        F, FinvT = per_variant(modes[:1] if shared else modes, lm_on,
-                               lambda slow: scaling(cy.z, slow))
+        F, FinvT = per_variant(modes if L.split_scaling else modes[:1],
+                               lm_on, lambda slow: scaling(cy.z, slow))
         lam = sc.apply(spec, F, cy.z.v)  # scaled point: = F⁻ᵀ z.s too
 
         if mixed:
-            # Estimates from the carried products decide whether a
-            # tolerance decision is near and the drift could affect it;
-            # the honesty guard recertifies once drift reaches 10 % of the
-            # estimated residual, so reported residuals stay trustworthy.
             R, st, best, stalled, lm = evaluate(cy, P, lam, lm_on)
-            near = ((R.rmax < sw * opts.optTol)
-                    | (R.p_infeas < sw * opts.infeas_tol)
-                    | (R.d_infeas < sw * opts.infeas_tol)
-                    | ~torch.isfinite(R.rmax))
-            fire = ((near & (drift > 0.05 * opts.optTol))
-                    | (drift > 0.1 * R.rmax)) & active_of(cy)
+            fire = L.recompute_due(R, drift, active_of(cy))
             go, on, need, fired = read(st, lm, fire)
             if fired:
                 counts["recertified"] += 1
-                P = _select(fire, products_full(cy.z.y, cy.z.w, cy.z.v), P)
+                P = _select(fire, L.products_full(cy.z.y, cy.z.w, cy.z.v), P)
                 drift = torch.where(fire, 0.0, drift)
                 R, st, best, stalled, lm = evaluate(cy, P, lam, lm_on)
                 go, on, need, _ = read(st, lm)
         else:
             R, st, best, stalled, lm = evaluate(
-                cy, products_full(cy.z.y, cy.z.w, cy.z.v), lam, lm_on)
+                cy, L.products_full(cy.z.y, cy.z.w, cy.z.v), lam, lm_on)
             go, on, need, _ = read(st, lm)
         lm_on, modes = on, need
 
@@ -971,16 +1077,7 @@ def ipm_solve(
         z_new, rnorm_prev, rstep_prev, Pd, alpha = per_variant(
             modes, lm_on, step)
         if mixed:
-            # incremental product update and its drift bound
-            P_new = _Products(P.Qy - col(alpha) * Pd.Qy,
-                              P.GAy - col(alpha) * Pd.GAy,
-                              P.GAtwv - col(alpha) * Pd.GAtwv)
-            drift_new = drift + 10.0 * eps32 * alpha * (
-                (torch.linalg.norm(Pd.Qy, dim=-1)
-                 + torch.linalg.norm(Pd.GAtwv, dim=-1)) / (1.0 + L.normc)
-                + _norm(Pd.GAy) / (1.0 + L.normb))
-            P, drift = _select(run, P_new, P), torch.where(
-                run, drift_new, drift)
+            P, drift = L.stepped_products(P, drift, Pd, alpha, run)
         cy = advance(cy, st, best, stalled, z_new, run)
         k += 1
 
@@ -990,13 +1087,31 @@ def ipm_solve(
 
 
 def _device_result(cy, info, counts, stats) -> SolState:
-    """The device loop's result and its counts: the steps and the
-    refinement trips come back in one copy."""
-    steps, trips = torch.stack([cy.steps, cy.trips]).tolist()
-    counts.update(info, fast_steps=steps, trips=trips)
+    """The device loop's result and its counts, read from the final carry
+    in one copy unless the device loop read them with its own
+    (solver/graph.py)."""
+    counts.update(info if "trips" in info
+                  else dict(info, **loop_counts(cy)[0]))
     if stats is not None:
         stats.update(counts)
     return _finish(cy.sol)
+
+
+_COUNTS = ("fast_steps", "slow_steps", "recertified", "trips")
+
+
+def loop_counts(cy: Carry, *extra) -> tuple:
+    """The device loop's counts (``fast_steps``, ``slow_steps``,
+    ``recertified``, ``trips``) and the values of the device integers
+    ``extra``, in one copy. A single-variant generator's steps are all
+    fast ones."""
+    none = torch.zeros_like(cy.trips)
+    vals = torch.stack([t.to(torch.int64) for t in (
+        cy.steps if cy.fast_steps is None else cy.fast_steps,
+        none if cy.slow_steps is None else cy.slow_steps,
+        none if cy.recertified is None else cy.recertified,
+        cy.trips, *extra)]).tolist()
+    return dict(zip(_COUNTS, vals)), vals[len(_COUNTS):]
 
 
 class Carry(NamedTuple):
@@ -1007,7 +1122,12 @@ class Carry(NamedTuple):
     eager loop that of the next), the count of iterations on which some
     instance stepped and of the refinement trips run. The device loop also
     carries what its next step starts from: the iterate's scaling
-    (``F``, ``FinvT``), scaled point ``lam`` and residuals ``R``."""
+    (``F``, ``FinvT``), scaled point ``lam`` and residuals ``R``; with a
+    two-variant generator the last-mile flag ``lm_on`` (one bool per
+    instance) and the iterations on which some instance stepped on the
+    fast and on the slow variant; in mixed mode the carried products
+    ``P``, their ``drift`` (per instance) and the iterations that
+    recomputed them. What a configuration does not use is None."""
 
     z: Vec4
     sol: SolState
@@ -1020,6 +1140,12 @@ class Carry(NamedTuple):
     FinvT: Optional[sc.NTScaling] = None
     lam: Optional[torch.Tensor] = None
     R: Optional[_Resid] = None
+    lm_on: Optional[torch.Tensor] = None
+    fast_steps: Optional[torch.Tensor] = None
+    slow_steps: Optional[torch.Tensor] = None
+    P: Optional[_Products] = None
+    drift: Optional[torch.Tensor] = None
+    recertified: Optional[torch.Tensor] = None
 
 
 def _assign(dst, src) -> None:
@@ -1043,8 +1169,9 @@ def run_chunks(prologue, inputs):
     """The device loop run eagerly (the CPU's counterpart of
     solver/graph.py): the prologue, then chunks of :data:`POLL` units, the
     host reading whether any instance is still active once after the
-    prologue and once after each chunk. Returns the final carry and what
-    the loop did (``polls`` reads, no ``replays``, ``loop`` "chunks")."""
+    prologue and once after each chunk; each unit's bodies run masked.
+    Returns the final carry and what the loop did (``polls`` reads, no
+    ``replays``, ``loop`` "chunks")."""
     body, cy = prologue(*inputs)
     polls = 1
     while bool(body.active(cy)):

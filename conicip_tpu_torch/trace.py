@@ -30,7 +30,9 @@ launches of the kernel's batched entries. ``--poll K`` profiles the device
 loop at K units per chunk in place of ``solver.ipm.POLL`` (how that
 constant was chosen). The [solve] line also says whether the profiled
 solve hit the device loop's cache (``cache_hit``; the unprofiled solves
-before it repeat its instance, so it does) and the refinement trips it ran.
+before it repeat its instance, so it does), the refinement trips it ran,
+its steps on the generator's fast and last-mile variants and its
+full-precision recomputes of the mixed residuals.
 ``--chain K`` adds a [chain] line: K instances of the family (seeds
 ``seed`` ... ``seed + K - 1``, inputs already on the card; with
 ``--batch B`` K stacks of B) solved back to back, the cache emptied first,
@@ -39,7 +41,9 @@ each later round (median, least and most), of the first round (one miss
 per configuration), the hits and captures (misses) of all rounds, and the
 device loop's entries after the first round with the memory the card
 reserved for them (``torch.cuda.memory_reserved()`` across the first
-round, the allocator's free blocks released on both sides). The [solve]
+round, the allocator's free blocks released on both sides), and the last
+round's runs by loop with their polls, steps per variant, recomputes and
+trips summed. The [solve]
 line names the loop each run took (``loop``, "graph" or "eager", one per
 run) and counts the KKT builds the card ran (:func:`kkt_builds`). It
 needs a CUDA device and fails without one.
@@ -53,7 +57,7 @@ import os
 import sys
 import tempfile
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import torch
 
@@ -157,6 +161,9 @@ REPEATS = 5
 # reports (median, least, most)
 ROUNDS = 5
 
+# per-run counts the [chain] line sums over its last round
+CHAIN_COUNTS = ("polls", "fast_steps", "slow_steps", "recertified", "trips")
+
 # --factor-dtype: the keyword conic_ip gets ("auto" is full precision)
 FACTOR_DTYPES = {"float64": "auto", "float32": torch.float32}
 
@@ -190,7 +197,12 @@ def kkt_builds(r) -> int:
     ``BatchRun``): the cold start's and one per step. On the device loop
     one per unit, :data:`~conicip_tpu_torch.solver.ipm.POLL` per chunk,
     each followed by a poll as the prologue is; a miss runs its prologue
-    twice (eagerly, then from its graph)."""
+    twice (eagerly, then from its graph). A two-variant generator builds,
+    in a unit, the variant each instance is on: one per unit for a single
+    solve at ``POLL`` = 1 (a frozen unit at a larger ``POLL`` builds
+    nothing), both where a stack is split across the variants, which
+    ``solve_batch``'s own runs never are (its f32 generator has one
+    variant)."""
     if r.loop == "eager":
         return r.cold_start + r.fast_steps + r.slow_steps
     prologues = 2 if r.loop == "graph" and not r.cache_hit else 1
@@ -296,6 +308,9 @@ def _profile(args):
           f"replays={sum(r.replays for r in runs)} "
           f"cache_hit={int(all(getattr(r, 'cache_hit', 0) for r in runs))} "
           f"trips={sum(getattr(r, 'trips', -1) for r in runs)} "
+          f"fast_steps={sum(r.fast_steps for r in runs)} "
+          f"slow_steps={sum(r.slow_steps for r in runs)} "
+          f"recertified={sum(r.recertified for r in runs)} "
           f"dtoh_loop={loop['dtoh_loop']} dtoh_fixed={loop['dtoh_fixed']} "
           f"replay_host_launches={loop['replay_host_launches']} "
           f"cholesky_f64={cholesky_kernel.launch_count(torch.float64)} "
@@ -347,11 +362,15 @@ def _chain(args, kw, on_card):
     for _ in range(ROUNDS + 1):
         torch.cuda.synchronize()
         t = time.perf_counter()
+        last = Counter()  # this round's loops and counts
         for tensors, cones in problems:
             solve(*tensors[:4], cones, *tensors[4:], **kw)
             hit = all(r.cache_hit for r in runs)
             hits += hit
             misses += not hit
+            for r in runs:
+                last[f"loop_{r.loop}"] += 1
+                last.update({k: getattr(r, k) for k in CHAIN_COUNTS})
         torch.cuda.synchronize()
         per_solve.append((time.perf_counter() - t) * 1e3 / len(problems))
         if len(per_solve) == 1:
@@ -370,7 +389,8 @@ def _chain(args, kw, on_card):
           f"first_round_ms_per_{unit}={per_solve[0]:.2f} "
           f"hits={hits} captures={misses} entries={entries} "
           f"reserved_mb_entries={reserved / 2**20:.1f} "
-          f"device={torch.cuda.get_device_name(0)!r}")
+          + "".join(f"{k}={v} " for k, v in sorted(last.items()))
+          + f"device={torch.cuda.get_device_name(0)!r}")
 
 
 if __name__ == "__main__":

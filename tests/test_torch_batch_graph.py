@@ -21,8 +21,9 @@ loop
   stacked configuration read nothing back and make no tensor of host data
   once a first prologue has run.
 
-They also say which runs keep the eager loop: f32 factors with mixed
-residuals, the backstop's sub-batches, a caller's kktsolver.
+They also say which runs keep the eager loop: the backstop's
+sub-batches and a caller's kktsolver; f32 factors with mixed residuals
+take the device loop.
 """
 
 import contextlib
@@ -249,11 +250,12 @@ def test_resumed_chunks_hit_the_warm_entry(tmp_path, monkeypatch):
 
 
 def test_f32_main_runs_keep_the_eager_loop_and_f64_tiers_do_not():
-    # the f32 main tier (mixed residuals) is eager; the low-rank f64
-    # finisher fused behind it takes the device loop
+    # the f32 main tier (mixed residuals) and the low-rank f64 finisher
+    # fused behind it both take the device loop (the name is the one this
+    # test had while the f32 main tier stayed eager)
     _, got, runs = port(STACKS["mixed_rq_eq shared G"](), factor_dtype=F32,
                         optTol=1e-8)
-    assert [(r.tier, r.loop) for r in runs] == [("main", "eager"),
+    assert [(r.tier, r.loop) for r in runs] == [("main", "chunks"),
                                                ("fused-1", "chunks")]
     assert runs[0].kktsolver.keywords["factor_dtype"] == F32
     assert runs[1].kktsolver is lowrank_kktsolver()

@@ -309,15 +309,16 @@ def test_predicated_plain_factor_keeps_the_flagged_matrices(rng):
 
 
 def test_device_loop_configurations():
-    # the device loop takes the built-in backends in full precision; f32
-    # factors, verbose output and a caller's kktsolver keep the eager loop
+    # the device loop takes the built-in backends at every precision (f32
+    # factors with the last-mile switch and mixed residuals too); verbose
+    # output and a caller's kktsolver keep the eager loop
     args = models.box_qp_dense(n=30).args()
     for kw, loop in (({}, "chunks"), (dict(verbose=True), "eager"),
-                     (dict(factor_dtype=torch.float32), "eager"),
+                     (dict(factor_dtype=torch.float32), "chunks"),
                      (dict(kktsolver=kktsolver_schur), "eager")):
         with contextlib.redirect_stdout(None):
             pt.conic_ip(*args, device="cpu", **kw)
-        # (a ladder tier after an f32 run may take the device loop)
+        # (a ladder tier after an f32 run takes the device loop too)
         assert pt_solver.runs[0].loop == loop, kw
     with pytest.raises(ValueError, match="device loop"):
         n = len(args[1])
