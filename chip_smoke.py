@@ -1036,8 +1036,8 @@ def conic_cases():
     "2iter" two (the n and the p factor of an equality solve), each with
     two predicated ridge retries beside it, "none" no launch at all (the
     spectral backend factors nothing); ``cpu`` says whether Iter is held
-    against the port's own CPU solve. The automatic backends take the
-    device loop (a CUDA graph), a caller's Schur solver the eager one."""
+    against the port's own CPU solve. The automatic backends and the
+    Schur solver passed by hand take the device loop (a CUDA graph)."""
     from conicip_tpu_torch import models
     from conicip_tpu_torch.kkt import kktsolver_schur
 
@@ -1104,8 +1104,9 @@ def phase_conic():
         builds, loop = kkt_builds(), loops()
         resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
         what = f"{label} {backend}"
-        check(loop == ("graph" if kkt is None else "eager"),
-              f"{what}: the {loop} loop ran")
+        # the automatic backend and the Schur backend passed by hand: both
+        # the package's own, both on the device loop
+        check(loop == "graph", f"{what}: the {loop} loop ran")
         check(sol.status == "Optimal", f"{what}: status {sol.status}")
         # an S cone's decompositions run the Jacobi kernels, nothing else does
         check((jused > 0) == has_sdp(P.cone_dims),
@@ -1189,8 +1190,7 @@ def graph_f32_cases():
     """(label, problem, conic_ip keywords) of the [f32] phase's solves, as
     [graph] and [graph_cache] drive them: conic_ip's own f32 path (the
     last-mile Schur generator with mixed residuals), and mixed_rqs on that
-    generator given as a caller's kktsolver (conic_ip keeps a caller's on
-    the eager loop, so [graph] hands it to graph.solve itself)."""
+    generator passed by hand (the package's own: the device loop too)."""
     out = []
     for label, P, kkt in f32_cases():
         kw = dict(factor_dtype=torch.float32)
@@ -1241,37 +1241,23 @@ def phase_graph():
     from conicip_tpu_torch.solver import graph, ipm
     from conicip_tpu_torch.solver.state import Solution
 
-    real, real_eager, seen = graph.solve, solver.ipm_solve, {}
+    real, seen = graph.solve, {}
 
     def spy(*args, **kw):
         seen["call"] = (args, kw)
         return real(*args, **kw)
 
-    def spy_eager(*args, **kw):
-        seen["call"] = (args, kw)
-        return real_eager(*args, **kw)
-
     cases = [(label, args, key, {}) for label, args, key in graph_cases()]
     cases += [(label, P.args(), None, kw)
               for label, P, kw in graph_f32_cases()]
     for label, args, key, ckw in cases:
-        callers = "kktsolver" in ckw
-        if callers:
-            # a caller's generator: conic_ip runs it on the eager loop
-            solver.ipm_solve = spy_eager
-        else:
-            graph.solve = spy
+        graph.solve = spy
         try:
             sol = conic_ip(*args, device="cuda", **ckw)
         finally:
-            graph.solve, solver.ipm_solve = real, real_eager
+            graph.solve = real
         a, kw = seen.pop("call")
-        if callers:
-            fst = {}
-            sol = Solution.from_state(real(*a, warm=kw["warm"], stats=fst))
-            first = solver.Run(None, sol.status, sol.Iter, **fst)
-        else:
-            (first,) = solver.runs
+        (first,) = solver.runs
 
         # the two loops on the same device operands: graph.solve, which
         # conic_ip reached, and ipm_solve without a device loop
@@ -1391,8 +1377,8 @@ def graph_cache_cases():
     phase: the eight solves of PERF.md §5's table, a README box with an
     equality (the diag backend's Woodbury buffers) and one whose A changes
     its sign pattern from one instance to the next; then conic_ip's own
-    f32 solves of the [f32] phase (graph_f32_cases but the caller's
-    generator, which conic_ip keeps on the eager loop)."""
+    f32 solves of the [f32] phase (graph_f32_cases but the generator
+    passed by hand, which [graph] holds)."""
     from conicip_tpu_torch import models
 
     f32 = dict(factor_dtype=torch.float32)
@@ -1665,9 +1651,9 @@ def phase_f32():
         check(abs(cpu_iter - sol.Iter) <= 2 and cpu_status == sol.status,
               f"{label}: cpu {cpu_status}/{cpu_iter} vs gpu "
               f"{sol.status}/{sol.Iter}")
-        # conic_ip's own f32 path on the device loop, a caller's
-        # generator on the eager one
-        check(stats["loops"] == {"graph" if kkt is None else "eager"},
+        # conic_ip's own f32 path and the package's generator passed by
+        # hand, both on the device loop
+        check(stats["loops"] == {"graph"},
               f"{label}: the {stats['loops']} loop ran")
         line("f32", instance=label, status=sol.status, Iter=sol.Iter,
              f64_iter=ref.Iter, cpu_iter=cpu_iter, resid=f"{resid:.3e}",
@@ -1792,25 +1778,66 @@ def lowrank_case():
 def phase_backends():
     """The KKT backends a caller picks by hand: qr and lu (library
     factorizations, no kernel of this package) and the low-rank Woodbury
-    solver, whose two small factors run the kernel."""
+    solver, whose two small factors run the kernel. Each is the package's
+    own, so conic_ip runs it on the device loop: a miss, then a hit, which
+    equals the eager loop (ipm_solve without a device loop) on the same
+    operands in status, Iter, KKT builds and launches, y bit for bit."""
     from conicip_tpu_torch import conic_ip, kktsolver_lu, kktsolver_qr, models
+    from conicip_tpu_torch import solver
     from conicip_tpu_torch.cones.spec import ConeSpec
     from conicip_tpu_torch.kkt.lowrank import (lowrank_applicable,
                                                lowrank_kktsolver)
+    from conicip_tpu_torch.solver import graph, ipm
+    from conicip_tpu_torch.solver.state import Solution
 
     low = lowrank_case()
     check(lowrank_applicable(low.Q, low.A, low.G, ConeSpec(low.cone_dims)),
           "the low-rank backend does not apply to its own family")
+    real, seen = graph.solve, {}
+
+    def spy(*args, **kw):
+        seen["call"] = (args, kw)
+        return real(*args, **kw)
+
     for name, P, kkt in (("qr", models.mixed_rq_eq(), kktsolver_qr),
                          ("lu", models.mixed_rq_eq(), kktsolver_lu),
                          ("lowrank", low, lowrank_kktsolver())):
-        solve_timed(P.args(), device="cuda", kktsolver=kkt)  # warm-up
-        before = launches()
-        sol, ms = solve_timed(P.args(), device="cuda", kktsolver=kkt)
-        used = launches() - before
+        reason = solver._eager_reason(kkt, ipm.IPMOptions(), "cuda")
+        check(reason is None, f"{name}: kept on the eager loop: {reason}")
+        solve_timed(P.args(), device="cuda", kktsolver=kkt)  # warm-up, miss
+        n, p = P.Q.shape[0], P.G.shape[0]
+        r = P.A.shape[0] - n + p
+        before = {k: launches(n=k) for k in (n, p, r)}
+        total = launches()
+        graph.solve = spy
+        try:
+            sol, ms = solve_timed(P.args(), device="cuda", kktsolver=kkt)
+        finally:
+            graph.solve = real
+        (run,) = solver.runs
+        by_order = {k: launches(n=k) - v for k, v in before.items()}
+        used = launches() - total
         builds = run_stats()["f64_builds"]
-        by_order = {k: launches(n=k) for k in (P.Q.shape[0], P.G.shape[0],
-                    P.A.shape[0] - P.Q.shape[0] + P.G.shape[0])}
+        a, kw = seen.pop("call")
+        est = {}
+        eager_before = {k: launches(n=k) for k in (n, p, r)}
+        ref_e = Solution.from_state(ipm.ipm_solve(*a, warm=kw["warm"],
+                                                  stats=est))
+        eager_by_order = {k: launches(n=k) - v
+                          for k, v in eager_before.items()}
+        erun = solver.Run(None, ref_e.status, ref_e.Iter, **est)
+        ms_e = float(np.median([event_ms(lambda: ipm.ipm_solve(
+            *a, warm=kw["warm"])) for _ in range(3)]))
+        check(run.loop == "graph" and run.cache_hit,
+              f"{name}: loop {run.loop}, cache hit {run.cache_hit}")
+        check((sol.status, sol.Iter) == (ref_e.status, ref_e.Iter)
+              and torch.equal(sol.y, ref_e.y)
+              and builds == run_builds(erun)
+              and by_order == eager_by_order,
+              f"{name}: hit {sol.status}/{sol.Iter}, {builds} KKT builds, "
+              f"launches {by_order}; eager {ref_e.status}/{ref_e.Iter}, "
+              f"{run_builds(erun)}, {eager_by_order}, y equal "
+              f"{torch.equal(sol.y, ref_e.y)}")
         ref = conic_ip(*P.args(), device="cpu", kktsolver=kkt)
         resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
         dy = (sol.y.cpu() - ref.y).abs().max().item()
@@ -1822,23 +1849,22 @@ def phase_backends():
         check(dy <= 1e-6, f"{name}: y diff {dy:.3e}")
         extra = {}
         if name == "lowrank":
-            n, p = P.Q.shape[0], P.G.shape[0]
-            r = P.A.shape[0] - n + p
             at_r, at_p = by_order[r], by_order[p]
-            # counts since the phase began: the warm-up solve doubles them
-            check(at_r == at_p == 2 * builds and by_order[n] == 0,
+            check(at_r == at_p == builds and by_order[n] == 0
+                  and used == 2 * builds,
                   f"lowrank: {at_r} launches at r={r}, {at_p} at p={p}, "
-                  f"{by_order[n]} at n={n}, for {builds} KKT builds")
-            check(used == 2 * builds, f"lowrank: {used} launches")
-            extra = dict(r=r, p=p, kkt_builds=builds,
-                         launches_at_r=at_r // 2, launches_at_p=at_p // 2,
+                  f"{by_order[n]} at n={n}, {used} in all, for {builds} KKT "
+                  f"builds")
+            extra = dict(r=r, p=p, launches_at_r=at_r, launches_at_p=at_p,
                          launches_at_n=0)
         else:
             check(used == 0, f"{name}: {used} Cholesky launches")
         line("backends", backend=name, instance=P.name, status=sol.status,
              Iter=sol.Iter, cpu_iter=ref.Iter, resid=f"{resid:.3e}",
-             y_diff=f"{dy:.3e}", launches=used, ms_per_solve=f"{ms:.2f}",
-             **extra)
+             y_diff=f"{dy:.3e}", loop=run.loop, cache_hit=run.cache_hit,
+             polls=run.polls, replays=run.replays, kkt_builds=builds,
+             y_equal_eager=True, launches=used, ms_per_solve=f"{ms:.2f}",
+             eager_ms_per_solve=f"{ms_e:.2f}", **extra)
     for name, kkt in (("qr", kktsolver_qr), ("lu", kktsolver_lu)):
         backend_on_a_stack(name, kkt)
 
@@ -1851,16 +1877,20 @@ def backend_on_a_stack(name, kkt):
     reaches the factorizations and must end Error alone."""
     from conicip_tpu_torch import conic_ip
     from conicip_tpu_torch.ops import cholesky_kernel
+    from conicip_tpu_torch.parallel import batch as pbatch
 
     label, args = batch_cases()[1][:2]
     timed_batch(args, kktsolver=kkt)  # warm-up
     before = Counter(cholesky_kernel.cholesky_launches)
     out, ms = timed_batch(args, kktsolver=kkt)
     got, singles = launched_since(before)
+    loops = [(r.loop, r.cache_hit) for r in pbatch.runs]
     resid = torch.maximum(out.prFeas, torch.maximum(
         out.duFeas, out.muFeas)).max().item()
     statuses, iters = out.statuses, out.Iter.tolist()
     what = f"{name} on {label}"
+    # the package's backend passed by hand: the device loop, a hit
+    check(loops == [("graph", True)], f"{what}: (loop, cache hit) {loops}")
     check(statuses == ["Optimal"] * BATCH, f"{what}: {Counter(statuses)}")
     check(resid < 1e-6, f"{what}: max residual {resid:.3e}")
     check(out.y.device.type == "cuda", f"{what}: result not on cuda")
@@ -1889,7 +1919,7 @@ def backend_on_a_stack(name, kkt):
     line("backends", backend=name, stack=repr(label), B=BATCH,
          status="Optimal x64", Iter=f"{min(iters)}-{max(iters)}",
          resid=f"{resid:.3e}", sampled_iter_batch_single=",".join(pairs),
-         y_diff_single=f"{dy:.3e}", launches=0,
+         y_diff_single=f"{dy:.3e}", launches=0, loop="graph", cache_hit=True,
          nan_instance=f"Error@{bad} of {cut}, others unchanged",
          ms_per_batch=f"{ms:.2f}")
 
@@ -2940,6 +2970,7 @@ DIST_N = 4096  # box_qp_dense order of [distributed]'s world of one
 DIST_PAIR_N = 1024  # ... and of its two ranks sharing the card
 DIST_RANKS = 2
 DIST_TIMEOUT = 300.0  # seconds the two ranks may take in all
+TP_CHAIN = 5  # chained hits of each TP solve of the world of one
 
 
 @functools.lru_cache(maxsize=None)
@@ -2947,23 +2978,30 @@ def multichip_problem():
     """The production-sized problem the reference's multichip dry run
     solves through its kktsolver_schur_tp (``__graft_entry__.py``): n = 512,
     R(1024) x Q(32) x Q(32), m = 1088, p = 16, diagonal Q, strictly
-    feasible."""
-    from conicip_tpu_torch import models
-    from conicip_tpu_torch.cones.spec import ConeSpec
+    feasible (``trace.rq_eq`` at seed 0)."""
+    from conicip_tpu_torch.trace import rq_eq
 
-    n, p = 512, 16
-    cones = [("R", 2 * n), ("Q", 32), ("Q", 32)]
-    m = sum(k for _, k in cones)
-    rng = np.random.default_rng(0)
-    Q = np.diag(1.0 + rng.random(n))
-    c = rng.standard_normal(n)
-    A = np.vstack([np.eye(n), -np.eye(n),
-                   rng.standard_normal((m - 2 * n, n)) * 0.1])
-    y0 = rng.standard_normal(n) * 0.1
-    b = A @ y0 - ConeSpec(cones).identity
-    G = rng.standard_normal((p, n))
-    return models.Problem(f"rq_eq(n={n},m={m},p={p})", Q, c, A, b,
-                          cones, G, G @ y0)
+    return rq_eq(seed=0)
+
+
+@functools.lru_cache(maxsize=None)
+def retry_problem(n=1024, delta=1e-12):
+    """``box_qp_dense(n)`` beside two free variables whose 2x2 block of Q,
+    [[1, 1 + delta], [1 + delta, 1]], has the eigenvalue -delta: beyond
+    the distributed factor's base ridge (30 eps = 6.7e-15) and within its
+    retry's (1e5 times it), so every KKT build's first factor fails and
+    the retry, the body of a conditional graph node, factors it. The free
+    variables' gradient is 0, so they stay 0, and the rest is the box QP."""
+    from conicip_tpu_torch import models
+
+    Q, c, A, b, cones = models.box_qp_dense(n=n).args()[:5]
+    Q2 = np.zeros((n + 2, n + 2))
+    Q2[:n, :n] = Q
+    Q2[n:, n:] = [[1.0, 1.0 + delta], [1.0 + delta, 1.0]]
+    return models.Problem(f"box_qp_dense(n={n})+indefinite_2x2", Q2,
+                          np.r_[c, 0.0, 0.0],
+                          np.hstack([A, np.zeros((A.shape[0], 2))]), b,
+                          cones)
 
 
 @functools.lru_cache(maxsize=None)
@@ -2991,6 +3029,8 @@ def distributed_cases():
         ("mixed_rqs(n=86) f32", rqs, dict(factor_dtype=torch.float32),
          dict(mixedResiduals=True), False),
         (multichip_problem().name, multichip_problem(), {}, {}, True),
+        # every KKT build's first factor fails and retries
+        (retry_problem().name, retry_problem(), {}, {}, False),
     )
 
 
@@ -3023,22 +3063,42 @@ def distributed_factor_shapes(ranks):
     return sizes, {(BATCH // ranks, 500)}
 
 
-def tp_solve(P, mesh, kkt_kw, **kw):
-    """P through kktsolver_schur_tp over the mesh's "tp" axis, on the card:
-    (solution, ms, KKT builds, kernel launches of the solve)."""
-    from conicip_tpu_torch import conic_ip, kktsolver_schur_tp, solver
+def tp_solve(P, kkt, **kw):
+    """P through the TP solver ``kkt`` on the card, from inputs already
+    there: (solution, ms, KKT builds, unconditional kernel launches of the
+    solve)."""
+    from conicip_tpu_torch import conic_ip, solver
     from conicip_tpu_torch.ops import cholesky_kernel
 
     before = Counter(cholesky_kernel.cholesky_launches)
-    kkt = kktsolver_schur_tp(mesh, "tp", **kkt_kw)
+    args = on_card(P.args())
     torch.cuda.synchronize()
     t = time.perf_counter()
-    sol = conic_ip(*P.args(), kktsolver=kkt, device="cuda", **kw)
+    sol = conic_ip(*args, kktsolver=kkt, device="cuda", **kw)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t) * 1e3
-    r = solver.runs[-1]
-    return (sol, ms, r.fast_steps + r.slow_steps + r.cold_start,
+    return (sol, ms, run_builds(solver.runs[-1]),
             cholesky_kernel.cholesky_launches - before)
+
+
+def chol_by_order():
+    """The Cholesky kernel's launches so far by (dtype, order), the
+    predicated ones apart ("pred", dtype, order)."""
+    from conicip_tpu_torch.ops import cholesky_kernel
+
+    return Counter(cholesky_kernel.cholesky_launches) + Counter(
+        {("pred",) + k: v for k, v in
+         cholesky_kernel.predicated_launches.items()})
+
+
+def chained_ms(fn, k):
+    """``fn()`` k times back to back, synchronised at the two ends: the
+    results and ms per call."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = [fn() for _ in range(k)]
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3 / k
 
 
 def tp_launches_ok(P, got, builds, ranks, kkt_kw):
@@ -3062,12 +3122,14 @@ def tp_launches_ok(P, got, builds, ranks, kkt_kw):
 def phase_distributed():
     """Distribution on the card: (a) a world of one rank (NCCL, started
     here): distributed_normal_matrix, kktsolver_schur_tp on each of
-    distributed_cases() against the port's single-device Schur solve with 0
-    correctors (and its CPU solve where it is small), solve_batch over a
-    mesh against the unsharded stack; (b) two ranks sharing the card (gloo),
-    this script run with --distributed-rank. Returns the Cholesky and the
-    Jacobi launches the two ranks made, which main() counts as this
-    phase's."""
+    distributed_cases() on the device loop (tp_case: a miss and chained
+    hits, against the eager loop bit for bit and against the port's
+    single-device Schur solve with 0 correctors, and its CPU solve where it
+    is small; one case retries every factor), solve_batch over a mesh
+    against the unsharded stack; (b) two ranks sharing the card (gloo, so
+    the eager loop), this script run with --distributed-rank. Returns the
+    Cholesky and the Jacobi launches the two ranks made, which main()
+    counts as this phase's."""
     import torch.distributed as dist
 
     from conicip_tpu_torch import make_mesh, models, solve_batch
@@ -3128,23 +3190,103 @@ def phase_distributed():
 
 
 def tp_case(label, P, mesh, kkt_kw, kw, cpu, one):
-    """One TP solve of the world of one, held against the single-device
-    Schur solve (0 correctors) on the card and, where ``cpu``, on the
-    CPU."""
-    from conicip_tpu_torch import conic_ip
+    """One TP solve of the world of one on the device loop. The solver is
+    made once (the cache keys on it): a miss, a hit and TP_CHAIN chained
+    hits through conic_ip. The hit equals the eager loop (ipm_solve
+    without a device loop, on the operands conic_ip handed graph.solve) in
+    status, Iter, KKT builds, refinement trips and Cholesky launches by
+    (dtype, order), y bit for bit; it is held, hit against hit, to the
+    single-device Schur solve passed by hand (0 correctors; an eager line
+    beside it) and, where ``cpu``, to the CPU's. ms per solve chained (hits
+    and the eager loop), DtoH and kernels per iteration and host launches
+    during replays (profiler)."""
+    from conicip_tpu_torch import conic_ip, kktsolver_schur_tp, solver
     from conicip_tpu_torch.kkt import kktsolver_schur
+    from conicip_tpu_torch.solver import graph, ipm
+    from conicip_tpu_torch.solver.state import Solution
 
-    tp_solve(P, mesh, kkt_kw, **kw)  # warm-up
-    sol, ms, builds, got = tp_solve(P, mesh, kkt_kw, **kw)
-    single_kw = dict(kktsolver=kktsolver_schur, centralityCorrectors=0, **kw)
-    if "factor_dtype" in kkt_kw:
-        single_kw["kktsolver"] = functools.partial(
-            kktsolver_schur, factor_dtype=kkt_kw["factor_dtype"])
-    ref, ref_ms = solve_timed(P.args(), device="cuda", **single_kw)
-    resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
-    dy = (sol.y - ref.y).abs().max().item()
     what = f"world of one, {label}"
     f32 = "factor_dtype" in kkt_kw
+    args = on_card(P.args())
+    kkt = kktsolver_schur_tp(mesh, "tp", **kkt_kw)
+    real, seen = graph.solve, {}
+
+    def spy(*a, **k):
+        seen["call"] = (a, k)
+        return real(*a, **k)
+
+    def through_graph(fn):
+        graph.solve = spy
+        try:
+            return fn()
+        finally:
+            graph.solve = real
+
+    _, ms_miss, _, _ = through_graph(lambda: tp_solve(P, kkt, **kw))
+    miss = solver.runs[-1]
+    a, akw = seen.pop("call")
+    before = chol_by_order()
+    sol, _, builds, got = tp_solve(P, kkt, **kw)
+    run = solver.runs[-1]
+    hit_launches = chol_by_order() - before
+
+    def eager(stats=None):
+        return Solution.from_state(ipm.ipm_solve(*a, warm=akw["warm"],
+                                                 stats=stats))
+
+    def graphed(stats=None):
+        return Solution.from_state(real(*a, warm=akw["warm"], stats=stats))
+
+    est = {}
+    before = chol_by_order()
+    ref_e = eager(est)
+    eager_launches = chol_by_order() - before
+    erun = solver.Run(None, ref_e.status, ref_e.Iter, **est)
+    check(miss.loop == run.loop == "graph" and not miss.cache_hit
+          and run.cache_hit,
+          f"{what}: loops {miss.loop}/{run.loop}, hits "
+          f"{miss.cache_hit}/{run.cache_hit}")
+    check((sol.status, sol.Iter) == (ref_e.status, ref_e.Iter)
+          and torch.equal(sol.y, ref_e.y),
+          f"{what}: hit {sol.status}/{sol.Iter}, eager "
+          f"{ref_e.status}/{ref_e.Iter}, y equal "
+          f"{torch.equal(sol.y, ref_e.y)}")
+    check(builds == run_builds(erun) and run.trips == erun.trips
+          and hit_launches == eager_launches,
+          f"{what}: {builds} KKT builds, {run.trips} trips, launches "
+          f"{dict(hit_launches)} on a hit; {run_builds(erun)}, "
+          f"{erun.trips}, {dict(eager_launches)} on the eager loop")
+    check(run.polls == 1 + run.replays,
+          f"{what}: {run.polls} polls for {run.replays} replays")
+    hits, ms_hit = chained_ms(lambda: (
+        conic_ip(*args, kktsolver=kkt, device="cuda", **kw),
+        solver.runs[-1].cache_hit), TP_CHAIN)
+    check(all(h for _, h in hits)
+          and all(torch.equal(x.y, sol.y) for x, _ in hits),
+          f"{what}: a chained solve missed or differs from the first hit")
+    _, ms_eager = chained_ms(eager, TP_CHAIN)
+    pg, pe = profiled(graphed), profiled(eager)
+    check(pg["dtoh_loop"] <= run.polls and pg["replay_host_launches"] == 0,
+          f"{what}: {pg['dtoh_loop']} device-to-host copies in the loop for "
+          f"{run.polls} polls, {pg['replay_host_launches']} host launches "
+          f"during replays")
+
+    # the single-device Schur solve, hit against hit, an eager line beside
+    single_kw = dict(kktsolver=kktsolver_schur, centralityCorrectors=0, **kw)
+    if f32:
+        single_kw["kktsolver"] = functools.partial(
+            kktsolver_schur, factor_dtype=kkt_kw["factor_dtype"])
+    through_graph(lambda: conic_ip(*args, device="cuda", **single_kw))
+    sa, skw = seen.pop("call")
+    refs, single_ms = chained_ms(lambda: (
+        conic_ip(*args, device="cuda", **single_kw), solver.runs[-1]), 3)
+    ref, sref = refs[-1]
+    check(sref.loop == "graph" and sref.cache_hit,
+          f"{what}: single solve {sref.loop}, hit {sref.cache_hit}")
+    _, single_eager_ms = chained_ms(lambda: ipm.ipm_solve(
+        *sa, warm=skw["warm"]), 3)
+    resid = max(sol.prFeas, sol.duFeas, sol.muFeas)
+    dy = (sol.y - ref.y).abs().max().item()
     check(sol.status == ref.status == "Optimal",
           f"{what}: {sol.status}, single {ref.status}")
     # f32 factors round differently on the two paths: Iter within 2, as in
@@ -3168,13 +3310,37 @@ def tp_case(label, P, mesh, kkt_kw, kw, cpu, one):
         extra["y_diff_default"] = f"{dd:.3e}"
     ok, by_order = tp_launches_ok(P, got, builds, 1, kkt_kw)
     check(ok, f"{what}: launches {dict(got)} for {builds} KKT builds")
+    # a retry repeats the first factor: launches at r beyond one per build
+    n_pad = P.Q.shape[0]
+    dt = kkt_kw.get("factor_dtype", torch.float64)
+    retries = got[(dt, n_pad)] - builds
+    if kkt_kw.get("distributed_factor") is False:
+        retries = 0  # predicated: launched every build, counted apart
+    if P is retry_problem():
+        check(retries == builds > 0,
+              f"{what}: {retries} retries for {builds} KKT builds")
+    it = max(sol.Iter, 1)
     line("distributed", world=1, backend="nccl", case=repr(label),
-         status=sol.status, Iter=sol.Iter, single_iter=ref.Iter, **extra,
-         resid=f"{resid:.3e}", y_diff_single=f"{dy:.3e}", kkt_builds=builds,
-         launches=by_order, ms_per_solve=f"{ms:.2f}",
-         single_ms_per_solve=f"{ref_ms:.2f}")
-    return dict(status=sol.status, Iter=sol.Iter, y=sol.y.cpu(), ms=ms,
-                single_ms=ref_ms)
+         loop=run.loop, cache_hit=run.cache_hit, polls=run.polls,
+         replays=run.replays, trips=run.trips, status=sol.status,
+         Iter=sol.Iter, single_iter=ref.Iter, **extra,
+         resid=f"{resid:.3e}", y_diff_single=f"{dy:.3e}",
+         y_equal_eager=True, kkt_builds=builds, launches=by_order,
+         launches_equal_eager=True, retries=retries,
+         predicated=sum(v for k, v in hit_launches.items()
+                        if k[0] == "pred"),
+         ms_per_solve_hit=f"{ms_hit:.2f}",
+         ms_per_solve_eager=f"{ms_eager:.2f}", ms_miss=f"{ms_miss:.2f}",
+         single_ms_per_solve_hit=f"{single_ms:.2f}",
+         single_ms_per_solve_eager=f"{single_eager_ms:.2f}",
+         chained=TP_CHAIN,
+         dtoh_per_iter_graph=f"{pg['dtoh'] / it:.2f}",
+         dtoh_per_iter_eager=f"{pe['dtoh'] / it:.2f}",
+         kernels_per_iter_graph=f"{pg['kernels'] / it:.1f}",
+         kernels_per_iter_eager=f"{pe['kernels'] / it:.1f}",
+         replay_host_launches=pg["replay_host_launches"])
+    return dict(status=sol.status, Iter=sol.Iter, y=sol.y.cpu(), ms=ms_hit,
+                single_ms=single_ms)
 
 
 def pair_of_ranks(one):
@@ -3223,8 +3389,14 @@ def pair_of_ranks(one):
         check(a["launches_ok"] and b["launches_ok"],
               f"{what}: launches {a['launches']} / {b['launches']} for "
               f"{a['builds']} KKT builds")
+        # gloo on CUDA tensors: the eager loop, by the rule, for its reason
+        check(a["loop"] == b["loop"] == "eager"
+              and a["reason"] and "gloo" in a["reason"],
+              f"{what}: loops {a['loop']} / {b['loop']}, reason "
+              f"{a['reason']!r}")
         line("distributed", world=DIST_RANKS, backend="gloo",
-             device="cuda:0 shared", case=repr(label), status=a["status"],
+             device="cuda:0 shared", case=repr(label), loop=a["loop"],
+             reason=repr(a["reason"]), status=a["status"],
              Iter=a["Iter"], world_of_one_iter=ref["Iter"],
              y_diff_world_of_one=f"{dy:.3e}", ranks_y="bitwise equal",
              kkt_builds=a["builds"], launches_per_rank=a["launches"],
@@ -3258,7 +3430,8 @@ def distributed_rank(rank, init, out):
     launches as a JSON line."""
     import torch.distributed as dist
 
-    from conicip_tpu_torch import make_mesh, models
+    from conicip_tpu_torch import (IPMOptions, kktsolver_schur_tp, make_mesh,
+                                   models, solver)
     from conicip_tpu_torch.ops import cholesky_kernel, jacobi_kernel
     from conicip_tpu_torch.parallel import batch as pbatch
     from conicip_tpu_torch.parallel.mesh import start_rank
@@ -3269,12 +3442,16 @@ def distributed_rank(rank, init, out):
         check(dist.get_backend() == "gloo", "ranks sharing a card: not gloo")
         tp = make_mesh((DIST_RANKS,), ("tp",))
         for label, P in pair_cases():
-            tp_solve(P, tp, {})  # warm-up
-            sol, ms, builds, got = tp_solve(P, tp, {})
+            kkt = kktsolver_schur_tp(tp, "tp")
+            tp_solve(P, kkt)  # warm-up
+            sol, ms, builds, got = tp_solve(P, kkt)
+            run = solver.runs[-1]
             ok, by_order = tp_launches_ok(P, got, builds, DIST_RANKS, {})
             res[label] = dict(status=sol.status, Iter=sol.Iter,
                               y=sol.y.cpu(), ms=ms, builds=builds,
-                              launches=by_order, launches_ok=ok)
+                              launches=by_order, launches_ok=ok,
+                              loop=run.loop, reason=solver._eager_reason(
+                                  kkt, IPMOptions(), "cuda"))
         args = on_card(models.batched_box_qp(BATCH, n=500))
         bmesh = make_mesh((DIST_RANKS,), ("batch",))
         timed_batch(args, mesh=bmesh)  # warm-up

@@ -21,6 +21,7 @@ them on the device.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, fields
 from typing import Tuple
 
@@ -250,10 +251,20 @@ def _index(idx, dev):
     return torch.from_numpy(idx.astype(np.int64)).to(dev)
 
 
-def _put_blocks(M, idx, blk):
+@functools.lru_cache(maxsize=None)
+def spec_index(spec: ConeSpec, dev) -> tuple:
+    """The rows of each cone batch on a device: the R rows (None without
+    R cones), and per SOC and per SDP group its (k, dim) rows. Made by the
+    first solve of a configuration, eagerly, so that a captured call
+    (solver/graph.py) copies nothing from the host."""
+    return (_index(spec.r_idx, dev) if spec.nr else None,
+            tuple(_index(g.idx, dev) for g in spec.soc_groups),
+            tuple(_index(g.idx, dev) for g in spec.sdp_groups))
+
+
+def _put_blocks(M, ix, blk):
     """Write the (..., k, dim, dim) blocks onto the diagonal of M (..., m, m)
-    at rows/cols idx (k, dim)."""
-    ix = _index(idx, M.device)
+    at the device rows/cols ix (k, dim)."""
     M[..., ix[:, :, None], ix[:, None, :]] = blk.to(M.dtype)
 
 
@@ -266,20 +277,20 @@ def dense_gram(spec: ConeSpec, F: NTScaling, dtype=None) -> torch.Tensor:
     dtype = dtype or F.r_d.dtype
     dev = F.r_d.device
     M = torch.zeros(*F.r_d.shape[:-1], spec.m, spec.m, dtype=dtype, device=dev)
+    r_ix, soc_ix, sdp_ix = spec_index(spec, dev)
 
     if spec.nr:
-        ix = _index(spec.r_idx, dev)
-        M[..., ix, ix] = (F.r_d * F.r_d).to(dtype)
-    for g, sc in zip(spec.soc_groups, F.soc):
+        M[..., r_ix, r_ix] = (F.r_d * F.r_d).to(dtype)
+    for ix, sc in zip(soc_ix, F.soc):
         blk = (torch.diag_embed(sc.d) + sc.alpha[..., None, None]
                * sc.u[..., :, None] * sc.u[..., None, :])
-        _put_blocks(M, g.idx, blk @ blk)
-    for g, sd in zip(spec.sdp_groups, F.sdp):
+        _put_blocks(M, ix, blk @ blk)
+    for g, ix, sd in zip(spec.sdp_groups, sdp_ix, F.sdp):
         basis = mat(torch.eye(g.tdim, dtype=sd.S.dtype, device=dev))  # (t, d, d)
         P = sd.S @ _t(sd.S)
         Pk = P[..., None, :, :]
         Y = (Pk @ basis) @ Pk  # (..., k, t, d, d)
-        _put_blocks(M, g.idx, _t(vecm(Y)))
+        _put_blocks(M, ix, _t(vecm(Y)))
     return M
 
 
@@ -291,17 +302,17 @@ def dense(spec: ConeSpec, F: NTScaling, dtype=None) -> torch.Tensor:
     dtype = dtype or F.r_d.dtype
     dev = F.r_d.device
     M = torch.zeros(*F.r_d.shape[:-1], spec.m, spec.m, dtype=dtype, device=dev)
+    r_ix, soc_ix, sdp_ix = spec_index(spec, dev)
 
     if spec.nr:
-        ix = _index(spec.r_idx, dev)
-        M[..., ix, ix] = F.r_d.to(dtype)
-    for g, sc in zip(spec.soc_groups, F.soc):
-        _put_blocks(M, g.idx, torch.diag_embed(sc.d)
+        M[..., r_ix, r_ix] = F.r_d.to(dtype)
+    for ix, sc in zip(soc_ix, F.soc):
+        _put_blocks(M, ix, torch.diag_embed(sc.d)
                     + sc.alpha[..., None, None] * sc.u[..., :, None]
                     * sc.u[..., None, :])
-    for g, sd in zip(spec.sdp_groups, F.sdp):
+    for g, ix, sd in zip(spec.sdp_groups, sdp_ix, F.sdp):
         basis = mat(torch.eye(g.tdim, dtype=sd.S.dtype, device=dev))  # (t, d, d)
         S = sd.S[..., None, :, :]
         Y = (_t(S) @ basis) @ S  # (..., k, t, d, d): Y[k, j] = Sᵀ mat(e_j) S
-        _put_blocks(M, g.idx, _t(vecm(Y)))
+        _put_blocks(M, ix, _t(vecm(Y)))
     return M

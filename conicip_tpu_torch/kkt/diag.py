@@ -33,6 +33,7 @@ import torch
 from ..cones.spec import ConeSpec
 from ..ops.batched import col, mv, sum_all, trace
 from ..ops.cholesky import cholesky, tri_inv
+from ..ops.control import takes_device_loop
 from .pivot import pivot
 
 __all__ = ["kktsolver_diag", "kktsolver_2x2_diag", "separable",
@@ -188,6 +189,7 @@ def kktsolver_2x2_diag(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
     return solve2x2gen
 
 
+@takes_device_loop
 def kktsolver_diag(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
                    eq_mode="woodbury"):
     """3x3 KKT solver exploiting separable structure. Check applicability

@@ -35,6 +35,7 @@ from ..cones.scaling import _index
 from ..cones.spec import ConeSpec
 from ..ops.batched import col, mv, sum_all
 from ..ops.cholesky import cholesky, tri_inv
+from ..ops.control import takes_device_loop
 from .diag import _is_diagonal, _where_it_is
 from .pivot import pivot
 
@@ -185,4 +186,4 @@ def kktsolver_lowrank(Q, A, G, spec: ConeSpec):
 @functools.lru_cache(maxsize=None)
 def lowrank_kktsolver():
     """The 3x3 factory (pivot-adapted), one object per process."""
-    return pivot(kktsolver_lowrank)
+    return takes_device_loop(pivot(kktsolver_lowrank))

@@ -13,7 +13,11 @@ Schur matrix ``Q + Aᵀ(FᵀF)⁻¹A`` is badly conditioned; the default
 The factor runs in the working dtype unless ``factor_dtype`` pins another;
 the IPM's refinement loop then recovers the accuracy, as on the Schur path.
 ``torch.linalg.lu_factor_ex`` reads no status back and raises nothing: a
-singular Z gives a non-finite step, which the IPM's guard sees.
+singular Z gives a non-finite step, which the IPM's guard sees. On CUDA the
+factor runs through cuSOLVER (:func:`_cusolver`): for a stack PyTorch's
+default picks MAGMA, whose batched factor cannot be captured in a CUDA
+graph (``operation not permitted when stream is capturing`` on the H100),
+and the device loop captures this backend (solver/graph.py).
 
 A stack of instances (Q (..., n, n), A (..., m, n), G stacked (..., p, n)
 or one shared (p, n) system, vectors (..., n)) is one batched factor and
@@ -23,14 +27,33 @@ non-finite step for itself alone.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..cones import scaling as sc
 from ..cones.spec import ConeSpec
+from ..ops.control import takes_device_loop
 
 __all__ = ["kktsolver_lu"]
 
 
+@contextlib.contextmanager
+def _cusolver(device):
+    """PyTorch's linear algebra on cuSOLVER while a CUDA factor is issued
+    (module docstring); the caller's choice is restored after it."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+@takes_device_loop
 def kktsolver_lu(Q, A, G, spec: ConeSpec, *, factor_dtype=None):
     n = Q.shape[-1]
     m = A.shape[-2]
@@ -53,7 +76,8 @@ def kktsolver_lu(Q, A, G, spec: ConeSpec, *, factor_dtype=None):
         # O(Σ k·d³), not the O(m³) dense square (scaling.dense_gram)
         Z = Z0.clone()
         Z[..., n + p:, n + p:] = sc.dense_gram(spec, F, dtype)
-        lu, piv, _ = torch.linalg.lu_factor_ex(Z.to(fd))
+        with _cusolver(Z.device):
+            lu, piv, _ = torch.linalg.lu_factor_ex(Z.to(fd))
 
         def solve3x3(bx, by, bz):
             rhs = torch.cat([bx, by, bz], dim=-1).to(fd)

@@ -25,6 +25,7 @@ import torch
 from ..cones import scaling as sc
 from ..cones.spec import ConeSpec
 from ..ops.batched import mv
+from ..ops.control import takes_device_loop
 
 __all__ = ["kktsolver_qr"]
 
@@ -39,6 +40,7 @@ def _qr_solve(Qf, Rf, b):
     return _tri_solve(Rf, mv(Qf.mT, b), upper=True)
 
 
+@takes_device_loop
 def kktsolver_qr(Q, A, G, spec: ConeSpec):
     p = G.shape[-2]
 

@@ -46,7 +46,7 @@ from ..cones import scaling as sc
 from ..cones.spec import ConeSpec
 from ..ops.batched import col, mv, sum_all, trace
 from ..ops.cholesky import cholesky, tri_inv
-from ..ops.control import retry_while
+from ..ops.control import retry_while, takes_device_loop
 from .pivot import pivot
 
 __all__ = ["kktsolver_2x2", "kktsolver_schur"]
@@ -173,6 +173,7 @@ def kktsolver_2x2(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
     return solve2x2gen_lm
 
 
+@takes_device_loop
 def kktsolver_schur(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
                     assemble_dtype=None, lastmile=False):
     """Default KKT solver: :func:`pivot` around :func:`kktsolver_2x2`."""

@@ -36,6 +36,7 @@ from ..cones.segment import put_group, put_r, take_group, take_r
 from ..cones.spec import ConeSpec
 from ..cones.symm import mat, vecm
 from ..cones.algebra import _eigh_d
+from ..ops.control import takes_device_loop
 from .diag import _where_it_is
 
 __all__ = ["kktsolver_spectral", "spectral_applicable", "spectral_kktsolver"]
@@ -69,6 +70,7 @@ def spectral_applicable(Q, A, G, spec: ConeSpec) -> bool:
     return bool(((q >= 0) & (Qt == q * eye)).all())
 
 
+@takes_device_loop
 def kktsolver_spectral(Q, A, G, spec: ConeSpec, *, eig_dtype=None):
     """3-level KKT callback (module docstring). ``eig_dtype`` follows the
     cone layer's contract: ``None`` decomposes ``P`` in the working dtype,
@@ -167,7 +169,7 @@ def _spectral_kktsolver_cached(eig_dtype):
     def kkt(Q, A, G, spec):
         return kktsolver_spectral(Q, A, G, spec, eig_dtype=eig_dtype)
 
-    return kkt
+    return takes_device_loop(kkt)
 
 
 def spectral_kktsolver(eig_dtype=None):

@@ -7,13 +7,33 @@ plain ``if`` at its call sites (the host already knows its predicate), and
 ``retry_while`` a fixed number of predicated attempts: its predicate stays
 on the device, so a solve that runs it reads nothing back and can be
 captured in a CUDA graph.
+
+A KKT generator's own ``lax.cond`` (the distributed factor's ridge retry)
+is :func:`cond`, bound by the loop that calls the generator
+(solver/ipm.py, :func:`bound`): the eager loop reads the predicate and
+runs the body only where it holds; the device loop on the CPU runs the
+body and takes its results by mask; on CUDA a captured unit makes the body
+a conditional graph node, which runs only while the predicate holds on the
+device.
+
+Which kktsolvers the device loop takes is marked here too
+(:func:`takes_device_loop`, :func:`eager_reason`): the package's own, by a
+mark on the function, so that a caller's ``functools.partial`` of one is
+known as well.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+import threading
+from typing import Optional
 
-__all__ = ["retry_while", "retry_attempts"]
+import torch
+
+__all__ = ["retry_while", "retry_attempts", "cond", "bound",
+           "takes_device_loop", "eager_reason"]
 
 
 def retry_attempts(scale0: float, factor: float, cap: float) -> int:
@@ -42,3 +62,64 @@ def retry_while(bad, step, state0, scale0, factor, cap):
         state = step(scale, skip, state)
         scale = scale * factor
     return state
+
+
+_loop = threading.local()
+
+
+def _on_host(pred, body):
+    return body() if bool(pred) else None
+
+
+@contextlib.contextmanager
+def bound(branch):
+    """Bind :func:`cond` to the running loop's ``branch(pred, body)``
+    (solver/ipm.py: ``on_host``, ``masked``, or a conditional graph node)
+    while a KKT generator is called. Unbound, :func:`cond` reads its
+    predicate on the host."""
+    outer = getattr(_loop, "branch", None)
+    _loop.branch = branch
+    try:
+        yield
+    finally:
+        _loop.branch = outer
+
+
+def _merge(pred, new, old):
+    if isinstance(new, torch.Tensor):
+        return torch.where(pred, new, old)
+    return type(old)(_merge(pred, a, b) for a, b in zip(new, old))
+
+
+def cond(pred, body, old):
+    """The reference's ``lax.cond(pred, body, lambda: old)``: ``body()``
+    (a tensor or a tuple of tensors shaped as ``old``) where the device
+    bool ``pred`` holds, else ``old``. The body runs as the bound loop runs
+    it (:func:`bound`), and its results are merged by ``pred``, because a
+    body that did not run (a conditional graph node whose predicate was
+    false) leaves whatever its buffers held."""
+    new = getattr(_loop, "branch", None) or _on_host
+    new = new(pred, body)
+    return old if new is None else _merge(pred, new, old)
+
+
+def takes_device_loop(kktsolver, rule=None):
+    """Mark one of the package's kktsolvers as one the device loop takes;
+    ``rule(device)``, when given, names why it cannot on a device (None
+    where it can). Returns ``kktsolver``."""
+    kktsolver._device_loop_rule = rule or (lambda device: None)
+    return kktsolver
+
+
+def eager_reason(kktsolver, device) -> Optional[str]:
+    """Why a run of ``kktsolver`` on ``device`` keeps the eager loop, or
+    None when the device loop takes it: a marked kktsolver, or a
+    ``functools.partial`` of one, by its rule; any other callable is a
+    caller's own, whose callbacks may read the device."""
+    fn = kktsolver
+    while isinstance(fn, functools.partial):
+        fn = fn.func
+    rule = getattr(fn, "_device_loop_rule", None)
+    if rule is None:
+        return "a caller's own kktsolver, whose callbacks may read the device"
+    return rule(torch.device(device))

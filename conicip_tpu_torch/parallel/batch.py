@@ -7,20 +7,24 @@ every operand (``solver/ipm.py``): per-instance status, masks that freeze
 finished instances while the loop keeps stepping the rest, and every dense
 factor of an iteration one launch of the CUDA kernel's batched entry.
 
-A run whose KKT generator :func:`solve_batch` chose itself takes the
-device loop through ``solver/graph.py``'s cache, as ``conic_ip``'s runs
-do: on CUDA a captured prologue and chunk kept per configuration and stack
-shape, one host read per chunk; on the CPU the same chunks run eagerly.
-That is the automatic main run at f64 or f32 (diag, Schur or spectral,
-cold or warm, with mixed residuals and, in a checkpoint loop's chunks, the
-two-variant generator), every fused tier (the f32-factor tier over an f64
-assembly, the full-precision tier, the low-rank finisher), and the S-cone
-policy behind ``factor_dtype=float32``. The eager loop (one host read per
-iteration) keeps a caller's kktsolver (the public ``make_batched_solver``
-/ ``make_batched_warm_solver`` hand theirs to it) and the sub-batches of
-instances that stalled (the host backstop, the eliminated path's retry
-and fallback), whose shape depends on the data: an entry for each would
-rarely be hit and would evict the main run's.
+Every run whose KKT generator is one of the package's own takes the
+device loop through ``solver/graph.py``'s cache, as ``conic_ip``'s runs do
+(``solver._eager_reason``), and as the reference's stacked solvers are
+``jit(vmap(...))`` of whatever generator they are given: on CUDA a
+captured prologue and chunk kept per configuration and stack shape, one
+host read per chunk; on the CPU the same chunks run eagerly. That is the
+automatic main run at f64 or f32 (diag, Schur or spectral, cold or warm,
+with mixed residuals and, in a checkpoint loop's chunks, the two-variant
+generator), every fused tier (the f32-factor tier over an f64 assembly,
+the full-precision tier, the low-rank finisher), the S-cone policy behind
+``factor_dtype=float32``, ``solve_batch(kktsolver=...)`` with one of the
+package's backends, and the public :func:`make_batched_solver` /
+:func:`make_batched_warm_solver` on one. The eager loop (one host read
+per iteration) keeps a caller's own callable, whose callbacks may read
+the device, and the sub-batches of instances that stalled (the host
+backstop, the eliminated path's retry and fallback), whose shape depends
+on the data: an entry for each would rarely be hit and would evict the
+main run's.
 
 :func:`solve_batch` keeps the reference's policy: the automatic backend
 (diagonal, dense Schur, spectral, low-rank) chosen on the caller's arrays
@@ -94,7 +98,9 @@ class BatchRun(NamedTuple):
     recertified: int
     polls: int  # host reads of the loop's status
     replays: int  # CUDA graph replays of one captured chunk
-    loop: str  # "graph", "chunks" (the device loop) or "eager"
+    # "graph", "chunks" (the device loop) or "eager" (a caller's own
+    # callable, a backstop sub-batch: _run)
+    loop: str
     trips: int  # refinement trips run (some instance went on)
     cache_hit: bool  # the device loop's entry was kept from an earlier call
 
@@ -128,14 +134,15 @@ def _maxres(st) -> torch.Tensor:
 
 
 def _run(spec, kktsolver, opts, tier, Q, c, A, b, G, d, warm=None, *,
-         own=False):
-    """One stacked run, recorded in :data:`runs`. ``own`` says that
-    solve_batch chose the generator itself: then the run takes the device
-    loop, by conic_ip's rule (``solver._device_loop``), at any precision;
-    otherwise the eager loop."""
+         eager=False):
+    """One stacked run, recorded in :data:`runs`. It takes the device loop
+    by conic_ip's rule (``solver._eager_reason``): the package's own
+    generators at any precision, whether solve_batch chose them or a
+    caller passed them. ``eager`` keeps a sub-batch of instances that
+    stalled on the eager loop (module docstring)."""
     stats = {}
     args = (Q, c, A, b, G, d, spec, kktsolver, opts)
-    if own and _device_loop(False, opts):
+    if not eager and _device_loop(kktsolver, opts, c.device):
         st = graph.solve(*args, warm=warm, stats=stats)
     else:
         st = ipm_solve(*args, warm=warm, stats=stats)
@@ -162,8 +169,9 @@ def make_batched_solver(spec: ConeSpec, kktsolver, opts: IPMOptions,
     """Stacked solver ``(Q, c, A, b, G, d) -> SolState`` with (B,) fields
     for a fixed (spec, kktsolver, opts). With ``batch_G=False`` ``G`` and
     ``d`` are one shared equality system. ``kktsolver`` receives stacked
-    tensors: Q (B, n, n), A (B, m, n), G (B, p, n). The caller's generator
-    runs the eager loop, as ``conic_ip`` runs a caller's."""
+    tensors: Q (B, n, n), A (B, m, n), G (B, p, n). The run takes the
+    device loop by ``conic_ip``'s rule (:func:`_run`), as the reference's
+    solver is ``jit(vmap(...))`` of the caller's."""
 
     def core(Q, c, A, b, G, d):
         if batch_G != (G.dim() == 3):
@@ -177,7 +185,8 @@ def make_batched_solver(spec: ConeSpec, kktsolver, opts: IPMOptions,
 def make_batched_warm_solver(spec: ConeSpec, kktsolver, opts: IPMOptions,
                              batch_G: bool = True):
     """Stacked warm-started solver ``(Q, c, A, b, G, d, warm) -> SolState``
-    (the warm :class:`Vec4` stacked on axis 0); the eager loop."""
+    (the warm :class:`Vec4` stacked on axis 0); the loop is chosen as in
+    :func:`make_batched_solver`."""
 
     def core(Q, c, A, b, G, d, warm):
         if batch_G != (G.dim() == 3):
@@ -190,25 +199,24 @@ def make_batched_warm_solver(spec: ConeSpec, kktsolver, opts: IPMOptions,
 @functools.lru_cache(maxsize=None)
 def make_batched_ladder_solver(spec: ConeSpec, kktsolver, tiers,
                                opts: IPMOptions, with_warm: bool = False,
-                               own_main: bool = False,
-                               own_tiers: bool = False):
+                               eager: bool = False):
     """Stacked solver with the escalation ladder behind it: after the fast
     tier, each ``(kktsolver, IPMOptions)`` in ``tiers`` runs only when some
     instance ended Abandoned or Error (one host read per tier), warm from
     the stack's best iterates, and its answer is accepted per instance:
     a stalled instance takes it when it is definitive or no worse.
-    ``own_main`` and ``own_tiers`` say that solve_batch chose the main
-    run's and the tiers' generators (:func:`_run`)."""
+    ``eager`` keeps every run on the eager loop (a sub-batch of stalled
+    instances, :func:`_run`)."""
 
     def run(Q, c, A, b, G, d, warm=None):
         st = _run(spec, kktsolver, opts, "main", Q, c, A, b, G, d, warm,
-                  own=own_main)
+                  eager=eager)
         for i, (kkt_t, opts_t) in enumerate(tiers, 1):
             stalled = _stalled_mask(st.status)
             if not bool(stalled.any()):
                 continue
             st2 = _run(spec, kkt_t, opts_t, f"fused-{i}", Q, c, A, b, G, d,
-                       _neutral_warm(st.y, st.w, st.v, A, b), own=own_tiers)
+                       _neutral_warm(st.y, st.w, st.v, A, b), eager=eager)
             accept = stalled & (~_stalled_mask(st2.status)
                                 | (_maxres(st2) <= _maxres(st)))
             st = _select(accept, st2, st)
@@ -530,10 +538,10 @@ def _solve_batch(Q, c, A, b, cone_dims, G=None, d=None, *, kktsolver=None,
     if fused_tiers:
         st = make_batched_ladder_solver(
             spec, kktsolver, fused_tiers, opts, with_warm=True,
-            own_main=own and auto_kkt, own_tiers=own)(Q, c, A, b, G, d, warm)
+            eager=not own)(Q, c, A, b, G, d, warm)
     else:
         st = _run(spec, kktsolver, opts, "main", Q, c, A, b, G, d, warm,
-                  own=own and auto_kkt)
+                  eager=not own)
     out = BatchSolution.from_state(st)
 
     # Host backstop (same ladder as conic_ip): instances whose f32 tiers
@@ -566,7 +574,7 @@ def _solve_batch(Q, c, A, b, cone_dims, G=None, d=None, *, kktsolver=None,
             cand = BatchSolution.from_state(_run(
                 spec, kkt_next, opts_next, f"backstop-{i}", Qs, cs, As, bs_,
                 Gs, ds, _neutral_warm(out.y[stalled], out.w[stalled],
-                                      out.v[stalled], As, bs_)))
+                                      out.v[stalled], As, bs_), eager=True))
             # accept a tier's answer if it reached a definitive status or
             # at least improved the residual (same policy as conic_ip)
             accept = ~_stalled_mask(cand.status) | (

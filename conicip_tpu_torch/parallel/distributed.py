@@ -43,9 +43,27 @@ by its place along ``mesh[axis]``. Two rules keep the ranks in step:
   (``all_reduce``, ``all_gather``, ``broadcast`` give every rank the same
   bits) and from deterministic arithmetic on it, so every rank's loop takes
   the same path.
-- Every host branch here (the ridge retry) reads a flag that went through
-  an ``all_reduce``. A rank that took another branch than the others would
-  wait forever in a collective they never enter.
+- Every branch of the data here (the ridge retry) is decided by a flag
+  that went through an ``all_reduce`` and stays on the device: the same
+  bits on every rank, so every rank runs the retry's collectives or none.
+  A rank that took another branch than the others would wait forever in a
+  collective they never enter.
+
+**The loop it runs in.** The retry is the reference's ``lax.cond``:
+``control.cond``, which the interior-point loop binds (solver/ipm.py). On
+the eager loop every rank reads the flag and retries after it; on the
+device loop on the CPU the retry runs and its results are taken by the
+flag; on CUDA the retry is the body of a conditional node of the captured
+graph, its NCCL collectives captured inside the body, so the whole solve
+replays with one host read per chunk. A ``kktsolver_schur_tp`` made once
+and reused hits its cache entry (solver/graph.py keys on the generator
+object); one made per call captures again. Over a gloo group on CUDA
+tensors (ranks that share a card) the solve keeps the eager loop, since
+gloo stages its collectives through host memory (parallel/mesh.py). NCCL
+may set connections up lazily, at a collective's first call: a miss's
+eager first unit issues every collective of the step but the retry's
+before the capture. A world of one has no peer to connect; a world of
+several cards under capture has not been run.
 
 Padding (``n_pad``, ``m_pad``, the cone-group counts) is computed from
 shapes alone, the same on every rank. A world of one reduces to the
@@ -62,6 +80,7 @@ from ..cones import scaling as sc
 from ..cones.spec import ConeSpec
 from ..cones.symm import mat, vecm
 from ..kkt.pivot import pivot
+from ..ops import control
 from ..ops.cholesky import cholesky, tri_inv
 from .mesh import MeshAxis
 
@@ -78,11 +97,11 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float64), device=device)
 
 
-def _all_ranks_finite(ax: MeshAxis, X: torch.Tensor) -> bool:
-    """Whether X is finite on every rank of the axis: one all_reduce and
-    one host read, the same answer on every rank."""
-    flag = torch.isfinite(X).all().to(X.dtype).reshape(1)
-    return bool(ax.all_reduce(flag)[0] == ax.size)
+def _finite_on_all_ranks(ax: MeshAxis, X: torch.Tensor) -> torch.Tensor:
+    """Whether X is finite on every rank of the axis, as a device bool:
+    one all_reduce of an integer flag, the same bits on every rank."""
+    flag = torch.isfinite(X).all().to(torch.int32).reshape(1)
+    return ax.all_reduce(flag)[0] == ax.size
 
 
 def distributed_normal_matrix(Q, A, dinv, mesh, axis: str):
@@ -110,7 +129,8 @@ def _factor_body(ax: MeshAxis, M_blk, G_pad, ridge, n_pad: int, p: int):
     equilibration → panel Cholesky → column-sharded W = L⁻¹ → equality
     coupling Y. Returns ``(W_loc, dscale, Y, ok)``: W's (n_pad, r) column
     block of this rank, the (n_pad,) scale and the (n_pad, p) ``W (D Gᵀ)``,
-    both replicated, and whether W is finite on every rank."""
+    both replicated, and whether W is finite on every rank (a device
+    bool)."""
     ntp, me = ax.size, ax.rank
     r = n_pad // ntp
     fd, dev = M_blk.dtype, M_blk.device
@@ -162,28 +182,55 @@ def _factor_body(ax: MeshAxis, M_blk, G_pad, ridge, n_pad: int, p: int):
         Y = ax.all_reduce(W_loc @ X_loc)
     else:
         Y = torch.zeros((n_pad, 0), dtype=fd, device=dev)
-    return W_loc, dscale, Y, _all_ranks_finite(ax, W_loc)
+    return W_loc, dscale, Y, _finite_on_all_ranks(ax, W_loc)
 
 
-def _make_factor_kernel(mesh, axis: str, n_pad: int, p: int, dtype):
-    """The factorization from a replicated, pre-scaled ``Atil``: sharded
-    Gram reduction → block-row M → panel Cholesky → column-sharded L⁻¹.
+def _factor_retried(ax: MeshAxis, M_blk, G_pad, ridge0, n_pad: int, p: int):
+    """:func:`_factor_body` at ``ridge0``, and again at ``1e5·ridge0``
+    where the first factor is not finite on some rank (the reference's
+    ``lax.cond``, ``control.cond``): a rounded f32 assembly can leave M̃
+    indefinite beyond the base ridge. The retry starts from the assembled
+    ``M_blk``, which does not depend on the ridge. Returns ``(W_loc,
+    dscale, Y)``."""
+    W, dscale, Y, ok = _factor_body(ax, M_blk, G_pad, ridge0, n_pad, p)
+    return control.cond(
+        ~ok, lambda: _factor_body(ax, M_blk, G_pad, 1e5 * ridge0, n_pad,
+                                  p)[:3], (W, dscale, Y))
 
-    Returns ``factor(Atil_pad, Q_pad, G_pad, gamma, ridge) -> (W_loc,
-    dscale, Y, ok)`` (:func:`_factor_body`); every rank passes the whole
+
+def _make_assembly(mesh, axis: str, n_pad: int, p: int, dtype):
+    """The sharded Gram reduction from a replicated, pre-scaled ``Atil``:
+    ``assemble(Atil_pad, Q_pad, G_pad, gamma) -> M_blk``, this rank's r
+    rows of the augmented Schur matrix; every rank passes the whole
     (m_pad, n_pad) ``Atil_pad`` and (n_pad, n_pad) ``Q_pad`` and takes its
     own row blocks of them."""
     ax = MeshAxis(mesh, axis)
     r = n_pad // ax.size
     mine = slice(ax.rank * r, (ax.rank + 1) * r)
 
-    def factor(Atil_pad, Q_pad, G_pad, gamma, ridge):
+    def assemble(Atil_pad, Q_pad, G_pad, gamma):
         k = Atil_pad.shape[0] // ax.size
         Atil_blk = Atil_pad[ax.rank * k:(ax.rank + 1) * k].to(dtype)
         M_blk = ax.reduce_scatter(Atil_blk.mT @ Atil_blk) + Q_pad[mine]
         if p:
             M_blk = M_blk + gamma * (G_pad[:, mine].mT @ G_pad)
-        return _factor_body(ax, M_blk, G_pad, ridge, n_pad, p)
+        return M_blk
+
+    return assemble
+
+
+def _make_factor_kernel(mesh, axis: str, n_pad: int, p: int, dtype):
+    """The factorization from a replicated, pre-scaled ``Atil``: sharded
+    Gram reduction (:func:`_make_assembly`) → block-row M → panel Cholesky
+    → column-sharded L⁻¹, at one ridge. Returns ``factor(Atil_pad, Q_pad,
+    G_pad, gamma, ridge) -> (W_loc, dscale, Y, ok)``
+    (:func:`_factor_body`)."""
+    ax = MeshAxis(mesh, axis)
+    assemble = _make_assembly(mesh, axis, n_pad, p, dtype)
+
+    def factor(Atil_pad, Q_pad, G_pad, gamma, ridge):
+        return _factor_body(ax, assemble(Atil_pad, Q_pad, G_pad, gamma),
+                            G_pad, ridge, n_pad, p)
 
     return factor
 
@@ -221,15 +268,17 @@ def _make_matapply_T(mesh, axis: str):
 
 def _my_cones(ax: MeshAxis, x: torch.Tensor, fill) -> torch.Tensor:
     """This rank's share of a per-cone array ``x`` (count, ...): the cone
-    axis padded with ``fill`` to a multiple of the axis size, then split in
-    contiguous blocks."""
+    axis padded with ``fill`` (a number, or a tensor of one cone's shape)
+    to a multiple of the axis size, then split in contiguous blocks."""
     count = x.shape[0]
     k = _ceil_to(count, ax.size) // ax.size
     part = x[ax.rank * k:(ax.rank + 1) * k]
     short = k - part.shape[0]
     if short:
-        fill = torch.as_tensor(fill, dtype=x.dtype, device=x.device)
-        part = torch.cat([part, fill.expand((short,) + tuple(x.shape[1:]))])
+        shape = (short,) + tuple(x.shape[1:])
+        pad = (fill.expand(shape) if isinstance(fill, torch.Tensor)
+               else x.new_full(shape, fill))
+        part = torch.cat([part, pad])
     return part
 
 
@@ -237,16 +286,15 @@ def _shard_cone_rows(ax: MeshAxis, spec: ConeSpec, A, n_pad: int, fd):
     """One-time setup: this rank's rows of A, grouped per cone batch
     (``(R rows, SOC groups, SDP groups)``, each group (k_loc, dim, n_pad)),
     with the columns zero-padded to n_pad and the padded cones' rows
-    zero."""
+    zero. The rows' index tensors are made once per configuration
+    (``scaling.spec_index``), so that a captured level-1 call copies
+    nothing from the host."""
     Af = torch.zeros((A.shape[0], n_pad), dtype=fd, device=A.device)
     Af[:, :A.shape[1]] = A.to(fd)
-
-    def rows(idx):
-        return Af[torch.as_tensor(np.asarray(idx, np.int64), device=A.device)]
-
-    r_part = _my_cones(ax, rows(spec.r_idx), 0.0) if spec.nr else None
-    soc = tuple(_my_cones(ax, rows(g.idx), 0.0) for g in spec.soc_groups)
-    sdp = tuple(_my_cones(ax, rows(g.idx), 0.0) for g in spec.sdp_groups)
+    r_ix, soc_ix, sdp_ix = sc.spec_index(spec, A.device)
+    r_part = _my_cones(ax, Af[r_ix], 0.0) if spec.nr else None
+    soc = tuple(_my_cones(ax, Af[ix], 0.0) for ix in soc_ix)
+    sdp = tuple(_my_cones(ax, Af[ix], 0.0) for ix in sdp_ix)
     return r_part, soc, sdp
 
 
@@ -264,20 +312,20 @@ def _pad_scaling_shards(ax: MeshAxis, spec: ConeSpec, FinvT, fd):
     return r_part, soc, sdp
 
 
-def _make_factor_kernel_sharded(mesh, axis: str, n_pad: int, p: int, dtype):
-    """The cone-sharded variant of :func:`_make_factor_kernel`: each rank
+def _make_assembly_sharded(mesh, axis: str, n_pad: int, p: int, dtype):
+    """The cone-sharded variant of :func:`_make_assembly`: each rank
     applies the NT scaling to its own cones (:func:`_pad_scaling_shards`,
     :func:`_shard_cone_rows`) and feeds the scaled rows straight into its
     Gram partial, so the full (m, n) ``Atil`` never exists. It also forms
     ``gamma``, which needs Σ‖Atil‖², from one scalar all_reduce.
 
-    Returns ``factor(scal, arows, Q_pad, G_pad, trQ, gG, ridge) -> (W_loc,
-    dscale, Y, gamma, ok)``."""
+    Returns ``assemble(scal, arows, Q_pad, G_pad, trQ, gG) -> (M_blk,
+    gamma)``."""
     ax = MeshAxis(mesh, axis)
     r = n_pad // ax.size
     mine = slice(ax.rank * r, (ax.rank + 1) * r)
 
-    def factor(scal, arows, Q_pad, G_pad, trQ, gG, ridge):
+    def assemble(scal, arows, Q_pad, G_pad, trQ, gG):
         (rd, socs, sdps), (A_r, A_soc, A_sdp) = scal, arows
         part = torch.zeros((n_pad, n_pad), dtype=dtype, device=Q_pad.device)
         sumsq = torch.zeros(1, dtype=dtype, device=Q_pad.device)
@@ -308,11 +356,9 @@ def _make_factor_kernel_sharded(mesh, axis: str, n_pad: int, p: int, dtype):
             M_blk = M_blk + gamma * (G_pad[:, mine].mT @ G_pad)
         else:
             gamma = torch.ones((), dtype=dtype, device=Q_pad.device)
-        W_loc, dscale, Y, ok = _factor_body(ax, M_blk, G_pad, ridge, n_pad,
-                                            p)
-        return W_loc, dscale, Y, gamma, ok
+        return M_blk, gamma
 
-    return factor
+    return assemble
 
 
 # ──────────────────────────────────────────────────────────────────────
@@ -341,6 +387,11 @@ def kktsolver_schur_tp(mesh, axis: str = "tp", factor_dtype=None,
     ``factor_dtype=torch.float32`` runs the sharded assembly and
     factorization in f32; the IPM's iterative refinement restores accuracy,
     as on the single-device path.
+
+    ``conic_ip`` runs it on the device loop (captured CUDA graphs on the
+    card) over NCCL and on the CPU, and on the eager loop over gloo on
+    CUDA tensors (module docstring). Make it once and reuse it: the device
+    loop's cache keys on this object.
     """
     ax = MeshAxis(mesh, axis)
     ntp = ax.size
@@ -372,14 +423,13 @@ def kktsolver_schur_tp(mesh, axis: str = "tp", factor_dtype=None,
         def kkt2x2(Q_, A_, G_, spec_):
             use_sharded = bool(distributed_factor and shard_scaling)
             if distributed_factor:
-                factor = _make_factor_kernel(mesh, axis, n_pad, p, fd)
+                assemble = _make_assembly(mesh, axis, n_pad, p, fd)
                 minv_apply = _make_apply(mesh, axis, n_pad)
                 matapply_T = _make_matapply_T(mesh, axis)
             if use_sharded:
                 # one-time regrouping of this rank's rows of A per cone batch
                 arows = _shard_cone_rows(ax, spec_, A_, n_pad, fd)
-                factor_sh = _make_factor_kernel_sharded(mesh, axis, n_pad, p,
-                                                        fd)
+                assemble_sh = _make_assembly_sharded(mesh, axis, n_pad, p, fd)
                 trQ = torch.trace(Q_pad)
                 gG = (torch.sum(Gf * Gf) / p + tiny if p
                       else torch.ones((), **like))
@@ -387,14 +437,10 @@ def kktsolver_schur_tp(mesh, axis: str = "tp", factor_dtype=None,
             def solve2x2gen(F, FinvT):
                 if use_sharded:
                     scal = _pad_scaling_shards(ax, spec_, FinvT, fd)
-                    W, dscale, Y, gamma, ok = factor_sh(
-                        scal, arows, Q_pad, G_pad, trQ, gG, ridge0)
-                    # escalating-ridge retry (cf. kkt/schur.py); ok is the
-                    # same on every rank, so every rank retries or none
-                    if not ok:
-                        W, dscale, Y, gamma, _ = factor_sh(
-                            scal, arows, Q_pad, G_pad, trQ, gG, 1e5 * ridge0)
-                    return _finish_gen(W, dscale, Y, gamma)
+                    M_blk, gamma = assemble_sh(scal, arows, Q_pad, G_pad,
+                                               trQ, gG)
+                    return _finish_gen(*_factor_retried(
+                        ax, M_blk, G_pad, ridge0, n_pad, p), gamma)
 
                 # the scaled rows, replicated: O(m·n·d), far below the
                 # sharded O(mn²) Gram; every cone spec
@@ -415,14 +461,9 @@ def kktsolver_schur_tp(mesh, axis: str = "tp", factor_dtype=None,
                     return _replicated_gen(ax, Atil_pad, Q_pad, G_pad, Gf,
                                            gamma, ridge0, n, n_pad, p, wd)
 
-                W, dscale, Y, ok = factor(Atil_pad, Q_pad, G_pad, gamma,
-                                          ridge0)
-                # escalating-ridge retry: a rounded f32 assembly can leave
-                # M̃ indefinite beyond the base ridge
-                if not ok:
-                    W, dscale, Y, _ = factor(Atil_pad, Q_pad, G_pad, gamma,
-                                             1e5 * ridge0)
-                return _finish_gen(W, dscale, Y, gamma)
+                M_blk = assemble(Atil_pad, Q_pad, G_pad, gamma)
+                return _finish_gen(*_factor_retried(
+                    ax, M_blk, G_pad, ridge0, n_pad, p), gamma)
 
             def _finish_gen(W, dscale, Y, gamma):
                 """Second Schur complement on G and the per-RHS solve: the
@@ -457,7 +498,14 @@ def kktsolver_schur_tp(mesh, axis: str = "tp", factor_dtype=None,
 
         return pivot(kkt2x2, factor_dtype=factor_dtype)(Q, A, G, spec)
 
-    return kktsolver
+    def rule(device):
+        if device.type == "cuda" and ax.backend != "nccl":
+            return (f"kktsolver_schur_tp over {ax.backend} on CUDA tensors: "
+                    f"{ax.backend} stages its collectives through host "
+                    f"memory, which a CUDA graph cannot hold")
+        return None
+
+    return control.takes_device_loop(kktsolver, rule)
 
 
 def _replicated_gen(ax: MeshAxis, Atil_pad, Q_pad, G_pad, Gf, gamma, ridge0,
@@ -477,8 +525,10 @@ def _replicated_gen(ax: MeshAxis, Atil_pad, Q_pad, G_pad, Gf, gamma, ridge0,
     Ms = M * dscale[:, None] * dscale[None, :]
     eye = torch.eye(n_pad, **like)
     L = cholesky(Ms + ridge0 * eye)
-    if not _all_ranks_finite(ax, L):
-        L = cholesky(Ms + (1e5 * ridge0) * eye)
+    # the escalating-ridge retry, a predicated factor (cf. kkt/schur.py):
+    # the flag is the same on every rank
+    L = cholesky(Ms + (1e5 * ridge0) * eye,
+                 skip=_finite_on_all_ranks(ax, L), out=L)
     Linv = tri_inv(L)
 
     def minv(x):

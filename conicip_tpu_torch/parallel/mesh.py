@@ -27,6 +27,12 @@ deprecated on newer torch, and their replacements are missing from older
 ones. NCCL and gloo both run all four on CUDA tensors (gloo copies them
 through host memory itself); NCCL takes one rank per card, so ranks that
 share a card use gloo (:func:`start_rank`).
+
+Under a CUDA graph's capture (solver/graph.py) the NCCL collectives are
+captured as they are issued; the list forms' staging buffers are then
+allocated in the capture's memory pool. Gloo's are not: it copies CUDA
+tensors through host memory, which a graph cannot hold, so a solve whose
+collectives run over gloo on the card keeps the eager loop.
 """
 
 from __future__ import annotations
@@ -72,10 +78,10 @@ def make_mesh(axis_sizes: Optional[Sequence[int]] = None,
 
 
 class MeshAxis:
-    """One dimension of a mesh as this rank sees it: its process group,
-    its size and this rank's place along it, with the collectives of the
-    module docstring. Every rank of the group must make the same calls in
-    the same order."""
+    """One dimension of a mesh as this rank sees it: its process group and
+    that group's backend (``"nccl"`` or ``"gloo"``), its size and this
+    rank's place along it, with the collectives of the module docstring.
+    Every rank of the group must make the same calls in the same order."""
 
     def __init__(self, mesh, axis: str):
         from torch.distributed.device_mesh import DeviceMesh
@@ -88,6 +94,7 @@ class MeshAxis:
             raise ValueError(f"mesh has no axis {axis!r}: its axes are "
                              f"{mesh.mesh_dim_names}")
         self.group = mesh.get_group(axis)
+        self.backend = str(dist.get_backend(self.group))
         self.size = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
 

@@ -20,6 +20,7 @@ from ..cones.spec import ConeSpec
 from ..kkt.diag import equality_mode, kktsolver_diag, separable
 from ..kkt.schur import kktsolver_schur
 from ..kkt.spectral import spectral_applicable, spectral_kktsolver
+from ..ops.control import eager_reason
 from ..reduce import eliminate_equalities
 from . import graph
 from .ipm import IPMOptions, ipm_solve
@@ -44,7 +45,9 @@ class Run(NamedTuple):
     recertified: int  # mixed mode: full-precision product recomputes
     polls: int  # host reads of the loop's status
     replays: int  # CUDA graph replays of one captured chunk
-    loop: str  # "graph", "chunks" (the device loop) or "eager"
+    # "graph", "chunks" (the device loop) or "eager" (verbose, a caller's
+    # own callable, kktsolver_schur_tp over gloo on CUDA: _eager_reason)
+    loop: str
     trips: int  # refinement trips run (on a stack: some instance went on)
     cache_hit: bool  # the device loop's entry was kept from an earlier call
 
@@ -104,18 +107,33 @@ def _diag_kktsolver(factor_dtype, eq_mode="woodbury"):
                              eq_mode=eq_mode)
 
 
-def _device_loop(user_kktsolver, opts) -> bool:
-    """Whether a run takes the device loop (``ipm.POLL`` units per host
-    read, through solver/graph.py's cache; on CUDA captured CUDA graphs,
-    kept across calls) or the eager loop (one host read per iteration).
-    The device loop takes the built-in backends at every precision, the
-    last-mile variant switch and mixed residuals included (both carried on
-    the device, ipm.py). The eager loop keeps verbose output (a print per
-    iteration) and a caller's own kktsolver (whose callbacks may read the
-    device; the distributed path's ``kktsolver_schur_tp`` is one).
-    ``solve_batch`` applies this rule to each stacked run whose generator
-    it chose (parallel/batch.py)."""
-    return not (user_kktsolver or opts.verbose)
+def _eager_reason(kktsolver, opts, device) -> Optional[str]:
+    """Why a run keeps the eager loop (one host read per iteration), or
+    None when it takes the device loop (``ipm.POLL`` units per host read,
+    through solver/graph.py's cache; on CUDA captured CUDA graphs, kept
+    across calls), as the reference's ``_solve_jit`` traces whatever
+    kktsolver it is given. Decided before the solve, never after a
+    failure. The device loop takes the package's own kktsolvers, chosen
+    here or passed by a caller (``kktsolver_schur``, ``kktsolver_diag``,
+    ``kktsolver_qr``, ``kktsolver_lu``, ``functools.partial``s of them,
+    ``spectral_kktsolver(...)``, ``lowrank_kktsolver()``), at every
+    precision, and ``kktsolver_schur_tp`` over NCCL or on the CPU. Three
+    cases keep the eager loop: verbose output (a print per iteration;
+    the reference prints from its loop through ``jax.debug.callback``), a
+    caller's own callable (its callbacks may read the device, which a
+    capture refuses), and ``kktsolver_schur_tp`` over a gloo group on
+    CUDA tensors (gloo stages its collectives through host memory, which
+    a CUDA graph cannot hold). ``solve_batch`` applies this rule to its
+    runs, and keeps the backstop's sub-batches eager
+    (parallel/batch.py)."""
+    if opts.verbose:
+        return "verbose output, a print per iteration"
+    return eager_reason(kktsolver, device)
+
+
+def _device_loop(kktsolver, opts, device) -> bool:
+    """Whether a run takes the device loop (:func:`_eager_reason`)."""
+    return _eager_reason(kktsolver, opts, device) is None
 
 
 def _is_diag(kktsolver) -> bool:
@@ -277,7 +295,7 @@ def _solve_direct(tensors, structure, cone_dims, warm_start, options
                           centralityCorrectors=centralityCorrectors, **o)
         stats = {}
         args = (Q, c, A, b, G, d, spec, kkt, opts)
-        if _device_loop(user_kktsolver, opts):
+        if _device_loop(kkt, opts, c.device):
             st = graph.solve(*args, warm=warm, stats=stats)
         else:
             st = ipm_solve(*args, warm=warm, stats=stats)

@@ -8,8 +8,10 @@ for the next call. :func:`solve` runs
 through a cache of at most :data:`CACHE_SIZE` entries, least recently used
 first out. Its key is what the captured work reads besides the data: the
 device, the dtype, every operand's shape and strides, the ``ConeSpec``,
-the KKT generator (one object per configuration), the ``IPMOptions``, a
-cold or a warm start, and ``ipm.POLL``. An entry owns
+the KKT generator (one object per configuration: a ``kktsolver_schur_tp``
+made once and reused hits, one made per call misses, as a new closure
+recompiles ``jit`` in the reference), the ``IPMOptions``, a cold or a
+warm start, and ``ipm.POLL``. An entry owns
 
 - input buffers for Q, c, A, b, G, d and the warm start, into which each
   call copies its data: each operand in the caller's layout, which the
@@ -51,9 +53,14 @@ trip, run while some instance goes on, as the reference's ``while_loop``
 and the eager loop stop; the mixed-residual recompute, run when it fires
 (the reference's ``cond_once``); and, with a two-variant generator, each
 variant's step (and, where the variants' S-cone decompositions differ,
-its scaling), run while some instance is on it. The trips nest inside a
-variant's step: each level of nesting is captured on a stream of its
-own, and every body's allocations go to a second pool of the entry. The
+its scaling), run while some instance is on it; and what a KKT generator
+decides by ``control.cond`` (``kktsolver_schur_tp``'s ridge retry, its
+NCCL collectives captured inside the body), in the prologue and in a
+unit, run where its first factor failed. The trips and a retry nest
+inside a variant's step: each level of nesting is captured on a stream
+of its own, and every body's allocations go to a second pool of the
+entry. Every capture, and every body, runs in ``thread_local`` mode
+(:data:`CAPTURE_MODE`). The
 first unit of a miss runs eagerly, each body only where its predicate
 holds, as the eager loop runs it. A read inside a capture fails it, and a
 capture, replay or conditional-node error raises: nothing runs the loop
@@ -94,9 +101,10 @@ LOOP, REPLAY = "conicip::loop", "conicip::replay"
 # Levels of conditional nodes in a unit: a variant's step, and the
 # refinement trips inside it.
 NESTING = 2
-# Conditional bodies of a unit that launch counted kernels, at most: each
-# variant's scaling and step.
-COUNTED_BODIES = 4
+# Conditional bodies of a unit, or of the prologue, that launch counted
+# kernels, at most: each variant's scaling and step, and the distributed
+# factor's ridge retry (control.cond) inside each step.
+COUNTED_BODIES = 6
 
 # Entries kept, least recently used first out. The reference's jit cache is
 # unbounded; an entry's pool holds the loop's device memory (about 3.2 GB
@@ -105,6 +113,10 @@ COUNTED_BODIES = 4
 CACHE_SIZE = 4
 
 _cache: OrderedDict = OrderedDict()
+# Entries whose capture failed. A failed capture can leave PyTorch's
+# allocator routing to the entry's pools, and freeing such a pool aborts
+# the process; they are kept, so that the capture's own error is raised.
+_stranded: list = []
 
 
 def _counters():
@@ -267,7 +279,7 @@ def _drive(key, prologue, inputs):
             try:
                 cy, info = _build(entry)
             except BaseException:
-                entry.release()
+                _stranded.append(entry)
                 raise
         # what the caller keeps, copied out of the entry's buffers: the
         # next call overwrites them
@@ -279,6 +291,17 @@ def _drive(key, prologue, inputs):
     return out, dict(info, cache_hit=hit)
 
 
+# The capture mode of every graph and conditional body: "thread_local".
+# A capture in "global" mode fails when another thread makes a call that
+# is unsafe during a capture, and ProcessGroupNCCL's watchdog thread
+# queries CUDA events while a kktsolver_schur_tp entry is captured;
+# PyTorch's CUDA-graph notes advise this mode when other threads make CUDA
+# calls. The capturing thread is held to the same rules in both modes.
+CAPTURE_MODE = "thread_local"
+# cudaStreamCaptureModeThreadLocal, the same mode for the conditional bodies
+_CAPTURE_MODE_ENUM = 1
+
+
 def _capture(entry, fn):
     """Capture ``fn()`` into a new graph in the entry's pool; returns the
     graph and the launch counts the capture made, taken back from the
@@ -287,7 +310,8 @@ def _capture(entry, fn):
     before = [Counter(c) for c in counters]
     graph = torch.cuda.CUDAGraph()
     with record_function("conicip::capture"):
-        graph.capture_begin(pool=entry.pool.id)
+        graph.capture_begin(pool=entry.pool.id,
+                            capture_error_mode=CAPTURE_MODE)
         try:
             fn()
         except BaseException:
@@ -313,22 +337,30 @@ def _play(graph, deltas) -> None:
 
 def _build(entry):
     """A miss on CUDA. The prologue runs eagerly, to build the kernels and
-    warm cuBLAS and the caches a capture cannot fill, and is captured while
-    the card runs it; its graph is then replayed as on a hit, since the
-    chunk reads the tensors that graph writes (so a miss does the
-    prologue's device work twice). The first unit runs eagerly on them,
-    the chunk is captured while the card runs it, and replayed while an
-    instance runs."""
+    warm cuBLAS and the caches a capture cannot fill (a generator's
+    ``control.cond`` bodies after a host read), and is captured while the
+    card runs it; its graph is then replayed as on a hit, since the chunk
+    reads the tensors that graph writes (so a miss does the prologue's
+    device work twice). The first unit runs eagerly on them, the chunk is
+    captured while the card runs it, and replayed while an instance
+    runs."""
     inputs = entry.inputs
+    device = inputs[1].device
     with record_function("conicip::warmup"):
-        _, cy = entry.prologue(*inputs)
+        _, cy = entry.prologue(*inputs, branch=ipm.on_host)
     entry.static = _clone(cy)
-    entry.flag = torch.empty((), dtype=torch.bool, device=cy.k.device)
+    entry.flag = torch.empty((), dtype=torch.bool, device=device)
     entry.pool = torch.cuda.MemPool()
     entry.body_pool = torch.cuda.MemPool()
+    # the counted bodies' runs, made before any capture: a counter
+    # allocated inside a captured body and zeroed after the capture counted
+    # nothing on the H100
+    entry.runs = torch.zeros(COUNTED_BODIES * (1 + ipm.POLL),
+                             dtype=torch.int64, device=device)
+    branch = _conditional(entry, device)
 
     def prologue():
-        entry.body, out = entry.prologue(*inputs)
+        entry.body, out = entry.prologue(*inputs, branch=branch)
         _copy(entry.static, out)
         entry.flag.copy_(entry.body.active(entry.static))
 
@@ -344,12 +376,6 @@ def _build(entry):
         cy = entry.static
         for _ in range(ipm.POLL):
             cy = entry.body.unit(cy, ipm.on_host)
-    # the counted bodies' runs, made before the capture: a counter
-    # allocated inside a captured body and zeroed after the capture counted
-    # nothing on the H100
-    entry.runs = torch.zeros(COUNTED_BODIES * ipm.POLL, dtype=torch.int64,
-                             device=cy.k.device)
-    branch = _conditional(entry, cy.k.device)
 
     def chunk():
         out = entry.static
@@ -419,8 +445,6 @@ def _conditional(entry, device):
     body that launches counted kernels counts its runs in a slot of
     ``entry.runs`` (``entry.bodies``)."""
     lib = _cond_library()
-    # torch.cuda.graphs captures in "global" mode: so is each body
-    global_mode = 0
     # made before the capture, which a new stream's warm-up would break
     streams = [_body_stream(device.index, d) for d in range(NESTING)]
     depth = 0
@@ -436,7 +460,7 @@ def _conditional(entry, device):
         counters = _counters()
         before = [Counter(c) for c in counters]
         err = lib.conicip_if_begin(stream.cuda_stream, child.cuda_stream,
-                                   flag.data_ptr(), global_mode)
+                                   flag.data_ptr(), _CAPTURE_MODE_ENUM)
         if err != 0:
             raise RuntimeError(f"conditional node: CUDA error {err}")
         depth += 1

@@ -26,15 +26,23 @@ drive it:
   variant's scaling and step, so that a single solve builds one variant
   per iteration and a stack split across the variants builds both. The
   last-mile flag, the carried products and their drift are part of the
-  carry, and the Schur backend's ridge retries are predicated factors
-  (ops/control.py), so nothing reads back inside a unit.
-- the eager loop (``device_loop=None``), for verbose output and a caller's
-  own kktsolver, whose callbacks may read the device
-  (``kktsolver_schur_tp`` of the distributed path is one). ``solve_batch``
-  sends the runs whose generator it chose through the device loop by the
-  same rule, and keeps the backstop's sub-batches on this one. It reads
-  the status once per iteration and stops there, and stops refinement as
-  soon as no instance goes on.
+  carry, the Schur backend's ridge retries are predicated factors
+  (ops/control.py), and what a generator decides by ``control.cond`` (the
+  distributed factor's ridge retry) is a body of the same ``branch``,
+  bound around every level-2 call, so nothing reads back inside a unit.
+- the eager loop (``device_loop=None``). The callers decide before the
+  solve which loop a run takes (``solver._eager_reason``): the package's
+  own kktsolvers, chosen by the solver or passed by a caller, and
+  ``kktsolver_schur_tp`` over NCCL or on the CPU, take the device loop;
+  three cases keep this one: verbose output (a print per iteration, where
+  the reference prints from inside its loop), a caller's own callable
+  (its callbacks may read the device, which a capture refuses), and
+  ``kktsolver_schur_tp`` over a gloo group on CUDA tensors (gloo stages
+  its collectives through host memory, which a graph cannot hold).
+  ``solve_batch`` also keeps the backstop's sub-batches on this one. It
+  reads the status once per iteration and stops there, stops refinement
+  as soon as no instance goes on, and runs a generator's
+  ``control.cond`` bodies after a host read of their predicate.
 
 Both loops run the same arithmetic (``evaluate``, ``take_step``; the
 eager loop's ``advance``, the device loop's ``unit``), and everything else
@@ -96,6 +104,7 @@ from ..cones import algebra as ca
 from ..cones import scaling as sc
 from ..cones.spec import ConeSpec
 from ..kkt.pivot import accepts_mode
+from ..ops import control
 from ..ops.batched import col, dot, mv
 from .state import SolState, Status, Vec4
 
@@ -282,13 +291,16 @@ def on_host(pred, body):
 
 
 def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
-          warm: Optional[Vec4]):
+          warm: Optional[Vec4], branch):
     """Everything one solve's iterations read, and the functions of a
     carry they are made of, over checked operands (:func:`_operands`):
     the norms and stacked operators of the residuals, the cone identity,
     the level-1 generator (the LEVEL-1 plugin callback) and the initial
     iterate, an unevaluated :class:`Carry` (``cy0``). Nothing here reads the
-    device: under ``device_prologue`` this is captured in a CUDA graph."""
+    device: under ``device_prologue`` this is captured in a CUDA graph.
+    ``branch`` runs what a generator decides by ``control.cond`` in the
+    initial point's level-2 call (:func:`masked`, :func:`on_host` or a
+    conditional graph node)."""
     n = c.shape[-1]
     m = A.shape[-2]
     p = G.shape[-2]
@@ -423,7 +435,9 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
     # then shift v, s strictly inside the cone.
     if warm is None:
         Fi = sc.nt_identity(spec, dtype, dev, bs)
-        z0 = make_solve4(e, Fi, solve3x3gen(Fi, Fi), lam_eigs=lam_eigs(Fi))(
+        with control.bound(branch):
+            solve3x3 = solve3x3gen(Fi, Fi)
+        z0 = make_solve4(e, Fi, solve3x3, lam_eigs=lam_eigs(Fi))(
             Vec4(c, d, b, torch.zeros(bs + (m,), dtype=dtype, device=dev)))
     else:
         z0 = warm.map(lambda x: x.to(dtype=dtype, device=dev))
@@ -828,16 +842,18 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
         iterate, where it still runs, then the new iterate evaluated. No
         host read and no early exit, so it can be captured in a CUDA graph
         (solver/graph.py); ``branch`` runs the refinement trips, the
-        variants and the recompute (:func:`masked`, :func:`on_host`, or a
-        conditional node inside a capture)."""
+        variants, the recompute and the generator's own ``control.cond``
+        (:func:`masked`, :func:`on_host`, or a conditional node inside a
+        capture)."""
         go = active_of(cy)
 
         def step(slow):
-            if two_mode:
-                solve3x3 = solve3x3gen(cy.F, cy.FinvT,
-                                       mode="slow" if slow else "fast")
-            else:
-                solve3x3 = solve3x3gen(cy.F, cy.FinvT)
+            with control.bound(branch):
+                if two_mode:
+                    solve3x3 = solve3x3gen(cy.F, cy.FinvT,
+                                           mode="slow" if slow else "fast")
+                else:
+                    solve3x3 = solve3x3gen(cy.F, cy.FinvT)
             out = take_step(cy.z, cy.F, cy.FinvT, cy.lam, cy.R, solve3x3,
                             eig_dtype_of(slow), go, branch)
             return out[0], out[3], out[4], out[5]  # z_new, Pd, alpha, trips
@@ -895,13 +911,15 @@ def device_prologue(spec: ConeSpec, kktsolver, opts: IPMOptions):
     level-1 callback, the initial point) and evaluates its first iterate,
     reading nothing back. It returns the loop's functions (``unit``, and
     ``active``: a device bool, whether any instance still runs) and the
-    first carry. Takes every configuration but verbose output."""
+    first carry. ``branch`` runs what the initial point's level-2 call
+    decides by ``control.cond``. Takes every configuration but verbose
+    output."""
     if opts.verbose:
         raise ValueError("the device loop takes no verbose output")
 
-    def prologue(Q, c, A, b, G, d, warm=None):
+    def prologue(Q, c, A, b, G, d, warm=None, branch=masked):
         L = _loop(*_operands(Q, c, A, b, G, d, spec), spec, kktsolver, opts,
-                  warm)
+                  warm, branch)
         body = SimpleNamespace(unit=L.unit,
                                active=lambda cy: L.active_of(cy).any())
         return body, L.evaluated(L.cy0)
@@ -958,7 +976,7 @@ def ipm_solve(
         return _device_result(cy, info, counts, stats)
 
     Q, c, A, b, G, d = _operands(Q, c, A, b, G, d, spec)
-    L = _loop(Q, c, A, b, G, d, spec, kktsolver, opts, warm)
+    L = _loop(Q, c, A, b, G, d, spec, kktsolver, opts, warm, on_host)
     two_mode, mixed, cy = L.two_mode, L.mixed, L.cy0
     evaluate, take_step, advance = L.evaluate, L.take_step, L.advance
     scaling, active_of, eig_dtype_of = L.scaling, L.active_of, L.eig_dtype_of
@@ -1066,11 +1084,12 @@ def ipm_solve(
         run = active_of(cy) & (st.status == Status.RUNNING)
 
         def step(slow):
-            if two_mode:
-                solve3x3 = solve3x3gen(F, FinvT,
-                                       mode="slow" if slow else "fast")
-            else:
-                solve3x3 = solve3x3gen(F, FinvT)
+            with control.bound(on_host):
+                if two_mode:
+                    solve3x3 = solve3x3gen(F, FinvT,
+                                           mode="slow" if slow else "fast")
+                else:
+                    solve3x3 = solve3x3gen(F, FinvT)
             return take_step(cy.z, F, FinvT, lam, R, solve3x3,
                              eig_dtype_of(slow), run, branch)[:5]
 

@@ -3,6 +3,7 @@
     python -m conicip_tpu_torch.trace [--family box_qp_dense] [--n 4096]
                                       [--seed 42] [--factor-dtype float64]
                                       [--batch B] [--poll K] [--chain K]
+                                      [--kkt auto|schur|tp]
 
 Solves one instance of a problem family (``--n`` sizes ``box_qp_dense`` and
 ``single_soc``; the other families take their default sizes) from inputs
@@ -22,6 +23,13 @@ diagonal-block, panel and trailing kernels, the Jacobi kernels' device time,
 and the other device operations by total time.
 ``--factor-dtype float32`` profiles the f32-factor solve (mixed residuals,
 last-mile switch, ladder) in place of the full-precision default.
+``--kkt`` picks the KKT solver: ``auto`` (``conic_ip``'s own choice, the
+default), ``schur`` (``kktsolver_schur`` passed by hand, as a caller
+passes it: no centrality corrector) or ``tp`` (``kktsolver_schur_tp`` over
+a world of one rank that this command starts, NCCL on the card), made
+once and passed to every solve; with ``--factor-dtype float32`` they
+factor in f32. ``rq_eq`` is the problem of the reference's multichip dry
+run (n = 512, R(1024) x Q(32) x Q(32), p = 16).
 ``--batch B`` profiles one ``solve_batch`` of a stack of B instances of the
 family's batched form instead (``box_qp_dense`` sized by ``--n``,
 ``mixed_rq_eq`` at n=200, ``mixed_rqs``, ``small_sdp``): the same lines, per
@@ -52,6 +60,7 @@ needs a CUDA device and fails without one.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -59,10 +68,12 @@ import tempfile
 import time
 from collections import Counter, defaultdict
 
+import numpy as np
 import torch
 
 from . import conic_ip, solve_batch, solver
 from . import models
+from .cones.spec import ConeSpec
 from .ops import cholesky_kernel, jacobi_kernel
 from .parallel import batch as parallel_batch
 from .solver import graph, ipm
@@ -74,6 +85,8 @@ FAMILIES = {
     "many_small_socs": lambda n, seed: models.many_small_socs(seed=seed),
     "larger_sdp": lambda n, seed: models.larger_sdp(seed=seed),
     "mixed_rqs": lambda n, seed: models.mixed_rqs(seed=seed),
+    "mixed_rq_eq": lambda n, seed: models.mixed_rq_eq(seed=seed),
+    "rq_eq": lambda n, seed: rq_eq(seed=seed),
 }
 
 # --batch: stacks of B instances, (Q, c, A, b, cone_dims[, G, d])
@@ -94,6 +107,54 @@ JACOBI_PARTS = ("eigh_jacobi_warp", "svd_jacobi_warp", "eigh_jacobi",
                 "svd_jacobi")
 # pieces of the names of cuSOLVER's eigen- and singular-value kernels
 CUSOLVER_EIG_SVD = ("syevj", "syevd", "sytrd", "gesvdj", "batched_svd")
+
+
+def rq_eq(n=512, p=16, seed=0):
+    """The problem the reference's multichip dry run solves through its
+    kktsolver_schur_tp (``__graft_entry__.py``): R(2n) x Q(32) x Q(32),
+    diagonal Q, p equalities, strictly feasible; n = 512 gives m = 1088."""
+    cones = [("R", 2 * n), ("Q", 32), ("Q", 32)]
+    m = sum(k for _, k in cones)
+    rng = np.random.default_rng(seed)
+    Q = np.diag(1.0 + rng.random(n))
+    c = rng.standard_normal(n)
+    A = np.vstack([np.eye(n), -np.eye(n),
+                   rng.standard_normal((m - 2 * n, n)) * 0.1])
+    y0 = rng.standard_normal(n) * 0.1
+    b = A @ y0 - ConeSpec(cones).identity
+    G = rng.standard_normal((p, n))
+    return models.Problem(f"rq_eq(n={n},m={m},p={p})", Q, c, A, b,
+                          cones, G, G @ y0)
+
+
+def kktsolver(name, factor_dtype, device):
+    """The ``--kkt`` solver on ``device`` (module docstring), or None for
+    ``auto``; ``tp`` starts the world of one it runs over (NCCL on the
+    card, gloo on the CPU), which :func:`stop_world` ends."""
+    from .kkt import kktsolver_schur
+    from .parallel import kktsolver_schur_tp, make_mesh
+    from .parallel.mesh import start_rank
+
+    fd = FACTOR_DTYPES[factor_dtype]
+    fd = None if fd == "auto" else fd
+    if name == "schur":
+        return (kktsolver_schur if fd is None else
+                functools.partial(kktsolver_schur, factor_dtype=fd))
+    if name == "tp":
+        device = torch.device(device)
+        start_rank(0, 1, "file://" + os.path.join(tempfile.mkdtemp(),
+                                                  "rendezvous"), device.type)
+        mesh = make_mesh((1,), ("tp",), device_type=device.type)
+        return kktsolver_schur_tp(mesh, "tp", factor_dtype=fd)
+    return None
+
+
+def stop_world():
+    """End the world a ``--kkt tp`` run started."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _busy_us(events):
@@ -167,6 +228,9 @@ CHAIN_COUNTS = ("polls", "fast_steps", "slow_steps", "recertified", "trips")
 # --factor-dtype: the keyword conic_ip gets ("auto" is full precision)
 FACTOR_DTYPES = {"float64": "auto", "float32": torch.float32}
 
+# --kkt: conic_ip's own choice, or a solver passed by hand
+KKT_SOLVERS = ("auto", "schur", "tp")
+
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -185,10 +249,16 @@ def parse_args(argv=None):
     ap.add_argument("--chain", type=int, default=0,
                     help="also time this many instances solved back to "
                          "back")
+    ap.add_argument("--kkt", choices=KKT_SOLVERS, default="auto",
+                    help="the KKT solver: conic_ip's choice, "
+                         "kktsolver_schur passed by hand, or "
+                         "kktsolver_schur_tp over a world of one")
     args = ap.parse_args(argv)
     if args.family not in (BATCH_FAMILIES if args.batch else FAMILIES):
         ap.error(f"--family {args.family} has no "
                  f"{'batched' if args.batch else 'single-instance'} form")
+    if args.kkt == "tp" and args.batch:
+        ap.error("--kkt tp solves one instance: no --batch")
     return args
 
 
@@ -220,6 +290,7 @@ def main(argv=None):
         return _profile(args)
     finally:
         ipm.POLL = default
+        stop_world()
 
 
 def _profile(args):
@@ -227,6 +298,9 @@ def _profile(args):
 
     dev = torch.device("cuda")
     kw = dict(device=dev, factor_dtype=FACTOR_DTYPES[args.factor_dtype])
+    kkt = kktsolver(args.kkt, args.factor_dtype, dev)
+    if kkt is not None:
+        kw["kktsolver"] = kkt
 
     def on_card(x):
         return (None if x is None else
@@ -294,6 +368,7 @@ def _profile(args):
     it = max(iters, 1)
     busy_ms = _busy_us(device) / 1e3
     print(f"[solve] family={name} factor_dtype={args.factor_dtype} "
+          f"kkt={args.kkt} "
           f"status={status} Iter={iters} "
           f"wall_ms={wall_ms:.2f} "
           f"wall_ms_unprofiled={sorted(unprofiled)[REPEATS // 2]:.2f} "
@@ -380,7 +455,7 @@ def _chain(args, kw, on_card):
     later = sorted(per_solve[1:])
     unit = "stack" if args.batch else "solve"
     batch = f" B={args.batch}" if args.batch else ""
-    print(f"[chain] family={args.family}{batch} "
+    print(f"[chain] family={args.family}{batch} kkt={args.kkt} "
           f"n={problems[0][0][1].shape[-1]} "
           f"instances={args.chain} rounds={ROUNDS} "
           f"ms_per_{unit}={later[ROUNDS // 2]:.2f} "

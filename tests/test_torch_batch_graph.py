@@ -22,7 +22,7 @@ loop
   once a first prologue has run.
 
 They also say which runs keep the eager loop: the backstop's
-sub-batches and a caller's kktsolver; f32 factors with mixed residuals
+sub-batches and a caller's own callable; f32 factors with mixed residuals
 take the device loop.
 """
 
@@ -263,11 +263,12 @@ def test_f32_main_runs_keep_the_eager_loop_and_f64_tiers_do_not():
 
 
 def test_the_backstops_sub_batches_keep_the_eager_loop():
-    # a caller's f32 Schur generator on S cones stalls every instance;
-    # the backstop's f64 sub-batch finishes them on the eager loop
+    # a caller's f32 Schur generator on S cones stalls every instance (on
+    # the device loop: it is the package's own); the backstop's f64
+    # sub-batch finishes them on the eager loop
     _, got, runs = port(batched_small_sdp(4, k=6),
                         kktsolver=_default_kktsolver(F32), factor_dtype=F32)
-    assert [(r.tier, r.loop) for r in runs] == [("main", "eager"),
+    assert [(r.tier, r.loop) for r in runs] == [("main", "chunks"),
                                                ("backstop-1", "eager")]
     assert runs[1].kktsolver is pt.kktsolver_schur
     assert got.statuses == ["Optimal"] * 4
@@ -284,7 +285,11 @@ def test_the_s_cone_f32_policy_runs_on_the_device_loop():
 
 @pytest.mark.parametrize("backend", ["kktsolver_qr", "kktsolver_lu"])
 def test_a_callers_kktsolver_keeps_the_eager_loop(backend):
-    kkt = getattr(pt, backend)
+    # a caller's own callable (here around one of the package's backends,
+    # which alone would take the device loop)
+    def kkt(Q, A, G, spec):
+        return getattr(pt, backend)(Q, A, G, spec)
+
     _, got, runs = port(STACKS["mixed_rq_eq stacked G"](), kktsolver=kkt)
     assert [(r.kktsolver, r.loop, r.cache_hit) for r in runs] == [
         (kkt, "eager", False)]

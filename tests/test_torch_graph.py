@@ -310,12 +310,15 @@ def test_predicated_plain_factor_keeps_the_flagged_matrices(rng):
 
 def test_device_loop_configurations():
     # the device loop takes the built-in backends at every precision (f32
-    # factors with the last-mile switch and mixed residuals too); verbose
-    # output and a caller's kktsolver keep the eager loop
+    # factors with the last-mile switch and mixed residuals too), passed by
+    # a caller too; verbose output and a caller's own callable keep the
+    # eager loop
     args = models.box_qp_dense(n=30).args()
     for kw, loop in (({}, "chunks"), (dict(verbose=True), "eager"),
                      (dict(factor_dtype=torch.float32), "chunks"),
-                     (dict(kktsolver=kktsolver_schur), "eager")):
+                     (dict(kktsolver=kktsolver_schur), "chunks"),
+                     (dict(kktsolver=lambda *a: kktsolver_schur(*a)),
+                      "eager")):
         with contextlib.redirect_stdout(None):
             pt.conic_ip(*args, device="cpu", **kw)
         # (a ladder tier after an f32 run takes the device loop too)

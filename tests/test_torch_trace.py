@@ -100,8 +100,8 @@ def test_needs_a_card():
 
 def test_families_make_their_problems():
     assert sorted(trace.FAMILIES) == ["box_qp_dense", "larger_sdp",
-                                      "many_small_socs", "mixed_rqs",
-                                      "single_soc"]
+                                      "many_small_socs", "mixed_rq_eq",
+                                      "mixed_rqs", "rq_eq", "single_soc"]
     P = trace.FAMILIES["single_soc"](8, 42)
     assert P.name == "single_soc(n=8)" and P.cone_dims == [("Q", 9)]
     assert trace.FAMILIES["box_qp_dense"](8, 42).A.shape == (16, 8)
@@ -155,6 +155,42 @@ def test_chain_switch_solves_seeded_instances():
     if not torch.cuda.is_available():
         assert trace.main(["--n", "8", "--chain", "2"]) == 2
         assert trace.main(["--batch", "4", "--n", "8", "--chain", "2"]) == 2
+
+
+def test_kkt_switch_passes_one_solver_to_every_solve():
+    import torch.distributed as dist
+
+    from conicip_tpu_torch import conic_ip, models, solver
+    from conicip_tpu_torch.kkt import kktsolver_schur
+
+    assert trace.parse_args([]).kkt == "auto"
+    args = trace.parse_args(["--kkt", "tp", "--family", "rq_eq"])
+    assert (args.kkt, args.family) == ("tp", "rq_eq")
+    with pytest.raises(SystemExit):  # the TP solver takes one instance
+        trace.parse_args(["--kkt", "tp", "--batch", "4"])
+    # the reference's multichip problem: n = 512, m = 1088, p = 16
+    P = trace.FAMILIES["rq_eq"](0, 0)
+    assert (P.Q.shape, P.A.shape, P.G.shape) == ((512, 512), (1088, 512),
+                                                  (16, 512))
+    assert trace.kktsolver("auto", "float64", "cpu") is None
+    assert trace.kktsolver("schur", "float64", "cpu") is kktsolver_schur
+    assert trace.kktsolver("schur", "float32", "cpu").keywords == dict(
+        factor_dtype=torch.float32)
+    # tp: a world of one (gloo on the CPU) that stop_world ends; the one
+    # solver takes the device loop, and a second solve hits its entry
+    try:
+        kkt = trace.kktsolver("tp", "float64", "cpu")
+        box = models.box_qp_dense(n=12).args()
+        for hit in (False, True):
+            sol = conic_ip(*box, kktsolver=kkt, device="cpu")
+            (run,) = solver.runs
+            assert sol.status == "Optimal"
+            assert (run.loop, run.cache_hit) == ("chunks", hit)
+    finally:
+        trace.stop_world()
+    assert not dist.is_initialized()
+    if not torch.cuda.is_available():
+        assert trace.main(["--kkt", "tp", "--n", "8"]) == 2
 
 
 def test_kkt_builds_count_each_loops_work():
