@@ -33,8 +33,13 @@ Three further phases drive the options around the default path:
 ``[f32]`` the f32-factor solves (the kernel's f32 entry, the last-mile
 switch to f64 factors), ``[eq]`` null-space elimination of equalities and
 the rank-repairing preprocessor, ``[backends]`` the qr, lu and low-rank KKT
-solvers. ``[batch]`` drives ``solve_batch`` on stacks of 64 instances of the
-four batched families (every dense factor one launch of the kernel's
+solvers. ``[custom_kkt]`` drives a caller's own kktsolver on the device
+loop (``examples/torch/custom_kkt.py``'s box solver at n=1000, a dense
+Schur solver on the port's ``ops.cholesky`` at n=1024: a miss, then hits
+held to the eager loop bit for bit and to the CPU), the same solver
+reading the device (found before any capture, kept on the eager loop),
+and ``verbose=True`` printing the eager loop's text. ``[batch]`` drives
+``solve_batch`` on stacks of 64 instances of the four batched families (every dense factor one launch of the kernel's
 batched entry, sampled instances held against their single solves; every
 run the solver chooses, f32 included, on the device loop, a cache hit),
 ``[batch_graph]`` holds each stack, f64 and f32, on the device loop
@@ -66,6 +71,14 @@ of JAX.
 
 The second-to-last line is a JSON object describing each kernel entry of
 the path; the last line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --phase NAME [--package DIR]
+
+runs the environment, the build and the one phase ``phase_NAME`` alone,
+and prints its ``[phase_time]``: no kernels line and no final line. With
+``--package`` the package is the one in DIR, another checkout (for
+example the parent commit's, unpacked by ``git archive``), so that two
+trees' runs of one phase compare in one call on one card.
 """
 
 from __future__ import annotations
@@ -1433,7 +1446,7 @@ def phase_graph_cache():
     leave no segment behind. ms per solve (host clock around a
     synchronised call on the device operands conic_ip made, the result's
     scalars read; median, least and most of the five): hit, miss and the
-    eager loop."""
+    eager loop; seconds of the case, and of its CPU solves in it."""
     from conicip_tpu_torch import conic_ip, models, solver
     from conicip_tpu_torch.solver import graph, ipm
     from conicip_tpu_torch.solver.state import Solution
@@ -1456,6 +1469,7 @@ def phase_graph_cache():
                    if tuple(seg["segment_pool_id"]) in ids)
 
     for label, make, kw in graph_cache_cases():
+        started = time.perf_counter()
         graph.clear()
         instances = [make(seed) for seed in range(1, CHAIN + 1)]
         first = conic_ip(*instances[0], device="cuda", **kw)
@@ -1497,7 +1511,7 @@ def phase_graph_cache():
         ms_hit = [timed(lambda: loop(a))[1] for a in operands]
         ms_eager = [timed(lambda: Solution.from_state(ipm.ipm_solve(*a)))[1]
                     for a in operands]
-        ms_miss, cpu_iters = [], []
+        ms_miss, cpu_iters, cpu_s = [], [], 0.0
         for args, a, (status, Iter, y, w, v) in zip(instances[1:], operands,
                                                     hits):
             graph.clear()
@@ -1513,7 +1527,9 @@ def phase_graph_cache():
             ms_miss.append(ms)
             if kw:
                 continue
+            t = time.perf_counter()
             cpu = conic_ip(*args, device="cpu")
+            cpu_s += time.perf_counter() - t
             check((cpu.status, cpu.Iter) == (status, Iter),
                   f"[graph_cache] {label}: card {status}/{Iter}, cpu "
                   f"{cpu.status}/{cpu.Iter}")
@@ -1550,7 +1566,9 @@ def phase_graph_cache():
              first_unchanged=True, reserved_mb=f"{reserved[0] / 2**20:.0f}",
              other_shape_missed=other_missed, evicted_pool_segments=left,
              ms_hit=spread(ms_hit), ms_miss=spread(ms_miss),
-             ms_eager=spread(ms_eager))
+             ms_eager=spread(ms_eager),
+             seconds=f"{time.perf_counter() - started:.1f}",
+             cpu_seconds=f"{cpu_s:.1f}")
     graph.clear()
 
 
@@ -1802,7 +1820,7 @@ def phase_backends():
     for name, P, kkt in (("qr", models.mixed_rq_eq(), kktsolver_qr),
                          ("lu", models.mixed_rq_eq(), kktsolver_lu),
                          ("lowrank", low, lowrank_kktsolver())):
-        reason = solver._eager_reason(kkt, ipm.IPMOptions(), "cuda")
+        reason = solver._eager_reason(kkt, "cuda")
         check(reason is None, f"{name}: kept on the eager loop: {reason}")
         solve_timed(P.args(), device="cuda", kktsolver=kkt)  # warm-up, miss
         n, p = P.Q.shape[0], P.G.shape[0]
@@ -2966,6 +2984,313 @@ def phase_ladder():
          kkt_builds=sum(want.values()), ms_per_batch=f"{ms:.2f}")
 
 
+CUSTOM_BOX_N = 1000  # [custom_kkt] (a): the README box QP
+CUSTOM_DENSE_N = 1024  # (b)-(d): box_qp_dense
+CUSTOM_CHAIN = 6  # chained hits of (a) and (b) after their miss
+
+
+def schur_matrix(Q, A, F):
+    """Q + Aᵀ(FᵀF)⁻¹A for R cones (F = diag(r_d))."""
+    winv = 1.0 / (F.r_d * F.r_d)
+    return Q + A.mT @ (winv[..., :, None] * A)
+
+
+def dense_schur_2x2(Q, A, G, spec):
+    """A caller's own dense Schur 2x2 solver (R cones, no equalities),
+    written with the port's public ``ops.cholesky`` and ``ops.cho_solve``
+    only: the Cholesky kernel, launched from a caller's level 2."""
+    from conicip_tpu_torch.ops import cho_solve, cholesky
+
+    def solve2x2gen(F, FinvT):
+        L = cholesky(schur_matrix(Q, A, F))
+        return lambda by, bw: (cho_solve(L, by), bw)
+
+    return solve2x2gen
+
+
+def dense_schur_2x2_linalg(Q, A, G, spec):
+    """The same solver factoring with ``torch.linalg.cholesky``, which
+    checks ``info`` on the host: it reads the device."""
+    from conicip_tpu_torch.ops import cho_solve
+
+    def solve2x2gen(F, FinvT):
+        L = torch.linalg.cholesky(schur_matrix(Q, A, F))
+        return lambda by, bw: (cho_solve(L, by), bw)
+
+    return solve2x2gen
+
+
+def through(fn, real, seen):
+    """``fn()`` with ``graph.solve`` replaced by a spy that keeps the
+    operands of its latest call in ``seen``."""
+    from conicip_tpu_torch.solver import graph
+
+    def spy(*a, **k):
+        seen["call"] = (a, k)
+        seen["calls"] = seen.get("calls", 0) + 1
+        return real(*a, **k)
+
+    graph.solve = spy
+    try:
+        return fn()
+    finally:
+        graph.solve = real
+
+
+def custom_case(label, P, kkt):
+    """(a) or (b): a caller's kktsolver made once, a miss and a hit
+    through conic_ip, the hit held to the eager loop on the operands
+    conic_ip handed graph.solve (status, Iter, KKT builds, trips and
+    Cholesky launches by order equal, y bit for bit) and to the CPU
+    (status, Iter); CUSTOM_CHAIN chained hits; ms of a hit and of the
+    eager loop, chained; DtoH and kernels per iteration and host launches
+    during replays (profiler). Returns the hit's solution."""
+    from conicip_tpu_torch import conic_ip, solver
+    from conicip_tpu_torch.solver import graph, ipm
+    from conicip_tpu_torch.solver.state import Solution
+
+    what = f"[custom_kkt] {label}"
+    args = on_card(P)
+    real, seen = graph.solve, {}
+    through(lambda: conic_ip(*args, kktsolver=kkt, device="cuda"), real,
+            seen)
+    miss = solver.runs[-1]
+    a, akw = seen.pop("call")
+    before = chol_by_order()
+    sol = conic_ip(*args, kktsolver=kkt, device="cuda")
+    run = solver.runs[-1]
+    hit_launches = chol_by_order() - before
+
+    def eager(stats=None):
+        return Solution.from_state(ipm.ipm_solve(*a, warm=akw["warm"],
+                                                 stats=stats))
+
+    def graphed(stats=None):
+        return Solution.from_state(real(*a, warm=akw["warm"], stats=stats))
+
+    est = {}
+    before = chol_by_order()
+    ref = eager(est)
+    eager_launches = chol_by_order() - before
+    erun = solver.Run(None, ref.status, ref.Iter, **est)
+    builds = run_builds(run)
+    check(miss.loop == run.loop == "graph" and not miss.cache_hit
+          and run.cache_hit and run.replays > 0,
+          f"{what}: loops {miss.loop}/{run.loop}, hits "
+          f"{miss.cache_hit}/{run.cache_hit}, {run.replays} replays")
+    check((sol.status, sol.Iter) == (ref.status, ref.Iter)
+          and torch.equal(sol.y, ref.y),
+          f"{what}: hit {sol.status}/{sol.Iter}, eager "
+          f"{ref.status}/{ref.Iter}, y equal {torch.equal(sol.y, ref.y)}")
+    check(builds == run_builds(erun) and run.trips == erun.trips
+          and hit_launches == eager_launches,
+          f"{what}: {builds} KKT builds, {run.trips} trips, launches "
+          f"{dict(hit_launches)} on a hit; {run_builds(erun)}, "
+          f"{erun.trips}, {dict(eager_launches)} on the eager loop")
+    check(run.polls == 1 + run.replays,
+          f"{what}: {run.polls} polls for {run.replays} replays")
+    cpu = conic_ip(*P, kktsolver=kkt, device="cpu")
+    check((cpu.status, cpu.Iter) == (sol.status, sol.Iter)
+          and solver.runs[-1].loop == "chunks",
+          f"{what}: cpu {cpu.status}/{cpu.Iter} on "
+          f"{solver.runs[-1].loop}, card {sol.status}/{sol.Iter}")
+    hits, ms_hit = chained_ms(lambda: (
+        conic_ip(*args, kktsolver=kkt, device="cuda"),
+        solver.runs[-1].cache_hit), CUSTOM_CHAIN)
+    check(all(h for _, h in hits)
+          and all(torch.equal(x.y, sol.y) for x, _ in hits),
+          f"{what}: a chained solve missed or differs from the first hit")
+    _, ms_eager = chained_ms(eager, CUSTOM_CHAIN)
+    pg, pe = profiled(graphed), profiled(eager)
+    check(pg["dtoh_loop"] <= run.polls and pg["replay_host_launches"] == 0,
+          f"{what}: {pg['dtoh_loop']} device-to-host copies in the loop for "
+          f"{run.polls} polls, {pg['replay_host_launches']} host launches "
+          f"during replays")
+    by_order = {f"{dtname(k[0])}@{k[1]}": v for k, v in
+                sorted(hit_launches.items(), key=str)}
+    it = max(sol.Iter, 1)
+    line("custom_kkt", case=repr(label), loop=run.loop,
+         cache_hit=run.cache_hit, polls=run.polls, replays=run.replays,
+         trips=run.trips, status=sol.status, Iter=sol.Iter,
+         cpu_iter=cpu.Iter, y_diff_eager=f"{(sol.y - ref.y).abs().max():.3e}",
+         kkt_builds=builds, cholesky_launches_hit=by_order or "none",
+         launches_equal_eager=True,
+         ms_per_solve_hit=f"{ms_hit:.2f}",
+         ms_per_solve_eager=f"{ms_eager:.2f}", chained=CUSTOM_CHAIN,
+         dtoh_per_iter_graph=f"{pg['dtoh'] / it:.2f}",
+         dtoh_per_iter_eager=f"{pe['dtoh'] / it:.2f}",
+         kernels_per_iter_graph=f"{pg['kernels'] / it:.1f}",
+         kernels_per_iter_eager=f"{pe['kernels'] / it:.1f}",
+         replay_host_launches=pg["replay_host_launches"])
+    return sol
+
+
+def dense_schur_2x2_from_host(Q, A, G, spec):
+    """``dense_schur_2x2`` whose level 1 makes a tensor of host data on the
+    card (a pageable host-to-device copy)."""
+    one = torch.as_tensor(np.ones(1), device=Q.device)
+    return dense_schur_2x2(one * Q, A, G, spec)
+
+
+def reads_the_device_case(P, ref, factor, label):
+    """(c): the dense solver reading the device (``factor``: on
+    ``torch.linalg.cholesky``, which checks ``info`` on the host, or making
+    a tensor of host data in its level 1). The first call runs its
+    callbacks under the guard before any capture, finds the read and
+    solves on the eager loop (its reason naming the call ``label``; no
+    capture attempted, no entry kept or stranded); the second call decides
+    before the solve (graph.solve is not called). Both give (b)'s status
+    and Iter (``ref``)."""
+    from conicip_tpu_torch import pivot, solver
+    from conicip_tpu_torch.solver import graph, ipm
+
+    what = f"[custom_kkt] (c) {label}"
+    kkt = pivot(factor)
+    args = on_card(P)
+    stranded, captures = len(graph._stranded), []
+    real_capture, real, seen = graph._capture, graph.solve, {}
+
+    def spy_capture(entry, fn):
+        captures.append(fn)
+        return real_capture(entry, fn)
+
+    graph._capture = spy_capture
+    try:
+        first, ms_first = through(lambda: solve_timed(
+            args, kktsolver=kkt, device="cuda"), real, seen)
+        r1 = solver.runs[-1]
+        decided = solver._eager_reason(kkt, "cuda")
+        second, ms_second = through(lambda: solve_timed(
+            args, kktsolver=kkt, device="cuda"), real, seen)
+        r2 = solver.runs[-1]
+    finally:
+        graph._capture = real_capture
+    check(r1.loop == r2.loop == "eager" and label in (r1.reason or ""),
+          f"{what}: loops {r1.loop}/{r2.loop}, reason {r1.reason!r}")
+    check(not captures and len(graph._stranded) == stranded
+          and not any(k[5] is kkt for k in graph.cache_info()),
+          f"{what}: {len(captures)} captures, "
+          f"{len(graph._stranded) - stranded} entries stranded")
+    check(seen.get("calls") == 1 and decided == r1.reason == r2.reason,
+          f"{what}: graph.solve called {seen.get('calls')} times, the "
+          f"second call's reason {r2.reason!r}")
+    check(all((s.status, s.Iter) == (ref.status, ref.Iter)
+              for s in (first, second)),
+          f"{what}: {first.status}/{first.Iter}, {second.status}/"
+          f"{second.Iter}; (b) {ref.status}/{ref.Iter}")
+    line("custom_kkt", case=repr(f"(c) dense Schur 2x2 reading the device: "
+                                 f"{label}"),
+         loop=r1.loop, second_call=r2.loop, status=first.status,
+         Iter=first.Iter, captures=len(captures),
+         stranded=len(graph._stranded) - stranded,
+         decided_before_the_solve=True,
+         y_diff_b=f"{(first.y - ref.y).abs().max():.3e}",
+         ms_first=f"{ms_first:.2f}", ms_second=f"{ms_second:.2f}",
+         reason=repr(r1.reason))
+
+
+def printed(fn):
+    """``fn()``'s standard output and the latest conic_ip run."""
+    import contextlib
+    import io
+
+    from conicip_tpu_torch import solver
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn()
+    return buf.getvalue(), solver.runs[-1]
+
+
+def verbose_case(P):
+    """(d): ``verbose=True`` with the default backend on the device loop,
+    a miss and a hit, each printing exactly what the eager loop (the rule
+    overridden for this one call) prints, row for row; on a hit one
+    device-to-host copy per poll (the flag and the unit's row) and no
+    host launch during the replays; ms of a hit and of the eager loop,
+    chained, printing to a buffer, beside a hit without verbose output."""
+    from conicip_tpu_torch import conic_ip, solver
+    from conicip_tpu_torch.solver import graph
+
+    what = "[custom_kkt] (d)"
+    args = on_card(P)
+
+    def solve(**kw):
+        return conic_ip(*args, device="cuda", verbose=True, **kw)
+
+    def eager_rule(*a):
+        return "the eager loop, for comparison"
+
+    def eager():
+        real = solver._eager_reason
+        solver._eager_reason = eager_rule
+        try:
+            return solve()
+        finally:
+            solver._eager_reason = real
+
+    out_miss, miss = printed(solve)
+    out_hit, hit = printed(solve)
+    out_eager, erun = printed(eager)
+    rows = [ln for ln in out_eager.splitlines()
+            if ln.count("│") == 4 and "Iter" not in ln]
+    check(miss.loop == hit.loop == "graph" and not miss.cache_hit
+          and hit.cache_hit and erun.loop == "eager",
+          f"{what}: loops {miss.loop}/{hit.loop}/{erun.loop}, hits "
+          f"{miss.cache_hit}/{hit.cache_hit}")
+    check(out_miss == out_eager and out_hit == out_eager
+          and len(rows) == 1 + hit.fast_steps,
+          f"{what}: {len(rows)} rows on the eager loop for "
+          f"{hit.fast_steps} steps; the miss's text equal "
+          f"{out_miss == out_eager}, the hit's {out_hit == out_eager}")
+    pg = profiled(lambda: printed(solve))
+    check(pg["dtoh_loop"] <= hit.polls and pg["replay_host_launches"] == 0,
+          f"{what}: {pg['dtoh_loop']} device-to-host copies in the loop for "
+          f"{hit.polls} polls, {pg['replay_host_launches']} host launches "
+          f"during replays")
+    _, ms_hit = chained_ms(lambda: printed(solve), CUSTOM_CHAIN)
+    _, ms_eager = chained_ms(lambda: printed(eager), CUSTOM_CHAIN)
+    conic_ip(*args, device="cuda")  # the entry without verbose output
+    _, ms_quiet = chained_ms(lambda: conic_ip(*args, device="cuda"),
+                             CUSTOM_CHAIN)
+    check(solver.runs[-1].cache_hit, f"{what}: the solve without verbose "
+          "output missed")
+    it = max(hit.fast_steps, 1)
+    line("custom_kkt", case="'(d) verbose=True, default backend'",
+         loop=hit.loop, cache_hit=hit.cache_hit, polls=hit.polls,
+         replays=hit.replays, rows=len(rows), text_equal_eager=True,
+         dtoh_loop=pg["dtoh_loop"], dtoh_per_iter=f"{pg['dtoh'] / it:.2f}",
+         replay_host_launches=pg["replay_host_launches"],
+         ms_per_solve_hit=f"{ms_hit:.2f}",
+         ms_per_solve_eager=f"{ms_eager:.2f}",
+         ms_per_solve_hit_quiet=f"{ms_quiet:.2f}", chained=CUSTOM_CHAIN,
+         entries=len(graph.cache_info()))
+
+
+def phase_custom_kkt():
+    """A caller's own kktsolver and verbose output on the device loop:
+    (a) the example's box 2x2 solver on the README box QP and (b) a dense
+    Schur 2x2 solver on the port's ops.cholesky, each made once, a miss
+    then hits (custom_case); (c) the same solver on
+    torch.linalg.cholesky, and with a host-to-device copy in its level 1,
+    each reading the device and keeping the eager loop
+    (reads_the_device_case); (d) verbose output (verbose_case)."""
+    from conicip_tpu_torch import models, pivot
+    from conicip_tpu_torch.trace import example_box_kktsolver
+
+    dense = models.box_qp_dense(n=CUSTOM_DENSE_N, seed=42).args()
+    custom_case(f"(a) examples/torch/custom_kkt.py box_kktsolver, README "
+                f"box n={CUSTOM_BOX_N}", diag_args(False, CUSTOM_BOX_N),
+                example_box_kktsolver())
+    ref = custom_case(f"(b) dense Schur 2x2 on ops.cholesky, box_qp_dense "
+                      f"n={CUSTOM_DENSE_N}", dense, pivot(dense_schur_2x2))
+    reads_the_device_case(dense, ref, dense_schur_2x2_linalg,
+                          "torch.linalg.cholesky")
+    reads_the_device_case(dense, ref, dense_schur_2x2_from_host,
+                          "torch.as_tensor")
+    verbose_case(dense)
+
+
 DIST_N = 4096  # box_qp_dense order of [distributed]'s world of one
 DIST_PAIR_N = 1024  # ... and of its two ranks sharing the card
 DIST_RANKS = 2
@@ -3430,8 +3755,8 @@ def distributed_rank(rank, init, out):
     launches as a JSON line."""
     import torch.distributed as dist
 
-    from conicip_tpu_torch import (IPMOptions, kktsolver_schur_tp, make_mesh,
-                                   models, solver)
+    from conicip_tpu_torch import (kktsolver_schur_tp, make_mesh, models,
+                                   solver)
     from conicip_tpu_torch.ops import cholesky_kernel, jacobi_kernel
     from conicip_tpu_torch.parallel import batch as pbatch
     from conicip_tpu_torch.parallel.mesh import start_rank
@@ -3451,7 +3776,7 @@ def distributed_rank(rank, init, out):
                               y=sol.y.cpu(), ms=ms, builds=builds,
                               launches=by_order, launches_ok=ok,
                               loop=run.loop, reason=solver._eager_reason(
-                                  kkt, IPMOptions(), "cuda"))
+                                  kkt, "cuda"))
         args = on_card(models.batched_box_qp(BATCH, n=500))
         bmesh = make_mesh((DIST_RANKS,), ("batch",))
         timed_batch(args, mesh=bmesh)  # warm-up
@@ -3486,6 +3811,23 @@ def main():
         a = parser.parse_args()
         distributed_rank(a.distributed_rank, a.init, a.out)
         return 0
+    if "--phase" in sys.argv:
+        import argparse
+
+        parser = argparse.ArgumentParser()
+        parser.add_argument("--phase", required=True)
+        parser.add_argument("--package")
+        a = parser.parse_args()
+        if a.package:
+            sys.path.insert(0, os.path.abspath(a.package))
+        phase_environment()
+        phase_build()
+        t = time.perf_counter()
+        globals()[f"phase_{a.phase}"]()
+        line("phase_time", of=f"phase_{a.phase}",
+             package=os.path.abspath(a.package or ROOT),
+             seconds=f"{time.perf_counter() - t:.1f}")
+        return 0
     start = time.perf_counter()
     phase_environment()
     phase_build()
@@ -3514,8 +3856,9 @@ def main():
               phase_distributed)
     for phase in (phase_schur, phase_diag, phase_conic, phase_graph,
                   phase_graph_cache, phase_f32, phase_eq, phase_backends,
-                  phase_batch, phase_batch_graph, phase_checkpoint,
-                  phase_frontend, phase_ladder, phase_distributed):
+                  phase_custom_kkt, phase_batch, phase_batch_graph,
+                  phase_checkpoint, phase_frontend, phase_ladder,
+                  phase_distributed):
         cholesky_kernel.reset_launch_count()
         jacobi_kernel.reset_launch_count()
         # launches of the ranks a phase spawned, counted by their wrappers

@@ -16,10 +16,17 @@ body and takes its results by mask; on CUDA a captured unit makes the body
 a conditional graph node, which runs only while the predicate holds on the
 device.
 
-Which kktsolvers the device loop takes is marked here too
-(:func:`takes_device_loop`, :func:`eager_reason`): the package's own, by a
-mark on the function, so that a caller's ``functools.partial`` of one is
-known as well.
+Which kktsolvers the device loop takes is decided here too
+(:func:`takes_device_loop`, :func:`eager_reason`): the package's own by a
+mark on the function (so that a caller's ``functools.partial`` of one is
+known as well) and its rule; a caller's own callable, as the reference's
+``_solve_jit`` traces whatever kktsolver it is given, unless its callbacks
+were found to read the device. :func:`guarded` finds that out before a
+capture: it runs every call into the caller's code with PyTorch's sync
+debug mode at "error", so that a ``.item()``, a ``bool(tensor)``, a
+``torch.linalg`` call that checks ``info`` on the host, a ``nonzero`` or a
+pageable host-to-device copy raises inside the caller's frame, and it
+remembers the callable (:class:`ReadsDevice`).
 """
 
 from __future__ import annotations
@@ -27,13 +34,17 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import os
 import threading
+import traceback
+import weakref
 from typing import Optional
 
 import torch
 
 __all__ = ["retry_while", "retry_attempts", "cond", "bound",
-           "takes_device_loop", "eager_reason"]
+           "takes_device_loop", "eager_reason", "callers_own", "guarded",
+           "ReadsDevice"]
 
 
 def retry_attempts(scale0: float, factor: float, cap: float) -> int:
@@ -111,15 +122,103 @@ def takes_device_loop(kktsolver, rule=None):
     return kktsolver
 
 
-def eager_reason(kktsolver, device) -> Optional[str]:
-    """Why a run of ``kktsolver`` on ``device`` keeps the eager loop, or
-    None when the device loop takes it: a marked kktsolver, or a
-    ``functools.partial`` of one, by its rule; any other callable is a
-    caller's own, whose callbacks may read the device."""
+def _rule(kktsolver):
     fn = kktsolver
     while isinstance(fn, functools.partial):
         fn = fn.func
-    rule = getattr(fn, "_device_loop_rule", None)
-    if rule is None:
-        return "a caller's own kktsolver, whose callbacks may read the device"
-    return rule(torch.device(device))
+    return getattr(fn, "_device_loop_rule", None)
+
+
+def callers_own(kktsolver) -> bool:
+    """Whether ``kktsolver`` is a caller's own callable: neither one of the
+    package's marked kktsolvers nor a ``functools.partial`` of one."""
+    return _rule(kktsolver) is None
+
+
+# The callables found to read the device, each with the reason; weak keys,
+# so that the memo keeps nothing alive.
+_reads = weakref.WeakKeyDictionary()
+
+
+def eager_reason(kktsolver, device) -> Optional[str]:
+    """Why a run of ``kktsolver`` on ``device`` keeps the eager loop, or
+    None when the device loop takes it: a marked kktsolver, or a
+    ``functools.partial`` of one, by its rule; a caller's own callable
+    unless :func:`guarded` found, on an earlier call on CUDA, that its
+    callbacks read the device."""
+    device = torch.device(device)
+    rule = _rule(kktsolver)
+    if rule is not None:
+        return rule(device)
+    if device.type != "cuda":
+        return None
+    try:
+        return _reads.get(kktsolver)
+    except TypeError:  # not weakly referenceable: never remembered
+        return None
+
+
+class ReadsDevice(RuntimeError):
+    """A caller's KKT callback read the device under :func:`guarded`;
+    ``reason`` names the operation and the caller's frame."""
+
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
+
+
+# what PyTorch's sync debug mode raises in "error" mode
+_SYNC = "synchronizing CUDA operation"
+_TORCH = os.path.dirname(torch.__file__) + os.sep
+
+
+def _culprit(err) -> str:
+    """The caller's operation that synchronized: the source line and frame
+    of the innermost traceback entry outside torch and this module."""
+    frames = [f for f in traceback.extract_tb(err.__traceback__)
+              if not f.filename.startswith(_TORCH)
+              and f.filename != __file__]
+    if not frames:
+        return f"a caller's KKT callback reads the device: {err}"
+    f = frames[-1]
+    return (f"a caller's KKT callback reads the device: `{f.line}` "
+            f"({os.path.basename(f.filename)}:{f.lineno}, in {f.name}) "
+            f"synchronizes with the host")
+
+
+def guarded(kktsolver):
+    """``kktsolver`` with every call into the caller's code (level 1, the
+    generator it returns, each solve that returns) run under PyTorch's sync
+    debug mode "error", the old mode restored after it; only those calls,
+    so the loop's own host reads between them are not refused. A read
+    raises :class:`ReadsDevice` and is remembered for ``kktsolver``
+    (:func:`eager_reason`). CUDA only."""
+
+    def call(fn, args, kw):
+        old = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        except ReadsDevice:
+            raise
+        except RuntimeError as err:
+            if _SYNC not in str(err):
+                raise
+            reason = _culprit(err)
+            with contextlib.suppress(TypeError):
+                _reads[kktsolver] = reason
+            raise ReadsDevice(reason) from err
+        finally:
+            torch.cuda.set_sync_debug_mode(old)
+
+    def wrap(fn, then=None):
+        # the wrapper keeps fn's signature (``mode`` of a two-variant
+        # generator: kkt/pivot.py accepts_mode)
+        @functools.wraps(fn)
+        def wrapped(*args, **kw):
+            out = call(fn, args, kw)
+            return out if then is None else then(out)
+
+        return wrapped
+
+    return wrap(kktsolver, lambda gen: wrap(gen, wrap))

@@ -7,24 +7,24 @@ every operand (``solver/ipm.py``): per-instance status, masks that freeze
 finished instances while the loop keeps stepping the rest, and every dense
 factor of an iteration one launch of the CUDA kernel's batched entry.
 
-Every run whose KKT generator is one of the package's own takes the
-device loop through ``solver/graph.py``'s cache, as ``conic_ip``'s runs do
-(``solver._eager_reason``), and as the reference's stacked solvers are
-``jit(vmap(...))`` of whatever generator they are given: on CUDA a
-captured prologue and chunk kept per configuration and stack shape, one
-host read per chunk; on the CPU the same chunks run eagerly. That is the
-automatic main run at f64 or f32 (diag, Schur or spectral, cold or warm,
-with mixed residuals and, in a checkpoint loop's chunks, the two-variant
-generator), every fused tier (the f32-factor tier over an f64 assembly,
-the full-precision tier, the low-rank finisher), the S-cone policy behind
-``factor_dtype=float32``, ``solve_batch(kktsolver=...)`` with one of the
-package's backends, and the public :func:`make_batched_solver` /
+Every run takes the device loop through ``solver/graph.py``'s cache, as
+``conic_ip``'s runs do (``solver._eager_reason``), and as the reference's
+stacked solvers are ``jit(vmap(...))`` of whatever generator they are
+given: on CUDA a captured prologue and chunk kept per configuration and
+stack shape, one host read per chunk; on the CPU the same chunks run
+eagerly. That is the automatic main run at f64 or f32 (diag, Schur or
+spectral, cold or warm, with mixed residuals and, in a checkpoint loop's
+chunks, the two-variant generator), every fused tier (the f32-factor tier
+over an f64 assembly, the full-precision tier, the low-rank finisher),
+the S-cone policy behind ``factor_dtype=float32``,
+``solve_batch(kktsolver=...)`` with any kktsolver, the package's or a
+caller's, and the public :func:`make_batched_solver` /
 :func:`make_batched_warm_solver` on one. The eager loop (one host read
-per iteration) keeps a caller's own callable, whose callbacks may read
-the device, and the sub-batches of instances that stalled (the host
+per iteration) keeps the sub-batches of instances that stalled (the host
 backstop, the eliminated path's retry and fallback), whose shape depends
 on the data: an entry for each would rarely be hit and would evict the
-main run's.
+main run's; and a caller's callable whose callbacks read the device
+(``solver._eager_reason``).
 
 :func:`solve_batch` keeps the reference's policy: the automatic backend
 (diagonal, dense Schur, spectral, low-rank) chosen on the caller's arrays
@@ -45,7 +45,7 @@ import torch
 
 from ..cones.spec import ConeSpec
 from ..ops.batched import mv
-from ..solver import _densify, _device_loop, graph
+from ..solver import _densify, _eager_reason, graph
 from ..solver.ipm import IPMOptions, _select, ipm_solve
 from ..solver.state import STATUS_NAMES, SolState, Status, Vec4
 from .mesh import MeshAxis
@@ -98,11 +98,12 @@ class BatchRun(NamedTuple):
     recertified: int
     polls: int  # host reads of the loop's status
     replays: int  # CUDA graph replays of one captured chunk
-    # "graph", "chunks" (the device loop) or "eager" (a caller's own
-    # callable, a backstop sub-batch: _run)
+    # "graph", "chunks" (the device loop) or "eager" (a backstop
+    # sub-batch, a caller's callable that reads the device: _run)
     loop: str
     trips: int  # refinement trips run (some instance went on)
     cache_hit: bool  # the device loop's entry was kept from an earlier call
+    reason: Optional[str] = None  # why the run kept the eager loop
 
     @property
     def batch(self) -> int:
@@ -136,16 +137,19 @@ def _maxres(st) -> torch.Tensor:
 def _run(spec, kktsolver, opts, tier, Q, c, A, b, G, d, warm=None, *,
          eager=False):
     """One stacked run, recorded in :data:`runs`. It takes the device loop
-    by conic_ip's rule (``solver._eager_reason``): the package's own
-    generators at any precision, whether solve_batch chose them or a
-    caller passed them. ``eager`` keeps a sub-batch of instances that
-    stalled on the eager loop (module docstring)."""
+    by conic_ip's rule (``solver._eager_reason``): every generator at any
+    precision, whether solve_batch chose it or a caller passed it.
+    ``eager`` keeps a sub-batch of instances that stalled on the eager
+    loop (module docstring)."""
     stats = {}
     args = (Q, c, A, b, G, d, spec, kktsolver, opts)
-    if not eager and _device_loop(kktsolver, opts, c.device):
+    reason = ("a sub-batch of stalled instances" if eager
+              else _eager_reason(kktsolver, c.device))
+    if reason is None:
         st = graph.solve(*args, warm=warm, stats=stats)
     else:
         st = ipm_solve(*args, warm=warm, stats=stats)
+        stats["reason"] = reason
     runs.append(BatchRun(kktsolver, tier, tuple(st.status.tolist()),
                          tuple(st.Iter.tolist()), **stats))
     return st

@@ -45,11 +45,13 @@ class Run(NamedTuple):
     recertified: int  # mixed mode: full-precision product recomputes
     polls: int  # host reads of the loop's status
     replays: int  # CUDA graph replays of one captured chunk
-    # "graph", "chunks" (the device loop) or "eager" (verbose, a caller's
-    # own callable, kktsolver_schur_tp over gloo on CUDA: _eager_reason)
+    # "graph", "chunks" (the device loop) or "eager" (kktsolver_schur_tp
+    # over gloo on CUDA, a caller's callable that reads the device:
+    # _eager_reason)
     loop: str
     trips: int  # refinement trips run (on a stack: some instance went on)
     cache_hit: bool  # the device loop's entry was kept from an earlier call
+    reason: Optional[str] = None  # why the run kept the eager loop
 
 
 # Every interior-point run of the latest conic_ip call, in order: the first
@@ -107,33 +109,29 @@ def _diag_kktsolver(factor_dtype, eq_mode="woodbury"):
                              eq_mode=eq_mode)
 
 
-def _eager_reason(kktsolver, opts, device) -> Optional[str]:
+def _eager_reason(kktsolver, device) -> Optional[str]:
     """Why a run keeps the eager loop (one host read per iteration), or
     None when it takes the device loop (``ipm.POLL`` units per host read,
     through solver/graph.py's cache; on CUDA captured CUDA graphs, kept
     across calls), as the reference's ``_solve_jit`` traces whatever
-    kktsolver it is given. Decided before the solve, never after a
-    failure. The device loop takes the package's own kktsolvers, chosen
-    here or passed by a caller (``kktsolver_schur``, ``kktsolver_diag``,
-    ``kktsolver_qr``, ``kktsolver_lu``, ``functools.partial``s of them,
-    ``spectral_kktsolver(...)``, ``lowrank_kktsolver()``), at every
-    precision, and ``kktsolver_schur_tp`` over NCCL or on the CPU. Three
-    cases keep the eager loop: verbose output (a print per iteration;
-    the reference prints from its loop through ``jax.debug.callback``), a
-    caller's own callable (its callbacks may read the device, which a
-    capture refuses), and ``kktsolver_schur_tp`` over a gloo group on
-    CUDA tensors (gloo stages its collectives through host memory, which
-    a CUDA graph cannot hold). ``solve_batch`` applies this rule to its
-    runs, and keeps the backstop's sub-batches eager
-    (parallel/batch.py)."""
-    if opts.verbose:
-        return "verbose output, a print per iteration"
+    kktsolver it is given. The device loop takes every kktsolver: the
+    package's own, chosen here or passed by a caller, at every precision,
+    and a caller's own callable; with verbose output too (the host prints
+    each unit's row at its poll, as the reference prints from inside its
+    loop through ``jax.debug.callback``). Two cases keep the eager loop,
+    decided here before the solve: ``kktsolver_schur_tp`` over a gloo
+    group on CUDA tensors (gloo stages its collectives through host
+    memory, which a CUDA graph cannot hold), and a caller's callable that
+    an earlier call on CUDA found to read the device. That finding is the
+    one choice of loop made during a call: the first miss of a caller's
+    callable on CUDA runs its callbacks under ``ops.control.guarded``
+    before any capture, and where one reads the device (``.item()``,
+    ``torch.linalg.cholesky``, a pageable host-to-device copy) the run
+    starts over on the eager loop, ``Run.reason`` naming the read (not a
+    fallback that hides the device: it stays on the card, and ``Run.loop``
+    shows it). No option of the run decides. ``solve_batch`` applies this rule to its runs, and keeps the
+    backstop's sub-batches eager (parallel/batch.py)."""
     return eager_reason(kktsolver, device)
-
-
-def _device_loop(kktsolver, opts, device) -> bool:
-    """Whether a run takes the device loop (:func:`_eager_reason`)."""
-    return _eager_reason(kktsolver, opts, device) is None
 
 
 def _is_diag(kktsolver) -> bool:
@@ -295,10 +293,12 @@ def _solve_direct(tensors, structure, cone_dims, warm_start, options
                           centralityCorrectors=centralityCorrectors, **o)
         stats = {}
         args = (Q, c, A, b, G, d, spec, kkt, opts)
-        if _device_loop(kkt, opts, c.device):
+        reason = _eager_reason(kkt, c.device)
+        if reason is None:
             st = graph.solve(*args, warm=warm, stats=stats)
         else:
             st = ipm_solve(*args, warm=warm, stats=stats)
+            stats["reason"] = reason
         sol = Solution.from_state(st)
         runs.append(Run(kkt, sol.status, sol.Iter, **stats))
         return sol

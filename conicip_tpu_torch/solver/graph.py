@@ -29,17 +29,31 @@ A call that misses builds its entry on the solve's stream: the prologue
 runs eagerly (it builds the kernels and warms cuBLAS) and is captured, its
 graph is replayed, the first unit runs eagerly and the chunk is captured
 while the card runs it, and then the chunk is replayed while an instance
-runs. A call that hits
+runs. With a caller's own kktsolver (``control.callers_own``) a miss
+runs the prologue and one unit eagerly once more after the warm-up,
+every body masked (``ipm.masked``: the variant not reached and the
+refinement trips too, and no predicate read inside a caller's
+``control.cond``), calling the caller's callbacks under
+``control.guarded``, before anything is captured and before an older
+entry is evicted: a callback that reads the device (``.item()``,
+``torch.linalg.cholesky``'s host check of ``info``, a pageable
+host-to-device copy) raises ``control.ReadsDevice``, the entry is
+dropped, and ``ipm_solve`` runs the eager loop from the initial point
+(``Run.loop`` "eager", ``Run.reason`` naming the read; the callable is
+remembered, so a later call decides before the solve). The one choice of
+loop made during a call, and not a fallback that hides the device: that
+run stays on the card. A caller's callable costs a miss that extra
+prologue and unit. A call that hits
 copies its data into the buffers, replays the prologue, reads the flag,
 and replays the chunk until the flag is false: no eager work, no capture,
 no instantiation. Both return copies of the results, so a later call never
 changes an earlier solution. On the CPU an entry holds the buffers and the
 loop runs eagerly (``ipm.run_chunks``).
 
-Stacks come here too: ``solve_batch`` sends the runs whose generator it
-chose through :func:`solve` (parallel/batch.py), as the reference keeps one
-``jit(vmap(ipm_solve))`` per configuration and stack shape. The stack's
-shape is part of the key, and a shared G (expanded with stride 0) is a
+Stacks come here too: ``solve_batch`` sends its runs, whatever their
+generator, through :func:`solve` (parallel/batch.py), as the reference
+keeps one ``jit(vmap(ipm_solve))`` per configuration and stack shape. The
+stack's shape is part of the key, and a shared G (expanded with stride 0) is a
 configuration apart from a stacked one. What an entry holds on an H100
 for the stacks of 64 of ``chip_smoke.py`` ``[batch_graph]`` (reserved
 memory across a miss after :func:`clear`): ``batched_box_qp`` n=500
@@ -64,7 +78,15 @@ entry. Every capture, and every body, runs in ``thread_local`` mode
 first unit of a miss runs eagerly, each body only where its predicate
 holds, as the eager loop runs it. A read inside a capture fails it, and a
 capture, replay or conditional-node error raises: nothing runs the loop
-eagerly in its place. An evicted entry, and every entry on :func:`clear`,
+eagerly in its place: what the guard does not catch (a read in a branch
+the warm-up did not run, a conditional body of a variant not yet
+reached) is refused by the capture, whose error is raised. With verbose
+output (``IPMOptions.verbose``, part of the key) the captured prologue
+and chunk also write each unit's printed row beside the flag, and the
+host reads both in one copy at its poll and prints the rows
+(``ipm.poll``), as the eager first unit of a miss prints its own; an
+entry without verbose output captures no row. An evicted entry, and
+every entry on :func:`clear`,
 returns its pools' memory to CUDA.
 
 The kernels' wrappers count a launch where they issue it. Under capture
@@ -87,7 +109,7 @@ from dataclasses import fields, is_dataclass
 import torch
 from torch.profiler import record_function
 
-from ..ops import cholesky_kernel, jacobi_kernel
+from ..ops import cholesky_kernel, control, jacobi_kernel
 from ..ops.build import load_library
 from . import ipm
 from .state import SolState
@@ -260,8 +282,10 @@ def _counts(entry, cy) -> dict:
     return counts
 
 
-def _drive(key, prologue, inputs):
-    """``ipm_solve``'s device loop through the cache (module docstring)."""
+def _drive(key, prologue, inputs, probe=None):
+    """``ipm_solve``'s device loop through the cache (module docstring);
+    ``probe`` is the prologue on a caller's kktsolver under the guard,
+    which a miss on CUDA runs first."""
     entry = _cache.get(key)
     hit = entry is not None
     with record_function(LOOP):
@@ -269,7 +293,8 @@ def _drive(key, prologue, inputs):
             _cache.move_to_end(key)
             entry.refresh(inputs)
         else:
-            _make_room()
+            if inputs[1].device.type != "cuda":
+                _make_room()  # on CUDA, _build makes room after its probe
             entry = _Entry(key, prologue, inputs)
         if inputs[1].device.type != "cuda":
             cy, info = ipm.run_chunks(entry.prologue, entry.inputs)
@@ -277,7 +302,11 @@ def _drive(key, prologue, inputs):
             cy, info = _replay(entry)
         else:
             try:
-                cy, info = _build(entry)
+                cy, info = _build(entry, probe)
+            except control.ReadsDevice:
+                # raised before any capture: the entry is dropped
+                entry.release()
+                raise
             except BaseException:
                 _stranded.append(entry)
                 raise
@@ -335,7 +364,7 @@ def _play(graph, deltas) -> None:
         c.update(delta)
 
 
-def _build(entry):
+def _build(entry, probe=None):
     """A miss on CUDA. The prologue runs eagerly, to build the kernels and
     warm cuBLAS and the caches a capture cannot fill (a generator's
     ``control.cond`` bodies after a host read), and is captured while the
@@ -343,13 +372,33 @@ def _build(entry):
     reads the tensors that graph writes (so a miss does the prologue's
     device work twice). The first unit runs eagerly on them, the chunk is
     captured while the card runs it, and replayed while an instance
-    runs."""
+    runs. With ``probe`` (a caller's kktsolver under ``control.guarded``)
+    the probe's prologue and one unit run eagerly after the warm-up and
+    before any capture: a callback that reads the device raises
+    ``control.ReadsDevice`` there. After the warm-up, so that what the
+    package makes once per configuration (``ipm._identity``, the cones'
+    index tensors, copies of host data) is made outside the guard; with
+    every body run (``ipm.masked``), so that the package reads no
+    predicate inside a guarded call (a caller's ``control.cond``) and the
+    bodies the warm-up skipped (the other variant, refinement trips) are
+    probed too. Room in the cache is made after the probe, so that a
+    callable that reads the device evicts no entry."""
     inputs = entry.inputs
     device = inputs[1].device
     with record_function("conicip::warmup"):
         _, cy = entry.prologue(*inputs, branch=ipm.on_host)
+    if probe is not None:
+        with record_function("conicip::probe"):
+            body, first = probe(*inputs, branch=ipm.masked)
+            body.unit(first, ipm.masked)
+    _make_room()
     entry.static = _clone(cy)
-    entry.flag = torch.empty((), dtype=torch.bool, device=device)
+    # the flag the host polls; with verbose output (a carry with a row)
+    # the flag and the rows of a chunk's units (ipm.polled)
+    entry.flag = (torch.empty((), dtype=torch.bool, device=device)
+                  if cy.row is None else
+                  torch.zeros(1 + ipm.POLL * ipm.ROW, dtype=torch.float64,
+                              device=device))
     entry.pool = torch.cuda.MemPool()
     entry.body_pool = torch.cuda.MemPool()
     # the counted bodies' runs, made before any capture: a counter
@@ -362,41 +411,61 @@ def _build(entry):
     def prologue():
         entry.body, out = entry.prologue(*inputs, branch=branch)
         _copy(entry.static, out)
-        entry.flag.copy_(entry.body.active(entry.static))
+        _set_flag(entry, [entry.static.row])
 
     gp, dp = _capture(entry, prologue)
     _play(gp, dp)
-    if not bool(entry.flag):
+    if not _read(entry):
         # ended at its first iterate: nothing to keep
         cy = entry.static
         gp.reset()
         entry.release()
         return cy, dict(polls=1, replays=0, loop="graph")
     with record_function("conicip::unit0"):
-        cy = entry.static
+        cy, rows = entry.static, []
         for _ in range(ipm.POLL):
             cy = entry.body.unit(cy, ipm.on_host)
+            rows.append(cy.row)
 
     def chunk():
-        out = entry.static
+        out, rows = entry.static, []
         for _ in range(ipm.POLL):
             out = entry.body.unit(out, branch)
+            rows.append(out.row)
         _copy(entry.static, out)
-        entry.flag.copy_(entry.body.active(entry.static))
+        _set_flag(entry, rows)
 
     gc, dc = _capture(entry, chunk)
     entry.graphs, entry.deltas = (gp, gc), (dp, dc)
     _copy(entry.static, cy)
-    replays = _chunks(entry) if bool(entry.body.active(cy)) else 0
+    replays = _chunks(entry) if ipm.poll(entry.body.active(cy), rows) else 0
     return entry.static, dict(polls=2 + replays, replays=replays,
                               loop="graph")
+
+
+def _set_flag(entry, rows) -> None:
+    """Inside a capture: write whether any instance is still active into
+    the flag, with verbose output beside the units' rows."""
+    active = entry.body.active(entry.static)
+    if entry.flag.dtype == torch.bool:
+        entry.flag.copy_(active)
+    else:
+        entry.flag.copy_(ipm.polled(active, rows, ipm.POLL))
+
+
+def _read(entry) -> bool:
+    """The host's poll of the flag (with verbose output, in the same copy,
+    the rows it prints)."""
+    if entry.flag.dtype == torch.bool:
+        return bool(entry.flag)
+    return ipm.read_polled(entry.flag)
 
 
 def _replay(entry):
     """A hit on CUDA: the prologue's replay, then the chunk's."""
     (gp, _), (dp, _) = entry.graphs, entry.deltas
     _play(gp, dp)
-    replays = _chunks(entry) if bool(entry.flag) else 0
+    replays = _chunks(entry) if _read(entry) else 0
     return entry.static, dict(polls=1 + replays, replays=replays,
                               loop="graph")
 
@@ -410,7 +479,7 @@ def _chunks(entry) -> int:
         while True:
             _play(gc, dc)
             replays += 1
-            if not bool(entry.flag):
+            if not _read(entry):
                 return replays
 
 
@@ -509,12 +578,16 @@ def solve(Q, c, A, b, G, d, spec, kktsolver, opts, warm=None,
     """``ipm_solve`` with the device loop through the cache (module
     docstring); the arguments are ``ipm_solve``'s. The returned state's
     tensors are the caller's own; on CUDA they may be used on the caller's
-    stream at once."""
+    stream at once. A caller's kktsolver that reads the device runs the
+    eager loop (``stats["reason"]``)."""
     args = (Q, c, A, b, G, d)
     key = _key(args, spec, kktsolver, opts, warm)
+    probe = None
+    if c.device.type == "cuda" and control.callers_own(kktsolver):
+        probe = ipm.device_prologue(spec, control.guarded(kktsolver), opts)
 
     def loop(prologue, inputs):
-        return _drive(key, prologue, inputs)
+        return _drive(key, prologue, inputs, probe)
 
     if c.device.type != "cuda":
         return ipm.ipm_solve(*args, spec, kktsolver, opts, warm=warm,

@@ -31,18 +31,19 @@ drive it:
   distributed factor's ridge retry) is a body of the same ``branch``,
   bound around every level-2 call, so nothing reads back inside a unit.
 - the eager loop (``device_loop=None``). The callers decide before the
-  solve which loop a run takes (``solver._eager_reason``): the package's
-  own kktsolvers, chosen by the solver or passed by a caller, and
-  ``kktsolver_schur_tp`` over NCCL or on the CPU, take the device loop;
-  three cases keep this one: verbose output (a print per iteration, where
-  the reference prints from inside its loop), a caller's own callable
-  (its callbacks may read the device, which a capture refuses), and
+  solve which loop a run takes (``solver._eager_reason``): every
+  kktsolver, the package's own and a caller's, takes the device loop,
+  verbose output too (the host prints each unit's row at its poll, as the
+  reference prints from inside its loop); this one keeps
   ``kktsolver_schur_tp`` over a gloo group on CUDA tensors (gloo stages
-  its collectives through host memory, which a graph cannot hold).
-  ``solve_batch`` also keeps the backstop's sub-batches on this one. It
-  reads the status once per iteration and stops there, stops refinement
-  as soon as no instance goes on, and runs a generator's
-  ``control.cond`` bodies after a host read of their predicate.
+  its collectives through host memory, which a graph cannot hold) and a
+  caller's callable whose callbacks read the device (``control.guarded``
+  finds that before a capture: such a run starts over here, the one
+  choice of loop made during a call). ``solve_batch`` also keeps the
+  backstop's sub-batches on this one. It reads the status once per
+  iteration and stops there, stops refinement as soon as no instance goes
+  on, and runs a generator's ``control.cond`` bodies after a host read of
+  their predicate.
 
 Both loops run the same arithmetic (``evaluate``, ``take_step``; the
 eager loop's ``advance``, the device loop's ``unit``), and everything else
@@ -109,7 +110,8 @@ from ..ops.batched import col, dot, mv
 from .state import SolState, Status, Vec4
 
 __all__ = ["IPMOptions", "ipm_solve", "device_prologue", "run_chunks",
-           "loop_counts", "masked", "on_host", "Carry", "POLL"]
+           "loop_counts", "masked", "on_host", "Carry", "POLL", "ROW",
+           "polled", "poll", "read_polled"]
 
 # Units per chunk of the device loop: the host reads the status once per
 # chunk, and solver/graph.py captures one chunk. A solve runs up to
@@ -118,6 +120,11 @@ __all__ = ["IPMOptions", "ipm_solve", "device_prologue", "run_chunks",
 # bodies, build nothing there). 1 had the least wall time of 1, 2, 4 and
 # 8 on every solve timed on the H100 (PERF.md §6).
 POLL = 1
+
+# Values of one verbose row (:func:`_row`): whether it is printed (the
+# iterate was evaluated), then k, rPr, rDu, rCp, pobj, dobj, p_inf, d_inf,
+# and the refinement count and residual of the step that led to it.
+ROW = 11
 
 
 @dataclass(frozen=True)
@@ -800,12 +807,15 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
                            k=(cy.k + active_of(cy).any()).to(torch.int32),
                            steps=(cy.steps + go.any()).to(torch.int32))
 
-    def evaluated(cy: Carry, branch=None) -> Carry:
+    def evaluated(cy: Carry, branch=None, refined=None) -> Carry:
         """The device loop's carry with its iterate, numbered ``cy.k``,
         scaled and evaluated: what the next step starts from. ``branch``
         runs the variants' scalings and the mixed-mode recompute; None in
         the prologue, where every instance is on the fast variant and the
-        recompute is masked."""
+        recompute is masked. With verbose output the carry's ``row`` is
+        the eager loop's printed row (:func:`_row`), ``refined`` the
+        refinement residual and trips + 1 of the step that led here (0 in
+        the prologue)."""
         run = active_of(cy)
         if split_scaling and branch is not None:
             outs, _ = variants(cy.lm_on, run, branch,
@@ -834,6 +844,10 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
             cy, P, lam, cy.lm_on if two_mode else False)
         if two_mode:
             more["lm_on"] = cy.lm_on | lm
+        if opts.verbose:
+            rnorm, rstep = refined or (torch.zeros((), dtype=dtype,
+                                                   device=dev), count())
+            more["row"] = _row(run, cy.k, R, rstep, rnorm)
         return cy._replace(sol=st, best=best, stall=stalled, F=F,
                            FinvT=FinvT, lam=lam, R=R, **more)
 
@@ -856,20 +870,23 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
                     solve3x3 = solve3x3gen(cy.F, cy.FinvT)
             out = take_step(cy.z, cy.F, cy.FinvT, cy.lam, cy.R, solve3x3,
                             eig_dtype_of(slow), go, branch)
-            return out[0], out[3], out[4], out[5]  # z_new, Pd, alpha, trips
+            # z_new, Pd, alpha, the refinement residual and trips + 1
+            # (the verbose row's), trips
+            return out[0], out[3], out[4], out[1], out[2], out[5]
 
         more = {}
         if two_mode:
             outs, on = variants(cy.lm_on, go, branch, step)
-            z_new, Pd, alpha = pick(cy.lm_on, *(
-                None if o is None else o[:3] for o in outs)) or (
+            keep = 5 if opts.verbose else 3
+            z_new, Pd, alpha, *refined = pick(cy.lm_on, *(
+                None if o is None else o[:keep] for o in outs)) or (
                     cy.z, None, None)
-            trips = sum(torch.where(pred, o[3], 0)
+            trips = sum(torch.where(pred, o[5], 0)
                         for o, pred in zip(outs, on) if o is not None)
             more = dict(fast_steps=(cy.fast_steps + on[0]).to(torch.int32),
                         slow_steps=(cy.slow_steps + on[1]).to(torch.int32))
         else:
-            z_new, Pd, alpha, trips = step(False)
+            z_new, Pd, alpha, *refined, trips = step(False)
         if mixed and Pd is not None:
             more["P"], more["drift"] = stepped_products(cy.P, cy.drift, Pd,
                                                         alpha, go)
@@ -878,7 +895,8 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
             z=_select(go, z_new, cy.z),
             k=(cy.k + moved).to(torch.int32),
             steps=(cy.steps + moved).to(torch.int32),
-            trips=(cy.trips + trips).to(torch.int32), **more), branch)
+            trips=(cy.trips + trips).to(torch.int32), **more), branch,
+            refined)
 
     def count():
         return torch.zeros((), **int32)
@@ -912,10 +930,9 @@ def device_prologue(spec: ConeSpec, kktsolver, opts: IPMOptions):
     reading nothing back. It returns the loop's functions (``unit``, and
     ``active``: a device bool, whether any instance still runs) and the
     first carry. ``branch`` runs what the initial point's level-2 call
-    decides by ``control.cond``. Takes every configuration but verbose
-    output."""
-    if opts.verbose:
-        raise ValueError("the device loop takes no verbose output")
+    decides by ``control.cond``. With verbose output every evaluation
+    writes the carry's ``row``, which the host reads with its poll
+    (:func:`poll`)."""
 
     def prologue(Q, c, A, b, G, d, warm=None, branch=masked):
         L = _loop(*_operands(Q, c, A, b, G, d, spec), spec, kktsolver, opts,
@@ -963,17 +980,29 @@ def ipm_solve(
     ``unit`` until ``active(carry)``, a device bool, is false; it returns
     the final carry and a dict of ``polls``, ``replays`` and ``loop``
     (:func:`run_chunks`), and of the loop's counts when it read them
-    (:func:`loop_counts`). It takes every configuration but verbose
-    output. Nothing in the prologue or the loop reads the device."""
+    (:func:`loop_counts`). It takes every configuration; with verbose
+    output the host prints each evaluated iterate's row from its polls,
+    the eager loop's text. Nothing in the prologue or the loop reads the
+    device. A caller's kktsolver found to read the device by
+    ``control.guarded`` (the device loop's warm-up on CUDA raises
+    ``control.ReadsDevice`` before any capture) runs the eager loop from
+    the initial point instead, its ``stats`` ``reason`` naming the read."""
     counts = dict(fast_steps=0, slow_steps=0, recertified=0, trips=0,
                   cold_start=int(warm is None), cache_hit=False)
     if c.dim() > 1 and opts.verbose:
         raise ValueError("verbose output is not supported in batched mode")
 
     if device_loop is not None:
-        cy, info = device_loop(device_prologue(spec, kktsolver, opts),
-                               (Q, c, A, b, G, d, warm))
-        return _device_result(cy, info, counts, stats)
+        if opts.verbose:
+            _print_banner()
+        try:
+            cy, info = device_loop(device_prologue(spec, kktsolver, opts),
+                                   (Q, c, A, b, G, d, warm))
+        except control.ReadsDevice as err:
+            # nothing was captured: the eager loop from the initial point
+            counts["reason"] = err.reason
+        else:
+            return _device_result(cy, info, counts, stats)
 
     Q, c, A, b, G, d = _operands(Q, c, A, b, G, d, spec)
     L = _loop(Q, c, A, b, G, d, spec, kktsolver, opts, warm, on_host)
@@ -984,10 +1013,11 @@ def ipm_solve(
     batched = bool(c.dim() > 1)
     bs, dev = tuple(c.shape[:-1]), c.device
 
-    if opts.verbose:
+    if opts.verbose and device_loop is None:
         _print_banner()
 
-    rnorm_prev, rstep_prev = 0.0, 0
+    zero = torch.zeros((), dtype=c.dtype, device=dev)
+    rnorm_prev, rstep_prev = zero, zero.to(torch.int32)
     # Sticky: the generator's full-precision variant is on. A host bool for
     # a single solve; for a stack one flag per instance on the device, with
     # `modes` the variants (False fast, True slow) that some running
@@ -1069,7 +1099,8 @@ def ipm_solve(
         lm_on, modes = on, need
 
         if opts.verbose:
-            _print_row(k, R, rstep_prev, rnorm_prev)
+            _print_rows(_row(active_of(cy), cy.k, R, rstep_prev,
+                             rnorm_prev).tolist())
 
         if not go:
             cy = cy._replace(sol=st)
@@ -1146,7 +1177,9 @@ class Carry(NamedTuple):
     instance) and the iterations on which some instance stepped on the
     fast and on the slow variant; in mixed mode the carried products
     ``P``, their ``drift`` (per instance) and the iterations that
-    recomputed them. What a configuration does not use is None."""
+    recomputed them; with verbose output the latest evaluation's printed
+    ``row`` (:data:`ROW` values). What a configuration does not use is
+    None."""
 
     z: Vec4
     sol: SolState
@@ -1165,6 +1198,7 @@ class Carry(NamedTuple):
     P: Optional[_Products] = None
     drift: Optional[torch.Tensor] = None
     recertified: Optional[torch.Tensor] = None
+    row: Optional[torch.Tensor] = None
 
 
 def _assign(dst, src) -> None:
@@ -1190,14 +1224,54 @@ def run_chunks(prologue, inputs):
     host reading whether any instance is still active once after the
     prologue and once after each chunk; each unit's bodies run masked.
     Returns the final carry and what the loop did (``polls`` reads, no
-    ``replays``, ``loop`` "chunks")."""
+    ``replays``, ``loop`` "chunks"). With verbose output each read prints
+    the rows of the units since the last (:func:`poll`)."""
     body, cy = prologue(*inputs)
-    polls = 1
-    while bool(body.active(cy)):
+    polls, rows = 1, [cy.row]
+    while poll(body.active(cy), rows):
+        rows = []
         for _ in range(POLL):
             cy = body.unit(cy)
+            rows.append(cy.row)
         polls += 1
     return cy, dict(polls=polls, replays=0, loop="chunks")
+
+
+def _row(run, k, R: _Resid, rstep, rnorm) -> torch.Tensor:
+    """One iteration's verbose row on the device (:data:`ROW` f64
+    values, each exactly the value the eager loop prints)."""
+    return torch.stack([x.to(torch.float64) for x in (
+        run, k, R.rPr, R.rDu, R.rCp, R.pobj, R.dobj, R.p_infeas, R.d_infeas,
+        rstep, rnorm)])
+
+
+def polled(active, rows, slots=None) -> torch.Tensor:
+    """What a verbose poll copies in one read: ``active`` (a device bool)
+    then the rows (:func:`_row`), padded with rows that print nothing to
+    ``slots``."""
+    vals = [active.to(torch.float64).reshape(1), *rows]
+    if slots is not None and slots > len(rows):
+        vals.append(active.new_zeros((slots - len(rows)) * ROW,
+                                     dtype=torch.float64))
+    return torch.cat(vals)
+
+
+def read_polled(buf) -> bool:
+    """Read a :func:`polled` buffer in one copy, print its rows, and
+    return whether any instance is still active."""
+    vals = buf.tolist()
+    _print_rows(vals[1:])
+    return bool(vals[0])
+
+
+def poll(active, rows) -> bool:
+    """The device loop's host read: whether any instance is still active,
+    and with verbose output (``rows`` the carries' rows; None without)
+    the rows of the units since the last read, in the same copy, printed
+    as the eager loop prints them."""
+    if not rows or rows[0] is None:
+        return bool(active)
+    return read_polled(polled(active, rows))
 
 
 def _print_banner():
@@ -1209,12 +1283,19 @@ def _print_banner():
           "│  icertp    icertd   │  refine \x1b[0m")
 
 
-def _print_row(k, R: _Resid, rstep, rnorm):
-    hot = float(rnorm) > 0.001
-    pre = "\x1b[1m\x1b[31m" if hot else ""
-    post = "\x1b[0m" if hot else ""
-    print(
-        f"{pre} {int(k):6d}  │  {float(R.rPr):<8.1e}  {float(R.rDu):<8.1e}  "
-        f"{float(R.rCp):<8.1e} │  {float(R.pobj):< 8.1e}  {float(R.dobj):< 8.1e}  │  "
-        f"{float(R.p_infeas):<8.1e}  {float(R.d_infeas):<8.1e} │  {int(rstep)}{post}"
-    )
+def _print_rows(vals):
+    """Print the rows of ``vals`` (:data:`ROW` values each, :func:`_row`)
+    that an evaluation wrote."""
+    for i in range(0, len(vals), ROW):
+        shown, k, rPr, rDu, rCp, pobj, dobj, p_inf, d_inf, rstep, rnorm = (
+            vals[i:i + ROW])
+        if not shown:
+            continue
+        hot = rnorm > 0.001
+        pre = "\x1b[1m\x1b[31m" if hot else ""
+        post = "\x1b[0m" if hot else ""
+        print(
+            f"{pre} {int(k):6d}  │  {rPr:<8.1e}  {rDu:<8.1e}  "
+            f"{rCp:<8.1e} │  {pobj:< 8.1e}  {dobj:< 8.1e}  │  "
+            f"{p_inf:<8.1e}  {d_inf:<8.1e} │  {int(rstep)}{post}"
+        )

@@ -3,7 +3,8 @@
     python -m conicip_tpu_torch.trace [--family box_qp_dense] [--n 4096]
                                       [--seed 42] [--factor-dtype float64]
                                       [--batch B] [--poll K] [--chain K]
-                                      [--kkt auto|schur|tp]
+                                      [--kkt auto|schur|tp|custom]
+                                      [--verbose]
 
 Solves one instance of a problem family (``--n`` sizes ``box_qp_dense`` and
 ``single_soc``; the other families take their default sizes) from inputs
@@ -25,11 +26,15 @@ and the other device operations by total time.
 last-mile switch, ladder) in place of the full-precision default.
 ``--kkt`` picks the KKT solver: ``auto`` (``conic_ip``'s own choice, the
 default), ``schur`` (``kktsolver_schur`` passed by hand, as a caller
-passes it: no centrality corrector) or ``tp`` (``kktsolver_schur_tp`` over
-a world of one rank that this command starts, NCCL on the card), made
-once and passed to every solve; with ``--factor-dtype float32`` they
-factor in f32. ``rq_eq`` is the problem of the reference's multichip dry
-run (n = 512, R(1024) x Q(32) x Q(32), p = 16).
+passes it: no centrality corrector), ``tp`` (``kktsolver_schur_tp`` over
+a world of one rank that this command starts, NCCL on the card) or
+``custom`` (a caller's own: the box 2x2 solver of
+``examples/torch/custom_kkt.py`` under ``pivot``, for ``--family
+readme_box``, the README's box QP), made once and passed to every solve;
+with ``--factor-dtype float32`` ``schur`` and ``tp`` factor in f32.
+``rq_eq`` is the problem of the reference's multichip dry run (n = 512,
+R(1024) x Q(32) x Q(32), p = 16). ``--verbose`` solves with
+``verbose=True``, its rows printed to a buffer that is dropped.
 ``--batch B`` profiles one ``solve_batch`` of a stack of B instances of the
 family's batched form instead (``box_qp_dense`` sized by ``--n``,
 ``mixed_rq_eq`` at n=200, ``mixed_rqs``, ``small_sdp``): the same lines, per
@@ -60,7 +65,9 @@ needs a CUDA device and fails without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import io
 import json
 import os
 import sys
@@ -74,7 +81,7 @@ import torch
 from . import conic_ip, solve_batch, solver
 from . import models
 from .cones.spec import ConeSpec
-from .ops import cholesky_kernel, jacobi_kernel
+from .ops import cholesky_kernel, control, jacobi_kernel
 from .parallel import batch as parallel_batch
 from .solver import graph, ipm
 
@@ -87,6 +94,7 @@ FAMILIES = {
     "mixed_rqs": lambda n, seed: models.mixed_rqs(seed=seed),
     "mixed_rq_eq": lambda n, seed: models.mixed_rq_eq(seed=seed),
     "rq_eq": lambda n, seed: rq_eq(seed=seed),
+    "readme_box": lambda n, seed: readme_box(n=n, seed=seed),
 }
 
 # --batch: stacks of B instances, (Q, c, A, b, cone_dims[, G, d])
@@ -127,6 +135,32 @@ def rq_eq(n=512, p=16, seed=0):
                           cones, G, G @ y0)
 
 
+def readme_box(n=1000, seed=0):
+    """The README's box QP (½yᵀHy − cᵀy, H = I/2, −1 ≤ y ≤ 1,
+    c = H·(1..n)) with the seed's normal draw added to c."""
+    H = 0.5 * np.eye(n)
+    rng = np.random.default_rng(seed)
+    c = H @ np.arange(1.0, n + 1) + rng.standard_normal(n)
+    A = np.vstack([np.eye(n), -np.eye(n)])
+    return models.Problem(f"readme_box(n={n})", H, c, A, -np.ones(2 * n),
+                          [("R", 2 * n)])
+
+
+@functools.lru_cache(maxsize=None)
+def example_box_kktsolver():
+    """``examples/torch/custom_kkt.py``'s box 2x2 solver under ``pivot``,
+    made once by the example (``box_kktsolver``), loaded from the
+    checkout this package sits in."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "torch", "custom_kkt.py")
+    spec = importlib.util.spec_from_file_location("custom_kkt_example", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.box_kktsolver
+
+
 def kktsolver(name, factor_dtype, device):
     """The ``--kkt`` solver on ``device`` (module docstring), or None for
     ``auto``; ``tp`` starts the world of one it runs over (NCCL on the
@@ -146,6 +180,8 @@ def kktsolver(name, factor_dtype, device):
                                                   "rendezvous"), device.type)
         mesh = make_mesh((1,), ("tp",), device_type=device.type)
         return kktsolver_schur_tp(mesh, "tp", factor_dtype=fd)
+    if name == "custom":
+        return example_box_kktsolver()
     return None
 
 
@@ -229,7 +265,7 @@ CHAIN_COUNTS = ("polls", "fast_steps", "slow_steps", "recertified", "trips")
 FACTOR_DTYPES = {"float64": "auto", "float32": torch.float32}
 
 # --kkt: conic_ip's own choice, or a solver passed by hand
-KKT_SOLVERS = ("auto", "schur", "tp")
+KKT_SOLVERS = ("auto", "schur", "tp", "custom")
 
 
 def parse_args(argv=None):
@@ -251,14 +287,22 @@ def parse_args(argv=None):
                          "back")
     ap.add_argument("--kkt", choices=KKT_SOLVERS, default="auto",
                     help="the KKT solver: conic_ip's choice, "
-                         "kktsolver_schur passed by hand, or "
-                         "kktsolver_schur_tp over a world of one")
+                         "kktsolver_schur passed by hand, "
+                         "kktsolver_schur_tp over a world of one, or a "
+                         "caller's own box 2x2 solver (readme_box)")
+    ap.add_argument("--verbose", action="store_true",
+                    help="solve with verbose=True (rows printed to a "
+                         "dropped buffer)")
     args = ap.parse_args(argv)
     if args.family not in (BATCH_FAMILIES if args.batch else FAMILIES):
         ap.error(f"--family {args.family} has no "
                  f"{'batched' if args.batch else 'single-instance'} form")
     if args.kkt == "tp" and args.batch:
         ap.error("--kkt tp solves one instance: no --batch")
+    if args.kkt == "custom" and args.family != "readme_box":
+        ap.error("--kkt custom solves --family readme_box")
+    if args.verbose and args.batch:
+        ap.error("--verbose solves one instance: no --batch")
     return args
 
 
@@ -267,7 +311,11 @@ def kkt_builds(r) -> int:
     ``BatchRun``): the cold start's and one per step. On the device loop
     one per unit, :data:`~conicip_tpu_torch.solver.ipm.POLL` per chunk,
     each followed by a poll as the prologue is; a miss runs its prologue
-    twice (eagerly, then from its graph). A two-variant generator builds,
+    twice (eagerly, then from its graph), and with a caller's own
+    kktsolver a third time and one unit more, eagerly under the guard,
+    every body masked (solver/graph.py; counted for a one-variant
+    generator, as the caller's of ``--kkt custom``: a two-variant one
+    builds both variants in that unit). A two-variant generator builds,
     in a unit, the variant each instance is on: one per unit for a single
     solve at ``POLL`` = 1 (a frozen unit at a larger ``POLL`` builds
     nothing), both where a stack is split across the variants, which
@@ -275,8 +323,11 @@ def kkt_builds(r) -> int:
     variant)."""
     if r.loop == "eager":
         return r.cold_start + r.fast_steps + r.slow_steps
-    prologues = 2 if r.loop == "graph" and not r.cache_hit else 1
-    return r.cold_start * prologues + ipm.POLL * (r.polls - 1)
+    miss = r.loop == "graph" and not r.cache_hit
+    probe = (miss and r.kktsolver is not None
+             and control.callers_own(r.kktsolver))
+    return (r.cold_start * (1 + miss + probe) + probe
+            + ipm.POLL * (r.polls - 1))
 
 
 def main(argv=None):
@@ -298,6 +349,8 @@ def _profile(args):
 
     dev = torch.device("cuda")
     kw = dict(device=dev, factor_dtype=FACTOR_DTYPES[args.factor_dtype])
+    if args.verbose:
+        kw["verbose"] = True
     kkt = kktsolver(args.kkt, args.factor_dtype, dev)
     if kkt is not None:
         kw["kktsolver"] = kkt
@@ -320,7 +373,8 @@ def _profile(args):
         cones, name = P.cone_dims, P.name
 
         def solve():
-            return conic_ip(*tensors[:4], cones, *tensors[4:], **kw)
+            with _quiet(args.verbose):
+                return conic_ip(*tensors[:4], cones, *tensors[4:], **kw)
 
     solve()  # warm-up, builds
     torch.cuda.synchronize()
@@ -414,6 +468,14 @@ def _profile(args):
     return 0
 
 
+def _quiet(verbose):
+    """With ``--verbose``: the solve's rows printed to a buffer that is
+    dropped (the print is part of the measured work)."""
+    if not verbose:
+        return contextlib.nullcontext()
+    return contextlib.redirect_stdout(io.StringIO())
+
+
 def _chain(args, kw, on_card):
     """The [chain] line (module docstring)."""
     problems = []
@@ -439,7 +501,8 @@ def _chain(args, kw, on_card):
         t = time.perf_counter()
         last = Counter()  # this round's loops and counts
         for tensors, cones in problems:
-            solve(*tensors[:4], cones, *tensors[4:], **kw)
+            with _quiet(args.verbose):
+                solve(*tensors[:4], cones, *tensors[4:], **kw)
             hit = all(r.cache_hit for r in runs)
             hits += hit
             misses += not hit

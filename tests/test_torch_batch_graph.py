@@ -285,14 +285,14 @@ def test_the_s_cone_f32_policy_runs_on_the_device_loop():
 
 @pytest.mark.parametrize("backend", ["kktsolver_qr", "kktsolver_lu"])
 def test_a_callers_kktsolver_keeps_the_eager_loop(backend):
-    # a caller's own callable (here around one of the package's backends,
-    # which alone would take the device loop)
+    # a caller's own callable (here around one of the package's backends)
+    # takes the device loop, as the reference's jit(vmap(...)) traces it
     def kkt(Q, A, G, spec):
         return getattr(pt, backend)(Q, A, G, spec)
 
     _, got, runs = port(STACKS["mixed_rq_eq stacked G"](), kktsolver=kkt)
-    assert [(r.kktsolver, r.loop, r.cache_hit) for r in runs] == [
-        (kkt, "eager", False)]
+    assert [(r.kktsolver, r.loop, r.cache_hit, r.reason) for r in runs] == [
+        (kkt, "chunks", False, None)]
     assert got.statuses == ["Optimal"] * 4
 
 

@@ -440,3 +440,104 @@ def test_solve_batch_runs_its_stacks_on_kept_graphs(cuda):
         assert torch.equal(first.Iter.cpu(), ref.Iter)
     graph.clear()
     assert graph.cache_info() == []
+
+
+def test_the_guard_finds_a_callers_read_before_any_capture(cuda):
+    # a caller's dense Schur solver on torch.linalg.cholesky (a host check
+    # of info) reads the device: the first call's guard finds it before any
+    # capture, the run solves on the eager loop naming the call, nothing is
+    # stranded and the sync debug mode is restored; the verdict is kept, so
+    # a second call decides before the solve. The same solver on the
+    # port's ops.cholesky is captured, and gives the same answer.
+    from conicip_tpu_torch import pivot, solver
+    from conicip_tpu_torch.ops import cho_solve, cholesky
+    from conicip_tpu_torch.solver import graph
+
+    def dense(factor):
+        def kkt2x2(Q, A, G, spec):
+            def gen(F, FinvT):
+                winv = 1.0 / (F.r_d * F.r_d)
+                L = factor(Q + A.mT @ (winv[:, None] * A))
+                return lambda by, bw: (cho_solve(L, by), bw)
+            return gen
+        return kkt2x2
+
+    args = box_qp_dense(n=64, seed=3).args()
+    reads = pivot(dense(lambda M: torch.linalg.cholesky(M)))
+    stranded = len(graph._stranded)
+    sol = conic_ip(*args, kktsolver=reads, device=cuda)
+    run = solver.runs[-1]
+    assert run.loop == "eager" and "torch.linalg.cholesky" in run.reason
+    assert len(graph._stranded) == stranded
+    assert not any(key[5] is reads for key in graph.cache_info())
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert solver._eager_reason(reads, cuda) == run.reason
+    again = conic_ip(*args, kktsolver=reads, device=cuda)
+    assert solver.runs[-1].loop == "eager"
+    assert torch.equal(again.y, sol.y)
+    clean = pivot(dense(cholesky))
+    good = conic_ip(*args, kktsolver=clean, device=cuda)
+    assert solver.runs[-1].loop == "graph"
+    assert solver._eager_reason(clean, cuda) is None
+    assert (good.status, good.Iter) == (sol.status, sol.Iter) == (
+        "Optimal", sol.Iter)
+    assert float((good.y - sol.y).abs().max()) < 1e-8
+
+
+def test_the_guard_lets_a_callers_control_cond_through(cuda, tmp_path):
+    # control.cond in a caller's level 2 (the port's lax.cond), directly
+    # and inside kktsolver_schur_tp's ridge retry under a caller's lambda
+    # (NCCL, a world of one): the guard's probe runs every body masked, so
+    # the package reads no predicate inside a guarded call; both are
+    # captured, and give the eager loop's answer
+    from conicip_tpu_torch import pivot, solver
+    from conicip_tpu_torch.ops import cho_solve, cholesky, control
+    from conicip_tpu_torch.parallel import kktsolver_schur_tp, make_mesh
+    from conicip_tpu_torch.parallel.mesh import start_rank
+    from conicip_tpu_torch.solver import graph
+
+    def ridged(Q, A, G, spec):
+        def gen(F, FinvT):
+            winv = 1.0 / (F.r_d * F.r_d)
+            M = Q + A.mT @ (winv[:, None] * A)
+            L = cholesky(M)
+            eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+            L = control.cond(~torch.isfinite(L).all(),
+                             lambda: cholesky(M + 1e-10 * eye), L)
+            return lambda by, bw: (cho_solve(L, by), bw)
+        return gen
+
+    def plain(Q, A, G, spec):
+        def gen(F, FinvT):
+            winv = 1.0 / (F.r_d * F.r_d)
+            L = cholesky(Q + A.mT @ (winv[:, None] * A))
+            return lambda by, bw: (cho_solve(L, by), bw)
+        return gen
+
+    args = box_qp_dense(n=64, seed=3).args()
+    mine = pivot(ridged)
+    # the same solver without the retry, whose factor never fails here
+    ref = conic_ip(*args, kktsolver=pivot(plain), device=cuda)
+    sol = conic_ip(*args, kktsolver=mine, device=cuda)
+    run = solver.runs[-1]
+    assert run.loop == "graph" and run.reason is None, run.reason
+    assert any(key[5] is mine for key in graph.cache_info())
+    assert solver._eager_reason(mine, cuda) is None
+    assert (sol.status, sol.Iter) == (ref.status, ref.Iter)
+    assert torch.equal(sol.y, ref.y)
+
+    start_rank(0, 1, "file://" + str(tmp_path / "rendezvous"), "cuda")
+    try:
+        tp = kktsolver_schur_tp(make_mesh((1,), ("tp",)), "tp")
+        wrapped = lambda *a: tp(*a)  # noqa: E731  a caller's own callable
+        own = conic_ip(*args, kktsolver=tp, device=cuda)
+        assert solver.runs[-1].loop == "graph"
+        got = conic_ip(*args, kktsolver=wrapped, device=cuda)
+        run = solver.runs[-1]
+        assert run.loop == "graph" and run.reason is None, run.reason
+        assert solver._eager_reason(wrapped, cuda) is None
+        assert (got.status, got.Iter) == (own.status, own.Iter)
+        assert float((got.y - own.y).abs().max()) < 1e-10
+    finally:
+        torch.distributed.destroy_process_group()
+        graph.clear()

@@ -13,6 +13,7 @@ reference.
 
 import contextlib
 import functools
+import io
 
 import jax
 import jax.numpy as jnp
@@ -161,12 +162,13 @@ def test_the_guard_catches_a_read():
 @pytest.mark.parametrize("steps", [0, 1, 2, 3])
 def test_masked_refinement_matches_jax(steps, capsys):
     # mixed_rq_eq: some iteration takes every one of `steps` trips (the
-    # eager loop's verbose table, refine = steps taken + 1); the device
-    # loop runs them all masked and lands on the reference
+    # verbose table, the eager loop's text printed from the device loop's
+    # polls: refine = steps taken + 1); the device loop runs them all
+    # masked and lands on the reference
     args = FAMILIES["mixed_rq_eq"]()
     pt.conic_ip(*args, device="cpu", verbose=True, maxRefinementSteps=steps)
-    (eager,) = pt_solver.runs
-    assert eager.loop == "eager"
+    (verbose_run,) = pt_solver.runs
+    assert verbose_run.loop == "chunks"
     rows = [line.split("│") for line in capsys.readouterr().out.splitlines()
             if line.count("│") == 4 and "Iter" not in line]
     assert max(int(r[-1].strip().split("\x1b")[0]) for r in rows) == steps + 1
@@ -311,25 +313,30 @@ def test_predicated_plain_factor_keeps_the_flagged_matrices(rng):
 def test_device_loop_configurations():
     # the device loop takes the built-in backends at every precision (f32
     # factors with the last-mile switch and mixed residuals too), passed by
-    # a caller too; verbose output and a caller's own callable keep the
-    # eager loop
+    # a caller too, a caller's own callable and verbose output
     args = models.box_qp_dense(n=30).args()
-    for kw, loop in (({}, "chunks"), (dict(verbose=True), "eager"),
+    for kw, loop in (({}, "chunks"), (dict(verbose=True), "chunks"),
                      (dict(factor_dtype=torch.float32), "chunks"),
                      (dict(kktsolver=kktsolver_schur), "chunks"),
                      (dict(kktsolver=lambda *a: kktsolver_schur(*a)),
-                      "eager")):
+                      "chunks")):
         with contextlib.redirect_stdout(None):
             pt.conic_ip(*args, device="cpu", **kw)
         # (a ladder tier after an f32 run takes the device loop too)
         assert pt_solver.runs[0].loop == loop, kw
-    with pytest.raises(ValueError, match="device loop"):
-        n = len(args[1])
-        ipm.ipm_solve(*(torch.from_numpy(np.asarray(x)) for x in args[:4]),
-                      torch.zeros(0, n, dtype=torch.float64),
-                      torch.zeros(0, dtype=torch.float64),
-                      ConeSpec(args[4]), kktsolver_schur,
-                      ipm.IPMOptions(verbose=True), device_loop=ipm.run_chunks)
+    # ipm_solve's device loop prints the eager loop's verbose text
+    n = len(args[1])
+    printed = []
+    for device_loop in (ipm.run_chunks, None):
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            ipm.ipm_solve(*(torch.from_numpy(np.asarray(x)) for x in args[:4]),
+                          torch.zeros(0, n, dtype=torch.float64),
+                          torch.zeros(0, dtype=torch.float64),
+                          ConeSpec(args[4]), kktsolver_schur,
+                          ipm.IPMOptions(verbose=True),
+                          device_loop=device_loop)
+        printed.append(out.getvalue())
+    assert printed[0] == printed[1] and "│" in printed[0]
 
 
 def test_the_graphs_buffers_rebuild_the_carry():

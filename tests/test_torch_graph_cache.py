@@ -179,12 +179,17 @@ def counted_builds():
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
-def test_the_rotated_loop_builds_and_refines_as_the_eager_loop(family):
+def test_the_rotated_loop_builds_and_refines_as_the_eager_loop(family,
+                                                               monkeypatch):
     args = FAMILIES[family][0](SEEDS[0])
     graph.clear()
     with counted_builds() as calls:
         sol, run = solve(args)
     device_builds = len(calls)
+    # the eager loop, which the device loop takes verbose output from too:
+    # the rule overridden for this call
+    monkeypatch.setattr(pt_solver, "_eager_reason",
+                        lambda *a: "the eager loop, for comparison")
     with counted_builds() as calls, \
             contextlib.redirect_stdout(io.StringIO()) as out:
         eager = pt.conic_ip(*args, device="cpu", verbose=True)

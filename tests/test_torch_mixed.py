@@ -297,7 +297,12 @@ def test_ipm_options_match_jax(name, kk, opts):
 
 def test_two_mode_factors_only_the_variant_picked(monkeypatch):
     """One generator call per KKT build, in the mode the host chose: fast
-    until the last-mile trigger, slow from then on (sticky)."""
+    until the last-mile trigger, slow from then on (sticky). The host
+    chooses on the eager loop, which this caller's callable is sent to
+    here: the device loop takes it too, and on the CPU builds both
+    variants each unit, masked."""
+    monkeypatch.setattr(torch_solver, "_eager_reason",
+                        lambda *a: "the eager loop, which picks on the host")
     modes = []
 
     def counting(Q, A, G, spec):

@@ -26,6 +26,7 @@ Run as a script, this file is one rank of that world.
 import argparse
 import contextlib
 import functools
+import io
 import os
 import sys
 import tempfile
@@ -267,13 +268,16 @@ def backend_cases():
 @pytest.mark.parametrize("name", list(backend_cases()))
 def test_the_packages_backends_passed_by_hand_take_the_device_loop(name):
     kkt, args = backend_cases()[name]
-    assert pt.solver._eager_reason(kkt, ipm.IPMOptions(), "cpu") is None
+    assert pt.solver._eager_reason(kkt, "cpu") is None
     sol, run, eager, est = both_loops(args, kkt)
     assert_same_solve(sol, run, eager, est)
     assert sol.status == "Optimal"
 
 
 def test_a_callers_own_callable_and_gloo_on_cuda_keep_the_eager_loop(mesh):
+    # a caller's own callable and verbose output take the device loop, as
+    # the reference's _solve_jit traces any callable and prints from its
+    # loop; only the TP solver over gloo on CUDA tensors keeps the eager one
     from conicip_tpu_torch.kkt import kktsolver_schur
 
     def mine(Q, A, G, spec):
@@ -282,16 +286,21 @@ def test_a_callers_own_callable_and_gloo_on_cuda_keep_the_eager_loop(mesh):
     args = tp_problem()
     sol = pt.conic_ip(*args, kktsolver=mine, device="cpu", optTol=1e-7)
     (run,) = solver_runs
-    assert run.loop == "eager" and sol.status == "Optimal"
-    opts = ipm.IPMOptions()
-    assert "caller's own" in pt.solver._eager_reason(mine, opts, "cpu")
-    assert "verbose" in pt.solver._eager_reason(
-        kktsolver_schur, ipm.IPMOptions(verbose=True), "cpu")
+    assert run.loop == "chunks" and sol.status == "Optimal"
+    assert run.reason is None
+    assert pt.solver._eager_reason(mine, "cpu") is None
+    # on CUDA too, until the guard finds that its callbacks read the device
+    assert pt.solver._eager_reason(mine, "cuda") is None
+    with contextlib.redirect_stdout(io.StringIO()):
+        pt.conic_ip(*args, kktsolver=kktsolver_schur, device="cpu",
+                    optTol=1e-7, verbose=True)
+    (run,) = solver_runs
+    assert run.loop == "chunks" and run.reason is None
     # the world of one runs over gloo: on the CPU the device loop takes it,
     # on CUDA tensors gloo's staging through host memory keeps it eager
     tp = pt.kktsolver_schur_tp(mesh, "tp")
-    assert pt.solver._eager_reason(tp, opts, "cpu") is None
-    assert "gloo" in pt.solver._eager_reason(tp, opts, "cuda")
+    assert pt.solver._eager_reason(tp, "cpu") is None
+    assert "gloo" in pt.solver._eager_reason(tp, "cuda")
 
 
 def test_the_public_batched_solvers_take_the_device_loop():

@@ -5,9 +5,11 @@ device busy time as the union of event intervals, and kernel names grouped
 by the Cholesky kernel's parts.
 """
 
+import numpy as np
 import pytest
 import torch
 
+import conicip_tpu_torch as pt
 from conicip_tpu_torch import trace
 from conicip_tpu_torch.solver import resolve_factor_dtype
 
@@ -101,11 +103,34 @@ def test_needs_a_card():
 def test_families_make_their_problems():
     assert sorted(trace.FAMILIES) == ["box_qp_dense", "larger_sdp",
                                       "many_small_socs", "mixed_rq_eq",
-                                      "mixed_rqs", "rq_eq", "single_soc"]
+                                      "mixed_rqs", "readme_box", "rq_eq",
+                                      "single_soc"]
     P = trace.FAMILIES["single_soc"](8, 42)
     assert P.name == "single_soc(n=8)" and P.cone_dims == [("Q", 9)]
     assert trace.FAMILIES["box_qp_dense"](8, 42).A.shape == (16, 8)
     assert trace.FAMILIES["larger_sdp"](8, 42).cone_dims == [("S", 465)]
+    box = trace.FAMILIES["readme_box"](8, 42)
+    assert box.A.shape == (16, 8) and np.array_equal(box.Q, 0.5 * np.eye(8))
+
+
+def test_the_custom_kkt_and_verbose_switches():
+    # --kkt custom: the example's box solver (a caller's own callable) on
+    # the README box QP; on the CPU the device loop takes it and gives the
+    # package's diag backend's answer. --verbose solves one instance.
+    args = trace.parse_args(["--family", "readme_box", "--kkt", "custom",
+                             "--verbose"])
+    assert args.kkt == "custom" and args.verbose
+    for bad in (["--kkt", "custom"], ["--verbose", "--batch", "4"]):
+        with pytest.raises(SystemExit):
+            trace.parse_args(bad)
+    kkt = trace.kktsolver("custom", "float64", "cpu")
+    P = trace.FAMILIES["readme_box"](30, 7)
+    sol = pt.conic_ip(*P.args(), kktsolver=kkt, device="cpu")
+    run = pt.solver.runs[-1]
+    ref = pt.conic_ip(*P.args(), device="cpu")
+    assert run.loop == "chunks" and sol.status == ref.status == "Optimal"
+    assert float((sol.y - ref.y).abs().max()) < 1e-6
+    assert trace.kkt_builds(run) == 1 + run.fast_steps
 
 
 def test_factor_dtype_switch_selects_the_solve():
