@@ -12,7 +12,12 @@ stack of 200, the identity, a clustered spectrum, an indefinite matrix, an
 ill-conditioned Lzᵀ Ls, NaN and Inf entries, the sweep limit), and times
 them beside cuSOLVER on random stacks and on the first stack of each kind
 that one larger_sdp(k=30) solve and one batched_small_sdp(64) solve hand
-them; then it drives ``conicip_tpu_torch.conic_ip`` through
+them; ``[rcone]`` holds every entry of the R cones' kernels
+(``csrc/rcone.cu``: the NT scaling, the 4x4 reduction, the
+complementarity vectors, the step; f64 and f32) against its plain twin
+(``ops/rcone.py``) at the widths the R-only solves hand them and at edge
+inputs, and times each inside a captured CUDA graph beside the twin and
+its bound; then it drives ``conicip_tpu_torch.conic_ip`` through
 every default KKT backend (dense Schur, diagonal, spectral) on R, Q and S
 cone problems at the sizes the repository benchmarks, and checks the
 answers; ``[graph]`` holds each of those solves, and the f32 solves of
@@ -65,7 +70,11 @@ stack split between them. Every phase that solves an S cone must launch the
 Jacobi kernels and no other phase may (their counter,
 ``ops.jacobi_kernel.jacobi_launches``, keyed by (kind, dtype, d, stack), is
 read per phase like the Cholesky's, and ``[jacobi_launches]`` prints the
-main path's launches per key). Every phase prints one line per case;
+main path's launches per key); ``[diag]``, ``[graph]``, ``[graph_cache]``
+and ``[batch]`` check that their R-only solves launch every entry of the
+R cones' kernels (the Gondzio trial where a corrector runs) and the other
+solves none, and each phase's ``[launches]`` line counts them. Every
+phase prints one line per case;
 any failed check raises, so the script exits non-zero. It imports nothing
 of JAX.
 
@@ -196,8 +205,8 @@ def phase_environment():
           "TF32 matmul must be off (the reference ran products at HIGHEST)")
 
 
-# csrc/<name>.cu: the two kernels, and the device loop's conditional node
-KERNEL_SOURCES = ("cholesky", "jacobi", "graph_cond")
+# csrc/<name>.cu: the kernels, and the device loop's conditional node
+KERNEL_SOURCES = ("cholesky", "jacobi", "rcone", "graph_cond")
 
 
 def phase_build():
@@ -909,6 +918,240 @@ def phase_jacobi():
         JACOBI_KINDS.index(kv[0][0]), kv[0][1] == f32)))
 
 
+# ── the R cones' kernels (csrc/rcone.cu) ──
+
+# (B, m) the [rcone] phase holds and times every entry at: the README box
+# (m = 2000), the batched_box_qp(64, n=500) stack's rows per instance
+# (m = 1000), and a wide single solve; then edge shapes, held only, with a
+# NaN and an inf entry in the last instance's direction
+RCONE_SHAPES = ((1, 2000), (64, 1000), (1, 8192))
+RCONE_EDGES = ((5, 300), (3, 1))
+RCONE_RECORD = (1, 2000)  # the kernels line's shape, f64
+# per entry: (vectors read, vectors written, per-instance values read,
+# per-instance values written, bool flags written, operations per element)
+RCONE_IO = {"scaling": (2, 4, 0, 1, 0, 7), "reduce4_pre": (4, 2, 0, 0, 0, 3),
+            "reduce4_post": (3, 1, 0, 0, 0, 3),
+            "corrector": (5, 1, 1, 0, 0, 6), "k4": (5, 1, 0, 0, 0, 5),
+            "gondzio": (5, 1, 2, 0, 0, 12), "predictor": (4, 0, 0, 6, 1, 14),
+            "step": (4, 0, 0, 1, 1, 6)}
+# the kernels of csrc/rcone.cu and their entries; what each replaces in
+# the JAX package (plain jnp code: no TPU kernel)
+RCONE_KERNELS = {
+    "r_scaling": (("scaling",), "conicip_tpu/cones/scaling.py:113"),
+    "r_reduce4": (("reduce4_pre", "reduce4_post"),
+                  "conicip_tpu/solver/ipm.py:345"),
+    "r_comp": (("corrector", "k4", "gondzio"),
+               "conicip_tpu/solver/ipm.py:703"),
+    "r_step": (("predictor", "step"), "conicip_tpu/cones/algebra.py:218"),
+}
+# |kernel - plain| of the reduced values (mubar, the fts dots, fts), over
+# the magnitudes of their terms: another summation order
+RCONE_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+def rcone_bound_ms(entry, B, m, dt):
+    """Least time of one call: its vectors and values read once and its
+    outputs written once at the memory rate, against its operations at the
+    dtype's peak rate. Returns (ms, which)."""
+    vr, vw, pr, pw, flags, ops = RCONE_IO[entry]
+    size = torch.finfo(dt).bits // 8
+    moved = ((vr + vw) * B * m + (pr + pw) * B) * size + flags * B
+    t_bytes = moved / PEAK_BYTES
+    t_ops = ops * B * m / PEAK_FLOPS[dt]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def rcone_inputs(B, m, dt, seed, edge=False):
+    """An interior point (v, s), a direction (dv, ds), two more vectors,
+    per-instance σμ and ã; with ``edge`` a NaN and an inf entry in the
+    last instance's direction."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device="cuda", dtype=dt)
+
+    def randn():
+        return torch.randn(B, m, generator=g, device="cuda", dtype=dt)
+
+    dv, ds = randn(), randn()
+    if edge:
+        dv[-1, 0] = float("nan")
+        ds[-1, -1] = float("inf")
+    return dict(v=rand(B, m) * 2.8 + 0.2, s=rand(B, m) * 2.8 + 0.2, dv=dv,
+                ds=ds, x=randn(), y=randn(), smu=rand(B) * 0.3 + 0.3,
+                atil=rand(B) * 0.5 + 0.5)
+
+
+def rcone_calls(a):
+    """entry: (kernel call, plain twin call, which outputs are reduced
+    values with their terms) on the inputs ``a``."""
+    from conicip_tpu_torch.ops import rcone
+
+    v, s, dv, ds, smu, atil = (a[k] for k in ("v", "s", "dv", "ds", "smu",
+                                               "atil"))
+    r_d, rinv, lam, lam2, _ = rcone.r_scaling_plain(v, s)
+    inv_dtb = 1.0 / (1.0 - 0.01)
+    dots = torch.stack([v * s, v * ds, dv * s, dv * ds], -2)
+
+    def pair(name, *args, **kw):
+        return (lambda: getattr(rcone, name)(*args, **kw),
+                lambda: getattr(rcone, f"{name}_plain")(*args, **kw))
+
+    return {
+        "scaling": (*pair("r_scaling", v, s), {4: v * s}),
+        "reduce4_pre": (*pair("r_reduce4_pre", a["x"], lam, r_d, a["y"]),
+                        {}),
+        "reduce4_post": (*pair("r_reduce4_post", a["x"], r_d, dv), {}),
+        "corrector": (*pair("r_corrector", lam2, r_d, rinv, dv, ds, smu),
+                      {}),
+        "k4": (*pair("r_k4", lam, r_d, rinv, dv, ds), {}),
+        "gondzio": (*pair("r_gondzio", lam, r_d, rinv, dv, ds, atil, smu),
+                    {}),
+        "predictor": (*pair("r_step", v, s, dv, ds, fts=True),
+                      {2: dots, 3: dots.reshape(dots.shape[0], -1)}),
+        "step": (*pair("r_step", v, s, dv, ds, inv_dtb), {}),
+    }
+
+
+def hold_rcone(entry, kernel, plain, reduced, dt):
+    """One entry against its plain twin on the same card tensors: every
+    elementwise output, the step and the flags equal (NaN where the twin is
+    NaN), the reduced values within RCONE_TOL of their terms' magnitudes.
+    Returns the largest |kernel - plain| over finite entries."""
+    got, want = kernel(), plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for i, (x, y) in enumerate(zip(got, want)):
+        check(x.shape == y.shape and x.dtype == y.dtype,
+              f"[rcone] {entry}: output {i} {x.dtype} {tuple(x.shape)}, "
+              f"plain {y.dtype} {tuple(y.shape)}")
+        if x.dtype == torch.bool:
+            check(torch.equal(x, y), f"[rcone] {entry}: flags differ")
+            continue
+        nan, fin = torch.isnan(y), torch.isfinite(y)
+        check(torch.equal(torch.isnan(x), nan),
+              f"[rcone] {entry}: output {i} NaN where plain is not")
+        diff = (x - y).abs()[fin]
+        # a reduced value may differ where it is finite, and only there
+        free = fin if i in reduced else torch.zeros_like(fin)
+        check(bool(((x == y) | nan | free).all()),
+              f"[rcone] {entry}: output {i} differs")
+        if i in reduced:
+            bound = (RCONE_TOL[dt] * reduced[i].abs().sum(-1))[fin]
+            check(bool((diff <= bound).all()), f"[rcone] {entry}: reduced "
+                  f"output {i} beyond {RCONE_TOL[dt]} of its terms")
+        if diff.numel():
+            worst = max(worst, diff.max().item())
+    return worst
+
+
+def graph_ms(fn, calls=20, replays=10):
+    """Device ms of one call of ``fn`` as the main path runs it: ``calls``
+    calls captured in one CUDA graph, replayed ``replays`` times between
+    two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / (replays * calls)
+    graph.reset()
+    return ms
+
+
+def phase_rcone():
+    """The R cones' kernels against their plain twins, every entry in f64
+    and f32 at RCONE_SHAPES and RCONE_EDGES, and each entry's time inside
+    a captured CUDA graph beside the plain sequence's and its bound;
+    returns the kernels line's records, one per kernel at RCONE_RECORD in
+    f64 (the sums over its entries, one call of each; max_abs_err over
+    every f64 shape held)."""
+    from conicip_tpu_torch.ops import rcone_kernel
+
+    f64 = torch.float64
+    records, worst_of = {}, Counter()
+    for dt in (f64, torch.float32):
+        for B, m in RCONE_SHAPES + RCONE_EDGES:
+            edge = (B, m) in RCONE_EDGES
+            a = rcone_inputs(B, m, dt, seed=B + m, edge=edge)
+            for entry, (kernel, plain, reduced) in rcone_calls(a).items():
+                before = rcone_kernel.launch_count(entry, dt)
+                worst = hold_rcone(entry, kernel, plain, reduced, dt)
+                check(rcone_kernel.launch_count(entry, dt) == before + 1,
+                      f"[rcone] {entry}: not one launch counted per call")
+                worst_of[entry, dt] = max(worst_of[entry, dt], worst)
+                if edge:
+                    line("rcone", entry=entry, B=B, m=m, dtype=dtname(dt),
+                         input="edge", max_abs_err=f"{worst:.3e}",
+                         held=True)
+                    continue
+                ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+                bound, by = rcone_bound_ms(entry, B, m, dt)
+                line("rcone", entry=entry, B=B, m=m, dtype=dtname(dt),
+                     max_abs_err=f"{worst:.3e}", kernel_ms=f"{ms:.5f}",
+                     plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound:.6f}",
+                     bound_by=by, bound_share=f"{bound / ms:.4f}",
+                     ratio_to_plain=f"{ms / plain_ms:.3f}", in_graph=True)
+                if (B, m) == RCONE_RECORD and dt == f64:
+                    records[entry] = (ms, plain_ms, bound)
+    out = {}
+    for name, (entries, replaces) in RCONE_KERNELS.items():
+        ms, plain, bound = (sum(records[e][i] for e in entries)
+                            for i in range(3))
+        out[name] = {"name": f"rcone_{name}", "route": "cuda",
+                     "source": "conicip_tpu_torch/csrc/rcone.cu",
+                     "replaces": replaces,
+                     "shape": f"{RCONE_RECORD} f64, one call of each entry "
+                              f"({'+'.join(entries)})",
+                     "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": "bytes", "library_ms": None,
+                     "max_abs_err": max(worst_of[e, f64] for e in entries),
+                     "entries": list(entries)}
+    return out
+
+
+def rcone_counts():
+    """The R cones' kernels' launches so far, by entry."""
+    from conicip_tpu_torch.ops import rcone_kernel
+
+    return Counter({e: rcone_kernel.launch_count(e)
+                    for e in rcone_kernel.ENTRIES})
+
+
+def rcone_launched(label, used, only_r, gondzio):
+    """Check the R cones' launches ``used`` of one solve: on an R-only
+    spec every entry (the Gondzio trial only with a corrector), on any
+    other none. Returns them as a line field."""
+    from conicip_tpu_torch.ops import rcone_kernel
+
+    if only_r:
+        want = [e for e in rcone_kernel.ENTRIES if gondzio or e != "gondzio"]
+        check(all(used[e] > 0 for e in want)
+              and (gondzio or not used["gondzio"]),
+              f"{label}: R cones' launches {dict(used)}")
+    else:
+        check(not +used, f"{label}: not R-only, yet the R cones' kernels "
+              f"launched {dict(+used)}")
+    return ",".join(f"{e}:{used[e]}" for e in rcone_kernel.ENTRIES) \
+        if only_r else "none"
+
+
 def solve_timed(args, **kw):
     from conicip_tpu_torch import conic_ip
 
@@ -1020,23 +1263,37 @@ def diag_args(eq, n=1000):
 
 
 def phase_diag():
+    from conicip_tpu_torch import conic_ip
+
     n = 1000
     for eq in (False, True):
         args = diag_args(eq, n)
-        before = launches()
+        before, rbefore = launches(), rcone_counts()
         sol, ms = solve_timed(args, device="cuda")
         used = launches() - before
+        # the R cones' kernels, every entry but the Gondzio trial (the
+        # diag backend runs no corrector)
+        rcone = rcone_launched(f"diag eq={eq}", rcone_counts() - rbefore,
+                               True, False)
         builds, loop = kkt_builds(), loops()
         _, ms2 = solve_timed(args, device="cuda")
         check(sol.status == "Optimal", f"diag eq={eq}: status {sol.status}")
         check(loop == "graph", f"diag eq={eq}: the {loop} loop ran")
+        # the CPU's solve, which [graph] holds its solve to again
+        ref = conic_ip(*args, device="cpu")
+        CPU_REF[f"readme_box(n=1000{',eq' if eq else ''})"] = (ref.status,
+                                                               ref.Iter)
+        check((ref.status, ref.Iter) == (sol.status, sol.Iter),
+              f"diag eq={eq}: cpu {ref.status}/{ref.Iter}, card "
+              f"{sol.status}/{sol.Iter}")
         # the Woodbury equality mode factors two (p, p) matrices per KKT
         # build (K and S); without equalities nothing is factored
         check(used == (2 * builds if eq else 0),
               f"diag eq={eq}: {used} launches for {builds} KKT builds")
         line("diag", n=n, equality=eq, status=sol.status, Iter=sol.Iter,
+             cpu_iter=ref.Iter,
              resid=f"{max(sol.prFeas, sol.duFeas, sol.muFeas):.3e}",
-             launches=used, kkt_builds=builds, loop=loop,
+             launches=used, kkt_builds=builds, loop=loop, rcone=rcone,
              ms_per_solve=f"{ms2:.2f}",
              ms_per_iter=f"{ms2 / sol.Iter:.3f}", first_solve_ms=f"{ms:.2f}")
 
@@ -1158,7 +1415,8 @@ def graph_cases():
     cases = [(f"box_qp_dense(n={n})", models.box_qp_dense(n=n, seed=42).args(),
               f"box_qp_dense(n={n})") for n in SCHUR_N]
     cases += [(f"readme_box(n=1000{',eq' if eq else ''})", diag_args(eq),
-               None) for eq in (False, True)]
+               f"readme_box(n=1000{',eq' if eq else ''})")
+              for eq in (False, True)]
     cases += [(label, P.args(), f"{label} auto")
               for label, P, kkt, _, _ in conic_cases() if kkt is None]
     return cases
@@ -1215,8 +1473,10 @@ def graph_f32_cases():
 
 def launch_counts():
     """The kernels' launches so far by entry and dtype: the Cholesky
-    kernel's unconditional and predicated factors and each Jacobi kind."""
-    from conicip_tpu_torch.ops import cholesky_kernel, jacobi_kernel
+    kernel's unconditional and predicated factors, each Jacobi kind and
+    each entry of the R cones' kernels."""
+    from conicip_tpu_torch.ops import (cholesky_kernel, jacobi_kernel,
+                                       rcone_kernel)
 
     out = Counter()
     for name, counter in (("cholesky", cholesky_kernel.cholesky_launches),
@@ -1225,6 +1485,8 @@ def launch_counts():
             out[f"{name}_{dtname(key[0])}"] += c
     for (kind, dt, _, _), c in jacobi_kernel.jacobi_launches.items():
         out[f"{kind}_{dtname(dt)}"] += c
+    for (entry, dt, _, _), c in rcone_kernel.rcone_launches.items():
+        out[f"rcone_{entry}_{dtname(dt)}"] += c
     return out
 
 
@@ -1322,6 +1584,10 @@ def phase_graph():
         check(hit_launches == eager_launches,
               f"[graph] {label}: launches {dict(hit_launches)} on a hit, "
               f"{dict(eager_launches)} on the eager loop")
+        rcone = rcone_launched(f"[graph] {label}", Counter({
+            k[len("rcone_"):].rsplit("_", 1)[0]: v
+            for k, v in hit_launches.items() if k.startswith("rcone_")}),
+            a[6].only_r, a[8].centralityCorrectors > 0)
         # a hit reads once after the prologue and once per chunk: one
         # chunk of POLL units per step, each step on one variant; a miss
         # runs its first chunk eagerly
@@ -1352,8 +1618,9 @@ def phase_graph():
              fast_steps=run.fast_steps, slow_steps=run.slow_steps,
              recertified=run.recertified,
              launches=",".join(f"{k}:{v}" for k, v in
-                               sorted(hit_launches.items())) or "none",
-             launches_equal_eager=True,
+                               sorted(hit_launches.items())
+                               if not k.startswith("rcone_")) or "none",
+             rcone=rcone, launches_equal_eager=True,
              trips_per_iter_graph=f"{run.trips / it:.2f}",
              trips_per_iter_eager=f"{erun.trips / it:.2f}",
              poll=ipm.POLL, polls=run.polls, replays=run.replays,
@@ -1478,6 +1745,7 @@ def phase_graph_cache():
         (key,) = graph.cache_info()
         kept = first.y.clone()
         hits, reserved = [], []
+        rbefore = rcone_counts()
         for args in instances[1:]:
             sol = conic_ip(*args, device="cuda", **kw)
             (run,) = solver.runs
@@ -1488,6 +1756,7 @@ def phase_graph_cache():
             hits.append((sol.status, sol.Iter,
                          *(getattr(sol, f).cpu() for f in "ywv")))
             del sol
+        rused = rcone_counts() - rbefore
         check(len(set(reserved)) == 1,
               f"[graph_cache] {label}: memory reserved across the hits "
               f"{reserved}")
@@ -1504,6 +1773,10 @@ def phase_graph_cache():
             finally:
                 graph.solve = real
             operands.append(seen.pop("call")[0])
+        # the hits' R cones' launches, every entry on an R-only spec
+        rcone = rcone_launched(f"[graph_cache] {label}", rused,
+                               operands[0][6].only_r,
+                               operands[0][8].centralityCorrectors > 0)
 
         def loop(a, stats=None):
             return Solution.from_state(real(*a, stats=stats))
@@ -1564,6 +1837,7 @@ def phase_graph_cache():
              hits_equal_fresh=True,
              cpu_iters=",".join(map(str, cpu_iters)) or "-",
              first_unchanged=True, reserved_mb=f"{reserved[0] / 2**20:.0f}",
+             rcone_hits=rcone,
              other_shape_missed=other_missed, evicted_pool_segments=left,
              ms_hit=spread(ms_hit), ms_miss=spread(ms_miss),
              ms_eager=spread(ms_eager),
@@ -2102,6 +2376,7 @@ def phase_batch():
     of them against their own conic_ip solve, and the kernel's batched
     launches against the KKT builds of the stacked runs."""
     from conicip_tpu_torch import conic_ip, models, solve_batch
+    from conicip_tpu_torch.cones.spec import ConeSpec
     from conicip_tpu_torch.ops import cholesky_kernel
     from conicip_tpu_torch.parallel import batch as pbatch
 
@@ -2109,9 +2384,13 @@ def phase_batch():
         f32 = "factor_dtype" in kw
         timed_batch(args, **kw)  # warm-up
         before = Counter(cholesky_kernel.cholesky_launches)
-        jbefore = jacobi_launches()
+        jbefore, rbefore = jacobi_launches(), rcone_counts()
         out, ms = timed_batch(args, **kw)
         jused = jacobi_launches() - jbefore
+        # solve_batch runs one Gondzio corrector by default
+        rcone = rcone_launched(label, rcone_counts() - rbefore,
+                               ConeSpec(args[4]).only_r,
+                               kw.get("centralityCorrectors", 1) > 0)
         runs = list(pbatch.runs)
         got, singles = launched_since(before)
         # the solver's own runs (f64, f32 factors with mixed residuals,
@@ -2194,7 +2473,7 @@ def phase_batch():
                  f"{str(dt).split('.')[-1]}@{k}:{v}"
                  for (dt, k), v in sorted(got.items(), key=str)) or "none",
              kkt_builds=sum(want.values()), ridge_retries=retries,
-             jacobi_launches=jused,
+             jacobi_launches=jused, rcone=rcone,
              sampled_iter_batch_single=",".join(pairs),
              ms_per_batch=f"{(ms + ms2) / 2:.2f}",
              ms_64_single_solves=f"{8 * t_single:.2f}",
@@ -3833,10 +4112,12 @@ def main():
     phase_build()
     single, batched64, batched32 = phase_kernel()
     jacobi = phase_jacobi()
-    line("phase_time", of="build+kernel+jacobi",
+    rcone = phase_rcone()
+    line("phase_time", of="build+kernel+jacobi+rcone",
          seconds=f"{time.perf_counter() - start:.1f}")
 
-    from conicip_tpu_torch.ops import cholesky_kernel, jacobi_kernel
+    from conicip_tpu_torch.ops import (cholesky_kernel, jacobi_kernel,
+                                       rcone_kernel)
 
     # each path of the main run is driven with the counts at 0 and read
     # just after; the comparison launches of the kernel phases do not count
@@ -3845,10 +4126,11 @@ def main():
                   launches_predicated=0, launches_predicated_f32=0)
     batched64["launches"] = batched32["launches"] = 0
     batched64["launches_predicated"] = batched32["launches_predicated"] = 0
-    for rec in jacobi.values():
+    for rec in (*jacobi.values(), *rcone.values()):
         rec["launches"] = 0
     launched = set()  # the counters' keys: every shape a path gave an entry
     jacobi_main = Counter()  # launches by (kind, dtype, d, stack)
+    rcone_main = Counter()  # the R cones' kernels' launches by entry
     # the phases that solve S-cone problems, whose decompositions are the
     # Jacobi kernels' (and no other phase's)
     s_cone = (phase_conic, phase_graph, phase_graph_cache, phase_f32,
@@ -3861,6 +4143,7 @@ def main():
                   phase_distributed):
         cholesky_kernel.reset_launch_count()
         jacobi_kernel.reset_launch_count()
+        rcone_kernel.reset_launch_count()
         # launches of the ranks a phase spawned, counted by their wrappers
         t = time.perf_counter()
         ranks, ranks_jacobi = phase() or (Counter(), Counter())
@@ -3898,10 +4181,14 @@ def main():
         pstacked = {dt: sum(c for k, c in pcounts.items()
                             if k[0] == dt and len(k) == 3)
                     for dt in (f32, f64)}
+        rused = rcone_counts()
+        for rec in rcone.values():
+            rec["launches"] += sum(rused[e] for e in rec["entries"])
         line("launches", of=phase.__name__, f64=used - used32, f32=used32,
              batched_f64=stacked[f64], batched_f32=stacked[f32],
              predicated=sum(pcounts.values()),
-             jacobi=",".join(f"{k}:{by_kind[k]}" for k in JACOBI_KINDS))
+             jacobi=",".join(f"{k}:{by_kind[k]}" for k in JACOBI_KINDS),
+             rcone=",".join(f"{e}:{rused[e]}" for e in rcone_kernel.ENTRIES))
         single["launches"] += used - sum(stacked.values())
         single["launches_f64"] += used - used32 - stacked[f64]
         single["launches_f32"] += used32 - stacked[f32]
@@ -3915,7 +4202,9 @@ def main():
         batched32["launches_predicated"] += pstacked[f32]
         launched |= set(counts) | set(pcounts)
         jacobi_main += jcounts
-    for rec in (single, batched64, batched32, *jacobi.values()):
+        rcone_main += rused
+    for rec in (single, batched64, batched32, *jacobi.values(),
+                *rcone.values()):
         check(rec["launches"] > 0, f"{rec['name']} was never launched on "
               "the main paths")
     # the f32 Schur builds' ridge retries, inside the device loop's graphs
@@ -3950,8 +4239,14 @@ def main():
                                  if key[:2] == (kind, dt))
 
     line("phase_time", of="all", seconds=f"{time.perf_counter() - start:.1f}")
+    for name, rec in rcone.items():
+        entries = rec.pop("entries")
+        check(all(rcone_main[e] > 0 for e in entries),
+              f"rcone_{name}: an entry was never launched on the main "
+              f"paths {dict(rcone_main)}")
     print(json.dumps({"kernels": [single, batched64, batched32,
-                                  *jacobi.values()]}), flush=True)
+                                  *jacobi.values(), *rcone.values()]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import inspect
 import math
 import os
 import threading
@@ -136,8 +137,35 @@ def callers_own(kktsolver) -> bool:
 
 
 # The callables found to read the device, each with the reason; weak keys,
-# so that the memo keeps nothing alive.
+# so that the memo keeps nothing alive. A bound method is a new object at
+# each attribute access (``solver.kkt``), so it is remembered by its
+# ``__self__`` and then its ``__func__`` (``_method_reads``), as the graph
+# cache's key compares it.
 _reads = weakref.WeakKeyDictionary()
+_method_reads = weakref.WeakKeyDictionary()
+
+
+def _remember(kktsolver, reason) -> None:
+    """Record that ``kktsolver``'s callbacks read the device; a callable
+    that cannot be weakly referenced is not remembered."""
+    with contextlib.suppress(TypeError):
+        if inspect.ismethod(kktsolver):
+            _method_reads.setdefault(
+                kktsolver.__self__,
+                weakref.WeakKeyDictionary())[kktsolver.__func__] = reason
+        else:
+            _reads[kktsolver] = reason
+
+
+def _recalled(kktsolver) -> Optional[str]:
+    """The reason recorded for ``kktsolver``, or None."""
+    try:
+        if inspect.ismethod(kktsolver):
+            funcs = _method_reads.get(kktsolver.__self__)
+            return None if funcs is None else funcs.get(kktsolver.__func__)
+        return _reads.get(kktsolver)
+    except TypeError:  # not weakly referenceable: never remembered
+        return None
 
 
 def eager_reason(kktsolver, device) -> Optional[str]:
@@ -152,10 +180,7 @@ def eager_reason(kktsolver, device) -> Optional[str]:
         return rule(device)
     if device.type != "cuda":
         return None
-    try:
-        return _reads.get(kktsolver)
-    except TypeError:  # not weakly referenceable: never remembered
-        return None
+    return _recalled(kktsolver)
 
 
 class ReadsDevice(RuntimeError):
@@ -205,8 +230,7 @@ def guarded(kktsolver):
             if _SYNC not in str(err):
                 raise
             reason = _culprit(err)
-            with contextlib.suppress(TypeError):
-                _reads[kktsolver] = reason
+            _remember(kktsolver, reason)
             raise ReadsDevice(reason) from err
         finally:
             torch.cuda.set_sync_debug_mode(old)

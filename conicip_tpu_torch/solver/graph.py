@@ -92,10 +92,11 @@ returns its pools' memory to CUDA.
 The kernels' wrappers count a launch where they issue it. Under capture
 the card runs nothing, so each capture's counts are taken back and added
 once per replay: the counters say what the card ran. A conditional body
-that launches a counted kernel (a variant's factors and decompositions)
-also counts its runs on the device; the host reads those counts with the
-loop's own, in the solve's one final copy, and adds the body's captured
-launches once per run.
+that launches a counted kernel (a variant's factors and decompositions,
+a refinement trip's R-cone kernels) also counts its runs on the device,
+in one of the entry's slots (:func:`counted_bodies`); the host reads
+those counts with the loop's own, in the solve's one final copy, and
+adds the body's captured launches once per run.
 """
 
 from __future__ import annotations
@@ -109,7 +110,7 @@ from dataclasses import fields, is_dataclass
 import torch
 from torch.profiler import record_function
 
-from ..ops import cholesky_kernel, control, jacobi_kernel
+from ..ops import cholesky_kernel, control, jacobi_kernel, rcone_kernel
 from ..ops.build import load_library
 from . import ipm
 from .state import SolState
@@ -123,10 +124,15 @@ LOOP, REPLAY = "conicip::loop", "conicip::replay"
 # Levels of conditional nodes in a unit: a variant's step, and the
 # refinement trips inside it.
 NESTING = 2
-# Conditional bodies of a unit, or of the prologue, that launch counted
-# kernels, at most: each variant's scaling and step, and the distributed
-# factor's ridge retry (control.cond) inside each step.
-COUNTED_BODIES = 6
+
+
+def counted_bodies(opts) -> int:
+    """Conditional bodies of a unit, or of the prologue, that launch
+    counted kernels, at most: each variant's scaling and step, and inside
+    each step the distributed factor's ridge retry (control.cond) and the
+    refinement trips (the R cones' kernels, ops/rcone.py)."""
+    return 2 * (3 + opts.maxRefinementSteps)
+
 
 # Entries kept, least recently used first out. The reference's jit cache is
 # unbounded; an entry's pool holds the loop's device memory (about 3.2 GB
@@ -144,7 +150,8 @@ _stranded: list = []
 def _counters():
     return (cholesky_kernel.cholesky_launches,
             cholesky_kernel.predicated_launches,
-            jacobi_kernel.jacobi_launches)
+            jacobi_kernel.jacobi_launches,
+            rcone_kernel.rcone_launches)
 
 
 def _leaves(x) -> list:
@@ -221,9 +228,10 @@ class _Entry:
     """One configuration's buffers and, on CUDA, graphs (module
     docstring)."""
 
-    def __init__(self, key, prologue, inputs):
+    def __init__(self, key, prologue, inputs, slots):
         self.key = key
         self.prologue = prologue
+        self.slots = slots  # counted bodies a unit may have (counted_bodies)
         # the inputs' buffers: the call's tensors, copied in their layout
         # (the reductions round by it), a shared slice once
         *args, warm = inputs
@@ -282,10 +290,11 @@ def _counts(entry, cy) -> dict:
     return counts
 
 
-def _drive(key, prologue, inputs, probe=None):
+def _drive(key, prologue, inputs, slots, probe=None):
     """``ipm_solve``'s device loop through the cache (module docstring);
-    ``probe`` is the prologue on a caller's kktsolver under the guard,
-    which a miss on CUDA runs first."""
+    ``slots`` the counted bodies a unit may have, ``probe`` the prologue on
+    a caller's kktsolver under the guard, which a miss on CUDA runs
+    first."""
     entry = _cache.get(key)
     hit = entry is not None
     with record_function(LOOP):
@@ -295,7 +304,7 @@ def _drive(key, prologue, inputs, probe=None):
         else:
             if inputs[1].device.type != "cuda":
                 _make_room()  # on CUDA, _build makes room after its probe
-            entry = _Entry(key, prologue, inputs)
+            entry = _Entry(key, prologue, inputs, slots)
         if inputs[1].device.type != "cuda":
             cy, info = ipm.run_chunks(entry.prologue, entry.inputs)
         elif hit:
@@ -404,7 +413,7 @@ def _build(entry, probe=None):
     # the counted bodies' runs, made before any capture: a counter
     # allocated inside a captured body and zeroed after the capture counted
     # nothing on the H100
-    entry.runs = torch.zeros(COUNTED_BODIES * (1 + ipm.POLL),
+    entry.runs = torch.zeros(entry.slots * (1 + ipm.POLL),
                              dtype=torch.int64, device=device)
     branch = _conditional(entry, device)
 
@@ -587,7 +596,7 @@ def solve(Q, c, A, b, G, d, spec, kktsolver, opts, warm=None,
         probe = ipm.device_prologue(spec, control.guarded(kktsolver), opts)
 
     def loop(prologue, inputs):
-        return _drive(key, prologue, inputs, probe)
+        return _drive(key, prologue, inputs, counted_bodies(opts), probe)
 
     if c.device.type != "cuda":
         return ipm.ipm_solve(*args, spec, kktsolver, opts, warm=warm,

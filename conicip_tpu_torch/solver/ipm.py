@@ -57,6 +57,12 @@ is mask-based on the device, as in the reference:
   non-finite scrubbing and optional Gondzio centrality correctors,
 - the λ-frame max-steps and Lyapunov divisions when S cones are present.
 
+A spec whose cones are all R (:func:`_fused_r`) takes the R cones' fused
+sequence of ``ops/rcone.py`` for its scaling, 4x4 reduction,
+complementarity vectors and steps (the hand kernels of ``csrc/rcone.cu``
+on the card; on the CPU plain twins that are the generic sequence's
+bits); every other spec the generic ``cones/`` calls.
+
 Mixed-precision options (all off by default; on hardware with native f64
 the full-precision path is the default):
 
@@ -105,7 +111,7 @@ from ..cones import algebra as ca
 from ..cones import scaling as sc
 from ..cones.spec import ConeSpec
 from ..kkt.pivot import accepts_mode
-from ..ops import control
+from ..ops import control, rcone
 from ..ops.batched import col, dot, mv
 from .state import SolState, Status, Vec4
 
@@ -281,6 +287,13 @@ def _identity(spec: ConeSpec, dtype, device) -> torch.Tensor:
     return torch.tensor(spec.identity, dtype=dtype, device=device)
 
 
+def _fused_r(spec: ConeSpec) -> bool:
+    """Whether the R cones' kernels (ops/rcone.py) carry the iteration's
+    cone work: the spec's cones are all R. Any other spec runs the generic
+    ``cones/`` sequence, its R segment included."""
+    return spec.only_r and spec.m > 0
+
+
 def masked(pred, body):
     """A body of the device loop without a conditional node: it runs, and
     what it computes is taken by mask (a refinement trip's writes by its
@@ -323,6 +336,7 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
 
     nan, inf = scalar(float("nan")), scalar(float("inf"))
     e = _identity(spec, dtype, dev)
+    fused = _fused_r(spec)
     conedim = spec.conedim
     normc = torch.linalg.norm(c, dim=-1)
     normb = _norm(b)
@@ -350,12 +364,13 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
         return _Products(mv(Q32, y32).to(dtype), mv(GA32, y32).to(dtype),
                          mv(GAt32, wv32).to(dtype))
 
-    def residual_block(P: _Products, z: Vec4, lam) -> _Resid:
+    def residual_block(P: _Products, z: Vec4, lam, sq=None) -> _Resid:
+        # sq: λ∘λ and z.vᵀz.s where the scaling's pass made them (scaled)
+        lam2, mubar = sq or (ca.cone_prod(spec, lam, lam), dot(z.v, z.s))
         rleft = Vec4(P.Qy + P.GAtwv, P.GAy[..., :p], P.GAy[..., p:] - z.s,
-                     ca.cone_prod(spec, lam, lam))
+                     lam2)
         r0 = Vec4(rleft.y - c, rleft.w - d, rleft.v - b, rleft.s)
 
-        mubar = dot(z.v, z.s)
         mu = mubar / conedim
         cty = dot(c, z.y)
         rDu = torch.linalg.norm(r0.y, dim=-1) / (1.0 + normc)
@@ -418,6 +433,10 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
         mat(λ) per S group for every Lyapunov division (ca.sdp_eighs)."""
 
         def solve4(r: Vec4) -> Vec4:
+            if fused:
+                t1, rv = rcone.r_reduce4_pre(r.s, lam, F.r_d, r.v)
+                dy, dw, dv = solve3x3(r.y, r.w, rv)
+                return Vec4(dy, dw, dv, rcone.r_reduce4_post(t1, F.r_d, dv))
             t1 = sc.apply_adjoint(
                 spec, F, ca.cone_div(spec, r.s, lam, eig_dtype,
                                      y_eigs=lam_eigs))
@@ -518,28 +537,38 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
 
         # predictor
         d_aff = solve4(r0)
-        FiTds = sc.apply(spec, FinvT, d_aff.s)
-        Fdv = sc.apply(spec, F, d_aff.v)
-        a_aff = (steps2(Fdv, FiTds) if lam_frame
-                 else steps(d_aff.v, d_aff.s))
-        rho = fts(z.v, a_aff, d_aff.v, z.s, a_aff, d_aff.s) / mubar
+        if fused:
+            a_aff, _, _, fts_aff = rcone.r_step(z.v, z.s, d_aff.v, d_aff.s,
+                                                fts=True)
+        else:
+            FiTds = sc.apply(spec, FinvT, d_aff.s)
+            Fdv = sc.apply(spec, F, d_aff.v)
+            a_aff = (steps2(Fdv, FiTds) if lam_frame
+                     else steps(d_aff.v, d_aff.s))
+            fts_aff = fts(z.v, a_aff, d_aff.v, z.s, a_aff, d_aff.s)
+        rho = fts_aff / mubar
         sigma = torch.clamp(rho, 0.0, 1.0) ** 3
+        smu = sigma * mu
 
         # corrector
-        lc = -ca.cone_prod(spec, FiTds, Fdv) + col(sigma * mu) * e
-        r = Vec4(r0.y, r0.w, r0.v, rleft.s - lc)
+        if fused:
+            rs = rcone.r_corrector(rleft.s, F.r_d, FinvT.r_d, d_aff.v,
+                                   d_aff.s, smu)
+        else:
+            rs = rleft.s - (-ca.cone_prod(spec, FiTds, Fdv) + col(smu) * e)
+        r = Vec4(r0.y, r0.w, r0.v, rs)
 
         def K4(dz):
             # through the fast operators: refinement needs the residual
             # accurately relative to Δz only
             Pd = products_fast(dz.y, dz.w, dz.v)
-            return Vec4(
-                Pd.Qy + Pd.GAtwv,
-                Pd.GAy[..., :p],
-                Pd.GAy[..., p:] - dz.s,
-                ca.cone_prod(spec, lam, sc.apply(spec, F, dz.v))
-                + ca.cone_prod(spec, lam, sc.apply(spec, FinvT, dz.s)),
-            )
+            if fused:
+                srow = rcone.r_k4(lam, F.r_d, FinvT.r_d, dz.v, dz.s)
+            else:
+                srow = (ca.cone_prod(spec, lam, sc.apply(spec, F, dz.v))
+                        + ca.cone_prod(spec, lam, sc.apply(spec, FinvT, dz.s)))
+            return Vec4(Pd.Qy + Pd.GAtwv, Pd.GAy[..., :p],
+                        Pd.GAy[..., p:] - dz.s, srow)
 
         def resid(dz):
             rIr = r - K4(dz)
@@ -581,31 +610,40 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
         # low-precision factor, say) freezes the iterate instead of
         # corrupting it
         inv_dtb = 1.0 / (1.0 - opts.DTB)
-        if lam_frame:
-            alpha = steps2(sc.apply(spec, F, dz.v) * inv_dtb,
-                           sc.apply(spec, FinvT, dz.s) * inv_dtb)
+        if fused:
+            alpha, vs_ok = rcone.r_step(z.v, z.s, dz.v, dz.s, inv_dtb)
+            dz_ok = _finite_rows(dz.y, *((dz.w,) if p else ())) & vs_ok
         else:
-            alpha = steps(dz.v * inv_dtb, dz.s * inv_dtb)
-        dz_ok = _finite_rows(dz.y, dz.v, dz.s, *((dz.w,) if p else ()))
+            if lam_frame:
+                alpha = steps2(sc.apply(spec, F, dz.v) * inv_dtb,
+                               sc.apply(spec, FinvT, dz.s) * inv_dtb)
+            else:
+                alpha = steps(dz.v * inv_dtb, dz.s * inv_dtb)
+            dz_ok = _finite_rows(dz.y, dz.v, dz.s, *((dz.w,) if p else ()))
         alpha = torch.where(dz_ok & torch.isfinite(alpha), alpha, 0.0)
         dz = dz.map(lambda u: torch.where(col(dz_ok), u, torch.zeros_like(u)))
 
         # Gondzio centrality correctors, each accepted by mask; `active`
         # turns off after the first rejection
         active = dz_ok
-        smu = sigma * mu
         for _ in range(opts.centralityCorrectors):
             atil = torch.clamp(1.08 * alpha + 0.08, max=1.0)
-            Fdv = sc.apply(spec, F, dz.v)
-            FiTds_c = sc.apply(spec, FinvT, dz.s)
-            w_trial = ca.cone_prod(spec, lam - col(atil) * Fdv,
-                                   lam - col(atil) * FiTds_c)
-            q = ca.centrality_correction(spec, w_trial, 0.1 * smu, 10.0 * smu,
-                                         eig_dtype)
+            if fused:
+                nq = rcone.r_gondzio(lam, F.r_d, FinvT.r_d, dz.v, dz.s, atil,
+                                     smu)
+            else:
+                Fdv = sc.apply(spec, F, dz.v)
+                FiTds_c = sc.apply(spec, FinvT, dz.s)
+                w_trial = ca.cone_prod(spec, lam - col(atil) * Fdv,
+                                       lam - col(atil) * FiTds_c)
+                nq = -ca.centrality_correction(spec, w_trial, 0.1 * smu,
+                                               10.0 * smu, eig_dtype)
             zero = torch.zeros_like
-            ddz = solve4(Vec4(zero(dz.y), zero(dz.w), zero(dz.v), -q))
+            ddz = solve4(Vec4(zero(dz.y), zero(dz.w), zero(dz.v), nq))
             dz_c = dz + ddz
-            if lam_frame:
+            if fused:
+                a_c, _ = rcone.r_step(z.v, z.s, dz_c.v, dz_c.s, inv_dtb)
+            elif lam_frame:
                 a_c = steps2((Fdv + sc.apply(spec, F, ddz.v)) * inv_dtb,
                              (FiTds_c + sc.apply(spec, FinvT, ddz.s)) * inv_dtb)
             else:
@@ -731,6 +769,17 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
         F = sc.nt_scaling(spec, z.v, z.s, eig_dtype=eig_dtype_of(slow))
         return F, sc.nt_inv_adjoint(spec, F)
 
+    def scaled(z, slow):
+        """The iterate's scaling F, F⁻ᵀ, its scaled point λ = F z.v (=
+        F⁻ᵀ z.s), and λ∘λ with z.vᵀz.s where the R cones' scaling makes
+        them in the same pass (else None: residual_block forms them)."""
+        if fused:
+            r_d, rinv, lam, lam2, mubar = rcone.r_scaling(z.v, z.s)
+            return (sc.NTScaling(r_d=r_d), sc.NTScaling(r_d=rinv), lam,
+                    (lam2, mubar))
+        F, FinvT = scaling(z, slow)
+        return F, FinvT, sc.apply(spec, F, z.v), None
+
     # the variants' scalings differ (fastEig on S cones): each iteration
     # scales on the variant an instance was on when it began
     split_scaling = eig_dtype_of(False) != eig_dtype_of(True)
@@ -786,10 +835,11 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
             return slow if fast is None else fast
         return _select(lm_on, slow, fast)
 
-    def evaluate(cy: Carry, P, lam, lm_was):
-        """Residuals and assessment of the iterate against products P; an
-        instance that is not active keeps what it had."""
-        R = residual_block(P, cy.z, lam)
+    def evaluate(cy: Carry, P, lam, lm_was, sq=None):
+        """Residuals and assessment of the iterate against products P
+        (``sq``: :func:`scaled`'s); an instance that is not active keeps
+        what it had."""
+        R = residual_block(P, cy.z, lam, sq)
         st, best, stalled, lm = assess(R, cy.z, cy.k, cy.sol, cy.best,
                                        cy.stall, lm_was)
         run = active_of(cy)
@@ -821,15 +871,15 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
             outs, _ = variants(cy.lm_on, run, branch,
                                lambda slow: scaling(cy.z, slow))
             F, FinvT = pick(cy.lm_on, *outs) or (cy.F, cy.FinvT)
+            lam, sq = sc.apply(spec, F, cy.z.v), None
         else:
-            F, FinvT = scaling(cy.z, False)
-        lam = sc.apply(spec, F, cy.z.v)  # scaled point: = F⁻ᵀ z.s too
+            F, FinvT, lam, sq = scaled(cy.z, False)
         more = {}
         if mixed:
             # the reference's cond_once: the full-precision products where
             # a recompute fires, then the evaluation against them
-            fire = recompute_due(residual_block(cy.P, cy.z, lam), cy.drift,
-                                 run)
+            fire = recompute_due(residual_block(cy.P, cy.z, lam, sq),
+                                 cy.drift, run)
             full = (branch or masked)(
                 fire.any(), lambda: products_full(cy.z.y, cy.z.w, cy.z.v))
             P, drift = cy.P, cy.drift
@@ -841,7 +891,7 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
         else:
             P = products_full(cy.z.y, cy.z.w, cy.z.v)
         R, st, best, stalled, lm = evaluate(
-            cy, P, lam, cy.lm_on if two_mode else False)
+            cy, P, lam, cy.lm_on if two_mode else False, sq)
         if two_mode:
             more["lm_on"] = cy.lm_on | lm
         if opts.verbose:
@@ -917,7 +967,8 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
     return SimpleNamespace(
         cy0=cy0, two_mode=two_mode, mixed=mixed,
         solve3x3gen=solve3x3gen, products_full=products_full,
-        scaling=scaling, split_scaling=split_scaling, active_of=active_of,
+        scaling=scaling, scaled=scaled, split_scaling=split_scaling,
+        active_of=active_of,
         eig_dtype_of=eig_dtype_of, evaluate=evaluate, take_step=take_step,
         advance=advance, recompute_due=recompute_due,
         stepped_products=stepped_products, evaluated=evaluated, unit=unit)
@@ -1078,23 +1129,26 @@ def ipm_solve(
         # the scaling is the variant's an instance was on when the
         # iteration began; the variants differ only in the precision of
         # the S-cone decompositions
-        F, FinvT = per_variant(modes if L.split_scaling else modes[:1],
-                               lm_on, lambda slow: scaling(cy.z, slow))
-        lam = sc.apply(spec, F, cy.z.v)  # scaled point: = F⁻ᵀ z.s too
+        if L.split_scaling:
+            F, FinvT = per_variant(modes, lm_on,
+                                   lambda slow: scaling(cy.z, slow))
+            lam, sq = sc.apply(spec, F, cy.z.v), None
+        else:
+            F, FinvT, lam, sq = L.scaled(cy.z, modes[0])
 
         if mixed:
-            R, st, best, stalled, lm = evaluate(cy, P, lam, lm_on)
+            R, st, best, stalled, lm = evaluate(cy, P, lam, lm_on, sq)
             fire = L.recompute_due(R, drift, active_of(cy))
             go, on, need, fired = read(st, lm, fire)
             if fired:
                 counts["recertified"] += 1
                 P = _select(fire, L.products_full(cy.z.y, cy.z.w, cy.z.v), P)
                 drift = torch.where(fire, 0.0, drift)
-                R, st, best, stalled, lm = evaluate(cy, P, lam, lm_on)
+                R, st, best, stalled, lm = evaluate(cy, P, lam, lm_on, sq)
                 go, on, need, _ = read(st, lm)
         else:
             R, st, best, stalled, lm = evaluate(
-                cy, L.products_full(cy.z.y, cy.z.w, cy.z.v), lam, lm_on)
+                cy, L.products_full(cy.z.y, cy.z.w, cy.z.v), lam, lm_on, sq)
             go, on, need, _ = read(st, lm)
         lm_on, modes = on, need
 

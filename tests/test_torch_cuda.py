@@ -541,3 +541,203 @@ def test_the_guard_lets_a_callers_control_cond_through(cuda, tmp_path):
     finally:
         torch.distributed.destroy_process_group()
         graph.clear()
+
+
+# ── the R cones' kernels (csrc/rcone.cu) ──
+
+RCONE_SHAPES = [(1, 2000), (64, 1000), (1, 8192), (3, 1), (5, 300)]
+
+
+def rcone_inputs(B, m, dt, device, seed=0):
+    """An interior point, a direction (in a stack, with a NaN and an inf
+    entry in the last instance), two more vectors, per-instance σμ and
+    ã."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    pos = lambda: torch.rand(B, m, generator=g, device=device,  # noqa: E731
+                             dtype=dt) * 2.8 + 0.2
+    nrm = lambda: torch.randn(B, m, generator=g, device=device,  # noqa: E731
+                              dtype=dt)
+    dv, ds = nrm(), nrm()
+    if B > 1:
+        dv[-1, 0] = float("nan")
+        ds[-1, -1] = float("inf")
+    return dict(v=pos(), s=pos(), dv=dv, ds=ds, x=nrm(), y=nrm(),
+                smu=torch.rand(B, generator=g, device=device, dtype=dt) * 0.3
+                + 0.3,
+                atil=torch.rand(B, generator=g, device=device, dtype=dt) * 0.5
+                + 0.5)
+
+
+def same_values(a, b):
+    """Equal entries, NaN where the other is NaN (the bits of the plain
+    sequence; a signed zero may differ)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and ((a == b) | nan).all())
+
+
+def within(a, b, terms, tol):
+    """A reduced value within ``tol`` of the magnitudes of its terms where
+    it is finite, equal (NaN where NaN) where it is not."""
+    fin = torch.isfinite(b)
+    bound = tol * terms.abs().sum(-1)
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and ((a == b) | fin | torch.isnan(b)).all()
+                and ((a - b).abs() <= bound)[fin].all())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B, m", RCONE_SHAPES)
+def test_rcone_kernels_match_their_plain_twins(cuda, dtype, B, m):
+    # every entry of csrc/rcone.cu against its plain PyTorch twin on the
+    # same card tensors: elementwise outputs and the step equal, the
+    # reduced values (mubar, the fts dots, fts) within 1e-13 (f64) / 1e-5
+    # (f32) of their terms' magnitudes; one launch counted per call
+    from conicip_tpu_torch.ops import rcone, rcone_kernel
+
+    dt = getattr(torch, dtype)
+    tol = 1e-13 if dt == torch.float64 else 1e-5
+    a = rcone_inputs(B, m, dt, cuda)
+    v, s, dv, ds = a["v"], a["s"], a["dv"], a["ds"]
+    before = rcone_kernel.launch_count()
+    got = rcone.r_scaling(v, s)
+    want = rcone.r_scaling_plain(v, s)
+    assert all(same_values(x, y) for x, y in zip(got[:4], want[:4]))
+    assert within(got[4], want[4], v * s, tol)
+    r_d, rinv, lam, lam2, _ = want
+    assert all(same_values(x, y) for x, y in zip(
+        rcone.r_reduce4_pre(a["x"], lam, r_d, a["y"]),
+        rcone.r_reduce4_pre_plain(a["x"], lam, r_d, a["y"])))
+    assert same_values(rcone.r_reduce4_post(a["x"], r_d, dv),
+                       rcone.r_reduce4_post_plain(a["x"], r_d, dv))
+    assert same_values(rcone.r_corrector(lam2, r_d, rinv, dv, ds, a["smu"]),
+                       rcone.r_corrector_plain(lam2, r_d, rinv, dv, ds,
+                                               a["smu"]))
+    assert same_values(rcone.r_k4(lam, r_d, rinv, dv, ds),
+                       rcone.r_k4_plain(lam, r_d, rinv, dv, ds))
+    assert same_values(
+        rcone.r_gondzio(lam, r_d, rinv, dv, ds, a["atil"], a["smu"]),
+        rcone.r_gondzio_plain(lam, r_d, rinv, dv, ds, a["atil"], a["smu"]))
+    for scale in (None, 1.0 / 0.99):
+        alpha, ok = rcone.r_step(v, s, dv, ds, scale)
+        p_alpha, p_ok = rcone.r_step_plain(v, s, dv, ds, scale)
+        assert same_values(alpha, p_alpha) and torch.equal(ok, p_ok)
+    alpha, ok, dots, f = rcone.r_step(v, s, dv, ds, fts=True)
+    p_alpha, p_ok, p_dots, p_f = rcone.r_step_plain(v, s, dv, ds, fts=True)
+    assert same_values(alpha, p_alpha) and torch.equal(ok, p_ok)
+    terms = torch.stack([v * s, v * ds, dv * s, dv * ds], -2)
+    assert within(dots, p_dots, terms, tol)
+    assert within(f, p_f, terms.reshape(B, -1), tol)
+    # fts is the plain formula on the kernel's own dots, bit for bit
+    d = dots.unbind(-1)
+    assert same_values(f, d[0] - alpha * d[1] - alpha * d[2]
+                       + alpha * alpha * d[3])
+    assert ok[:-1].all() and bool(ok[-1]) == (B == 1)
+    assert rcone_kernel.launch_count() == before + 9
+    assert rcone_kernel.rcone_launches[("scaling", dt, m, B)] >= 1
+
+
+def test_rcone_kernels_reject_what_they_do_not_take(cuda):
+    from conicip_tpu_torch.ops import rcone, rcone_kernel
+
+    v = torch.ones(4, 8, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        rcone_kernel.scaling(v.half(), v.half())
+    with pytest.raises(ValueError):
+        rcone_kernel.scaling(v, v.float())
+    with pytest.raises(ValueError):
+        rcone_kernel.scaling(v.T, v.T)
+    with pytest.raises(ValueError):
+        rcone_kernel.scaling(v.cpu(), v.cpu())
+    with pytest.raises(ValueError):
+        rcone_kernel.step(v[:0], v[:0], v[:0], v[:0])
+    with pytest.raises(ValueError):
+        rcone_kernel.comp("gondzio", v, v, v, v, v, smu=v[:, 0].clone())
+    with pytest.raises(ValueError):
+        rcone.r_k4(v, v, v, v.cpu(), v)
+    # a vector shared by the stack is broadcast, a strided row copied
+    wide = torch.ones(4, 10, device=cuda, dtype=torch.float64)[:, 2:]
+    r_d, *_ = rcone.r_scaling(wide, v[0])
+    assert r_d.shape == (4, 8) and bool((r_d == 1).all())
+
+
+def test_an_r_only_solve_launches_every_entry_inside_the_graph(cuda):
+    # the dense box QP (Schur, one Gondzio corrector): every entry of the
+    # R cones' kernels launches on the device loop, its captured graph
+    # counted per replay and per run of a refinement trip's body; the
+    # eager loop on the same operands gives the same bits and launches
+    # each entry too
+    from conicip_tpu_torch import solver
+    from conicip_tpu_torch.cones.spec import ConeSpec
+    from conicip_tpu_torch.kkt import kktsolver_schur
+    from conicip_tpu_torch.ops import rcone_kernel
+    from conicip_tpu_torch.solver import graph, ipm
+
+    P = box_qp_dense(n=200, seed=11)
+    Q, c, A, b, cones = (torch.as_tensor(np.asarray(x), device=cuda)
+                         if i < 4 else x for i, x in enumerate(P.args()[:5]))
+    G = torch.zeros(0, 200, dtype=torch.float64, device=cuda)
+    d = torch.zeros(0, dtype=torch.float64, device=cuda)
+    args = (Q, c, A, b, G, d, ConeSpec(cones), kktsolver_schur,
+            ipm.IPMOptions(centralityCorrectors=1))
+    graph.clear()
+    for hit in (False, True):
+        rcone_kernel.reset_launch_count()
+        stats = {}
+        st = graph.solve(*args, stats=stats)
+        assert stats["loop"] == "graph" and stats["cache_hit"] == hit
+        for entry in rcone_kernel.ENTRIES:
+            assert rcone_kernel.launch_count(entry) > 0, entry
+        steps = stats["fast_steps"]
+        # per step: the predictor, the corrector and the Gondzio's step
+        assert rcone_kernel.launch_count("predictor") == steps
+        assert rcone_kernel.launch_count("step") == 2 * steps
+        assert rcone_kernel.launch_count("k4") == steps + stats["trips"]
+    rcone_kernel.reset_launch_count()
+    ref = ipm.ipm_solve(*args)
+    assert all(rcone_kernel.launch_count(e) > 0
+               for e in rcone_kernel.ENTRIES)
+    assert torch.equal(st.y, ref.y) and torch.equal(st.Iter, ref.Iter)
+    graph.clear()
+
+
+def test_a_reading_bound_method_is_decided_before_its_second_call(cuda):
+    # a caller's solver object whose level 2 reads the device (a host
+    # check of torch.linalg.cholesky's info): its bound method, a new
+    # object at each access, is found to read on the first call and
+    # remembered by its object and function, so the second call takes
+    # the eager loop with the reason before the solve: no probe, no capture
+    from conicip_tpu_torch import pivot, solver
+    from conicip_tpu_torch.ops import cho_solve, control
+    from conicip_tpu_torch.solver import graph
+
+    class Dense:
+        def kkt2x2(self, Q, A, G, spec):
+            def gen(F, FinvT):
+                winv = 1.0 / (F.r_d * F.r_d)
+                L = torch.linalg.cholesky(Q + A.mT @ (winv[:, None] * A))
+                return lambda by, bw: (cho_solve(L, by), bw)
+            return gen
+
+        def kkt(self, Q, A, G, spec):
+            return pivot(self.kkt2x2)(Q, A, G, spec)
+
+    mine = Dense()
+    args = box_qp_dense(n=64, seed=3).args()
+    first = conic_ip(*args, kktsolver=mine.kkt, device=cuda)
+    run = solver.runs[-1]
+    assert run.loop == "eager" and "torch.linalg.cholesky" in run.reason
+    assert control.eager_reason(mine.kkt, cuda) == run.reason
+    assert control.eager_reason(Dense().kkt, cuda) is None
+    probes, captures = [], []
+    guarded, capture = control.guarded, graph._capture
+    try:
+        control.guarded = lambda k: probes.append(k) or guarded(k)
+        graph._capture = lambda *a: captures.append(a) or capture(*a)
+        again = conic_ip(*args, kktsolver=mine.kkt, device=cuda)
+    finally:
+        control.guarded, graph._capture = guarded, capture
+    run = solver.runs[-1]
+    assert run.loop == "eager" and "torch.linalg.cholesky" in run.reason
+    assert probes == [] and captures == []
+    assert (again.status, again.Iter) == (first.status, first.Iter)
+    graph.clear()
