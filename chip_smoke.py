@@ -16,8 +16,11 @@ them; ``[rcone]`` holds every entry of the R cones' kernels
 (``csrc/rcone.cu``: the NT scaling, the 4x4 reduction, the
 complementarity vectors, the step; f64 and f32) against its plain twin
 (``ops/rcone.py``) at the widths the R-only solves hand them and at edge
-inputs, and times each inside a captured CUDA graph beside the twin and
-its bound; then it drives ``conicip_tpu_torch.conic_ip`` through
+inputs, prints each entry's launch plan (grid, cluster, vector path),
+and times each inside a captured CUDA graph beside the twin, its bound and
+the launch floor (an empty kernel launched by the same plan), and times
+the device loop's conditional node (``csrc/graph_cond.cu``); then it
+drives ``conicip_tpu_torch.conic_ip`` through
 every default KKT backend (dense Schur, diagonal, spectral) on R, Q and S
 cone problems at the sizes the repository benchmarks, and checks the
 answers; ``[graph]`` holds each of those solves, and the f32 solves of
@@ -920,12 +923,14 @@ def phase_jacobi():
 
 # ── the R cones' kernels (csrc/rcone.cu) ──
 
-# (B, m) the [rcone] phase holds and times every entry at: the README box
+# (B, m) the [rcone] phase holds and times every entry at: the Schur
+# singles of box_qp_dense n=500 (m = 1000, the most run), the README box
 # (m = 2000), the batched_box_qp(64, n=500) stack's rows per instance
 # (m = 1000), and a wide single solve; then edge shapes, held only, with a
-# NaN and an inf entry in the last instance's direction
-RCONE_SHAPES = ((1, 2000), (64, 1000), (1, 8192))
-RCONE_EDGES = ((5, 300), (3, 1))
+# NaN and an inf entry in the last instance's direction (a ragged end of
+# a row at 8192 + 3)
+RCONE_SHAPES = ((1, 1000), (1, 2000), (64, 1000), (1, 8192))
+RCONE_EDGES = ((5, 300), (3, 1), (1, 8195))
 RCONE_RECORD = (1, 2000)  # the kernels line's shape, f64
 # per entry: (vectors read, vectors written, per-instance values read,
 # per-instance values written, bool flags written, operations per element)
@@ -1075,13 +1080,80 @@ def graph_ms(fn, calls=20, replays=10):
     return ms
 
 
+def rcone_plan(entry, a):
+    """How ``entry`` launches on the inputs ``a``: the plan the wrapper
+    takes (ops/rcone_kernel.py:launch_plan, from the same function) for
+    r_reduce4 and r_step, one block of 256 threads per instance for the
+    others; None for a package without launch plans (an older checkout
+    given by --package)."""
+    from conicip_tpu_torch.ops import rcone_kernel
+
+    if not hasattr(rcone_kernel, "launch_plan"):
+        return None
+    rows = [a[k] for k in ("v", "s", "dv", "ds", "x", "y")]
+    B = rows[0].shape[0]
+    if entry in rcone_kernel.PLANNED:
+        return rcone_kernel.plan_of(rcone_kernel.PLANNED[entry], *rows)
+    return rcone_kernel.Plan((B, 1), 256, None, False,
+                             rcone_kernel.LANES[rows[0].dtype])
+
+
+def plan_fields(plan):
+    if plan is None:
+        return dict(grid="B", cluster="none", vec=False)
+    return dict(grid=f"{plan.grid[0]}x{plan.grid[1]}", threads=plan.threads,
+                cluster=plan.cluster or "none", vec=plan.vec)
+
+
+def graph_cond_ms(calls=20, replays=10):
+    """Device ms of one conditional IF node of the device loop
+    (csrc/graph_cond.cu: set_condition reads a bool, and the node) with an
+    empty body, its flag true and false: ``calls`` nodes captured in one
+    CUDA graph as solver/graph.py captures them, replayed ``replays``
+    times between two CUDA events."""
+    from conicip_tpu_torch.solver import graph as device_loop
+
+    lib = device_loop._cond_library()
+    stream, child = torch.cuda.Stream(), torch.cuda.Stream()
+    out = {}
+    for value in (True, False):
+        flag = torch.full((), value, dtype=torch.bool, device="cuda")
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            g.capture_begin(capture_error_mode=device_loop.CAPTURE_MODE)
+            errs = []
+            for _ in range(calls):
+                errs.append(lib.conicip_if_begin(
+                    stream.cuda_stream, child.cuda_stream, flag.data_ptr(),
+                    device_loop._CAPTURE_MODE_ENUM))
+                errs.append(lib.conicip_if_end(child.cuda_stream))
+            g.capture_end()
+        check(not any(errs), f"[graph_cond] CUDA errors {set(errs)}")
+        g.replay()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(replays):
+            g.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        out[value] = t0.elapsed_time(t1) / (replays * calls)
+        g.reset()
+    return out
+
+
 def phase_rcone():
     """The R cones' kernels against their plain twins, every entry in f64
-    and f32 at RCONE_SHAPES and RCONE_EDGES, and each entry's time inside
-    a captured CUDA graph beside the plain sequence's and its bound;
-    returns the kernels line's records, one per kernel at RCONE_RECORD in
-    f64 (the sums over its entries, one call of each; max_abs_err over
-    every f64 shape held)."""
+    and f32 at RCONE_SHAPES and RCONE_EDGES, each line with its launch
+    plan (grid, cluster, vector path), and each entry's time inside a
+    captured CUDA graph beside the plain sequence's, its bound and the
+    launch floor (an empty kernel launched by the same plan in the same
+    graph: a node's fixed cost, which no kernel can beat); then the
+    device loop's conditional node. Returns the kernels line's records,
+    one per kernel at RCONE_RECORD in f64 (the sums over its entries, one
+    call of each; max_abs_err over every f64 shape held)."""
     from conicip_tpu_torch.ops import rcone_kernel
 
     f64 = torch.float64
@@ -1096,20 +1168,31 @@ def phase_rcone():
                 check(rcone_kernel.launch_count(entry, dt) == before + 1,
                       f"[rcone] {entry}: not one launch counted per call")
                 worst_of[entry, dt] = max(worst_of[entry, dt], worst)
+                plan = rcone_plan(entry, a)
                 if edge:
                     line("rcone", entry=entry, B=B, m=m, dtype=dtname(dt),
                          input="edge", max_abs_err=f"{worst:.3e}",
-                         held=True)
+                         held=True, **plan_fields(plan))
                     continue
                 ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+                floor = ("not measured" if plan is None else
+                         f"{graph_ms(lambda: rcone_kernel.empty(plan)):.5f}")
                 bound, by = rcone_bound_ms(entry, B, m, dt)
                 line("rcone", entry=entry, B=B, m=m, dtype=dtname(dt),
                      max_abs_err=f"{worst:.3e}", kernel_ms=f"{ms:.5f}",
                      plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound:.6f}",
                      bound_by=by, bound_share=f"{bound / ms:.4f}",
-                     ratio_to_plain=f"{ms / plain_ms:.3f}", in_graph=True)
+                     launch_floor_ms=floor,
+                     ratio_to_plain=f"{ms / plain_ms:.3f}", in_graph=True,
+                     **plan_fields(plan))
                 if (B, m) == RCONE_RECORD and dt == f64:
                     records[entry] = (ms, plain_ms, bound)
+    cond = graph_cond_ms()
+    line("graph_cond", kernel="set_condition", body="empty",
+         node_ms_flag_true=f"{cond[True]:.5f}",
+         node_ms_flag_false=f"{cond[False]:.5f}",
+         bound_ms=f"{1 / PEAK_BYTES * 1e3:.3e}", bound_by="bytes",
+         library_ms=None, in_graph=True)
     out = {}
     for name, (entries, replaces) in RCONE_KERNELS.items():
         ms, plain, bound = (sum(records[e][i] for e in entries)

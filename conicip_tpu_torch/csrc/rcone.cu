@@ -39,23 +39,71 @@
 // What bounds them: bytes. Each reads its vectors once and writes its
 // outputs once (a few flops an element), so the least time is those bytes
 // over the card's 3.35 TB/s; at the solver's widths (m of a few thousand)
-// a launch costs more than that, and the yardstick is the launch sequence
-// replaced. Design: one thread block per instance (grid = B), a
-// block-stride loop over m, per-instance reductions by warp shuffles and
-// shared memory in a fixed tree and no atomics, so a result is the same
-// bits at every launch (the device loop is held bit for bit against the
-// eager loop). Elementwise arithmetic is the correctly rounded intrinsics,
-// which the compiler may not contract into an FMA, so every elementwise
-// output is the bits of the plain sequence, which rounds each operation on
+// that is 10-300 ns, below the fixed cost of one node of a CUDA graph
+// (about 2 us), so what a kernel can still win is the time between the
+// node's start and its last store: how many SMs share the work and how
+// many device-memory round trips each thread waits for in turn. Every
+// kernel keeps its reductions in a fixed tree with no atomics, so a result
+// is the same bits at every launch of one shape (the device loop is held
+// bit for bit against the eager loop). Elementwise arithmetic is the
+// correctly rounded intrinsics, which the compiler may not contract into
+// an FMA, so every elementwise output, and the step alpha with its flag
+// ok, is the bits of the plain sequence, which rounds each operation on
 // its own; only the reduced values (mubar, the dots, fts) differ from the
 // plain twin's, in summation order (sums accumulate in double for both
 // dtypes). max/min/clamp propagate NaN as PyTorch's CUDA kernels do.
 //
+// r_scaling and r_comp: one thread block per instance (grid = B), a
+// block-stride loop over m with scalar loads (the first design).
+//
+// r_reduce4 (elementwise, no reduction): a 2-D grid, (ceil(m / 256), B),
+// so that one instance spreads over m / 256 SMs (32 at m = 8192; the
+// (64, 1000) stack is 256 blocks for the card's 132 SMs). Each thread
+// owns one 16-byte vector of every operand (2 doubles or 4 floats, so a
+// block is 128 or 64 threads), issues all its loads before any
+// arithmetic, and so waits for device memory once; the ragged end of a
+// row is loaded and stored by scalars. The vector loads and stores are
+// taken only where every pointer and every row start is 16-byte aligned
+// (the wrapper decides from the pointers, the row strides and the dtype:
+// the VEC template); else the same threads take the same elements by
+// scalar accesses. What bounds it: the graph node's fixed cost and one
+// round trip to device memory; the bytes only for stacks far larger than
+// the solver's.
+//
+// r_step (per-instance reductions: two NaN-winning mins, the finite AND
+// and on the predictor four dots): one thread-block cluster of C blocks
+// per instance (grid (C, B), C in 1, 2, 4, 8, a function of (B, m, dtype)
+// alone, chosen by the wrapper so that a thread holds about one vector),
+// launched by cudaLaunchKernelEx. Each thread issues the loads of two
+// trips over the row before their arithmetic; each block reduces its
+// share in registers, then by one shuffle tree per warp and one pass
+// through shared memory carrying all seven values (one barrier), and
+// stores its partial into its slot of block rank 0's shared memory
+// (distributed shared memory); after one cluster barrier (a block
+// barrier for a cluster of one) rank 0 joins the slots in rank order,
+// finishes alpha, ok, the dots and fts and writes them, while the other
+// blocks leave. (Pushing the partials saves 0.9-2.4 us a call against
+// rank 0 reading them remotely behind a second cluster barrier, with one
+// trip over the row at a time.) One launch, no second pass, no atomics; the order of every sum is fixed by
+// (B, m, dtype) and is the same on the vector and the scalar path. What
+// bounds it: not the bytes but a chain of dependent latencies after the
+// node's fixed cost: one round trip to device memory per two trips over
+// the row (one at m <= 4096 in f64), the two correctly rounded divisions
+// an element, five shuffle levels for seven values, the block barrier,
+// the cluster barrier and rank 0's join.
+//
 // C interface, loaded with ctypes by ops/rcone_kernel.py: every pointer a
-// contiguous (B, m) vector or a (B,) per-instance value on the current
-// device, launched on `stream`, not synchronised; each returns
-// cudaGetLastError() after its one launch (0 on success).
+// (B, m) vector or a (B,) per-instance value on the current device,
+// launched on `stream`, not synchronised; r_scaling's and r_comp's
+// vectors contiguous, r_reduce4's and r_step's inputs rows of unit stride
+// along m, `s*` elements apart (0: one row shared by the stack), their
+// launch plan (grid, threads, cluster, VEC) given by the wrapper
+// (ops/rcone_kernel.py:launch_plan). Each returns the launch's error, or
+// cudaGetLastError() after its one launch (0 on success); a launch the
+// card refuses (a cluster it cannot place, say) is that error, and
+// nothing falls back.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -124,15 +172,66 @@ __device__ __forceinline__ bool finite(float x) {
   return fabsf(x) < inf<float>();
 }
 
+// One 16-byte vector of T: its CUDA type and its lanes.
+template <typename T>
+struct Lanes;
+template <>
+struct Lanes<double> {
+  using V = double2;
+  static constexpr int N = 2;
+};
+template <>
+struct Lanes<float> {
+  using V = float4;
+  static constexpr int N = 4;
+};
+
+__device__ __forceinline__ void split(const double2& q, double* a) {
+  a[0] = q.x;
+  a[1] = q.y;
+}
+__device__ __forceinline__ void split(const float4& q, float* a) {
+  a[0] = q.x;
+  a[1] = q.y;
+  a[2] = q.z;
+  a[3] = q.w;
+}
+__device__ __forceinline__ double2 join(const double* a) {
+  return make_double2(a[0], a[1]);
+}
+__device__ __forceinline__ float4 join(const float* a) {
+  return make_float4(a[0], a[1], a[2], a[3]);
+}
+
+// Elements i .. i + n - 1 of a row (n <= N, the lanes below m): one
+// 16-byte load where VEC and the whole vector lies in the row, else n
+// scalar loads; lanes from n on are left as they are.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load(T* a, const T* __restrict__ row,
+                                     long long i, int n) {
+  if (VEC && n == Lanes<T>::N) {
+    split(__ldg(reinterpret_cast<const typename Lanes<T>::V*>(row + i)), a);
+  } else {
+#pragma unroll
+    for (int k = 0; k < Lanes<T>::N; ++k)
+      if (k < n) a[k] = row[i + k];
+  }
+}
+template <typename T, bool VEC>
+__device__ __forceinline__ void store(T* __restrict__ row, long long i,
+                                      int n, const T* a) {
+  if (VEC && n == Lanes<T>::N) {
+    *reinterpret_cast<typename Lanes<T>::V*>(row + i) = join(a);
+  } else {
+#pragma unroll
+    for (int k = 0; k < Lanes<T>::N; ++k)
+      if (k < n) row[i + k] = a[k];
+  }
+}
+
 struct Sum {
   __device__ __forceinline__ double operator()(double a, double b) const {
     return a + b;
-  }
-};
-struct Min {
-  template <typename T>
-  __device__ __forceinline__ T operator()(T a, T b) const {
-    return nan_min(a, b);
   }
 };
 
@@ -180,22 +279,39 @@ __global__ void __launch_bounds__(THREADS)
 
 // POST false: x = r.s, y = r.v; out = t1 = r_d (x / lam), out2 = y + t1.
 // POST true:  x = t1,  y = dv;  out = ds = t1 - r_d (r_d dv).
-template <typename T, bool POST>
-__global__ void __launch_bounds__(THREADS)
+// Grid (ceil(m / (blockDim.x N)), min(B, 65535)); thread t of block
+// (bx, by) owns elements (bx blockDim.x + t) N .. + N - 1 of instances
+// by, by + gridDim.y, ...; inputs s* elements apart, outputs contiguous.
+template <typename T, bool POST, bool VEC>
+__global__ void __launch_bounds__(128)
     r_reduce4(const T* __restrict__ x, const T* __restrict__ lam,
               const T* __restrict__ r_d, const T* __restrict__ y,
-              T* __restrict__ out, T* __restrict__ out2, int m) {
-  const long long row = static_cast<long long>(blockIdx.x) * m;
-  for (int i = threadIdx.x; i < m; i += THREADS) {
-    const long long k = row + i;
-    const T r = r_d[k];
-    if (POST) {
-      out[k] = sub(x[k], mul(r, mul(r, y[k])));
-    } else {
-      const T t1 = mul(r, quo(x[k], lam[k]));
-      out[k] = t1;
-      out2[k] = add(y[k], t1);
+              T* __restrict__ out, T* __restrict__ out2, int B, int m,
+              long long sx, long long sl, long long sr, long long sy) {
+  constexpr int N = Lanes<T>::N;
+  const long long i =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * N;
+  if (i >= m) return;
+  const int n = static_cast<int>(m - i < N ? m - i : N);
+  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
+    T xa[N], ra[N], ya[N], la[N], o[N], o2[N];
+    // every load first: one wait for device memory
+    load<T, VEC>(xa, x + b * sx, i, n);
+    load<T, VEC>(ra, r_d + b * sr, i, n);
+    load<T, VEC>(ya, y + b * sy, i, n);
+    if (!POST) load<T, VEC>(la, lam + b * sl, i, n);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (POST) {
+        o[k] = sub(xa[k], mul(ra[k], mul(ra[k], ya[k])));
+      } else {
+        o[k] = mul(ra[k], quo(xa[k], la[k]));
+        o2[k] = add(ya[k], o[k]);
+      }
     }
+    const long long row = b * m;
+    store<T, VEC>(out + row, i, n, o);
+    if (!POST) store<T, VEC>(out2 + row, i, n, o2);
   }
 }
 
@@ -236,64 +352,194 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+constexpr int STEP_THREADS = 128;
+constexpr int STEP_WARPS = STEP_THREADS / 32;
+constexpr int MAX_CLUSTER = 8;
+
+// One block's share of r_step's reductions: each block stores it into
+// its slot of block rank 0's shared memory.
+template <typename T>
+struct StepPart {
+  double d[4];
+  T av, as;
+  int fin;
+};
+
+// One thread's running reductions over its elements, in their order.
+template <typename T, bool FTS>
+struct StepAcc {
+  T av, as;
+  int fin;
+  double d0, d1, d2, d3;
+
+  __device__ __forceinline__ StepAcc()
+      : av(inf<T>()), as(inf<T>()), fin(1), d0(0.0), d1(0.0), d2(0.0),
+        d3(0.0) {}
+
+  // the n loaded lanes of one vector of v, s, dv, ds
+  __device__ __forceinline__ void take(const T* v, const T* s, const T* dv,
+                                       const T* ds, int n, T sc) {
+#pragma unroll
+    for (int k = 0; k < Lanes<T>::N; ++k) {
+      if (k >= n) break;
+      fin &= finite(dv[k]) && finite(ds[k]);
+      const T a = mul(dv[k], sc), c = mul(ds[k], sc);
+      av = nan_min(av, a > T(0) ? quo(v[k], a) : inf<T>());
+      as = nan_min(as, c > T(0) ? quo(s[k], c) : inf<T>());
+      if (FTS) {
+        d0 += static_cast<double>(mul(v[k], s[k]));
+        d1 += static_cast<double>(mul(v[k], ds[k]));
+        d2 += static_cast<double>(mul(dv[k], s[k]));
+        d3 += static_cast<double>(mul(dv[k], ds[k]));
+      }
+    }
+  }
+
+  // the same over the lanes `o` apart, in a fixed tree (fin by a vote)
+  __device__ __forceinline__ void fold(int o) {
+    av = nan_min(av, __shfl_down_sync(0xffffffffu, av, o));
+    as = nan_min(as, __shfl_down_sync(0xffffffffu, as, o));
+    if (FTS) {
+      d0 += __shfl_down_sync(0xffffffffu, d0, o);
+      d1 += __shfl_down_sync(0xffffffffu, d1, o);
+      d2 += __shfl_down_sync(0xffffffffu, d2, o);
+      d3 += __shfl_down_sync(0xffffffffu, d3, o);
+    }
+  }
+
+  __device__ __forceinline__ void put(StepPart<T>* p) const {
+    p->av = av;
+    p->as = as;
+    p->fin = fin;
+    p->d[0] = d0;
+    p->d[1] = d1;
+    p->d[2] = d2;
+    p->d[3] = d3;
+  }
+  __device__ __forceinline__ void get(const StepPart<T>& p) {
+    av = p.av;
+    as = p.as;
+    fin = p.fin;
+    d0 = p.d[0];
+    d1 = p.d[1];
+    d2 = p.d[2];
+    d3 = p.d[3];
+  }
+  // another block's partial after this one's
+  __device__ __forceinline__ void join(const StepPart<T>& p) {
+    av = nan_min(av, p.av);
+    as = nan_min(as, p.as);
+    fin &= p.fin;
+    if (FTS) {
+      d0 += p.d[0];
+      d1 += p.d[1];
+      d2 += p.d[2];
+      d3 += p.d[3];
+    }
+  }
+};
+
 // alpha = min(clamp(min_{dv' > 0} v / dv', max=1), clamp(min_{ds' > 0}
 // s / ds', max=1)) over dv' = dv scale, ds' = ds scale (each rounded
 // before the division, as the plain sequence rounds it), ok = every
 // entry of dv and ds finite; with FTS also dots = (v.s, v.ds, dv.s,
 // dv.ds) and fts = ((v.s - alpha v.ds) - alpha dv.s) + alpha^2 dv.ds.
-template <typename T, bool FTS>
-__global__ void __launch_bounds__(THREADS)
+// Grid (C, min(B, 65535)), clusters (C, 1, 1): the cluster at row by
+// takes instances by, by + gridDim.y, ...; in trip q thread t of block
+// rank r owns elements ((q C + r) blockDim.x + t) N .. + N - 1, taken
+// in the order of q (two trips' loads issued together). Each block
+// reduces its share (the warps' trees, one barrier, warp 0's tree) and
+// stores it into slot r of rank 0's shared memory; after one cluster
+// barrier rank 0 joins the slots in rank order and writes the results.
+template <typename T, bool FTS, bool VEC>
+__global__ void __launch_bounds__(STEP_THREADS)
     r_step(const T* __restrict__ v, const T* __restrict__ s,
            const T* __restrict__ dv, const T* __restrict__ ds, double scale,
            T* __restrict__ alpha, bool* __restrict__ ok, T* __restrict__ dots,
-           T* __restrict__ fts, int m) {
-  __shared__ T least[2][WARPS];
-  __shared__ double part[4][WARPS];
-  const long long row = static_cast<long long>(blockIdx.x) * m;
+           T* __restrict__ fts, int B, int m, long long sv, long long ss,
+           long long sdv, long long sds) {
+  namespace cg = cooperative_groups;
+  constexpr int N = Lanes<T>::N;
+  __shared__ StepPart<T> warps[STEP_WARPS];
+  __shared__ StepPart<T> slots[MAX_CLUSTER];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned C = cluster.num_blocks(), rank = cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const T sc = static_cast<T>(scale);
-  T av = inf<T>(), as = inf<T>();
-  int fin = 1;
-  double d0 = 0.0, d1 = 0.0, d2 = 0.0, d3 = 0.0;
-  for (int i = threadIdx.x; i < m; i += THREADS) {
-    const long long k = row + i;
-    const T vi = v[k], si = s[k], dvi = dv[k], dsi = ds[k];
-    fin &= finite(dvi) && finite(dsi);
-    const T a = mul(dvi, sc), b = mul(dsi, sc);
-    av = nan_min(av, a > T(0) ? quo(vi, a) : inf<T>());
-    as = nan_min(as, b > T(0) ? quo(si, b) : inf<T>());
-    if (FTS) {
-      d0 += static_cast<double>(mul(vi, si));
-      d1 += static_cast<double>(mul(vi, dsi));
-      d2 += static_cast<double>(mul(dvi, si));
-      d3 += static_cast<double>(mul(dvi, dsi));
+  const long long first =
+      (static_cast<long long>(rank) * blockDim.x + threadIdx.x) * N;
+  const long long span = static_cast<long long>(C) * blockDim.x * N;
+  StepPart<T>* slot = cluster.map_shared_rank(&slots[rank], 0);
+  const auto barrier = [&cluster, C] {
+    if (C > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+  };
+  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
+    const T *vb = v + b * sv, *sb = s + b * ss;
+    const T *dvb = dv + b * sdv, *dsb = ds + b * sds;
+    StepAcc<T, FTS> acc;
+    for (long long i = first; i < m; i += 2 * span) {
+      const long long j = i + span;
+      const int n0 = static_cast<int>(m - i < N ? m - i : N);
+      const int n1 = j < m ? static_cast<int>(m - j < N ? m - j : N) : 0;
+      T v0[N], s0[N], dv0[N], ds0[N], v1[N], s1[N], dv1[N], ds1[N];
+      // both trips' loads first: one wait for device memory
+      load<T, VEC>(v0, vb, i, n0);
+      load<T, VEC>(s0, sb, i, n0);
+      load<T, VEC>(dv0, dvb, i, n0);
+      load<T, VEC>(ds0, dsb, i, n0);
+      load<T, VEC>(v1, vb, j, n1);
+      load<T, VEC>(s1, sb, j, n1);
+      load<T, VEC>(dv1, dvb, j, n1);
+      load<T, VEC>(ds1, dsb, j, n1);
+      acc.take(v0, s0, dv0, ds0, n0, sc);
+      acc.take(v1, s1, dv1, ds1, n1, sc);
     }
-  }
-  fin = __syncthreads_and(fin);
-  av = block_reduce(av, Min(), least[0]);
-  as = block_reduce(as, Min(), least[1]);
-  if (FTS) {
-    d0 = block_reduce(d0, Sum(), part[0]);
-    d1 = block_reduce(d1, Sum(), part[1]);
-    d2 = block_reduce(d2, Sum(), part[2]);
-    d3 = block_reduce(d3, Sum(), part[3]);
-  }
-  if (threadIdx.x == 0) {
-    const T a = nan_min(nan_min(av, T(1)), nan_min(as, T(1)));
-    alpha[blockIdx.x] = a;
-    ok[blockIdx.x] = fin != 0;
-    if (FTS) {
-      const T D0 = static_cast<T>(d0), D1 = static_cast<T>(d1);
-      const T D2 = static_cast<T>(d2), D3 = static_cast<T>(d3);
-      T* d = dots + 4LL * blockIdx.x;
-      d[0] = D0;
-      d[1] = D1;
-      d[2] = D2;
-      d[3] = D3;
-      fts[blockIdx.x] =
-          add(sub(sub(D0, mul(a, D1)), mul(a, D2)), mul(mul(a, a), D3));
+    // the warps' trees, then one pass through shared memory
+    acc.fin = __all_sync(0xffffffffu, acc.fin);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc.fold(o);
+    if (lane == 0) acc.put(&warps[warp]);
+    __syncthreads();
+    if (warp == 0) {
+      StepAcc<T, FTS> w;
+      if (lane < STEP_WARPS) w.get(warps[lane]);
+      w.fin = __all_sync(0xffffffffu, w.fin);
+#pragma unroll
+      for (int o = STEP_WARPS / 2; o > 0; o >>= 1) w.fold(o);
+      if (lane == 0) w.put(slot);  // into rank 0's shared memory
     }
+    // the slots' stores are seen by rank 0 after the barrier (a cluster
+    // of one block needs only the block's)
+    barrier();
+    if (rank == 0 && threadIdx.x == 0) {
+      StepAcc<T, FTS> all;
+      all.get(slots[0]);
+      for (unsigned r = 1; r < C; ++r) all.join(slots[r]);
+      const T a = nan_min(nan_min(all.av, T(1)), nan_min(all.as, T(1)));
+      alpha[b] = a;
+      ok[b] = all.fin != 0;
+      if (FTS) {
+        const T D0 = static_cast<T>(all.d0), D1 = static_cast<T>(all.d1);
+        const T D2 = static_cast<T>(all.d2), D3 = static_cast<T>(all.d3);
+        T* d = dots + 4 * b;
+        d[0] = D0;
+        d[1] = D1;
+        d[2] = D2;
+        d[3] = D3;
+        fts[b] = add(sub(sub(D0, mul(a, D1)), mul(a, D2)), mul(mul(a, a), D3));
+      }
+    }
+    // the next instance's stores wait until rank 0 has read these
+    if (b + gridDim.y < B) barrier();
   }
 }
+
+// Nothing: launched with an entry's plan, its time is the fixed cost of a
+// node of that shape (chip_smoke.py's launch_floor_ms).
+__global__ void r_empty(int) {}
 
 inline cudaStream_t as_stream(void* stream) {
   return static_cast<cudaStream_t>(stream);
@@ -307,17 +553,61 @@ int scaling(const T* v, const T* s, T* r_d, T* rinv, T* lam, T* lam2,
   return cudaGetLastError();
 }
 
+// The launch's own error, else the runtime's last one (which this also
+// clears, so that no later check of PyTorch's finds it).
+inline int launched(cudaError_t err) {
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+template <typename T, bool POST>
+int reduce4_plan(int vec, dim3 grid, int threads, cudaStream_t st,
+                 const T* x, const T* lam, const T* r_d, const T* y, T* out,
+                 T* out2, int B, int m, long long sx, long long sl,
+                 long long sr, long long sy) {
+  if (vec)
+    r_reduce4<T, POST, true><<<grid, threads, 0, st>>>(
+        x, lam, r_d, y, out, out2, B, m, sx, sl, sr, sy);
+  else
+    r_reduce4<T, POST, false><<<grid, threads, 0, st>>>(
+        x, lam, r_d, y, out, out2, B, m, sx, sl, sr, sy);
+  return launched(cudaSuccess);
+}
+
 template <typename T>
 int reduce4(int post, const T* x, const T* lam, const T* r_d, const T* y,
-            T* out, T* out2, int B, int m, void* stream) {
+            T* out, T* out2, int B, int m, long long sx, long long sl,
+            long long sr, long long sy, int vec, int grid_x, int grid_y,
+            int threads, void* stream) {
+  const dim3 grid(grid_x, grid_y);
   if (post)
-    r_reduce4<T, true><<<B, THREADS, 0, as_stream(stream)>>>(x, lam, r_d, y,
-                                                             out, out2, m);
-  else
-    r_reduce4<T, false><<<B, THREADS, 0, as_stream(stream)>>>(x, lam, r_d, y,
-                                                              out, out2, m);
-  return cudaGetLastError();
+    return reduce4_plan<T, true>(vec, grid, threads, as_stream(stream), x,
+                                 lam, r_d, y, out, out2, B, m, sx, sl, sr,
+                                 sy);
+  return reduce4_plan<T, false>(vec, grid, threads, as_stream(stream), x,
+                                lam, r_d, y, out, out2, B, m, sx, sl, sr, sy);
 }
+
+// A launch of `grid` blocks of `threads` in clusters of `cluster` blocks
+// along x (0: an ordinary launch, no cluster).
+struct Launch {
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attr[1];
+  Launch(dim3 grid, int threads, int cluster, void* stream) {
+    config.gridDim = grid;
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = 0;
+    config.stream = as_stream(stream);
+    if (cluster > 0) {
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = cluster;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      config.attrs = attr;
+      config.numAttrs = 1;
+    }
+  }
+};
 
 template <typename T>
 int comp(int mode, const T* lam, const T* r_d, const T* rinv, const T* dv,
@@ -343,17 +633,32 @@ int comp(int mode, const T* lam, const T* r_d, const T* rinv, const T* dv,
   return cudaGetLastError();
 }
 
+template <typename T, bool FTS>
+int step_plan(int vec, const Launch& l, const T* v, const T* s, const T* dv,
+              const T* ds, double scale, T* alpha, bool* ok, T* dots, T* fts,
+              int B, int m, long long sv, long long ss, long long sdv,
+              long long sds) {
+  if (vec)
+    return launched(cudaLaunchKernelEx(&l.config, r_step<T, FTS, true>, v, s,
+                                       dv, ds, scale, alpha, ok, dots, fts, B,
+                                       m, sv, ss, sdv, sds));
+  return launched(cudaLaunchKernelEx(&l.config, r_step<T, FTS, false>, v, s,
+                                     dv, ds, scale, alpha, ok, dots, fts, B,
+                                     m, sv, ss, sdv, sds));
+}
+
 template <typename T>
 int step(int with_fts, const T* v, const T* s, const T* dv, const T* ds,
          double scale, T* alpha, bool* ok, T* dots, T* fts, int B, int m,
-         void* stream) {
+         long long sv, long long ss, long long sdv, long long sds, int vec,
+         int cluster, int grid_y, int threads, void* stream) {
+  if (cluster < 1) return cudaErrorInvalidValue;
+  const Launch l(dim3(cluster, grid_y), threads, cluster, stream);
   if (with_fts)
-    r_step<T, true><<<B, THREADS, 0, as_stream(stream)>>>(
-        v, s, dv, ds, scale, alpha, ok, dots, fts, m);
-  else
-    r_step<T, false><<<B, THREADS, 0, as_stream(stream)>>>(
-        v, s, dv, ds, scale, alpha, ok, dots, fts, m);
-  return cudaGetLastError();
+    return step_plan<T, true>(vec, l, v, s, dv, ds, scale, alpha, ok, dots,
+                              fts, B, m, sv, ss, sdv, sds);
+  return step_plan<T, false>(vec, l, v, s, dv, ds, scale, alpha, ok, dots,
+                             fts, B, m, sv, ss, sdv, sds);
 }
 
 template <typename T>
@@ -362,13 +667,17 @@ cudaError_t preload() {
   // first launch), so that no first launch falls inside a graph capture
   const void* fns[] = {
       reinterpret_cast<const void*>(&r_scaling<T>),
-      reinterpret_cast<const void*>(&r_reduce4<T, false>),
-      reinterpret_cast<const void*>(&r_reduce4<T, true>),
+      reinterpret_cast<const void*>(&r_reduce4<T, false, false>),
+      reinterpret_cast<const void*>(&r_reduce4<T, false, true>),
+      reinterpret_cast<const void*>(&r_reduce4<T, true, false>),
+      reinterpret_cast<const void*>(&r_reduce4<T, true, true>),
       reinterpret_cast<const void*>(&r_comp<T, CORRECTOR>),
       reinterpret_cast<const void*>(&r_comp<T, K4>),
       reinterpret_cast<const void*>(&r_comp<T, GONDZIO>),
-      reinterpret_cast<const void*>(&r_step<T, false>),
-      reinterpret_cast<const void*>(&r_step<T, true>)};
+      reinterpret_cast<const void*>(&r_step<T, false, false>),
+      reinterpret_cast<const void*>(&r_step<T, false, true>),
+      reinterpret_cast<const void*>(&r_step<T, true, false>),
+      reinterpret_cast<const void*>(&r_step<T, true, true>)};
   for (const void* fn : fns) {
     cudaFuncAttributes attr;
     const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
@@ -382,8 +691,19 @@ cudaError_t preload() {
 extern "C" {
 
 int conicip_rcone_preload() {
-  const cudaError_t err = preload<double>();
-  return err != cudaSuccess ? err : preload<float>();
+  cudaError_t err = preload<double>();
+  if (err == cudaSuccess) err = preload<float>();
+  if (err == cudaSuccess) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(&r_empty));
+  }
+  return err;
+}
+
+int conicip_rcone_empty(int grid_x, int grid_y, int threads, int cluster,
+                        void* stream) {
+  const Launch l(dim3(grid_x, grid_y), threads, cluster, stream);
+  return launched(cudaLaunchKernelEx(&l.config, r_empty, 0));
 }
 
 int conicip_r_scaling_f64(const double* v, const double* s, double* r_d,
@@ -399,13 +719,19 @@ int conicip_r_scaling_f32(const float* v, const float* s, float* r_d,
 
 int conicip_r_reduce4_f64(int post, const double* x, const double* lam,
                           const double* r_d, const double* y, double* out,
-                          double* out2, int B, int m, void* stream) {
-  return reduce4(post, x, lam, r_d, y, out, out2, B, m, stream);
+                          double* out2, int B, int m, long long sx,
+                          long long sl, long long sr, long long sy, int vec,
+                          int grid_x, int grid_y, int threads, void* stream) {
+  return reduce4(post, x, lam, r_d, y, out, out2, B, m, sx, sl, sr, sy, vec,
+                 grid_x, grid_y, threads, stream);
 }
 int conicip_r_reduce4_f32(int post, const float* x, const float* lam,
                           const float* r_d, const float* y, float* out,
-                          float* out2, int B, int m, void* stream) {
-  return reduce4(post, x, lam, r_d, y, out, out2, B, m, stream);
+                          float* out2, int B, int m, long long sx,
+                          long long sl, long long sr, long long sy, int vec,
+                          int grid_x, int grid_y, int threads, void* stream) {
+  return reduce4(post, x, lam, r_d, y, out, out2, B, m, sx, sl, sr, sy, vec,
+                 grid_x, grid_y, threads, stream);
 }
 
 int conicip_r_comp_f64(int mode, const double* lam, const double* r_d,
@@ -424,16 +750,20 @@ int conicip_r_comp_f32(int mode, const float* lam, const float* r_d,
 int conicip_r_step_f64(int with_fts, const double* v, const double* s,
                        const double* dv, const double* ds, double scale,
                        double* alpha, bool* ok, double* dots, double* fts,
-                       int B, int m, void* stream) {
-  return step(with_fts, v, s, dv, ds, scale, alpha, ok, dots, fts, B, m,
-              stream);
+                       int B, int m, long long sv, long long ss,
+                       long long sdv, long long sds, int vec, int cluster,
+                       int grid_y, int threads, void* stream) {
+  return step(with_fts, v, s, dv, ds, scale, alpha, ok, dots, fts, B, m, sv,
+              ss, sdv, sds, vec, cluster, grid_y, threads, stream);
 }
 int conicip_r_step_f32(int with_fts, const float* v, const float* s,
                        const float* dv, const float* ds, double scale,
                        float* alpha, bool* ok, float* dots, float* fts, int B,
-                       int m, void* stream) {
-  return step(with_fts, v, s, dv, ds, scale, alpha, ok, dots, fts, B, m,
-              stream);
+                       int m, long long sv, long long ss, long long sdv,
+                       long long sds, int vec, int cluster, int grid_y,
+                       int threads, void* stream) {
+  return step(with_fts, v, s, dv, ds, scale, alpha, ok, dots, fts, B, m, sv,
+              ss, sdv, sds, vec, cluster, grid_y, threads, stream);
 }
 
 }  // extern "C"

@@ -21,7 +21,10 @@ it ran as a CUDA graph (``graph=1``), its host reads of the status
 loop and outside it, and the kernels the host launched during the replays,
 which must be none), the Cholesky kernel split into its
 diagonal-block, panel and trailing kernels, the Jacobi kernels' device time,
-and the other device operations by total time.
+the R cones' kernels' launches with the copies issued on their stream
+right before them (``[rcone]``, with the conditional nodes'
+``set_condition`` launches), and the other device operations by total
+time.
 ``--factor-dtype float32`` profiles the f32-factor solve (mixed residuals,
 last-mile switch, ladder) in place of the full-precision default.
 ``--kkt`` picks the KKT solver: ``auto`` (``conic_ip``'s own choice, the
@@ -113,6 +116,8 @@ CHOLESKY_PARTS = ("copy_lower", "factor_diag", "panel_product",
 # for d <= 32, one block per matrix above
 JACOBI_PARTS = ("eigh_jacobi_warp", "svd_jacobi_warp", "eigh_jacobi",
                 "svd_jacobi")
+# the R cones' kernels (csrc/rcone.cu), by kernel name
+RCONE_PARTS = ("r_scaling", "r_reduce4", "r_comp", "r_step")
 # pieces of the names of cuSOLVER's eigen- and singular-value kernels
 CUSOLVER_EIG_SVD = ("syevj", "syevd", "sytrd", "gesvdj", "batched_svd")
 
@@ -213,6 +218,33 @@ def _kernel_name(name):
 
 def _is_cusolver_eig_svd(name):
     return any(piece in name for piece in CUSOLVER_EIG_SVD)
+
+
+def rcone_copies(device):
+    """From a trace's device events: each R-cone kernel's launches and the
+    copies (copy kernels and device-to-device memcpys) issued on its
+    stream right before each launch, where ``ops/rcone.py:_stack``'s
+    copies of strided or broadcast operands fall; and the conditional
+    nodes' ``set_condition`` launches (csrc/graph_cond.cu)."""
+    streams = defaultdict(list)
+    for e in sorted(device, key=lambda e: e["ts"]):
+        streams[e.get("args", {}).get("stream")].append(e)
+    out = Counter()
+    for seq in streams.values():
+        run = 0
+        for e in seq:
+            name = e["name"]
+            part = next((p for p in RCONE_PARTS if f"{p}<" in name), None)
+            if part:
+                out[part] += 1
+                out[f"{part}_copies"] += run
+                run = 0
+            elif "copy_kernel" in name or "DtoD" in name:
+                run += 1
+            else:
+                run = 0
+                out["set_condition"] += name.startswith("set_condition")
+    return out
 
 
 # host calls that launch a kernel (through the CUDA runtime or the driver
@@ -459,6 +491,10 @@ def _profile(args):
     print(f"[jacobi] busy_ms={_busy_us(jac) / 1e3:.2f} " + " ".join(
         f"{p}_ms={by_name[p][0] / 1e3:.2f}/{by_name[p][1]}"
         for p in JACOBI_PARTS))
+    rc = rcone_copies(device)
+    print("[rcone] " + " ".join(
+        f"{p}={rc[p]} {p}_copies_before={rc[p + '_copies']}"
+        for p in RCONE_PARTS) + f" set_condition={rc['set_condition']}")
     others = sorted(((v[0], k, v[1]) for k, v in by_name.items()
                      if k not in CHOLESKY_PARTS + JACOBI_PARTS), reverse=True)
     for us, name, count in others[:10]:

@@ -545,7 +545,8 @@ def test_the_guard_lets_a_callers_control_cond_through(cuda, tmp_path):
 
 # ── the R cones' kernels (csrc/rcone.cu) ──
 
-RCONE_SHAPES = [(1, 2000), (64, 1000), (1, 8192), (3, 1), (5, 300)]
+RCONE_SHAPES = [(1, 2000), (64, 1000), (1, 8192), (3, 1), (5, 300),
+                (1, 1000), (1, 8195)]
 
 
 def rcone_inputs(B, m, dt, device, seed=0):
@@ -634,6 +635,131 @@ def test_rcone_kernels_match_their_plain_twins(cuda, dtype, B, m):
     assert ok[:-1].all() and bool(ok[-1]) == (B == 1)
     assert rcone_kernel.launch_count() == before + 9
     assert rcone_kernel.rcone_launches[("scaling", dt, m, B)] >= 1
+
+
+def reduce4_and_step(a, lam, r_d):
+    """Every entry of r_reduce4 and r_step on the inputs ``a``."""
+    from conicip_tpu_torch.ops import rcone
+
+    v, s, dv, ds = a["v"], a["s"], a["dv"], a["ds"]
+    t1, vt = rcone.r_reduce4_pre(a["x"], lam, r_d, a["y"])
+    return (t1, vt, rcone.r_reduce4_post(a["x"], r_d, dv),
+            *rcone.r_step(v, s, dv, ds, 1.0 / 0.99),
+            *rcone.r_step(v, s, dv, ds, fts=True))
+
+
+def same_bits(xs, ys):
+    """Equal outputs, NaN where the other is NaN."""
+    return len(xs) == len(ys) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and (torch.equal(x, y) or (x.is_floating_point()
+                                   and same_values(x, y)))
+        for x, y in zip(xs, ys))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_rcone_reduce4_and_step_read_row_strided_views_in_place(
+        cuda, dtype, offset, monkeypatch):
+    # rows of a wider matrix (at an offset that breaks or keeps the 16-byte
+    # alignment) and the cone identity shared by the stack at row stride
+    # 0: read in place, no copy, and the same bits as on contiguous
+    # copies, the reduced values too (one shape, one summation order);
+    # elementwise outputs and the step the twin's bits
+    from conicip_tpu_torch.ops import rcone, rcone_kernel
+
+    dt = getattr(torch, dtype)
+    B, m = 6, 1001
+    a = rcone_inputs(B, m, dt, cuda, seed=3)
+    views = {}
+    for k in ("v", "s", "dv", "ds", "x", "y"):
+        wide = torch.full((B, m + 7), float("nan"), dtype=dt, device=cuda)
+        wide[:, offset:offset + m] = a[k]
+        views[k] = wide[:, offset:offset + m]
+    views.update(smu=a["smu"], atil=a["atil"])
+    r_d, _, lam, _, _ = rcone.r_scaling_plain(a["v"], a["s"])
+    e = torch.ones(m, dtype=dt, device=cuda)
+    vec = rcone_kernel.plan_of("r_step", *(views[k] for k in "vs")).vec
+    assert vec == (offset % (16 // views["v"].element_size()) == 0
+                   and (m + 7) * views["v"].element_size() % 16 == 0)
+    rows = []
+    stack = rcone._stack
+    monkeypatch.setattr(rcone, "_stack", lambda *x, **kw: rows.extend(
+        stack(*x, **kw)[0]) or stack(*x, **kw))
+    got = reduce4_and_step(views, e, r_d)
+    # the kernels were handed the views themselves
+    ptrs = {x.data_ptr() for x in (*views.values(), e, r_d)}
+    assert len(rows) == 4 + 3 + 4 + 4
+    assert all(x.data_ptr() in ptrs for x in rows)
+    monkeypatch.undo()
+    want = reduce4_and_step({k: x.contiguous() for k, x in views.items()},
+                            e.expand(B, m).contiguous(), r_d)
+    assert same_bits(got, want)
+    plain = (*rcone.r_reduce4_pre_plain(a["x"], e, r_d, a["y"]),
+             rcone.r_reduce4_post_plain(a["x"], r_d, a["dv"]),
+             *rcone.r_step_plain(a["v"], a["s"], a["dv"], a["ds"],
+                                 1.0 / 0.99),
+             *rcone.r_step_plain(a["v"], a["s"], a["dv"], a["ds"],
+                                 fts=True)[:2])
+    assert same_bits(got[:7], plain)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B, m", [(1, 2000), (64, 1000), (1, 8195)])
+def test_rcone_reduce4_and_step_give_the_same_bits_every_launch(
+        cuda, dtype, B, m):
+    # two eager calls, and the replays of a captured graph of the same
+    # calls, give the same bits: the dots and fts included (the cluster's
+    # partials summed in one order for a shape)
+    from conicip_tpu_torch.ops import rcone
+
+    dt = getattr(torch, dtype)
+    a = rcone_inputs(B, m, dt, cuda, seed=5)
+    r_d, _, lam, _, _ = rcone.r_scaling_plain(a["v"], a["s"])
+    first = reduce4_and_step(a, lam, r_d)
+    assert same_bits(first, reduce4_and_step(a, lam, r_d))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        reduce4_and_step(a, lam, r_d)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = reduce4_and_step(a, lam, r_d)
+    for _ in range(2):
+        for x in captured:
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert same_bits(captured, first)
+
+
+def test_rcone_a_refused_cluster_raises_and_nothing_falls_back(
+        cuda, monkeypatch):
+    # a cluster larger than the card places (32 blocks): the launch is
+    # refused, the entry raises with the CUDA error, counts nothing and
+    # returns nothing; the next call at the wrapper's own plan runs
+    from conicip_tpu_torch.ops import rcone, rcone_kernel
+
+    a = rcone_inputs(1, 2000, torch.float64, cuda)
+    real = rcone_kernel.launch_plan
+
+    def oversized(kernel, B, m, dtype, aligned):
+        plan = real(kernel, B, m, dtype, aligned)
+        if kernel != "r_step":
+            return plan
+        return plan._replace(grid=(32, plan.grid[1]), cluster=32)
+
+    monkeypatch.setattr(rcone_kernel, "launch_plan", oversized)
+    before = rcone_kernel.launch_count()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rcone.r_step(a["v"], a["s"], a["dv"], a["ds"], fts=True)
+    assert rcone_kernel.launch_count() == before
+    monkeypatch.undo()
+    alpha, ok = rcone.r_step(a["v"], a["s"], a["dv"], a["ds"])
+    torch.cuda.synchronize()
+    p_alpha, p_ok = rcone.r_step_plain(a["v"], a["s"], a["dv"], a["ds"])
+    assert same_values(alpha, p_alpha) and torch.equal(ok, p_ok)
 
 
 def test_rcone_kernels_reject_what_they_do_not_take(cuda):

@@ -34,7 +34,7 @@ from conicip_tpu.cones.spec import ConeSpec as JSpec
 import conicip_tpu_torch as pt
 from conicip_tpu_torch.kkt import kktsolver_diag, kktsolver_schur
 from conicip_tpu_torch.models import batched_box_qp, box_qp_dense
-from conicip_tpu_torch.ops import rcone
+from conicip_tpu_torch.ops import rcone, rcone_kernel
 from conicip_tpu_torch.solver import ipm
 from conicip_tpu_torch.cones.spec import ConeSpec
 
@@ -371,3 +371,113 @@ def test_the_fused_path_is_the_generic_path_bit_for_bit(name, monkeypatch,
     assert len(scalings) == calls
     for a, b in zip(fused, generic):
         assert a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+# ── the launch plan of r_reduce4 and r_step (ops/rcone_kernel.py) ──
+
+# (B, m): the shapes the R-only solves and chip_smoke.py give the kernels,
+# and edges: m = 1, m < 32, m odd, 8192 + 3, a stack past gridDim.y's limit
+PLAN_SHAPES = [(1, 1000), (1, 2000), (64, 1000), (1, 8192), (5, 300),
+               (3, 1), (1, 8195), (1, 1), (4, 1), (1, 17), (7, 31), (1, 999),
+               (3, 1001), (64, 200), (256, 1000), (70000, 3)]
+PLAN_DTYPES = [torch.float64, torch.float32]
+
+
+def taken(kernel, plan, B, m):
+    """How often the launch of ``plan`` takes each (instance, element), in
+    the index arithmetic of csrc/rcone.cu: r_reduce4's thread t of block
+    (bx, by) takes elements (bx T + t) N + k, r_step's thread t of block
+    rank r in trip q takes ((q C + r) T + t) N + k, k < N lanes; both take
+    instances by, by + gridDim.y, ..."""
+    gx, gy = plan.grid
+    T, N = plan.threads, plan.lanes
+    t, k = np.arange(T)[:, None], np.arange(N)[None, :]
+    if kernel == "r_reduce4":
+        blocks = np.arange(gx)[:, None, None]
+        i = (blocks * T + t[None]) * N + k[None]
+    else:
+        C = plan.cluster
+        q = np.arange(-(-m // (C * T * N)))[:, None, None, None]
+        r = np.arange(C)[None, :, None, None]
+        i = ((q * C + r) * T + t[None, None]) * N + k[None, None]
+    i = i.ravel()
+    elems = np.bincount(i[i < m], minlength=m)
+    insts = np.bincount(np.concatenate([np.arange(by, B, gy)
+                                        for by in range(gy)]), minlength=B)
+    return insts[:, None] * elems[None, :]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", PLAN_DTYPES)
+@pytest.mark.parametrize("B, m", PLAN_SHAPES)
+def test_the_launch_plan_takes_every_element_once(B, m, dtype, aligned):
+    for kernel in ("r_reduce4", "r_step"):
+        plan = rcone_kernel.launch_plan(kernel, B, m, dtype, aligned)
+        assert plan.vec == aligned and plan.lanes * torch.finfo(
+            dtype).bits == 128
+        assert (taken(kernel, plan, B, m) == 1).all(), (kernel, plan)
+        gx, gy = plan.grid
+        # CUDA's limits, and whole warps
+        assert 1 <= gx < 2**31 and 1 <= gy <= 65535 and gy <= B
+        assert plan.threads % 32 == 0 and plan.threads <= 1024
+        if kernel == "r_reduce4":
+            assert plan.cluster is None
+            assert (gx - 1) * plan.threads * plan.lanes < m  # no idle block
+        else:
+            # one cluster per instance along x, the portable size at most
+            C = plan.cluster
+            assert gx == C and C <= 8 and C & (C - 1) == 0
+            assert C == rcone_kernel.cluster_size(B, m, dtype)
+
+
+def test_the_launch_plan_spreads_the_main_shapes_over_the_card():
+    f64, f32 = torch.float64, torch.float32
+    plan = rcone_kernel.launch_plan
+    for dt in (f64, f32):
+        # r_reduce4: one instance of 8192 over >= 16 SMs, the (64, 1000)
+        # stack over >= the card's 132
+        gx, gy = plan("r_reduce4", 1, 8192, dt, True).grid
+        assert gx * gy >= 16
+        gx, gy = plan("r_reduce4", 64, 1000, dt, True).grid
+        assert gx * gy >= 132
+    # r_step: about one vector a thread on a single solve, at most 8 blocks
+    assert [rcone_kernel.cluster_size(1, m, f64)
+            for m in (1, 300, 1000, 2000, 8192)] == [1, 2, 4, 8, 8]
+    # a stack keeps to two blocks an SM
+    assert rcone_kernel.cluster_size(64, 1000, f64) == 4
+    assert rcone_kernel.cluster_size(256, 1000, f64) == 1
+    assert rcone_kernel.cluster_size(64, 1000, f32) == 2
+
+
+def test_the_vector_path_needs_every_pointer_and_row_aligned():
+    ok = rcone_kernel.aligned
+    assert ok([0, 256, 4096], [1000, 0, 1000], 8, 64)
+    assert not ok([0, 8], [1000, 1000], 8, 64)  # a pointer off by one f64
+    assert not ok([0, 256], [999, 1000], 8, 64)  # an odd f64 row stride
+    assert ok([0, 256], [999, 1000], 8, 1)  # one row: no row start
+    assert not ok([0, 256], [1002, 1000], 4, 64)  # an f32 row of 4008 bytes
+    assert ok([0, 256], [1004, 0], 4, 64)
+
+
+def test_the_strided_stack_keeps_views_of_unit_stride():
+    # the 4x4 reduction's and the step's operands: a vector shared by the
+    # stack at row stride 0, rows of a wider matrix in place, anything
+    # else a contiguous copy; the other entries' operands contiguous
+    wide = torch.arange(4 * 10, dtype=torch.float64).reshape(4, 10)
+    e = torch.ones(8, dtype=torch.float64)
+    cols = wide.reshape(10, 4).T[:, :8]  # stride 4 along m
+    (a, b, c), _, bs = rcone._stack((wide[:, 2:], e, cols), strided=True)
+    assert bs == (4,) and a.shape == b.shape == c.shape == (4, 8)
+    assert a.data_ptr() == wide[:, 2:].data_ptr() and a.stride() == (10, 1)
+    assert b.data_ptr() == e.data_ptr() and b.stride() == (0, 1)
+    assert c.is_contiguous() and torch.equal(c, cols)
+    rows, _, _ = rcone._stack((wide[:, 2:], e))
+    assert all(x.is_contiguous() for x in rows)
+    assert torch.equal(rows[0], a) and torch.equal(rows[1], b)
+    # a single instance and a stack of stacks
+    (x,), _, bs = rcone._stack((e,), strided=True)
+    assert bs == () and x.shape == (1, 8) and x.data_ptr() == e.data_ptr()
+    (x, y), _, bs = rcone._stack((e, torch.zeros(2, 3, 8,
+                                                 dtype=torch.float64)),
+                                 strided=True)
+    assert bs == (2, 3) and x.stride() == (0, 1) and y.is_contiguous()

@@ -233,3 +233,23 @@ def test_kkt_builds_count_each_loops_work():
     assert trace.kkt_builds(run("graph", polls=8)) == 2 + 7 * ipm.POLL
     assert trace.kkt_builds(run("chunks", polls=8)) == 1 + 7 * ipm.POLL
     assert trace.kkt_builds(run("graph", polls=8, cold=0)) == 7 * ipm.POLL
+
+
+def test_rcone_copies_count_the_copies_right_before_each_launch():
+    # the copies an R-cone launch's operands cost fall right before it on
+    # its stream; other kernels between break the run; set_condition
+    # (the conditional nodes) counted apart
+    copy = "void at::native::elementwise_kernel<direct_copy_kernel_cuda>"
+    names = [copy, copy, "void (anonymous namespace)::r_reduce4<double, "
+             "false, true>(double const*)", "set_condition(x)", copy,
+             "void at::native::vectorized_elementwise_kernel<mul>",
+             "void (anonymous namespace)::r_step<double, true, false>(x)",
+             "Memcpy DtoD (Device -> Device)",
+             "void (anonymous namespace)::r_step<float, false, true>(x)"]
+    device = [dict(name=n, ts=t, args={"stream": 7})
+              for t, n in enumerate(names)]
+    device.append(dict(name=copy, ts=1.5, args={"stream": 9}))
+    got = trace.rcone_copies(device)
+    assert got["r_reduce4"] == 1 and got["r_reduce4_copies"] == 2
+    assert got["r_step"] == 2 and got["r_step_copies"] == 1
+    assert got["set_condition"] == 1 and got["r_scaling"] == 0
