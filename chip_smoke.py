@@ -1082,10 +1082,10 @@ def graph_ms(fn, calls=20, replays=10):
 
 def rcone_plan(entry, a):
     """How ``entry`` launches on the inputs ``a``: the plan the wrapper
-    takes (ops/rcone_kernel.py:launch_plan, from the same function) for
-    r_reduce4 and r_step, one block of 256 threads per instance for the
-    others; None for a package without launch plans (an older checkout
-    given by --package)."""
+    takes (ops/rcone_kernel.py:launch_plan, from the same function); for
+    an older checkout given by --package, one block of 256 threads per
+    instance for an entry without a plan (its first design), and None
+    for a package without launch plans."""
     from conicip_tpu_torch.ops import rcone_kernel
 
     if not hasattr(rcone_kernel, "launch_plan"):

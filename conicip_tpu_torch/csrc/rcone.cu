@@ -53,63 +53,68 @@
 // plain twin's, in summation order (sums accumulate in double for both
 // dtypes). max/min/clamp propagate NaN as PyTorch's CUDA kernels do.
 //
-// r_scaling and r_comp: one thread block per instance (grid = B), a
-// block-stride loop over m with scalar loads (the first design).
-//
-// r_reduce4 (elementwise, no reduction): a 2-D grid, (ceil(m / 256), B),
-// so that one instance spreads over m / 256 SMs (32 at m = 8192; the
-// (64, 1000) stack is 256 blocks for the card's 132 SMs). Each thread
-// owns one 16-byte vector of every operand (2 doubles or 4 floats, so a
-// block is 128 or 64 threads), issues all its loads before any
-// arithmetic, and so waits for device memory once; the ragged end of a
-// row is loaded and stored by scalars. The vector loads and stores are
-// taken only where every pointer and every row start is 16-byte aligned
-// (the wrapper decides from the pointers, the row strides and the dtype:
-// the VEC template); else the same threads take the same elements by
-// scalar accesses. What bounds it: the graph node's fixed cost and one
-// round trip to device memory; the bytes only for stacks far larger than
-// the solver's.
+// r_reduce4 and r_comp (elementwise, no reduction): a 2-D grid,
+// (ceil(m / 256), B), so that one instance spreads over m / 256 SMs (32
+// at m = 8192; the (64, 1000) stack is 256 blocks for the card's 132
+// SMs). Each thread owns one 16-byte vector of every operand (2 doubles
+// or 4 floats, so a block is 128 or 64 threads), issues all its loads
+// before any arithmetic, and so waits for device memory once; the ragged
+// end of a row is loaded and stored by scalars. The vector loads and
+// stores are taken only where every pointer and every row start is
+// 16-byte aligned (the wrapper decides from the pointers, the row strides
+// and the dtype: the VEC template); else the same threads take the same
+// elements by scalar accesses. r_comp's three modes are template
+// instances of one kernel; each block reads an instance's sigma mu and
+// atil once. What bounds them: the graph node's fixed cost and one round
+// trip to device memory; the bytes only for stacks far larger than the
+// solver's.
 //
 // r_step (per-instance reductions: two NaN-winning mins, the finite AND
-// and on the predictor four dots): one thread-block cluster of C blocks
-// per instance (grid (C, B), C in 1, 2, 4, 8, a function of (B, m, dtype)
-// alone, chosen by the wrapper so that a thread holds about one vector),
+// and on the predictor four dots) and r_scaling (elementwise outputs and
+// one sum, mubar): one thread-block cluster of C blocks per instance
+// (grid (C, B), C in 1, 2, 4, 8, a function of (B, m, dtype) alone,
+// chosen by the wrapper so that a thread holds about one vector),
 // launched by cudaLaunchKernelEx. Each thread issues the loads of two
-// trips over the row before their arithmetic; each block reduces its
-// share in registers, then by one shuffle tree per warp and one pass
-// through shared memory carrying all seven values (one barrier), and
-// stores its partial into its slot of block rank 0's shared memory
-// (distributed shared memory); after one cluster barrier (a block
-// barrier for a cluster of one) rank 0 joins the slots in rank order,
-// finishes alpha, ok, the dots and fts and writes them, while the other
-// blocks leave. (Pushing the partials saves 0.9-2.4 us a call against
-// rank 0 reading them remotely behind a second cluster barrier, with one
-// trip over the row at a time.) One launch, no second pass, no atomics; the order of every sum is fixed by
-// (B, m, dtype) and is the same on the vector and the scalar path. What
-// bounds it: not the bytes but a chain of dependent latencies after the
-// node's fixed cost: one round trip to device memory per two trips over
-// the row (one at m <= 4096 in f64), the two correctly rounded divisions
-// an element, five shuffle levels for seven values, the block barrier,
-// the cluster barrier and rank 0's join.
+// trips over the row before their arithmetic (r_scaling stores its four
+// outputs as vectors where aligned); each block reduces its share in
+// registers, then by one shuffle tree per warp and one pass through
+// shared memory (one barrier), and stores its partial into its slot of
+// block rank 0's shared memory (distributed shared memory); after one
+// cluster barrier (a block barrier for a cluster of one) rank 0 joins
+// the slots in rank order and writes the results, while the other blocks
+// leave. (Pushing the partials saves 0.9-2.4 us a call against rank 0
+// reading them remotely behind a second cluster barrier, with one trip
+// over the row at a time.) One launch, no second pass, no atomics, no
+// counter in device memory; the order of every sum is fixed by (B, m,
+// dtype) and is the same on the vector and the scalar path, so it gives
+// the same bits at every replay of a captured graph. What bounds them:
+// not the bytes but a chain of dependent latencies after the node's
+// fixed cost: one round trip to device memory per two trips over the row
+// (one at m <= 4096 in f64), the correctly rounded divisions and square
+// root of each element (two divisions for r_step, a division, a square
+// root and a division in turn for r_scaling), the shuffle levels, the
+// block barrier, the cluster barrier and rank 0's join.
 //
 // C interface, loaded with ctypes by ops/rcone_kernel.py: every pointer a
 // (B, m) vector or a (B,) per-instance value on the current device,
-// launched on `stream`, not synchronised; r_scaling's and r_comp's
-// vectors contiguous, r_reduce4's and r_step's inputs rows of unit stride
-// along m, `s*` elements apart (0: one row shared by the stack), their
-// launch plan (grid, threads, cluster, VEC) given by the wrapper
-// (ops/rcone_kernel.py:launch_plan). Each returns the launch's error, or
-// cudaGetLastError() after its one launch (0 on success); a launch the
-// card refuses (a cluster it cannot place, say) is that error, and
-// nothing falls back.
+// launched on `stream`, not synchronised; the inputs rows of unit stride
+// along m, `s*` elements apart (0: one row shared by the stack), the
+// outputs contiguous; the launch plan (grid, threads, cluster, VEC) given
+// by the wrapper (ops/rcone_kernel.py:launch_plan). Each returns the
+// launch's error, or cudaGetLastError() after its one launch (0 on
+// success); a launch the card refuses (a cluster it cannot place, say) is
+// that error, and nothing falls back.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+// threads of a block of r_step and r_scaling, and the portable largest
+// cluster
+constexpr int CLUSTER_THREADS = 128;
+constexpr int CLUSTER_WARPS = CLUSTER_THREADS / 32;
+constexpr int MAX_CLUSTER = 8;
 
 __device__ __forceinline__ double mul(double a, double b) {
   return __dmul_rn(a, b);
@@ -229,52 +234,106 @@ __device__ __forceinline__ void store(T* __restrict__ row, long long i,
   }
 }
 
-struct Sum {
-  __device__ __forceinline__ double operator()(double a, double b) const {
-    return a + b;
+// The n loaded lanes of one vector of v and s at element i of row `row`:
+// r_d = sqrt(s / v), 1 / r_d, lam = r_d v and lam o lam stored (as
+// vectors where VEC and the whole vector lies in the row), v s added to
+// acc lane by lane.
+template <typename T, bool VEC>
+__device__ __forceinline__ void nt_scale(const T* v, const T* s, int n,
+                                         long long row, long long i,
+                                         T* __restrict__ r_d,
+                                         T* __restrict__ rinv,
+                                         T* __restrict__ lam,
+                                         T* __restrict__ lam2, double& acc) {
+  constexpr int N = Lanes<T>::N;
+  T r[N], ri[N], l[N], l2[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (k >= n) break;
+    r[k] = root(quo(s[k], v[k]));
+    l[k] = mul(r[k], v[k]);
+    ri[k] = quo(T(1), r[k]);
+    l2[k] = mul(l[k], l[k]);
+    acc += static_cast<double>(mul(v[k], s[k]));
   }
-};
-
-// The block's reduction of one value per thread, valid in thread 0: a
-// shuffle tree in each warp, then one over the warps' results in
-// `shared` (WARPS slots, one array per reduction of a kernel). The order
-// is fixed, so the result is the same bits at every launch.
-template <typename R, typename Op>
-__device__ __forceinline__ R block_reduce(R v, Op op, R* shared) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = op(v, __shfl_down_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) shared[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = shared[lane & (WARPS - 1)];
-    for (int o = WARPS / 2; o > 0; o >>= 1)
-      v = op(v, __shfl_down_sync(0xffffffffu, v, o));
-  }
-  return v;
+  store<T, VEC>(r_d + row, i, n, r);
+  store<T, VEC>(rinv + row, i, n, ri);
+  store<T, VEC>(lam + row, i, n, l);
+  store<T, VEC>(lam2 + row, i, n, l2);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// r_d = sqrt(s / v), 1 / r_d, lam = r_d v, lam o lam, and mubar = v.s per
+// instance. Grid (C, min(B, 65535)), clusters (C, 1, 1), as r_step: the
+// cluster at row by takes instances by, by + gridDim.y, ...; in trip q
+// thread t of block rank r owns elements ((q C + r) blockDim.x + t) N ..
+// + N - 1, taken in the order of q (two trips' loads issued together).
+// Each block sums its share (the warps' trees, one barrier, warp 0's
+// tree) and stores it into slot r of rank 0's shared memory; after one
+// cluster barrier rank 0 adds the slots in rank order and writes mubar.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(CLUSTER_THREADS)
     r_scaling(const T* __restrict__ v, const T* __restrict__ s,
               T* __restrict__ r_d, T* __restrict__ rinv, T* __restrict__ lam,
-              T* __restrict__ lam2, T* __restrict__ mubar, int m) {
-  __shared__ double part[WARPS];
-  const long long row = static_cast<long long>(blockIdx.x) * m;
-  double acc = 0.0;
-  for (int i = threadIdx.x; i < m; i += THREADS) {
-    const long long k = row + i;
-    const T vi = v[k], si = s[k];
-    const T r = root(quo(si, vi));
-    const T l = mul(r, vi);
-    r_d[k] = r;
-    rinv[k] = quo(T(1), r);
-    lam[k] = l;
-    lam2[k] = mul(l, l);
-    acc += static_cast<double>(mul(vi, si));
+              T* __restrict__ lam2, T* __restrict__ mubar, int B, int m,
+              long long sv, long long ss) {
+  namespace cg = cooperative_groups;
+  constexpr int N = Lanes<T>::N;
+  __shared__ double warps[CLUSTER_WARPS];
+  __shared__ double slots[MAX_CLUSTER];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned C = cluster.num_blocks(), rank = cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long first =
+      (static_cast<long long>(rank) * blockDim.x + threadIdx.x) * N;
+  const long long span = static_cast<long long>(C) * blockDim.x * N;
+  double* slot = cluster.map_shared_rank(&slots[rank], 0);
+  const auto barrier = [&cluster, C] {
+    if (C > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+  };
+  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
+    const T *vb = v + b * sv, *sb = s + b * ss;
+    const long long row = b * m;
+    double acc = 0.0;
+    for (long long i = first; i < m; i += 2 * span) {
+      const long long j = i + span;
+      const int n0 = static_cast<int>(m - i < N ? m - i : N);
+      const int n1 = j < m ? static_cast<int>(m - j < N ? m - j : N) : 0;
+      T v0[N], s0[N], v1[N], s1[N];
+      // both trips' loads first: one wait for device memory
+      load<T, VEC>(v0, vb, i, n0);
+      load<T, VEC>(s0, sb, i, n0);
+      load<T, VEC>(v1, vb, j, n1);
+      load<T, VEC>(s1, sb, j, n1);
+      nt_scale<T, VEC>(v0, s0, n0, row, i, r_d, rinv, lam, lam2, acc);
+      nt_scale<T, VEC>(v1, s1, n1, row, j, r_d, rinv, lam, lam2, acc);
+    }
+    // the warps' trees, then one pass through shared memory
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc += __shfl_down_sync(0xffffffffu, acc, o);
+    if (lane == 0) warps[warp] = acc;
+    __syncthreads();
+    if (warp == 0) {
+      double w = lane < CLUSTER_WARPS ? warps[lane] : 0.0;
+#pragma unroll
+      for (int o = CLUSTER_WARPS / 2; o > 0; o >>= 1)
+        w += __shfl_down_sync(0xffffffffu, w, o);
+      if (lane == 0) *slot = w;  // into rank 0's shared memory
+    }
+    // the slots' stores are seen by rank 0 after the barrier (a cluster
+    // of one block needs only the block's)
+    barrier();
+    if (rank == 0 && threadIdx.x == 0) {
+      double all = slots[0];
+      for (unsigned r = 1; r < C; ++r) all += slots[r];
+      mubar[b] = static_cast<T>(all);
+    }
+    // the next instance's stores wait until rank 0 has read these
+    if (b + gridDim.y < B) barrier();
   }
-  acc = block_reduce(acc, Sum(), part);
-  if (threadIdx.x == 0) mubar[blockIdx.x] = static_cast<T>(acc);
 }
 
 // POST false: x = r.s, y = r.v; out = t1 = r_d (x / lam), out2 = y + t1.
@@ -317,44 +376,56 @@ __global__ void __launch_bounds__(128)
 
 enum Comp { CORRECTOR = 0, K4 = 1, GONDZIO = 2 };
 
-// F dv = r_d dv and F^-T ds = rinv ds, then by MODE:
-//   CORRECTOR  out = x - (-(F^-T ds)(F dv) + smu), x = rleft.s
+// F dv = r_d dv and F^-T ds = rinv ds, then by MODE, with `a` x =
+// rleft.s for the corrector and lam for the others:
+//   CORRECTOR  out = x - (-(F^-T ds)(F dv) + smu)
 //   K4         out = lam (F dv) + lam (F^-T ds)
 //   GONDZIO    w = (lam - atil F dv)(lam - atil F^-T ds), lo = 0.1 smu,
 //              hi = 10 smu, out = -max(min(max(w, lo), hi) - w, -hi)
-// smu (sigma mu) and atil are per instance.
-template <typename T, int MODE>
-__global__ void __launch_bounds__(THREADS)
-    r_comp(const T* __restrict__ lam, const T* __restrict__ r_d,
+// smu (sigma mu) and atil are per instance. Grid and threads as
+// r_reduce4's: thread t of block (bx, by) owns elements (bx blockDim.x +
+// t) N .. + N - 1 of instances by, by + gridDim.y, ...; inputs s*
+// elements apart, the output contiguous.
+template <typename T, int MODE, bool VEC>
+__global__ void __launch_bounds__(128)
+    r_comp(const T* __restrict__ a, const T* __restrict__ r_d,
            const T* __restrict__ rinv, const T* __restrict__ dv,
-           const T* __restrict__ ds, const T* __restrict__ x,
-           const T* __restrict__ smu, const T* __restrict__ atil,
-           T* __restrict__ out, int m) {
-  const long long row = static_cast<long long>(blockIdx.x) * m;
-  T sm = T(0), at = T(0);
-  if (MODE != K4) sm = smu[blockIdx.x];
-  if (MODE == GONDZIO) at = atil[blockIdx.x];
-  const T lo = mul(sm, T(0.1)), hi = mul(sm, T(10.0));
-  for (int i = threadIdx.x; i < m; i += THREADS) {
-    const long long k = row + i;
-    const T fdv = mul(r_d[k], dv[k]);
-    const T fds = mul(rinv[k], ds[k]);
-    if (MODE == CORRECTOR) {
-      out[k] = sub(x[k], add(-mul(fds, fdv), sm));
-    } else if (MODE == K4) {
-      const T l = lam[k];
-      out[k] = add(mul(l, fdv), mul(l, fds));
-    } else {
-      const T l = lam[k];
-      const T w = mul(sub(l, mul(at, fdv)), sub(l, mul(at, fds)));
-      out[k] = -nan_max(sub(nan_min(nan_max(w, lo), hi), w), -hi);
+           const T* __restrict__ ds, const T* __restrict__ smu,
+           const T* __restrict__ atil, T* __restrict__ out, int B, int m,
+           long long sa, long long sr, long long si, long long sdv,
+           long long sds) {
+  constexpr int N = Lanes<T>::N;
+  const long long i =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * N;
+  if (i >= m) return;
+  const int n = static_cast<int>(m - i < N ? m - i : N);
+  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
+    T xa[N], ra[N], ia[N], dva[N], dsa[N], o[N];
+    // every load first: one wait for device memory
+    const T sm = MODE != K4 ? smu[b] : T(0);
+    const T at = MODE == GONDZIO ? atil[b] : T(0);
+    load<T, VEC>(xa, a + b * sa, i, n);
+    load<T, VEC>(ra, r_d + b * sr, i, n);
+    load<T, VEC>(ia, rinv + b * si, i, n);
+    load<T, VEC>(dva, dv + b * sdv, i, n);
+    load<T, VEC>(dsa, ds + b * sds, i, n);
+    const T lo = mul(sm, T(0.1)), hi = mul(sm, T(10.0));
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const T fdv = mul(ra[k], dva[k]);
+      const T fds = mul(ia[k], dsa[k]);
+      if (MODE == CORRECTOR) {
+        o[k] = sub(xa[k], add(-mul(fds, fdv), sm));
+      } else if (MODE == K4) {
+        o[k] = add(mul(xa[k], fdv), mul(xa[k], fds));
+      } else {
+        const T w = mul(sub(xa[k], mul(at, fdv)), sub(xa[k], mul(at, fds)));
+        o[k] = -nan_max(sub(nan_min(nan_max(w, lo), hi), w), -hi);
+      }
     }
+    store<T, VEC>(out + b * m, i, n, o);
   }
 }
-
-constexpr int STEP_THREADS = 128;
-constexpr int STEP_WARPS = STEP_THREADS / 32;
-constexpr int MAX_CLUSTER = 8;
 
 // One block's share of r_step's reductions: each block stores it into
 // its slot of block rank 0's shared memory.
@@ -452,7 +523,7 @@ struct StepAcc {
 // stores it into slot r of rank 0's shared memory; after one cluster
 // barrier rank 0 joins the slots in rank order and writes the results.
 template <typename T, bool FTS, bool VEC>
-__global__ void __launch_bounds__(STEP_THREADS)
+__global__ void __launch_bounds__(CLUSTER_THREADS)
     r_step(const T* __restrict__ v, const T* __restrict__ s,
            const T* __restrict__ dv, const T* __restrict__ ds, double scale,
            T* __restrict__ alpha, bool* __restrict__ ok, T* __restrict__ dots,
@@ -460,7 +531,7 @@ __global__ void __launch_bounds__(STEP_THREADS)
            long long sdv, long long sds) {
   namespace cg = cooperative_groups;
   constexpr int N = Lanes<T>::N;
-  __shared__ StepPart<T> warps[STEP_WARPS];
+  __shared__ StepPart<T> warps[CLUSTER_WARPS];
   __shared__ StepPart<T> slots[MAX_CLUSTER];
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned C = cluster.num_blocks(), rank = cluster.block_rank();
@@ -505,10 +576,10 @@ __global__ void __launch_bounds__(STEP_THREADS)
     __syncthreads();
     if (warp == 0) {
       StepAcc<T, FTS> w;
-      if (lane < STEP_WARPS) w.get(warps[lane]);
+      if (lane < CLUSTER_WARPS) w.get(warps[lane]);
       w.fin = __all_sync(0xffffffffu, w.fin);
 #pragma unroll
-      for (int o = STEP_WARPS / 2; o > 0; o >>= 1) w.fold(o);
+      for (int o = CLUSTER_WARPS / 2; o > 0; o >>= 1) w.fold(o);
       if (lane == 0) w.put(slot);  // into rank 0's shared memory
     }
     // the slots' stores are seen by rank 0 after the barrier (a cluster
@@ -545,19 +616,47 @@ inline cudaStream_t as_stream(void* stream) {
   return static_cast<cudaStream_t>(stream);
 }
 
-template <typename T>
-int scaling(const T* v, const T* s, T* r_d, T* rinv, T* lam, T* lam2,
-            T* mubar, int B, int m, void* stream) {
-  r_scaling<T><<<B, THREADS, 0, as_stream(stream)>>>(v, s, r_d, rinv, lam,
-                                                     lam2, mubar, m);
-  return cudaGetLastError();
-}
-
 // The launch's own error, else the runtime's last one (which this also
 // clears, so that no later check of PyTorch's finds it).
 inline int launched(cudaError_t err) {
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
+}
+
+// A launch of `grid` blocks of `threads` in clusters of `cluster` blocks
+// along x (0: an ordinary launch, no cluster).
+struct Launch {
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attr[1];
+  Launch(dim3 grid, int threads, int cluster, void* stream) {
+    config.gridDim = grid;
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = 0;
+    config.stream = as_stream(stream);
+    if (cluster > 0) {
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = cluster;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      config.attrs = attr;
+      config.numAttrs = 1;
+    }
+  }
+};
+
+template <typename T>
+int scaling(const T* v, const T* s, T* r_d, T* rinv, T* lam, T* lam2,
+            T* mubar, int B, int m, long long sv, long long ss, int vec,
+            int cluster, int grid_y, int threads, void* stream) {
+  if (cluster < 1) return cudaErrorInvalidValue;
+  const Launch l(dim3(cluster, grid_y), threads, cluster, stream);
+  if (vec)
+    return launched(cudaLaunchKernelEx(&l.config, r_scaling<T, true>, v, s,
+                                       r_d, rinv, lam, lam2, mubar, B, m, sv,
+                                       ss));
+  return launched(cudaLaunchKernelEx(&l.config, r_scaling<T, false>, v, s,
+                                     r_d, rinv, lam, lam2, mubar, B, m, sv,
+                                     ss));
 }
 
 template <typename T, bool POST>
@@ -588,49 +687,43 @@ int reduce4(int post, const T* x, const T* lam, const T* r_d, const T* y,
                                 lam, r_d, y, out, out2, B, m, sx, sl, sr, sy);
 }
 
-// A launch of `grid` blocks of `threads` in clusters of `cluster` blocks
-// along x (0: an ordinary launch, no cluster).
-struct Launch {
-  cudaLaunchConfig_t config = {};
-  cudaLaunchAttribute attr[1];
-  Launch(dim3 grid, int threads, int cluster, void* stream) {
-    config.gridDim = grid;
-    config.blockDim = dim3(threads);
-    config.dynamicSmemBytes = 0;
-    config.stream = as_stream(stream);
-    if (cluster > 0) {
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = cluster;
-      attr[0].val.clusterDim.y = 1;
-      attr[0].val.clusterDim.z = 1;
-      config.attrs = attr;
-      config.numAttrs = 1;
-    }
-  }
-};
+template <typename T, int MODE>
+int comp_plan(int vec, dim3 grid, int threads, cudaStream_t st, const T* a,
+              const T* r_d, const T* rinv, const T* dv, const T* ds,
+              const T* smu, const T* atil, T* out, int B, int m, long long sa,
+              long long sr, long long si, long long sdv, long long sds) {
+  if (vec)
+    r_comp<T, MODE, true><<<grid, threads, 0, st>>>(
+        a, r_d, rinv, dv, ds, smu, atil, out, B, m, sa, sr, si, sdv, sds);
+  else
+    r_comp<T, MODE, false><<<grid, threads, 0, st>>>(
+        a, r_d, rinv, dv, ds, smu, atil, out, B, m, sa, sr, si, sdv, sds);
+  return launched(cudaSuccess);
+}
 
 template <typename T>
-int comp(int mode, const T* lam, const T* r_d, const T* rinv, const T* dv,
-         const T* ds, const T* x, const T* smu, const T* atil, T* out, int B,
-         int m, void* stream) {
+int comp(int mode, const T* a, const T* r_d, const T* rinv, const T* dv,
+         const T* ds, const T* smu, const T* atil, T* out, int B, int m,
+         long long sa, long long sr, long long si, long long sdv,
+         long long sds, int vec, int grid_x, int grid_y, int threads,
+         void* stream) {
+  const dim3 grid(grid_x, grid_y);
   cudaStream_t st = as_stream(stream);
   switch (mode) {
     case CORRECTOR:
-      r_comp<T, CORRECTOR><<<B, THREADS, 0, st>>>(lam, r_d, rinv, dv, ds, x,
-                                                  smu, atil, out, m);
-      break;
+      return comp_plan<T, CORRECTOR>(vec, grid, threads, st, a, r_d, rinv, dv,
+                                     ds, smu, atil, out, B, m, sa, sr, si,
+                                     sdv, sds);
     case K4:
-      r_comp<T, K4><<<B, THREADS, 0, st>>>(lam, r_d, rinv, dv, ds, x, smu,
-                                           atil, out, m);
-      break;
+      return comp_plan<T, K4>(vec, grid, threads, st, a, r_d, rinv, dv, ds,
+                              smu, atil, out, B, m, sa, sr, si, sdv, sds);
     case GONDZIO:
-      r_comp<T, GONDZIO><<<B, THREADS, 0, st>>>(lam, r_d, rinv, dv, ds, x,
-                                                smu, atil, out, m);
-      break;
+      return comp_plan<T, GONDZIO>(vec, grid, threads, st, a, r_d, rinv, dv,
+                                   ds, smu, atil, out, B, m, sa, sr, si, sdv,
+                                   sds);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 template <typename T, bool FTS>
@@ -666,14 +759,18 @@ cudaError_t preload() {
   // load every instance's code now (CUDA loads a kernel lazily, at its
   // first launch), so that no first launch falls inside a graph capture
   const void* fns[] = {
-      reinterpret_cast<const void*>(&r_scaling<T>),
+      reinterpret_cast<const void*>(&r_scaling<T, false>),
+      reinterpret_cast<const void*>(&r_scaling<T, true>),
       reinterpret_cast<const void*>(&r_reduce4<T, false, false>),
       reinterpret_cast<const void*>(&r_reduce4<T, false, true>),
       reinterpret_cast<const void*>(&r_reduce4<T, true, false>),
       reinterpret_cast<const void*>(&r_reduce4<T, true, true>),
-      reinterpret_cast<const void*>(&r_comp<T, CORRECTOR>),
-      reinterpret_cast<const void*>(&r_comp<T, K4>),
-      reinterpret_cast<const void*>(&r_comp<T, GONDZIO>),
+      reinterpret_cast<const void*>(&r_comp<T, CORRECTOR, false>),
+      reinterpret_cast<const void*>(&r_comp<T, CORRECTOR, true>),
+      reinterpret_cast<const void*>(&r_comp<T, K4, false>),
+      reinterpret_cast<const void*>(&r_comp<T, K4, true>),
+      reinterpret_cast<const void*>(&r_comp<T, GONDZIO, false>),
+      reinterpret_cast<const void*>(&r_comp<T, GONDZIO, true>),
       reinterpret_cast<const void*>(&r_step<T, false, false>),
       reinterpret_cast<const void*>(&r_step<T, false, true>),
       reinterpret_cast<const void*>(&r_step<T, true, false>),
@@ -708,13 +805,19 @@ int conicip_rcone_empty(int grid_x, int grid_y, int threads, int cluster,
 
 int conicip_r_scaling_f64(const double* v, const double* s, double* r_d,
                           double* rinv, double* lam, double* lam2,
-                          double* mubar, int B, int m, void* stream) {
-  return scaling(v, s, r_d, rinv, lam, lam2, mubar, B, m, stream);
+                          double* mubar, int B, int m, long long sv,
+                          long long ss, int vec, int cluster, int grid_y,
+                          int threads, void* stream) {
+  return scaling(v, s, r_d, rinv, lam, lam2, mubar, B, m, sv, ss, vec,
+                 cluster, grid_y, threads, stream);
 }
 int conicip_r_scaling_f32(const float* v, const float* s, float* r_d,
                           float* rinv, float* lam, float* lam2, float* mubar,
-                          int B, int m, void* stream) {
-  return scaling(v, s, r_d, rinv, lam, lam2, mubar, B, m, stream);
+                          int B, int m, long long sv, long long ss, int vec,
+                          int cluster, int grid_y, int threads,
+                          void* stream) {
+  return scaling(v, s, r_d, rinv, lam, lam2, mubar, B, m, sv, ss, vec,
+                 cluster, grid_y, threads, stream);
 }
 
 int conicip_r_reduce4_f64(int post, const double* x, const double* lam,
@@ -734,17 +837,23 @@ int conicip_r_reduce4_f32(int post, const float* x, const float* lam,
                  grid_x, grid_y, threads, stream);
 }
 
-int conicip_r_comp_f64(int mode, const double* lam, const double* r_d,
+int conicip_r_comp_f64(int mode, const double* a, const double* r_d,
                        const double* rinv, const double* dv, const double* ds,
-                       const double* x, const double* smu, const double* atil,
-                       double* out, int B, int m, void* stream) {
-  return comp(mode, lam, r_d, rinv, dv, ds, x, smu, atil, out, B, m, stream);
+                       const double* smu, const double* atil, double* out,
+                       int B, int m, long long sa, long long sr, long long si,
+                       long long sdv, long long sds, int vec, int grid_x,
+                       int grid_y, int threads, void* stream) {
+  return comp(mode, a, r_d, rinv, dv, ds, smu, atil, out, B, m, sa, sr, si,
+              sdv, sds, vec, grid_x, grid_y, threads, stream);
 }
-int conicip_r_comp_f32(int mode, const float* lam, const float* r_d,
+int conicip_r_comp_f32(int mode, const float* a, const float* r_d,
                        const float* rinv, const float* dv, const float* ds,
-                       const float* x, const float* smu, const float* atil,
-                       float* out, int B, int m, void* stream) {
-  return comp(mode, lam, r_d, rinv, dv, ds, x, smu, atil, out, B, m, stream);
+                       const float* smu, const float* atil, float* out, int B,
+                       int m, long long sa, long long sr, long long si,
+                       long long sdv, long long sds, int vec, int grid_x,
+                       int grid_y, int threads, void* stream) {
+  return comp(mode, a, r_d, rinv, dv, ds, smu, atil, out, B, m, sa, sr, si,
+              sdv, sds, vec, grid_x, grid_y, threads, stream);
 }
 
 int conicip_r_step_f64(int with_fts, const double* v, const double* s,

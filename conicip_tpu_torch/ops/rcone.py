@@ -25,10 +25,9 @@ it cannot run and never falls back. The kernel's elementwise outputs and
 its step are the twin's bits; its reduced values (μ̄, the dots, fts)
 differ in summation order. Vectors are (..., m), any leading dims a stack
 of instances (one launch for the stack; a vector without them, such as
-the cone identity of the initial point, is broadcast: the 4x4 reduction
-and the step read it, and any row view of unit stride along m, in place
-at its row stride, the other kernels from a contiguous copy),
-per-instance values (...,).
+the cone identity of the initial point, is broadcast: every kernel reads
+it, and any row view of unit stride along m, in place at its row
+stride), per-instance values (...,).
 """
 
 from __future__ import annotations
@@ -57,17 +56,17 @@ def _on_cpu(*xs) -> bool:
     return dev.type == "cpu"
 
 
-def _stack(vecs, scalars=(), strided=False):
+def _stack(vecs, scalars=()):
     """The vectors as (B, m) rows and the per-instance values as contiguous
-    (B,), broadcast to one stack; and the stack's shape. Rows are
-    contiguous copies, or with ``strided`` views of unit stride along m
-    wherever the layout allows one (a vector shared by the stack at row
-    stride 0, rows of a wider matrix at theirs), copies only elsewhere."""
+    (B,), broadcast to one stack; and the stack's shape. Rows are views of
+    unit stride along m wherever the layout allows one (a vector shared by
+    the stack at row stride 0, rows of a wider matrix at theirs),
+    contiguous copies only elsewhere."""
     shape = torch.broadcast_shapes(*(x.shape for x in vecs))
     bs, m = shape[:-1], shape[-1]
     B = math.prod(bs)
     rows = [x.expand(shape).reshape(B, m) for x in vecs]
-    rows = [x if strided and (m == 1 or x.stride(1) == 1) else x.contiguous()
+    rows = [x if m == 1 or x.stride(1) == 1 else x.contiguous()
             for x in rows]
     each = [s.expand(bs).reshape(B).contiguous() for s in scalars]
     return rows, each, bs
@@ -142,7 +141,7 @@ def r_reduce4_pre(rs, lam, r_d, rv):
     (``apply_adjoint(F, cone_div(r.s, λ))``)."""
     if _on_cpu(rs, lam, r_d, rv):
         return r_reduce4_pre_plain(rs, lam, r_d, rv)
-    rows, _, bs = _stack((rs, lam, r_d, rv), strided=True)
+    rows, _, bs = _stack((rs, lam, r_d, rv))
     shape = bs + rows[0].shape[-1:]
     return tuple(x.reshape(shape) for x in rcone_kernel.reduce4_pre(*rows))
 
@@ -152,7 +151,7 @@ def r_reduce4_post(t1, r_d, dv):
     (``t1 − apply_adjoint(F, apply(F, dv))``)."""
     if _on_cpu(t1, r_d, dv):
         return r_reduce4_post_plain(t1, r_d, dv)
-    rows, _, bs = _stack((t1, r_d, dv), strided=True)
+    rows, _, bs = _stack((t1, r_d, dv))
     return rcone_kernel.reduce4_post(*rows).reshape(bs + rows[0].shape[-1:])
 
 
@@ -162,7 +161,7 @@ def r_corrector(rls, r_d, rinv, dv, ds, smu):
     if _on_cpu(rls, r_d, rinv, dv, ds, smu):
         return r_corrector_plain(rls, r_d, rinv, dv, ds, smu)
     (r2, d2, i2, v2, s2), (m2,), bs = _stack((rls, r_d, rinv, dv, ds), (smu,))
-    out = rcone_kernel.comp("corrector", r2, d2, i2, v2, s2, x=r2, smu=m2)
+    out = rcone_kernel.comp("corrector", r2, d2, i2, v2, s2, smu=m2)
     return out.reshape(bs + r2.shape[-1:])
 
 
@@ -194,6 +193,6 @@ def r_step(v, s, dv, ds, scale=None, fts=False):
     (..., 4) and fts = (v − α dv)ᵀ(s − α ds) from them."""
     if _on_cpu(v, s, dv, ds):
         return r_step_plain(v, s, dv, ds, scale, fts)
-    rows, _, bs = _stack((v, s, dv, ds), strided=True)
+    rows, _, bs = _stack((v, s, dv, ds))
     out = rcone_kernel.step(*rows, 1.0 if scale is None else scale, fts)
     return tuple(x.reshape(bs + x.shape[1:]) for x in out)

@@ -637,13 +637,20 @@ def test_rcone_kernels_match_their_plain_twins(cuda, dtype, B, m):
     assert rcone_kernel.rcone_launches[("scaling", dt, m, B)] >= 1
 
 
-def reduce4_and_step(a, lam, r_d):
-    """Every entry of r_reduce4 and r_step on the inputs ``a``."""
+def every_entry(a, lam, r_d, rinv):
+    """Every entry of csrc/rcone.cu on the inputs ``a`` and the scaling's
+    λ, r_d and 1/r_d: the scaling's five outputs, ``reduce4_pre``'s two,
+    ``reduce4_post``, the corrector (x = ``a["x"]``), k4, gondzio, the
+    step's two and the predictor's four."""
     from conicip_tpu_torch.ops import rcone
 
     v, s, dv, ds = a["v"], a["s"], a["dv"], a["ds"]
-    t1, vt = rcone.r_reduce4_pre(a["x"], lam, r_d, a["y"])
-    return (t1, vt, rcone.r_reduce4_post(a["x"], r_d, dv),
+    return (*rcone.r_scaling(v, s),
+            *rcone.r_reduce4_pre(a["x"], lam, r_d, a["y"]),
+            rcone.r_reduce4_post(a["x"], r_d, dv),
+            rcone.r_corrector(a["x"], r_d, rinv, dv, ds, a["smu"]),
+            rcone.r_k4(lam, r_d, rinv, dv, ds),
+            rcone.r_gondzio(lam, r_d, rinv, dv, ds, a["atil"], a["smu"]),
             *rcone.r_step(v, s, dv, ds, 1.0 / 0.99),
             *rcone.r_step(v, s, dv, ds, fts=True))
 
@@ -659,25 +666,26 @@ def same_bits(xs, ys):
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("offset", [0, 1, 4])
-def test_rcone_reduce4_and_step_read_row_strided_views_in_place(
+def test_rcone_kernels_read_row_strided_views_in_place(
         cuda, dtype, offset, monkeypatch):
     # rows of a wider matrix (at an offset that breaks or keeps the 16-byte
     # alignment) and the cone identity shared by the stack at row stride
-    # 0: read in place, no copy, and the same bits as on contiguous
-    # copies, the reduced values too (one shape, one summation order);
-    # elementwise outputs and the step the twin's bits
+    # 0: every entry reads them in place, no copy, and gives the same bits
+    # as on contiguous copies, the reduced values too (one shape, one
+    # summation order); elementwise outputs and the step the twin's bits
     from conicip_tpu_torch.ops import rcone, rcone_kernel
 
     dt = getattr(torch, dtype)
     B, m = 6, 1001
     a = rcone_inputs(B, m, dt, cuda, seed=3)
+    r_d, rinv, _, _, _ = rcone.r_scaling_plain(a["v"], a["s"])
+    a.update(r_d=r_d, rinv=rinv)
     views = {}
-    for k in ("v", "s", "dv", "ds", "x", "y"):
+    for k in ("v", "s", "dv", "ds", "x", "y", "r_d", "rinv"):
         wide = torch.full((B, m + 7), float("nan"), dtype=dt, device=cuda)
         wide[:, offset:offset + m] = a[k]
         views[k] = wide[:, offset:offset + m]
     views.update(smu=a["smu"], atil=a["atil"])
-    r_d, _, lam, _, _ = rcone.r_scaling_plain(a["v"], a["s"])
     e = torch.ones(m, dtype=dt, device=cuda)
     vec = rcone_kernel.plan_of("r_step", *(views[k] for k in "vs")).vec
     assert vec == (offset % (16 // views["v"].element_size()) == 0
@@ -686,46 +694,50 @@ def test_rcone_reduce4_and_step_read_row_strided_views_in_place(
     stack = rcone._stack
     monkeypatch.setattr(rcone, "_stack", lambda *x, **kw: rows.extend(
         stack(*x, **kw)[0]) or stack(*x, **kw))
-    got = reduce4_and_step(views, e, r_d)
+    got = every_entry(views, e, views["r_d"], views["rinv"])
     # the kernels were handed the views themselves
-    ptrs = {x.data_ptr() for x in (*views.values(), e, r_d)}
-    assert len(rows) == 4 + 3 + 4 + 4
+    ptrs = {x.data_ptr() for x in (*views.values(), e)}
+    assert len(rows) == 2 + 4 + 3 + 3 * 5 + 4 + 4
     assert all(x.data_ptr() in ptrs for x in rows)
     monkeypatch.undo()
-    want = reduce4_and_step({k: x.contiguous() for k, x in views.items()},
-                            e.expand(B, m).contiguous(), r_d)
+    want = every_entry({k: x.contiguous() for k, x in views.items()},
+                       e.expand(B, m).contiguous(), r_d, rinv)
     assert same_bits(got, want)
-    plain = (*rcone.r_reduce4_pre_plain(a["x"], e, r_d, a["y"]),
-             rcone.r_reduce4_post_plain(a["x"], r_d, a["dv"]),
-             *rcone.r_step_plain(a["v"], a["s"], a["dv"], a["ds"],
-                                 1.0 / 0.99),
-             *rcone.r_step_plain(a["v"], a["s"], a["dv"], a["ds"],
-                                 fts=True)[:2])
-    assert same_bits(got[:7], plain)
+    dv, ds = a["dv"], a["ds"]
+    plain = (*rcone.r_scaling_plain(a["v"], a["s"])[:4],
+             *rcone.r_reduce4_pre_plain(a["x"], e, r_d, a["y"]),
+             rcone.r_reduce4_post_plain(a["x"], r_d, dv),
+             rcone.r_corrector_plain(a["x"], r_d, rinv, dv, ds, a["smu"]),
+             rcone.r_k4_plain(e, r_d, rinv, dv, ds),
+             rcone.r_gondzio_plain(e, r_d, rinv, dv, ds, a["atil"],
+                                   a["smu"]),
+             *rcone.r_step_plain(a["v"], a["s"], dv, ds, 1.0 / 0.99),
+             *rcone.r_step_plain(a["v"], a["s"], dv, ds, fts=True)[:2])
+    # all but μ̄ (output 4), the step's dots and fts
+    assert same_bits(got[:4] + got[5:15], plain)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("B, m", [(1, 2000), (64, 1000), (1, 8195)])
-def test_rcone_reduce4_and_step_give_the_same_bits_every_launch(
-        cuda, dtype, B, m):
-    # two eager calls, and the replays of a captured graph of the same
-    # calls, give the same bits: the dots and fts included (the cluster's
-    # partials summed in one order for a shape)
+def test_rcone_kernels_give_the_same_bits_every_launch(cuda, dtype, B, m):
+    # two eager calls of every entry, and the replays of a captured graph
+    # of the same calls, give the same bits: μ̄, the dots and fts included
+    # (a cluster's partials summed in one order for a shape)
     from conicip_tpu_torch.ops import rcone
 
     dt = getattr(torch, dtype)
     a = rcone_inputs(B, m, dt, cuda, seed=5)
-    r_d, _, lam, _, _ = rcone.r_scaling_plain(a["v"], a["s"])
-    first = reduce4_and_step(a, lam, r_d)
-    assert same_bits(first, reduce4_and_step(a, lam, r_d))
+    r_d, rinv, lam, _, _ = rcone.r_scaling_plain(a["v"], a["s"])
+    first = every_entry(a, lam, r_d, rinv)
+    assert same_bits(first, every_entry(a, lam, r_d, rinv))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        reduce4_and_step(a, lam, r_d)
+        every_entry(a, lam, r_d, rinv)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = reduce4_and_step(a, lam, r_d)
+        captured = every_entry(a, lam, r_d, rinv)
     for _ in range(2):
         for x in captured:
             x.zero_()
@@ -736,30 +748,38 @@ def test_rcone_reduce4_and_step_give_the_same_bits_every_launch(
 
 def test_rcone_a_refused_cluster_raises_and_nothing_falls_back(
         cuda, monkeypatch):
-    # a cluster larger than the card places (32 blocks): the launch is
-    # refused, the entry raises with the CUDA error, counts nothing and
-    # returns nothing; the next call at the wrapper's own plan runs
+    # a cluster larger than the card places (32 blocks) for r_step and
+    # r_scaling: the launch is refused, the entry raises with the CUDA
+    # error, counts nothing and returns nothing; the next call at the
+    # wrapper's own plan runs
     from conicip_tpu_torch.ops import rcone, rcone_kernel
 
     a = rcone_inputs(1, 2000, torch.float64, cuda)
+    v, s, dv, ds = a["v"], a["s"], a["dv"], a["ds"]
     real = rcone_kernel.launch_plan
 
     def oversized(kernel, B, m, dtype, aligned):
         plan = real(kernel, B, m, dtype, aligned)
-        if kernel != "r_step":
+        if kernel not in rcone_kernel.CLUSTER_KERNELS:
             return plan
         return plan._replace(grid=(32, plan.grid[1]), cluster=32)
 
     monkeypatch.setattr(rcone_kernel, "launch_plan", oversized)
     before = rcone_kernel.launch_count()
     with pytest.raises(RuntimeError, match="CUDA error"):
-        rcone.r_step(a["v"], a["s"], a["dv"], a["ds"], fts=True)
+        rcone.r_step(v, s, dv, ds, fts=True)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rcone.r_scaling(v, s)
     assert rcone_kernel.launch_count() == before
     monkeypatch.undo()
-    alpha, ok = rcone.r_step(a["v"], a["s"], a["dv"], a["ds"])
+    alpha, ok = rcone.r_step(v, s, dv, ds)
+    got = rcone.r_scaling(v, s)
     torch.cuda.synchronize()
-    p_alpha, p_ok = rcone.r_step_plain(a["v"], a["s"], a["dv"], a["ds"])
+    p_alpha, p_ok = rcone.r_step_plain(v, s, dv, ds)
     assert same_values(alpha, p_alpha) and torch.equal(ok, p_ok)
+    want = rcone.r_scaling_plain(v, s)
+    assert all(same_values(x, y) for x, y in zip(got[:4], want[:4]))
+    assert rcone_kernel.launch_count() == before + 2
 
 
 def test_rcone_kernels_reject_what_they_do_not_take(cuda):
@@ -780,7 +800,8 @@ def test_rcone_kernels_reject_what_they_do_not_take(cuda):
         rcone_kernel.comp("gondzio", v, v, v, v, v, smu=v[:, 0].clone())
     with pytest.raises(ValueError):
         rcone.r_k4(v, v, v, v.cpu(), v)
-    # a vector shared by the stack is broadcast, a strided row copied
+    # a vector shared by the stack is read at row stride 0, a row of a
+    # wider matrix in place
     wide = torch.ones(4, 10, device=cuda, dtype=torch.float64)[:, 2:]
     r_d, *_ = rcone.r_scaling(wide, v[0])
     assert r_d.shape == (4, 8) and bool((r_d == 1).all())

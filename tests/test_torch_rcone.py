@@ -20,6 +20,8 @@ directions included. The CUDA kernels are held against these twins on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` ``[rcone]``).
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -373,7 +375,7 @@ def test_the_fused_path_is_the_generic_path_bit_for_bit(name, monkeypatch,
         assert a.shape == b.shape and a.tobytes() == b.tobytes()
 
 
-# ── the launch plan of r_reduce4 and r_step (ops/rcone_kernel.py) ──
+# ── the launch plans of csrc/rcone.cu's kernels (ops/rcone_kernel.py) ──
 
 # (B, m): the shapes the R-only solves and chip_smoke.py give the kernels,
 # and edges: m = 1, m < 32, m odd, 8192 + 3, a stack past gridDim.y's limit
@@ -385,14 +387,15 @@ PLAN_DTYPES = [torch.float64, torch.float32]
 
 def taken(kernel, plan, B, m):
     """How often the launch of ``plan`` takes each (instance, element), in
-    the index arithmetic of csrc/rcone.cu: r_reduce4's thread t of block
-    (bx, by) takes elements (bx T + t) N + k, r_step's thread t of block
-    rank r in trip q takes ((q C + r) T + t) N + k, k < N lanes; both take
-    instances by, by + gridDim.y, ..."""
+    the index arithmetic of csrc/rcone.cu: on a grid over m (r_reduce4,
+    r_comp) thread t of block (bx, by) takes elements (bx T + t) N + k, in
+    a cluster (r_step, r_scaling) thread t of block rank r in trip q takes
+    ((q C + r) T + t) N + k, k < N lanes; both take instances by, by +
+    gridDim.y, ..."""
     gx, gy = plan.grid
     T, N = plan.threads, plan.lanes
     t, k = np.arange(T)[:, None], np.arange(N)[None, :]
-    if kernel == "r_reduce4":
+    if kernel in rcone_kernel.GRID_KERNELS:
         blocks = np.arange(gx)[:, None, None]
         i = (blocks * T + t[None]) * N + k[None]
     else:
@@ -411,7 +414,7 @@ def taken(kernel, plan, B, m):
 @pytest.mark.parametrize("dtype", PLAN_DTYPES)
 @pytest.mark.parametrize("B, m", PLAN_SHAPES)
 def test_the_launch_plan_takes_every_element_once(B, m, dtype, aligned):
-    for kernel in ("r_reduce4", "r_step"):
+    for kernel in rcone_kernel.GRID_KERNELS + rcone_kernel.CLUSTER_KERNELS:
         plan = rcone_kernel.launch_plan(kernel, B, m, dtype, aligned)
         assert plan.vec == aligned and plan.lanes * torch.finfo(
             dtype).bits == 128
@@ -420,7 +423,7 @@ def test_the_launch_plan_takes_every_element_once(B, m, dtype, aligned):
         # CUDA's limits, and whole warps
         assert 1 <= gx < 2**31 and 1 <= gy <= 65535 and gy <= B
         assert plan.threads % 32 == 0 and plan.threads <= 1024
-        if kernel == "r_reduce4":
+        if kernel in rcone_kernel.GRID_KERNELS:
             assert plan.cluster is None
             assert (gx - 1) * plan.threads * plan.lanes < m  # no idle block
         else:
@@ -433,16 +436,25 @@ def test_the_launch_plan_takes_every_element_once(B, m, dtype, aligned):
 def test_the_launch_plan_spreads_the_main_shapes_over_the_card():
     f64, f32 = torch.float64, torch.float32
     plan = rcone_kernel.launch_plan
+    # every entry launches by a plan of one of the kernels
+    assert set(rcone_kernel.PLANNED) == set(rcone_kernel.ENTRIES)
+    assert set(rcone_kernel.PLANNED.values()) == set(
+        rcone_kernel.GRID_KERNELS + rcone_kernel.CLUSTER_KERNELS)
     for dt in (f64, f32):
-        # r_reduce4: one instance of 8192 over >= 16 SMs, the (64, 1000)
-        # stack over >= the card's 132
-        gx, gy = plan("r_reduce4", 1, 8192, dt, True).grid
-        assert gx * gy >= 16
-        gx, gy = plan("r_reduce4", 64, 1000, dt, True).grid
-        assert gx * gy >= 132
-    # r_step: about one vector a thread on a single solve, at most 8 blocks
-    assert [rcone_kernel.cluster_size(1, m, f64)
-            for m in (1, 300, 1000, 2000, 8192)] == [1, 2, 4, 8, 8]
+        # r_reduce4 and r_comp: one instance of 8192 over >= 16 SMs, the
+        # (64, 1000) stack over >= the card's 132
+        for kernel in rcone_kernel.GRID_KERNELS:
+            gx, gy = plan(kernel, 1, 8192, dt, True).grid
+            assert gx * gy >= 16
+            gx, gy = plan(kernel, 64, 1000, dt, True).grid
+            assert gx * gy >= 132
+    # r_step and r_scaling: about one vector a thread on a single solve,
+    # at most 8 blocks
+    for kernel in rcone_kernel.CLUSTER_KERNELS:
+        assert [plan(kernel, 1, m, f64, True).cluster
+                for m in (1, 300, 1000, 2000, 8192)] == [1, 2, 4, 8, 8]
+        # one instance of 8192 over 8 SMs in either dtype
+        assert plan(kernel, 1, 8192, f32, False).grid == (8, 1)
     # a stack keeps to two blocks an SM
     assert rcone_kernel.cluster_size(64, 1000, f64) == 4
     assert rcone_kernel.cluster_size(256, 1000, f64) == 1
@@ -460,24 +472,102 @@ def test_the_vector_path_needs_every_pointer_and_row_aligned():
 
 
 def test_the_strided_stack_keeps_views_of_unit_stride():
-    # the 4x4 reduction's and the step's operands: a vector shared by the
-    # stack at row stride 0, rows of a wider matrix in place, anything
-    # else a contiguous copy; the other entries' operands contiguous
+    # every entry's operands: a vector shared by the stack at row stride
+    # 0, rows of a wider matrix in place, anything else a contiguous copy
     wide = torch.arange(4 * 10, dtype=torch.float64).reshape(4, 10)
     e = torch.ones(8, dtype=torch.float64)
     cols = wide.reshape(10, 4).T[:, :8]  # stride 4 along m
-    (a, b, c), _, bs = rcone._stack((wide[:, 2:], e, cols), strided=True)
+    (a, b, c), _, bs = rcone._stack((wide[:, 2:], e, cols))
     assert bs == (4,) and a.shape == b.shape == c.shape == (4, 8)
     assert a.data_ptr() == wide[:, 2:].data_ptr() and a.stride() == (10, 1)
     assert b.data_ptr() == e.data_ptr() and b.stride() == (0, 1)
     assert c.is_contiguous() and torch.equal(c, cols)
-    rows, _, _ = rcone._stack((wide[:, 2:], e))
-    assert all(x.is_contiguous() for x in rows)
+    # the operands of the scaling and of the complementarity vectors,
+    # with their per-instance values: the same views, the values a
+    # contiguous (B,)
+    rows, (sm,), _ = rcone._stack((wide[:, 2:], e),
+                                  (torch.tensor(0.5, dtype=torch.float64),))
+    assert [x.data_ptr() for x in rows] == [a.data_ptr(), b.data_ptr()]
+    assert [x.stride() for x in rows] == [(10, 1), (0, 1)]
     assert torch.equal(rows[0], a) and torch.equal(rows[1], b)
+    assert sm.shape == (4,) and sm.is_contiguous()
     # a single instance and a stack of stacks
-    (x,), _, bs = rcone._stack((e,), strided=True)
+    (x,), _, bs = rcone._stack((e,))
     assert bs == () and x.shape == (1, 8) and x.data_ptr() == e.data_ptr()
     (x, y), _, bs = rcone._stack((e, torch.zeros(2, 3, 8,
-                                                 dtype=torch.float64)),
-                                 strided=True)
+                                                 dtype=torch.float64)))
     assert bs == (2, 3) and x.stride() == (0, 1) and y.is_contiguous()
+
+
+# ── the wrappers' calls into csrc/rcone.cu (ops/rcone_kernel.py) ──
+
+
+def entry_calls(B, m, dtype, row_stride):
+    """Each entry's call of its kernel wrapper on (B, m) rows of a wider
+    matrix (``row_stride`` elements apart; the cone identity at row stride
+    0) and per-instance values."""
+    g = torch.Generator().manual_seed(0)
+
+    def row():
+        return torch.rand(B, row_stride, generator=g, dtype=dtype)[:, :m]
+
+    e = torch.ones(m, dtype=dtype).expand(B, m)
+    v, s, dv, ds, x, y = (row() for _ in range(6))
+    per = torch.rand(B, generator=g, dtype=dtype)
+    k = rcone_kernel
+    return {
+        "scaling": lambda: k.scaling(v, s),
+        "reduce4_pre": lambda: k.reduce4_pre(x, e, v, y),
+        "reduce4_post": lambda: k.reduce4_post(x, v, dv),
+        "corrector": lambda: k.comp("corrector", x, v, s, dv, ds, smu=per),
+        "k4": lambda: k.comp("k4", e, v, s, dv, ds),
+        "gondzio": lambda: k.comp("gondzio", e, v, s, dv, ds, smu=per,
+                                  atil=per),
+        "predictor": lambda: k.step(v, s, dv, ds, fts=True),
+        "step": lambda: k.step(v, s, dv, ds, 1.0 / 0.99),
+    }
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES)
+@pytest.mark.parametrize("entry", rcone_kernel.ENTRIES)
+def test_each_entry_hands_its_c_function_its_signature(entry, dtype,
+                                                       monkeypatch):
+    # CPU tensors stand in for the card's (the device check patched out,
+    # the launch recorded): the arguments each wrapper hands its C
+    # function match the ctypes signature in number and kind, the inputs
+    # go at their own row strides (no copy), and the plan is the kernel's
+    B, m, stride = 3, 1001, 1003
+    calls = []
+    monkeypatch.setattr(rcone_kernel, "_rows",
+                        lambda *xs: (*xs[0].shape, xs[0].dtype))
+    monkeypatch.setattr(rcone_kernel, "_launch",
+                        lambda e, name, x0, *args, tail=(): calls.append(
+                            (e, name, [*args, *x0.shape, *tail, None])))
+    entry_calls(B, m, dtype, stride)[entry]()
+    (got, name, args), = calls
+    assert got == entry and name == rcone_kernel.PLANNED[entry]
+    sig = rcone_kernel.SIGNATURES[name]
+    assert len(args) == len(sig)
+    for a, kind in zip(args, sig):
+        if kind is ctypes.c_void_p:
+            assert a is None or isinstance(a, torch.Tensor)
+        elif kind is ctypes.c_double:
+            assert isinstance(a, float)
+        else:
+            assert isinstance(a, int) and not isinstance(a, bool)
+    strides = [a for a, kind in zip(args, sig) if kind is ctypes.c_longlong]
+    assert stride in strides and set(strides) <= {stride, 0}
+    # an odd row stride: the scalar path, by the kernel's own plan
+    plan = rcone_kernel.launch_plan(name, B, m, dtype, False)
+    assert args[-5:-1] == [0, plan.grid[0], plan.grid[1], plan.threads]
+
+
+@pytest.mark.parametrize("entry", rcone_kernel.ENTRIES)
+def test_each_kernel_wrapper_refuses_cpu_tensors(entry):
+    # the wrappers have no route but the kernel: CPU tensors raise before
+    # anything is launched or counted (ops/rcone.py sends them to the
+    # twins instead)
+    before = rcone_kernel.launch_count()
+    with pytest.raises(ValueError, match="unsupported device"):
+        entry_calls(2, 8, torch.float64, 8)[entry]()
+    assert rcone_kernel.launch_count() == before
