@@ -9,10 +9,12 @@ then in ``[jacobi]`` the Jacobi eigendecomposition and SVD kernels
 theirs at every (d, stack) the S-cone phases hand them (``jacobi_shapes()``)
 and at edge shapes (d = 1-64, d = 128 and 200 on the device-memory route, a
 stack of 200, the identity, a clustered spectrum, an indefinite matrix, an
-ill-conditioned Lzᵀ Ls, NaN and Inf entries, the sweep limit), and times
-them beside cuSOLVER on random stacks and on the first stack of each kind
-that one larger_sdp(k=30) solve and one batched_small_sdp(64) solve hand
-them; ``[rcone]`` holds every entry of the R cones' kernels
+ill-conditioned Lzᵀ Ls, NaN and Inf entries, the sweep limit, the block
+kernels' on-chip / device-memory edges 119/120 and 169/170), and times
+them beside cuSOLVER on random stacks (above d = 32 too: (1, 64) to (1,
+200), with the sweeps they take and the block kernels' launch plans) and
+on the first stack of each kind that one larger_sdp(k=30) solve and one
+batched_small_sdp(64) solve hand them; ``[rcone]`` holds every entry of the R cones' kernels
 (``csrc/rcone.cu``: the NT scaling, the 4x4 reduction, the
 complementarity vectors, the step; f64 and f32) against its plain twin
 (``ops/rcone.py``) at the widths the R-only solves hand them and at edge
@@ -37,6 +39,14 @@ instances of one shape, f64 and f32, on the device loop's cache (one
 capture, hits equal to solves after ``graph.clear()`` bit for bit, flat
 reserved memory, an evicted entry's pools freed) and times hits, misses
 and the eager loop.
+``[sdp_large]`` solves S cones above order 32 on the device loop, the
+block Jacobi kernels' path: conic_ip on instance 0 of
+batched_small_sdp(1, k=100) (n = 5050, spectral) and solve_batch on
+batched_small_sdp(32, k=64) (n = 2080), a miss and hits each, held to the
+CPU's status, Iter, KKT builds and trips (the stack through a sample of
+its instances, solved as a stack of their own on the CPU and on the
+card), with the Jacobi launches of a solve by (kind, dtype, d, stack) and
+the sweeps each launch took.
 Three further phases drive the options around the default path:
 ``[f32]`` the f32-factor solves (the kernel's f32 entry, the last-mile
 switch to f64 factors), ``[eq]`` null-space elimination of equalities and
@@ -102,7 +112,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from collections import Counter
+from collections import Counter, defaultdict
 
 import numpy as np
 import torch
@@ -574,6 +584,12 @@ JACOBI_KINDS = ("eigh", "eigvalsh", "svd")
 # a block's shared memory (128: eigh; 200: every kind)
 JACOBI_EDGE_D = (1, 2, 3, 31, 32, 33, 64)
 JACOBI_GLOBAL_D = (128, 200)
+# the block kernels' on-chip / device-memory edges (ops/jacobi_kernel.py
+# launch_plan): eigh 119 / 120, values only and the SVD 169 / 170
+JACOBI_PLAN_EDGE_D = (119, 120, 169, 170)
+# the largest order the one-warp kernels take (csrc/jacobi.cu WARP_MAX_D):
+# above it the block kernels, which the kernels line lists apart
+JACOBI_WARP_MAX_D = 32
 JACOBI_BIG_STACK = 200  # more matrices than SMs
 # (stack, d) timed: the stacks of 64 at d = 10 and 5, larger_sdp's one
 # matrix at 30, the step eigenvalues of two stacked directions at 10, the
@@ -582,6 +598,17 @@ JACOBI_TIMED = ((64, 10), (64, 5), (1, 30), (128, 10), (64, 20))
 # the shape of each kind's JSON record: the [batch] stacks' (the values-only
 # kind: their stacked step eigenvalues)
 JACOBI_RECORD = {"eigh": (64, 10), "eigvalsh": (128, 10), "svd": (64, 10)}
+# (stack, d) timed above a warp's orders, each kind in f64 and f32: a single
+# d = 64, the [sdp_large] single's matrix (d = 100) and its step's two
+# stacked directions, the [sdp_large] stack's scaling (32 at d = 64) and
+# its step's stacked pair (64), and the device-memory route at 128 and 200
+JACOBI_TIMED_LARGE = ((1, 64), (1, 100), (2, 100), (32, 64), (64, 64),
+                      (1, 128), (1, 200))
+# the block kernels' JSON records: the shape, and the kinds and dtypes the
+# paths launch above d = 32 (the step's stacked eigenvalues in f32)
+JACOBI_BLOCK_RECORD = (1, 100)
+JACOBI_BLOCK_KINDS = (("eigh", torch.float64), ("eigvalsh", torch.float64),
+                      ("eigvalsh", torch.float32), ("svd", torch.float64))
 # relative to max(1, |A|_F) (|M|_F^2 for the SVD's Gram identity, which is
 # quadratic in M)
 JACOBI_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -637,6 +664,10 @@ def jacobi_shapes():
         for g in ConeSpec(dims).sdp_groups:
             for b in {1, B}:
                 shapes |= {(g.order, b * g.count), (g.order, 2 * b * g.count)}
+    # [sdp_large]: its single and its stack (no instance of it alone)
+    for dims, B in sdp_large_dims():
+        for g in ConeSpec(dims).sdp_groups:
+            shapes |= {(g.order, B * g.count), (g.order, 2 * B * g.count)}
     return shapes
 
 
@@ -815,6 +846,7 @@ def phase_jacobi():
     on_path = jacobi_shapes()
     edges = {(d, 3) for d in JACOBI_EDGE_D} | {(d, 2) for d in
                                               JACOBI_GLOBAL_D}
+    edges |= {(d, 1) for d in JACOBI_PLAN_EDGE_D}
     edges.add((10, JACOBI_BIG_STACK))
     for d, B in sorted(on_path | edges):
         worst = {}
@@ -892,7 +924,7 @@ def phase_jacobi():
                      ratio_to_library=f"{ms / library:.3f}",
                      launches_per_call=per_call, reps=reps)
                 if (B, d) == JACOBI_RECORD[kind]:
-                    records[(kind, dt)] = ({
+                    records[(kind, dt, False)] = ({
                         "name": f"jacobi_{kind}_{'f64' if dt == f64 else 'f32'}",
                         "route": "cuda",
                         "source": "conicip_tpu_torch/csrc/jacobi.cu",
@@ -900,6 +932,7 @@ def phase_jacobi():
                         "shape": f"({B}, {d}, {d}) {dtname(dt)}",
                         "ms": ms, "plain_ms": plain, "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": library})
+    records.update(phase_jacobi_time_large())
     # the paths' own matrices: the first stack of each kind in two solves
     for (solve, kind), A in sorted(jacobi_path_inputs().items()):
         d, dt = A.shape[-1], A.dtype
@@ -918,7 +951,69 @@ def phase_jacobi():
              bound_share=f"{bound / ms:.5f}",
              ratio_to_library=f"{ms / library:.3f}", reps=reps)
     return dict(sorted(records.items(), key=lambda kv: (
-        JACOBI_KINDS.index(kv[0][0]), kv[0][1] == f32)))
+        kv[0][2], JACOBI_KINDS.index(kv[0][0]), kv[0][1] == f32)))
+
+
+def budget_ms(fn, budget=250.0, most=20):
+    """Mean device time of ``fn()`` over as many runs as fit in ``budget``
+    ms (3 to ``most``), after one timed warm-up run; and that count."""
+    first = event_ms(fn)
+    reps = max(3, min(most, int(budget / max(first, 1e-3))))
+    return cuda_ms(fn, reps), reps
+
+
+def jacobi_plan_fields(kind, d, dt):
+    """The block kernels' launch plan as line fields (ops/jacobi_kernel.py
+    launch_plan)."""
+    from conicip_tpu_torch.ops import jacobi_kernel
+
+    p = jacobi_kernel.launch_plan(kind, d, dt)
+    return dict(threads=p.threads, smem_bytes=p.smem_bytes,
+                route=p.route, on_chip=int(p.on_chip))
+
+
+def phase_jacobi_time_large():
+    """[jacobi_time] above a warp's orders (JACOBI_TIMED_LARGE), each kind
+    in f64 and f32: the kernel's ms beside its plain version's, the
+    library's (cuSOLVER) and its bound, the sweeps it takes, what an entry
+    at the sweep limit would take (the ms scaled by the sweeps to
+    MAX_SWEEPS) and its launch plan; returns the block kernels' JSON
+    records, (kind, f64, True) at JACOBI_BLOCK_RECORD.
+    ``--phase jacobi_time_large --package DIR`` times another tree's."""
+    from conicip_tpu_torch.ops import jacobi_kernel
+
+    f32, f64 = torch.float32, torch.float64
+    records = {}
+    for B, d in JACOBI_TIMED_LARGE:
+        for kind in JACOBI_KINDS:
+            for dt in (f64, f32):
+                A = jacobi_input(kind, B, d, dt, seed=B + d)
+                ms, reps = budget_ms(lambda: jacobi_run(kind, A))
+                plain, _ = budget_ms(lambda: jacobi_run(kind, A, plain=True))
+                library, _ = budget_ms(lambda: jacobi_library(kind, A))
+                bound, bound_by = jacobi_bound_ms(kind, B, d, dt)
+                sweeps = jacobi_sweeps(kind, A)
+                at_limit = (f"{ms * jacobi_kernel.MAX_SWEEPS / sweeps:.3f}"
+                            if sweeps else "none")
+                line("jacobi_time", kind=kind, B=B, d=d, dtype=dtname(dt),
+                     sweeps=sweeps, kernel_ms=f"{ms:.4f}",
+                     plain_ms=f"{plain:.4f}", library_ms=f"{library:.4f}",
+                     bound_ms=f"{bound:.6f}", bound_by=bound_by,
+                     bound_share=f"{bound / ms:.6f}",
+                     ratio_to_library=f"{ms / library:.3f}", reps=reps,
+                     ms_at_limit=at_limit, **jacobi_plan_fields(kind, d, dt))
+                if ((B, d) == JACOBI_BLOCK_RECORD
+                        and (kind, dt) in JACOBI_BLOCK_KINDS):
+                    bits = "f64" if dt == f64 else "f32"
+                    records[(kind, dt, True)] = {
+                        "name": f"jacobi_{kind}_block_{bits}",
+                        "route": "cuda",
+                        "source": "conicip_tpu_torch/csrc/jacobi.cu",
+                        "replaces": JACOBI_REPLACES[kind],
+                        "shape": f"({B}, {d}, {d}) {dtname(dt)}",
+                        "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                        "bound_by": bound_by, "library_ms": library}
+    return records
 
 
 # ── the R cones' kernels (csrc/rcone.cu) ──
@@ -1487,6 +1582,264 @@ def phase_conic():
              jacobi_launches=jused,
              ms_per_solve=f"{ms:.2f}", ms_per_iter=f"{ms / sol.Iter:.3f}",
              **extra)
+
+
+# ── S cones above order 32: [sdp_large] ──
+# (a) conic_ip on instance 0 of batched_small_sdp(1, k=SDP_LARGE_K): the PSD
+# repair of one random symmetric 100 x 100 matrix (n = 5050, A = Q = I, the
+# spectral backend, no factor); (b) solve_batch on batched_small_sdp(B,
+# k=k) at SDP_LARGE_STACK (n = 2080; an f64 stack takes the dense Schur
+# solver, one batched factor of order n per KKT build)
+SDP_LARGE_K = 100
+SDP_LARGE_STACK = (32, 64)
+SDP_LARGE_HITS = 3  # solves after the miss, each a cache hit
+
+
+def sdp_large_dims():
+    """(cone_dims, instances) of the [sdp_large] solves."""
+    B, k = SDP_LARGE_STACK
+    return (([("S", tri(SDP_LARGE_K))], 1), ([("S", tri(k))], B))
+
+
+def sdp_large_cases():
+    """(label, arguments as numpy arrays, stack size or None) of the
+    [sdp_large] solves, made from their seed (0)."""
+    from conicip_tpu_torch import models
+
+    Q, c, A, b, cones = models.batched_small_sdp(1, k=SDP_LARGE_K)
+    B, k = SDP_LARGE_STACK
+    yield (f"batched_small_sdp(1,k={SDP_LARGE_K})[0]",
+           (Q[0], c[0], A[0], b[0], cones), None)
+    del Q, c, A, b
+    yield (f"batched_small_sdp({B},k={k})", models.batched_small_sdp(B, k=k),
+           B)
+
+
+def cpu_reference(args, B):
+    """The port's CPU solve of [sdp_large] arguments (conic_ip for a single,
+    solve_batch for a stack of B): statuses, Iter, KKT builds and trips
+    of its runs, y, and its seconds."""
+    from conicip_tpu_torch import conic_ip, solve_batch, solver
+    from conicip_tpu_torch.parallel import batch as pbatch
+
+    t = time.perf_counter()
+    if B is None:
+        ref = conic_ip(*args, device="cpu")
+        runs, statuses, iters = solver.runs, [ref.status], [ref.Iter]
+    else:
+        ref = solve_batch(*args, device="cpu")
+        runs, statuses = pbatch.runs, list(ref.statuses)
+        iters = ref.Iter.tolist()
+    return dict(statuses=statuses, iters=iters,
+                builds=sum(run_builds(r) for r in runs),
+                trips=sum(r.trips for r in runs), y=ref.y.numpy(),
+                seconds=time.perf_counter() - t)
+
+
+# the [sdp_large] stack's instances held against the CPU: its CPU solve
+# whole takes minutes on the card's host, a stack of these four seconds
+SDP_LARGE_SAMPLED = (0, 1, 16, 31)
+
+
+def sampled_stack(args, idx):
+    """solve_batch's positional arguments for the instances ``idx``."""
+    Q, c, A, b, cones = args
+    idx = list(idx)
+    return (Q[idx], c[idx], A[idx], b[idx], cones)
+
+
+def path_sweeps(solve):
+    """{(kind, dtype, d, stack): the sweeps of each Jacobi launch above a
+    warp's orders} of one ``solve()`` on the card's eager loop, where the
+    wrapper sees every launch's input as the solve made it (the device
+    loop's replays bypass it): the sweeps of the launch's slowest entry,
+    found by bisecting the kernel's sweep limit, or MAX_SWEEPS where a
+    finite entry comes back NaN at the limit. The launches of the solve
+    and of the search leave the launch counts as they were."""
+    from conicip_tpu_torch import solver
+    from conicip_tpu_torch.ops import jacobi_kernel
+    from conicip_tpu_torch.parallel import batch as pbatch
+
+    launch = jacobi_kernel._launch
+    saved = Counter(jacobi_kernel.jacobi_launches)
+    reasons = solver._eager_reason, pbatch._eager_reason
+    out = defaultdict(list)
+
+    def finite(kind, A, limit):
+        """Per entry of the stack A: every output finite at ``limit``."""
+        B = A.numel() // A.shape[-1] ** 2
+        ok = torch.ones(B, dtype=torch.bool, device=A.device)
+        for o in launch(kind, A, max_sweeps=limit):
+            if o is not None:
+                ok &= torch.isfinite(o).reshape(B, -1).all(1)
+        return ok
+
+    def record(kind, A, *args, **kw):
+        got = launch(kind, A, *args, **kw)
+        d = A.shape[-1]
+        if d > JACOBI_WARP_MAX_D:
+            limit = jacobi_kernel.MAX_SWEEPS
+            done = finite(kind, A, limit)
+            clean = torch.isfinite(A).reshape(done.shape[0], -1).all(1)
+            lo, hi = 0, limit  # every entry done at hi, not all below lo
+            if bool((clean & ~done).any()):
+                lo = limit
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if bool((finite(kind, A, mid) | ~done).all()):
+                    hi = mid
+                else:
+                    lo = mid + 1
+            out[(kind, A.dtype, d, done.shape[0])].append(lo)
+        return got
+
+    try:
+        jacobi_kernel._launch = record
+        solver._eager_reason = pbatch._eager_reason = (
+            lambda *a: "chip_smoke: the paths' sweeps")
+        solve()
+    finally:
+        jacobi_kernel._launch = launch
+        solver._eager_reason, pbatch._eager_reason = reasons
+        jacobi_kernel.jacobi_launches.clear()
+        jacobi_kernel.jacobi_launches.update(saved)
+    return out
+
+
+def phase_sdp_large():
+    """S cones above order 32 on the device loop, the block Jacobi kernels'
+    main path (sdp_large_cases): each solve a miss after graph.clear(),
+    then SDP_LARGE_HITS hits of the same arguments on the card; per hit
+    every run on the device loop and a cache hit. The single: status, Iter,
+    KKT builds and refinement trips equal to its CPU solve, y within 1e-6
+    of it. The stack: the instances SDP_LARGE_SAMPLED solved as a stack of
+    their own on the CPU and on the card (a hit), status, Iter,
+    builds, trips and y equal between the two as for the single, and each
+    of them in the whole stack at the same status and Iter, y within 1e-6.
+    The Jacobi launches of one hit by (kind, dtype, d, stack), every one
+    above a warp's orders and every kind the solve decomposes by, and the
+    sweeps of each (path_sweeps, after the timed solves; none at the
+    limit); ms of the miss and of the hits, and the CPU solve's seconds."""
+    from conicip_tpu_torch import conic_ip, solve_batch, solver
+    from conicip_tpu_torch.ops import jacobi_kernel
+    from conicip_tpu_torch.parallel import batch as pbatch
+    from conicip_tpu_torch.solver import graph
+
+    for label, args, B in sdp_large_cases():
+        card = on_card(args)
+        if B is None:
+            def solve(a=card, **kw):
+                return conic_ip(*a, **kw)
+
+            def runs():
+                return list(solver.runs)
+        else:
+            def solve(a=card, **kw):
+                return solve_batch(*a, **kw)
+
+            def runs():
+                return list(pbatch.runs)
+
+        def status(sol):
+            return ([sol.status] if B is None else list(sol.statuses),
+                    [sol.Iter] if B is None else sol.Iter.tolist())
+
+        graph.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        solve(device="cuda")
+        torch.cuda.synchronize()
+        ms_miss = (time.perf_counter() - t) * 1e3
+        miss = runs()
+        check(all(r.loop == "graph" and not r.cache_hit for r in miss),
+              f"[sdp_large] {label}: the miss ran "
+              f"{[(r.loop, r.cache_hit) for r in miss]}")
+        ms_hits = []
+        for _ in range(SDP_LARGE_HITS):
+            before = Counter(jacobi_kernel.jacobi_launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sol = solve(device="cuda")
+            torch.cuda.synchronize()
+            ms_hits.append((time.perf_counter() - t) * 1e3)
+            hit = runs()
+            used = jacobi_kernel.jacobi_launches - before
+            check(all(r.loop == "graph" and r.cache_hit for r in hit),
+                  f"[sdp_large] {label}: a hit ran "
+                  f"{[(r.loop, r.cache_hit) for r in hit]}")
+        what = f"[sdp_large] {label}"
+        builds = sum(run_builds(r) for r in hit)
+        trips = sum(r.trips for r in hit)
+        whole = got = status(sol)
+        y = sol.y.cpu().numpy()
+        if B is None:
+            ref, cmp = cpu_reference(args, B), (builds, trips)
+        else:
+            # the sample as a stack of its own, on the CPU and on the card
+            # (a hit: a miss builds the KKT system once more)
+            idx = SDP_LARGE_SAMPLED
+            ref = cpu_reference(sampled_stack(args, idx), len(idx))
+            part_args = on_card(sampled_stack(args, idx))
+            for _ in range(2):
+                part = solve(part_args, device="cuda")
+            sub = runs()
+            check(all(r.loop == "graph" and r.cache_hit for r in sub),
+                  f"{what}: the sample ran "
+                  f"{[(r.loop, r.cache_hit) for r in sub]}")
+            cmp = (sum(run_builds(r) for r in sub), sum(r.trips for r in sub))
+            dy_part = float(np.abs(part.y.cpu().numpy() - ref["y"]).max())
+            check(status(part) == (ref["statuses"], ref["iters"])
+                  and dy_part <= 1e-6,
+                  f"{what}: the sample on the card {status(part)}, on the "
+                  f"CPU {(ref['statuses'], ref['iters'])}, y diff "
+                  f"{dy_part:.3e}")
+            got = ([got[0][i] for i in idx], [got[1][i] for i in idx])
+            y = y[list(idx)]
+        want = (ref["statuses"], ref["iters"])
+        dy = float(np.abs(y - ref["y"]).max())
+        check(set(whole[0]) == {"Optimal"} and got == want,
+              f"{what}: card {got}, cpu {want}")
+        check(cmp == (ref["builds"], ref["trips"]),
+              f"{what}: {cmp[0]} KKT builds and {cmp[1]} trips on the card, "
+              f"{ref['builds']} and {ref['trips']} on the CPU")
+        check(dy <= 1e-6, f"{what}: y diff {dy:.3e}")
+        # every decomposition of the solve on the block kernels
+        kinds = {k for k, _, _, _ in used}
+        check(all(d > JACOBI_WARP_MAX_D for _, _, d, _ in used)
+              and {"svd", "eigvalsh"} <= kinds
+              and ("eigh" in kinds or B is not None),
+              f"{what}: Jacobi launches {dict(used)}")
+        for (kind, dt, d, stack), c in sorted(used.items(), key=str):
+            line("jacobi_launches", solve=repr(label), kind=kind,
+                 dtype=dtname(dt), d=d, B=stack, per_solve=c)
+        sweeps = path_sweeps(solve)
+        limit = jacobi_kernel.MAX_SWEEPS
+        check(set(used) <= set(sweeps)
+              and all(max(v) < limit for v in sweeps.values()),
+              f"{what}: sweeps {dict(sweeps)} (launches {dict(used)}, limit "
+              f"{limit})")
+        for (kind, dt, d, stack), v in sorted(sweeps.items(), key=str):
+            line("jacobi_sweeps", solve=repr(label), kind=kind,
+                 dtype=dtname(dt), d=d, B=stack, launches=len(v),
+                 sweeps_min=min(v), sweeps_median=sorted(v)[len(v) // 2],
+                 sweeps_max=max(v), limit=limit, loop="eager")
+        line("sdp_large", instance=repr(label), B=B or 1,
+             n=args[1].shape[-1],
+             status=",".join(f"{k}x{v}" for k, v in
+                             sorted(Counter(whole[0]).items())),
+             Iter=f"{min(whole[1])}-{max(whole[1])}", cpu_iter="equal",
+             loop="+".join(r.loop for r in hit),
+             cache_hit=int(all(r.cache_hit for r in hit)),
+             polls=sum(r.polls for r in hit),
+             replays=sum(r.replays for r in hit), kkt_builds=builds,
+             trips=trips, y_diff=f"{dy:.3e}",
+             jacobi_per_solve=sum(used.values()), ms_miss=f"{ms_miss:.2f}",
+             ms_hit=spread(ms_hits), cpu_held=(
+                 "whole" if B is None else ",".join(map(str, idx))),
+             cpu_seconds=f"{ref['seconds']:.1f}")
+        del card, sol, ref
+        graph.clear()
+        torch.cuda.empty_cache()
 
 
 def graph_cases():
@@ -2360,7 +2713,8 @@ def batch_factor_shapes():
     checkpointed stacks and the [ladder] phase's S-cone stack, at 64
     instances; and the f32 cases' orders at one instance, where the phase
     solves a rescued instance alone."""
-    shapes = {(BATCH, PLANTED_N), (BATCH, tri(BACKSTOP_K))}
+    shapes = {(BATCH, PLANTED_N), (BATCH, tri(BACKSTOP_K)),
+              (SDP_LARGE_STACK[0], tri(SDP_LARGE_STACK[1]))}
     for _, _, kw, _, by_backend in batch_cases():
         for sizes in by_backend.values():
             shapes.update((B, n) for n in sizes
@@ -4216,14 +4570,14 @@ def main():
     rcone_main = Counter()  # the R cones' kernels' launches by entry
     # the phases that solve S-cone problems, whose decompositions are the
     # Jacobi kernels' (and no other phase's)
-    s_cone = (phase_conic, phase_graph, phase_graph_cache, phase_f32,
-              phase_batch, phase_batch_graph, phase_frontend, phase_ladder,
-              phase_distributed)
+    s_cone = (phase_conic, phase_sdp_large, phase_graph, phase_graph_cache,
+              phase_f32, phase_batch, phase_batch_graph, phase_frontend,
+              phase_ladder, phase_distributed)
     for phase in (phase_schur, phase_diag, phase_conic, phase_graph,
-                  phase_graph_cache, phase_f32, phase_eq, phase_backends,
-                  phase_custom_kkt, phase_batch, phase_batch_graph,
-                  phase_checkpoint, phase_frontend, phase_ladder,
-                  phase_distributed):
+                  phase_graph_cache, phase_sdp_large, phase_f32, phase_eq,
+                  phase_backends, phase_custom_kkt, phase_batch,
+                  phase_batch_graph, phase_checkpoint, phase_frontend,
+                  phase_ladder, phase_distributed):
         cholesky_kernel.reset_launch_count()
         jacobi_kernel.reset_launch_count()
         rcone_kernel.reset_launch_count()
@@ -4248,13 +4602,18 @@ def main():
               f"{phase.__name__}: {used32} launches of the f32 entries")
         # the stacked solves run the batched entries, and nothing else does
         check((sum(stacked.values()) > 0)
-              == (phase in (phase_batch, phase_batch_graph, phase_checkpoint,
-                            phase_ladder, phase_distributed)),
+              == (phase in (phase_sdp_large, phase_batch, phase_batch_graph,
+                            phase_checkpoint, phase_ladder,
+                            phase_distributed)),
               f"{phase.__name__}: {stacked} launches of the batched entries")
         by_kind = Counter()
-        for (kind, dt, _, _), c in jcounts.items():
+        for (kind, dt, d, _), c in jcounts.items():
             by_kind[kind] += c
-            jacobi[(kind, dt)]["launches"] += c
+            key = (kind, dt, d > JACOBI_WARP_MAX_D)
+            check(key in jacobi, f"{phase.__name__}: {c} launches of the "
+                  f"{kind} {dtname(dt)} kernel at d = {d}, which the kernels "
+                  "line does not list")
+            jacobi[key]["launches"] += c
         if phase in s_cone:
             check(by_kind["svd"] > 0 and by_kind["eigh"] + by_kind["eigvalsh"] > 0,
                   f"{phase.__name__}: Jacobi launches {dict(by_kind)}")
@@ -4317,9 +4676,10 @@ def main():
                              (batched32, f32, True)):
         rec["max_abs_err"] = max(err for key, err in HELD.items() if
                                  key[0] == dt and (len(key) == 3) == batched)
-    for (kind, dt), rec in jacobi.items():
-        rec["max_abs_err"] = max(err for key, err in JACOBI_HELD.items()
-                                 if key[:2] == (kind, dt))
+    for (kind, dt, block), rec in jacobi.items():
+        rec["max_abs_err"] = max(
+            err for key, err in JACOBI_HELD.items() if key[:2] == (kind, dt)
+            and (key[2] > JACOBI_WARP_MAX_D) == block)
 
     line("phase_time", of="all", seconds=f"{time.perf_counter() - start:.1f}")
     for name, rec in rcone.items():

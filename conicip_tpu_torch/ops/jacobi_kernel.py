@@ -4,11 +4,13 @@ Stacks (..., d, d) of the S cones' small matrices: :func:`eigh` (values
 ascending and vectors), :func:`eigvalsh` (values only) and :func:`svd` (U
 and σ descending, no V), in f64 or f32 (computed in double, read and
 written in f32). Each is one launch for the whole stack: one warp per
-matrix for d <= 32 (every order the S cones give), one thread block per
-matrix above. An entry whose input is not finite, or that does not
-converge within ``MAX_SWEEPS`` sweeps, comes back NaN in every output and
-the others are untouched: nothing is read back to the host and nothing
-raises for it. :func:`rotation_check` holds the d <= 32 kernels'
+matrix for d <= 32, one thread block per matrix above (d <= 2048), by the
+plan of :func:`launch_plan`, a plain function of (kind, d, dtype): its
+threads, its shared memory and whether the matrices fit there or take a
+scratch buffer in device memory. An entry whose input is not finite, or
+that does not converge within ``MAX_SWEEPS`` sweeps, comes back NaN in
+every output and the others are untouched: nothing is read back to the
+host and nothing raises for it. :func:`rotation_check` holds the d <= 32 kernels'
 branch-free rotation to the library's rounding (a check the tests and
 ``chip_smoke.py`` run; the solver never calls it).
 
@@ -24,22 +26,109 @@ from __future__ import annotations
 import ctypes
 import functools
 from collections import Counter
+from typing import NamedTuple
 
 import torch
 
 from .build import load_library
 
 __all__ = ["eigh", "eigvalsh", "svd", "jacobi_launches", "launch_count",
-           "reset_launch_count", "rotation_check", "MAX_SWEEPS", "KINDS"]
+           "reset_launch_count", "rotation_check", "MAX_SWEEPS", "KINDS",
+           "Plan", "launch_plan", "smem_bytes"]
 
 # Launches of the kernels, keyed by (kind, dtype, d, stack size), kind one
 # of KINDS. Counted by the wrapper where it launches and nowhere else.
 jacobi_launches: Counter = Counter()
 
 KINDS = ("eigvalsh", "eigh", "svd")  # the C side's kind numbers, in order
-# Sweeps before an entry is given up on (NaN). Cyclic Jacobi converges
-# quadratically: the paths' matrices take well under ten.
-MAX_SWEEPS = 40
+# Sweeps before an entry is given up on (NaN). A random matrix takes 7-9
+# up to d = 200. A spectrum of a few values, each repeated exactly (the
+# central path's mat(λ) can have such), converges linearly in f64, its
+# off-diagonal norm falling by 2-7 x a sweep: 41 sweeps at d = 40,
+# 43 at 100, 54-57 at 128-200, and as slowly in a row-cyclic ordering;
+# split by 1e-12 the same spectrum takes 13-18 (tests/jacobi_sweeps.py).
+# Hence 80.
+MAX_SWEEPS = 80
+
+# ── the launch plans of csrc/jacobi.cu ──
+
+# the largest order of the one-warp kernels; the block kernels' largest
+# (a row of pairs is at most one block of threads)
+WARP_MAX_D = 32
+BLOCK_MAX_D = 2048
+# threads a block and shared memory a block may use on an H100 (sm_90)
+MAX_THREADS = 1024
+MAX_SMEM = 232448
+_DOUBLE = 8
+
+
+class Plan(NamedTuple):
+    """How one launch runs: ``route`` "warp" (one warp a matrix) or "block"
+    (one block a matrix) of ``threads``; ``lanes`` the block eigh kernel's
+    threads a row of pairs (the pairs rounded up to 16) or the block SVD's
+    lanes a pair; ``smem_bytes`` its dynamic shared memory; ``on_chip``
+    whether the matrices are in it, else ``work_elems`` doubles of scratch
+    in device memory per matrix."""
+    route: str
+    threads: int
+    lanes: int
+    smem_bytes: int
+    on_chip: bool
+    work_elems: int
+
+
+def smem_bytes(kind: str, d: int, on_chip: bool = True) -> int:
+    """Dynamic shared memory of a launch of ``kind`` at order d, with the
+    matrices in it or not: the layout of csrc/jacobi.cu (warp_elems,
+    block_head, block_mats), whose launch refuses a plan that counts it
+    otherwise."""
+    n = d + (d & 1)
+    mats = (2 if kind == "eigh" else 1)
+    if d <= WARP_MAX_D:  # the warp's matrices (odd row stride) and slots
+        return _DOUBLE * (mats * n * (n | 1) + (n if kind == "svd" else 3 * n))
+    # svd: sigma, ranks, warp slots; eigh: rotations, pairs, the diagonal,
+    # warp slots (5 m + 32); then the d x d matrices where they fit
+    head = 2 * n + 32 if kind == "svd" else 5 * (n // 2) + 32
+    return _DOUBLE * (head + (mats * d * d if on_chip else 0))
+
+
+def launch_plan(kind: str, d: int, dtype) -> Plan:
+    """The launch of ``kind`` (one of :data:`KINDS`) on order-d matrices of
+    ``dtype`` (both dtypes compute in double: the same plan). d <= 32: one
+    warp. Above, one block: eigh and eigvalsh give each thread one column
+    pair and every G-th row pair, a row of pairs being the m = ⌈d/2⌉ pairs
+    rounded up to 16 threads (whole half-warps, for the banks) and G as many
+    rows as fit in 1024 threads, whole warps; the SVD gives a pair 32 lanes
+    up to m = 32 and 16 above, as many pairs at once as fit. The matrices
+    sit in shared memory where they fit (eigh to d = 119, eigvalsh and svd
+    to 169), else in device memory."""
+    if kind not in KINDS:
+        raise ValueError(f"jacobi kernels: no kind {kind!r}")
+    if dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"jacobi kernels: unsupported dtype {dtype}")
+    if not 1 <= d <= BLOCK_MAX_D:
+        raise ValueError(f"jacobi kernels: order {d} outside 1..{BLOCK_MAX_D}")
+    if d <= WARP_MAX_D:
+        return Plan("warp", 32, 32, smem_bytes(kind, d), True, 0)
+    m = (d + 1) // 2
+    if kind == "svd":
+        lanes = 32 if m <= 32 else 16
+        threads = min(m, MAX_THREADS // lanes) * lanes
+        threads = -(-threads // 32) * 32
+    else:
+        lanes = -(-m // 16) * 16
+        rows = min(m, MAX_THREADS // lanes)
+        if rows * lanes % 32:
+            if rows > 1:
+                rows -= 1
+            else:
+                lanes += 16
+        threads = rows * lanes
+    on_chip = smem_bytes(kind, d, True) <= MAX_SMEM
+    work = 0 if on_chip else (2 if kind == "eigh" else 1) * d * d
+    return Plan("block", threads, lanes, smem_bytes(kind, d, on_chip),
+                on_chip, work)
+
 
 _ENTRY = {("eigh", torch.float64): "conicip_jacobi_eigh_f64",
           ("eigh", torch.float32): "conicip_jacobi_eigh_f32",
@@ -63,11 +152,9 @@ def _library():
     lib = load_library("jacobi")
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.conicip_jacobi_work_elems.argtypes = [ctypes.c_int] * 2
-    lib.conicip_jacobi_work_elems.restype = ctypes.c_longlong
     lib.conicip_jacobi_rotation_check.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int] + [ctypes.c_void_p] * 2
     lib.conicip_jacobi_rotation_check.restype = ctypes.c_int
@@ -98,11 +185,11 @@ def _launch(kind: str, A: torch.Tensor, max_sweeps: int = MAX_SWEEPS):
     B = A.numel() // (d * d) if d else 0
     if B == 0:
         return (mats, vec) if kind == "svd" else (vec, mats)
+    plan = launch_plan(kind, d, A.dtype)
     lib = _library()
     # scratch in device memory where the matrices do not fit on chip
-    per = lib.conicip_jacobi_work_elems(KINDS.index(kind), d)
-    work = (torch.empty(B * per, dtype=torch.float64, device=A.device) if per
-            else None)
+    work = (torch.empty(B * plan.work_elems, dtype=torch.float64,
+                        device=A.device) if plan.work_elems else None)
     fn = getattr(lib, _ENTRY[("svd" if kind == "svd" else "eigh", A.dtype)])
     ptr = (None if mats is None else mats.data_ptr())
     first, second = ((ptr, vec.data_ptr()) if kind == "svd"
@@ -111,7 +198,8 @@ def _launch(kind: str, A: torch.Tensor, max_sweeps: int = MAX_SWEEPS):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = fn(A.data_ptr(), first, second,
                  None if work is None else work.data_ptr(), B, d, max_sweeps,
-                 stream)
+                 plan.threads, plan.lanes, int(plan.on_chip),
+                 plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"jacobi {kind} kernel launch failed: CUDA error "
                            f"{err}")

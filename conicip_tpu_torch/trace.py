@@ -1,18 +1,21 @@
 """Where one solve's device time goes: a profiler trace of ``conic_ip``.
 
     python -m conicip_tpu_torch.trace [--family box_qp_dense] [--n 4096]
-                                      [--seed 42] [--factor-dtype float64]
+                                      [--k 10] [--seed 42]
+                                      [--factor-dtype float64]
                                       [--batch B] [--poll K] [--chain K]
                                       [--kkt auto|schur|tp|custom]
                                       [--verbose]
 
 Solves one instance of a problem family (``--n`` sizes ``box_qp_dense`` and
-``single_soc``; the other families take their default sizes) from inputs
-already on the card, once to warm up, five times unprofiled and once under
-``torch.profiler``, and prints one line each for: the solve (wall time of
-the profiled solve and the median of the unprofiled ones, device busy time
-as the union of kernel and copy intervals, iterations, kernel launches and
-elementwise launches per iteration, device-to-host copies per iteration,
+``single_soc``, ``--k`` the S order of ``small_sdp_instance``, instance 0
+of ``batched_small_sdp(1, k)``; the other families take their default
+sizes) from inputs already on the card, once to warm up, five times
+unprofiled and once under ``torch.profiler``, and prints one line each
+for: the solve (wall time of the profiled solve and the median of the
+unprofiled ones, device busy time as the union of kernel and copy
+intervals, iterations, kernel launches and elementwise launches per
+iteration, device-to-host copies per iteration,
 launches of the Cholesky kernel's f64 and f32 entries and of the Jacobi
 kernels by kind, and the count of cuSOLVER eigen- or singular-value kernels,
 which an S-cone solve no longer runs; and the interior-point loop: whether
@@ -40,15 +43,16 @@ R(1024) x Q(32) x Q(32), p = 16). ``--verbose`` solves with
 ``verbose=True``, its rows printed to a buffer that is dropped.
 ``--batch B`` profiles one ``solve_batch`` of a stack of B instances of the
 family's batched form instead (``box_qp_dense`` sized by ``--n``,
-``mixed_rq_eq`` at n=200, ``mixed_rqs``, ``small_sdp``): the same lines, per
-iteration of the stack (``Iter`` is the slowest instance's), with the
-launches of the kernel's batched entries. ``--poll K`` profiles the device
-loop at K units per chunk in place of ``solver.ipm.POLL`` (how that
-constant was chosen). The [solve] line also says whether the profiled
-solve hit the device loop's cache (``cache_hit``; the unprofiled solves
-before it repeat its instance, so it does), the refinement trips it ran,
-its steps on the generator's fast and last-mile variants and its
-full-precision recomputes of the mixed residuals.
+``mixed_rq_eq`` at n=200, ``mixed_rqs``, ``small_sdp`` at ``--k``): the
+same lines, per iteration of the stack (``Iter`` is the slowest
+instance's), with the launches of the kernel's batched entries.
+``--poll K`` profiles the device loop at K units per chunk in place of
+``solver.ipm.POLL`` (how that constant was chosen). The [solve] line
+also says whether the profiled solve hit the device loop's cache
+(``cache_hit``; the unprofiled solves before it repeat its instance, so
+it does), the refinement trips it ran, its steps on the generator's fast
+and last-mile variants and its full-precision recomputes of the mixed
+residuals.
 ``--chain K`` adds a [chain] line: K instances of the family (seeds
 ``seed`` ... ``seed + K - 1``, inputs already on the card; with
 ``--batch B`` K stacks of B) solved back to back, the cache emptied first,
@@ -98,6 +102,8 @@ FAMILIES = {
     "mixed_rq_eq": lambda n, seed: models.mixed_rq_eq(seed=seed),
     "rq_eq": lambda n, seed: rq_eq(seed=seed),
     "readme_box": lambda n, seed: readme_box(n=n, seed=seed),
+    "small_sdp_instance": lambda n, seed, k=10: small_sdp_instance(
+        k=k, seed=seed),
 }
 
 # --batch: stacks of B instances, (Q, c, A, b, cone_dims[, G, d])
@@ -106,8 +112,12 @@ BATCH_FAMILIES = {
     "mixed_rq_eq": lambda B, n, seed: models.batched_mixed_rq_eq(
         B, n=200, seed=seed, n_q=51, p=10),
     "mixed_rqs": lambda B, n, seed: models.batched_mixed_rqs(B, seed=seed),
-    "small_sdp": lambda B, n, seed: models.batched_small_sdp(B, seed=seed),
+    "small_sdp": lambda B, n, seed, k=10: models.batched_small_sdp(
+        B, k=k, seed=seed),
 }
+
+# the families sized by --k (the S order of the small SDPs)
+TAKES_K = ("small_sdp_instance", "small_sdp")
 
 # the Cholesky kernel's parts, by kernel name (csrc/cholesky.cu)
 CHOLESKY_PARTS = ("copy_lower", "factor_diag", "panel_product",
@@ -138,6 +148,14 @@ def rq_eq(n=512, p=16, seed=0):
     G = rng.standard_normal((p, n))
     return models.Problem(f"rq_eq(n={n},m={m},p={p})", Q, c, A, b,
                           cones, G, G @ y0)
+
+
+def small_sdp_instance(k=10, seed=0):
+    """Instance 0 of ``batched_small_sdp(1, k)``: the PSD repair of one
+    random symmetric k x k matrix (A = Q = I, the spectral backend)."""
+    Q, c, A, b, cones = models.batched_small_sdp(1, k=k, seed=seed)
+    return models.Problem(f"small_sdp_instance(k={k})", Q[0], c[0], A[0],
+                          b[0], cones)
 
 
 def readme_box(n=1000, seed=0):
@@ -305,6 +323,9 @@ def parse_args(argv=None):
     ap.add_argument("--family", default="box_qp_dense",
                     choices=sorted(set(FAMILIES) | set(BATCH_FAMILIES)))
     ap.add_argument("--n", type=int, default=4096)
+    ap.add_argument("--k", type=int, default=10,
+                    help="S order of small_sdp_instance and of the small_sdp "
+                         "stack")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--factor-dtype", choices=sorted(FACTOR_DTYPES),
                     default="float64")
@@ -376,6 +397,14 @@ def main(argv=None):
         stop_world()
 
 
+def _family(args, seed):
+    """The --family problem of ``seed``, or its --batch stack."""
+    kw = {"k": args.k} if args.family in TAKES_K else {}
+    if args.batch:
+        return BATCH_FAMILIES[args.family](args.batch, args.n, seed, **kw)
+    return FAMILIES[args.family](args.n, seed, **kw)
+
+
 def _profile(args):
     from torch.profiler import ProfilerActivity, profile
 
@@ -392,7 +421,7 @@ def _profile(args):
                 torch.as_tensor(x, dtype=torch.float64, device=dev))
 
     if args.batch:
-        data = BATCH_FAMILIES[args.family](args.batch, args.n, args.seed)
+        data = _family(args, args.seed)
         cones = data[4]
         tensors = [on_card(x) for x in data[:4] + data[5:]]
         name = f"batched_{args.family}(B={args.batch},n={data[1].shape[-1]})"
@@ -400,7 +429,7 @@ def _profile(args):
         def solve():
             return solve_batch(*tensors[:4], cones, *tensors[4:], **kw)
     else:
-        P = FAMILIES[args.family](args.n, args.seed)
+        P = _family(args, args.seed)
         tensors = [on_card(x) for x in (P.Q, P.c, P.A, P.b, P.G, P.d)]
         cones, name = P.cone_dims, P.name
 
@@ -517,11 +546,11 @@ def _chain(args, kw, on_card):
     problems = []
     for seed in range(args.seed, args.seed + args.chain):
         if args.batch:
-            data = BATCH_FAMILIES[args.family](args.batch, args.n, seed)
+            data = _family(args, seed)
             problems.append(([on_card(x) for x in data[:4] + data[5:]],
                              data[4]))
         else:
-            P = FAMILIES[args.family](args.n, seed)
+            P = _family(args, seed)
             problems.append(([on_card(x) for x in (P.Q, P.c, P.A, P.b, P.G,
                                                     P.d)], P.cone_dims))
     solve, runs = ((solve_batch, parallel_batch.runs) if args.batch

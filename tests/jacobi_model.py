@@ -12,11 +12,14 @@ so a result may differ from the kernel's in the last bits and, at a
 convergence test that lands on its threshold, by one sweep. Change both
 together.
 
-The kernels for d <= 32 rotate a round as one pass over 2 x 2 blocks
-(rows, then columns, from each block's own four values) where this model
-makes a row pass and then a column pass; :func:`fused_round` is that pass
-in numpy, and ``eigh_one(..., fused=True)`` runs it in their place. The
-two give the same bits (tests/test_torch_jacobi.py).
+The kernels rotate a round as one pass over 2 x 2 blocks (rows, then
+columns, from each block's own four values) where this model makes a row
+pass and then a column pass; :func:`fused_round` is that pass in numpy,
+and ``eigh_one(..., fused=True)`` runs it in their place. The two give the
+same bits (tests/test_torch_jacobi.py). The block kernels (d > 32) label a
+round's pairs by :func:`pairs_ab` and sum a sweep's off-diagonal squares in
+its last round, where this model sums them before the next sweep: the same
+pairs and the same entries, in another order.
 
 It imports no JAX: tests/test_torch_jacobi.py holds it against LAPACK and
 the JAX package, tests/test_torch_cuda.py holds the kernels against it.
@@ -24,7 +27,7 @@ the JAX package, tests/test_torch_cuda.py holds the kernels against it.
 
 import numpy as np
 
-MAX_SWEEPS = 40  # as conicip_tpu_torch.ops.jacobi_kernel.MAX_SWEEPS
+MAX_SWEEPS = 80  # as conicip_tpu_torch.ops.jacobi_kernel.MAX_SWEEPS
 
 
 def pairs(r, n):
@@ -34,6 +37,16 @@ def pairs(r, n):
     a = np.where(k == 0, n - 1, (r + k) % (n - 1))
     b = np.where(k == 0, r, (r - k + (n - 1)) % (n - 1))
     return np.minimum(a, b), np.maximum(a, b)
+
+
+def pairs_ab(r, n):
+    """The same pairs as ``pairs(r, n)`` as the block kernels label and
+    orient them (csrc/jacobi.cu pair_ab): pair j < n/2 - 1 is (r + 1 + j,
+    r - 1 - j) mod (n - 1), the last (r, n - 1); a and b in that order, not
+    sorted."""
+    L, j = n - 1, np.arange(n // 2 - 1)
+    return (np.append((r + 1 + j) % L, r).astype(int),
+            np.append((r - 1 - j) % L, L).astype(int))
 
 
 def rotation(app, apq, aqq):

@@ -222,7 +222,9 @@ def _invariants(A, w, U, svd):
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("B, d", [(64, 10), (3, 33), (1, 30), (64, 20),
-                                  (64, 5), (200, 10)])
+                                  (64, 5), (200, 10), (1, 40), (1, 64),
+                                  (2, 100), (32, 64), (1, 119), (1, 120),
+                                  (1, 169), (1, 170), (1, 200)])
 def test_jacobi_kernels_match_model_and_library(cuda, dtype, B, d):
     # the model (tests/jacobi_model.py) does the kernels' arithmetic in
     # another summation order: values and vectors agree to a few hundred
@@ -230,7 +232,9 @@ def test_jacobi_kernels_match_model_and_library(cuda, dtype, B, d):
     # library (cuSOLVER) and the identities to 1e-12 / 1e-5 of max(1, |A|_F).
     # The shapes: a warp alone (1, 30), stacks of one-warp matrices at the
     # paths' orders, more matrices than SMs (200, 10), and the block-per-
-    # matrix kernel of d > 32 (3, 33)
+    # matrix kernels of d > 32: (3, 33), the [sdp_large] solves' (2, 100)
+    # and (32, 64), the on-chip / device-memory edges of eigh (119 / 120)
+    # and of eigvalsh and svd (169 / 170), and 200 in device memory
     dt = getattr(torch, dtype)
     tol = 1e-12 if dt == torch.float64 else 1e-5
     near = 1e-10 if dt == torch.float64 else 1e-5
@@ -288,12 +292,13 @@ def test_jacobi_branch_free_rotation_gives_the_librarys_bits(cuda):
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("d", [10, 30])
+@pytest.mark.parametrize("d", [10, 30, 64])
 def test_jacobi_a_matrix_that_converges_early_leaves_its_neighbours_alone(
         cuda, dtype, d):
     # a near-diagonal matrix between random ones needs fewer sweeps: its
-    # warp leaves the sweep loop while the others go on, and it gets the
-    # answer it gets alone, bit for bit; so do the random ones
+    # warp (its block, d = 64) leaves the sweep loop while the others go
+    # on, and it gets the answer it gets alone, bit for bit; so do the
+    # random ones
     rng = np.random.default_rng(d)
     X = rng.standard_normal((5, d, d))
     S = (X + X.swapaxes(-1, -2)) / 2
@@ -328,6 +333,89 @@ def test_jacobi_nan_stays_in_its_entry_and_nothing_is_read_back(cuda):
         batched.safe_eigh(A.half())
     with pytest.raises(ValueError):
         jacobi_kernel.svd(A[:, :, :4])
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_jacobi_a_nan_entry_leaves_its_neighbours_alone_above_a_warp(
+        cuda, dtype):
+    # the block kernels (d = 64): NaN in one matrix and +inf in another's
+    # upper triangle give NaN in every output of those two alone; the
+    # others get what they get alone, bit for bit
+    d = 64
+    rng = np.random.default_rng(d)
+    X = rng.standard_normal((5, d, d))
+    A = torch.from_numpy(((X + X.swapaxes(-1, -2)) / 2).astype(dtype)).to(
+        cuda)
+    A[1, 40, 3] = float("nan")
+    A[3, 2, 50] = float("inf")
+    for fn in (jacobi_kernel.eigh, jacobi_kernel.svd,
+               lambda M: (jacobi_kernel.eigvalsh(M),)):
+        stack = fn(A)
+        for i in range(5):
+            for a, b in zip(stack, fn(A[i:i + 1].contiguous())):
+                if i in (1, 3):
+                    assert torch.isnan(a[i]).all() and torch.isnan(b[0]).all()
+                else:
+                    assert torch.isfinite(a[i]).all()
+                    assert torch.equal(a[i], b[0])
+
+
+def test_jacobi_plan_agrees_with_the_kernels_and_a_refused_plan_raises(
+        cuda, monkeypatch):
+    # the wrapper's launch plan (ops/jacobi_kernel.py) counts the shared
+    # memory as the built kernels lay it out: they launch with its count
+    # and refuse another; a plan the kernels do not take (not whole warps)
+    # is refused by the launch and raises, with no other route
+    for kind in jacobi_kernel.KINDS:
+        for d in (5, 32, 33, 64, 100, 119, 120, 169, 170, 200):
+            A = torch.eye(d, device=cuda, dtype=torch.float64)[None]
+            p = jacobi_kernel.launch_plan(kind, d, torch.float64)
+            out = jacobi_kernel._launch(kind, A)
+            assert all(torch.isfinite(x).all() for x in out if x is not None)
+            other = p._replace(smem_bytes=p.smem_bytes + 8)
+            with monkeypatch.context() as m:
+                m.setattr(jacobi_kernel, "launch_plan", lambda *a: other)
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    jacobi_kernel._launch(kind, A)
+    A = torch.eye(64, device=cuda, dtype=torch.float64)[None]
+    real = jacobi_kernel.launch_plan
+    monkeypatch.setattr(jacobi_kernel, "launch_plan",
+                        lambda *a: real(*a)._replace(threads=1000))
+    before = jacobi_kernel.launch_count()
+    for fn in (jacobi_kernel.eigh, jacobi_kernel.eigvalsh, jacobi_kernel.svd):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fn(A)
+    assert jacobi_kernel.launch_count() == before
+
+
+@pytest.mark.parametrize("case", ["single", "stack"])
+def test_s_cones_above_a_warp_solve_on_the_card_as_on_the_cpu(cuda, case):
+    # chip_smoke.py's [sdp_large] solves: conic_ip on instance 0 of
+    # batched_small_sdp(1, k=100) (spectral, n = 5050) and solve_batch on
+    # batched_small_sdp(32, k=64) (n = 2080): the card's status and Iter,
+    # per instance, are the CPU's, every decomposition on the block kernels
+    from conicip_tpu_torch import solve_batch
+    from conicip_tpu_torch.models import batched_small_sdp
+
+    if case == "single":
+        Q, c, A, b, cones = batched_small_sdp(1, k=100)
+        args = (Q[0], c[0], A[0], b[0], cones)
+        solve = conic_ip
+    else:
+        args = batched_small_sdp(32, k=64)
+        solve = solve_batch
+    jacobi_kernel.reset_launch_count()
+    sol = solve(*args, device=cuda)
+    used = dict(jacobi_kernel.jacobi_launches)
+    ref = solve(*args, device="cpu")
+    if case == "single":
+        assert sol.status == ref.status == "Optimal"
+        assert sol.Iter == ref.Iter
+    else:
+        assert sol.statuses == ref.statuses == ["Optimal"] * 32
+        assert torch.equal(sol.Iter.cpu(), ref.Iter)
+    assert used and all(d > 32 for _, _, d, _ in used), used
+    assert (sol.y.cpu() - ref.y).abs().max().item() <= 1e-6
 
 
 def test_f32_factors_on_card_run_the_f32_entry(cuda):

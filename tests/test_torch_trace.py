@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import conicip_tpu_torch as pt
-from conicip_tpu_torch import trace
+from conicip_tpu_torch import models, trace
 from conicip_tpu_torch.solver import resolve_factor_dtype
 
 
@@ -104,13 +104,34 @@ def test_families_make_their_problems():
     assert sorted(trace.FAMILIES) == ["box_qp_dense", "larger_sdp",
                                       "many_small_socs", "mixed_rq_eq",
                                       "mixed_rqs", "readme_box", "rq_eq",
-                                      "single_soc"]
+                                      "single_soc", "small_sdp_instance"]
     P = trace.FAMILIES["single_soc"](8, 42)
     assert P.name == "single_soc(n=8)" and P.cone_dims == [("Q", 9)]
     assert trace.FAMILIES["box_qp_dense"](8, 42).A.shape == (16, 8)
     assert trace.FAMILIES["larger_sdp"](8, 42).cone_dims == [("S", 465)]
     box = trace.FAMILIES["readme_box"](8, 42)
     assert box.A.shape == (16, 8) and np.array_equal(box.Q, 0.5 * np.eye(8))
+
+
+def test_the_small_sdp_families_take_their_order():
+    # --k sizes the S cone of small_sdp_instance (instance 0 of
+    # batched_small_sdp(1, k): a single solve through conic_ip) and of the
+    # small_sdp stack; the default keeps the stack at k = 10
+    assert trace.parse_args([]).k == 10
+    args = trace.parse_args(["--family", "small_sdp_instance", "--k", "12"])
+    assert (args.family, args.k, args.batch) == ("small_sdp_instance", 12, 0)
+    P = trace.FAMILIES["small_sdp_instance"](0, 3, k=12)
+    Q, c, A, b, cones = models.batched_small_sdp(1, k=12, seed=3)
+    assert P.cone_dims == cones == [("S", 78)]
+    assert np.array_equal(P.c, c[0]) and np.array_equal(P.A, A[0])
+    assert P.name == "small_sdp_instance(k=12)"
+    out = trace.BATCH_FAMILIES["small_sdp"](2, 0, 3, k=12)
+    assert out[0].shape == (2, 78, 78)
+    assert np.array_equal(out[1], models.batched_small_sdp(2, k=12,
+                                                           seed=3)[1])
+    assert trace.BATCH_FAMILIES["small_sdp"](2, 0, 3)[4] == [("S", 55)]
+    sol = pt.conic_ip(*P.args(), device="cpu")
+    assert sol.status == "Optimal"
 
 
 def test_the_custom_kkt_and_verbose_switches():
