@@ -609,6 +609,13 @@ JACOBI_TIMED_LARGE = ((1, 64), (1, 100), (2, 100), (32, 64), (64, 64),
 JACOBI_BLOCK_RECORD = (1, 100)
 JACOBI_BLOCK_KINDS = (("eigh", torch.float64), ("eigvalsh", torch.float64),
                       ("eigvalsh", torch.float32), ("svd", torch.float64))
+# exactly repeated spectra above a warp's orders: the orders, and (case of
+# tests/jacobi_cases.py, seed) of each matrix; every kind must converge
+# within JACOBI_REPEATED_SWEEPS sweeps (MAX_SWEEPS is 40)
+JACOBI_REPEATED_D = (64, 128, 200)
+JACOBI_REPEATED = (("reflected", 1000), ("reflected", 1003),
+                   ("projector", 1000))
+JACOBI_REPEATED_SWEEPS = 30
 # relative to max(1, |A|_F) (|M|_F^2 for the SVD's Gram identity, which is
 # quadratic in M)
 JACOBI_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -720,6 +727,16 @@ def jacobi_rotation_inputs(count, seed=0):
     apq[::97] = 0
     aqq[::89] = app[::89]
     return app, apq, aqq
+
+
+def jacobi_cases():
+    """tests/jacobi_cases.py (its inputs) and tests/jacobi_model.py (the
+    kernels' arithmetic, whose ``negligible`` is the rule), numpy only."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import jacobi_cases
+    import jacobi_model
+
+    return jacobi_cases, jacobi_model
 
 
 def hold_jacobi(kind, dt, d, B, A=None, what="random"):
@@ -895,13 +912,53 @@ def phase_jacobi():
                  sweep_limit_1="NaN alone (a diagonal entry converges)")
     # the d <= 32 kernels' branch-free rotation against the library's
     # correctly rounded operations, bit for bit where its fast paths hold
+    cases, model = jacobi_cases()
     app, apq, aqq = jacobi_rotation_inputs(1 << 20)
-    mismatched, slow = jacobi_kernel.rotation_check(app, apq, aqq)
+    mismatched, slow, zeroed = jacobi_kernel.rotation_check(app, apq, aqq)
+    host = int(model.negligible(*(v.cpu().numpy()
+                                  for v in (app, apq, aqq))).sum())
     check(mismatched == 0, f"jacobi rotation: {mismatched} triples differ "
           "from the library's rounding")
     check(slow > 0, "jacobi rotation: no triple left a fast path")
+    check(zeroed == host, f"jacobi rotation: the rule took {zeroed} a_pq, "
+          f"the host's sums {host}")
     line("jacobi_rotation", triples=app.numel(), mismatched=mismatched,
-         slow_path=slow)
+         slow_path=slow, rule_took=zeroed, host_rule=host)
+    # at the rule's edge and one ulp past it: the rule takes the first half
+    # (as numpy's sums do), the library's bits under the rule everywhere
+    edge = cases.rule_edge_triples(1 << 16)
+    host = int(model.negligible(*edge).sum())
+    app, apq, aqq = (torch.from_numpy(v).cuda() for v in edge)
+    mismatched, slow, zeroed = jacobi_kernel.rotation_check(app, apq, aqq)
+    check(mismatched == 0 and zeroed == host == app.numel() // 2,
+          f"jacobi rotation at the rule's edge: {mismatched} differ, the "
+          f"rule took {zeroed}, the host's sums {host} of {app.numel()}")
+    line("jacobi_rotation", case="rule_edge", triples=app.numel(),
+         mismatched=mismatched, slow_path=slow, rule_took=zeroed,
+         host_rule=host)
+    # exactly repeated spectra above a warp's orders: every kind finite,
+    # held against its plain version, within JACOBI_REPEATED_SWEEPS sweeps
+    for d in JACOBI_REPEATED_D:
+        for label, seed in JACOBI_REPEATED:
+            X = getattr(cases, label)(d, seed)
+            for dt in (f64, f32):
+                A = torch.from_numpy(X).to("cuda", dt)[None].contiguous()
+                worst, sweeps = {}, {}
+                for kind in JACOBI_KINDS:
+                    worst[kind] = hold_jacobi(kind, dt, d, 1, A=A,
+                                              what=f"{label} {seed}")
+                    sweeps[kind] = jacobi_sweeps(kind, A)
+                check(all(v is not None and v <= JACOBI_REPEATED_SWEEPS
+                          for v in sweeps.values()),
+                      f"jacobi {label} seed {seed} d={d} {dtname(dt)}: "
+                      f"sweeps {sweeps} over {JACOBI_REPEATED_SWEEPS}")
+                line("jacobi_repeated", case=label, seed=seed, d=d, B=1,
+                     dtype=dtname(dt),
+                     sweeps=",".join(f"{k}:{v}" for k, v in sweeps.items()),
+                     bound=JACOBI_REPEATED_SWEEPS,
+                     limit=jacobi_kernel.MAX_SWEEPS,
+                     worst_over_tol=",".join(f"{k}:{v:.3g}"
+                                             for k, v in worst.items()))
     records = {}
     for B, d in JACOBI_TIMED:
         for kind in JACOBI_KINDS:

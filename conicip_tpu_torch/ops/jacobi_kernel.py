@@ -10,8 +10,9 @@ threads, its shared memory and whether the matrices fit there or take a
 scratch buffer in device memory. An entry whose input is not finite, or
 that does not converge within ``MAX_SWEEPS`` sweeps, comes back NaN in
 every output and the others are untouched: nothing is read back to the
-host and nothing raises for it. :func:`rotation_check` holds the d <= 32 kernels'
-branch-free rotation to the library's rounding (a check the tests and
+host and nothing raises for it. :func:`rotation_check` holds the eigh kernels'
+branch-free rotation, under Rutishauser's negligible-element rule, to the
+library's rounding under the same rule (a check the tests and
 ``chip_smoke.py`` run; the solver never calls it).
 
 These take CUDA tensors only. ``ops/batched.py`` (``safe_eigh``,
@@ -41,14 +42,16 @@ __all__ = ["eigh", "eigvalsh", "svd", "jacobi_launches", "launch_count",
 jacobi_launches: Counter = Counter()
 
 KINDS = ("eigvalsh", "eigh", "svd")  # the C side's kind numbers, in order
-# Sweeps before an entry is given up on (NaN). A random matrix takes 7-9
+# Sweeps before an entry is given up on (NaN). A random matrix takes 5-10
 # up to d = 200. A spectrum of a few values, each repeated exactly (the
-# central path's mat(λ) can have such), converges linearly in f64, its
-# off-diagonal norm falling by 2-7 x a sweep: 41 sweeps at d = 40,
-# 43 at 100, 54-57 at 128-200, and as slowly in a row-cyclic ordering;
-# split by 1e-12 the same spectrum takes 13-18 (tests/jacobi_sweeps.py).
-# Hence 80.
-MAX_SWEEPS = 80
+# central path's mat(λ) can have such), took 27 to more than 40 at
+# d = 33-200 before the eigh kernels took Rutishauser's negligible-element
+# rule: the blocks of rounding noise of its repeated values were turned by
+# large angles, sweep after sweep. With the rule, a reflected three-value
+# spectrum or a projector takes 1-11 sweeps at d = 5-200, the same values
+# in a random orthogonal basis 4-24 (tests/jacobi_sweeps.py, --rule none
+# for the counts without it). Hence 40, with room above the most.
+MAX_SWEEPS = 40
 
 # ── the launch plans of csrc/jacobi.cu ──
 
@@ -208,18 +211,21 @@ def _launch(kind: str, A: torch.Tensor, max_sweeps: int = MAX_SWEEPS):
 
 
 def rotation_check(app: torch.Tensor, apq: torch.Tensor,
-                   aqq: torch.Tensor) -> tuple[int, int]:
-    """Holds the d <= 32 kernels' branch-free rotation (the fast paths of the
-    correctly rounded division, reciprocal and square root) against the
-    library's rounding on CUDA f64 vectors of (a_pp, a_pq, a_qq): returns
-    (triples whose (c, s, t) differ in a bit while the fast paths hold, which
-    must be 0; triples that leave a fast path, where the kernels take the
-    library's values). Reads the two counts back; not used by the solver."""
+                   aqq: torch.Tensor) -> tuple[int, int, int]:
+    """Holds the eigh kernels' branch-free rotation (the fast paths of the
+    correctly rounded division, reciprocal and square root, then
+    Rutishauser's negligible-element rule) against the library's rounding
+    under the same rule, on CUDA f64 vectors of (a_pp, a_pq, a_qq): returns
+    (triples whose (c, s, t) differ in a bit where the fast paths hold or
+    the rule takes a_pq, which must be 0; triples that leave a fast path
+    and that the rule does not take, where the kernels take the library's
+    values; triples whose a_pq the rule takes, set to 0 and not rotated).
+    Reads the three counts back; not used by the solver."""
     for v in (app, apq, aqq):
         if v.device.type != "cuda" or v.dtype != torch.float64:
             raise ValueError("rotation_check takes CUDA float64 vectors")
     app, apq, aqq = (v.contiguous() for v in (app, apq, aqq))
-    counts = torch.zeros(2, dtype=torch.int64, device=app.device)
+    counts = torch.zeros(3, dtype=torch.int64, device=app.device)
     with torch.cuda.device(app.device):
         stream = torch.cuda.current_stream(app.device).cuda_stream
         err = _library().conicip_jacobi_rotation_check(
@@ -227,8 +233,8 @@ def rotation_check(app: torch.Tensor, apq: torch.Tensor,
             counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"jacobi rotation check failed: CUDA error {err}")
-    mismatched, slow = counts.tolist()
-    return mismatched, slow
+    mismatched, slow, zeroed = counts.tolist()
+    return mismatched, slow, zeroed
 
 
 def eigh(A: torch.Tensor):

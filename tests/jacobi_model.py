@@ -3,9 +3,9 @@
 Step for step as the kernels do it, one matrix at a time and in double
 whatever the input's type (the f32 entries read and write f32): the
 power-of-two scaling, the circle ordering of the pairs, Rutishauser's
-rotation, the row update, the column update and the exact 2 x 2 block of
-each round, the convergence tests, the sweep limit and the sort (stable:
-ties by index).
+rotation and his negligible-element rule (:func:`negligible`), the row
+update, the column update and the exact 2 x 2 block of each round, the
+convergence tests, the sweep limit and the sort (stable: ties by index).
 Only the order of the sums in the reductions differs (and the kernels
 round one product of each rotated value and fuse the other into an FMA),
 so a result may differ from the kernel's in the last bits and, at a
@@ -27,7 +27,7 @@ the JAX package, tests/test_torch_cuda.py holds the kernels against it.
 
 import numpy as np
 
-MAX_SWEEPS = 80  # as conicip_tpu_torch.ops.jacobi_kernel.MAX_SWEEPS
+MAX_SWEEPS = 40  # as conicip_tpu_torch.ops.jacobi_kernel.MAX_SWEEPS
 
 
 def pairs(r, n):
@@ -61,6 +61,37 @@ def rotation(app, apq, aqq):
     return c, t * c, t
 
 
+def negligible(app, apq, aqq):
+    """Rutishauser's negligible-element rule (Handbook for Automatic
+    Computation II/1, "jacobi"), elementwise: a_pq != 0 whose magnitude,
+    added to |a_pp| and to |a_qq|, changes neither. The eigh kernels set
+    such an a_pq to 0 and do not rotate its pair. The Handbook adds 100
+    |a_pq|; the kernels add |a_pq| itself, so the rule takes every a_pq
+    below half a unit in the last place of both diagonal entries: the
+    rounding noise of an exactly repeated eigenvalue's block, whose
+    rotations would otherwise be large turns on noise that mix its rows'
+    couplings to the other eigenvalues back in (tests/jacobi_sweeps.py).
+    Zeroing such an a_pq changes A by less than rounding its diagonal."""
+    g = np.abs(apq)
+    return ((apq != 0) & (np.abs(app) + g == np.abs(app))
+            & (np.abs(aqq) + g == np.abs(aqq)))
+
+
+def round_rotations(A, p, q):
+    """The rotations of one round of A's pairs (p, q), as the eigh kernels
+    compute them: sets each negligible a_pq (and a_qp) of A to 0, and
+    returns the mask of the pairs that rotate (s != 0, a_pq not
+    negligible), their (c, s, t) and the closed form of their rotated
+    diagonal (a_pp - t a_pq, a_qq + t a_pq)."""
+    apq, app, aqq = A[p, q], A[p, p], A[q, q]
+    c, s, t = rotation(app, apq, aqq)
+    zero = negligible(app, apq, aqq)
+    A[p[zero], q[zero]] = A[q[zero], p[zero]] = 0
+    on = (s != 0) & ~zero
+    t, apq = t[on], apq[on]
+    return on, c[on], s[on], t, app[on] - t * apq, aqq[on] + t * apq
+
+
 def _scaled(X):
     """X in double, scaled by 2^-e to a largest entry in [1/2, 1), and e."""
     X = X.astype(np.float64)
@@ -79,9 +110,10 @@ def fused_round(A, P, Q, k, c, s):
     """Round (pairs P, Q of ``pairs``) of A (d x d, in place) as the d <= 32
     kernels compute it: every 2 x 2 block A[{P_k, Q_k}, {P_l, Q_l}] on its
     own, its rows rotated by J_k and then its columns by J_l, for the
-    rotating pairs ``k`` (cosines c, sines s); the other pairs (s = 0, and
-    the idle index of odd d, padded with a zero row and column) leave their
-    rows and columns as they are. The diagonal blocks are the caller's."""
+    rotating pairs ``k`` (cosines c, sines s); the other pairs (s = 0, a
+    negligible a_pq, and the idle index of odd d, padded with a zero row
+    and column) leave their rows and columns as they are. The diagonal
+    blocks are the caller's."""
     d = A.shape[0]
     n = d + (d & 1)
     on = np.zeros(n // 2, bool)
@@ -106,10 +138,14 @@ def fused_round(A, P, Q, k, c, s):
     A[:] = Ap[:d, :d]
 
 
-def eigh_one(X, vectors=True, max_sweeps=MAX_SWEEPS, fused=False):
+def eigh_one(X, vectors=True, max_sweeps=MAX_SWEEPS, fused=False,
+             norms=None):
     """(w ascending, U or None) of the symmetric matrix whose lower
     triangle X holds; NaN where X is not finite or at the sweep limit.
-    ``fused`` rotates each round with :func:`fused_round`."""
+    ``fused`` rotates each round with :func:`fused_round`; a list
+    ``norms`` gets the off-diagonal norm over the convergence threshold
+    eps |A|_F before each sweep (its length less one is the sweeps
+    taken)."""
     d, dt = X.shape[-1], X.dtype
     nan = (np.full(d, np.nan, dt), np.full((d, d), np.nan, dt) if vectors
            else None)
@@ -122,17 +158,19 @@ def eigh_one(X, vectors=True, max_sweeps=MAX_SWEEPS, fused=False):
     n = d + (d & 1)
     off_diag = ~np.eye(d, dtype=bool)
     sweep = 0
-    while np.sum(A[off_diag] ** 2) > tol2:
+    while True:
+        off = np.sum(A[off_diag] ** 2)
+        if norms is not None:
+            norms.append(np.sqrt(off / tol2) if tol2 > 0 else 0.0)
+        if off <= tol2:
+            break
         if sweep == max_sweeps:
             return nan
         for r in range(n - 1):
             P, Q = pairs(r, n)
             p, q = P[Q < d], Q[Q < d]
-            apq, app, aqq = A[p, q], A[p, p], A[q, q]
-            c, s, t = rotation(app, apq, aqq)
-            on = s != 0
-            p, q, c, s, t = p[on], q[on], c[on], s[on], t[on]
-            new_p, new_q = app[on] - t * apq[on], aqq[on] + t * apq[on]
+            on, c, s, t, new_p, new_q = round_rotations(A, p, q)
+            p, q = p[on], q[on]
             if fused:
                 fused_round(A, P, Q, np.flatnonzero(Q < d)[on], c, s)
             else:

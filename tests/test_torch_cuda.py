@@ -286,9 +286,108 @@ def test_jacobi_branch_free_rotation_gives_the_librarys_bits(cuda):
     app, apq, aqq = spread(-60), spread(-1074), spread(-60)
     apq[::97] = 0
     aqq[::89] = app[::89]
-    mismatched, slow = jacobi_kernel.rotation_check(app, apq, aqq)
+    mismatched, slow, zeroed = jacobi_kernel.rotation_check(app, apq, aqq)
     assert mismatched == 0, (mismatched, slow)
     assert 0 < slow < n, (mismatched, slow)
+    # Rutishauser's rule takes the a_pq that numpy's IEEE sums say it takes
+    assert zeroed == int(negligible_on_host(app, apq, aqq).sum()) > 0
+
+
+def negligible_on_host(*triples):
+    """tests/jacobi_model.py's rule on the host copies of CUDA vectors."""
+    return jacobi_model.negligible(*(v.cpu().numpy() for v in triples))
+
+
+def test_jacobi_rotation_under_the_rule_at_its_edge(cuda):
+    # at the rule's edge and one ulp past it the kernels' rotation gives
+    # the library's bits under the rule, and the rule takes exactly the
+    # first half: what numpy's sums take
+    from jacobi_cases import rule_edge_triples
+
+    app, apq, aqq = (torch.from_numpy(v).to(cuda)
+                     for v in rule_edge_triples(1 << 16))
+    mismatched, slow, zeroed = jacobi_kernel.rotation_check(app, apq, aqq)
+    want = negligible_on_host(app, apq, aqq)
+    assert mismatched == 0, (mismatched, slow, zeroed)
+    half = app.numel() // 2
+    assert want[:half].all() and not want[half:].any()
+    assert zeroed == half
+
+
+def kernel_sweeps(kind, A):
+    """Sweeps the kernel takes on the stack A, found under a rising sweep
+    limit (the first limit at which every output is finite)."""
+    for sweeps in range(jacobi_kernel.MAX_SWEEPS + 1):
+        out = jacobi_kernel._launch(kind, A, max_sweeps=sweeps)
+        if all(o is None or bool(torch.isfinite(o).all()) for o in out):
+            return sweeps
+    return None
+
+
+def repeated_spectra(d):
+    """(label, order-d matrix): tests/test_torch_jacobi.py's exactly
+    repeated spectra, reflected (seeds 1000 and 1003), the projector and
+    the clustered one in a random basis."""
+    from jacobi_cases import clustered, projector, reflected
+
+    return (("reflected 1000", reflected(d, 1000)),
+            ("reflected 1003", reflected(d, 1003)),
+            ("projector", projector(d, 1000)),
+            ("clustered", clustered(np.random.default_rng(d), d)))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("d", [10, 30, 33, 64])
+def test_jacobi_repeated_spectra_converge_as_the_model_does(cuda, dtype, d):
+    # the reflected spectrum at d = 64 came back NaN before the rule (not
+    # converged within 80 sweeps); now every eigh kernel converges within
+    # 30, as the model does, to the model's values within a few hundred
+    # units of rounding (another summation order), the library's values and
+    # the identities within 1e-12 / 1e-5 of max(1, |A|_F), and eigvalsh gives
+    # eigh's bits in as many sweeps. At a limit of 2 sweeps each entry
+    # still comes back NaN
+    dt = getattr(torch, dtype)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    near = 1e-10 if dt == torch.float64 else 1e-5
+    for label, X in repeated_spectra(d):
+        S = X.astype(dtype)
+        A = torch.from_numpy(S).to(cuda)[None]
+        w, U = jacobi_kernel.eigh(A)
+        assert torch.isfinite(w).all() and torch.isfinite(U).all(), label
+        assert torch.equal(jacobi_kernel.eigvalsh(A), w), label
+        norms = []
+        wm, _ = jacobi_model.eigh_one(S, norms=norms)
+        assert np.abs(w[0].cpu().numpy() - wm).max() <= near * np.sqrt(d)
+        scale = max(1.0, float(np.linalg.norm(S.astype(np.float64))))
+        wl = torch.linalg.eigvalsh(A.double())
+        assert (w.double() - wl).abs().max().item() <= tol * scale, label
+        assert _invariants(A, w, U, svd=False) <= tol, label
+        sweeps = {k: kernel_sweeps(k, A) for k in ("eigh", "eigvalsh")}
+        sweeps["model"] = len(norms) - 1
+        assert sweeps["eigh"] == sweeps["eigvalsh"], (label, sweeps)
+        assert max(sweeps.values()) <= 30, (label, sweeps)
+        for kind in ("eigh", "eigvalsh"):
+            for out in jacobi_kernel._launch(kind, A, max_sweeps=2):
+                assert out is None or torch.isnan(out).all(), (label, kind)
+
+
+@pytest.mark.parametrize("d", [4, 40])
+def test_jacobi_the_rule_takes_a_pq_up_to_its_edge_on_the_card(cuda, d):
+    # tests/test_torch_jacobi.py's edge matrices on a warp kernel (d = 4)
+    # and a block kernel (40): at the edge the pair (0, d - 1) is not
+    # rotated (a twice, U's column ±e_0 exactly), one ulp past it rotates
+    from jacobi_cases import rotated_pair, rule_edge
+
+    for a in (0.75, 0.6, -0.9):
+        for X, rotates in zip(rule_edge(a, d), (False, True)):
+            A = torch.from_numpy(X).to(cuda)[None]
+            w, U = jacobi_kernel.eigh(A)
+            w, U = w[0].cpu().numpy(), U[0].cpu().numpy()
+            assert rotated_pair(U, d) == rotates, (a, rotates)
+            assert (np.count_nonzero(w == a) == 2) != rotates, (a, w)
+            wm, Um = jacobi_model.eigh_one(X)
+            assert np.abs(w - wm).max() <= 1e-15
+            assert np.abs(np.abs(U) - np.abs(Um)).max() <= 1e-15
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])

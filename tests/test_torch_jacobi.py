@@ -25,6 +25,8 @@ import torch
 
 import conicip_tpu  # noqa: F401  (turns on x64 for the f64 comparisons)
 import jacobi_model as model
+from jacobi_cases import (clustered, projector, reflected, rotated_pair,
+                          rule_edge, sym)
 from conicip_tpu_torch.ops import batched, jacobi_kernel
 
 torch.set_num_threads(1)
@@ -39,23 +41,10 @@ DTYPES = (np.float64, np.float32)
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 
 
-def sym(rng, *shape):
-    X = rng.standard_normal(shape)
-    return (X + np.swapaxes(X, -1, -2)) / 2
-
-
 def spd(rng, d, kappa):
     """SPD of order d with eigenvalues spread over [1/kappa, 1]."""
     Q, _ = np.linalg.qr(rng.standard_normal((d, d)))
     return (Q * np.logspace(0, -np.log10(kappa), d)) @ Q.T
-
-
-def clustered(rng, d):
-    """Symmetric with repeated eigenvalues: three values, d//3 times or more
-    each (the central path's mat(λ) of small_sdp has them)."""
-    Q, _ = np.linalg.qr(rng.standard_normal((d, d)))
-    w = np.repeat([2.0, -0.5, 1.0], -(-d // 3))[:d]
-    return (Q * w) @ Q.T
 
 
 def eigh_cases(rng, d):
@@ -330,7 +319,84 @@ def test_the_sweep_limit_gives_nan_alone(dtype):
 
 
 def test_the_model_keeps_the_kernels_sweep_limit():
-    assert model.MAX_SWEEPS == jacobi_kernel.MAX_SWEEPS
+    assert model.MAX_SWEEPS == jacobi_kernel.MAX_SWEEPS == 40
+
+
+# ── Rutishauser's negligible-element rule: exactly repeated spectra ───────
+
+@pytest.mark.parametrize("seed", [1000, 1003])
+def test_an_exactly_repeated_spectrum_gives_the_references(seed):
+    # the reflected three-value spectrum at d = 64 did not converge within
+    # 80 sweeps before the rule (seeds 1000 and 1003): eigh and eigvalsh
+    # returned NaN where LAPACK and jnp.linalg give each value
+    A = reflected(64, seed)
+    tol = TOL[np.float64]
+    w, U = model.eigh_one(A)
+    assert np.isfinite(w).all() and np.isfinite(U).all()
+    check_eigh(A, w, U, tol, np.linalg.eigvalsh(A))
+    wj, _ = jnp.linalg.eigh(jnp.asarray(A))
+    check_eigh(A, w, U, tol, np.asarray(wj))
+    values = np.sort(np.repeat([2.0, -0.5, 1.0], 22)[:64])
+    assert np.abs(w - values).max() <= tol * scale(A)
+    wv = model.eigh_one(A, vectors=False)[0]
+    assert np.array_equal(wv, w)
+    wvj = np.asarray(jnp.linalg.eigvalsh(jnp.asarray(A)))
+    assert np.abs(wv - wvj).max() <= tol * scale(A)
+
+
+# the model's sweeps on the random matrices of eigh_cases (sym(rng, d, d),
+# rng = default_rng(d)), the same with the rule as without it
+RANDOM_SWEEPS = {10: 6, 20: 7, 33: 7, 64: 8}
+
+
+@pytest.mark.parametrize("case", ["reflected", "projector", "clustered",
+                                  "random"])
+@pytest.mark.parametrize("d", sorted(RANDOM_SWEEPS))
+def test_a_repeated_spectrum_takes_no_more_sweeps_than_the_bound(d, case):
+    # an exactly repeated spectrum (reflected seed 1000, the projector,
+    # clustered's random basis) within 30 sweeps, under the limit of 40;
+    # a random matrix in its count from before the rule. The fused round
+    # gives the two-pass round's bits with the rule too (a warp's orders
+    # and the block kernels' first)
+    rng = np.random.default_rng(d)
+    A = {"reflected": lambda: reflected(d, 1000),
+         "projector": lambda: projector(d, 1000),
+         "clustered": lambda: clustered(rng, d),
+         "random": lambda: sym(rng, d, d)}[case]()
+    norms = []
+    w, U = model.eigh_one(A, norms=norms)
+    sweeps = len(norms) - 1
+    assert np.isfinite(w).all() and norms[-1] <= 1
+    if case == "random":
+        assert sweeps == RANDOM_SWEEPS[d]
+    else:
+        assert sweeps <= 30, sweeps
+    check_eigh(A, w, U, TOL[np.float64], np.linalg.eigvalsh(A))
+    if d <= 33:
+        wf, Uf = model.eigh_one(A, fused=True)
+        assert np.array_equal(wf, w) and np.array_equal(Uf, U)
+
+
+@pytest.mark.parametrize("a", [0.75, 0.6, -0.9])
+@pytest.mark.parametrize("d", [4, 40])
+def test_the_rule_takes_a_pq_up_to_its_edge_and_one_ulp_past_rotates(d, a):
+    # the Handbook's test with |a_pq| itself added: at its edge the pair is
+    # not rotated and a_pq is set to 0 (the value a twice, e_0 and e_(d-1)
+    # its vectors); one unit in the last place past it, the pair rotates
+    # (a_pp = a_qq: by 45 degrees). d = 4 a warp kernel's order, 40 a
+    # block kernel's; 0.75's tie rounds down (to even), 0.6's up
+    at, past = rule_edge(a, d)
+    for A, rotates in ((at, False), (past, True)):
+        norms = []
+        w, U = model.eigh_one(A, norms=norms)
+        assert len(norms) - 1 == 1
+        assert rotated_pair(U, d) == rotates
+        assert (np.count_nonzero(w == a) == 2) != rotates
+        assert np.array_equal(model.eigh_one(A, vectors=False)[0], w)
+        assert np.array_equal(model.eigh_one(A, fused=True)[1], U)
+    assert model.negligible(a, at[0, d - 1], a)
+    assert not model.negligible(a, past[0, d - 1], a)
+    assert not model.negligible(a, 0.0, a)  # nothing to set to 0
 
 
 # ── the CPU route of ops/batched.py: the plain versions, as before ─────────
