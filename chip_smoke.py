@@ -1296,6 +1296,137 @@ def graph_cond_ms(calls=20, replays=10):
     return out
 
 
+# iterations the WHILE node is held at against a host loop of its body
+WHILE_LIMITS = (0, 1, 7, 100)
+# bytes one iteration of that body must move: the counter read and
+# written, read again and the flag written (the compare), the flag read
+# (set_condition)
+WHILE_BYTES = 8 + 8 + 8 + 1 + 1
+
+
+def graph_while():
+    """The device loop's WHILE node (csrc/graph_cond.cu: the node, and
+    set_condition before it and as its body's last node) against a host
+    loop of the same body: a device counter set to 0, then 1 added while
+    it is below N, at N in WHILE_LIMITS; the node's graph replayed twice
+    at each N, no host read; the host loop replays a graph of the body
+    and reads the flag after each. Times (CUDA events, 10 replays of the
+    graph): the node per iteration ((N=100 - N=0) / 100), the body's two
+    kernels per iteration captured straight in a graph, their difference
+    (the node's own cost per iteration: an empty body's), the node with
+    its flag false (N=0), and the host loop per iteration. Returns the
+    kernels line's record."""
+    import ctypes
+
+    from conicip_tpu_torch.solver import graph as device_loop
+
+    lib = device_loop._cond_library()
+    stream, child = torch.cuda.Stream(), torch.cuda.Stream()
+    counter = torch.zeros((), dtype=torch.int64, device="cuda")
+    flag = torch.zeros((), dtype=torch.bool, device="cuda")
+    mode = device_loop.CAPTURE_MODE
+
+    def body(limit):
+        counter.add_(1)
+        torch.lt(counter, limit, out=flag)
+
+    def node_graph(limit):
+        g = torch.cuda.CUDAGraph()
+        handle = ctypes.c_ulonglong(0)
+        torch.cuda.synchronize()
+        with torch.cuda.stream(stream):
+            g.capture_begin(capture_error_mode=mode)
+            counter.zero_()
+            torch.lt(counter, limit, out=flag)
+            errs = [lib.conicip_while_begin(
+                stream.cuda_stream, child.cuda_stream, flag.data_ptr(),
+                device_loop._CAPTURE_MODE_ENUM, ctypes.byref(handle))]
+            with torch.cuda.stream(child):
+                body(limit)
+            errs.append(lib.conicip_while_end(child.cuda_stream, handle,
+                                              flag.data_ptr()))
+            g.capture_end()
+        check(errs == [0, 0], f"[graph_cond] WHILE node: CUDA errors {errs}")
+        return g
+
+    def straight(limit, calls):
+        g = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize()
+        with torch.cuda.stream(stream):
+            g.capture_begin(capture_error_mode=mode)
+            for _ in range(calls):
+                body(limit)
+            g.capture_end()
+        return g
+
+    def host_loop(limit, gb):
+        counter.zero_()
+        torch.lt(counter, limit, out=flag)
+        reads = 1
+        while bool(flag):
+            gb.replay()
+            reads += 1
+        return reads
+
+    def timed(fn, reps=10):
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps
+
+    worst, node_ms = 0, {}
+    for limit in WHILE_LIMITS:
+        g = node_graph(limit)
+        got = []
+        for _ in range(2):
+            counter.fill_(-5)
+            g.replay()
+            torch.cuda.synchronize()
+            got.append((int(counter), bool(flag)))
+        gb = straight(limit, 1)
+        reads = host_loop(limit, gb)
+        host = int(counter)
+        check(got == [(limit, False)] * 2 and host == limit
+              and reads == limit + 1,
+              f"[graph_cond] WHILE to {limit}: the node ran to {got}, the "
+              f"host loop to {host} in {reads} reads")
+        worst = max(worst, max(abs(v - host) for v, _ in got))
+        if limit in (0, WHILE_LIMITS[-1]):
+            node_ms[limit] = timed(g.replay)
+        if limit == WHILE_LIMITS[-1]:
+            host_ms = timed(lambda: host_loop(limit, gb), reps=3) / limit
+            gs = straight(limit, limit)
+            body_ms = timed(gs.replay) / limit
+            gs.reset()
+        g.reset()
+        gb.reset()
+    top = WHILE_LIMITS[-1]
+    per_iter = (node_ms[top] - node_ms[0]) / top
+    bound = WHILE_BYTES / PEAK_BYTES * 1e3
+    line("graph_cond", node="while", kernel="set_condition",
+         body="counter+1, compare", limits=",".join(map(str, WHILE_LIMITS)),
+         held_against_host_loop=True, max_abs_err=worst,
+         while_us_per_iter=f"{per_iter * 1e3:.3f}",
+         body_us_per_iter=f"{body_ms * 1e3:.3f}",
+         node_us_per_iter=f"{(per_iter - body_ms) * 1e3:.3f}",
+         while_us_flag_false=f"{node_ms[0] * 1e3:.3f}",
+         host_loop_us_per_iter=f"{host_ms * 1e3:.3f}",
+         bound_ms=f"{bound:.3e}", bound_by="bytes", library_ms=None)
+    return {"name": "graph_cond_while", "route": "cuda",
+            "source": "conicip_tpu_torch/csrc/graph_cond.cu",
+            "replaces": "conicip_tpu/solver/ipm.py:935",
+            "shape": f"one iteration of a toy body (counter+1, compare), "
+                     f"N = {top}",
+            "ms": per_iter, "plain_ms": host_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None,
+            "max_abs_err": float(worst), "launches": 0}
+
+
 def phase_rcone():
     """The R cones' kernels against their plain twins, every entry in f64
     and f32 at RCONE_SHAPES and RCONE_EDGES, each line with its launch
@@ -1303,9 +1434,11 @@ def phase_rcone():
     captured CUDA graph beside the plain sequence's, its bound and the
     launch floor (an empty kernel launched by the same plan in the same
     graph: a node's fixed cost, which no kernel can beat); then the
-    device loop's conditional node. Returns the kernels line's records,
-    one per kernel at RCONE_RECORD in f64 (the sums over its entries, one
-    call of each; max_abs_err over every f64 shape held)."""
+    device loop's conditional nodes: the IF node's time, and the WHILE
+    node held against a host loop and timed (graph_while). Returns the
+    kernels line's records, one per kernel at RCONE_RECORD in f64 (the
+    sums over its entries, one call of each; max_abs_err over every f64
+    shape held), and under "while" the WHILE node's."""
     from conicip_tpu_torch.ops import rcone_kernel
 
     f64 = torch.float64
@@ -1345,7 +1478,7 @@ def phase_rcone():
          node_ms_flag_false=f"{cond[False]:.5f}",
          bound_ms=f"{1 / PEAK_BYTES * 1e3:.3e}", bound_by="bytes",
          library_ms=None, in_graph=True)
-    out = {}
+    out = {"while": graph_while()}
     for name, (entries, replaces) in RCONE_KERNELS.items():
         ms, plain, bound = (sum(records[e][i] for e in entries)
                             for i in range(3))
@@ -1674,8 +1807,9 @@ def sdp_large_cases():
 
 def cpu_reference(args, B):
     """The port's CPU solve of [sdp_large] arguments (conic_ip for a single,
-    solve_batch for a stack of B): statuses, Iter, KKT builds and trips
-    of its runs, y, and its seconds."""
+    solve_batch for a stack of B): statuses, Iter, KKT builds, trips and
+    units (its chunk loop's: the eager loop's steps) of its runs, y, and
+    its seconds."""
     from conicip_tpu_torch import conic_ip, solve_batch, solver
     from conicip_tpu_torch.parallel import batch as pbatch
 
@@ -1689,7 +1823,8 @@ def cpu_reference(args, B):
         iters = ref.Iter.tolist()
     return dict(statuses=statuses, iters=iters,
                 builds=sum(run_builds(r) for r in runs),
-                trips=sum(r.trips for r in runs), y=ref.y.numpy(),
+                trips=sum(r.trips for r in runs),
+                units=sum(r.units for r in runs), y=ref.y.numpy(),
                 seconds=time.perf_counter() - t)
 
 
@@ -1767,9 +1902,11 @@ def phase_sdp_large():
     """S cones above order 32 on the device loop, the block Jacobi kernels'
     main path (sdp_large_cases): each solve a miss after graph.clear(),
     then SDP_LARGE_HITS hits of the same arguments on the card; per hit
-    every run on the device loop and a cache hit. The single: status, Iter,
-    KKT builds and refinement trips equal to its CPU solve, y within 1e-6
-    of it. The stack: the instances SDP_LARGE_SAMPLED solved as a stack of
+    every run on the device loop and a cache hit, one host read and one
+    replay of the loop's WHILE node per run, at most one device-to-host
+    copy in the loop (profiler). The single: status, Iter, KKT builds,
+    refinement trips and units (the CPU's: the eager loop's steps) equal
+    to its CPU solve, y within 1e-6 of it. The stack: the instances SDP_LARGE_SAMPLED solved as a stack of
     their own on the CPU and on the card (a hit), status, Iter,
     builds, trips and y equal between the two as for the single, and each
     of them in the whole stack at the same status and Iter, y within 1e-6.
@@ -1821,16 +1958,23 @@ def phase_sdp_large():
             ms_hits.append((time.perf_counter() - t) * 1e3)
             hit = runs()
             used = jacobi_kernel.jacobi_launches - before
-            check(all(r.loop == "graph" and r.cache_hit for r in hit),
+            check(all(r.loop == "graph" and r.cache_hit and r.polls == 1
+                      and r.replays == 1 for r in hit),
                   f"[sdp_large] {label}: a hit ran "
-                  f"{[(r.loop, r.cache_hit) for r in hit]}")
+                  f"{[(r.loop, r.cache_hit, r.polls, r.replays) for r in hit]}")
         what = f"[sdp_large] {label}"
         builds = sum(run_builds(r) for r in hit)
         trips = sum(r.trips for r in hit)
+        units = sum(r.units for r in hit)
+        pg = profiled(lambda: solve(device="cuda"))
+        check(pg["dtoh_loop"] <= 1 and pg["replay_host_launches"] == 0,
+              f"{what}: {pg['dtoh_loop']} device-to-host copies in the "
+              f"loop, {pg['replay_host_launches']} host launches during "
+              f"replays")
         whole = got = status(sol)
         y = sol.y.cpu().numpy()
         if B is None:
-            ref, cmp = cpu_reference(args, B), (builds, trips)
+            ref, cmp = cpu_reference(args, B), (builds, trips, units)
         else:
             # the sample as a stack of its own, on the CPU and on the card
             # (a hit: a miss builds the KKT system once more)
@@ -1840,10 +1984,12 @@ def phase_sdp_large():
             for _ in range(2):
                 part = solve(part_args, device="cuda")
             sub = runs()
-            check(all(r.loop == "graph" and r.cache_hit for r in sub),
+            check(all(r.loop == "graph" and r.cache_hit and r.polls == 1
+                      for r in sub),
                   f"{what}: the sample ran "
-                  f"{[(r.loop, r.cache_hit) for r in sub]}")
-            cmp = (sum(run_builds(r) for r in sub), sum(r.trips for r in sub))
+                  f"{[(r.loop, r.cache_hit, r.polls) for r in sub]}")
+            cmp = (sum(run_builds(r) for r in sub), sum(r.trips for r in sub),
+                   sum(r.units for r in sub))
             dy_part = float(np.abs(part.y.cpu().numpy() - ref["y"]).max())
             check(status(part) == (ref["statuses"], ref["iters"])
                   and dy_part <= 1e-6,
@@ -1856,9 +2002,9 @@ def phase_sdp_large():
         dy = float(np.abs(y - ref["y"]).max())
         check(set(whole[0]) == {"Optimal"} and got == want,
               f"{what}: card {got}, cpu {want}")
-        check(cmp == (ref["builds"], ref["trips"]),
-              f"{what}: {cmp[0]} KKT builds and {cmp[1]} trips on the card, "
-              f"{ref['builds']} and {ref['trips']} on the CPU")
+        check(cmp == (ref["builds"], ref["trips"], ref["units"]),
+              f"{what}: {cmp} KKT builds, trips and units on the card, "
+              f"{(ref['builds'], ref['trips'], ref['units'])} on the CPU")
         check(dy <= 1e-6, f"{what}: y diff {dy:.3e}")
         # every decomposition of the solve on the block kernels
         kinds = {k for k, _, _, _ in used}
@@ -1888,8 +2034,9 @@ def phase_sdp_large():
              loop="+".join(r.loop for r in hit),
              cache_hit=int(all(r.cache_hit for r in hit)),
              polls=sum(r.polls for r in hit),
-             replays=sum(r.replays for r in hit), kkt_builds=builds,
-             trips=trips, y_diff=f"{dy:.3e}",
+             replays=sum(r.replays for r in hit), units=units,
+             kkt_builds=builds, trips=trips, dtoh_loop=pg["dtoh_loop"],
+             y_diff=f"{dy:.3e}",
              jacobi_per_solve=sum(used.values()), ms_miss=f"{ms_miss:.2f}",
              ms_hit=spread(ms_hits), cpu_held=(
                  "whole" if B is None else ",".join(map(str, idx))),
@@ -1929,7 +2076,12 @@ def event_ms(fn):
 
 def profiled(fn):
     """One call of ``fn`` under the profiler: kernels, device-to-host
-    copies, and the device loop's own counts (trace.loop_counts)."""
+    copies, and the device loop's own counts (trace.loop_counts). The
+    phases profile a case after timing it, and a hit only: a graph
+    instantiated while the profiler runs runs slower ever after, and one
+    from before runs up to 9 % slower for a while after the session
+    (PERF.md §6). On a hit of the loop's WHILE node the profiler records
+    only part of its body, so the kernel count is not the loop's."""
     from torch.profiler import ProfilerActivity, profile
 
     from conicip_tpu_torch.trace import loop_counts
@@ -1998,8 +2150,9 @@ def phase_graph():
     bit; then the same device operands through the device loop again, a
     cache hit: the same bits, the KKT builds, steps on each variant,
     recomputes, refinement trips and kernel launches by entry and dtype of
-    the eager loop, one host read after the prologue and one per chunk
-    replay; then each loop alone: ms per solve (median of 3, CUDA events),
+    the eager loop; on a miss and on the hit one host read (the final
+    copy), one replay of the loop's WHILE node and units equal to the
+    eager loop's steps; then each loop alone: ms per solve (median of 3, CUDA events),
     kernels and device-to-host copies per iteration (profiler); during the
     replays the host launches no kernel. The f32 solves (graph_f32_cases)
     run every body of the device loop: the variants' scalings and steps,
@@ -2081,28 +2234,30 @@ def phase_graph():
             k[len("rcone_"):].rsplit("_", 1)[0]: v
             for k, v in hit_launches.items() if k.startswith("rcone_")}),
             a[6].only_r, a[8].centralityCorrectors > 0)
-        # a hit reads once after the prologue and once per chunk: one
-        # chunk of POLL units per step, each step on one variant; a miss
-        # runs its first chunk eagerly
-        steps = run.fast_steps + run.slow_steps
-        chunks = -(-steps // ipm.POLL)
-        eager_chunk = not first.cache_hit and steps > 0
-        check(run.polls == 1 + chunks and run.replays == chunks
-              and first.polls == 1 + eager_chunk + first.replays,
-              f"[graph] {label}: {run.polls} polls and {run.replays} "
-              f"replays on a hit, {first.polls} and {first.replays} on a "
-              f"miss, for {steps} steps at POLL {ipm.POLL}")
+        # the loop one WHILE node: a hit and a miss read the device once
+        # (the final copy) and replay the loop's graph once; the units it
+        # ran are the eager loop's steps in chunks of POLL (one variant
+        # per step), a miss's eager first chunk among them
+        steps = erun.fast_steps + erun.slow_steps
+        units = ipm.POLL * -(-steps // ipm.POLL)
+        check(run.polls == first.polls == 1
+              and run.replays == first.replays == 1
+              and run.units == first.units == units,
+              f"[graph] {label}: {run.polls} polls, {run.replays} "
+              f"replays, {run.units} units on a hit, {first.polls}, "
+              f"{first.replays}, {first.units} on a miss, for {steps} "
+              f"steps of the eager loop at POLL {ipm.POLL}")
         ms_g = float(np.median([event_ms(graphed) for _ in range(3)]))
         ms_e = float(np.median([event_ms(eager) for _ in range(3)]))
         pg = profiled(graphed)
         pe = profiled(eager)
         # the tracer may lose events, never invents one: at most one copy
-        # per poll inside the loop, and no kernel launched by the host
-        # while the graph is replayed
-        check(pg["dtoh_loop"] <= run.polls and pg["replay_host_launches"] == 0,
+        # inside the loop, and no kernel launched by the host while the
+        # graph is replayed
+        check(pg["dtoh_loop"] <= 1 and pg["replay_host_launches"] == 0,
               f"[graph] {label}: {pg['dtoh_loop']} device-to-host copies in "
-              f"the loop for {run.polls} polls, "
-              f"{pg['replay_host_launches']} host launches during replays")
+              f"the loop, {pg['replay_host_launches']} host launches during "
+              f"replays")
         it = sol.Iter
         line("graph", instance=label, status=sol.status, Iter=it,
              cpu_iter=cpu[1] if cpu else "-", y_diff_eager=f"{dy:.3e}",
@@ -2117,11 +2272,11 @@ def phase_graph():
              trips_per_iter_graph=f"{run.trips / it:.2f}",
              trips_per_iter_eager=f"{erun.trips / it:.2f}",
              poll=ipm.POLL, polls=run.polls, replays=run.replays,
-             ms_graph=f"{ms_g:.2f}", ms_eager=f"{ms_e:.2f}",
+             units=run.units, ms_graph=f"{ms_g:.2f}", ms_eager=f"{ms_e:.2f}",
              dtoh_per_iter_graph=f"{pg['dtoh'] / it:.2f}",
              dtoh_per_iter_eager=f"{pe['dtoh'] / it:.2f}",
              dtoh_loop=pg["dtoh_loop"], dtoh_fixed=pg["dtoh_fixed"],
-             kernels_per_iter_graph=f"{pg['kernels'] / it:.1f}",
+             kernels_per_iter_graph="not_measured",  # WHILE body: profiled()
              kernels_per_iter_eager=f"{pe['kernels'] / it:.1f}",
              replay_host_launches=pg["replay_host_launches"])
 
@@ -2196,7 +2351,9 @@ def phase_graph_cache():
     """The device loop's cache (solver/graph.py) on each case of
     graph_cache_cases(): a chain of CHAIN instances of one shape (seeds
     1...CHAIN). The first call misses and builds the entry, the other five
-    hit it (one capture for the key); torch.cuda.memory_reserved() is flat
+    hit it (one capture for the key), each with one host read, one replay
+    of the loop's WHILE node and a unit per step (in f64 the CPU's units,
+    the eager loop's steps); torch.cuda.memory_reserved() is flat
     across the hits; the first solution is unchanged after the last call.
     Then each hit's instance again after graph.clear() (a miss): the same
     status, Iter and y, w, v bit for bit, and, in f64, the CPU's status
@@ -2239,12 +2396,21 @@ def phase_graph_cache():
         kept = first.y.clone()
         hits, reserved = [], []
         rbefore = rcone_counts()
+        units = []
         for args in instances[1:]:
             sol = conic_ip(*args, device="cuda", **kw)
             (run,) = solver.runs
             check(run.cache_hit and run.loop == "graph"
                   and graph.cache_info() == [key],
                   f"[graph_cache] {label}: a call of the chain missed")
+            # one read, one replay of the WHILE node, a unit per step
+            steps = run.fast_steps + run.slow_steps
+            check(run.polls == 1 and run.replays == 1
+                  and run.units == ipm.POLL * -(-steps // ipm.POLL),
+                  f"[graph_cache] {label}: {run.polls} polls, "
+                  f"{run.replays} replays, {run.units} units on a hit of "
+                  f"{steps} steps")
+            units.append(run.units)
             reserved.append(torch.cuda.memory_reserved())
             hits.append((sol.status, sol.Iter,
                          *(getattr(sol, f).cpu() for f in "ywv")))
@@ -2278,8 +2444,8 @@ def phase_graph_cache():
         ms_eager = [timed(lambda: Solution.from_state(ipm.ipm_solve(*a)))[1]
                     for a in operands]
         ms_miss, cpu_iters, cpu_s = [], [], 0.0
-        for args, a, (status, Iter, y, w, v) in zip(instances[1:], operands,
-                                                    hits):
+        for args, a, (status, Iter, y, w, v), hit_units in zip(
+                instances[1:], operands, hits, units):
             graph.clear()
             stats = {}
             fresh, ms = timed(lambda: loop(a, stats))
@@ -2296,9 +2462,11 @@ def phase_graph_cache():
             t = time.perf_counter()
             cpu = conic_ip(*args, device="cpu")
             cpu_s += time.perf_counter() - t
-            check((cpu.status, cpu.Iter) == (status, Iter),
-                  f"[graph_cache] {label}: card {status}/{Iter}, cpu "
-                  f"{cpu.status}/{cpu.Iter}")
+            check((cpu.status, cpu.Iter) == (status, Iter)
+                  and solver.runs[0].units == hit_units,
+                  f"[graph_cache] {label}: card {status}/{Iter} in "
+                  f"{hit_units} units, cpu {cpu.status}/{cpu.Iter} in "
+                  f"{solver.runs[0].units}")
             cpu_iters.append(cpu.Iter)
         del operands
         # the entry of this key again, then a solve of another shape
@@ -2329,6 +2497,7 @@ def phase_graph_cache():
              Iter=first.Iter, chain=CHAIN, hits=len(hits), captures=1,
              hits_equal_fresh=True,
              cpu_iters=",".join(map(str, cpu_iters)) or "-",
+             units=",".join(map(str, units)), polls_per_hit=1,
              first_unchanged=True, reserved_mb=f"{reserved[0] / 2**20:.0f}",
              rcone_hits=rcone,
              other_shape_missed=other_missed, evicted_pool_segments=left,
@@ -3007,9 +3176,10 @@ def phase_batch_graph():
     the eager loop (ipm_solve without a device loop) and a hit: per
     instance the same status and Iter, also as the CPU's, y bit for bit,
     the same KKT builds, recomputes, refinement trips and kernel launches
-    by entry and dtype (launch_counts); a hit reads once after the
-    prologue and once per chunk replay, copies at most once per read to
-    the host inside the loop, and the host launches no kernel during the
+    by entry and dtype (launch_counts); a hit and the miss read the
+    device once (the final copy), replay the loop's WHILE node once and
+    run the eager loop's steps as units, a hit copies at most once to the
+    host inside the loop, and the host launches no kernel during the
     replays. ms per stack (median, least and most of 3, CUDA events): hit,
     miss and the eager loop; kernels and device-to-host copies per
     iteration of the stack (profiler). An f32 stack's Iter is held within
@@ -3099,20 +3269,23 @@ def phase_batch_graph():
         check(run.trips == erun.trips,
               f"[batch_graph] {label}: {run.trips} refinement trips on the "
               f"device loop, {erun.trips} on the eager loop")
-        chunks = -(-run.fast_steps // ipm.POLL)
-        check(run.polls == 1 + chunks and run.replays == chunks
-              and frun.polls == 2 + frun.replays,
-              f"[batch_graph] {label}: {run.polls} polls and {run.replays} "
-              f"replays on a hit, {frun.polls} and {frun.replays} on a "
-              f"miss, for {run.fast_steps} steps at POLL {ipm.POLL}")
+        steps = erun.fast_steps + erun.slow_steps
+        units = ipm.POLL * -(-steps // ipm.POLL)
+        check(run.polls == frun.polls == 1
+              and run.replays == frun.replays == 1
+              and run.units == frun.units == units,
+              f"[batch_graph] {label}: {run.polls} polls, {run.replays} "
+              f"replays, {run.units} units on a hit, {frun.polls}, "
+              f"{frun.replays}, {frun.units} on a miss, for {steps} steps "
+              f"of the eager loop at POLL {ipm.POLL}")
         ms_hit = [event_ms(graphed) for _ in range(3)]
         ms_eager = [event_ms(eager) for _ in range(3)]
         pg = profiled(graphed)
         pe = profiled(eager)
-        check(pg["dtoh_loop"] <= run.polls and pg["replay_host_launches"] == 0,
+        check(pg["dtoh_loop"] <= 1 and pg["replay_host_launches"] == 0,
               f"[batch_graph] {label}: {pg['dtoh_loop']} device-to-host "
-              f"copies in the loop for {run.polls} polls, "
-              f"{pg['replay_host_launches']} host launches during replays")
+              f"copies in the loop, {pg['replay_host_launches']} host "
+              f"launches during replays")
         ms_miss = []
         for _ in range(3):
             graph.clear()
@@ -3153,12 +3326,12 @@ def phase_batch_graph():
              trips_per_iter_graph=f"{run.trips / it:.2f}",
              trips_per_iter_eager=f"{erun.trips / it:.2f}",
              poll=ipm.POLL, polls=run.polls, replays=run.replays,
-             ms_hit=spread(ms_hit), ms_miss=spread(ms_miss),
+             units=run.units, ms_hit=spread(ms_hit), ms_miss=spread(ms_miss),
              ms_eager=spread(ms_eager),
              dtoh_per_iter_graph=f"{pg['dtoh'] / it:.2f}",
              dtoh_per_iter_eager=f"{pe['dtoh'] / it:.2f}",
              dtoh_loop=pg["dtoh_loop"], dtoh_fixed=pg["dtoh_fixed"],
-             kernels_per_iter_graph=f"{pg['kernels'] / it:.1f}",
+             kernels_per_iter_graph="not_measured",  # WHILE body: profiled()
              kernels_per_iter_eager=f"{pe['kernels'] / it:.1f}",
              replay_host_launches=pg["replay_host_launches"],
              reserved_mb_entry=f"{entry_mb:.1f}")
@@ -3217,6 +3390,10 @@ def split_stack_of_variants():
           f"launches {dict(hit_launches)} on a hit, "
           f"{[est[k] for k in counts]} and {dict(eager_launches)} on the "
           f"eager loop")
+    check(hst["polls"] == 1 and hst["units"] == ipm.POLL * -(
+        -steps // ipm.POLL),
+          f"[batch_graph] {label}: {hst['polls']} polls and {hst['units']} "
+          f"units on a hit for {steps} steps")
     check(hst["slow_steps"] > 0 and hst["fast_steps"] + hst["slow_steps"]
           > steps,
           f"[batch_graph] {label}: no iteration split across the variants "
@@ -3244,7 +3421,7 @@ def split_stack_of_variants():
          launches=",".join(f"{k}:{v}" for k, v in
                            sorted(hit_launches.items())),
          launches_equal_eager=True, y_diff_eager="0.000e+00",
-         polls=hst["polls"], replays=hst["replays"],
+         polls=hst["polls"], replays=hst["replays"], units=hst["units"],
          ms_hit=spread(ms_hit), ms_eager=spread(ms_eager))
 
 
@@ -3860,8 +4037,10 @@ def custom_case(label, P, kkt):
           f"{what}: {builds} KKT builds, {run.trips} trips, launches "
           f"{dict(hit_launches)} on a hit; {run_builds(erun)}, "
           f"{erun.trips}, {dict(eager_launches)} on the eager loop")
-    check(run.polls == 1 + run.replays,
-          f"{what}: {run.polls} polls for {run.replays} replays")
+    units = ipm.POLL * -(-(erun.fast_steps + erun.slow_steps) // ipm.POLL)
+    check(run.polls == 1 and run.replays == 1 and run.units == units,
+          f"{what}: {run.polls} polls, {run.replays} replays, {run.units} "
+          f"units on a hit, for {units} units of the eager loop's steps")
     cpu = conic_ip(*P, kktsolver=kkt, device="cpu")
     check((cpu.status, cpu.Iter) == (sol.status, sol.Iter)
           and solver.runs[-1].loop == "chunks",
@@ -3875,15 +4054,15 @@ def custom_case(label, P, kkt):
           f"{what}: a chained solve missed or differs from the first hit")
     _, ms_eager = chained_ms(eager, CUSTOM_CHAIN)
     pg, pe = profiled(graphed), profiled(eager)
-    check(pg["dtoh_loop"] <= run.polls and pg["replay_host_launches"] == 0,
-          f"{what}: {pg['dtoh_loop']} device-to-host copies in the loop for "
-          f"{run.polls} polls, {pg['replay_host_launches']} host launches "
-          f"during replays")
+    check(pg["dtoh_loop"] <= 1 and pg["replay_host_launches"] == 0,
+          f"{what}: {pg['dtoh_loop']} device-to-host copies in the loop, "
+          f"{pg['replay_host_launches']} host launches during replays")
     by_order = {f"{dtname(k[0])}@{k[1]}": v for k, v in
                 sorted(hit_launches.items(), key=str)}
     it = max(sol.Iter, 1)
     line("custom_kkt", case=repr(label), loop=run.loop,
          cache_hit=run.cache_hit, polls=run.polls, replays=run.replays,
+         units=run.units,
          trips=run.trips, status=sol.status, Iter=sol.Iter,
          cpu_iter=cpu.Iter, y_diff_eager=f"{(sol.y - ref.y).abs().max():.3e}",
          kkt_builds=builds, cholesky_launches_hit=by_order or "none",
@@ -3892,7 +4071,7 @@ def custom_case(label, P, kkt):
          ms_per_solve_eager=f"{ms_eager:.2f}", chained=CUSTOM_CHAIN,
          dtoh_per_iter_graph=f"{pg['dtoh'] / it:.2f}",
          dtoh_per_iter_eager=f"{pe['dtoh'] / it:.2f}",
-         kernels_per_iter_graph=f"{pg['kernels'] / it:.1f}",
+         kernels_per_iter_graph="not_measured",  # WHILE body: profiled()
          kernels_per_iter_eager=f"{pe['kernels'] / it:.1f}",
          replay_host_launches=pg["replay_host_launches"])
     return sol
@@ -4354,8 +4533,10 @@ def tp_case(label, P, mesh, kkt_kw, kw, cpu, one):
           f"{what}: {builds} KKT builds, {run.trips} trips, launches "
           f"{dict(hit_launches)} on a hit; {run_builds(erun)}, "
           f"{erun.trips}, {dict(eager_launches)} on the eager loop")
-    check(run.polls == 1 + run.replays,
-          f"{what}: {run.polls} polls for {run.replays} replays")
+    units = ipm.POLL * -(-(erun.fast_steps + erun.slow_steps) // ipm.POLL)
+    check(run.polls == 1 and run.replays == 1 and run.units == units,
+          f"{what}: {run.polls} polls, {run.replays} replays, {run.units} "
+          f"units on a hit, for {units} units of the eager loop's steps")
     hits, ms_hit = chained_ms(lambda: (
         conic_ip(*args, kktsolver=kkt, device="cuda", **kw),
         solver.runs[-1].cache_hit), TP_CHAIN)
@@ -4364,10 +4545,9 @@ def tp_case(label, P, mesh, kkt_kw, kw, cpu, one):
           f"{what}: a chained solve missed or differs from the first hit")
     _, ms_eager = chained_ms(eager, TP_CHAIN)
     pg, pe = profiled(graphed), profiled(eager)
-    check(pg["dtoh_loop"] <= run.polls and pg["replay_host_launches"] == 0,
-          f"{what}: {pg['dtoh_loop']} device-to-host copies in the loop for "
-          f"{run.polls} polls, {pg['replay_host_launches']} host launches "
-          f"during replays")
+    check(pg["dtoh_loop"] <= 1 and pg["replay_host_launches"] == 0,
+          f"{what}: {pg['dtoh_loop']} device-to-host copies in the loop, "
+          f"{pg['replay_host_launches']} host launches during replays")
 
     # the single-device Schur solve, hit against hit, an eager line beside
     single_kw = dict(kktsolver=kktsolver_schur, centralityCorrectors=0, **kw)
@@ -4420,8 +4600,8 @@ def tp_case(label, P, mesh, kkt_kw, kw, cpu, one):
     it = max(sol.Iter, 1)
     line("distributed", world=1, backend="nccl", case=repr(label),
          loop=run.loop, cache_hit=run.cache_hit, polls=run.polls,
-         replays=run.replays, trips=run.trips, status=sol.status,
-         Iter=sol.Iter, single_iter=ref.Iter, **extra,
+         replays=run.replays, units=run.units, trips=run.trips,
+         status=sol.status, Iter=sol.Iter, single_iter=ref.Iter, **extra,
          resid=f"{resid:.3e}", y_diff_single=f"{dy:.3e}",
          y_equal_eager=True, kkt_builds=builds, launches=by_order,
          launches_equal_eager=True, retries=retries,
@@ -4434,7 +4614,7 @@ def tp_case(label, P, mesh, kkt_kw, kw, cpu, one):
          chained=TP_CHAIN,
          dtoh_per_iter_graph=f"{pg['dtoh'] / it:.2f}",
          dtoh_per_iter_eager=f"{pe['dtoh'] / it:.2f}",
-         kernels_per_iter_graph=f"{pg['kernels'] / it:.1f}",
+         kernels_per_iter_graph="not_measured",  # WHILE body: profiled()
          kernels_per_iter_eager=f"{pe['kernels'] / it:.1f}",
          replay_host_launches=pg["replay_host_launches"])
     return dict(status=sol.status, Iter=sol.Iter, y=sol.y.cpu(), ms=ms_hit,
@@ -4607,11 +4787,13 @@ def main():
     single, batched64, batched32 = phase_kernel()
     jacobi = phase_jacobi()
     rcone = phase_rcone()
+    node = rcone.pop("while")
     line("phase_time", of="build+kernel+jacobi+rcone",
          seconds=f"{time.perf_counter() - start:.1f}")
 
     from conicip_tpu_torch.ops import (cholesky_kernel, jacobi_kernel,
                                        rcone_kernel)
+    from conicip_tpu_torch.solver import graph as device_loop
 
     # each path of the main run is driven with the counts at 0 and read
     # just after; the comparison launches of the kernel phases do not count
@@ -4638,6 +4820,7 @@ def main():
         cholesky_kernel.reset_launch_count()
         jacobi_kernel.reset_launch_count()
         rcone_kernel.reset_launch_count()
+        device_loop.while_launches.clear()
         # launches of the ranks a phase spawned, counted by their wrappers
         t = time.perf_counter()
         ranks, ranks_jacobi = phase() or (Counter(), Counter())
@@ -4683,11 +4866,14 @@ def main():
         rused = rcone_counts()
         for rec in rcone.values():
             rec["launches"] += sum(rused[e] for e in rec["entries"])
+        loops = sum(device_loop.while_launches.values())
+        node["launches"] += loops
         line("launches", of=phase.__name__, f64=used - used32, f32=used32,
              batched_f64=stacked[f64], batched_f32=stacked[f32],
              predicated=sum(pcounts.values()),
              jacobi=",".join(f"{k}:{by_kind[k]}" for k in JACOBI_KINDS),
-             rcone=",".join(f"{e}:{rused[e]}" for e in rcone_kernel.ENTRIES))
+             rcone=",".join(f"{e}:{rused[e]}" for e in rcone_kernel.ENTRIES),
+             while_node=loops)
         single["launches"] += used - sum(stacked.values())
         single["launches_f64"] += used - used32 - stacked[f64]
         single["launches_f32"] += used32 - stacked[f32]
@@ -4703,7 +4889,7 @@ def main():
         jacobi_main += jcounts
         rcone_main += rused
     for rec in (single, batched64, batched32, *jacobi.values(),
-                *rcone.values()):
+                *rcone.values(), node):
         check(rec["launches"] > 0, f"{rec['name']} was never launched on "
               "the main paths")
     # the f32 Schur builds' ridge retries, inside the device loop's graphs
@@ -4745,7 +4931,8 @@ def main():
               f"rcone_{name}: an entry was never launched on the main "
               f"paths {dict(rcone_main)}")
     print(json.dumps({"kernels": [single, batched64, batched32,
-                                  *jacobi.values(), *rcone.values()]}),
+                                  *jacobi.values(), *rcone.values(),
+                                  node]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

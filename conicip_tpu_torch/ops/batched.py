@@ -50,8 +50,11 @@ def mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Inner product along the last axis; ``torch.dot`` for two vectors."""
-    if a.dim() == 1 and b.dim() == 1:
+    """Inner product along the last axis; ``torch.dot`` for two non-empty
+    vectors. Two empty ones (a spec with no equalities) sum to 0 on the
+    device: ``torch.dot`` copies its 0 from host memory there, a node the
+    body of a conditional graph node cannot hold (solver/graph.py)."""
+    if a.dim() == 1 and b.dim() == 1 and a.numel():
         return torch.dot(a, b)
     return torch.sum(a * b, dim=-1)
 

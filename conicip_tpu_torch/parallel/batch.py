@@ -96,8 +96,9 @@ class BatchRun(NamedTuple):
     slow_steps: int
     cold_start: int
     recertified: int
-    polls: int  # host reads of the loop's status
-    replays: int  # CUDA graph replays of one captured chunk
+    polls: int  # host reads of the loop's status (solver.Run)
+    replays: int  # CUDA graph replays of the loop (solver.Run)
+    units: int  # units the device loop ran (solver.Run)
     # "graph", "chunks" (the device loop) or "eager" (a backstop
     # sub-batch, a caller's callable that reads the device: _run)
     loop: str

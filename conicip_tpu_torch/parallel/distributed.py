@@ -54,8 +54,9 @@ by its place along ``mesh[axis]``. Two rules keep the ranks in step:
 the eager loop every rank reads the flag and retries after it; on the
 device loop on the CPU the retry runs and its results are taken by the
 flag; on CUDA the retry is the body of a conditional node of the captured
-graph, its NCCL collectives captured inside the body, so the whole solve
-replays with one host read per chunk. A ``kktsolver_schur_tp`` made once
+graph, nested in the loop's WHILE node, its NCCL collectives captured
+inside the bodies, so the whole solve replays with one host read, after
+it ends. A ``kktsolver_schur_tp`` made once
 and reused hits its cache entry (solver/graph.py keys on the generator
 object); one made per call captures again. Over a gloo group on CUDA
 tensors (ranks that share a card) the solve keeps the eager loop, since

@@ -43,8 +43,20 @@ class Run(NamedTuple):
     slow_steps: int
     cold_start: int  # 1 when the initial point cost a KKT build
     recertified: int  # mixed mode: full-precision product recomputes
-    polls: int  # host reads of the loop's status
-    replays: int  # CUDA graph replays of one captured chunk
+    # host reads of the loop's status: on the card's WHILE node 1, the
+    # final copy; on the CPU's chunks (and with verbose output on the
+    # card) one after the prologue and one per chunk; on the eager loop
+    # one or two per iteration
+    polls: int
+    # CUDA graph replays of the loop: of the WHILE node's graph (1), or
+    # with verbose output of the chunk
+    replays: int
+    # units the device loop ran (ipm.POLL per chunk), counted on the card
+    # and read in the final copy; on the CPU's chunks POLL * (polls - 1);
+    # 0 on the eager loop. A miss on the card runs its first unit eagerly
+    # as a warm-up and counts it, also where the prologue already ended
+    # the solve (a frozen unit: POLL where the eager loop took no step)
+    units: int
     # "graph", "chunks" (the device loop) or "eager" (kktsolver_schur_tp
     # over gloo on CUDA, a caller's callable that reads the device:
     # _eager_reason)

@@ -21,15 +21,19 @@ warm start, and ``ipm.POLL``. An entry owns
 - on CUDA, two graphs captured in the entry's own ``torch.cuda.MemPool``:
   the *prologue* (``ipm.device_prologue``: the level-1 callback, whose
   tensors are derived from the input buffers, the initial point and its
-  evaluation) and one *chunk* of ``ipm.POLL`` units (step, then evaluate),
-  both writing one buffer per carried tensor and the flag the host polls;
-  and the launch counts of each capture.
+  evaluation) and the *loop*: one conditional WHILE node
+  (``csrc/graph_cond.cu``) whose body is a *chunk* of ``ipm.POLL`` units
+  (step, then evaluate), then the loop's predicate (``ipm``'s ``more``:
+  some instance still active, the units run at most ``maxIters``), which
+  decides on the device whether the body runs again, as the reference's
+  ``lax.while_loop`` decides its own; both write one buffer per carried
+  tensor, and the units run, a device counter; and the launch counts of
+  each capture.
 
 A call that misses builds its entry on the solve's stream: the prologue
 runs eagerly (it builds the kernels and warms cuBLAS) and is captured, its
-graph is replayed, the first unit runs eagerly and the chunk is captured
-while the card runs it, and then the chunk is replayed while an instance
-runs. With a caller's own kktsolver (``control.callers_own``) a miss
+graph is replayed, the first unit runs eagerly and the loop is captured
+while the card runs it, and then the loop's graph is replayed once. With a caller's own kktsolver (``control.callers_own``) a miss
 runs the prologue and one unit eagerly once more after the warm-up,
 every body masked (``ipm.masked``: the variant not reached and the
 refinement trips too, and no predicate read inside a caller's
@@ -44,9 +48,9 @@ remembered, so a later call decides before the solve). The one choice of
 loop made during a call, and not a fallback that hides the device: that
 run stays on the card. A caller's callable costs a miss that extra
 prologue and unit. A call that hits
-copies its data into the buffers, replays the prologue, reads the flag,
-and replays the chunk until the flag is false: no eager work, no capture,
-no instantiation. Both return copies of the results, so a later call never
+copies its data into the buffers and replays the prologue and the loop:
+no eager work, no capture, no instantiation, and one host read, the
+final copy of the loop's counts. Both return copies of the results, so a later call never
 changes an earlier solution. On the CPU an entry holds the buffers and the
 loop runs eagerly (``ipm.run_chunks``).
 
@@ -62,7 +66,8 @@ memory across a miss after :func:`clear`): ``batched_box_qp`` n=500
 
 What the reference decides by ``lax.cond`` inside its loop is, in a
 captured unit, the body of a conditional IF node (``csrc/graph_cond.cu``)
-that runs only while its predicate holds on the device: each refinement
+nested in the WHILE node's body, that runs only while its predicate holds
+on the device: each refinement
 trip, run while some instance goes on, as the reference's ``while_loop``
 and the eager loop stop; the mixed-residual recompute, run when it fires
 (the reference's ``cond_once``); and, with a two-variant generator, each
@@ -71,9 +76,9 @@ its scaling), run while some instance is on it; and what a KKT generator
 decides by ``control.cond`` (``kktsolver_schur_tp``'s ridge retry, its
 NCCL collectives captured inside the body), in the prologue and in a
 unit, run where its first factor failed. The trips and a retry nest
-inside a variant's step: each level of nesting is captured on a stream
-of its own, and every body's allocations go to a second pool of the
-entry. Every capture, and every body, runs in ``thread_local`` mode
+inside a variant's step, and the unit inside the WHILE node's body: each
+level of nesting (:data:`NESTING`) is captured on a stream of its own,
+and every body's allocations go to a second pool of the entry. Every capture, and every body, runs in ``thread_local`` mode
 (:data:`CAPTURE_MODE`). The
 first unit of a miss runs eagerly, each body only where its predicate
 holds, as the eager loop runs it. A read inside a capture fails it, and a
@@ -81,19 +86,23 @@ capture, replay or conditional-node error raises: nothing runs the loop
 eagerly in its place: what the guard does not catch (a read in a branch
 the warm-up did not run, a conditional body of a variant not yet
 reached) is refused by the capture, whose error is raised. With verbose
-output (``IPMOptions.verbose``, part of the key) the captured prologue
-and chunk also write each unit's printed row beside the flag, and the
-host reads both in one copy at its poll and prints the rows
-(``ipm.poll``), as the eager first unit of a miss prints its own; an
-entry without verbose output captures no row. An evicted entry, and
-every entry on :func:`clear`,
+output (``IPMOptions.verbose``, part of the key) the entry keeps no WHILE
+node: the reference prints each row from a ``jax.debug.callback`` inside
+its loop, and a conditional body can hold no host node, so the chunk is
+captured alone and replayed by the host. The captured prologue and chunk
+write each unit's printed row beside the flag, and the host reads both
+in one copy after each replay and prints the rows (``ipm.poll``), as the
+eager first unit of a miss prints its own: the eager loop's text, row
+for row, printed while the solve runs. An entry without verbose output
+captures no row. An evicted entry, and every entry on :func:`clear`,
 returns its pools' memory to CUDA.
 
 The kernels' wrappers count a launch where they issue it. Under capture
 the card runs nothing, so each capture's counts are taken back and added
 once per replay: the counters say what the card ran. A conditional body
-that launches a counted kernel (a variant's factors and decompositions,
-a refinement trip's R-cone kernels) also counts its runs on the device,
+that launches a counted kernel (the WHILE node's chunk, a variant's
+factors and decompositions, a refinement trip's R-cone kernels) also
+counts its runs on the device,
 in one of the entry's slots (:func:`counted_bodies`); the host reads
 those counts with the loop's own, in the solve's one final copy, and
 adds the body's captured launches once per run.
@@ -115,23 +124,31 @@ from ..ops.build import load_library
 from . import ipm
 from .state import SolState
 
-__all__ = ["solve", "clear", "cache_info", "CACHE_SIZE", "LOOP", "REPLAY"]
+__all__ = ["solve", "clear", "cache_info", "CACHE_SIZE", "LOOP", "REPLAY",
+           "while_launches"]
 
 # profiler ranges (python -m conicip_tpu_torch.trace reads them): the whole
 # loop, and its replays, in which the host issues no kernel
 LOOP, REPLAY = "conicip::loop", "conicip::replay"
 
-# Levels of conditional nodes in a unit: a variant's step, and the
-# refinement trips inside it.
-NESTING = 2
+# Levels of conditional nodes: the loop's WHILE node, a variant's step
+# inside its body, and the refinement trips inside the step.
+NESTING = 3
 
 
 def counted_bodies(opts) -> int:
     """Conditional bodies of a unit, or of the prologue, that launch
     counted kernels, at most: each variant's scaling and step, and inside
     each step the distributed factor's ridge retry (control.cond) and the
-    refinement trips (the R cones' kernels, ops/rcone.py)."""
-    return 2 * (3 + opts.maxRefinementSteps)
+    refinement trips (the R cones' kernels, ops/rcone.py); and the loop's
+    WHILE body, whose launches outside those count per run too."""
+    return 2 * (3 + opts.maxRefinementSteps) + 1
+
+
+# Launches of the loop's WHILE node (csrc/graph_cond.cu), by dtype of the
+# solve: one per replay of a loop graph, each running the node's body
+# while the solve goes on.
+while_launches: Counter = Counter()
 
 
 # Entries kept, least recently used first out. The reference's jit cache is
@@ -238,13 +255,17 @@ class _Entry:
         self.inputs = tuple(_base(x).clone().expand(x.shape)
                             for x in args) + (
             None if warm is None else _clone(warm),)
-        self.graphs = ()  # (prologue, chunk) on CUDA
+        # on CUDA (prologue, loop): the loop the WHILE node's graph, or
+        # with verbose output the chunk the host replays
+        self.graphs = ()
         self.deltas = ()  # their captures' launch counts
-        # the chunk's conditional bodies that launch counted kernels: each
-        # [its runs so far (a device int64, a slot of `runs`), its
-        # capture's launch counts, the runs the counters hold]
+        # the conditional bodies that launch counted kernels: each [its
+        # runs so far (a device int64, a slot of `runs`), its capture's
+        # launch counts, the runs the counters hold]
         self.bodies = []
         self.runs = None
+        # the units the loop ran, a device int64 the captured loop adds to
+        self.units = None
         self.static = self.flag = self.body = None
         # the graphs' memory pools: the captures', and that of the
         # conditional nodes' bodies, which a capture's pool cannot take
@@ -265,6 +286,7 @@ class _Entry:
         self.graphs = self.deltas = ()
         self.bodies = []
         self.static = self.flag = self.body = self.inputs = self.runs = None
+        self.units = None
         if self.pool is not None:
             # the pools' segments are freed with them
             self.pool = self.body_pool = None
@@ -278,10 +300,14 @@ def _make_room() -> None:
 
 
 def _counts(entry, cy) -> dict:
-    """The loop's counts, and the runs of the entry's counted bodies, in
-    one copy: the bodies' launches are added to the counters once per run
-    since the last read."""
-    counts, runs = ipm.loop_counts(cy, *(b[0] for b in entry.bodies))
+    """The loop's counts, the units it ran (on CUDA) and the runs of the
+    entry's counted bodies, in one copy: the bodies' launches are added to
+    the counters once per run since the last read."""
+    units = [] if entry.units is None else [entry.units]
+    counts, runs = ipm.loop_counts(cy, *units,
+                                   *(b[0] for b in entry.bodies))
+    if units:
+        counts["units"] = runs.pop(0)
     for body, total in zip(entry.bodies, runs):
         ran, body[2] = total - body[2], total
         for c, delta in zip(_counters(), body[1]):
@@ -377,13 +403,18 @@ def _build(entry, probe=None):
     """A miss on CUDA. The prologue runs eagerly, to build the kernels and
     warm cuBLAS and the caches a capture cannot fill (a generator's
     ``control.cond`` bodies after a host read), and is captured while the
-    card runs it; its graph is then replayed as on a hit, since the chunk
+    card runs it; its graph is then replayed as on a hit, since the loop
     reads the tensors that graph writes (so a miss does the prologue's
-    device work twice). The first unit runs eagerly on them, the chunk is
-    captured while the card runs it, and replayed while an instance
-    runs. With ``probe`` (a caller's kktsolver under ``control.guarded``)
-    the probe's prologue and one unit run eagerly after the warm-up and
-    before any capture: a callback that reads the device raises
+    device work twice). The first unit runs eagerly on them (a warm-up
+    like the prologue's, run and counted in ``units`` whether or not the
+    solve goes on: where the prologue ended it, a frozen unit that
+    changes nothing and builds the KKT system once more), the loop
+    is captured while the card runs it, and replayed: the WHILE node
+    whose body is the chunk, which runs it until the predicate is false
+    on the device; with verbose output the chunk, replayed while the flag
+    the host reads after it holds. With ``probe`` (a caller's kktsolver
+    under ``control.guarded``) the probe's prologue and one unit run
+    eagerly after the warm-up and before any capture: a callback that reads the device raises
     ``control.ReadsDevice`` there. After the warm-up, so that what the
     package makes once per configuration (``ipm._identity``, the cones'
     index tensors, copies of host data) is made outside the guard; with
@@ -402,12 +433,13 @@ def _build(entry, probe=None):
             body.unit(first, ipm.masked)
     _make_room()
     entry.static = _clone(cy)
-    # the flag the host polls; with verbose output (a carry with a row)
-    # the flag and the rows of a chunk's units (ipm.polled)
-    entry.flag = (torch.empty((), dtype=torch.bool, device=device)
-                  if cy.row is None else
-                  torch.zeros(1 + ipm.POLL * ipm.ROW, dtype=torch.float64,
-                              device=device))
+    verbose = cy.row is not None
+    # the loop's predicate; with verbose output (a carry with a row) the
+    # flag and the rows of a chunk's units (ipm.polled), which the host
+    # polls
+    entry.flag = (torch.zeros(1 + ipm.POLL * ipm.ROW, dtype=torch.float64,
+                              device=device) if verbose else
+                  torch.empty((), dtype=torch.bool, device=device))
     entry.pool = torch.cuda.MemPool()
     entry.body_pool = torch.cuda.MemPool()
     # the counted bodies' runs, made before any capture: a counter
@@ -415,26 +447,30 @@ def _build(entry, probe=None):
     # nothing on the H100
     entry.runs = torch.zeros(entry.slots * (1 + ipm.POLL),
                              dtype=torch.int64, device=device)
-    branch = _conditional(entry, device)
+    entry.units = torch.zeros((), dtype=torch.int64, device=device)
+    branch, loop = _conditional(entry, device)
 
     def prologue():
         entry.body, out = entry.prologue(*inputs, branch=branch)
         _copy(entry.static, out)
-        _set_flag(entry, [entry.static.row])
+        entry.units.zero_()
+        if verbose:
+            _set_flag(entry, [entry.static.row])
 
     gp, dp = _capture(entry, prologue)
     _play(gp, dp)
-    if not _read(entry):
+    if verbose and not _read(entry):
         # ended at its first iterate: nothing to keep
         cy = entry.static
         gp.reset()
         entry.release()
-        return cy, dict(polls=1, replays=0, loop="graph")
+        return cy, dict(polls=1, replays=0, units=0, loop="graph")
     with record_function("conicip::unit0"):
         cy, rows = entry.static, []
         for _ in range(ipm.POLL):
             cy = entry.body.unit(cy, ipm.on_host)
             rows.append(cy.row)
+        entry.units.add_(ipm.POLL)
 
     def chunk():
         out, rows = entry.static, []
@@ -442,46 +478,70 @@ def _build(entry, probe=None):
             out = entry.body.unit(out, branch)
             rows.append(out.row)
         _copy(entry.static, out)
+        entry.units.add_(ipm.POLL)
         _set_flag(entry, rows)
 
-    gc, dc = _capture(entry, chunk)
-    entry.graphs, entry.deltas = (gp, gc), (dp, dc)
+    def whole():
+        _set_flag(entry, None)
+        loop(entry.flag, chunk)
+
+    gl, dl = _capture(entry, chunk if verbose else whole)
+    entry.graphs, entry.deltas = (gp, gl), (dp, dl)
     _copy(entry.static, cy)
-    replays = _chunks(entry) if ipm.poll(entry.body.active(cy), rows) else 0
-    return entry.static, dict(polls=2 + replays, replays=replays,
-                              loop="graph")
+    if verbose:
+        replays = (_chunks(entry)
+                   if ipm.poll(entry.body.more(cy, ipm.POLL), rows) else 0)
+        return entry.static, dict(polls=2 + replays, replays=replays,
+                                  loop="graph")
+    _run_loop(entry)
+    return entry.static, dict(polls=1, replays=1, loop="graph")
 
 
 def _set_flag(entry, rows) -> None:
-    """Inside a capture: write whether any instance is still active into
-    the flag, with verbose output beside the units' rows."""
-    active = entry.body.active(entry.static)
+    """Inside a capture: write the loop's predicate (ipm's ``more``: some
+    instance still active, the units under the cap) into the flag, with
+    verbose output beside the units' rows."""
+    more = entry.body.more(entry.static, entry.units)
     if entry.flag.dtype == torch.bool:
-        entry.flag.copy_(active)
+        entry.flag.copy_(more)
     else:
-        entry.flag.copy_(ipm.polled(active, rows, ipm.POLL))
+        entry.flag.copy_(ipm.polled(more, rows, ipm.POLL))
 
 
 def _read(entry) -> bool:
-    """The host's poll of the flag (with verbose output, in the same copy,
+    """The host's poll of the flag, with verbose output (in the same copy,
     the rows it prints)."""
-    if entry.flag.dtype == torch.bool:
-        return bool(entry.flag)
     return ipm.read_polled(entry.flag)
 
 
 def _replay(entry):
-    """A hit on CUDA: the prologue's replay, then the chunk's."""
+    """A hit on CUDA: the prologue's replay, then the loop's: the WHILE
+    node's graph once, with no read; with verbose output the chunk's
+    while the flag read after each holds."""
     (gp, _), (dp, _) = entry.graphs, entry.deltas
     _play(gp, dp)
+    if entry.flag.dtype == torch.bool:
+        _run_loop(entry)
+        return entry.static, dict(polls=1, replays=1, loop="graph")
     replays = _chunks(entry) if _read(entry) else 0
     return entry.static, dict(polls=1 + replays, replays=replays,
                               loop="graph")
 
 
+def _run_loop(entry) -> None:
+    """One replay of the loop's graph: the WHILE node runs the chunk until
+    the predicate it writes is false; the host issues the graph and reads
+    nothing (the solve's one read is the final copy, :func:`_counts`)."""
+    (_, gl), (_, dl) = entry.graphs, entry.deltas
+    with record_function(REPLAY):
+        _play(gl, dl)
+    while_launches[entry.inputs[1].dtype] += 1
+
+
 def _chunks(entry) -> int:
-    """Replays of the chunk, one flag read after each, until it is false.
-    Returns the replays, which are also the reads."""
+    """With verbose output: replays of the chunk, one flag read after
+    each, until it is false. Returns the replays, which are also the
+    reads."""
     (_, gc), (_, dc) = entry.graphs, entry.deltas
     replays = 0
     with record_function(REPLAY):
@@ -499,6 +559,12 @@ def _cond_library():
     lib.conicip_if_begin.restype = ctypes.c_int
     lib.conicip_if_end.argtypes = [ctypes.c_void_p]
     lib.conicip_if_end.restype = ctypes.c_int
+    lib.conicip_while_begin.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.conicip_while_begin.restype = ctypes.c_int
+    lib.conicip_while_end.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong,
+                                      ctypes.c_void_p]
+    lib.conicip_while_end.restype = ctypes.c_int
     return lib
 
 
@@ -518,29 +584,45 @@ def _body_stream(device_index, depth):
 
 
 def _conditional(entry, device):
-    """The captured unit's ``branch``: each body a conditional IF node on
-    ``pred`` (module docstring), captured on the stream of its depth; a
-    body that launches counted kernels counts its runs in a slot of
-    ``entry.runs`` (``entry.bodies``)."""
+    """The captured loop's conditional nodes (module docstring), each
+    captured on the stream of its depth: ``branch(pred, body)``, the
+    unit's, each body an IF node on ``pred``; and ``loop(flag, body)``, a
+    WHILE node that runs ``body`` while ``flag`` (a device bool, which
+    ``body`` rewrites) holds. A body that launches counted kernels counts
+    its runs in a slot of ``entry.runs`` (``entry.bodies``)."""
     lib = _cond_library()
     # made before the capture, which a new stream's warm-up would break
     streams = [_body_stream(device.index, d) for d in range(NESTING)]
     depth = 0
 
-    def branch(pred, body):
+    def node(flag, body, repeat):
         nonlocal depth
         if depth == NESTING:
             raise RuntimeError(f"conditional nodes nested deeper than "
                                f"{NESTING}")
         stream = torch.cuda.current_stream(device)
         child = streams[depth]
-        flag = pred.to(torch.bool)
         counters = _counters()
         before = [Counter(c) for c in counters]
-        err = lib.conicip_if_begin(stream.cuda_stream, child.cuda_stream,
-                                   flag.data_ptr(), _CAPTURE_MODE_ENUM)
+        handle = ctypes.c_ulonglong(0)
+        if repeat:
+            err = lib.conicip_while_begin(
+                stream.cuda_stream, child.cuda_stream, flag.data_ptr(),
+                _CAPTURE_MODE_ENUM, ctypes.byref(handle))
+        else:
+            err = lib.conicip_if_begin(stream.cuda_stream, child.cuda_stream,
+                                       flag.data_ptr(), _CAPTURE_MODE_ENUM)
         if err != 0:
             raise RuntimeError(f"conditional node: CUDA error {err}")
+
+        def end():
+            # a WHILE body's last node sets the handle from the flag the
+            # body wrote
+            if repeat:
+                return lib.conicip_while_end(child.cuda_stream, handle,
+                                             flag.data_ptr())
+            return lib.conicip_if_end(child.cuda_stream)
+
         depth += 1
         try:
             # the outermost body routes this thread's allocations to the
@@ -558,7 +640,7 @@ def _conditional(entry, device):
                     runs.add_(1)
                     entry.bodies.append([runs, deltas, 0])
         except BaseException:
-            lib.conicip_if_end(child.cuda_stream)
+            end()
             raise
         finally:
             depth -= 1
@@ -566,12 +648,18 @@ def _conditional(entry, device):
             for c, b in zip(counters, before):
                 c.clear()
                 c.update(b)
-        err = lib.conicip_if_end(child.cuda_stream)
+        err = end()
         if err != 0:
             raise RuntimeError(f"conditional node body: CUDA error {err}")
         return out
 
-    return branch
+    def branch(pred, body):
+        return node(pred.to(torch.bool), body, False)
+
+    def loop(flag, body):
+        node(flag, body, True)
+
+    return branch, loop
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,12 +10,17 @@ drive it:
 - the device loop (``device_loop``, :func:`device_prologue`): a prologue
   (the level-1 callback, the initial point and its evaluation), then units
   of *step, then evaluate*, :data:`POLL` at a time with no host read and no
-  early exit, the host reading once after the prologue and once per chunk
-  whether any instance is still running, so the loop stops before a step
-  that would change nothing, where the eager loop and the reference stop.
-  On CUDA ``solver/graph.py`` captures the prologue and one chunk in CUDA
-  graphs, kept across calls, and replays them; on the CPU
-  :func:`run_chunks` runs them eagerly. A unit past the end (the solve
+  early exit, while any instance is still running (the loop's predicate,
+  ``more``, capped at ``maxIters + 1`` units), so the loop stops before a
+  step that would change nothing, where the eager loop and the reference
+  stop. On CUDA ``solver/graph.py`` captures the prologue and the loop in
+  CUDA graphs, kept across calls: the loop is one conditional WHILE node
+  whose body is a chunk, so the device decides when the loop ends and the
+  host reads once, after the solve, as the reference's
+  ``lax.while_loop`` does (with verbose output the chunk is replayed and
+  the predicate read by the host after each). On the CPU
+  :func:`run_chunks` runs the chunks eagerly, the host reading the
+  predicate once after the prologue and once per chunk. A unit past the end (the solve
   finished inside a chunk, or ``k > maxIters``) changes nothing: every
   carried value is frozen by mask, ``pobj``/``dobj`` included. What the
   reference decides by ``lax.cond`` is handed to a ``branch(pred, body)``
@@ -119,8 +124,9 @@ __all__ = ["IPMOptions", "ipm_solve", "device_prologue", "run_chunks",
            "loop_counts", "masked", "on_host", "Carry", "POLL", "ROW",
            "polled", "poll", "read_polled"]
 
-# Units per chunk of the device loop: the host reads the status once per
-# chunk, and solver/graph.py captures one chunk. A solve runs up to
+# Units per chunk of the device loop: the body of solver/graph.py's WHILE
+# node, and on the CPU (and with verbose output) the units between two
+# host reads of the status. A solve runs up to
 # POLL - 1 frozen units past its end (each a masked step, KKT build
 # included; on the card a two-variant generator's variants, conditional
 # bodies, build nothing there). 1 had the least wall time of 1, 2, 4 and
@@ -983,12 +989,23 @@ def device_prologue(spec: ConeSpec, kktsolver, opts: IPMOptions):
     first carry. ``branch`` runs what the initial point's level-2 call
     decides by ``control.cond``. With verbose output every evaluation
     writes the carry's ``row``, which the host reads with its poll
-    (:func:`poll`)."""
+    (:func:`poll`).
+
+    ``more(carry, units)`` is the loop's predicate, the counterpart of the
+    reference's ``while_loop`` condition: some instance is still active
+    and ``units``, the units run so far (a host int or a device integer),
+    is at most ``maxIters``. The cap bounds the loop at ``maxIters + 1``
+    units even where a unit failed to advance ``k``, so that a loop
+    decided on the device (solver/graph.py's WHILE node) never spins."""
 
     def prologue(Q, c, A, b, G, d, warm=None, branch=masked):
         L = _loop(*_operands(Q, c, A, b, G, d, spec), spec, kktsolver, opts,
                   warm, branch)
-        body = SimpleNamespace(unit=L.unit,
+
+        def more(cy, units):
+            return L.active_of(cy).any() & (units <= opts.maxIters)
+
+        body = SimpleNamespace(unit=L.unit, more=more,
                                active=lambda cy: L.active_of(cy).any())
         return body, L.evaluated(L.cy0)
 
@@ -1020,7 +1037,8 @@ def ipm_solve(
     ``recertified`` (mixed mode: iterations that recomputed the products in
     full precision), ``trips`` (refinement trips run: trips on which some
     instance went on), ``polls`` (host reads of the loop's status),
-    ``replays`` (CUDA graph replays), ``loop`` ("eager", "chunks" or
+    ``replays`` (CUDA graph replays of the loop), ``units`` (units the
+    device loop ran; 0 on the eager loop), ``loop`` ("eager", "chunks" or
     "graph": which loop ran) and ``cache_hit`` (the loop's CUDA graphs were
     kept from an earlier call).
 
@@ -1028,10 +1046,10 @@ def ipm_solve(
     ``device_loop(prologue, inputs)`` calls ``prologue(*inputs)``
     (:func:`device_prologue`; ``inputs`` are the operands and ``warm``),
     which gives the loop's functions and the first carry, and applies
-    ``unit`` until ``active(carry)``, a device bool, is false; it returns
-    the final carry and a dict of ``polls``, ``replays`` and ``loop``
-    (:func:`run_chunks`), and of the loop's counts when it read them
-    (:func:`loop_counts`). It takes every configuration; with verbose
+    ``unit`` while ``more(carry, units)``, a device bool, holds; it returns
+    the final carry and a dict of ``polls``, ``replays``, ``units`` and
+    ``loop`` (:func:`run_chunks`), and of the loop's counts when it read
+    them (:func:`loop_counts`). It takes every configuration; with verbose
     output the host prints each evaluated iterate's row from its polls,
     the eager loop's text. Nothing in the prologue or the loop reads the
     device. A caller's kktsolver found to read the device by
@@ -1076,7 +1094,7 @@ def ipm_solve(
     lm_on = torch.zeros(bs, dtype=torch.bool, device=dev) if batched else False
     modes = (False,)
     P, drift = cy.P, cy.drift  # the carried products (mixed mode)
-    counts.update(polls=0, replays=0, loop="eager")
+    counts.update(polls=0, replays=0, units=0, loop="eager")
 
     def per_variant(which, flags, fn):
         """``fn(slow)`` on the variant(s) in ``which``; when a stack is on
@@ -1274,21 +1292,24 @@ def _finish(sol: SolState) -> SolState:
 
 def run_chunks(prologue, inputs):
     """The device loop run eagerly (the CPU's counterpart of
-    solver/graph.py): the prologue, then chunks of :data:`POLL` units, the
-    host reading whether any instance is still active once after the
-    prologue and once after each chunk; each unit's bodies run masked.
-    Returns the final carry and what the loop did (``polls`` reads, no
-    ``replays``, ``loop`` "chunks"). With verbose output each read prints
-    the rows of the units since the last (:func:`poll`)."""
+    solver/graph.py's WHILE node): the prologue, then chunks of
+    :data:`POLL` units while the loop's predicate holds (``more``: some
+    instance active, the units under the cap), the host reading it once
+    after the prologue and once after each chunk; each unit's bodies run
+    masked. Returns the final carry and what the loop did (``polls``
+    reads, ``units`` run, ``POLL`` per chunk, no ``replays``, ``loop``
+    "chunks"). With verbose output each read prints the rows of the
+    units since the last (:func:`poll`)."""
     body, cy = prologue(*inputs)
-    polls, rows = 1, [cy.row]
-    while poll(body.active(cy), rows):
+    polls, units, rows = 1, 0, [cy.row]
+    while poll(body.more(cy, units), rows):
         rows = []
         for _ in range(POLL):
             cy = body.unit(cy)
             rows.append(cy.row)
+        units += POLL
         polls += 1
-    return cy, dict(polls=polls, replays=0, loop="chunks")
+    return cy, dict(polls=polls, replays=0, units=units, loop="chunks")
 
 
 def _row(run, k, R: _Resid, rstep, rnorm) -> torch.Tensor:

@@ -20,7 +20,9 @@ launches of the Cholesky kernel's f64 and f32 entries and of the Jacobi
 kernels by kind, and the count of cuSOLVER eigen- or singular-value kernels,
 which an S-cone solve no longer runs; and the interior-point loop: whether
 it ran as a CUDA graph (``graph=1``), its host reads of the status
-(``polls``), the graph's ``replays``, the device-to-host copies inside the
+(``polls``: 1 on a hit, the final copy, where the loop is one WHILE node
+on the card), the graph's ``replays``, the units the loop ran
+(``units``), the device-to-host copies inside the
 loop and outside it, and the kernels the host launched during the replays,
 which must be none), the Cholesky kernel split into its
 diagonal-block, panel and trailing kernels, the Jacobi kernels' device time,
@@ -53,7 +55,29 @@ also says whether the profiled solve hit the device loop's cache
 it does), the refinement trips it ran, its steps on the generator's fast
 and last-mile variants and its full-precision recomputes of the mixed
 residuals.
-``--chain K`` adds a [chain] line: K instances of the family (seeds
+Where the solve ran the loop's WHILE node (csrc/graph_cond.cu) the
+profiler records only part of the node's body (about one unit's kernels
+a graph launch) where the graph was instantiated before the profiler
+started, as the cache's entries are; all of it for a graph instantiated
+while the profiler runs, which then runs slower ever after (PERF.md §6).
+So there the line takes
+``device_busy_ms`` from CUDA events around each graph replay of an
+unprofiled solve (``busy_from=graph_events``: the graphs' device spans,
+the copies in and out left out) and ``device_idle_share`` against the
+unprofiled wall time, prints ``not_measured`` for the profiler's kernel
+counts per iteration and for the [cholesky], [jacobi], [rcone] and [op]
+lines (``--verbose`` keeps the host-polled chunk, whose kernels the
+profiler records), and adds a [while_profile] line: the graphs' device ms
+before the profiled solve, after it, and for an entry captured inside a
+profiler session, the R-cone and Jacobi kernels that the profiler
+recorded of the wrappers' count, for a hit of an entry captured before
+the session and inside it, and the kernels and elementwise kernels per
+iteration of the latter hit, which the profiler records whole. Every line gives the wrappers' launches
+(``hand_launches``, Cholesky factors, Jacobi and R-cone kernels) and the
+units the loop ran.
+``--chain K`` adds a [chain] line, timed after the warm-up solve and
+before anything is profiled:
+K instances of the family (seeds
 ``seed`` ... ``seed + K - 1``, inputs already on the card; with
 ``--batch B`` K stacks of B) solved back to back, the cache emptied first,
 for one round and then :data:`ROUNDS` more; ms per solve (per stack) of
@@ -61,9 +85,11 @@ each later round (median, least and most), of the first round (one miss
 per configuration), the hits and captures (misses) of all rounds, and the
 device loop's entries after the first round with the memory the card
 reserved for them (``torch.cuda.memory_reserved()`` across the first
-round, the allocator's free blocks released on both sides), and the last
-round's runs by loop with their polls, steps per variant, recomputes and
-trips summed. The [solve]
+round, the allocator's free blocks released on both sides), the device
+ms per solve (per stack) of the graphs the hits replay
+(:func:`graph_device_ms` over :data:`REPEATS` more rounds: no host gap
+between graphs counted), and the last round's runs by loop with their
+polls, units, steps per variant, recomputes and trips summed. The [solve]
 line names the loop each run took (``loop``, "graph" or "eager", one per
 run) and counts the KKT builds the card ran (:func:`kkt_builds`). It
 needs a CUDA device and fails without one.
@@ -88,7 +114,7 @@ import torch
 from . import conic_ip, solve_batch, solver
 from . import models
 from .cones.spec import ConeSpec
-from .ops import cholesky_kernel, control, jacobi_kernel
+from .ops import cholesky_kernel, control, jacobi_kernel, rcone_kernel
 from .parallel import batch as parallel_batch
 from .solver import graph, ipm
 
@@ -309,7 +335,8 @@ REPEATS = 5
 ROUNDS = 5
 
 # per-run counts the [chain] line sums over its last round
-CHAIN_COUNTS = ("polls", "fast_steps", "slow_steps", "recertified", "trips")
+CHAIN_COUNTS = ("polls", "units", "fast_steps", "slow_steps", "recertified",
+                "trips")
 
 # --factor-dtype: the keyword conic_ip gets ("auto" is full precision)
 FACTOR_DTYPES = {"float64": "auto", "float32": torch.float32}
@@ -362,8 +389,9 @@ def parse_args(argv=None):
 def kkt_builds(r) -> int:
     """KKT builds the card ran in one interior-point run (a ``Run`` or a
     ``BatchRun``): the cold start's and one per step. On the device loop
-    one per unit, :data:`~conicip_tpu_torch.solver.ipm.POLL` per chunk,
-    each followed by a poll as the prologue is; a miss runs its prologue
+    one per unit (``r.units``: :data:`~conicip_tpu_torch.solver.ipm.POLL`
+    per chunk, a miss's eager first unit among them, also where the
+    prologue ended the solve); a miss runs its prologue
     twice (eagerly, then from its graph), and with a caller's own
     kktsolver a third time and one unit more, eagerly under the guard,
     every body masked (solver/graph.py; counted for a one-variant
@@ -379,8 +407,103 @@ def kkt_builds(r) -> int:
     miss = r.loop == "graph" and not r.cache_hit
     probe = (miss and r.kktsolver is not None
              and control.callers_own(r.kktsolver))
-    return (r.cold_start * (1 + miss + probe) + probe
-            + ipm.POLL * (r.polls - 1))
+    return r.cold_start * (1 + miss + probe) + probe + r.units
+
+
+def _hand_launches():
+    """The kernels' wrappers' launches so far, summed: the Cholesky
+    factors, and the Jacobi and R-cone kernels apart."""
+    return (sum(cholesky_kernel.cholesky_launches.values()),
+            sum(jacobi_kernel.jacobi_launches.values())
+            + sum(rcone_kernel.rcone_launches.values()))
+
+
+def graph_device_ms(solve, reps=REPEATS):
+    """Device ms of the CUDA graphs one ``solve()`` replays, from CUDA
+    events around each replay (the median of ``reps`` solves), and the
+    WHILE node launches of the last; no profiler runs."""
+    spans, real = [], graph._play
+
+    def timed(g, deltas):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        real(g, deltas)
+        t1.record()
+        spans.append((t0, t1))
+
+    per_solve = []
+    graph._play = timed
+    try:
+        for _ in range(reps):
+            spans.clear()
+            before = sum(graph.while_launches.values())
+            solve()
+            torch.cuda.synchronize()
+            per_solve.append(sum(a.elapsed_time(b) for a, b in spans))
+    finally:
+        graph._play = real
+    return (sorted(per_solve)[reps // 2],
+            sum(graph.while_launches.values()) - before)
+
+
+def _profiled(solve):
+    """One ``solve()`` under the profiler: its result, wall ms and
+    chrome-trace events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = solve()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return out, wall_ms, json.load(f)["traceEvents"]
+
+
+def _recorded(events):
+    """R-cone and Jacobi kernels among a trace's device events."""
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and any(f"{p}<" in e["name"]
+                       for p in JACOBI_PARTS + RCONE_PARTS))
+
+
+def while_profile(solve, before_ms, events, counted, iters):
+    """The [while_profile] line (module docstring): ``before_ms`` the
+    graphs' device ms before any profiled solve, ``events`` and
+    ``counted`` (the wrappers' R-cone and Jacobi launches) of the profiled
+    hit of that entry, ``iters`` its iterations. Empties the cache and
+    leaves an entry captured inside a profiler session, which runs
+    slower."""
+    from torch.profiler import ProfilerActivity, profile
+
+    after_ms, _ = graph_device_ms(solve)
+    graph.clear()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        solve()  # the miss: captured inside the session
+        torch.cuda.synchronize()
+    base = _hand_launches()[1]
+    _, _, inside = _profiled(solve)
+    counted_inside = _hand_launches()[1] - base
+    inside_ms, _ = graph_device_ms(solve)
+    kernels = [e for e in inside if e.get("cat") == "kernel"]
+    elementwise = sum(1 for e in kernels if "elementwise" in e["name"])
+    print(f"[while_profile] graphs_ms_before_profile={before_ms:.3f} "
+          f"graphs_ms_after_profile={after_ms:.3f} "
+          f"graphs_ms_captured_in_profile={inside_ms:.3f} "
+          f"rcone_jacobi_counted={counted} "
+          f"rcone_jacobi_recorded={_recorded(events)} "
+          f"rcone_jacobi_counted_captured_in_profile={counted_inside} "
+          f"rcone_jacobi_recorded_captured_in_profile={_recorded(inside)} "
+          f"kernels_per_iter_captured_in_profile="
+          f"{len(kernels) / iters:.1f} "
+          f"elementwise_per_iter_captured_in_profile="
+          f"{elementwise / iters:.1f} "
+          f"device={torch.cuda.get_device_name(0)!r}")
 
 
 def main(argv=None):
@@ -406,8 +529,6 @@ def _family(args, seed):
 
 
 def _profile(args):
-    from torch.profiler import ProfilerActivity, profile
-
     dev = torch.device("cuda")
     kw = dict(device=dev, factor_dtype=FACTOR_DTYPES[args.factor_dtype])
     if args.verbose:
@@ -439,25 +560,23 @@ def _profile(args):
 
     solve()  # warm-up, builds
     torch.cuda.synchronize()
+    if args.chain:
+        # before the profiler, after which a WHILE body runs slower for a
+        # while (PERF.md §6)
+        _chain(args, kw, on_card)
     unprofiled = []
     for _ in range(REPEATS):
         t = time.perf_counter()
         solve()
         torch.cuda.synchronize()
         unprofiled.append((time.perf_counter() - t) * 1e3)
+    wall_unprofiled = sorted(unprofiled)[REPEATS // 2]
+    graphs_ms, whiles = graph_device_ms(solve)
     cholesky_kernel.reset_launch_count()
     jacobi_kernel.reset_launch_count()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        sol = solve()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+    rcone_kernel.reset_launch_count()
+    sol, wall_ms, events = _profiled(solve)
+    chol_launches, counted = _hand_launches()
     device = [e for e in events
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     by_name = defaultdict(lambda: [0.0, 0])
@@ -481,21 +600,38 @@ def _profile(args):
         runs = solver.runs
     loop = loop_counts(events)
     it = max(iters, 1)
-    busy_ms = _busy_us(device) / 1e3
+    units = sum(r.units for r in runs)
+    # the profiler sees part of a WHILE node's body (module docstring)
+    partial = whiles > 0
+    if partial:
+        busy_ms, idle = graphs_ms, 1 - graphs_ms / wall_unprofiled
+        per_iter = dict(kernels_per_iter="not_measured",
+                        elementwise_per_iter="not_measured")
+    else:
+        busy_ms = _busy_us(device) / 1e3
+        idle = 1 - busy_ms / wall_ms
+        per_iter = dict(kernels_per_iter=f"{len(kernels) / it:.1f}",
+                        elementwise_per_iter=f"{elementwise / it:.1f}")
+    hand = chol_launches + counted
     print(f"[solve] family={name} factor_dtype={args.factor_dtype} "
           f"kkt={args.kkt} "
           f"status={status} Iter={iters} "
           f"wall_ms={wall_ms:.2f} "
-          f"wall_ms_unprofiled={sorted(unprofiled)[REPEATS // 2]:.2f} "
+          f"wall_ms_unprofiled={wall_unprofiled:.2f} "
           f"device_busy_ms={busy_ms:.2f} "
-          f"device_idle_share={1 - busy_ms / wall_ms:.3f} "
-          f"kernels_per_iter={len(kernels) / it:.1f} "
-          f"elementwise_per_iter={elementwise / it:.1f} "
+          f"busy_from={'graph_events' if partial else 'profiler'} "
+          f"device_idle_share={idle:.3f} "
+          + "".join(f"{k}={v} " for k, v in per_iter.items())
+          + f"hand_launches={hand} "
+          f"hand_launches_per_unit="
+          f"{f'{hand / units:.1f}' if units else '-'} "
           f"dtoh_per_iter={dtoh / it:.2f} "
           f"loop={'+'.join(r.loop for r in runs)} "
+          f"while_launches={whiles} "
           f"kkt_builds={sum(kkt_builds(r) for r in runs)} "
           f"poll={ipm.POLL} polls={sum(r.polls for r in runs)} "
           f"replays={sum(r.replays for r in runs)} "
+          f"units={units} "
           f"cache_hit={int(all(getattr(r, 'cache_hit', 0) for r in runs))} "
           f"trips={sum(getattr(r, 'trips', -1) for r in runs)} "
           f"fast_steps={sum(r.fast_steps for r in runs)} "
@@ -510,8 +646,15 @@ def _profile(args):
           f"{cholesky_kernel.launch_count(predicated=True)} "
           + "".join(f"jacobi_{k}={jacobi_kernel.launch_count(k)} "
                     for k in jacobi_kernel.KINDS)
+          + "".join(f"rcone_{e}={rcone_kernel.launch_count(e)} "
+                    for e in rcone_kernel.ENTRIES)
           + f"cusolver_eig_svd_kernels={cusolver} "
           f"device={torch.cuda.get_device_name(0)!r}")
+    if partial:
+        for tag in ("cholesky", "jacobi", "rcone", "op"):
+            print(f"[{tag}] not_measured=while_body_recorded_in_part")
+        while_profile(solve, graphs_ms, events, counted, it)
+        return 0
     chol = [e for e in device if _kernel_name(e["name"]) in CHOLESKY_PARTS]
     print(f"[cholesky] busy_ms={_busy_us(chol) / 1e3:.2f} " + " ".join(
         f"{p}_ms={by_name[p][0] / 1e3:.2f}/{by_name[p][1]}"
@@ -528,8 +671,6 @@ def _profile(args):
                      if k not in CHOLESKY_PARTS + JACOBI_PARTS), reverse=True)
     for us, name, count in others[:10]:
         print(f"[op] ms={us / 1e3:.2f} calls={count} name={name!r}")
-    if args.chain:
-        _chain(args, kw, on_card)
     return 0
 
 
@@ -581,6 +722,13 @@ def _chain(args, kw, on_card):
             reserved = torch.cuda.memory_reserved() - reserved
             entries = len(graph.cache_info())
     later = sorted(per_solve[1:])
+
+    def round_():
+        for tensors, cones in problems:
+            with _quiet(args.verbose):
+                solve(*tensors[:4], cones, *tensors[4:], **kw)
+
+    graphs_ms, _ = graph_device_ms(round_)
     unit = "stack" if args.batch else "solve"
     batch = f" B={args.batch}" if args.batch else ""
     print(f"[chain] family={args.family}{batch} kkt={args.kkt} "
@@ -590,6 +738,7 @@ def _chain(args, kw, on_card):
           f"ms_per_{unit}_min={later[0]:.2f} "
           f"ms_per_{unit}_max={later[-1]:.2f} "
           f"first_round_ms_per_{unit}={per_solve[0]:.2f} "
+          f"graphs_ms_per_{unit}={graphs_ms / len(problems):.3f} "
           f"hits={hits} captures={misses} entries={entries} "
           f"reserved_mb_entries={reserved / 2**20:.1f} "
           + "".join(f"{k}={v} " for k, v in sorted(last.items()))

@@ -331,7 +331,8 @@ def as_a_capture(prologue, inputs):
         for _ in range(ipm.POLL):
             cy = body.unit(cy)
         polls += 1
-    return cy, dict(polls=polls, replays=0, loop="chunks")
+    return cy, dict(polls=polls, replays=0, units=ipm.POLL * (polls - 1),
+                    loop="chunks")
 
 
 def lowrank_finisher():

@@ -7,6 +7,8 @@ machine with a card and without JAX it runs on its own:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -1074,4 +1076,191 @@ def test_a_reading_bound_method_is_decided_before_its_second_call(cuda):
     assert run.loop == "eager" and "torch.linalg.cholesky" in run.reason
     assert probes == [] and captures == []
     assert (again.status, again.Iter) == (first.status, first.Iter)
+    graph.clear()
+
+
+def while_graph(limit, counter, flag, stream, child):
+    """A captured graph of one conditional WHILE node (csrc/graph_cond.cu)
+    whose body adds 1 to the device counter and sets the flag to counter
+    < limit, the flag set the same way before the node."""
+    import ctypes
+
+    from conicip_tpu_torch.solver import graph as device_loop
+
+    lib = device_loop._cond_library()
+    g = torch.cuda.CUDAGraph()
+    handle = ctypes.c_ulonglong(0)
+    with torch.cuda.stream(stream):
+        g.capture_begin(capture_error_mode=device_loop.CAPTURE_MODE)
+        torch.lt(counter, limit, out=flag)
+        errs = [lib.conicip_while_begin(
+            stream.cuda_stream, child.cuda_stream, flag.data_ptr(),
+            device_loop._CAPTURE_MODE_ENUM, ctypes.byref(handle))]
+        with torch.cuda.stream(child):
+            counter.add_(1)
+            torch.lt(counter, limit, out=flag)
+        errs.append(lib.conicip_while_end(child.cuda_stream, handle,
+                                          flag.data_ptr()))
+        g.capture_end()
+    assert errs == [0, 0]
+    return g
+
+
+@pytest.mark.parametrize("limit", [0, 1, 7])
+def test_the_while_node_runs_its_body_while_the_flag_holds(cuda, limit):
+    # the node against a host loop of the same body: the counter ends at
+    # the limit, run after run of the graph (the handle set anew before
+    # the node on each), with no host read
+    counter = torch.zeros((), dtype=torch.int64, device=cuda)
+    flag = torch.zeros((), dtype=torch.bool, device=cuda)
+    stream, child = torch.cuda.Stream(), torch.cuda.Stream()
+    g = while_graph(limit, counter, flag, stream, child)
+    for start in (0, 0, limit // 2):
+        counter.fill_(start)
+        torch.cuda.synchronize()
+        g.replay()
+        torch.cuda.synchronize()
+        assert int(counter) == limit and not bool(flag)
+    host = torch.zeros((), dtype=torch.int64, device=cuda)
+    reads = 0
+    while int(host) < limit:
+        reads += 1
+        host.add_(1)
+    assert int(host) == int(counter) and reads == limit
+    g.reset()
+
+
+def launch_counters():
+    """The kernels' launch counters, copied."""
+    from conicip_tpu_torch.ops import rcone_kernel
+
+    return [Counter(c) for c in (cholesky_kernel.cholesky_launches,
+                                 cholesky_kernel.predicated_launches,
+                                 jacobi_kernel.jacobi_launches,
+                                 rcone_kernel.rcone_launches)]
+
+
+def launched(fn):
+    """``fn()`` and the launches it made, by counter and key."""
+    before = launch_counters()
+    out = fn()
+    return out, [a - b for a, b in zip(launch_counters(), before)]
+
+
+@pytest.mark.parametrize("stack", [None, 4])
+def test_a_hit_reads_once_and_is_the_eager_loop(cuda, stack):
+    # box_qp_dense(100) and a stack of 4 box QPs through graph.solve: a
+    # miss and a hit on the WHILE node, each one host read (the final
+    # copy), units equal to the eager loop's steps, the eager loop's
+    # iterates bit for bit and its kernel launches by entry
+    from conicip_tpu_torch.cones.spec import ConeSpec
+    from conicip_tpu_torch.kkt import kktsolver_schur
+    from conicip_tpu_torch.models import batched_box_qp
+    from conicip_tpu_torch.solver import graph, ipm
+
+    n = 100
+    data = (box_qp_dense(n=n, seed=5).args()[:5] if stack is None
+            else batched_box_qp(stack, n=n, seed=5))
+    Q, c, A, b = (torch.as_tensor(np.asarray(x), device=cuda)
+                  for x in data[:4])
+    lead = () if stack is None else (stack,)
+    G = torch.zeros(*lead, 0, n, dtype=torch.float64, device=cuda)
+    d = torch.zeros(*lead, 0, dtype=torch.float64, device=cuda)
+    args = (Q, c, A, b, G, d, ConeSpec(data[4]), kktsolver_schur,
+            ipm.IPMOptions())
+    graph.clear()
+    est = {}
+    ref, eager_launches = launched(lambda: ipm.ipm_solve(*args, stats=est))
+    steps = est["fast_steps"] + est["slow_steps"]
+    for hit in (False, True):
+        stats = {}
+        st, hit_launches = launched(lambda: graph.solve(*args, stats=stats))
+        assert stats["loop"] == "graph" and stats["cache_hit"] == hit
+        assert stats["polls"] == 1 and stats["replays"] == 1
+        assert stats["units"] == ipm.POLL * -(-steps // ipm.POLL)
+        assert stats["trips"] == est["trips"]
+        for f in ("y", "w", "v", "Iter", "status"):
+            assert torch.equal(getattr(st, f), getattr(ref, f)), f
+        if hit:
+            assert hit_launches == eager_launches
+    graph.clear()
+
+
+def test_a_miss_that_ends_at_its_first_iterate_keeps_its_loop(cuda):
+    # box_qp_dense(100) warm-started at its own solution ends at the
+    # prologue's iterate: the miss still captures the WHILE node (its
+    # eager first unit, a warm-up that changes nothing, counted in units
+    # and KKT builds); the hit runs no unit; both read once and are the
+    # eager loop bit for bit, the hit with its launches
+    from conicip_tpu_torch import solver
+    from conicip_tpu_torch.cones.spec import ConeSpec
+    from conicip_tpu_torch.kkt import kktsolver_schur
+    from conicip_tpu_torch.solver import graph, ipm
+    from conicip_tpu_torch.trace import kkt_builds
+
+    n = 100
+    data = box_qp_dense(n=n, seed=5).args()[:5]
+    Q, c, A, b = (torch.as_tensor(np.asarray(x), device=cuda)
+                  for x in data[:4])
+    G = torch.zeros(0, n, dtype=torch.float64, device=cuda)
+    d = torch.zeros(0, dtype=torch.float64, device=cuda)
+    args = (Q, c, A, b, G, d, ConeSpec(data[4]), kktsolver_schur,
+            ipm.IPMOptions())
+    cold = ipm.ipm_solve(*args)
+    warm = solver._user_warm_vec(cold, A, b, 0)
+    graph.clear()
+    est = {}
+    ref, eager_launches = launched(
+        lambda: ipm.ipm_solve(*args, warm=warm, stats=est))
+    erun = solver.Run(None, "", 0, **est)
+    assert est["fast_steps"] + est["slow_steps"] == 0
+    for hit in (False, True):
+        stats = {}
+        st, hit_launches = launched(
+            lambda: graph.solve(*args, warm=warm, stats=stats))
+        run = solver.Run(None, "", 0, **stats)
+        assert run.loop == "graph" and run.cache_hit == hit
+        assert len(graph.cache_info()) == 1
+        assert run.polls == 1 and run.replays == 1
+        assert run.units == (0 if hit else ipm.POLL)
+        assert kkt_builds(run) == kkt_builds(erun) + (
+            0 if hit else run.cold_start + ipm.POLL)
+        for f in ("y", "w", "v", "Iter", "status"):
+            assert torch.equal(getattr(st, f), getattr(ref, f)), f
+        if hit:
+            assert hit_launches == eager_launches
+    graph.clear()
+
+
+def test_a_verbose_hit_prints_the_eager_loops_text(cuda):
+    # verbose output keeps the host-polled chunk: a miss and a hit print
+    # the eager loop's text row for row, reading after each chunk
+    import contextlib
+    import io
+
+    from conicip_tpu_torch import solver
+    from conicip_tpu_torch.solver import graph
+
+    args = box_qp_dense(n=64, seed=2).args()
+
+    def printed(eager=False):
+        rule = solver._eager_reason
+        if eager:
+            solver._eager_reason = lambda *a: "the eager loop, for comparison"
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                conic_ip(*args, device=cuda, verbose=True)
+        finally:
+            solver._eager_reason = rule
+        return buf.getvalue(), solver.runs[-1]
+
+    graph.clear()
+    out_miss, miss = printed()
+    out_hit, hit = printed()
+    out_eager, erun = printed(eager=True)
+    assert erun.loop == "eager" and miss.loop == hit.loop == "graph"
+    assert not miss.cache_hit and hit.cache_hit
+    assert out_miss == out_hit == out_eager and "│" in out_eager
+    assert hit.polls == 1 + hit.replays and hit.replays == hit.fast_steps
     graph.clear()

@@ -149,7 +149,8 @@ def attributed_chunks(calls):
         for pred, made in held:
             if bool(pred):
                 calls.extend(made)
-        return cy, dict(polls=polls, replays=0, loop="chunks")
+        return cy, dict(polls=polls, replays=0,
+                        units=ipm.POLL * (polls - 1), loop="chunks")
 
     return loop
 

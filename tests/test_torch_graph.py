@@ -117,7 +117,8 @@ def guarded_first_chunk(prologue, inputs):
         for _ in range(ipm.POLL):
             cy = body.unit(cy)
         polls += 1
-    return cy, dict(polls=polls, replays=0, loop="chunks")
+    return cy, dict(polls=polls, replays=0, units=ipm.POLL * (polls - 1),
+                    loop="chunks")
 
 
 def sdp_with_equalities():

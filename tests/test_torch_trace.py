@@ -246,7 +246,9 @@ def test_kkt_builds_count_each_loops_work():
     from conicip_tpu_torch.solver import Run, ipm
 
     def run(loop, polls=0, hit=False, cold=1):
-        return Run(None, "Optimal", 7, 7, 2, cold, 0, polls, 0, loop, 0, hit)
+        units = 0 if loop == "eager" else ipm.POLL * (polls - 1)
+        return Run(None, "Optimal", 7, 7, 2, cold, 0, polls, 0, units, loop,
+                   0, hit)
 
     assert trace.kkt_builds(run("eager")) == 1 + 7 + 2
     assert trace.kkt_builds(run("eager", cold=0)) == 9
