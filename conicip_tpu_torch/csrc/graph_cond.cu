@@ -38,6 +38,20 @@
 // This is graph plumbing, not a port of a TPU kernel: set_condition
 // computes nothing, and its CPU counterpart is the host loop's read of the
 // same bool (ipm.run_chunks, the eager loop's early exits).
+//
+// Phase clocks (telemetry.DeviceClock), captured into the loop's graphs
+// while telemetry is on:
+//
+//   conicip_stamp(stream, buf, slot, phases)
+//     - launches phase_stamp (one thread) on `stream`: it reads the card's
+//       %globaltimer (ns), adds the time since the previous stamp,
+//       buf[phases], to buf[slot] (slot >= 0, a phase), or zeroes
+//       buf[0..phases) (slot -1, a reset), or counts nothing (slot -2, a
+//       mark), and keeps the time in buf[phases].
+//
+// Like set_condition, it computes nothing of the solve and replaces no
+// TPU kernel; the CPU's phases are read on the host's clock
+// (ipm.run_chunks).
 
 #include <cuda_runtime.h>
 
@@ -123,4 +137,31 @@ extern "C" int conicip_while_end(void* child_ptr, unsigned long long handle,
   cudaGraph_t body = nullptr;
   cudaError_t ended = cudaStreamEndCapture(child, &body);
   return launched != cudaSuccess ? launched : ended;
+}
+
+namespace {
+
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
+
+__global__ void phase_stamp(long long* buf, int slot, int phases) {
+  const long long now = global_ns();
+  if (slot >= 0) {
+    buf[slot] += now - buf[phases];
+  } else if (slot == -1) {
+    for (int i = 0; i < phases; ++i) buf[i] = 0;
+  }
+  buf[phases] = now;
+}
+
+}  // namespace
+
+extern "C" int conicip_stamp(void* stream_ptr, void* buf, int slot,
+                             int phases) {
+  phase_stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<long long*>(buf), slot, phases);
+  return cudaGetLastError();
 }

@@ -43,6 +43,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..cones.spec import ConeSpec
 from ..ops.batched import mv
 from ..solver import _densify, _eager_reason, graph
@@ -105,6 +106,8 @@ class BatchRun(NamedTuple):
     trips: int  # refinement trips run (some instance went on)
     cache_hit: bool  # the device loop's entry was kept from an earlier call
     reason: Optional[str] = None  # why the run kept the eager loop
+    phases: Optional[dict] = None  # device ns per phase (solver.Run)
+    spans: Optional[telemetry.Record] = None  # the call's (solver.Run)
 
     @property
     def batch(self) -> int:
@@ -151,8 +154,10 @@ def _run(spec, kktsolver, opts, tier, Q, c, A, b, G, d, warm=None, *,
     else:
         st = ipm_solve(*args, warm=warm, stats=stats)
         stats["reason"] = reason
-    runs.append(BatchRun(kktsolver, tier, tuple(st.status.tolist()),
-                         tuple(st.Iter.tolist()), **stats))
+    with telemetry.span(telemetry.FINISH):
+        runs.append(BatchRun(kktsolver, tier, tuple(st.status.tolist()),
+                             tuple(st.Iter.tolist()), **stats,
+                             spans=telemetry.current()))
     return st
 
 
@@ -238,6 +243,7 @@ def _warm_fields(ws):
     return ws[0], ws[1], ws[2]
 
 
+@telemetry.entry
 def solve_batch(
     Q,
     c,

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..cones.spec import ConeSpec
 from ..kkt.diag import equality_mode, kktsolver_diag, separable
 from ..kkt.schur import kktsolver_schur
@@ -64,6 +65,12 @@ class Run(NamedTuple):
     trips: int  # refinement trips run (on a stack: some instance went on)
     cache_hit: bool  # the device loop's entry was kept from an earlier call
     reason: Optional[str] = None  # why the run kept the eager loop
+    # device ns of each phase of the device loop (telemetry.PHASES),
+    # prologue and units: on the card from an entry captured with
+    # telemetry on, on the CPU's chunks from the host's clock; else None
+    phases: Optional[dict] = None
+    # the call's spans (telemetry.Record), shared by its runs
+    spans: Optional[telemetry.Record] = None
 
 
 # Every interior-point run of the latest conic_ip call, in order: the first
@@ -169,6 +176,7 @@ def _auto_kktsolver(Q, A, G, spec, factor_dtype):
         factor_dtype, lastmile=factor_dtype == torch.float32)
 
 
+@telemetry.entry
 def conic_ip(
     Q,
     c,
@@ -311,8 +319,10 @@ def _solve_direct(tensors, structure, cone_dims, warm_start, options
         else:
             st = ipm_solve(*args, warm=warm, stats=stats)
             stats["reason"] = reason
-        sol = Solution.from_state(st)
-        runs.append(Run(kkt, sol.status, sol.Iter, **stats))
+        with telemetry.span(telemetry.FINISH):
+            sol = Solution.from_state(st)
+            runs.append(Run(kkt, sol.status, sol.Iter, **stats,
+                            spans=telemetry.current()))
         return sol
 
     sol = run(kktsolver, mixedResiduals, lastmileProactive,

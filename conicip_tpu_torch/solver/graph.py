@@ -10,8 +10,10 @@ first out. Its key is what the captured work reads besides the data: the
 device, the dtype, every operand's shape and strides, the ``ConeSpec``,
 the KKT generator (one object per configuration: a ``kktsolver_schur_tp``
 made once and reused hits, one made per call misses, as a new closure
-recompiles ``jit`` in the reference), the ``IPMOptions``, a cold or a
-warm start, and ``ipm.POLL``. An entry owns
+recompiles ``jit`` in the reference), the ``IPMOptions``, whether
+telemetry is on (``telemetry.on()``; under a profiler alone a call takes
+the entry captured with telemetry off where there is one, :func:`_lookup`),
+a cold or a warm start, and ``ipm.POLL``. An entry owns
 
 - input buffers for Q, c, A, b, G, d and the warm start, into which each
   call copies its data: each operand in the caller's layout, which the
@@ -28,7 +30,10 @@ warm start, and ``ipm.POLL``. An entry owns
   decides on the device whether the body runs again, as the reference's
   ``lax.while_loop`` decides its own; both write one buffer per carried
   tensor, and the units run, a device counter; and the launch counts of
-  each capture.
+  each capture; with telemetry on, the phase clock
+  (``telemetry.DeviceClock``): its buffer, and a stamp at each phase
+  boundary of the prologue and of each unit in both graphs. An entry
+  captured with telemetry off is the same graph without them.
 
 A call that misses builds its entry on the solve's stream: the prologue
 runs eagerly (it builds the kernels and warms cuBLAS) and is captured, its
@@ -117,8 +122,8 @@ from collections import Counter, OrderedDict
 from dataclasses import fields, is_dataclass
 
 import torch
-from torch.profiler import record_function
 
+from .. import telemetry
 from ..ops import cholesky_kernel, control, jacobi_kernel, rcone_kernel
 from ..ops.build import load_library
 from . import ipm
@@ -127,9 +132,10 @@ from .state import SolState
 __all__ = ["solve", "clear", "cache_info", "CACHE_SIZE", "LOOP", "REPLAY",
            "while_launches"]
 
-# profiler ranges (python -m conicip_tpu_torch.trace reads them): the whole
-# loop, and its replays, in which the host issues no kernel
-LOOP, REPLAY = "conicip::loop", "conicip::replay"
+# spans (telemetry; python -m conicip_tpu_torch.trace reads their profiler
+# ranges): the whole loop, and its replays, in which the host issues no
+# kernel
+LOOP, REPLAY = telemetry.LOOP, telemetry.REPLAY
 
 # Levels of conditional nodes: the loop's WHILE node, a variant's step
 # inside its body, and the refinement trips inside the step.
@@ -227,7 +233,26 @@ def _key(args, spec, kktsolver, opts, warm) -> tuple:
     c = args[1]
     return (c.device.type, c.device.index, c.dtype,
             tuple((tuple(x.shape), x.stride()) for x in args), spec,
-            kktsolver, opts, warm is None, ipm.POLL)
+            kktsolver, opts, telemetry.on(), warm is None, ipm.POLL)
+
+
+def _telemetry(key) -> bool:
+    """Whether telemetry was on for the key's entry: its graphs then carry
+    the phase clock's stamps."""
+    return key[-3]
+
+
+def _lookup(key):
+    """The key a call uses and its entry, None on a miss. Under a profiler
+    alone (telemetry on, not :func:`telemetry.enable`), an entry captured
+    with telemetry off serves where there is one: a profile of a program
+    then replays the graphs the program runs unprofiled, and captures
+    nothing anew."""
+    if _telemetry(key) and not telemetry.enabled():
+        off = key[:-3] + (False,) + key[-2:]
+        if off in _cache:
+            return off, _cache[off]
+    return key, _cache.get(key)
 
 
 def cache_info() -> list:
@@ -266,6 +291,9 @@ class _Entry:
         self.runs = None
         # the units the loop ran, a device int64 the captured loop adds to
         self.units = None
+        # with telemetry on at the capture, the phase clock its stamps
+        # write (telemetry.DeviceClock)
+        self.clock = None
         self.static = self.flag = self.body = None
         # the graphs' memory pools: the captures', and that of the
         # conditional nodes' bodies, which a capture's pool cannot take
@@ -286,7 +314,7 @@ class _Entry:
         self.graphs = self.deltas = ()
         self.bodies = []
         self.static = self.flag = self.body = self.inputs = self.runs = None
-        self.units = None
+        self.units = self.clock = None
         if self.pool is not None:
             # the pools' segments are freed with them
             self.pool = self.body_pool = None
@@ -300,14 +328,19 @@ def _make_room() -> None:
 
 
 def _counts(entry, cy) -> dict:
-    """The loop's counts, the units it ran (on CUDA) and the runs of the
-    entry's counted bodies, in one copy: the bodies' launches are added to
-    the counters once per run since the last read."""
+    """The loop's counts, the units it ran (on CUDA), the device ns of each
+    phase (with a phase clock: ``phases``) and the runs of the entry's
+    counted bodies, in one copy: the bodies' launches are added to the
+    counters once per run since the last read."""
     units = [] if entry.units is None else [entry.units]
-    counts, runs = ipm.loop_counts(cy, *units,
+    phases = [] if entry.clock is None else entry.clock.slots()
+    counts, runs = ipm.loop_counts(cy, *units, *phases,
                                    *(b[0] for b in entry.bodies))
     if units:
         counts["units"] = runs.pop(0)
+    if phases:
+        counts["phases"] = dict(zip(telemetry.PHASES, runs[:len(phases)]))
+        del runs[:len(phases)]
     for body, total in zip(entry.bodies, runs):
         ran, body[2] = total - body[2], total
         for c, delta in zip(_counters(), body[1]):
@@ -321,16 +354,18 @@ def _drive(key, prologue, inputs, slots, probe=None):
     ``slots`` the counted bodies a unit may have, ``probe`` the prologue on
     a caller's kktsolver under the guard, which a miss on CUDA runs
     first."""
-    entry = _cache.get(key)
+    key, entry = _lookup(key)
     hit = entry is not None
-    with record_function(LOOP):
-        if hit:
-            _cache.move_to_end(key)
-            entry.refresh(inputs)
-        else:
-            if inputs[1].device.type != "cuda":
-                _make_room()  # on CUDA, _build makes room after its probe
-            entry = _Entry(key, prologue, inputs, slots)
+    with telemetry.span(LOOP):
+        with telemetry.span(telemetry.COPY_IN):
+            if hit:
+                _cache.move_to_end(key)
+                entry.refresh(inputs)
+            else:
+                if inputs[1].device.type != "cuda":
+                    # on CUDA, _build makes room after its probe
+                    _make_room()
+                entry = _Entry(key, prologue, inputs, slots)
         if inputs[1].device.type != "cuda":
             cy, info = ipm.run_chunks(entry.prologue, entry.inputs)
         elif hit:
@@ -348,8 +383,9 @@ def _drive(key, prologue, inputs, slots, probe=None):
         # what the caller keeps, copied out of the entry's buffers: the
         # next call overwrites them
         out = cy._replace(sol=_clone(cy.sol))
-    # outside the loop's range, as the eager loop's final read
-    info.update(_counts(entry, cy))
+    # outside the loop's span, as the eager loop's final read
+    with telemetry.span(telemetry.WAIT):
+        info.update(_counts(entry, cy))
     if not hit and (entry.graphs or inputs[1].device.type != "cuda"):
         _cache[key] = entry
     return out, dict(info, cache_hit=hit)
@@ -373,7 +409,7 @@ def _capture(entry, fn):
     counters = _counters()
     before = [Counter(c) for c in counters]
     graph = torch.cuda.CUDAGraph()
-    with record_function("conicip::capture"):
+    with telemetry.span("conicip::capture"):
         graph.capture_begin(pool=entry.pool.id,
                             capture_error_mode=CAPTURE_MODE)
         try:
@@ -394,7 +430,8 @@ def _capture(entry, fn):
 
 
 def _play(graph, deltas) -> None:
-    graph.replay()
+    with telemetry.replay_timer():
+        graph.replay()
     for c, delta in zip(_counters(), deltas):
         c.update(delta)
 
@@ -425,10 +462,12 @@ def _build(entry, probe=None):
     callable that reads the device evicts no entry."""
     inputs = entry.inputs
     device = inputs[1].device
-    with record_function("conicip::warmup"):
-        _, cy = entry.prologue(*inputs, branch=ipm.on_host)
+    with telemetry.span("conicip::warmup"):
+        # the carry only: the warm-up's loop functions, which hold its
+        # operators, are not kept
+        cy = entry.prologue(*inputs, branch=ipm.on_host)[1]
     if probe is not None:
-        with record_function("conicip::probe"):
+        with telemetry.span("conicip::probe"):
             body, first = probe(*inputs, branch=ipm.masked)
             body.unit(first, ipm.masked)
     _make_room()
@@ -448,44 +487,66 @@ def _build(entry, probe=None):
     entry.runs = torch.zeros(entry.slots * (1 + ipm.POLL),
                              dtype=torch.int64, device=device)
     entry.units = torch.zeros((), dtype=torch.int64, device=device)
+    if _telemetry(entry.key):
+        entry.clock = telemetry.DeviceClock(device)
     branch, loop = _conditional(entry, device)
 
     def prologue():
+        telemetry.reset()
         entry.body, out = entry.prologue(*inputs, branch=branch)
         _copy(entry.static, out)
         entry.units.zero_()
         if verbose:
             _set_flag(entry, [entry.static.row])
+        telemetry.phase(telemetry.EVALUATE)
 
-    gp, dp = _capture(entry, prologue)
-    _play(gp, dp)
+    with telemetry.clocked(entry.clock):
+        gp, dp = _capture(entry, prologue)
+    with telemetry.span(REPLAY):
+        _play(gp, dp)
     if verbose and not _read(entry):
         # ended at its first iterate: nothing to keep
         cy = entry.static
         gp.reset()
         entry.release()
         return cy, dict(polls=1, replays=0, units=0, loop="graph")
-    with record_function("conicip::unit0"):
+    with telemetry.span("conicip::unit0"), telemetry.clocked(entry.clock):
+        telemetry.mark()
         cy, rows = entry.static, []
-        for _ in range(ipm.POLL):
+        for i in range(ipm.POLL):
+            if i:
+                telemetry.phase(telemetry.EVALUATE)
             cy = entry.body.unit(cy, ipm.on_host)
             rows.append(cy.row)
         entry.units.add_(ipm.POLL)
+        telemetry.phase(telemetry.EVALUATE)
 
     def chunk():
+        # the phase clock: each unit stamps its KKT build and its step,
+        # and the chunk the evaluations, the last after the carry's copy
+        # and the predicate
         out, rows = entry.static, []
-        for _ in range(ipm.POLL):
+        for i in range(ipm.POLL):
+            if i:
+                telemetry.phase(telemetry.EVALUATE)
             out = entry.body.unit(out, branch)
             rows.append(out.row)
         _copy(entry.static, out)
         entry.units.add_(ipm.POLL)
         _set_flag(entry, rows)
+        telemetry.phase(telemetry.EVALUATE)
+
+    def verbose_chunk():
+        telemetry.mark()
+        chunk()
 
     def whole():
+        telemetry.mark()
         _set_flag(entry, None)
         loop(entry.flag, chunk)
 
-    gl, dl = _capture(entry, chunk if verbose else whole)
+    with telemetry.clocked(entry.clock):
+        gl, dl = _capture(entry, verbose_chunk if verbose else whole)
     entry.graphs, entry.deltas = (gp, gl), (dp, dl)
     _copy(entry.static, cy)
     if verbose:
@@ -493,7 +554,8 @@ def _build(entry, probe=None):
                    if ipm.poll(entry.body.more(cy, ipm.POLL), rows) else 0)
         return entry.static, dict(polls=2 + replays, replays=replays,
                                   loop="graph")
-    _run_loop(entry)
+    with telemetry.span(REPLAY):
+        _run_loop(entry)
     return entry.static, dict(polls=1, replays=1, loop="graph")
 
 
@@ -511,7 +573,8 @@ def _set_flag(entry, rows) -> None:
 def _read(entry) -> bool:
     """The host's poll of the flag, with verbose output (in the same copy,
     the rows it prints)."""
-    return ipm.read_polled(entry.flag)
+    with telemetry.span(telemetry.WAIT):
+        return ipm.read_polled(entry.flag)
 
 
 def _replay(entry):
@@ -519,10 +582,13 @@ def _replay(entry):
     node's graph once, with no read; with verbose output the chunk's
     while the flag read after each holds."""
     (gp, _), (dp, _) = entry.graphs, entry.deltas
-    _play(gp, dp)
     if entry.flag.dtype == torch.bool:
-        _run_loop(entry)
+        with telemetry.span(REPLAY):
+            _play(gp, dp)
+            _run_loop(entry)
         return entry.static, dict(polls=1, replays=1, loop="graph")
+    with telemetry.span(REPLAY):
+        _play(gp, dp)
     replays = _chunks(entry) if _read(entry) else 0
     return entry.static, dict(polls=1 + replays, replays=replays,
                               loop="graph")
@@ -533,8 +599,7 @@ def _run_loop(entry) -> None:
     the predicate it writes is false; the host issues the graph and reads
     nothing (the solve's one read is the final copy, :func:`_counts`)."""
     (_, gl), (_, dl) = entry.graphs, entry.deltas
-    with record_function(REPLAY):
-        _play(gl, dl)
+    _play(gl, dl)
     while_launches[entry.inputs[1].dtype] += 1
 
 
@@ -544,12 +609,12 @@ def _chunks(entry) -> int:
     reads."""
     (_, gc), (_, dc) = entry.graphs, entry.deltas
     replays = 0
-    with record_function(REPLAY):
-        while True:
+    while True:
+        with telemetry.span(REPLAY):
             _play(gc, dc)
-            replays += 1
-            if not _read(entry):
-                return replays
+        replays += 1
+        if not _read(entry):
+            return replays
 
 
 @functools.lru_cache(maxsize=None)

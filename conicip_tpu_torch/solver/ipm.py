@@ -112,6 +112,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from .. import telemetry
 from ..cones import algebra as ca
 from ..cones import scaling as sc
 from ..cones.spec import ConeSpec
@@ -469,6 +470,7 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
         Fi = sc.nt_identity(spec, dtype, dev, bs)
         with control.bound(branch):
             solve3x3 = solve3x3gen(Fi, Fi)
+        telemetry.phase(telemetry.KKT_BUILD)
         z0 = make_solve4(e, Fi, solve3x3, lam_eigs=lam_eigs(Fi))(
             Vec4(c, d, b, torch.zeros(bs + (m,), dtype=dtype, device=dev)))
     else:
@@ -924,8 +926,10 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
                                            mode="slow" if slow else "fast")
                 else:
                     solve3x3 = solve3x3gen(cy.F, cy.FinvT)
+            telemetry.phase(telemetry.KKT_BUILD)
             out = take_step(cy.z, cy.F, cy.FinvT, cy.lam, cy.R, solve3x3,
                             eig_dtype_of(slow), go, branch)
+            telemetry.phase(telemetry.STEP)
             # z_new, Pd, alpha, the refinement residual and trips + 1
             # (the verbose row's), trips
             return out[0], out[3], out[4], out[1], out[2], out[5]
@@ -970,6 +974,7 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
         # near-tolerance decision always recomputes them
         cy0 = cy0._replace(P=products_fast(z.y, z.w, z.v),
                            drift=each(float("inf")), recertified=count())
+    telemetry.phase(telemetry.STEP)
     return SimpleNamespace(
         cy0=cy0, two_mode=two_mode, mixed=mixed,
         solve3x3gen=solve3x3gen, products_full=products_full,
@@ -1111,8 +1116,9 @@ def ipm_solve(
         counts["polls"] += 1
         if not batched:
             flags = [f.to(torch.int32) for f in (lm, fire) if f is not None]
-            got = (torch.stack([st.status] + flags).tolist() if flags
-                   else [int(st.status)])
+            with telemetry.span(telemetry.WAIT):
+                got = (torch.stack([st.status] + flags).tolist() if flags
+                       else [int(st.status)])
             on = lm_on or (lm is not None and bool(got[1]))
             return (got[0] == Status.RUNNING, on, (on,),
                     fire is not None and bool(got[-1]))
@@ -1123,7 +1129,8 @@ def ipm_solve(
             flags += [(run & ~on).any(), (run & on).any()]
         if fire is not None:
             flags.append(fire.any())
-        got = torch.stack(flags).tolist()
+        with telemetry.span(telemetry.WAIT):
+            got = torch.stack(flags).tolist()
         need = (False,)
         if two_mode:
             need = tuple(v for v, f in zip((False, True), got[1:3]) if f)
@@ -1132,7 +1139,9 @@ def ipm_solve(
     def branch(pred, trip):
         # the eager loop's refinement trip: a host read, and no trip once
         # no instance goes on
-        if not bool(pred):
+        with telemetry.span(telemetry.WAIT):
+            go = bool(pred)
+        if not go:
             return False
         trip()
         counts["trips"] += 1
@@ -1298,18 +1307,26 @@ def run_chunks(prologue, inputs):
     after the prologue and once after each chunk; each unit's bodies run
     masked. Returns the final carry and what the loop did (``polls``
     reads, ``units`` run, ``POLL`` per chunk, no ``replays``, ``loop``
-    "chunks"). With verbose output each read prints the rows of the
-    units since the last (:func:`poll`)."""
-    body, cy = prologue(*inputs)
-    polls, units, rows = 1, 0, [cy.row]
-    while poll(body.more(cy, units), rows):
-        rows = []
-        for _ in range(POLL):
-            cy = body.unit(cy)
-            rows.append(cy.row)
-        units += POLL
-        polls += 1
-    return cy, dict(polls=polls, replays=0, units=units, loop="chunks")
+    "chunks", and ``phases``: each phase's ns on the host's clock,
+    ``telemetry.HostClock``, the reads left out). With verbose output
+    each read prints the rows of the units since the last
+    (:func:`poll`)."""
+    clock = telemetry.HostClock()
+    with telemetry.clocked(clock):
+        body, cy = prologue(*inputs)
+        telemetry.phase(telemetry.EVALUATE)
+        polls, units, rows = 1, 0, [cy.row]
+        while poll(body.more(cy, units), rows):
+            telemetry.mark()
+            rows = []
+            for _ in range(POLL):
+                cy = body.unit(cy)
+                telemetry.phase(telemetry.EVALUATE)
+                rows.append(cy.row)
+            units += POLL
+            polls += 1
+    return cy, dict(polls=polls, replays=0, units=units, loop="chunks",
+                    phases=clock.read())
 
 
 def _row(run, k, R: _Resid, rstep, rnorm) -> torch.Tensor:

@@ -61,13 +61,21 @@ a graph launch) where the graph was instantiated before the profiler
 started, as the cache's entries are; all of it for a graph instantiated
 while the profiler runs, which then runs slower ever after (PERF.md §6).
 So there the line takes
-``device_busy_ms`` from CUDA events around each graph replay of an
-unprofiled solve (``busy_from=graph_events``: the graphs' device spans,
-the copies in and out left out) and ``device_idle_share`` against the
-unprofiled wall time, prints ``not_measured`` for the profiler's kernel
-counts per iteration and for the [cholesky], [jacobi], [rcone] and [op]
-lines (``--verbose`` keeps the host-polled chunk, whose kernels the
-profiler records), and adds a [while_profile] line: the graphs' device ms
+``device_busy_ms`` from the program's CUDA events around each graph
+replay of an unprofiled solve (``busy_from=graph_events``: the graphs'
+device spans, the copies in and out left out; ``telemetry.Record
+.replay_ms`` under ``telemetry.watch(replays=True)``, the entries
+captured with telemetry off) and ``device_idle_share`` against the
+unprofiled wall time, gives each unit's device time by phase from the
+phase clock (:func:`phase_ms`: before the profile, an entry captured with
+``telemetry.enable()``, whose graphs carry the clock's stamps, three
+one-thread kernels a unit; ``kkt_build_ms_per_unit``,
+``step_ms_per_unit``, ``evaluate_ms_per_unit``, their sum
+``phases_ms_per_unit`` beside ``graphs_ms_per_unit``, over the same
+unprofiled solves of that entry), prints ``not_measured`` for the
+profiler's kernel counts per iteration and for the [cholesky], [jacobi],
+[rcone] and [op] lines (``--verbose`` keeps the host-polled chunk, whose
+kernels the profiler records), and adds a [while_profile] line: the graphs' device ms
 before the profiled solve, after it, and for an entry captured inside a
 profiler session, the R-cone and Jacobi kernels that the profiler
 recorded of the wrappers' count, for a hit of an entry captured before
@@ -111,7 +119,7 @@ from collections import Counter, defaultdict
 import numpy as np
 import torch
 
-from . import conic_ip, solve_batch, solver
+from . import conic_ip, solve_batch, solver, telemetry
 from . import models
 from .cones.spec import ConeSpec
 from .ops import cholesky_kernel, control, jacobi_kernel, rcone_kernel
@@ -418,33 +426,49 @@ def _hand_launches():
             + sum(rcone_kernel.rcone_launches.values()))
 
 
-def graph_device_ms(solve, reps=REPEATS):
-    """Device ms of the CUDA graphs one ``solve()`` replays, from CUDA
-    events around each replay (the median of ``reps`` solves), and the
-    WHILE node launches of the last; no profiler runs."""
-    spans, real = [], graph._play
-
-    def timed(g, deltas):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        real(g, deltas)
-        t1.record()
-        spans.append((t0, t1))
-
-    per_solve = []
-    graph._play = timed
-    try:
-        for _ in range(reps):
-            spans.clear()
-            before = sum(graph.while_launches.values())
+def graph_device_ms(solve, reps=REPEATS, runs=None):
+    """Device ms of the CUDA graphs one ``solve()`` replays, from the
+    program's CUDA events around each replay (``telemetry.Record
+    .replay_ms`` of the calls the solve makes, under
+    ``telemetry.watch(replays=True)``; no profiler, telemetry on or off):
+    the median of ``reps`` solves, the WHILE node launches of the last,
+    and, with ``runs`` (the list the solve leaves its run records in:
+    ``solver.runs``, ``parallel.batch.runs``) whose every run carries the
+    phase clock's reading, ms per unit over the ``reps`` solves of each
+    phase and of the graphs (``graphs_ms``); else None."""
+    per_solve, units, phase_ns, clocked = [], 0, Counter(), runs is not None
+    for _ in range(reps):
+        before = sum(graph.while_launches.values())
+        with telemetry.watch(replays=True) as calls:
             solve()
-            torch.cuda.synchronize()
-            per_solve.append(sum(a.elapsed_time(b) for a, b in spans))
-    finally:
-        graph._play = real
+        torch.cuda.synchronize()
+        per_solve.append(sum(rec.replay_ms() for rec in calls))
+        for r in runs or ():
+            units += r.units
+            clocked = clocked and r.phases is not None
+            phase_ns.update(r.phases or {})
+    per_unit = None
+    if clocked and units:
+        per_unit = {f"{p}_ms": phase_ns[p] * 1e-6 / units
+                    for p in telemetry.PHASES}
+        per_unit["graphs_ms"] = sum(per_solve) / units
     return (sorted(per_solve)[reps // 2],
-            sum(graph.while_launches.values()) - before)
+            sum(graph.while_launches.values()) - before, per_unit)
+
+
+def phase_ms(solve, runs, reps=REPEATS):
+    """Device ms a unit of each phase and of the graphs
+    (:func:`graph_device_ms`) over ``reps`` hits of an entry captured with
+    ``telemetry.enable()``, made by a first ``solve()``: its graphs carry
+    the phase clock, and those of telemetry off stay as they were. None
+    where the runs carry no clock (the eager loop)."""
+    telemetry.enable()
+    try:
+        solve()  # the miss: an entry with the phase clock
+        torch.cuda.synchronize()
+        return graph_device_ms(solve, reps, runs)[2]
+    finally:
+        telemetry.disable()
 
 
 def _profiled(solve):
@@ -478,10 +502,11 @@ def while_profile(solve, before_ms, events, counted, iters):
     ``counted`` (the wrappers' R-cone and Jacobi launches) of the profiled
     hit of that entry, ``iters`` its iterations. Empties the cache and
     leaves an entry captured inside a profiler session, which runs
-    slower."""
+    slower and, as every capture under a profiler, carries the phase
+    clock's stamps."""
     from torch.profiler import ProfilerActivity, profile
 
-    after_ms, _ = graph_device_ms(solve)
+    after_ms, _, _ = graph_device_ms(solve)
     graph.clear()
     with profile(activities=[ProfilerActivity.CUDA]):
         solve()  # the miss: captured inside the session
@@ -489,7 +514,11 @@ def while_profile(solve, before_ms, events, counted, iters):
     base = _hand_launches()[1]
     _, _, inside = _profiled(solve)
     counted_inside = _hand_launches()[1] - base
-    inside_ms, _ = graph_device_ms(solve)
+    telemetry.enable()  # the key of the entry captured in the session
+    try:
+        inside_ms, _, _ = graph_device_ms(solve)
+    finally:
+        telemetry.disable()
     kernels = [e for e in inside if e.get("cat") == "kernel"]
     elementwise = sum(1 for e in kernels if "elementwise" in e["name"])
     print(f"[while_profile] graphs_ms_before_profile={before_ms:.3f} "
@@ -571,7 +600,9 @@ def _profile(args):
         torch.cuda.synchronize()
         unprofiled.append((time.perf_counter() - t) * 1e3)
     wall_unprofiled = sorted(unprofiled)[REPEATS // 2]
-    graphs_ms, whiles = graph_device_ms(solve)
+    graphs_ms, whiles, _ = graph_device_ms(solve)
+    per_unit = phase_ms(solve, parallel_batch.runs if args.batch
+                        else solver.runs)
     cholesky_kernel.reset_launch_count()
     jacobi_kernel.reset_launch_count()
     rcone_kernel.reset_launch_count()
@@ -613,6 +644,13 @@ def _profile(args):
         per_iter = dict(kernels_per_iter=f"{len(kernels) / it:.1f}",
                         elementwise_per_iter=f"{elementwise / it:.1f}")
     hand = chol_launches + counted
+    if per_unit:
+        per_unit["phases_ms"] = sum(per_unit[f"{p}_ms"]
+                                    for p in telemetry.PHASES)
+        phases = "".join(f"{k}_per_unit={v:.4f} "
+                         for k, v in per_unit.items())
+    else:
+        phases = "phases_per_unit=not_measured "
     print(f"[solve] family={name} factor_dtype={args.factor_dtype} "
           f"kkt={args.kkt} "
           f"status={status} Iter={iters} "
@@ -622,6 +660,7 @@ def _profile(args):
           f"busy_from={'graph_events' if partial else 'profiler'} "
           f"device_idle_share={idle:.3f} "
           + "".join(f"{k}={v} " for k, v in per_iter.items())
+          + phases
           + f"hand_launches={hand} "
           f"hand_launches_per_unit="
           f"{f'{hand / units:.1f}' if units else '-'} "
@@ -728,7 +767,7 @@ def _chain(args, kw, on_card):
             with _quiet(args.verbose):
                 solve(*tensors[:4], cones, *tensors[4:], **kw)
 
-    graphs_ms, _ = graph_device_ms(round_)
+    graphs_ms, _, _ = graph_device_ms(round_)
     unit = "stack" if args.batch else "solve"
     batch = f" B={args.batch}" if args.batch else ""
     print(f"[chain] family={args.family}{batch} kkt={args.kkt} "

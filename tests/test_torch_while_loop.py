@@ -194,7 +194,7 @@ def test_counted_bodies_add_their_capture_deltas_once_per_run(counters):
     trip_delta = [Counter(), Counter(), Counter(),
                   Counter({("k4", f64, 100, 1): 1})]
     runs = torch.tensor([7, 3])
-    entry = SimpleNamespace(units=torch.tensor(8), bodies=[
+    entry = SimpleNamespace(units=torch.tensor(8), clock=None, bodies=[
         [runs[0], loop_delta, 0], [runs[1], trip_delta, 0]])
     got = graph._counts(entry, fake_carry())
     assert got == dict(fast_steps=5, slow_steps=0, recertified=0, trips=2,
@@ -217,7 +217,7 @@ def test_counted_bodies_add_their_capture_deltas_once_per_run(counters):
 def test_counts_on_the_cpu_read_no_units(counters):
     # the CPU's entry keeps no device counter: run_chunks counts the
     # units on the host
-    entry = SimpleNamespace(units=None, bodies=[])
+    entry = SimpleNamespace(units=None, clock=None, bodies=[])
     got = graph._counts(entry, fake_carry(steps=3, trips=0))
     assert got == dict(fast_steps=3, slow_steps=0, recertified=0, trips=0)
 
