@@ -4,6 +4,9 @@
 
 Builds the port's CUDA kernels from this checkout (one nvcc per source,
 all at once), holds the Cholesky kernel against its plain PyTorch version,
+then in ``[inverse]`` the inverse of a lower factor (``tri_inverse``, the
+same source: single and batched, f64 and f32) against its plain version,
+also on the factors of ill-conditioned matrices, and times it beside the library's triangular solve against the identity,
 then in ``[jacobi]`` the Jacobi eigendecomposition and SVD kernels
 (``csrc/jacobi.cu``: eigh, values-only eigh, SVD; f64 and f32) against
 theirs at every (d, stack) the S-cone phases hand them (``jacobi_shapes()``)
@@ -169,6 +172,16 @@ def cholesky_bound_ms(n, dtype, batch=1):
     which)."""
     ops = batch * (n ** 3 / 3.0) / PEAK_FLOPS[dtype]
     moved = batch * 2.0 * n * n * torch.finfo(dtype).bits / 8 / PEAK_BYTES
+    return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
+
+
+def inverse_bound_ms(n, dtype, batch=1):
+    """Least time the card could take for ``batch`` inverses of order-n
+    lower factors: n^3/3 operations each at the peak rate of the dtype
+    against the factor's lower triangle read once and the inverse written
+    once (1.5 n^2 elements) at the memory rate. Returns (ms, which)."""
+    ops = batch * (n ** 3 / 3.0) / PEAK_FLOPS[dtype]
+    moved = batch * 1.5 * n * n * torch.finfo(dtype).bits / 8 / PEAK_BYTES
     return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
 
 
@@ -575,6 +588,173 @@ def phase_kernel_batched():
              bound_share=f"{bound / ms:.4f}", ratio=f"{ms / plain:.3f}",
              reps=reps)
     return [records[torch.float64], records[torch.float32]]
+
+
+# ── the inverse of a lower factor (csrc/cholesky.cu tri_inverse) ───────
+# (stack, order) held against the plain version: one launch (n <= 128),
+# its edges, ragged last block rows, the box cells' and the sdp stack's
+# Schur orders, a stack of more matrices than SMs
+INVERSE_HELD = ((1, 1), (1, 31), (1, 128), (1, 129), (1, 257), (1, 500),
+                (1, 1000), (1, 1280), (7, 129), (64, 500), (64, 465),
+                (200, 129))
+# (stack, order) of the ill-conditioned factors held (ILL)
+INVERSE_ILL = ((1, 500), (64, 500))
+# (stack, order) timed: the box single's (1, 500), the box stack's (64,
+# 500), the sdp stack's Schur order (64, 465), and single 1024 and 4096
+INVERSE_TIMED = ((1, 500), (64, 500), (64, 465), (1, 1024), (1, 4096))
+
+
+def inverse_launches_of_order(n):
+    """CUDA launches of one inverse of order n, whatever the stack: the
+    diagonal blocks'; above one panel the block rows' products, then one
+    step per block row below the first."""
+    from conicip_tpu_torch.ops.cholesky_kernel import PANEL
+
+    return 1 if n <= PANEL else -(-n // PANEL) + 1
+
+
+def inverse_input(B, n, dt):
+    """The factors of a random SPD stack (B, n, n), or of one (n, n)."""
+    from conicip_tpu_torch.ops.cholesky_kernel import cholesky_factor
+
+    M = spd(n, seed=n) if B == 1 else spd_stack(B, n, seed=B + n)
+    return cholesky_factor(M.to(dt).contiguous())
+
+
+def kernel_names(fn):
+    """Names of the kernels one call of ``fn`` ran on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def inverse_residual(L, X):
+    """max |XL - I| relative to max |X| max |L|."""
+    eye = torch.eye(L.shape[-1], device=L.device, dtype=L.dtype)
+    return ((X @ L - eye).abs().max()
+            / (X.abs().max() * L.abs().max())).item()
+
+
+def hold_inverse(L, X, what):
+    """The kernel's inverse X of L against the plain version, and by its
+    residual, both to TOL; returns max |X - X_plain|, that relative to
+    max |X_plain|, and the kernel's and the plain version's residuals."""
+    from conicip_tpu_torch.ops.cholesky_kernel import tri_inverse_plain
+
+    Xp = tri_inverse_plain(L)
+    err = (X - Xp).abs().max().item()
+    rel = err / Xp.abs().max().item()
+    res = inverse_residual(L, X)
+    check(rel <= TOL[L.dtype], f"{what}: |X-X_plain| rel {rel:.3e}")
+    check(res <= TOL[L.dtype], f"{what}: |XL-I| rel {res:.3e}")
+    return err, rel, res, inverse_residual(L, Xp)
+
+
+def phase_inverse():
+    """The inverse entries (single and batched, f64 and f32) against the
+    plain version (the triangular solve against the identity), then their
+    times beside the bound, the plain version and the library's solve, by
+    CUDA events around eager calls and inside a captured graph (bound share
+    and ratio of the latter); returns the JSON records of the single and
+    the batched f64 entries."""
+    from conicip_tpu_torch.ops.cholesky_kernel import (cholesky_factor,
+                                                       inverse_launches,
+                                                       tri_inverse,
+                                                       tri_inverse_plain)
+
+    for (B, n), dt in ((shape, dt) for shape in INVERSE_HELD
+                       for dt in (torch.float64, torch.float32)):
+        L = inverse_input(B, n, dt)
+        key = (dt, n) if B == 1 else (dt, n, B)
+        before = inverse_launches[key]
+        X = tri_inverse(L)
+        check(inverse_launches[key] == before + 1,
+              f"inverse {key}: not counted once")
+        what = f"inverse ({B}, {n}) {dtname(dt)}"
+        err, rel, res, _ = hold_inverse(L, X, what)
+        check(bool(torch.equal(X.triu(1), torch.zeros_like(X))),
+              f"{what}: strict upper triangle not zero")
+        bad = L.clone()
+        bad.view(-1, n, n)[B // 2, n // 2:, n // 2] = float("nan")
+        Xb = tri_inverse(bad).view(-1, n, n)
+        check(not bool(torch.isfinite(Xb[B // 2]).all()),
+              f"{what}: a NaN factor gave a finite inverse")
+        if B > 1:
+            keep = [i for i in range(B) if i != B // 2]
+            check(bool(torch.equal(Xb[keep], X[keep])),
+                  f"{what}: a NaN factor touched its neighbours")
+            check(bool(torch.equal(
+                X[B // 2], tri_inverse(L[B // 2].contiguous()))),
+                f"{what}: instance {B // 2} differs from the single entry")
+        line("inverse", B=B, n=n, dtype=dtname(dt), max_abs_err=f"{err:.3e}",
+             rel_err=f"{rel:.3e}", residual_rel=f"{res:.3e}",
+             nan_factor="non-finite", upper="zero")
+    # the factors of ill-conditioned matrices (ILL's condition numbers, the
+    # regime of the f32 Schur last mile), one and a stack
+    for (B, n), (dt, (kappa, _)) in ((shape, ill) for shape in INVERSE_ILL
+                                     for ill in ILL.items()):
+        M = (ill_conditioned(n, kappa, seed=5) if B == 1 else torch.stack(
+            [ill_conditioned(n, kappa, seed=5 + i) for i in range(B)]))
+        L = cholesky_factor(M.to(dt).contiguous())
+        what = f"inverse ({B}, {n}) {dtname(dt)} kappa {kappa:.0e}"
+        X = tri_inverse(L)
+        check(bool(torch.isfinite(X).all()), f"{what}: not finite")
+        err, rel, res, res_plain = hold_inverse(L, X, what)
+        line("inverse_ill", B=B, n=n, dtype=dtname(dt), kappa=f"{kappa:.0e}",
+             max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
+             residual_rel=f"{res:.3e}", plain_residual_rel=f"{res_plain:.3e}")
+    records = {}
+    for (B, n), dt in ((shape, dt) for shape in INVERSE_TIMED
+                       for dt in (torch.float64, torch.float32)):
+        L = inverse_input(B, n, dt)
+        eye = torch.eye(n, device="cuda", dtype=dt)
+        ms, reps = budget_ms(lambda: tri_inverse(L))
+        plain = cuda_ms(lambda: tri_inverse_plain(L), reps)
+        # the library's solve against the identity, what tri_inv ran
+        # before the kernel: a yardstick only, the port never calls it on
+        # the card
+        library = cuda_ms(
+            lambda: torch.linalg.solve_triangular(L, eye, upper=False), reps)
+        # as the main path runs both: inside a captured CUDA graph, no host
+        # launch between them
+        in_graph = graph_ms(lambda: tri_inverse(L))
+        library_graph = graph_ms(
+            lambda: torch.linalg.solve_triangular(L, eye, upper=False))
+        bound, bound_by = inverse_bound_ms(n, dt, B)
+        per_call = cuda_launches(lambda: tri_inverse(L),
+                                 inverse_launches_of_order(n))
+        check(per_call == inverse_launches_of_order(n),
+              f"inverse ({B}, {n}) {dtname(dt)}: {per_call} CUDA launches, "
+              f"{inverse_launches_of_order(n)} expected")
+        names = kernel_names(lambda: tri_inverse(L))
+        check(not any("trsm" in k.lower() for k in names),
+              f"inverse ({B}, {n}): a library trsm ran: {names}")
+        line("kernel_time", kernel="tri_inverse", B=B, n=n, dtype=dtname(dt),
+             kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+             library_ms=f"{library:.4f}", graph_ms=f"{in_graph:.4f}",
+             library_graph_ms=f"{library_graph:.4f}",
+             bound_ms=f"{bound:.5f}", bound_by=bound_by,
+             bound_share=f"{bound / in_graph:.4f}",
+             ratio_library=f"{in_graph / library_graph:.3f}",
+             launches=per_call, reps=reps)
+        if dt == torch.float64 and (B, n) in ((1, 500), (64, 500)):
+            records[B > 1] = {
+                "name": "tri_inverse_batched" if B > 1 else "tri_inverse",
+                "route": "cuda",
+                "source": "conicip_tpu_torch/csrc/cholesky.cu",
+                "replaces": "conicip_tpu/ops/cholesky.py:tri_inv (XLA's "
+                            "triangular solve; no Pallas kernel)",
+                "shape": f"({B}, {n}, {n}) float64" if B > 1
+                         else f"({n}, {n}) float64",
+                "ms": ms, "graph_ms": in_graph, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": library, "library_graph_ms": library_graph}
+    return records[False], records[True]
 
 
 # ── the Jacobi kernels (csrc/jacobi.cu) ─────────────────────────────────
@@ -1541,7 +1721,7 @@ def predicated(dtype=None, n=None):
     retries) so far."""
     from conicip_tpu_torch.ops import cholesky_kernel
 
-    return cholesky_kernel.launch_count(dtype, n, predicated=True)
+    return cholesky_kernel.launch_count(dtype, n, counter="predicated")
 
 
 def run_builds(r):
@@ -4785,6 +4965,7 @@ def main():
     phase_environment()
     phase_build()
     single, batched64, batched32 = phase_kernel()
+    inverse, inverse_batched = phase_inverse()
     jacobi = phase_jacobi()
     rcone = phase_rcone()
     node = rcone.pop("while")
@@ -4802,6 +4983,7 @@ def main():
                   launches_predicated=0, launches_predicated_f32=0)
     batched64["launches"] = batched32["launches"] = 0
     batched64["launches_predicated"] = batched32["launches_predicated"] = 0
+    inverse["launches"] = inverse_batched["launches"] = 0
     for rec in (*jacobi.values(), *rcone.values()):
         rec["launches"] = 0
     launched = set()  # the counters' keys: every shape a path gave an entry
@@ -4828,6 +5010,7 @@ def main():
              seconds=f"{time.perf_counter() - t:.1f}")
         counts = cholesky_kernel.cholesky_launches + ranks
         pcounts = Counter(cholesky_kernel.predicated_launches)
+        icounts = Counter(cholesky_kernel.inverse_launches)
         jcounts = jacobi_kernel.jacobi_launches + ranks_jacobi
         used = sum(counts.values())
         used32 = sum(c for k, c in counts.items() if k[0] == f32)
@@ -4871,6 +5054,7 @@ def main():
         line("launches", of=phase.__name__, f64=used - used32, f32=used32,
              batched_f64=stacked[f64], batched_f32=stacked[f32],
              predicated=sum(pcounts.values()),
+             inverse=sum(icounts.values()),
              jacobi=",".join(f"{k}:{by_kind[k]}" for k in JACOBI_KINDS),
              rcone=",".join(f"{e}:{rused[e]}" for e in rcone_kernel.ENTRIES),
              while_node=loops)
@@ -4884,12 +5068,16 @@ def main():
         single["launches_predicated_f32"] += sum(
             c for k, c in pcounts.items() if k[0] == f32) - pstacked[f32]
         batched64["launches_predicated"] += pstacked[f64]
+        inverse["launches"] += sum(c for k, c in icounts.items()
+                                   if len(k) == 2)
+        inverse_batched["launches"] += sum(c for k, c in icounts.items()
+                                           if len(k) == 3)
         batched32["launches_predicated"] += pstacked[f32]
         launched |= set(counts) | set(pcounts)
         jacobi_main += jcounts
         rcone_main += rused
-    for rec in (single, batched64, batched32, *jacobi.values(),
-                *rcone.values(), node):
+    for rec in (single, batched64, batched32, inverse, inverse_batched,
+                *jacobi.values(), *rcone.values(), node):
         check(rec["launches"] > 0, f"{rec['name']} was never launched on "
               "the main paths")
     # the f32 Schur builds' ridge retries, inside the device loop's graphs
@@ -4930,9 +5118,9 @@ def main():
         check(all(rcone_main[e] > 0 for e in entries),
               f"rcone_{name}: an entry was never launched on the main "
               f"paths {dict(rcone_main)}")
-    print(json.dumps({"kernels": [single, batched64, batched32,
-                                  *jacobi.values(), *rcone.values(),
-                                  node]}),
+    print(json.dumps({"kernels": [single, batched64, batched32, inverse,
+                                  inverse_batched, *jacobi.values(),
+                                  *rcone.values(), node]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -72,6 +72,10 @@
 // every row below the block, and through the trailing updates in the whole
 // remaining matrix; the columns before it stay finite. No finite value is
 // written in its place. No cuBLAS or cuSOLVER call is made.
+//
+// The same source holds the explicit inverse of a lower factor (tri_inverse,
+// below the factor's kernels), whose diagonal blocks are inverted as
+// factor_diag inverts its block.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -240,6 +244,101 @@ __device__ __forceinline__ void wait_prerequisite() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
+// The kb x kb diagonal block at (k, k) of src into S (row stride LD), the
+// lower triangle only, padded to NB x NB with the identity. Warp w of the
+// DIAG_THREADS takes rows w + WARPS q, half of them at a time, all in
+// flight.
+template <typename T>
+__device__ __forceinline__ void load_block(T* S, const T* src, int n, int k,
+                                           int kb) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  constexpr int WARPS = DIAG_THREADS / 32, RQ = NB / WARPS, CQ = NB / 32;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    T v[RQ / 2][CQ];
+#pragma unroll
+    for (int q = 0; q < RQ / 2; ++q)
+#pragma unroll
+      for (int cc = 0; cc < CQ; ++cc) {
+        const int r = w + WARPS * (q + half * RQ / 2), c = lane + 32 * cc;
+        v[q][cc] = r < kb && c <= r
+                       ? __ldcg(src + (size_t)(k + r) * n + k + c)
+                       : T(r == c);
+      }
+#pragma unroll
+    for (int q = 0; q < RQ / 2; ++q)
+#pragma unroll
+      for (int cc = 0; cc < CQ; ++cc)
+        S[(w + WARPS * (q + half * RQ / 2)) * LD + lane + 32 * cc] = v[q][cc];
+  }
+}
+
+// inv(L_kk) of the NB x NB block L_kk in S by recursion on halves from the
+// inverses of its four leaves in V (LEAF x VL each, strict upper triangle
+// zero):
+//   inv([A 0; B C]) = [inv(A) 0; -inv(C) (B inv(A)) inv(C)].
+// The off-diagonal blocks of the inverse overwrite those of L_kk in S,
+// through the partial products in P (64 x PL); its diagonal leaves are V.
+template <typename T>
+__device__ __forceinline__ void invert_from_leaves(T* S, const T* V, T* P) {
+  const int w = threadIdx.x >> 5;
+  constexpr int WARPS = DIAG_THREADS / 32;
+  {
+    // 64 x 64 halves h = 0, 1, with A, B, C their 32 x 32 blocks:
+    // P_h = B inv(A), then -inv(C) P_h over B, in 16 x 16 tiles (h, ti, tj).
+    for (int x = w; x < 8; x += WARPS) {
+      const int h = x / 4, o = 64 * h, ti = (x % 4) / 2, tj = x % 2;
+      T acc[2][4] = {};
+      warp_mm<false>(acc, S + (o + 32 + 16 * ti) * LD + o, LD,
+                     V + (2 * h) * LEAF * VL + 16 * tj, VL, LEAF);
+      warp_store(acc, P + 16 * ti * PL + 32 * h + 16 * tj, PL, T(1), false);
+    }
+    __syncthreads();
+    for (int x = w; x < 8; x += WARPS) {
+      const int h = x / 4, o = 64 * h, ti = (x % 4) / 2, tj = x % 2;
+      T acc[2][4] = {};
+      warp_mm<false>(acc, V + (2 * h + 1) * LEAF * VL + 16 * ti * VL, VL,
+                     P + 32 * h + 16 * tj, PL, LEAF);
+      warp_store(acc, S + (o + 32 + 16 * ti) * LD + o + 16 * tj, LD, T(-1),
+                 false);
+    }
+  }
+  __syncthreads();
+  {
+    // The whole block in 16 x 16 tiles: P = B inv(A) with B = L[64:, :64]
+    // and inv(A) = [V0 0; X10 V1], then X[64:, :64] = -inv(C) P with
+    // inv(C) = [V2 0; X32 V3].
+    for (int x = w; x < 16; x += WARPS) {
+      const int ti = x / 4, tj = x % 4;
+      const T* Brow = S + (64 + 16 * ti) * LD;
+      T acc[2][4] = {};
+      if (tj < 2) {
+        warp_mm<false>(acc, Brow, LD, V + 16 * tj, VL, LEAF);
+        warp_mm<false>(acc, Brow + 32, LD, S + 32 * LD + 16 * tj, LD, LEAF);
+      } else {
+        warp_mm<false>(acc, Brow + 32, LD, V + LEAF * VL + 16 * (tj - 2), VL,
+                       LEAF);
+      }
+      warp_store(acc, P + 16 * ti * PL + 16 * tj, PL, T(1), false);
+    }
+    __syncthreads();
+    for (int x = w; x < 16; x += WARPS) {
+      const int ti = x / 4, tj = x % 4;
+      T acc[2][4] = {};
+      if (ti < 2) {
+        warp_mm<false>(acc, V + 2 * LEAF * VL + 16 * ti * VL, VL, P + 16 * tj,
+                       PL, LEAF);
+      } else {
+        warp_mm<false>(acc, S + (96 + 16 * (ti - 2)) * LD + 64, LD,
+                       P + 16 * tj, PL, LEAF);
+        warp_mm<false>(acc, V + 3 * LEAF * VL + 16 * (ti - 2) * VL, VL,
+                       P + 32 * PL + 16 * tj, PL, LEAF);
+      }
+      warp_store(acc, S + (64 + 16 * ti) * LD + 16 * tj, LD, T(-1), false);
+    }
+  }
+}
+
 // Factor the kb x kb diagonal block at (k, k) of src into dst (which may be
 // src), with the strict upper triangle written as zeros. With `want_inv`
 // (then kb == NB), also write inv(L_kk), 128 x 128 row-major, to the
@@ -281,25 +380,7 @@ factor_diag(const T* src, T* dst, T* work, int n, int k, int kb,
     }
     __syncthreads();
   }
-  // warp w takes rows w + WARPS q, half of them at a time, all in flight
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    T v[RQ / 2][CQ];
-#pragma unroll
-    for (int q = 0; q < RQ / 2; ++q)
-#pragma unroll
-      for (int cc = 0; cc < CQ; ++cc) {
-        const int r = w + WARPS * (q + half * RQ / 2), c = lane + 32 * cc;
-        v[q][cc] = r < kb && c <= r
-                       ? __ldcg(src + (size_t)(k + r) * n + k + c)
-                       : T(r == c);
-      }
-#pragma unroll
-    for (int q = 0; q < RQ / 2; ++q)
-#pragma unroll
-      for (int cc = 0; cc < CQ; ++cc)
-        S[(w + WARPS * (q + half * RQ / 2)) * LD + lane + 32 * cc] = v[q][cc];
-  }
+  load_block(S, src, n, k, kb);
   __syncthreads();
 
   for (int s = 0; s < kr; s += LEAF) {
@@ -435,63 +516,9 @@ factor_diag(const T* src, T* dst, T* work, int n, int k, int kb,
     return;
   }
 
-  // inv(L_kk), kb == NB, by recursion on halves from the leaf inverses:
-  //   inv([A 0; B C]) = [inv(A) 0; -inv(C) (B inv(A)) inv(C)].
+  // inv(L_kk), kb == NB, from the leaf inverses
   __syncthreads();  // L_kk is written back before it is overwritten
-  {
-    // 64 x 64 halves h = 0, 1, with A, B, C their 32 x 32 blocks:
-    // P_h = B inv(A), then -inv(C) P_h over B, in 16 x 16 tiles (h, ti, tj).
-    for (int x = w; x < 8; x += WARPS) {
-      const int h = x / 4, o = 64 * h, ti = (x % 4) / 2, tj = x % 2;
-      T acc[2][4] = {};
-      warp_mm<false>(acc, S + (o + 32 + 16 * ti) * LD + o, LD,
-                     V + (2 * h) * LEAF * VL + 16 * tj, VL, LEAF);
-      warp_store(acc, P + 16 * ti * PL + 32 * h + 16 * tj, PL, T(1), false);
-    }
-    __syncthreads();
-    for (int x = w; x < 8; x += WARPS) {
-      const int h = x / 4, o = 64 * h, ti = (x % 4) / 2, tj = x % 2;
-      T acc[2][4] = {};
-      warp_mm<false>(acc, V + (2 * h + 1) * LEAF * VL + 16 * ti * VL, VL,
-                     P + 32 * h + 16 * tj, PL, LEAF);
-      warp_store(acc, S + (o + 32 + 16 * ti) * LD + o + 16 * tj, LD, T(-1),
-                 false);
-    }
-  }
-  __syncthreads();
-  {
-    // The whole block in 16 x 16 tiles: P = B inv(A) with B = L[64:, :64]
-    // and inv(A) = [V0 0; X10 V1], then X[64:, :64] = -inv(C) P with
-    // inv(C) = [V2 0; X32 V3].
-    for (int x = w; x < 16; x += WARPS) {
-      const int ti = x / 4, tj = x % 4;
-      const T* Brow = S + (64 + 16 * ti) * LD;
-      T acc[2][4] = {};
-      if (tj < 2) {
-        warp_mm<false>(acc, Brow, LD, V + 16 * tj, VL, LEAF);
-        warp_mm<false>(acc, Brow + 32, LD, S + 32 * LD + 16 * tj, LD, LEAF);
-      } else {
-        warp_mm<false>(acc, Brow + 32, LD, V + LEAF * VL + 16 * (tj - 2), VL,
-                       LEAF);
-      }
-      warp_store(acc, P + 16 * ti * PL + 16 * tj, PL, T(1), false);
-    }
-    __syncthreads();
-    for (int x = w; x < 16; x += WARPS) {
-      const int ti = x / 4, tj = x % 4;
-      T acc[2][4] = {};
-      if (ti < 2) {
-        warp_mm<false>(acc, V + 2 * LEAF * VL + 16 * ti * VL, VL, P + 16 * tj,
-                       PL, LEAF);
-      } else {
-        warp_mm<false>(acc, S + (96 + 16 * (ti - 2)) * LD + 64, LD,
-                       P + 16 * tj, PL, LEAF);
-        warp_mm<false>(acc, V + 3 * LEAF * VL + 16 * (ti - 2) * VL, VL,
-                       P + 32 * PL + 16 * tj, PL, LEAF);
-      }
-      warp_store(acc, S + (64 + 16 * ti) * LD + 16 * tj, LD, T(-1), false);
-    }
-  }
+  invert_from_leaves(S, V, P);
   __syncthreads();
 #pragma unroll
   for (int q = 0; q < RQ; ++q)
@@ -516,11 +543,12 @@ __device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                  "l"(src), "r"(bytes));
 }
+// cp.async of 16 bytes of which the first `bytes` are read, the rest zero.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
+                                           int bytes) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
+               "l"(src), "r"(bytes));
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -530,38 +558,44 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Stage columns kc .. kc+KC-1 of `rows` rows of g (row stride ld) into s;
-// rows past `rows` up to ROWS are zero. With `vec`, rows of g are 16-byte
-// aligned and each copy moves 16 bytes.
+// Stage columns kc .. kc+KC-1 of ROWS rows of g (row stride ld) into s
+// (row stride CHUNK_LD); entries in row `rows` or past it, or in column
+// `cols` or past it, read as zero. With `vec`, rows of g are 16-byte aligned
+// and each copy moves 16 bytes.
 template <typename T, int ROWS>
 __device__ __forceinline__ void load_chunk(T* s, const T* g, size_t ld,
-                                           int rows, int kc, bool vec) {
+                                           int rows, int cols, int kc,
+                                           bool vec) {
   constexpr int SL = CHUNK_LD, VEC = 16 / sizeof(T);
   if (vec) {
     for (int e = threadIdx.x; e < ROWS * KC / VEC; e += GEMM_THREADS) {
       const int r = e / (KC / VEC), c = e % (KC / VEC) * VEC;
-      const bool ok = r < rows;
-      cp_async16(s + r * SL + c, ok ? g + (size_t)r * ld + kc + c : g, ok);
+      const int left = r < rows ? cols - kc - c : 0;
+      const int count = left < 0 ? 0 : (left < VEC ? left : VEC);
+      cp_async16(s + r * SL + c, count > 0 ? g + (size_t)r * ld + kc + c : g,
+                 count * (int)sizeof(T));
     }
   } else {
     for (int e = threadIdx.x; e < ROWS * KC; e += GEMM_THREADS) {
       const int r = e / KC, c = e % KC;
-      const bool ok = r < rows;
+      const bool ok = r < rows && kc + c < cols;
       cp_async(s + r * SL + c, ok ? g + (size_t)r * ld + kc + c : g, ok);
     }
   }
 }
 
-// A BM x BN tile of A B^T held in registers, built chunk by chunk.
-template <typename T, int BM, int BN> struct Tile;
+// A BM x BN tile of A B^T held in registers, built chunk by chunk. In
+// double, WMR is the warps' rows (below).
+template <typename T, int BM, int BN, int WMR = (BM >= 64 ? 2 : 1)>
+struct Tile;
 
 // double: eight warps in a WM x WN grid, each a (BM/WM) x (BN/WN) tile of
 // mma.sync.m16n8k4 f64 (the FP64 tensor cores; m8n8k4 runs at half their
 // rate on an H100). Fragments: A (16x4) lane -> rows (lane/4, lane/4 + 8),
 // column lane%4; B (4x8) lane -> (lane%4, lane/4); C (16x8) lane -> rows
 // (lane/4, lane/4 + 8), columns 2*(lane%4) + {0,1}.
-template <int BM, int BN> struct Tile<double, BM, BN> {
-  static constexpr int WM = BM >= 64 ? 2 : 1, WN = GEMM_THREADS / 32 / WM;
+template <int BM, int BN, int WMR> struct Tile<double, BM, BN, WMR> {
+  static constexpr int WM = WMR, WN = GEMM_THREADS / 32 / WM;
   static constexpr int MI = BM / WM / 16, NI = BN / WN / 8;
   static_assert(MI * 16 * WM == BM && NI * 8 * WN == BN, "warp grid");
   double acc[MI][NI][4];
@@ -596,12 +630,16 @@ template <int BM, int BN> struct Tile<double, BM, BN> {
           acc[i][j][e] =
               f(m0() + 16 * i + g + 8 * (e / 2), n0() + 8 * j + 2 * q + e % 2);
   }
-  template <bool NEG>
+  // acc += A B^T (acc -= with NEG) over one chunk: A as BM rows of KC, B
+  // as BN rows of KC (row stride CHUNK_LD both), or with SLB > 0 B as KC
+  // rows of the tile's BN columns (row stride SLB), the inverse's A B.
+  template <bool NEG, int SLB = 0>
   __device__ __forceinline__ void step(const double* sa, const double* sb) {
     constexpr int SL = CHUNK_LD;
     const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
     const double* pa = sa + (m0() + g) * SL + q;
-    const double* pb = sb + (n0() + g) * SL + q;
+    const double* pb =
+        SLB ? sb + q * SLB + n0() + g : sb + (n0() + g) * SL + q;
 #pragma unroll
     for (int kk = 0; kk < KC; kk += 4) {
       double a[MI][2], b[NI];
@@ -613,7 +651,8 @@ template <int BM, int BN> struct Tile<double, BM, BN> {
           a[i][h] = NEG ? -v : v;
         }
 #pragma unroll
-      for (int j = 0; j < NI; ++j) b[j] = pb[8 * j * SL + kk];
+      for (int j = 0; j < NI; ++j)
+        b[j] = SLB ? pb[kk * SLB + 8 * j] : pb[8 * j * SL + kk];
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -631,7 +670,7 @@ template <int BM, int BN> struct Tile<double, BM, BN> {
 // float: FFMA on the CUDA cores, threads in a 16 x 16 grid, each an
 // (BM/16) x (BN/16) register tile with rows strided by 16 and columns by 16.
 // No TF32.
-template <int BM, int BN> struct Tile<float, BM, BN> {
+template <int BM, int BN, int WMR> struct Tile<float, BM, BN, WMR> {
   static constexpr int RM = BM / 16, RN = BN / 16;
   static_assert(GEMM_THREADS == 256, "16 x 16 threads");
   float acc[RM][RN];
@@ -644,7 +683,8 @@ template <int BM, int BN> struct Tile<float, BM, BN> {
 #pragma unroll
       for (int q = 0; q < RN; ++q) acc[p][q] = f(tr + 16 * p, tc + 16 * q);
   }
-  template <bool NEG>
+  // B's layout as in the double tile's step
+  template <bool NEG, int SLB = 0>
   __device__ __forceinline__ void step(const float* sa, const float* sb) {
     constexpr int SL = CHUNK_LD;
     const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
@@ -655,7 +695,8 @@ template <int BM, int BN> struct Tile<float, BM, BN> {
       for (int p = 0; p < RM; ++p)
         x[p] = NEG ? -sa[(tr + 16 * p) * SL + kk] : sa[(tr + 16 * p) * SL + kk];
 #pragma unroll
-      for (int q = 0; q < RN; ++q) y[q] = sb[(tc + 16 * q) * SL + kk];
+      for (int q = 0; q < RN; ++q)
+        y[q] = SLB ? sb[kk * SLB + tc + 16 * q] : sb[(tc + 16 * q) * SL + kk];
 #pragma unroll
       for (int p = 0; p < RM; ++p)
 #pragma unroll
@@ -685,8 +726,9 @@ __device__ __forceinline__ void product_nt(Tile<T, BM, BN>& tile, T* smem,
   static_assert(STAGES >= 2 && STAGES <= NCH, "stages");
 #pragma unroll
   for (int c = 0; c < STAGES - 1; ++c) {
-    load_chunk<T, BM>(smem + c * STAGE, A, lda, arows, c * KC, vec);
-    load_chunk<T, BN>(smem + c * STAGE + BM * SL, B, ldb, brows, c * KC, vec);
+    load_chunk<T, BM>(smem + c * STAGE, A, lda, arows, NB, c * KC, vec);
+    load_chunk<T, BN>(smem + c * STAGE + BM * SL, B, ldb, brows, NB, c * KC,
+                      vec);
     cp_commit();
   }
   tile.init(init);
@@ -695,8 +737,8 @@ __device__ __forceinline__ void product_nt(Tile<T, BM, BN>& tile, T* smem,
     const int next = c + STAGES - 1;
     if (next < NCH) {
       T* buf = smem + (next % STAGES) * STAGE;
-      load_chunk<T, BM>(buf, A, lda, arows, next * KC, vec);
-      load_chunk<T, BN>(buf + BM * SL, B, ldb, brows, next * KC, vec);
+      load_chunk<T, BM>(buf, A, lda, arows, NB, next * KC, vec);
+      load_chunk<T, BN>(buf + BM * SL, B, ldb, brows, NB, next * KC, vec);
     }
     cp_commit();  // possibly empty: one group per iteration
     cp_wait<STAGES - 1>();
@@ -772,6 +814,286 @@ trailing_update(T* __restrict__ a, int n, int k, int rest, int diag_tiles,
       if (threadIdx.x == 0) atomicAdd(ready, 1u);
     }
   }
+}
+
+// ── The explicit inverse X = inv(L) of a lower factor ──────────────────
+//
+// The Schur solver turns each factor into its inverse, so that a back-solve
+// is two matrix-vector products. The reference leaves that to XLA's
+// triangular solve against the identity (conicip_tpu/ops/cholesky.py
+// tri_inv); as a library call on the card it is a trsm of n^3 operations,
+// which uses nothing of the identity's zero upper triangle. The inverse
+// needs n^3/3 operations: 0.0006 ms at n = 500 on the FP64 tensor cores,
+// and its bytes (L read, X written) 0.0012 ms. Below n = 1000 the time is
+// the chain of products that each wait on the last, and each link's
+// staging of its operands.
+//
+// Block form over the factor's 128-wide panels, D = blockdiag(L_ii):
+//   X_ii = inv(L_ii)                   inv_diag: every diagonal block at
+//                                      once, as factor_diag inverts its
+//                                      block (four leaves, then recursion
+//                                      on halves), in shared memory;
+//   W_i,0:i = X_ii L_i,0:i             inv_w: every block row at once (the
+//                                      rows of inv(D) L), into the scratch
+//                                      W; and the zeros of X's strict upper
+//                                      triangle right of the diagonal blocks;
+//   X_i,0:i = -W_i,0:i X_0:i,0:i       inv_step: block row i once the rows
+//                                      above it are done, a block for each
+//                                      INV_ROWS x INV_COLS tile of it.
+// So n <= 128 is one launch and a larger order ceil(n / 128) + 1. The chain
+// is the steps, each one product whose depth i0 - c0 starts at its strip's
+// first column (X being lower triangular).
+// The products run on the FP64 tensor cores (mma.sync.m16n8k4.f64) in
+// double and on FFMA in float, as the factor's. A stack is the grids'
+// second dimension, a matrix to blockIdx.y, so a non-finite L (a failed
+// factor) gives a non-finite X and touches no other matrix.
+
+constexpr int INV_COLS = 32;  // columns of X an inv_w or inv_step tile takes
+// their row stride in shared memory: 8 banks apart in double from row to
+// row, so that the B fragments of mma.sync come without bank conflicts
+constexpr int INV_LD = INV_COLS + 4;
+constexpr int INV_STAGES = 3;  // chunks in flight
+// Rows of an inv_w or inv_step tile: each link of the chain waits on its
+// operands' staging, which short tiles shorten; at n = 500 in double on an
+// H100 80GB HBM3, tiles of 32 rows took 0.59 x the time of tiles of 128 on
+// one matrix, and on a stack of 64 0.86 x (1.05 x tiles of 64). In double,
+// 2 x 4 warps of 16 x 8.
+constexpr int INV_ROWS = 32;
+template <typename T>
+using InvTile = Tile<T, INV_ROWS, INV_COLS, 2>;
+
+template <typename T>
+constexpr size_t inv_smem() {
+  return (size_t)INV_STAGES * (INV_ROWS * CHUNK_LD + KC * INV_LD) * sizeof(T);
+}
+
+template <typename T> struct Vec16;
+template <> struct Vec16<double> { using type = double2; };
+template <> struct Vec16<float> { using type = float4; };
+
+// Stage rows kc .. kc+KC-1 of g (row stride ld), its first INV_COLS
+// columns, into s (row stride INV_LD); rows from `rows` on read as zero.
+template <typename T>
+__device__ __forceinline__ void load_b(T* s, const T* g, size_t ld, int rows,
+                                       int kc, bool vec) {
+  constexpr int VEC = 16 / sizeof(T), W = INV_COLS;
+  if (vec) {
+    for (int e = threadIdx.x; e < KC * W / VEC; e += GEMM_THREADS) {
+      const int r = e / (W / VEC), c = e % (W / VEC) * VEC;
+      const bool ok = kc + r < rows;
+      cp_async16(s + r * INV_LD + c, ok ? g + (size_t)(kc + r) * ld + c : g,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < KC * W; e += GEMM_THREADS) {
+      const int r = e / W, c = e % W;
+      const bool ok = kc + r < rows;
+      cp_async(s + r * INV_LD + c, ok ? g + (size_t)(kc + r) * ld + c : g,
+               ok);
+    }
+  }
+}
+
+// tile = A B over `nch` chunks of KC: A is INV_ROWS rows of a, B INV_COLS
+// columns of b, staged by load_chunk and load_b with their limits, INV_STAGES
+// chunks in flight.
+template <typename T>
+__device__ __forceinline__ void product_nn(InvTile<T>& tile, T* smem, int nch,
+                                           const T* a, int arows, int acols,
+                                           const T* b, int brows, int n,
+                                           bool vec) {
+  constexpr int STAGE = INV_ROWS * CHUNK_LD + KC * INV_LD;
+  auto stage = [&](int c) {
+    T* buf = smem + (c % INV_STAGES) * STAGE;
+    load_chunk<T, INV_ROWS>(buf, a, (size_t)n, arows, acols, c * KC, vec);
+    load_b(buf + INV_ROWS * CHUNK_LD, b, (size_t)n, brows, c * KC, vec);
+  };
+#pragma unroll
+  for (int c = 0; c < INV_STAGES - 1; ++c) {
+    if (c < nch) stage(c);
+    cp_commit();
+  }
+  tile.init([](int, int) { return T(0); });
+#pragma unroll 1
+  for (int c = 0; c < nch; ++c) {
+    if (c + INV_STAGES - 1 < nch) stage(c + INV_STAGES - 1);
+    cp_commit();  // possibly empty: one group per iteration
+    cp_wait<INV_STAGES - 1>();
+    __syncthreads();
+    const T* cur = smem + (c % INV_STAGES) * STAGE;
+    tile.template step<false, INV_LD>(cur, cur + INV_ROWS * CHUNK_LD);
+    __syncthreads();
+  }
+}
+
+// X_kk = inv(L_kk) for the diagonal block blockIdx.x of matrix blockIdx.y,
+// its strict upper triangle written as zeros.
+template <typename T>
+__global__ void __launch_bounds__(DIAG_THREADS)
+inv_diag(const T* __restrict__ L, T* __restrict__ X, int n) {
+  L = batch_matrix(L, n);
+  X = batch_matrix(X, n);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* S = reinterpret_cast<T*>(smem_raw);  // L_kk, then the inverse
+  T* V = S + NB * LD;                     // 4 leaf inverses, LEAF x VL
+  T* P = V + 4 * LEAF * VL;               // products, 64 x PL
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  constexpr int WARPS = DIAG_THREADS / 32, RQ = NB / WARPS, CQ = NB / 32;
+  const int k = blockIdx.x * NB, kb = n - k < NB ? n - k : NB;
+  load_block(S, L, n, k, kb);
+  __syncthreads();
+  // Leaf w by warp w, right-looking: lane c holds column c of inv(L_ww),
+  // s_m = delta_mc - sum_{r<m} l_mr y_r, and y_r = s_r / l_rr once the
+  // rows above r are in; lane r computes 1 / l_rr for all.
+  if (w < 4) {
+    const T* Lw = S + LEAF * w * (LD + 1);
+    T* Vw = V + w * LEAF * VL;
+    const T rd = T(1) / Lw[lane * (LD + 1)];
+    T sv[LEAF];
+#pragma unroll
+    for (int r = 0; r < LEAF; ++r) sv[r] = T(r == lane);
+#pragma unroll
+    for (int r = 0; r < LEAF; ++r) {
+      const T y = sv[r] * __shfl_sync(0xffffffffu, rd, r);
+      sv[r] = y;
+#pragma unroll
+      for (int m = r + 1; m < LEAF; ++m) sv[m] -= Lw[m * LD + r] * y;
+    }
+#pragma unroll
+    for (int r = 0; r < LEAF; ++r)
+      Vw[r * VL + lane] = r >= lane ? sv[r] : T(0);
+  }
+  __syncthreads();
+  invert_from_leaves(S, V, P);
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < RQ; ++q)
+#pragma unroll
+    for (int cc = 0; cc < CQ; ++cc) {
+      const int r = w + WARPS * q, c = lane + 32 * cc;
+      const int br = r / LEAF, bc = c / LEAF;
+      if (r < kb && c < kb)
+        X[(size_t)(k + r) * n + k + c] =
+            c > r ? T(0)
+                  : (br == bc ? V[br * LEAF * VL + (r % LEAF) * VL + c % LEAF]
+                              : S[r * LD + c]);
+    }
+}
+
+// Column strip s of block row i >= 1 from x = 2 i (i - 1) + s, s < 4 i
+// (NB / INV_COLS = 4 strips a block row): the strips of all block rows.
+__device__ __forceinline__ void row_strip(int x, int& i, int& s) {
+  i = (int)((1.0 + sqrt(1.0 + 2.0 * x)) * 0.5);
+  while (2 * i * (i + 1) <= x) ++i;
+  while (2 * i * (i - 1) > x) --i;
+  s = x - 2 * i * (i - 1);
+}
+
+// W_i,0:i = X_ii L_i,0:i, tile (rows r0 .. r0+INV_ROWS-1 of block row i,
+// columns c0 .. c0+INV_COLS-1) per block, its depth min(kb, r0 + INV_ROWS)
+// (X_ii lower triangular). Then every block stores its share of the zeros
+// of X's strict upper triangle right of the diagonal blocks, a warp a row.
+template <typename T>
+__global__ void __launch_bounds__(GEMM_THREADS)
+inv_w(const T* __restrict__ L, T* __restrict__ X, T* __restrict__ W, int n) {
+  L = batch_matrix(L, n);
+  X = batch_matrix(X, n);
+  W = batch_matrix(W, n);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  constexpr int RT = NB / INV_ROWS;
+  int i, s;
+  row_strip(blockIdx.x / RT, i, s);
+  const int i0 = i * NB, kb = n - i0 < NB ? n - i0 : NB;
+  const int r0 = blockIdx.x % RT * INV_ROWS, c0 = s * INV_COLS;
+  const bool vec = n % (16 / sizeof(T)) == 0;
+  if (r0 < kb) {
+    const int depth = kb < r0 + INV_ROWS ? kb : r0 + INV_ROWS;
+    InvTile<T> tile;
+    product_nn(tile, smem, (depth + KC - 1) / KC,
+               X + (size_t)(i0 + r0) * n + i0, kb - r0, kb,
+               L + (size_t)i0 * n + c0, kb, n, vec);
+    tile.each([&](int r, int c, T v) {
+      if (r < kb - r0) W[(size_t)(i0 + r0 + r) * n + c0 + c] = v;
+    });
+  }
+  // rows 0 .. NB (blocks - 1) - 1 end past their diagonal block
+  const int zrows = (n - 1) / NB * NB;
+  const int lane = threadIdx.x & 31;
+  for (int r = blockIdx.x * (GEMM_THREADS / 32) + (threadIdx.x >> 5);
+       r < zrows; r += gridDim.x * (GEMM_THREADS / 32)) {
+    const int z0 = (r / NB + 1) * NB;
+    if (vec) {
+      using Z = typename Vec16<T>::type;
+      constexpr int VEC = 16 / sizeof(T);
+      Z* row = reinterpret_cast<Z*>(X + (size_t)r * n + z0);
+      for (int c = lane; c < (n - z0) / VEC; c += 32) row[c] = Z{};
+    } else {
+      T* row = X + (size_t)r * n + z0;
+      for (int c = lane; c < n - z0; c += 32) row[c] = T(0);
+    }
+  }
+}
+
+// Block row i (rows i0 ..) of X, tile (rows r0 .. r0+INV_ROWS-1, columns
+// c0 .. c0+INV_COLS-1, c0 < i0) per block: -W_i,c0:i0 X_c0:i0,c0:. Reads
+// the rows of X above i0, which the launches before wrote.
+template <typename T>
+__global__ void __launch_bounds__(GEMM_THREADS)
+inv_step(const T* __restrict__ W, T* __restrict__ X, int n, int i0) {
+  W = batch_matrix(W, n);
+  X = batch_matrix(X, n);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  constexpr int RT = NB / INV_ROWS;
+  const int kb = n - i0 < NB ? n - i0 : NB;
+  const int r0 = blockIdx.x % RT * INV_ROWS, c0 = blockIdx.x / RT * INV_COLS;
+  if (r0 >= kb) return;
+  InvTile<T> tile;
+  product_nn(tile, smem, (i0 - c0) / KC, W + (size_t)(i0 + r0) * n + c0,
+             kb - r0, i0 - c0, X + (size_t)c0 * n + c0, i0 - c0, n,
+             n % (16 / sizeof(T)) == 0);
+  tile.each([&](int r, int c, T v) {
+    if (r < kb - r0) X[(size_t)(i0 + r0 + r) * n + c0 + c] = -v;
+  });
+}
+
+// X = inv(L) for `batch` lower factors of order n, contiguous in L and X;
+// W is scratch of the same size (unused, and may be null, when n <= NB).
+template <typename T>
+cudaError_t tri_inverse(const T* L, T* X, T* W, int batch, int n,
+                        cudaStream_t st) {
+  if (batch <= 0 || batch > 65535 || n <= 0 || (n > NB && W == nullptr))
+    return cudaErrorInvalidValue;
+  static_assert(NB % INV_COLS == 0 && INV_COLS % KC == 0 &&
+                NB % INV_ROWS == 0, "whole strips and row tiles");
+  constexpr int RT = NB / INV_ROWS;
+  constexpr size_t smem = inv_smem<T>();
+  const int blocks = (n + NB - 1) / NB;
+  cudaError_t err = cudaFuncSetAttribute(
+      inv_diag<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)diag_smem<T>());
+  if (err == cudaSuccess && blocks > 1)
+    err = cudaFuncSetAttribute(
+        inv_w<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && blocks > 1)
+    err = cudaFuncSetAttribute(
+        inv_step<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  inv_diag<T><<<dim3(blocks, batch), DIAG_THREADS, diag_smem<T>(), st>>>(
+      L, X, n);
+  err = cudaGetLastError();
+  if (blocks == 1 || err != cudaSuccess) return err;
+  // the strips of block rows 1 .. blocks - 1: 2 blocks (blocks - 1)
+  inv_w<T><<<dim3(2 * blocks * (blocks - 1) * RT, batch), GEMM_THREADS, smem,
+             st>>>(L, X, W, n);
+  err = cudaGetLastError();
+  for (int b = 1; b < blocks && err == cudaSuccess; ++b) {
+    inv_step<T><<<dim3(b * (NB / INV_COLS) * RT, batch), GEMM_THREADS, smem,
+                  st>>>(W, X, n, b * NB);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 // Multiprocessor count of a device, read once: the launches may be captured
@@ -919,6 +1241,40 @@ extern "C" int conicip_cholesky_batched_f32(const void* in, void* out,
                               static_cast<float*>(work), batch, n,
                               static_cast<const unsigned char*>(skip),
                               static_cast<cudaStream_t>(stream));
+}
+
+// The inverse's entries: X = inv(L) for the lower factors in L (the
+// strict upper triangle is not read), n x n for the single entries and
+// batch x n x n for the batched ones, distinct row-major contiguous device
+// buffers; W is a scratch buffer of X's size, needed only when n > 128 (may
+// be null below). Nothing is allocated and the stream is not synchronised.
+// Returns cudaGetLastError() after the launches.
+extern "C" int conicip_tri_inv_f64(const void* L, void* X, void* W, int n,
+                                   void* stream) {
+  return (int)tri_inverse<double>(
+      static_cast<const double*>(L), static_cast<double*>(X),
+      static_cast<double*>(W), 1, n, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int conicip_tri_inv_f32(const void* L, void* X, void* W, int n,
+                                   void* stream) {
+  return (int)tri_inverse<float>(
+      static_cast<const float*>(L), static_cast<float*>(X),
+      static_cast<float*>(W), 1, n, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int conicip_tri_inv_batched_f64(const void* L, void* X, void* W,
+                                           int batch, int n, void* stream) {
+  return (int)tri_inverse<double>(
+      static_cast<const double*>(L), static_cast<double*>(X),
+      static_cast<double*>(W), batch, n, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int conicip_tri_inv_batched_f32(const void* L, void* X, void* W,
+                                           int batch, int n, void* stream) {
+  return (int)tri_inverse<float>(
+      static_cast<const float*>(L), static_cast<float*>(X),
+      static_cast<float*>(W), batch, n, static_cast<cudaStream_t>(stream));
 }
 
 // Edges of a captured CUDA graph (a cudaGraph_t): all of them, and those

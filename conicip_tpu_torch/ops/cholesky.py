@@ -7,15 +7,17 @@ hand-written CUDA kernel on a CUDA tensor (its f64 or its f32 entry, by
 the dtype factored; its batched entry for a stack of matrices), the plain
 PyTorch version on the CPU. Every function takes (..., n, n).
 ``factor_dtype`` casts the matrix first, so the factor comes back in that
-dtype. :func:`tri_inv` stays a library triangular solve, as the JAX package
-leaves it to XLA.
+dtype. :func:`tri_inv` dispatches alike through
+:func:`~conicip_tpu_torch.ops.cholesky_kernel.tri_inverse`: the kernel's
+inverse entries on a CUDA tensor, where the JAX package leaves the inverse
+to XLA's triangular solve; that solve against the identity on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cholesky_kernel import cholesky_factor
+from .cholesky_kernel import cholesky_factor, tri_inverse
 
 __all__ = ["cholesky", "tri_inv", "cho_solve", "CholFactor"]
 
@@ -33,9 +35,8 @@ def cholesky(M: torch.Tensor, factor_dtype=None, skip=None, out=None
 
 def tri_inv(L: torch.Tensor) -> torch.Tensor:
     """Explicit lower-triangular inverse L⁻¹: every later back-solve becomes
-    two matrix-vector products."""
-    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
-    return torch.linalg.solve_triangular(L, eye, upper=False)
+    two matrix-vector products. Its strict upper triangle is zero."""
+    return tri_inverse(L.contiguous())
 
 
 def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

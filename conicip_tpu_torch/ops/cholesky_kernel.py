@@ -19,6 +19,15 @@ factor is not computed and ``out`` keeps what it held; elsewhere the factor
 is written into ``out``. The kernel reads the flags on the device (its
 launches return at once for a flagged matrix), so the caller reads nothing
 back; the plain version selects with ``torch.where``.
+
+The same family holds the explicit inverse of a lower factor,
+:func:`tri_inverse`: on a CUDA tensor the kernel's inverse entries (f64 or
+f32, single or batched; one launch up to n = 128, else ``ceil(n / 128) +
+1``, the block algorithm of ``csrc/cholesky.cu``, with a scratch of L's
+size), on the CPU :func:`tri_inverse_plain`, a triangular solve against the
+identity. Both read the lower triangle only, write the strict upper
+triangle as zeros, and give a non-finite inverse for a non-finite factor,
+each matrix of a stack on its own.
 """
 
 from __future__ import annotations
@@ -30,8 +39,9 @@ import torch
 
 from .build import load_library
 
-__all__ = ["cholesky_factor", "cholesky_plain", "cholesky_launches",
-           "predicated_launches", "launch_count", "reset_launch_count",
+__all__ = ["cholesky_factor", "cholesky_plain", "tri_inverse",
+           "tri_inverse_plain", "cholesky_launches", "predicated_launches",
+           "inverse_launches", "launch_count", "reset_launch_count",
            "graph_edges"]
 
 # Launches of the CUDA kernel, keyed by (dtype, order) for the single
@@ -40,22 +50,26 @@ __all__ = ["cholesky_factor", "cholesky_plain", "cholesky_launches",
 # nowhere else: unconditional factors in ``cholesky_launches``, predicated
 # ones (``skip`` given; whether a matrix was factored is known only on the
 # device) apart in ``predicated_launches``. A CUDA graph's replays add what
-# its capture counted (solver/graph.py).
+# its capture counted (solver/graph.py). The inverses, one a call of
+# :func:`tri_inverse` whatever its launches, apart in ``inverse_launches``,
+# keyed alike.
 cholesky_launches: Counter = Counter()
 predicated_launches: Counter = Counter()
+inverse_launches: Counter = Counter()
 
 
-def launch_count(dtype=None, n=None, batch=None, predicated=False) -> int:
+def launch_count(dtype=None, n=None, batch=None, counter="factor") -> int:
     """Kernel launches so far, optionally of one dtype's entry points
     (``dtype``) and of one matrix order (``n``). ``batch`` picks the entry:
     ``None`` counts both, ``False`` the single entry only, ``True`` the
     batched entry (``cholesky_launches[(dtype, n, B)]`` is the count at one
-    stack size). ``predicated`` picks the counter: ``False`` the
-    unconditional factors, ``True`` the predicated ones, ``None`` both."""
-    counters = {False: (cholesky_launches,), True: (predicated_launches,),
-                None: (cholesky_launches, predicated_launches)}[predicated]
+    stack size). ``counter`` picks the counter: ``"factor"`` the
+    unconditional factors, ``"predicated"`` the predicated ones,
+    ``"inverse"`` the inverses."""
+    counts = {"factor": cholesky_launches, "predicated": predicated_launches,
+              "inverse": inverse_launches}[counter]
     total = 0
-    for key, c in (kv for cnt in counters for kv in cnt.items()):
+    for key, c in counts.items():
         dt, k = key[:2]
         if dtype not in (None, dt) or n not in (None, k):
             continue
@@ -67,12 +81,17 @@ def launch_count(dtype=None, n=None, batch=None, predicated=False) -> int:
 def reset_launch_count() -> None:
     cholesky_launches.clear()
     predicated_launches.clear()
+    inverse_launches.clear()
 
 
 _ENTRY = {torch.float64: "conicip_cholesky_f64",
           torch.float32: "conicip_cholesky_f32"}
 _BATCHED_ENTRY = {torch.float64: "conicip_cholesky_batched_f64",
                   torch.float32: "conicip_cholesky_batched_f32"}
+_INVERSE_ENTRY = {torch.float64: "conicip_tri_inv_f64",
+                  torch.float32: "conicip_tri_inv_f32"}
+_INVERSE_BATCHED_ENTRY = {torch.float64: "conicip_tri_inv_batched_f64",
+                          torch.float32: "conicip_tri_inv_batched_f32"}
 
 # Panel width of the kernel: above it, the kernel needs a scratch buffer for
 # the inverse of each diagonal block (PANEL x PANEL) and one counter; a
@@ -117,6 +136,16 @@ def _entry(dtype, batched=False):
     ints = [ctypes.c_int] * (2 if batched else 1)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    *ints, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _inverse_entry(dtype, batched=False):
+    names = _INVERSE_BATCHED_ENTRY if batched else _INVERSE_ENTRY
+    fn = getattr(load_library("cholesky"), names[dtype])
+    ints = [ctypes.c_int] * (2 if batched else 1)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   *ints, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -180,3 +209,49 @@ def cholesky_factor(M: torch.Tensor, skip=None, out=None) -> torch.Tensor:
     counter = cholesky_launches if skip is None else predicated_launches
     counter[(M.dtype, n, B) if batched else (M.dtype, n)] += 1
     return out
+
+
+def tri_inverse_plain(L: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version, batched over leading dims: the triangular
+    solve of L X = I, the lower triangle of L read."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def tri_inverse(L: torch.Tensor) -> torch.Tensor:
+    """Explicit inverse of the lower factor ``L`` (n, n), or of every
+    matrix of a stack (..., n, n), strict upper triangle zero (module
+    docstring)."""
+    if L.device.type == "cpu":
+        return tri_inverse_plain(L)
+    if L.device.type != "cuda":
+        raise ValueError(f"tri_inverse: unsupported device {L.device}")
+    if L.dtype not in _INVERSE_ENTRY:
+        raise TypeError(f"tri_inverse: unsupported dtype {L.dtype}")
+    if L.dim() < 2 or L.shape[-1] != L.shape[-2]:
+        raise ValueError(f"tri_inverse: expected square matrices, got "
+                         f"shape {tuple(L.shape)}")
+    if not L.is_contiguous():
+        raise ValueError("tri_inverse: L must be contiguous")
+    X = torch.empty_like(L)
+    n = L.shape[-1]
+    if L.numel() == 0:
+        return X
+    batched = L.dim() > 2
+    B = L.numel() // (n * n)
+    if B > MAX_GRID_BATCH:
+        raise ValueError(f"tri_inverse: a stack of {B} matrices exceeds "
+                         f"the kernel's {MAX_GRID_BATCH}")
+    # the scratch of the block rows' products, above one panel
+    W = torch.empty_like(L) if n > PANEL else None
+    fn = _inverse_entry(L.dtype, batched)
+    with torch.cuda.device(L.device):
+        stream = torch.cuda.current_stream(L.device).cuda_stream
+        sizes = (B, n) if batched else (n,)
+        err = fn(L.data_ptr(), X.data_ptr(),
+                 None if W is None else W.data_ptr(), *sizes, stream)
+    if err != 0:
+        raise RuntimeError(f"triangular inverse launch failed: CUDA error "
+                           f"{err}")
+    inverse_launches[(L.dtype, n, B) if batched else (L.dtype, n)] += 1
+    return X

@@ -174,7 +174,8 @@ def _counters():
     return (cholesky_kernel.cholesky_launches,
             cholesky_kernel.predicated_launches,
             jacobi_kernel.jacobi_launches,
-            rcone_kernel.rcone_launches)
+            rcone_kernel.rcone_launches,
+            cholesky_kernel.inverse_launches)
 
 
 def _leaves(x) -> list:

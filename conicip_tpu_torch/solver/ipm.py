@@ -514,6 +514,16 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
             return torch.float32 if (fast_eig and not slow) else slow_ed
         return torch.float32 if force_fast_eig else slow_ed
 
+    # A scaling decomposed below the working precision is NT only to its
+    # rounding: F z.v and F⁻ᵀ z.s differ from diag(λ) by ~eps·κ(Z), which
+    # near the boundary is as large as λ's smallest entry, so a step taken
+    # against diag(λ) can leave the cone. Congruence holds for any
+    # invertible F: there each side steps from its own image, F z.v or
+    # F⁻ᵀ z.s, decomposed once a step.
+    side_frames = lam_frame and any(
+        eig_dtype_of(slow) not in (None, "refined", dtype)
+        for slow in (False, True))
+
     def take_step(z, F, FinvT, lam, R: _Resid, solve3x3, eig_dtype, running,
                   branch):
         """The Newton step from the iterate ``z`` and its scaling and
@@ -534,10 +544,20 @@ def _loop(Q, c, A, b, G, d, spec: ConeSpec, kktsolver, opts: IPMOptions,
                 torch.clamp(ca.maxstep(spec, z.v, dv, eig_dtype), max=1.0),
                 torch.clamp(ca.maxstep(spec, z.s, ds, eig_dtype), max=1.0))
 
+        if side_frames:
+            lam_s = sc.apply(spec, FinvT, z.s)
+            eigs_v = ca.sdp_eighs(spec, lam, eig_dtype)
+            eigs_s = ca.sdp_eighs(spec, lam_s, eig_dtype)
+
         def steps2(Fdv, FiTds):
             # λ-frame: the same steps from the scaled directions F dv, F⁻ᵀ ds
-            av, as_ = ca.maxstep_multi(spec, lam, (Fdv, FiTds), eig_dtype,
-                                       eigs)
+            if side_frames:
+                (av,) = ca.maxstep_multi(spec, lam, (Fdv,), eig_dtype, eigs_v)
+                (as_,) = ca.maxstep_multi(spec, lam_s, (FiTds,), eig_dtype,
+                                          eigs_s)
+            else:
+                av, as_ = ca.maxstep_multi(spec, lam, (Fdv, FiTds),
+                                           eig_dtype, eigs)
             return torch.minimum(torch.clamp(av, max=1.0),
                                  torch.clamp(as_, max=1.0))
 

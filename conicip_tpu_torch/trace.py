@@ -682,7 +682,8 @@ def _profile(args):
           f"cholesky_f32={cholesky_kernel.launch_count(torch.float32)} "
           f"cholesky_batched={cholesky_kernel.launch_count(batch=True)} "
           f"cholesky_predicated="
-          f"{cholesky_kernel.launch_count(predicated=True)} "
+          f"{cholesky_kernel.launch_count(counter='predicated')} "
+          f"inverse={cholesky_kernel.launch_count(counter='inverse')} "
           + "".join(f"jacobi_{k}={jacobi_kernel.launch_count(k)} "
                     for k in jacobi_kernel.KINDS)
           + "".join(f"rcone_{e}={rcone_kernel.launch_count(e)} "

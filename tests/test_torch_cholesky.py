@@ -5,7 +5,8 @@ the Pallas TPU kernel itself (run in interpret mode), against
 ``conicip_tpu.ops.cholesky.cholesky`` in f64, and on the failure semantics the ridge
 retry depends on. The CUDA kernel itself is checked on the card by
 tests/test_torch_cuda.py and chip_smoke.py; its algorithm is checked here
-through :func:`cholesky_blocked_model`, which follows it step for step.
+through :func:`cholesky_blocked_model`, which follows it step for step, and
+its inverse's through :func:`tri_inv_blocked_model`.
 """
 
 import functools
@@ -128,6 +129,42 @@ def cholesky_blocked_model(M, nb=128, leaf=32):
     return A
 
 
+def _leaf_inverse(L):
+    """inv_diag's leaf: column c of inv(L) per lane, right-looking,
+    y_r = s_r / l_rr (as s_r times 1 / l_rr), then s_m -= l_mr y_r below;
+    the strict upper triangle written as zeros."""
+    rd = 1 / torch.diagonal(L)
+    S = torch.eye(L.shape[0], dtype=L.dtype)
+    for r in range(L.shape[0]):
+        S[r] = S[r] * rd[r]
+        S[r + 1:] -= L[r + 1:, r:r + 1] * S[r]
+    return S.tril()
+
+
+def tri_inv_blocked_model(L, nb=128, leaf=32):
+    """The kernel's inverse (csrc/cholesky.cu tri_inverse): each diagonal
+    block, padded to nb with the identity, inverted from its leaves'
+    inverses by recursion on halves (inv_diag); W_i,0:i = X_ii L_i,0:i for
+    every block row (inv_w); then block row by block row, X_i,0:i =
+    -W_i,0:i X_0:i,0:i (inv_step). The lower triangle of L is read; the
+    strict upper triangle of X is zero."""
+    L = L.tril()
+    n = L.shape[0]
+    X = torch.zeros_like(L)
+    for k in range(0, n, nb):
+        kb = min(nb, n - k)
+        D = torch.eye(nb, dtype=L.dtype)
+        D[:kb, :kb] = L[k:k + kb, k:k + kb]
+        inverses = [_leaf_inverse(D[s:s + leaf, s:s + leaf])
+                    for s in range(0, nb, leaf)]
+        X[k:k + kb, k:k + kb] = _tri_inverse(D, inverses)[:kb, :kb].tril()
+    W = {i0: X[i0:i0 + nb, i0:i0 + nb] @ L[i0:i0 + nb, :i0]
+         for i0 in range(nb, n, nb)}
+    for i0, Wi in W.items():
+        X[i0:i0 + nb, :i0] = -(Wi @ X[:i0, :i0])
+    return X
+
+
 def ill_conditioned(n, kappa=1e12, seed=0):
     """SPD with condition number ~kappa and unit diagonal (equilibrated)."""
     rng = np.random.default_rng(seed)
@@ -186,6 +223,26 @@ def test_blocked_model_nan_from_failing_pivot(p):
     np.testing.assert_array_equal(np.isnan(L), (c >= p) & (i >= c))
 
 
+@pytest.mark.parametrize("n, kappa", [(1, None), (127, None), (128, None),
+                                      (129, None), (257, None), (500, None),
+                                      (200, 1e12), (300, 1e12)])
+def test_tri_inv_blocked_model_matches_solve_and_jax_f64(n, kappa):
+    # the kernel's block inverse against the plain version (the triangular
+    # solve against the identity) and JAX's tri_inv, on well-conditioned
+    # factors and on those of kappa ~ 1e12 matrices (kappa(L) ~ 1e6): f64
+    # rounding of the two orders, and a residual |X L - I| at rounding level
+    M = spd(n, seed=n) if kappa is None else ill_conditioned(n, kappa, seed=n)
+    L = cholesky(torch.from_numpy(M))
+    X = tri_inv_blocked_model(L).numpy()
+    Xp = tri_inv(L).numpy()
+    assert rel_err(X, Xp) <= 1e-12
+    assert rel_err(X, np.asarray(jax_tri_inv(jnp.asarray(L.numpy())))) <= 1e-12
+    res = np.abs(X @ L.numpy() - np.eye(n)).max()
+    assert res / (np.abs(X).max() * np.abs(L.numpy()).max()) <= 1e-13
+    np.testing.assert_array_equal(np.triu(X, 1), 0.0)
+    np.testing.assert_array_equal(np.triu(Xp, 1), 0.0)
+
+
 @pytest.mark.parametrize("n", [128, 256])
 def test_plain_matches_pallas_kernel(n):
     # f32, the TPU kernel's own type; relative 1e-5 covers f32 rounding of
@@ -236,16 +293,24 @@ def test_tri_inv_and_cho_solve_match_jax():
 
 
 def test_wrapper_takes_plain_version_on_cpu_without_counting():
+    # the factor's wrapper and the inverse's
     M = torch.from_numpy(spd(33, seed=5))
     before = dict(cholesky_kernel.cholesky_launches)
+    inv_before = dict(cholesky_kernel.inverse_launches)
     L = cholesky_kernel.cholesky_factor(M)
+    X = cholesky_kernel.tri_inverse(L)
     assert cholesky_kernel.cholesky_launches == before
+    assert cholesky_kernel.inverse_launches == inv_before
     assert torch.equal(L, cholesky_kernel.cholesky_plain(M))
+    assert torch.equal(X, cholesky_kernel.tri_inverse_plain(L))
+    assert torch.equal(tri_inv(L), X)
 
 
 def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError):
         cholesky_kernel.cholesky_factor(torch.empty(4, 4, device="meta"))
+    with pytest.raises(ValueError):
+        cholesky_kernel.tri_inverse(torch.empty(4, 4, device="meta"))
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -298,6 +363,28 @@ def test_blocked_model_nan_instance_stays_alone():
     assert rel_err(L[keep].numpy(), good[keep].numpy()) <= 1e-12
 
 
+def test_tri_inv_nan_instance_stays_alone():
+    # one factor of a stack NaN from a failing pivot (the kernel's pattern,
+    # the model's factor; and the plain factor's whole lower triangle):
+    # its inverse is non-finite, every other instance's is what it is alone
+    B, n, p = 5, 200, 150
+    M = spd_stack(B, n, seed=3)
+    M[2, p, p] = -1.0
+    Lp = cholesky_kernel.cholesky_plain(torch.from_numpy(M))
+    X = tri_inv(Lp)
+    keep = [0, 1, 3, 4]
+    assert not bool(torch.isfinite(X[2]).all())
+    for i in keep:
+        assert torch.equal(X[i], tri_inv(Lp[i]))
+    L = torch.stack([cholesky_blocked_model(torch.from_numpy(M[i]))
+                     for i in range(B)])
+    Xm = torch.stack([tri_inv_blocked_model(L[i]) for i in range(B)])
+    assert not bool(torch.isfinite(Xm[2]).all())
+    assert bool(torch.isfinite(Xm[keep]).all())
+    assert rel_err(Xm[keep].numpy(), X[keep].numpy()) <= 1e-12
+    assert torch.equal(Xm.triu(1), torch.zeros_like(Xm))
+
+
 def test_stacked_cholesky_tri_inv_cho_solve_match_jax():
     B, n = 4, 30
     M = spd_stack(B, n, seed=1).reshape(2, 2, n, n)  # two leading dims
@@ -336,3 +423,28 @@ def test_launch_count_tells_batched_from_single_launches():
     finally:
         cholesky_kernel.reset_launch_count()
         cholesky_kernel.cholesky_launches.update(saved)
+
+
+def test_launch_count_reads_the_inverse_counter():
+    # counter="inverse" counts tri_inverse's calls, keyed as the factors',
+    # and no factor; the factors' counts leave the inverses out
+    f64, f32 = torch.float64, torch.float32
+    saved = [dict(c) for c in (cholesky_kernel.cholesky_launches,
+                               cholesky_kernel.inverse_launches)]
+    try:
+        cholesky_kernel.reset_launch_count()
+        cholesky_kernel.cholesky_launches.update({(f64, 500): 3})
+        cholesky_kernel.inverse_launches.update(
+            {(f64, 500): 2, (f64, 500, 64): 4, (f32, 465, 64): 1})
+        count = cholesky_kernel.launch_count
+        assert count() == 3 and count(counter="predicated") == 0
+        assert count(counter="inverse") == 7
+        assert count(f64, counter="inverse") == 6
+        assert count(n=500, batch=True, counter="inverse") == 4
+        assert count(f32, 465, False, counter="inverse") == 0
+        cholesky_kernel.reset_launch_count()
+        assert count(counter="inverse") == 0
+    finally:
+        cholesky_kernel.reset_launch_count()
+        cholesky_kernel.cholesky_launches.update(saved[0])
+        cholesky_kernel.inverse_launches.update(saved[1])

@@ -145,6 +145,129 @@ def test_batched_kernel_nan_stays_in_its_instance(cuda, B, n, p):
         assert torch.equal(L[keep], good[keep])
 
 
+INVERSE_SHAPES = tuple((n,) for n in (1, 31, 127, 128, 129, 255, 257, 500,
+                                      1000, 1024, 1280)) + ((64, 500),
+                                                            (64, 465))
+# shapes held on the factors of ill-conditioned matrices as well
+INVERSE_ILL = ((500,), (64, 500))
+# condition numbers of those matrices by dtype: the f32 Schur last mile's
+# regime in f32
+ILL_KAPPA = {torch.float64: 1e12, torch.float32: 1e5}
+
+
+def ill_conditioned(n, kappa, seed=0):
+    """SPD with condition number ~kappa and unit diagonal (equilibrated)."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    M = (Q * np.logspace(0, -np.log10(kappa), n)) @ Q.T
+    d = 1 / np.sqrt(np.diag(M))
+    M = M * d[:, None] * d[None, :]
+    return (M + M.T) / 2
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize(
+    "shape, ill",
+    [pytest.param(s, False, id=f"shape{i}")
+     for i, s in enumerate(INVERSE_SHAPES)]
+    + [pytest.param(s, True, id=f"ill{i}") for i, s in enumerate(INVERSE_ILL)])
+def test_inverse_kernel_matches_plain(cuda, dtype, shape, ill):
+    # the kernel's inverse of a factor against the plain version (the
+    # triangular solve against the identity) and by its residual |XL - I|:
+    # the relative bounds of the factor's tests, rounding of two summation
+    # orders, also on the factors of ill-conditioned matrices; the strict
+    # upper triangle exactly zero; one count a call, under the entry that
+    # ran; on a stack, each matrix the single entry's bit for bit
+    dt = getattr(torch, dtype)
+    tol = 1e-10 if dt == torch.float64 else 1e-4
+    n = shape[-1]
+    if ill:
+        M = np.stack([ill_conditioned(n, ILL_KAPPA[dt], seed=i)
+                      for i in range(shape[0] if len(shape) == 2 else 1)])
+        M = M.reshape(shape + (n,))
+    else:
+        M = (spd(n, seed=n) if len(shape) == 1
+             else spd_stack(shape[0], n, seed=n))
+    L = cholesky_kernel.cholesky_factor(torch.from_numpy(M).to(cuda, dt))
+    key = (dt, n) if len(shape) == 1 else (dt, n, shape[0])
+    before = cholesky_kernel.inverse_launches[key]
+    others = cholesky_kernel.launch_count(counter="inverse") - before
+    X = cholesky_kernel.tri_inverse(L)
+    assert cholesky_kernel.inverse_launches[key] == before + 1
+    assert (cholesky_kernel.launch_count(counter="inverse")
+            == before + 1 + others)
+    Xp = cholesky_kernel.tri_inverse_plain(L)
+    assert ((X - Xp).abs().max() / Xp.abs().max()).item() <= tol
+    eye = torch.eye(n, device=cuda, dtype=dt)
+    res = (X @ L - eye).abs().max() / (X.abs().max() * L.abs().max())
+    assert res.item() <= tol
+    assert torch.equal(X.triu(1), torch.zeros_like(X))
+    if len(shape) == 2:
+        for i in (0, shape[0] // 2, shape[0] - 1):
+            assert torch.equal(X[i],
+                               cholesky_kernel.tri_inverse(L[i].contiguous()))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_inverse_of_a_ridge_retried_stack(cuda, dtype):
+    # the Schur solver's order: a stack whose instance 3 fails its first
+    # factor, the predicated ridge retries (control.retry_while) until it
+    # is finite, then the inverse: finite everywhere, the plain inverse's
+    # to the factor tests' bounds, and a NaN factor's inverse non-finite
+    # with its neighbours untouched
+    from conicip_tpu_torch.ops.cholesky import cholesky, tri_inv
+    from conicip_tpu_torch.ops.control import retry_while
+
+    dt = getattr(torch, dtype)
+    tol = 1e-10 if dt == torch.float64 else 1e-4
+    B, n = 8, 300
+    M = torch.from_numpy(spd_stack(B, n, seed=4)).to(cuda, dt)
+    lo = torch.linalg.eigvalsh(M[3].double()).min().item()
+    M[3] -= (lo + 1e-3) * torch.eye(n, device=cuda, dtype=dt)
+    first = cholesky(M)
+    assert not bool(torch.isfinite(first[3]).all())
+    ridge = 1e-2
+    eye = torch.eye(n, device=cuda, dtype=dt)
+    # the retries write into the first attempt's buffer: keep a copy
+    L = retry_while(lambda L: ~torch.isfinite(L).flatten(-2).all(-1),
+                    lambda boost, skip, L: cholesky(M + boost * ridge * eye,
+                                                    skip=skip, out=L),
+                    first.clone(), 1.0, 10.0, 1e4)
+    assert bool(torch.isfinite(L).all())
+    keep = [i for i in range(B) if i != 3]
+    assert torch.equal(L[keep], first[keep])
+    X = tri_inv(L)
+    Xp = cholesky_kernel.tri_inverse_plain(L)
+    assert bool(torch.isfinite(X).all())
+    assert ((X - Xp).abs().max() / Xp.abs().max()).item() <= tol
+    bad = tri_inv(first)
+    assert not bool(torch.isfinite(bad[3]).all())
+    assert torch.equal(bad[keep], X[keep])
+
+
+def test_inverse_runs_no_library_solve(cuda):
+    # a profiled tri_inv on the card: the kernel's inv_diag, inv_w and
+    # inv_step, and no trsm (the library's triangular solve it replaces)
+    from torch.profiler import ProfilerActivity, profile
+
+    from conicip_tpu_torch.ops.cholesky import tri_inv
+
+    for shape in ((500, 500), (64, 500, 500)):
+        n = shape[-1]
+        M = torch.from_numpy(spd(n, seed=1) if len(shape) == 2
+                             else spd_stack(shape[0], n, seed=1)).to(cuda)
+        L = cholesky_kernel.cholesky_factor(M)
+        tri_inv(L)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tri_inv(L)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert not [k for k in names if "trsm" in k.lower()], names
+        assert any("inv_diag" in k for k in names), names
+
+
 def test_solve_batch_on_card_matches_cpu(cuda):
     from conicip_tpu_torch import solve_batch
     from conicip_tpu_torch.models import batched_box_qp
@@ -552,9 +675,9 @@ def test_predicated_entry_matches_plain(cuda, shape):
                   torch.zeros(lead, dtype=torch.bool),
                   torch.arange(lead[0] if lead else 1).reshape(lead) % 2 == 0):
         flags = flags.to(cuda)
-        before = cholesky_kernel.launch_count(predicated=True)
+        before = cholesky_kernel.launch_count(counter="predicated")
         L = cholesky_kernel.cholesky_factor(M, skip=flags, out=prev.clone())
-        assert cholesky_kernel.launch_count(predicated=True) == before + 1
+        assert cholesky_kernel.launch_count(counter="predicated") == before + 1
         Lp = cholesky_kernel.cholesky_plain(M, skip=flags, out=prev.clone())
         assert torch.equal(L[flags], prev[flags])
         assert ((L - Lp).abs().max() / Lp.abs().max()).item() <= 1e-10
@@ -1137,7 +1260,8 @@ def launch_counters():
     return [Counter(c) for c in (cholesky_kernel.cholesky_launches,
                                  cholesky_kernel.predicated_launches,
                                  jacobi_kernel.jacobi_launches,
-                                 rcone_kernel.rcone_launches)]
+                                 rcone_kernel.rcone_launches,
+                                 cholesky_kernel.inverse_launches)]
 
 
 def launched(fn):
@@ -1183,6 +1307,9 @@ def test_a_hit_reads_once_and_is_the_eager_loop(cuda, stack):
             assert torch.equal(getattr(st, f), getattr(ref, f)), f
         if hit:
             assert hit_launches == eager_launches
+            # one inverse per KKT build, as one unconditional factor
+            assert (sum(hit_launches[4].values())
+                    == sum(hit_launches[0].values()) > 0)
     graph.clear()
 
 

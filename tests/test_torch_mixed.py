@@ -129,6 +129,29 @@ def test_f32_factors_match_jax(case, variant):
     assert sol.y.dtype == np.float64
 
 
+@pytest.mark.parametrize("seed", [0, 6])
+def test_f32_schur_steps_stay_in_the_cone(seed):
+    # instances whose f32 S-cone scaling is NT only to its rounding near
+    # the boundary (F z.v off diag(lambda) by ~1e-1 of lambda's smallest
+    # entry): the steps are taken from each side's own image, F z.v and
+    # F^-T z.s, so the iterate stays in the cone and the solve ends Optimal
+    # as the reference's does (the steps from diag(lambda) left the cone
+    # there, a NaN scaling and Error at Iter 6). The two packages' steps
+    # differ by design here, so their paths are held by the criteria that
+    # do not assume one path: status, Iter band, residuals, and y no
+    # farther from the f64 solve's than the reference's
+    args = mixed_rqs(seed=seed).args()
+    ref, sol = solve_both(args, factor_dtype=F32, kktsolver=LASTMILE,
+                          lastmileProactive=50.0)
+    assert ref.status == sol.status == "Optimal"
+    assert abs(sol.Iter - ref.Iter) <= ITER_BAND
+    assert resid(sol) < 1e-6
+    y64 = y_f64(args)
+    scale = max(1.0, np.max(np.abs(y64)))
+    assert (np.max(np.abs(sol.y - y64))
+            <= np.max(np.abs(np.asarray(ref.y) - y64)) + Y_TOL * scale)
+
+
 def test_f32_path_takes_elimination_lastmile_and_recertifies():
     """What factor_dtype=float32 brings by default, read from the record of
     the call's runs: the reduced problem (no equality factor), fast steps

@@ -181,18 +181,19 @@ def fake_carry(steps=5, trips=2):
 
 def test_counted_bodies_add_their_capture_deltas_once_per_run(counters):
     # an entry with two counted bodies: the WHILE node's (a Cholesky
-    # launch and an R-cone launch per run) and a refinement trip's nested
-    # in it (an R-cone launch per run); the final copy reads the units and
-    # each body's runs on the device, and each body's captured launches
-    # are added once per run since the last read
+    # factor, its inverse and an R-cone launch per run) and a refinement
+    # trip's nested in it (an R-cone launch per run); the final copy reads
+    # the units and each body's runs on the device, and each body's
+    # captured launches are added once per run since the last read
     f64 = torch.float64
-    chol, pred, jac, rc = counters
+    chol, pred, jac, rc, inv = counters
     for c in counters:
         c.clear()
     loop_delta = [Counter({(f64, 100): 1}), Counter(), Counter(),
-                  Counter({("step", f64, 100, 1): 1})]
+                  Counter({("step", f64, 100, 1): 1}),
+                  Counter({(f64, 100): 1})]
     trip_delta = [Counter(), Counter(), Counter(),
-                  Counter({("k4", f64, 100, 1): 1})]
+                  Counter({("k4", f64, 100, 1): 1}), Counter()]
     runs = torch.tensor([7, 3])
     entry = SimpleNamespace(units=torch.tensor(8), clock=None, bodies=[
         [runs[0], loop_delta, 0], [runs[1], trip_delta, 0]])
@@ -200,6 +201,7 @@ def test_counted_bodies_add_their_capture_deltas_once_per_run(counters):
     assert got == dict(fast_steps=5, slow_steps=0, recertified=0, trips=2,
                        units=8)
     assert chol == Counter({(f64, 100): 7}) and not pred and not jac
+    assert inv == Counter({(f64, 100): 7})
     assert rc == Counter({("step", f64, 100, 1): 7,
                           ("k4", f64, 100, 1): 3})
     assert [b[2] for b in entry.bodies] == [7, 3]
@@ -210,7 +212,9 @@ def test_counted_bodies_add_their_capture_deltas_once_per_run(counters):
     assert chol == Counter({(f64, 100): 13})
     assert rc == Counter({("step", f64, 100, 1): 13,
                           ("k4", f64, 100, 1): 3})
+    assert inv == Counter({(f64, 100): 13})
     assert cholesky_kernel.cholesky_launches is chol
+    assert cholesky_kernel.inverse_launches is inv
     assert rcone_kernel.rcone_launches is rc
 
 
